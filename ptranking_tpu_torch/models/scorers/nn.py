@@ -1,0 +1,151 @@
+"""Neural-net building blocks over plain dicts of tensors: activations, linear
+layers, masked batch norm, LayerNorm and the stacked FFN (eval form).
+
+Counterpart of ptranking_tpu/models/scorers/nn.py. Parameters keep the JAX
+package's layout (`w` is [d_in, d_out] for `x @ w`), so a JAX parameter tree
+carries over leaf for leaf. The reference choices kept here:
+
+  * a linear layer accumulates in fp32 (bias added in fp32) and returns in
+    the activation dtype — bf16 operands are exact in fp32, as on the MXU;
+  * BN statistics are fp32 over real documents only, and padded rows come out 0;
+  * LayerNorm divides by the UNBIASED std plus eps (not `nn.LayerNorm`);
+  * "GE" is the tanh form of GELU (jax.nn.gelu's default).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, object]
+
+_BN_EPS = 1e-5
+_LN_EPS = 1e-6
+
+
+def _rrelu(x):  # eval-mode RReLU == LeakyReLU with the mean slope (1/8+1/3)/2
+    return torch.where(x >= 0, x, x * ((1.0 / 8.0 + 1.0 / 3.0) / 2.0))
+
+
+_ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "R": F.relu,
+    "LR": lambda x: F.leaky_relu(x, negative_slope=0.01),
+    "RR": _rrelu,
+    "E": F.elu,
+    "SE": F.selu,
+    "CE": F.celu,
+    "GE": lambda x: F.gelu(x, approximate="tanh"),
+    "S": torch.sigmoid,
+    "SW": F.silu,
+    "T": torch.tanh,
+    "ST": lambda x: torch.softmax(x, dim=-1),
+}
+
+
+def get_af(af_str: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation by short string id."""
+    try:
+        return _ACTIVATIONS[af_str]
+    except KeyError:
+        raise NotImplementedError(f"unknown activation id {af_str!r}")
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int,
+                device="cpu") -> Params:
+    """Xavier-normal weights [d_in, d_out], zero bias."""
+    std = math.sqrt(2.0 / (d_in + d_out))
+    w = std * torch.randn(d_in, d_out, generator=gen, device=gen.device)
+    return {"w": w.to(device), "b": torch.zeros(d_out, device=device)}
+
+
+def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x.float(), p["w"].float()) + p["b"].float()
+    return y.to(x.dtype)
+
+
+def masked_batch_norm(p: Params, x: torch.Tensor, mask: torch.Tensor,
+                      per_query: bool = False) -> torch.Tensor:
+    """Feature-wise batch norm over real documents only (biased variance).
+
+    per_query=False: statistics across all real docs of the batch (BN);
+    per_query=True: statistics per query over its own real docs (BN2).
+    x: [B, N, F]; mask: [B, N] bool.
+    """
+    in_dtype = x.dtype
+    x = x.float()
+    m = mask[..., None].float()
+    dims = (1,) if per_query else (0, 1)
+    count = torch.clamp(m.sum(dim=dims, keepdim=True), min=1.0)
+    mean = (x * m).sum(dim=dims, keepdim=True) / count
+    var = (torch.square(x - mean) * m).sum(dim=dims, keepdim=True) / count
+    y = (x - mean) * torch.rsqrt(var + _BN_EPS)
+    if "gamma" in p:
+        y = y * p["gamma"].float() + p["beta"].float()
+    # padded rows stay zero so they cannot leak through later layers
+    return (y * m).to(in_dtype)
+
+
+def batch_norm_init(num_features: int, affine: bool, device="cpu") -> Params:
+    if not affine:
+        return {}
+    return {"gamma": torch.ones(num_features, device=device),
+            "beta": torch.zeros(num_features, device=device)}
+
+
+def layer_norm_init(num_features: int, device="cpu") -> Params:
+    return {"a": torch.ones(num_features, device=device),
+            "b": torch.zeros(num_features, device=device)}
+
+
+def layer_norm_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """a * (x - mean) / (std + eps) + b with the UNBIASED std, stats in fp32."""
+    in_dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    n = x.shape[-1]
+    var = torch.square(x - mean).sum(dim=-1, keepdim=True) / max(n - 1, 1)
+    std = torch.sqrt(var)
+    return (p["a"].float() * (x - mean) / (std + _LN_EPS) + p["b"].float()).to(in_dtype)
+
+
+def ffn_init(gen: torch.Generator, ff_dims: Sequence[int], BN: bool = True,
+             bn_affine: bool = False, apply_tl_af: bool = False, device="cpu") -> Params:
+    """Hidden layers are linear -> [BN] -> AF; the last layer is linear ->
+    [BN -> TL_AF] when apply_tl_af."""
+    if len(ff_dims) < 2:
+        raise ValueError(f"ff_dims needs at least 2 entries, got {ff_dims}")
+    n_linear = len(ff_dims) - 1
+    layers: List[Params] = []
+    for i in range(n_linear - 1):
+        lp: Params = {"linear": linear_init(gen, ff_dims[i], ff_dims[i + 1], device)}
+        if BN:
+            lp["bn"] = batch_norm_init(ff_dims[i + 1], bn_affine, device)
+        layers.append(lp)
+    last: Params = {"linear": linear_init(gen, ff_dims[-2], ff_dims[-1], device)}
+    if apply_tl_af and BN:
+        last["bn"] = batch_norm_init(ff_dims[-1], bn_affine, device)
+    layers.append(last)
+    return {"layers": layers}
+
+
+def ffn_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, AF: str = "R",
+              TL_AF: str = "S", apply_tl_af: bool = False, BN: bool = True,
+              bn_per_query: bool = False) -> torch.Tensor:
+    """x: [B, N, d_in] -> [B, N, d_out] (eval form: no dropout)."""
+    af = get_af(AF)
+    layers = p["layers"]
+    for lp in layers[:-1]:
+        x = linear_apply(lp["linear"], x)
+        if BN:
+            x = masked_batch_norm(lp["bn"], x, mask, per_query=bn_per_query)
+        x = af(x)
+    last = layers[-1]
+    x = linear_apply(last["linear"], x)
+    if apply_tl_af:
+        if BN:
+            x = masked_batch_norm(last["bn"], x, mask, per_query=bn_per_query)
+        x = get_af(TL_AF)(x)
+    return x

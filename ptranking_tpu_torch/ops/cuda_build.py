@@ -1,0 +1,90 @@
+"""Build the hand-written CUDA kernels under ops/csrc/ and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
+for Hopper (`sm_90a`) into `build/kernels/lib<name>-<hash>.so` at the repo
+root, at first use. The file name carries a hash of the source and the flags,
+so an edited source is rebuilt and a stale library is never loaded. Nothing
+is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "build only on a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str) -> "subprocess.Popen | None":
+    lib = library_path(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def build(names: Iterable[str]) -> List[str]:
+    """Compile every named kernel that is not built yet, all `nvcc`s started
+    together. Returns the compiler's output (register and shared-memory use
+    from `-Xptxas -v`) for each kernel it compiled; raises if any build fails."""
+    names = list(names)
+    procs = {n: _start(n) for n in names}
+    logs, failed = [], []
+    for n, proc in procs.items():
+        if proc is None:
+            continue
+        out, _ = proc.communicate()
+        lib = library_path(n)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, lib)  # atomic: a reader never sees a half-written .so
+        logs.append(f"{n}:\n{out}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def all_kernels() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib

@@ -1,0 +1,6 @@
+"""Ranker lifecycle (inference half) and the optimizer config."""
+
+from ptranking_tpu_torch.train.optimizer import OptimizerConfig
+from ptranking_tpu_torch.train.ranker import AdhocRanker
+
+__all__ = ["OptimizerConfig", "AdhocRanker"]
