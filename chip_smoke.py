@@ -7,13 +7,23 @@ Phases, in order; any failure exits non-zero:
   2. build: compiles every kernel under ptranking_tpu_torch/ops/csrc/ with nvcc
      (all started together);
   3. kernels: each kernel against its plain torch version on the card, at the
-     shapes the serving path gives it, in bf16 and fp32, with times for the
-     kernel, the plain version and one PyTorch library call of the same function;
+     shapes the serving and training paths give it and at edge shapes, with
+     times for the kernel, the plain version and one PyTorch library call of
+     the same function where there is one: the flash attention forward (bf16
+     and fp32), its backward (dk/dv and dq kernels, against autograd through
+     the plain blockwise attention), and the fused pairwise lambda loss
+     (forward and backward, LambdaRank and RankNet);
   4. serve: the flagship ranker (F=136 DASALC listsf, 6 layers, 2 heads, bf16,
      flash_attn=True) from a seeded init, saved as a .pt checkpoint, served over
      HTTP on a local port; the answers are held against the same ranker with
      dense torch attention, and the kernel's launch count must grow by 6 per
-     served batch; then score_file writes a TREC run from a LETOR file.
+     served batch; then score_file writes a TREC run from a LETOR file;
+  5. train: the same model trained with LambdaRank through the fused loss
+     (model_paras use_pallas=True), Adagrad at lr 1e-3: (a) one step's
+     gradients through the kernels against dense attention and the dense
+     loss; (b) timed steps at 32 lists of 1408 docs, with exact launch counts
+     per step; (c) one train_epoch over ragged lists; (d) save, restore into a
+     second ranker, and one more step on both.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -32,15 +42,17 @@ import time
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 FP32_PEAK = 67e12    # fp32 FLOP/s outside the tensor cores, H100 SXM data sheet
 HBM_BYTES_S = 3.35e12
+SFU_PER_CLOCK_PER_SM = 16  # transcendental results per clock per SM, compute capability 9.0
 
 # (B, H, N, d, all_padded_rows): the long-list batch that bench.py measures
 # for the JAX package (32 lists of 1408 docs), and the two ends of what the
 # server's default 100-doc batches give the kernel: one list in the top
 # bucket, and the smallest bucket whose remainder rows are all padding
 ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68, True)]
-# the shape whose numbers go into the kernels' JSON record: the largest that
-# the serve phase gives the kernel
-RECORD_SHAPE = (1, 2, 1536, 68)
+# the shape whose numbers go into the kernels' JSON record: the training
+# batch of phase 5 (32 lists of 1408 docs), whose train_epoch gives the
+# record's launch counts
+RECORD_SHAPE = (32, 2, 1408, 68)
 # correctness only, no timing: every padded head width the kernel dispatches
 # on (d rounded up to 16), N of one key and N one past a 64-key tile
 EDGE_SHAPES = [(2, 3, 1, 1, False), (2, 2, 65, 8, True), (1, 3, 100, 24, False),
@@ -51,6 +63,61 @@ EDGE_SHAPES = [(2, 3, 1, 1, False), (2, 2, 65, 8, True), (1, 3, 100, 24, False),
 # version rounds p to bf16 before p.v (as the JAX package does) and the
 # kernel keeps p in fp32, and both round the output to bf16 (ulp 2^-8 near 1).
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# max |kernel - plain| / max |plain| per gradient (dq, dk, dv) over the lists
+# with a real document (all-padded lists differ by contract, as in the
+# forward, and are checked for finiteness only). fp32: summation order and
+# exp rounding. bf16: autograd through the plain version rounds p and the
+# gradient of p to bf16 where the kernels keep fp32, and both round the
+# outputs to bf16. The first chip run's worst over every shape was 1.3e-6
+# (fp32) and 6.8e-3 (bf16); the tolerances hold a margin of 3x and more.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+# the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
+PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
+               (3, 2, (2, 1, 0), True, 1.0), (4, 255, (255, 200, 17, 0), True, 1.0),
+               (4, 257, (257, 256, 1, 0), True, 1.0), (4, 300, (300, 257, 40, 0), False, 1.5)]
+PAIR_RECORD = (32, 1408)
+# |kernel - plain| / |plain| of the loss, and max |kernel - plain| / max |plain|
+# of the gradient, both fp32: the two sum in other orders (the first chip
+# run's worst: 1.1e-7 and 9.5e-7)
+PAIR_TOL = 1e-5
+# per pair: fp32 operations and transcendental (SFU) operations of the formula
+# (pairwise_lambda.cu header): forward softplus(x) - t*x weighted, backward
+# sigma*(sigmoid(x) - t) weighted
+PAIR_FWD_OPS, PAIR_BWD_OPS, PAIR_SFU_OPS = 19, 18, 2
+
+# phase 5, the flagship model's training
+TRAIN_B, TRAIN_N = 32, 1408
+TRAIN_STEPS = 10
+# launches per training step: 6 encoder layers, one loss
+LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
+                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 1}
+# One step's gradients, fp32, compared per parameter tensor as
+# ||a - b|| / max(||b||, GRAD_FLOOR * the largest ||b||) (the floor keeps a
+# tensor whose gradient is a near-cancelling sum, such as a bias of the tail
+# FFN, from magnifying rounding), leaving out ZERO_GRAD_PARAM: the last
+# layer's bias, whose exact gradient is zero (both losses are invariant to a
+# shift of every score). At init, at 1408 docs, this step is ill-conditioned
+# in fp32: two correct implementations part by about 1e-3, and which of them
+# strays from the CPU's plain path depends on the batch (the vs_cpu records
+# hold the kernel path and the card's dense path against the CPU for two
+# batches). So the model-level comparisons are held to GRAD_TOL, a margin
+# of 3x over the worst seen on the card (6.2e-3); a wrong kernel gradient
+# gives O(1). The kernels are held tightly at their own level (phase 3), and
+# the fused loss on the kernel path's own scores (well-conditioned: the same
+# forward) to SAME_SCORES_TOL. In bf16 the scores carry 8 bits and tie
+# heavily at init, so LambdaRank's order-following weights part the two
+# paths far more (the record counts the sorted positions that differ): the
+# bf16 errors are printed, not held.
+GRAD_TOL, SAME_SCORES_TOL, GRAD_FLOOR = 2e-2, 1e-4, 1e-2
+ZERO_GRAD_PARAM = "tail_ffnns.layers[3].linear.b"
+# the vs_cpu comparison: VS_CPU_B lists of TRAIN_N docs (ragged, one
+# all-padded), two batches, under the order-free dense RankNet loss
+VS_CPU_B, VS_CPU_SEEDS = 4, (1, 4)
+EPOCH_QUERIES, EPOCH_PASSES = 16, 4
+# a restored ranker's next step against the ranker that was not reloaded:
+# the same kernels on the same inputs
+RESUME_TOL = 1e-6
 
 NUM_FEATURES = 136  # MSLR-WEB30K
 # 16 queries of ragged lengths, log-spaced over 20..1408 docs
@@ -99,10 +166,12 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_ms(fn):
-    """(device busy ms, flash kernel ms, wall ms) of one call of `fn` under
-    torch.profiler: the sum of the kernels' own device times, on one stream.
-    The first two are None when the profiler recorded no device time."""
+def profile_ms(fn, kernel="flash_fwd_kernel", top=0):
+    """(device busy ms, ms of the kernels whose name holds `kernel`, wall ms)
+    of one call of `fn` under torch.profiler: the sum of the kernels' own
+    device times, on one stream. The first two are None when the profiler
+    recorded no device time. With top > 0, a fourth item: the `top` kernels
+    by device time, as [name (cut to 60 characters), ms, calls]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -112,17 +181,38 @@ def profile_ms(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = flash = 0.0
+    busy = named = 0.0
+    kernels = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.self_device_time_total
         busy += us / 1e3
-        if "flash_fwd_kernel" in e.key:
-            flash += us / 1e3
-    if busy <= 0.0:  # the profiler did not trace the card: not measured
-        return None, None, wall
-    return busy, flash, wall
+        kernels.append([e.key[:60], us / 1e3, e.count])
+        if kernel in e.key:
+            named += us / 1e3
+    out = (None, None, wall) if busy <= 0.0 else (busy, named, wall)  # None: not measured
+    if top:
+        out += (sorted(kernels, key=lambda k: -k[1])[:top],)
+    return out
+
+
+def sfu_ops_per_s() -> float:
+    """The card's transcendental rate: SFU results per clock per SM x SMs x
+    the maximum SM clock that nvidia-smi reports."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    mhz = float(out.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def bound(flops: float, peak: float, nbytes: float) -> dict:
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def attention_inputs(B, H, N, d, all_padded, dtype, seed=0):
@@ -199,6 +289,215 @@ def check_attention(card: str):
             if (B, H, N, d) == RECORD_SHAPE and dtype == torch.bfloat16:
                 record = rec
     return record
+
+
+def rel_err(out, ref) -> float:
+    """max |out - ref| / max |ref| (max |out| where ref is all zero)."""
+    out, ref = out.float(), ref.float()
+    den = float(ref.abs().max()) if ref.numel() else 0.0
+    num = float((out - ref).abs().max()) if ref.numel() else 0.0
+    return num / den if den > 0 else float(out.abs().max()) if out.numel() else 0.0
+
+
+def attention_grads(fn, q, k, v, mask, dout):
+    """(dq, dk, dv) of fn(q, k, v, mask) for the output gradient dout."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fn(*leaves, mask).backward(dout)
+    return [t.grad for t in leaves]
+
+
+def check_bwd_close(got, ref, mask, shape, dtype):
+    """The kernels' (dq, dk, dv) against the plain version's, over the lists
+    with a real document, under BWD_TOL; every gradient finite. Returns the
+    {name: (max abs err, relative err)}."""
+    import torch
+
+    name = str(dtype).split(".")[1]
+    real = mask.any(dim=1)
+    errs = {}
+    for g_name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        if not bool(torch.isfinite(a.float()).all()):
+            raise AssertionError(f"flash_attn_bwd {name} {shape}: non-finite {g_name}")
+        if bool(real.any()):
+            errs[g_name] = (float((a[real].float() - b[real].float()).abs().max()),
+                            rel_err(a[real], b[real]))
+        else:
+            errs[g_name] = (0.0, 0.0)
+        if not errs[g_name][1] <= BWD_TOL[name]:
+            raise AssertionError(f"flash_attn_bwd {name} {shape}: {g_name} relative error "
+                                 f"{errs[g_name][1]} (tol {BWD_TOL[name]})")
+    return errs
+
+
+def check_attention_bwd(card):
+    """Phase 3: the backward kernels (through flash_attention's autograd)
+    against autograd through the plain blockwise attention at every shape and
+    dtype, and their times; returns the bf16 records at RECORD_SHAPE for the
+    dk/dv kernel, the dq kernel and the forward with row statistics (the
+    call training makes)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
+                                                   FLASH_ATTN_FWD, blockwise_attention,
+                                                   flash_attention)
+
+    def plain_fn(q, k, v, m):
+        return blockwise_attention(q, k, v, m, block_size=min(128, q.shape[2]))
+
+    def case(B, H, N, d, all_padded, dtype):
+        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
+        g = torch.Generator(device="cpu").manual_seed(1)
+        dout = torch.randn(B, H, N, d, generator=g).to("cuda", dtype)
+        return q, k, v, mask, dout
+
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for (B, H, N, d, all_padded) in EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, mask, dout = case(B, H, N, d, all_padded, dtype)
+            got = attention_grads(flash_attention, q, k, v, mask, dout)
+            ref = attention_grads(plain_fn, q, k, v, mask, dout)
+            torch.cuda.synchronize()
+            errs = check_bwd_close(got, ref, mask, (B, H, N, d), dtype)
+            name = str(dtype).split(".")[1]
+            worst[name] = max(worst[name], *(e[1] for e in errs.values()))
+    print(f"attn bwd edge shapes: {len(EDGE_SHAPES)} x 2 dtypes agree; worst relative "
+          f"error {json.dumps(worst)}", flush=True)
+
+    records = {}
+    for (B, H, N, d, all_padded) in ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, mask, dout = case(B, H, N, d, all_padded, dtype)
+            got = attention_grads(flash_attention, q, k, v, mask, dout)
+            ref = attention_grads(plain_fn, q, k, v, mask, dout)
+            torch.cuda.synchronize()
+            errs = check_bwd_close(got, ref, mask, (B, H, N, d), dtype)
+
+            out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+            dsum = torch.sum(dout.float() * out.float(), dim=-1)
+            fwd = lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+            dkdv = lambda: FLASH_ATTN_BWD_DKDV(q, k, v, dout, row_max, row_sum, dsum, mask)
+            dq = lambda: FLASH_ATTN_BWD_DQ(q, k, v, dout, row_max, row_sum, dsum, mask)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            plain_out = plain_fn(*leaves, mask)
+            plain = lambda: plain_out.backward(dout, retain_graph=True)
+            bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :].expand(B, H, N, N)
+            lib_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            library = lambda: Fn.scaled_dot_product_attention(
+                *lib_leaves, attn_mask=bias).backward(dout)
+            iters = 10 if N >= 1024 else 100
+            times = {"fwd_stats": cuda_time_ms(fwd, iters), "dkdv": cuda_time_ms(dkdv, iters),
+                     "dq": cuda_time_ms(dq, iters),
+                     "plain_bwd": cuda_time_ms(plain, max(iters // 4, 3)),
+                     "library_fwd_bwd": cuda_time_ms(library, iters)}
+            name = str(dtype).split(".")[1]
+            peak = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+            val = B * H * N * d * q.element_size()
+            stats_bytes = B * H * N * 4
+            rec = {"shape": [B, H, N, d], "dtype": name,
+                   "max_abs_err": {g: e[0] for g, e in errs.items()},
+                   "rel_err": {g: e[1] for g, e in errs.items()}, "ms": times,
+                   "bound_ms": {
+                       "fwd_stats": bound(4.0 * B * H * N * N * d, peak,
+                                          4 * val + B * N + 2 * stats_bytes),
+                       "dkdv": bound(8.0 * B * H * N * N * d, peak,
+                                     6 * val + 3 * stats_bytes + B * N),
+                       "dq": bound(6.0 * B * H * N * N * d, peak,
+                                   5 * val + 3 * stats_bytes + B * N)}}
+            print("attn_bwd " + json.dumps(rec) + f"  [{card}]", flush=True)
+            if (B, H, N, d) == RECORD_SHAPE and dtype == torch.bfloat16:
+                common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_fwd_bwd"]}
+                records["flash_attn_fwd"] = {"ms": times["fwd_stats"],
+                                             **rec["bound_ms"]["fwd_stats"]}
+                records["flash_attn_bwd_dkdv"] = {
+                    "max_abs_err": max(errs["dk"][0], errs["dv"][0]), "ms": times["dkdv"],
+                    **common, **rec["bound_ms"]["dkdv"]}
+                records["flash_attn_bwd_dq"] = {
+                    "max_abs_err": errs["dq"][0], "ms": times["dq"], **common,
+                    **rec["bound_ms"]["dq"]}
+    return records
+
+
+def pair_case(B, N, lengths, weighted, seed=0):
+    """Inputs of the fused pairwise loss on the card: LambdaRank rows sorted by
+    score with pads last and their normalised gains, as lambda_rank_fused
+    builds them; RankNet rows in the raw order with random pad scores."""
+    import torch
+
+    from ptranking_tpu_torch import EPSILON
+    from ptranking_tpu_torch.losses.listwise import _full_dcg
+    from ptranking_tpu_torch.ops import gain, sort_labels_by_scores
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scores = torch.randn(B, N, generator=g)
+    labels = torch.randint(0, 5, (B, N), generator=g).float().sort(dim=1, descending=True).values
+    lens = torch.full((B,), N) if lengths is None else torch.tensor(lengths)
+    mask = torch.arange(N)[None, :] < lens[:, None]
+    scores, labels, mask = scores.cuda(), torch.where(mask, labels, 0.0).cuda(), mask.cuda()
+    if not weighted:
+        return scores, labels, torch.zeros_like(scores), mask
+    s, l, m = sort_labels_by_scores(scores, labels, mask)
+    idcg = torch.clamp(_full_dcg(labels, mask), min=EPSILON)
+    n_gains = gain(torch.where(m, l, 0.0)) / idcg[:, None]
+    return s.contiguous(), l.contiguous(), n_gains.contiguous(), m.contiguous()
+
+
+def check_pairwise(card):
+    """Phase 3: the fused pairwise loss kernels against their plain versions
+    at every PAIR_SHAPES case; returns the records at PAIR_RECORD."""
+    import torch
+
+    from ptranking_tpu_torch.ops.pairwise_fused import (PAIRWISE_LAMBDA_BWD, PAIRWISE_LAMBDA_FWD,
+                                                        pairwise_lambda_grad_plain,
+                                                        pairwise_lambda_loss_plain)
+
+    sfu_rate = sfu_ops_per_s()
+    records = {}
+    worst = {"loss": 0.0, "grad": 0.0}
+    for (B, N, lengths, weighted, sigma) in PAIR_SHAPES:
+        s, l, g, m = pair_case(B, N, lengths, weighted)
+        scale = torch.tensor([0.75], device="cuda")
+        fwd = lambda: torch.sum(PAIRWISE_LAMBDA_FWD(s, l, g, m, sigma, weighted))
+        bwd = lambda: PAIRWISE_LAMBDA_BWD(s, l, g, m, scale, sigma, weighted)
+        plain_fwd = lambda: pairwise_lambda_loss_plain(s, l, g, m, sigma, weighted)
+        plain_bwd = lambda: 0.75 * pairwise_lambda_grad_plain(s, l, g, m, sigma, weighted)
+        loss, loss_ref, grad, grad_ref = fwd(), plain_fwd(), bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        loss_err = abs(float(loss) - float(loss_ref))
+        loss_rel = loss_err / abs(float(loss_ref)) if float(loss_ref) != 0 else loss_err
+        grad_err = float((grad - grad_ref).abs().max())
+        grad_rel = rel_err(grad, grad_ref)
+        finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all())
+        if not finite or not loss_rel <= PAIR_TOL or not grad_rel <= PAIR_TOL:
+            raise AssertionError(f"pairwise_lambda {(B, N, lengths, weighted, sigma)}: loss "
+                                 f"{float(loss)} vs {float(loss_ref)}, grad relative error "
+                                 f"{grad_rel} (tol {PAIR_TOL}), all finite: {finite}")
+        worst = {"loss": max(worst["loss"], loss_rel), "grad": max(worst["grad"], grad_rel)}
+        if (B, N) != PAIR_RECORD:
+            continue
+        n = m.sum(dim=1).double()
+        pairs = float(torch.sum(n * (n - 1) / 2))
+        row_bytes = B * N * (3 * 4 + 1)
+        times = {"fwd": cuda_time_ms(fwd, 20), "bwd": cuda_time_ms(bwd, 20),
+                 "plain_fwd": cuda_time_ms(plain_fwd, 5), "plain_bwd": cuda_time_ms(plain_bwd, 5)}
+        bound_fwd = max(bound(pairs * PAIR_FWD_OPS, FP32_PEAK, row_bytes + B * 4 * ((N + 255) // 256)),
+                        bound(pairs * PAIR_SFU_OPS, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
+        bound_bwd = max(bound(2 * pairs * PAIR_BWD_OPS, FP32_PEAK, row_bytes + B * N * 4),
+                        bound(2 * pairs * PAIR_SFU_OPS, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
+        rec = {"shape": [B, N], "pairs_fwd": pairs, "pairs_bwd": 2 * pairs,
+               "sfu_ops_per_s": sfu_rate, "loss_abs_err": loss_err, "loss_rel_err": loss_rel,
+               "grad_abs_err": grad_err, "grad_rel_err": grad_rel, "ms": times,
+               "bound_fwd": bound_fwd, "bound_bwd": bound_bwd}
+        print("pairwise " + json.dumps(rec) + f"  [{card}]", flush=True)
+        records["pairwise_lambda_fwd"] = {"max_abs_err": loss_err, "ms": times["fwd"],
+                                          "plain_ms": times["plain_fwd"], "library_ms": None,
+                                          **bound_fwd}
+        records["pairwise_lambda_bwd"] = {"max_abs_err": grad_err, "ms": times["bwd"],
+                                          "plain_ms": times["plain_bwd"], "library_ms": None,
+                                          **bound_bwd}
+    print(f"pairwise: {len(PAIR_SHAPES)} cases agree; worst relative error "
+          f"{json.dumps(worst)}", flush=True)
+    return records
 
 
 def post_json(url: str, body: bytes) -> dict:
@@ -337,6 +636,255 @@ def serve_phase(card: str, work_dir: str) -> int:
     return launches
 
 
+def kernel_counters():
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
+                                                   FLASH_ATTN_FWD)
+    from ptranking_tpu_torch.ops.pairwise_fused import PAIRWISE_LAMBDA_BWD, PAIRWISE_LAMBDA_FWD
+
+    return {"flash_attn_fwd": FLASH_ATTN_FWD, "flash_attn_bwd_dkdv": FLASH_ATTN_BWD_DKDV,
+            "flash_attn_bwd_dq": FLASH_ATTN_BWD_DQ, "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
+            "pairwise_lambda_bwd": PAIRWISE_LAMBDA_BWD}
+
+
+def reset_counts():
+    for k in kernel_counters().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in kernel_counters().items()}
+
+
+def check_counts(counts: dict, steps: int, what: str):
+    want = {name: n * steps for name, n in LAUNCHES_PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected {want} "
+                             f"for {steps} steps")
+
+
+def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16"):
+    from ptranking_tpu_torch import LTR_SEED
+    from ptranking_tpu_torch.models import ScorerConfig
+    from ptranking_tpu_torch.train import AdhocRanker, OptimizerConfig
+
+    cfg = ScorerConfig.default_listsf(NUM_FEATURES, compute_dtype=compute_dtype,
+                                      flash_attn=True, dropout=dropout)
+    return AdhocRanker("LambdaRank", cfg, model_paras={"use_pallas": True},
+                       opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED,
+                       device="cuda").init()
+
+
+def train_batch(B: int, N: int, ragged: bool, seed: int):
+    """One padded batch of B lists in one N-doc bucket: full lists, or B-1
+    lists of 20..N docs and an all-padded remainder row."""
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+
+    queries = make_synthetic_queries(B - 1 if ragged else B, num_features=NUM_FEATURES,
+                                     max_label=4, min_docs=20 if ragged else N, max_docs=N,
+                                     seed=seed)
+    ds = BucketedDataset(queries, batch_docs=B * N, buckets=(N,), num_features=NUM_FEATURES)
+    return next(iter(ds.batches()))
+
+
+def leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def vs_cpu(ranker, names, seed: int) -> dict:
+    """One step's gradients under the dense RankNet loss at VS_CPU_B ragged
+    lists (fp32): the card's kernel path and the card's dense path, each
+    against the plain path (blockwise attention) on the CPU. Returns
+    {name: rel_errs record}."""
+    import dataclasses
+
+    import torch
+
+    from ptranking_tpu_torch.losses.pairwise import ranknet
+    from ptranking_tpu_torch.models import apply_scorer
+    from ptranking_tpu_torch.models.scorers import map_params, tree_leaves
+
+    batch = train_batch(VS_CPU_B, TRAIN_N, ragged=True, seed=seed)
+
+    def grads(device, cfg):
+        params = map_params(lambda t: t.detach().to(device).requires_grad_(True), ranker.params)
+        x, labels, mask = (torch.from_numpy(a).to(device)
+                           for a in (batch.features, batch.labels, batch.mask))
+        scores = apply_scorer(params, cfg, x, mask, training=True)
+        return [g.cpu() for g in torch.autograd.grad(ranknet(scores, labels, mask),
+                                                     tree_leaves(params))]
+
+    cfg = ranker.scorer_cfg
+    cpu = grads("cpu", cfg)  # flash_attn on the CPU: blockwise_attention, autograd
+    return {"card_kernels_vs_cpu_plain": rel_errs(grads("cuda", cfg), cpu, names),
+            "card_dense_vs_cpu_plain": rel_errs(
+                grads("cuda", dataclasses.replace(cfg, flash_attn=False)), cpu, names)}
+
+
+def rel_errs(got, want, names) -> dict:
+    """Per parameter tensor ||got - want|| / max(||want||, GRAD_FLOOR * the
+    largest ||want||): its worst tensor and value and the median; over all
+    tensors together ||got - want|| / ||want||; and the two norms of
+    ZERO_GRAD_PARAM's gradient, which is left out of both."""
+    import torch
+
+    for name, a in zip(names, got):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"gradient check: non-finite gradient of {name}")
+    pairs = [(n, a, b) for n, a, b in zip(names, got, want) if n != ZERO_GRAD_PARAM]
+    floor = GRAD_FLOOR * max(float(b.norm()) for _, _, b in pairs)
+    rel = {n: float((a - b).norm()) / max(float(b.norm()), floor) for n, a, b in pairs}
+    worst = max(rel, key=rel.get)
+    diff2 = sum(float((a - b).norm()) ** 2 for _, a, b in pairs)
+    ref2 = sum(float(b.norm()) ** 2 for _, _, b in pairs)
+    zero = [[float(a.norm()), float(b.norm())] for n, a, b in zip(names, got, want)
+            if n == ZERO_GRAD_PARAM]
+    return {"worst": [worst, rel[worst]], "median": sorted(rel.values())[len(rel) // 2],
+            "global": math.sqrt(diff2 / ref2), "zero_grad_param_norms": zero[0]}
+
+
+def train_phase(card: str, work_dir: str) -> dict:
+    """Phase 5: the flagship ranker's training on the card. Returns the
+    launch counts of the train_epoch run (c)."""
+    import dataclasses
+
+    import torch
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+    from ptranking_tpu_torch.losses.listwise import lambda_rank
+    from ptranking_tpu_torch.models import apply_scorer
+    from ptranking_tpu_torch.models.scorers import tree_leaves
+    from ptranking_tpu_torch.ops import mask_scores
+    from ptranking_tpu_torch.train import AdhocRanker
+
+    # (a) one step's gradients through the kernels against dense attention
+    # and the dense loss, dropout 0, on 31 ragged lists and an all-padded row
+    batch = train_batch(TRAIN_B, TRAIN_N, ragged=True, seed=1)
+    x, labels, mask = (torch.from_numpy(a).cuda() for a in (batch.features, batch.labels, batch.mask))
+    grad_rec = {}
+    for dtype in ("float32", "bfloat16"):
+        ranker = flagship_ranker(dropout=0.0, compute_dtype=dtype)
+        leaves = tree_leaves(ranker.params)
+        names = leaf_names(ranker.params)
+        kernel_cfg = ranker.scorer_cfg
+        dense_cfg = dataclasses.replace(kernel_cfg, flash_attn=False)
+
+        def grads(cfg, loss_fn):
+            scores = apply_scorer(ranker.params, cfg, x, mask, training=True)
+            loss = loss_fn(scores, labels, mask)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+        fused = lambda s, l, m: lambda_rank(s, l, m, use_pallas=True)
+        dense = lambda s, l, m: lambda_rank(s, l, m, use_pallas=False)
+        reset_counts()
+        loss_k, grads_k = grads(kernel_cfg, fused)
+        if read_counts() != LAUNCHES_PER_STEP:
+            raise AssertionError(f"gradient check: kernel launches {read_counts()}, "
+                                 f"expected {LAUNCHES_PER_STEP}")
+        loss_d, grads_d = grads(dense_cfg, dense)
+        with torch.no_grad():
+            orders = [torch.argsort(-mask_scores(apply_scorer(ranker.params, cfg, x, mask), mask),
+                                    dim=-1, stable=True) for cfg in (kernel_cfg, dense_cfg)]
+        errs = rel_errs(grads_k, grads_d, names)
+        rec = {"loss_kernels": loss_k, "loss_dense": loss_d,
+               "sorted_positions_differing": int((orders[0] != orders[1]).sum()), **errs}
+        if not math.isfinite(loss_k) or (dtype == "float32" and not errs["worst"][1] <= GRAD_TOL):
+            raise AssertionError(f"gradient check {dtype}: {errs['worst']} relative error "
+                                 f"(tol {GRAD_TOL}); loss {loss_k} vs {loss_d}")
+        if dtype == "float32":
+            _, grads_kd = grads(kernel_cfg, dense)
+            same = rel_errs(grads_k, grads_kd, names)
+            rec["fused_vs_dense_loss_same_scores"] = same
+            if not same["worst"][1] <= SAME_SCORES_TOL:
+                raise AssertionError(f"gradient check, fused loss on the same scores: "
+                                     f"{same['worst']} relative error (tol {SAME_SCORES_TOL})")
+            for seed in VS_CPU_SEEDS:
+                rec[f"vs_cpu_batch{seed}"] = cmp = vs_cpu(ranker, names, seed)
+                if not cmp["card_kernels_vs_cpu_plain"]["worst"][1] <= GRAD_TOL:
+                    raise AssertionError(f"gradient check, kernels against the CPU, batch {seed}: "
+                                         f"{cmp['card_kernels_vs_cpu_plain']['worst']} relative "
+                                         f"error (tol {GRAD_TOL})")
+        grad_rec[dtype] = rec
+    print("train_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
+
+    # (b) timed steps at 32 lists of 1408 docs through train_epoch, dropout 0.1
+    ranker = flagship_ranker()
+    batch = train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2)
+    ranker.train_epoch([batch] * 2, epoch_k=1)  # warm up: cuBLAS handles, kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mean_loss, stop = ranker.train_epoch([batch] * TRAIN_STEPS, epoch_k=1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check_counts(read_counts(), TRAIN_STEPS, "timed steps")
+    if stop or not math.isfinite(mean_loss):
+        raise AssertionError(f"timed steps: loss {mean_loss}, stop {stop}")
+    busy_ms, flash_ms, prof_ms, top = profile_ms(
+        lambda: ranker.train_epoch([batch] * 3, epoch_k=1), kernel="flash_", top=12)
+    steps_rec = {"B": TRAIN_B, "N": TRAIN_N, "steps": TRAIN_STEPS, "wall_s": wall_s,
+                 "ms_per_step": wall_s * 1e3 / TRAIN_STEPS,
+                 "lists_per_s": TRAIN_B * TRAIN_STEPS / wall_s, "mean_loss": mean_loss,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                 "profiled_steps": 3, "profiled_wall_ms": prof_ms,
+                 "profiled_device_busy_ms": busy_ms, "profiled_flash_kernels_ms": flash_ms,
+                 "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+                 "top_kernels_ms_calls": top}
+    print("train_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
+
+    # (c) one train_epoch over ragged lists at the server's 100 docs per
+    # batch, the same batches EPOCH_PASSES times over
+    ranker = flagship_ranker()
+    queries = make_synthetic_queries(EPOCH_QUERIES, num_features=NUM_FEATURES, max_label=4,
+                                     min_docs=20, max_docs=TRAIN_N, seed=3)
+    batches = list(BucketedDataset(queries, batch_docs=100, num_features=NUM_FEATURES).batches())
+    step_losses = []
+    step = ranker._step
+    ranker._step = lambda *a: step_losses.append(step(*a)) or step_losses[-1]
+    reset_counts()
+    t0 = time.perf_counter()
+    mean_loss, stop = ranker.train_epoch(batches * EPOCH_PASSES, epoch_k=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_counts = read_counts()
+    del ranker._step
+    check_counts(epoch_counts, len(batches) * EPOCH_PASSES, "train_epoch")
+    pass_busy_ms, _, pass_ms = profile_ms(lambda: ranker.train_epoch(batches, epoch_k=1))
+    per_step = torch.stack(step_losses).cpu().tolist()
+    first = sum(per_step[:len(batches)]) / len(batches)
+    last = sum(per_step[-len(batches):]) / len(batches)
+    if stop or not math.isfinite(mean_loss) or not last < first:
+        raise AssertionError(f"train_epoch: mean loss {mean_loss}, stop {stop}, first pass "
+                             f"{first}, last pass {last}")
+    epoch_rec = {"queries": EPOCH_QUERIES, "batches": len(batches), "passes": EPOCH_PASSES,
+                 "steps": len(per_step), "epoch_s": epoch_s, "mean_loss_per_query": mean_loss,
+                 "first_pass_mean_step_loss": first, "last_pass_mean_step_loss": last,
+                 "launches": epoch_counts, "profiled_pass_wall_ms": pass_ms,
+                 "profiled_pass_device_busy_ms": pass_busy_ms,
+                 "pass_device_idle_share": None if pass_busy_ms is None else
+                 1.0 - pass_busy_ms / pass_ms}
+    print("train_epoch " + json.dumps(epoch_rec) + f"  [{card}]", flush=True)
+
+    # (d) resume: save, restore into a second ranker, one more step on both
+    ckpt = os.path.join(work_dir, "trained.pt")
+    ranker.save(ckpt)
+    again = AdhocRanker.from_checkpoint(ckpt, device="cuda")
+    loss_a, _ = ranker.train_epoch(batches[:1], epoch_k=2)
+    loss_b, _ = again.train_epoch(batches[:1], epoch_k=2)
+    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+               zip(tree_leaves(ranker.params), tree_leaves(again.params)))
+    if not diff <= RESUME_TOL or loss_a != loss_b:
+        raise AssertionError(f"resume: params differ by {diff} (tol {RESUME_TOL}), "
+                             f"losses {loss_a} vs {loss_b}")
+    print("train_resume " + json.dumps({"max_abs_param_diff": diff, "loss": loss_a})
+          + f"  [{card}]", flush=True)
+    return epoch_counts
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -364,20 +912,36 @@ def main() -> int:
 
     phase("kernels")
     flash = check_attention(card)
+    records = check_attention_bwd(card)
+    records["flash_attn_fwd"].update({k: flash[k] for k in ("max_abs_err", "plain_ms",
+                                                            "library_ms")})
+    records.update(check_pairwise(card))
 
     phase("serve")
     work_dir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(work_dir, exist_ok=True)
-    launches = serve_phase(card, work_dir)
+    serve_phase(card, work_dir)
 
-    kernels = [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
-        "replaces": "ptranking_tpu/ops/attention.py:129",
-        "launches": launches,
-        **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")},
-    }]
+    phase("train")
+    launches = train_phase(card, work_dir)
+
+    sources = {
+        "flash_attn_fwd": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                           "ptranking_tpu/ops/attention.py:129"),
+        "flash_attn_bwd_dkdv": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_bwd_dq": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                              "ptranking_tpu/ops/attention.py:172"),
+        "pairwise_lambda_fwd": ("ptranking_tpu_torch/ops/csrc/pairwise_lambda.cu",
+                                "ptranking_tpu/ops/pallas/pairwise.py:60"),
+        "pairwise_lambda_bwd": ("ptranking_tpu_torch/ops/csrc/pairwise_lambda.cu",
+                                "ptranking_tpu/ops/pallas/pairwise.py:93"),
+    }
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[name],
+                **{k: records[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}}
+               for name, (src, rep) in sources.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

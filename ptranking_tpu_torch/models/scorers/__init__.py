@@ -1,9 +1,9 @@
-"""Scorer configuration, seeded init and the eval-form scorer (pointsf, listsf).
+"""Scorer configuration, seeded init and the scorer (pointsf, listsf).
 
 Counterpart of ptranking_tpu/models/scorers/__init__.py. A scorer is a pair
 of plain functions over a nested dict of tensors:
 `init_scorer(cfg, seed, device) -> params` and
-`apply_scorer(params, cfg, x, mask) -> scores [B, N]` (fp32).
+`apply_scorer(params, cfg, x, mask, training=False, gen=None) -> scores [B, N]` (fp32).
 """
 
 from __future__ import annotations
@@ -123,10 +123,25 @@ def map_params(fn, params):
     return fn(params)
 
 
-def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
-    """Score a padded batch, eval form: [B, N, F] -> [B, N] in fp32 (fp64
-    stays fp64). Padded docs score garbage by design — consumers apply `mask`."""
+def tree_leaves(params) -> list:
+    """The tensors of a nested dict/list parameter tree, in the tree's order
+    (the order `init_scorer` builds and `map_params` walks)."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in tree_leaves(v)]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in tree_leaves(v)]
+    return [params]
+
+
+def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch.Tensor,
+                 training: bool = False, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Score a padded batch: [B, N, F] -> [B, N] in fp32 (fp64 stays fp64).
+    Padded docs score garbage by design — consumers apply `mask`.
+
+    training=True with a generator `gen` (on x's device) applies dropout at
+    rate cfg.dropout where the JAX package does. The params stay as given
+    (fp32 masters in training); the bf16 cast of compute_dtype happens here,
+    so gradients reach the fp32 masters."""
     out_dtype = torch.promote_types(x.dtype, torch.float32)
     if cfg.compute_dtype == "bfloat16":
         params = map_params(
@@ -136,7 +151,8 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor,
     if cfg.sf_id.startswith("pointsf"):
         out = ffn_apply(params["point_sf"], x, mask, AF=cfg.AF, TL_AF=cfg.TL_AF,
                         apply_tl_af=cfg.apply_tl_af, BN=cfg.BN,
-                        bn_per_query=cfg.bn_per_query)
+                        bn_per_query=cfg.bn_per_query, drop_rate=cfg.dropout,
+                        training=training, gen=gen)
         return out[..., 0].to(out_dtype)
 
     if cfg.sf_id.startswith("listsf"):
@@ -145,12 +161,14 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor,
 
         def head(v):
             return ffn_apply(params["head_ffnns"], v, mask, AF=cfg.AF, TL_AF=cfg.AF,
-                             apply_tl_af=True, BN=cfg.BN, bn_per_query=cfg.bn_per_query)
+                             apply_tl_af=True, BN=cfg.BN, bn_per_query=cfg.bn_per_query,
+                             drop_rate=cfg.dropout, training=training, gen=gen)
 
         def encode(v):
             return _listsf.encoder_apply(params["encoder"], v, mask, cfg.n_heads,
                                          cfg.encoder_type, cfg.attn_block_size,
-                                         cfg.flash_attn)
+                                         cfg.flash_attn, cfg.dropout, training, gen,
+                                         cfg.remat)
 
         if cfg.encoder_type == "AllRank":
             combined = encode(head(x))
@@ -162,7 +180,8 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor,
             raise NotImplementedError(cfg.encoder_type)
         out = ffn_apply(params["tail_ffnns"], combined, mask, AF=cfg.AF, TL_AF=cfg.TL_AF,
                         apply_tl_af=cfg.apply_tl_af, BN=cfg.BN,
-                        bn_per_query=cfg.bn_per_query)
+                        bn_per_query=cfg.bn_per_query, drop_rate=cfg.dropout,
+                        training=training, gen=gen)
         return out[..., 0].to(out_dtype)
 
     raise NotImplementedError(cfg.sf_id)

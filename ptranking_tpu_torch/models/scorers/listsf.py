@@ -1,22 +1,31 @@
-"""Listwise (permutation-equivariant) scorer: MHSA encoder layers, eval form.
+"""Listwise (permutation-equivariant) scorer: MHSA encoder layers.
 
 Counterpart of ptranking_tpu/models/scorers/listsf.py with the three encoder
 wirings (AllRank pre-norm residual, DASALC post-norm latent cross, AttnDIN
 post-norm residual). Attention logits are masked on the key axis so padded
 documents get no weight, and QKV is one fused [F, 3F] projection split q|k|v
 and then into heads.
+
+Training form, as in the JAX package: attention-probability dropout on the
+dense path only (the flash path has none), AllRank's residual and
+position-wise FFN dropouts, and `remat` (each layer recomputed in the
+backward pass, through torch.utils.checkpoint). Dropout masks come from an
+explicit torch.Generator; a rematerialised layer replays its own masks (see
+`_remat_layer`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ptranking_tpu_torch import PAD_SCORE
 from ptranking_tpu_torch.models.scorers.nn import (
     Params,
+    dropout,
     layer_norm_apply,
     layer_norm_init,
     linear_apply,
@@ -35,9 +44,12 @@ def mhsa_init(gen: torch.Generator, hid_dim: int, device="cpu") -> Params:
 
 
 def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
-               attn_block_size: Optional[int] = None, flash: bool = False) -> torch.Tensor:
+               attn_block_size: Optional[int] = None, flash: bool = False,
+               drop_rate: float = 0.1, training: bool = False,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Masked multi-head self-attention over the document axis.
-    x: [B, N, F]; mask: [B, N]."""
+    x: [B, N, F]; mask: [B, N]. In training, the dense path drops attention
+    probabilities; the flash path drops none (as in the JAX package)."""
     B, N, F = x.shape
     d_head = F // n_heads
     qkv = linear_apply(p["qkv"], x)  # [B, N, 3F]
@@ -50,12 +62,17 @@ def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
     if flash:
         out = flash_attention(q, k, v, mask)
     elif attn_block_size is not None and N > attn_block_size:
+        if training and drop_rate > 0.0 and gen is not None:
+            raise NotImplementedError(
+                "attention dropout inside blockwise_attention (attn_block_size) is not "
+                "ported yet; train with flash_attn=True, dropout=0 or no attn_block_size")
         out = blockwise_attention(q, k, v, mask, block_size=attn_block_size)
     else:
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits / torch.sqrt(torch.tensor(float(d_head)))
         logits = torch.where(mask[:, None, None, :], logits, PAD_SCORE)
         attn = torch.softmax(logits, dim=-1).to(x.dtype)  # softmax in fp32
+        attn = dropout(gen, attn, drop_rate, training)
         out = torch.matmul(attn.float(), v.float()).to(x.dtype)
     out = out.transpose(1, 2).reshape(B, N, F)
     return linear_apply(p["fc"], out)
@@ -66,9 +83,11 @@ def pff_init(gen: torch.Generator, num_features: int, hid_dim: int, device="cpu"
             "w2": linear_init(gen, hid_dim, num_features, device)}
 
 
-def pff_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Position-wise FFN: linear -> ReLU -> linear."""
-    return linear_apply(p["w2"], torch.relu(linear_apply(p["w1"], x)))
+def pff_apply(p: Params, x: torch.Tensor, drop_rate: float = 0.1, training: bool = False,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Position-wise FFN: linear -> ReLU -> [dropout] -> linear."""
+    h = torch.relu(linear_apply(p["w1"], x))
+    return linear_apply(p["w2"], dropout(gen, h, drop_rate, training))
 
 
 def encoder_init(gen: torch.Generator, num_features: int, n_layers: int,
@@ -90,29 +109,64 @@ def encoder_init(gen: torch.Generator, num_features: int, n_layers: int,
     return enc
 
 
+def _remat_layer(fn: Callable, layer: Params, x: torch.Tensor,
+                 gen: Optional[torch.Generator]) -> torch.Tensor:
+    """`fn(layer, x, gen)` under torch.utils.checkpoint. The checkpoint's own
+    RNG handling restores only the default generators, so with an explicit
+    one the recompute would draw other dropout masks and give wrong
+    gradients. Instead the layer draws from a generator of its own, started
+    from `gen`'s state; the recompute starts another from the same state and
+    replays the same masks, and `gen` continues from where the layer ended."""
+    if gen is None:
+        return checkpoint(lambda h: fn(layer, h, None), x, use_reentrant=False)
+    start = gen.get_state()
+    end = {}
+
+    def run(h):
+        g = torch.Generator(device=gen.device)
+        g.set_state(start)
+        out = fn(layer, h, g)
+        end["state"] = g.get_state()
+        return out
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    gen.set_state(end["state"])
+    return out
+
+
 def encoder_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
                   encoder_type: str, attn_block_size: Optional[int] = None,
-                  flash: bool = False) -> torch.Tensor:
+                  flash: bool = False, drop_rate: float = 0.1, training: bool = False,
+                  gen: Optional[torch.Generator] = None, remat: bool = False) -> torch.Tensor:
     """Encoder wiring per variant:
 
-      AllRank: x + MHSA(LN(x)); x + FC(LN(x)); final LN
+      AllRank: x + drop(MHSA(LN(x))); x + drop(FC(LN(x))); final LN
       DASALC:  LN(MHSA(x))
       AttnDIN: LN(x + MHSA(x))
-    """
-    for layer in p["layers"]:
+
+    remat recomputes each layer in the backward pass (when a gradient is
+    being taken) instead of keeping its activations."""
+
+    def one_layer(layer, x, g):
+        def attend(h):
+            return mhsa_apply(layer["mhsa"], h, mask, n_heads, attn_block_size, flash,
+                              drop_rate, training, g)
+
         if encoder_type == "AllRank":
-            h = mhsa_apply(layer["mhsa"], layer_norm_apply(layer["ln1"], x), mask,
-                           n_heads, attn_block_size, flash)
-            x = x + h
-            x = x + pff_apply(layer["fc"], layer_norm_apply(layer["ln2"], x))
-        elif encoder_type == "DASALC":
-            h = mhsa_apply(layer["mhsa"], x, mask, n_heads, attn_block_size, flash)
-            x = layer_norm_apply(layer["ln"], h)
-        elif encoder_type == "AttnDIN":
-            h = mhsa_apply(layer["mhsa"], x, mask, n_heads, attn_block_size, flash)
-            x = layer_norm_apply(layer["ln"], x + h)
+            x = x + dropout(g, attend(layer_norm_apply(layer["ln1"], x)), drop_rate, training)
+            h = pff_apply(layer["fc"], layer_norm_apply(layer["ln2"], x), drop_rate, training, g)
+            return x + dropout(g, h, drop_rate, training)
+        if encoder_type == "DASALC":
+            return layer_norm_apply(layer["ln"], attend(x))
+        if encoder_type == "AttnDIN":
+            return layer_norm_apply(layer["ln"], x + attend(x))
+        raise NotImplementedError(encoder_type)
+
+    for layer in p["layers"]:
+        if remat and torch.is_grad_enabled():
+            x = _remat_layer(one_layer, layer, x, gen)
         else:
-            raise NotImplementedError(encoder_type)
+            x = one_layer(layer, x, gen)
     if encoder_type == "AllRank" and "final_ln" in p:
         x = layer_norm_apply(p["final_ln"], x)
     return x

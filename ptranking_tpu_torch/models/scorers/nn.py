@@ -1,5 +1,5 @@
 """Neural-net building blocks over plain dicts of tensors: activations, linear
-layers, masked batch norm, LayerNorm and the stacked FFN (eval form).
+layers, masked batch norm, LayerNorm, dropout and the stacked FFN.
 
 Counterpart of ptranking_tpu/models/scorers/nn.py. Parameters keep the JAX
 package's layout (`w` is [d_in, d_out] for `x @ w`), so a JAX parameter tree
@@ -9,13 +9,15 @@ carries over leaf for leaf. The reference choices kept here:
     the activation dtype — bf16 operands are exact in fp32, as on the MXU;
   * BN statistics are fp32 over real documents only, and padded rows come out 0;
   * LayerNorm divides by the UNBIASED std plus eps (not `nn.LayerNorm`);
-  * "GE" is the tanh form of GELU (jax.nn.gelu's default).
+  * "GE" is the tanh form of GELU (jax.nn.gelu's default);
+  * dropout draws its keep-mask from an explicit torch.Generator (the JAX
+    package's explicit PRNG keys), so a run is reproducible from its seed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -107,8 +109,25 @@ def layer_norm_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     mean = x.mean(dim=-1, keepdim=True)
     n = x.shape[-1]
     var = torch.square(x - mean).sum(dim=-1, keepdim=True) / max(n - 1, 1)
-    std = torch.sqrt(var)
+    # grad-safe sqrt: a constant row (the all-zero output of an all-padded
+    # query at init) has var == 0, where d sqrt(v)/dv = inf would put NaN
+    # into every parameter's gradient. The double where keeps the forward
+    # identical and routes the backward through the safe branch.
+    safe = var > 0
+    std = torch.where(safe, torch.sqrt(torch.where(safe, var, 1.0)), 0.0)
     return (p["a"].float() * (x - mean) / (std + _LN_EPS) + p["b"].float()).to(in_dtype)
+
+
+def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            training: bool) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability 1 - rate and scale it
+    by 1/(1 - rate). The keep-mask comes from `gen`, a generator on x's
+    device; without one, or out of training, x passes unchanged."""
+    if not training or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    keep_mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(keep_mask, x / keep, 0.0)
 
 
 def ffn_init(gen: torch.Generator, ff_dims: Sequence[int], BN: bool = True,
@@ -133,11 +152,14 @@ def ffn_init(gen: torch.Generator, ff_dims: Sequence[int], BN: bool = True,
 
 def ffn_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, AF: str = "R",
               TL_AF: str = "S", apply_tl_af: bool = False, BN: bool = True,
-              bn_per_query: bool = False) -> torch.Tensor:
-    """x: [B, N, d_in] -> [B, N, d_out] (eval form: no dropout)."""
+              bn_per_query: bool = False, drop_rate: float = 0.1, training: bool = False,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x: [B, N, d_in] -> [B, N, d_out]. In training, dropout comes before
+    each hidden layer's linear (not before the last one)."""
     af = get_af(AF)
     layers = p["layers"]
     for lp in layers[:-1]:
+        x = dropout(gen, x, drop_rate, training)
         x = linear_apply(lp["linear"], x)
         if BN:
             x = masked_batch_norm(lp["bn"], x, mask, per_query=bn_per_query)

@@ -1,14 +1,17 @@
-"""Masked attention for the listwise scorer's MHSA: flash kernel and its plain version.
+"""Masked attention for the listwise scorer's MHSA: flash kernels and their plain version.
 
-Counterpart of ptranking_tpu/ops/attention.py, in the eval form (no
-attention-probability dropout):
+Counterpart of ptranking_tpu/ops/attention.py, without attention-probability
+dropout (the JAX package applies none on its flash path either):
 
   * `blockwise_attention` — the online-softmax loop over key blocks, in plain
-    torch. It is the plain version of the kernel: what `flash_attention` runs
-    on the CPU, and what the kernel is held against on the card.
-  * `flash_attention` — the same function through the hand-written CUDA kernel
-    `csrc/flash_attn_fwd.cu` for CUDA tensors, and through
-    `blockwise_attention(block_size=min(128, N))` for CPU tensors, which is
+    torch. It is the plain version of the kernels: what `flash_attention` runs
+    on the CPU (forward, and backward through autograd), and what the kernels
+    are held against on the card.
+  * `flash_attention` — the same function through the hand-written CUDA
+    kernels for CUDA tensors: `csrc/flash_attn_fwd.cu` forward, and when a
+    gradient is needed, `csrc/flash_attn_bwd.cu` backward (dq, and dk with dv)
+    from the forward's row statistics, as a `torch.autograd.Function`. CPU
+    tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
@@ -62,75 +65,166 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_LIB = cuda_build.KernelLib("flash_attn_fwd",
+                                {"flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_P]})
+_BWD_LIB = cuda_build.KernelLib("flash_attn_bwd",
+                                {"flash_attn_bwd_dkdv": [_P] * 10 + [_I] * 5 + [_P],
+                                 "flash_attn_bwd_dq": [_P] * 9 + [_I] * 5 + [_P]})
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_qkv(q, k, v, mask, *more):
+    """Shapes, dtypes, device and contiguity the kernels take; raises otherwise.
+    `more` are further [B, H, N, d] tensors of q's dtype (the output gradient)."""
+    if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *more)):
+        raise ValueError(f"q, k, v must share one [B, H, N, d] shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, N, d = q.shape
+    if mask.shape != (B, N) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool [B, N] = {(B, N)}; got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
+        raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= d <= 128:
+        raise ValueError(f"head dim d={d} outside the kernel's 1..128")
+    if B * H > 65535 or min(B, H, N) < 1:
+        raise ValueError(f"unsupported shape {tuple(q.shape)}")
+    tensors = (q, k, v, mask, *more)
+    if any(not t.is_cuda or t.device != q.device for t in tensors):
+        raise ValueError("q, k, v and mask must be CUDA tensors on one device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("q, k, v and mask must be contiguous")
+    return B, H, N, d
+
+
+def _check_stats(q, *stats):
+    B, H, N, _ = q.shape
+    for t in stats:
+        if (t.shape != (B, H, N) or t.dtype != torch.float32 or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"row statistics must be contiguous float32 [B, H, N] = "
+                             f"{(B, H, N)} on q's device; got {t.dtype} {tuple(t.shape)}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 class FlashAttnFwd:
     """ctypes wrapper of `csrc/flash_attn_fwd.cu` with its launch count.
 
     `launches` grows by one at each kernel launch and nowhere else, so a run
-    can show that its attention went through the kernel."""
+    can show that its attention went through the kernel. With `stats=True`
+    it also returns each query row's softmax max m and sum l ([B, H, N]
+    fp32), which the backward kernels read."""
 
     name = "flash_attn_fwd"
-    DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
-
-    def _fn(self):
-        if self._lib is None:
-            lib = cuda_build.load(self.name)
-            lib.flash_attn_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            lib.flash_attn_fwd.restype = ctypes.c_int
-            lib.flash_attn_fwd_error_string.argtypes = [ctypes.c_int]
-            lib.flash_attn_fwd_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
-        if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-            raise ValueError(f"q, k, v must share one [B, H, N, d] shape; got "
-                             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-        B, H, N, d = q.shape
-        if mask.shape != (B, N) or mask.dtype != torch.bool:
-            raise ValueError(f"mask must be bool [B, N] = {(B, N)}; got "
-                             f"{mask.dtype} {tuple(mask.shape)}")
-        if q.dtype not in self.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-            raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
-                             f"{q.dtype}, {k.dtype}, {v.dtype}")
-        if not 1 <= d <= 128:
-            raise ValueError(f"head dim d={d} outside the kernel's 1..128")
-        if B * H > 65535 or min(B, H, N) < 1:
-            raise ValueError(f"unsupported shape {tuple(q.shape)}")
-        tensors = (q, k, v, mask)
-        if any(not t.is_cuda or t.device != q.device for t in tensors):
-            raise ValueError("q, k, v and mask must be CUDA tensors on one device")
-        if any(not t.is_contiguous() for t in tensors):
-            raise ValueError("q, k, v and mask must be contiguous")
-        lib = self._fn()
+                 mask: torch.Tensor, stats: bool = False):
+        B, H, N, d = _check_qkv(q, k, v, mask)
         out = torch.empty_like(q)
+        row_max = row_sum = None
+        if stats:
+            row_max = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+            row_sum = torch.empty_like(row_max)
         with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     mask.data_ptr(), out.data_ptr(), B, H, N, d,
-                                     self.DTYPES[q.dtype], stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err} "
-                               f"({lib.flash_attn_fwd_error_string(err).decode()})")
+            _FWD_LIB.call(
+                self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), None if row_max is None else row_max.data_ptr(),
+                None if row_sum is None else row_sum.data_ptr(),
+                B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
         self.launches += 1
-        return out
+        return (out, row_max, row_sum) if stats else out
+
+
+class FlashAttnBwdDkdv:
+    """ctypes wrapper of the dk, dv kernel of `csrc/flash_attn_bwd.cu`, with
+    its launch count. `dsum` is D = rowsum(dO * O), [B, H, N] fp32."""
+
+    name = "flash_attn_bwd_dkdv"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, dout, row_max, row_sum, dsum, mask):
+        B, H, N, d = _check_qkv(q, k, v, mask, dout)
+        _check_stats(q, row_max, row_sum, dsum)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        with torch.cuda.device(q.device):
+            _BWD_LIB.call(
+                self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
+        self.launches += 1
+        return dk, dv
+
+
+class FlashAttnBwdDq:
+    """ctypes wrapper of the dq kernel of `csrc/flash_attn_bwd.cu`, with its
+    launch count."""
+
+    name = "flash_attn_bwd_dq"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, dout, row_max, row_sum, dsum, mask):
+        B, H, N, d = _check_qkv(q, k, v, mask, dout)
+        _check_stats(q, row_max, row_sum, dsum)
+        dq = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            _BWD_LIB.call(
+                self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
+                dq.data_ptr(), B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
+        self.launches += 1
+        return dq
 
 
 FLASH_ATTN_FWD = FlashAttnFwd()
+FLASH_ATTN_BWD_DKDV = FlashAttnBwdDkdv()
+FLASH_ATTN_BWD_DQ = FlashAttnBwdDq()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernels' forward and backward on CUDA tensors. D = rowsum(dO * O)
+    is plain torch, as the JAX library computes it outside its kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        q, k, v, mask = (t.contiguous() for t in (q, k, v, mask))
+        out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        ctx.save_for_backward(q, k, v, mask, out, row_max, row_sum)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out, row_max, row_sum = ctx.saved_tensors
+        dout = dout.contiguous()
+        dsum = torch.sum(dout.float() * out.float(), dim=-1)
+        dk, dv = FLASH_ATTN_BWD_DKDV(q, k, v, dout, row_max, row_sum, dsum, mask)
+        dq = FLASH_ATTN_BWD_DQ(q, k, v, dout, row_max, row_sum, dsum, mask)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Masked non-causal attention, `sm_scale = 1/sqrt(d)`, no dropout.
 
-    CUDA tensors go through the hand-written kernel (a failed build or launch
-    raises; there is no fallback). CPU tensors go through
-    `blockwise_attention(block_size=min(128, N))`."""
+    CUDA tensors go through the hand-written kernels (a failed build or
+    launch raises; there is no fallback): the forward alone when no gradient
+    is needed (under `inference_mode` or `no_grad`, or for inputs that do not
+    require one), else forward and backward. CPU tensors go through
+    `blockwise_attention(block_size=min(128, N))`, and autograd through it."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, mask)
         return FLASH_ATTN_FWD(q.contiguous(), k.contiguous(), v.contiguous(),
                               mask.contiguous())
     if q.device.type != "cpu":

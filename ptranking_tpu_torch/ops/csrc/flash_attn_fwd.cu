@@ -11,6 +11,13 @@
 // one byte per key (nonzero = real document). Logits, the running max and the
 // running sum are fp32; o is written in the input dtype.
 //
+// Row statistics for the backward (flash_attn_bwd.cu): when the pointers are
+// not null, row_max and row_sum ([B, H, N] fp32) get each query row's final
+// running max m and sum l, so that p = exp(logit - m) / l. They are kept as
+// two values, not as m + log(l): on a row whose keys are all masked, m = -1e9
+// and fp32 rounds -1e9 + log(N) back to -1e9, which would lose the 1/N. The
+// serving path passes null pointers and writes nothing more.
+//
 // What bounds it: 4*B*H*N^2*d operations over 4*B*H*N*d values. At the
 // flagship serving shape (B=32, H=2, N=1408, d=68, bf16) that is about 700
 // operations per byte moved, far above the H100's ~295 bf16 ops/byte ridge, so
@@ -82,7 +89,8 @@ __host__ __device__ constexpr size_t smem_floats(int d, int dp) {
 template <typename T, int NC>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ o, int H, int N, int d,
+                 const uint8_t* __restrict__ mask, T* __restrict__ o,
+                 float* __restrict__ row_max, float* __restrict__ row_sum, int H, int N, int d,
                  float scale) {
     constexpr int DP = 8 * NC;
     extern __shared__ float4 smem4[];
@@ -219,6 +227,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int r = ty * 4 + i;
         if (r >= qrows) continue;
         const float inv = 1.f / l_run[i];  // l_run >= 1: the row max contributes exp(0)
+        if (row_max != nullptr && tx == 0) {  // the 8 lanes of a row group hold the same m, l
+            row_max[size_t(bh) * N + q0 + r] = m_run[i];
+            row_sum[size_t(bh) * N + q0 + r] = l_run[i];
+        }
         T* orow = o + base + size_t(q0 + r) * d;
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
@@ -230,7 +242,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   int B, int H, int N, int d, cudaStream_t stream) {
+                   float* row_max, float* row_sum, int B, int H, int N, int d,
+                   cudaStream_t stream) {
     const size_t bytes = smem_floats(d, 8 * NC) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -239,7 +252,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
     const float scale = 1.0f / sqrtf(float(d));
     flash_fwd_kernel<T, NC><<<grid, NT, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const uint8_t*>(mask), static_cast<T*>(o), H, N, d, scale);
+        static_cast<const uint8_t*>(mask), static_cast<T*>(o), row_max, row_sum, H, N, d, scale);
     return cudaGetLastError();
 }
 
@@ -247,16 +260,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). dtype: 0 = fp32, 1 = bf16.
+// Returns a cudaError_t (0 on success). dtype: 0 = fp32, 1 = bf16. row_max and
+// row_sum are both null (no statistics) or both [B, H, N] fp32.
 int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   int B, int H, int N, int d, int dtype, void* stream) {
-    if (B < 1 || H < 1 || N < 1 || d < 1 || d > 128 || B * H > 65535 || (dtype != 0 && dtype != 1))
+                   void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
+                   void* stream) {
+    if (B < 1 || H < 1 || N < 1 || d < 1 || d > 128 || B * H > 65535 || (dtype != 0 && dtype != 1)
+        || ((row_max == nullptr) != (row_sum == nullptr)))
         return int(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* rm = static_cast<float*>(row_max);
+    float* rs = static_cast<float*>(row_sum);
 #define FLASH_CASE(NC)                                                                        \
     case NC:                                                                                  \
-        return int(dtype == 1 ? launch<__nv_bfloat16, NC>(q, k, v, mask, o, B, H, N, d, st)    \
-                              : launch<float, NC>(q, k, v, mask, o, B, H, N, d, st));
+        return int(dtype == 1 ? launch<__nv_bfloat16, NC>(q, k, v, mask, o, rm, rs, B, H, N, d, st) \
+                              : launch<float, NC>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
     switch ((d + 15) / 16 * 2) {  // head dim padded to a multiple of 16
         FLASH_CASE(2)
         FLASH_CASE(4)

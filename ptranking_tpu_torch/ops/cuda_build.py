@@ -5,6 +5,10 @@ for Hopper (`sm_90a`) into `build/kernels/lib<name>-<hash>.so` at the repo
 root, at first use. The file name carries a hash of the source and the flags,
 so an edited source is rebuilt and a stale library is never loaded. Nothing
 is compiled or loaded when this module is imported.
+
+Every entry returns a cudaError_t as an int, and each library exports
+`<name>_error_string(int)`; `KernelLib` binds the entries' ctypes signatures
+and turns a nonzero return into an exception.
 """
 
 from __future__ import annotations
@@ -88,3 +92,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+class KernelLib:
+    """One `csrc/<name>.cu` library with its entries' ctypes argument types,
+    loaded (and built if needed) at the first `call`."""
+
+    def __init__(self, name: str, signatures: Dict[str, list]):
+        self.name = name
+        self._signatures = signatures
+        self._lib = None
+
+    def call(self, entry: str, *args) -> None:
+        """Run one entry; raises if it returns a CUDA error (a refused launch)."""
+        if self._lib is None:
+            lib = load(self.name)
+            for fn_name, argtypes in self._signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            err_fn = getattr(lib, f"{self.name}_error_string")
+            err_fn.argtypes = [ctypes.c_int]
+            err_fn.restype = ctypes.c_char_p
+            self._lib = lib
+        err = getattr(self._lib, entry)(*args)
+        if err != 0:
+            msg = getattr(self._lib, f"{self.name}_error_string")(err).decode()
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")

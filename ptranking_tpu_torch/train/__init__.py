@@ -1,4 +1,4 @@
-"""Ranker lifecycle (inference half) and the optimizer config."""
+"""Ranker lifecycle (training, predict, checkpoints) and the optimizers."""
 
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 from ptranking_tpu_torch.train.ranker import AdhocRanker

@@ -1,17 +1,20 @@
-"""AdhocRanker, inference half: init, predict and checkpoints.
+"""AdhocRanker: init, training, predict and checkpoints.
 
-Counterpart of ptranking_tpu/train/ranker.py for serving. A ranker holds a
-scorer config and its params on one device; `predict` scores a padded batch.
-Training methods come with the training slice; the model id is kept as a
-string until the loss registry is ported.
+Counterpart of ptranking_tpu/train/ranker.py. A ranker holds a scorer config,
+its fp32 params on one device, the optimizer and one torch.Generator for
+dropout, all seeded from `seed`. `train_epoch` runs one optimizer step per
+batch, eagerly (the JAX package's scan of K steps per dispatch has no
+counterpart yet); `predict` scores a padded batch.
 
 Checkpoints:
   * the port's own `.pt` (torch.save of plain dicts, configs as dicts, params
-    as CPU tensors), loadable with `torch.load(weights_only=True)`;
+    and optimizer state as CPU tensors, the generator's state), loadable with
+    `torch.load(weights_only=True)`;
   * the JAX package's self-describing `.pkl`, read with a restricted
-    unpickler that maps its config classes to the port's and its optax
-    optimizer state to inert stubs, so reading it imports neither jax nor
-    optax. The optimizer state is dropped.
+    unpickler that maps its config classes to the port's and its optax state
+    to `JaxNamedTuple` stand-ins, so reading it imports neither jax nor
+    optax. Its optimizer state carries over (`opt_state_from_jax`); its PRNG
+    key cannot, so dropout restarts from the seed.
 """
 
 from __future__ import annotations
@@ -20,36 +23,20 @@ import dataclasses
 import os
 import pickle
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ptranking_tpu_torch import LTR_SEED, resolve_device
-from ptranking_tpu_torch.models.convert import params_from_jax
+from ptranking_tpu_torch.losses import DEFAULT_PARAS, REQUIRES_LISTSF, get_loss
+from ptranking_tpu_torch.models.convert import JaxNamedTuple, opt_state_from_jax, params_from_jax
 from ptranking_tpu_torch.models.scorers import (ScorerConfig, apply_scorer, init_scorer,
-                                                map_params)
-from ptranking_tpu_torch.train.optimizer import OptimizerConfig
+                                                map_params, tree_leaves)
+from ptranking_tpu_torch.train.optimizer import OptimizerConfig, epoch_lr, make_optimizer, set_lr
 from ptranking_tpu_torch.types import LabelType, RankingBatch
 
-# Models whose loss needs the listwise scorer (ptranking_tpu/losses/__init__.py).
-REQUIRES_LISTSF = ("DASALC",)
-
 CHECKPOINT_FORMAT = "ptranking_tpu_torch/1"
-
-
-class _Inert:
-    """Stand-in for an optax/jax class in a JAX checkpoint: takes any
-    constructor arguments and state, keeps nothing."""
-
-    def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
-
-    def __init__(self, *args, **kwargs):
-        pass
-
-    def __setstate__(self, state):
-        pass
 
 
 class _JaxCheckpointUnpickler(pickle.Unpickler):
@@ -65,7 +52,7 @@ class _JaxCheckpointUnpickler(pickle.Unpickler):
             return self.CLASSES[(module, name)]
         root = module.split(".")[0]
         if root in ("optax", "jax", "jaxlib"):
-            return type(name, (_Inert,), {"__module__": module})
+            return type(name, (JaxNamedTuple,), {"__module__": module})
         if root == "numpy" and name in self.NUMPY_NAMES:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
@@ -75,7 +62,9 @@ class _JaxCheckpointUnpickler(pickle.Unpickler):
 def read_checkpoint(path: str) -> Dict[str, Any]:
     """A checkpoint of either package as one dict: model_id, scorer_cfg
     (ScorerConfig), model_paras, opt_cfg (OptimizerConfig), label_type
-    (LabelType), params (numpy or tensor leaves), format ('torch' | 'jax')."""
+    (LabelType), params (numpy or tensor leaves), format ('torch' | 'jax'),
+    and the training state when the checkpoint has it: optimizer and
+    generator (torch), opt_state (jax)."""
     if zipfile.is_zipfile(path):  # torch.save writes a zip archive
         d = torch.load(path, map_location="cpu", weights_only=True)
         if d.get("format") != CHECKPOINT_FORMAT:
@@ -84,6 +73,7 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
         return {"model_id": d["model_id"], "scorer_cfg": ScorerConfig(**cfg),
                 "model_paras": d["model_paras"], "opt_cfg": OptimizerConfig(**d["opt_cfg"]),
                 "label_type": LabelType[d["label_type"]], "params": d["params"],
+                "optimizer": d.get("optimizer"), "generator": d.get("generator"),
                 "format": "torch"}
     with open(path, "rb") as f:
         d = _JaxCheckpointUnpickler(f).load()
@@ -93,7 +83,7 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
             "model_paras": d.get("model_paras") or {},
             "opt_cfg": d.get("opt_cfg") or OptimizerConfig(),
             "label_type": d.get("label_type", LabelType.MultiLabel),
-            "params": d["params"], "format": "jax"}
+            "params": d["params"], "opt_state": d.get("opt_state"), "format": "jax"}
 
 
 def _to_device(a, device, dtype=None) -> torch.Tensor:
@@ -102,7 +92,10 @@ def _to_device(a, device, dtype=None) -> torch.Tensor:
 
 
 class AdhocRanker:
-    """A scorer config and its params on one device, for serving."""
+    """A scorer config, its params, a loss from the registry and an optimizer,
+    on one device."""
+
+    stop_check_freq = 10  # epochs between NaN/all-zero checks
 
     def __init__(self, model_id: str, scorer_cfg: ScorerConfig,
                  model_paras: Optional[Dict[str, Any]] = None,
@@ -114,16 +107,79 @@ class AdhocRanker:
         self.device = resolve_device(device)
         self.model_id = model_id
         self.scorer_cfg = scorer_cfg
-        self.model_paras = dict(model_paras or {})
+        # the loss itself is looked up at the first step, so a checkpoint of
+        # a model whose loss is not ported yet still serves
+        self.model_paras = {**DEFAULT_PARAS.get(model_id, {}), **(model_paras or {})}
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.label_type = label_type
         self.seed = seed
         self.params = None
+        self._optimizer = None
+        self._gen = None
 
     def init(self) -> "AdhocRanker":
-        """Fresh params from the seed."""
+        """Fresh params, optimizer and dropout generator from the seed."""
         self.params = init_scorer(self.scorer_cfg, self.seed, self.device)
+        self._start_training_state()
         return self
+
+    def _start_training_state(self):
+        """fp32 master params that take gradients, a fresh optimizer over them
+        and the dropout generator on the ranker's device."""
+        leaves = tree_leaves(self.params)
+        for t in leaves:
+            t.requires_grad_(True)
+        self._optimizer = make_optimizer(self.opt_cfg, leaves)
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    # ----------------------------------------------------------------- train
+
+    def _step(self, features: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on one batch already on the device; returns the
+        batch's loss as a device tensor (no host sync)."""
+        loss_fn = get_loss(self.model_id)
+        self._optimizer.zero_grad(set_to_none=True)
+        scores = apply_scorer(self.params, self.scorer_cfg, features, mask,
+                              training=True, gen=self._gen)
+        loss = loss_fn(scores, labels, mask, label_type=self.label_type, **self.model_paras)
+        loss.backward()
+        self._optimizer.step()
+        return loss.detach()
+
+    def train_epoch(self, batches: Iterable[RankingBatch], epoch_k: int = 1) -> Tuple[float, bool]:
+        """One epoch; returns (mean loss per real query, stop_training).
+
+        Sets the epoch's StepLR learning rate, takes one step per batch, and
+        every `stop_check_freq` epochs first checks the epoch's first batch
+        for NaN or all-zero scores, returning (nan, True) if it fails. The
+        host waits for the device once, at the end."""
+        if self.params is None:
+            raise RuntimeError("init() or load() the ranker first")
+        set_lr(self._optimizer, epoch_lr(self.opt_cfg, epoch_k))
+        check = epoch_k % self.stop_check_freq == 0
+        losses, counts = [], []
+        for i, batch in enumerate(batches):
+            if check and i == 0 and self.stop_training(batch):
+                return float("nan"), True
+            x = _to_device(batch.features, self.device)
+            labels = _to_device(batch.labels, self.device, torch.float32)
+            mask = _to_device(batch.mask, self.device, torch.bool)
+            losses.append(self._step(x, labels, mask))
+            counts.append(torch.sum(torch.any(mask, dim=-1)))
+        if not losses:
+            return 0.0, False
+        total, num_queries = (float(t) for t in
+                              torch.stack([torch.stack(losses).sum(),
+                                           torch.stack(counts).sum().float()]).cpu())
+        return total / max(num_queries, 1.0), False
+
+    def stop_training(self, batch: RankingBatch) -> bool:
+        """NaN/all-zero prediction guard on one batch: True = training has failed."""
+        scores = self.predict(batch)
+        mask = _to_device(batch.mask, self.device, torch.bool)
+        masked = torch.where(mask, scores, 0.0)
+        return not bool(torch.isfinite(masked).all()) or not bool(torch.any(masked != 0.0))
 
     @torch.inference_mode()
     def predict(self, batch: RankingBatch) -> torch.Tensor:
@@ -134,6 +190,8 @@ class AdhocRanker:
         x = _to_device(batch.features, self.device)
         mask = _to_device(batch.mask, self.device, torch.bool)
         return apply_scorer(self.params, self.scorer_cfg, x, mask)
+
+    # ------------------------------------------------------------------- io
 
     def checkpoint(self) -> Dict[str, Any]:
         cfg = dataclasses.asdict(self.scorer_cfg)
@@ -146,6 +204,9 @@ class AdhocRanker:
             "opt_cfg": dataclasses.asdict(self.opt_cfg),
             "label_type": self.label_type.name,
             "params": map_params(lambda t: t.detach().cpu(), self.params),
+            "optimizer": map_params(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                                    self._optimizer.state_dict()),
+            "generator": {"device": self.device.type, "state": self._gen.get_state()},
         }
 
     def save(self, path: str):
@@ -153,7 +214,10 @@ class AdhocRanker:
         torch.save(self.checkpoint(), path)
 
     def restore(self, ckpt: Dict[str, Any]) -> "AdhocRanker":
-        """Params from a checkpoint dict as `read_checkpoint` returns it."""
+        """Params, and the optimizer and generator state where the checkpoint
+        has them, from a checkpoint dict as `read_checkpoint` returns it. A
+        generator state saved on another device type is not restored: dropout
+        then restarts from the seed."""
         if ckpt["model_id"] != self.model_id:
             raise ValueError(f"checkpoint is for {ckpt['model_id']!r}, "
                              f"this ranker is {self.model_id!r}")
@@ -161,6 +225,20 @@ class AdhocRanker:
             self.params = params_from_jax(ckpt["params"], self.scorer_cfg, self.device)
         else:
             self.params = map_params(lambda t: t.to(self.device), ckpt["params"])
+        self._start_training_state()
+        opt_state = ckpt.get("optimizer")
+        if ckpt.get("opt_state") is not None:
+            jax_state = opt_state_from_jax(ckpt["opt_state"], self.scorer_cfg, self.opt_cfg.opt,
+                                           self.device)
+            opt_state = self._optimizer.state_dict()
+            opt_state["state"] = jax_state["state"]
+            for group in opt_state["param_groups"]:
+                group["lr"] = jax_state["lr"]
+        if opt_state is not None:
+            self._optimizer.load_state_dict(opt_state)
+        gen = ckpt.get("generator")
+        if gen is not None and gen["device"] == self.device.type:
+            self._gen.set_state(gen["state"])
         return self
 
     def load(self, path: str) -> "AdhocRanker":
