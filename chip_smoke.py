@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
      times for the kernel, the plain version and one PyTorch library call of
      the same function where there is one: the flash attention forward (bf16
      and fp32), its backward (dk/dv and dq kernels, against autograd through
-     the plain blockwise attention), and the fused pairwise lambda loss
-     (forward and backward, LambdaRank and RankNet);
+     the plain blockwise attention), the fused pairwise lambda loss
+     (forward and backward, LambdaRank and RankNet), and the Sinkhorn
+     half-step (both orientations, then 20 iterations of scalings);
   4. serve: the flagship ranker (F=136 DASALC listsf, 6 layers, 2 heads, bf16,
      flash_attn=True) from a seeded init, saved as a .pt checkpoint, served over
      HTTP on a local port; the answers are held against the same ranker with
@@ -23,7 +24,14 @@ Phases, in order; any failure exits non-zero:
      gradients through the kernels against dense attention and the dense
      loss; (b) timed steps at 32 lists of 1408 docs, with exact launch counts
      per step; (c) one train_epoch over ragged lists; (d) save, restore into a
-     second ranker, and one more step on both.
+     second ranker, and one more step on both;
+  6. wassrank: the same model trained with WassRank (SinkhornOT, 20
+     iterations, lam 0.1, the `eg` cost), every Sinkhorn half-step through
+     the kernel: (a) one step's gradients against the same step on the plain
+     half-step; (b) timed steps at 32 lists of 1408 docs with exact launch
+     counts (40 half-steps per step); (c) evaluate (nDCG, nERR, AP, P at
+     each k) on ragged lists, one train_epoch, evaluate again; (d) save,
+     restore, one more step on both.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -86,12 +94,36 @@ PAIR_TOL = 1e-5
 # sigma*(sigmoid(x) - t) weighted
 PAIR_FWD_OPS, PAIR_BWD_OPS, PAIR_SFU_OPS = 19, 18, 2
 
+# the Sinkhorn half-step: the WassRank training batch of phase 6 (the `eg`
+# cost of its labels, lam 0.1, where -C/lam reaches thousands), the two
+# smaller widths whose times PERF.md keeps, and edge cases (N, lengths, lam)
+SINK_RECORD = (32, 1408)
+SINK_TIMED_N = (128, 512)
+SINK_EDGES = [(1, (1, 1, 0), 0.1), (2, (2, 1, 0), 0.3), (16, (16, 9, 0), 0.1),
+              (50, (50, 37, 0), 0.3), (255, (255, 100, 0), 0.1), (257, (257, 256, 1, 0), 0.3)]
+# |kernel - plain| <= SINK_ATOL + SINK_RTOL * |plain| on real outputs, both
+# fp32: the kernel keeps a running (max, sum) and merges partial pairs where
+# the plain version subtracts the final max, so they round differently (the
+# first chip runs' worst: 0.075 of this limit, at an edge case; 4.1e-7 for
+# the scalings). The 20-iteration scalings are held to
+# max |kernel - plain| / max |plain| <= SINK_SCALINGS_TOL.
+SINK_RTOL, SINK_ATOL, SINK_SCALINGS_TOL = 1e-4, 1e-5, 1e-4
+# per element of the cost matrix: fp32 operations of the half-step (negate,
+# divide, add, subtract, abs, select, multiply-add, max) beside its one exp
+SINK_FP32_OPS = 10
+
 # phase 5, the flagship model's training
 TRAIN_B, TRAIN_N = 32, 1408
 TRAIN_STEPS = 10
 # launches per training step: 6 encoder layers, one loss
 LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
-                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 1}
+                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 1, "sinkstep": 0}
+# phase 6, per WassRank step: 20 Sinkhorn iterations of two half-steps each
+# in the loss's forward, none in its analytic backward
+WASS_LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
+                          "pairwise_lambda_fwd": 0, "pairwise_lambda_bwd": 0, "sinkstep": 40}
+WASS_STEPS = 10
+EVAL_KS = (1, 3, 5, 10, 20, 50)
 # One step's gradients, fp32, compared per parameter tensor as
 # ||a - b|| / max(||b||, GRAD_FLOOR * the largest ||b||) (the floor keeps a
 # tensor whose gradient is a near-cancelling sum, such as a bias of the tail
@@ -500,6 +532,144 @@ def check_pairwise(card):
     return records
 
 
+def sink_case(B, N, lengths, seed=0, dense=False):
+    """Inputs of the half-step on the card as WassRank builds them: the `eg`
+    cost of presorted labels, the log of the labels' softmax histogram as the
+    marginal, and a log-scaling (the log of a random histogram); pads carry
+    -1e30 in both. Under the `eg` cost at lam 0.1 a column's sum is its
+    largest term (the others fall below fp32's epsilon), so `dense` swaps in
+    a cost of |normal| draws, under which hundreds of terms of like size add
+    up. Returns (cost, log_marginal, log_u, mask)."""
+    import torch
+
+    from ptranking_tpu_torch.losses.wassrank import cost_mat_group, std_histogram_st
+    from ptranking_tpu_torch.ops import masked_softmax
+    from ptranking_tpu_torch.ops.sinkhorn import _safe_log
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    labels = torch.randint(0, 5, (B, N), generator=g).float().sort(dim=1, descending=True).values
+    lens = torch.full((B,), N) if lengths is None else torch.tensor(lengths)
+    mask = (torch.arange(N)[None, :] < lens[:, None]).cuda()
+    labels = torch.where(mask, labels.cuda(), 0.0)
+    cost = cost_mat_group(labels, mask).contiguous()
+    if dense:
+        cost = torch.randn(B, N, N, generator=g).abs().cuda()
+    log_marg = _safe_log(std_histogram_st(labels, mask))
+    log_u = _safe_log(masked_softmax(torch.randn(B, N, generator=g).cuda(), mask))
+    return cost, log_marg, log_u, mask
+
+
+def sink_errs(out, ref, mask, what):
+    """(max |out - ref|, worst |out - ref| / (SINK_ATOL + SINK_RTOL |ref|)) over
+    the real outputs, every output finite; raises past the tolerance."""
+    import torch
+
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"sinkstep {what}: non-finite output")
+    if not bool(mask.any()):
+        return 0.0, 0.0
+    diff = (out - ref).abs()[mask]
+    share = float((diff / (SINK_ATOL + SINK_RTOL * ref.abs()[mask])).max())
+    if not share <= 1.0:
+        raise AssertionError(f"sinkstep {what}: |kernel - plain| is {share} of its limit "
+                             f"(rtol {SINK_RTOL}, atol {SINK_ATOL}); max abs {float(diff.max())}")
+    return float(diff.max()), share
+
+
+def check_sinkstep(card):
+    """Phase 3: the Sinkhorn half-step kernel against its plain version, both
+    orientations (the transposed one against the plain version on the
+    transposed cost), at the edge cases and the timed widths, then 20
+    iterations of scalings, kernel against plain; returns the record at
+    SINK_RECORD."""
+    import torch
+
+    from ptranking_tpu_torch.ops.sinkhorn import log_sinkstep, sinkhorn_log_scalings
+    from ptranking_tpu_torch.ops.sinkhorn_fused import SINKSTEP
+
+    sfu_rate = sfu_ops_per_s()
+    worst = 0.0
+
+    def check_both(cost, log_marg, log_u, mask, lam, what):
+        """Both orientations against the plain version; {name: (max abs err,
+        share of the limit)}."""
+        neg_c = -cost / lam
+        errs = {}
+        for name, transposed in (("cols", False), ("rows", True)):
+            out = SINKSTEP(cost, log_marg, log_u, lam, transposed=transposed)
+            ref = log_sinkstep(neg_c.transpose(-1, -2) if transposed else neg_c, log_marg, log_u)
+            torch.cuda.synchronize()
+            errs[name] = sink_errs(out, ref, mask, what + (name,))
+        return errs
+
+    for (N, lengths, lam) in SINK_EDGES:
+        for dense in (False, True):  # the dense cost is asymmetric: a swapped orientation shows
+            errs = check_both(*sink_case(len(lengths), N, lengths, dense=dense), lam,
+                              (N, lengths, lam, dense))
+            worst = max(worst, *(e[1] for e in errs.values()))
+    print(f"sinkstep edge cases: {len(SINK_EDGES)} x 2 costs x 2 orientations agree; worst share "
+          f"of the limit {worst}", flush=True)
+
+    record = None
+    B = SINK_RECORD[0]
+    lam = 0.1
+    for N in SINK_TIMED_N + (SINK_RECORD[1],):
+        cost, log_marg, log_u, mask = sink_case(B, N, None)
+        neg_c = -cost / lam
+        neg_c_t = neg_c.transpose(-1, -2)
+        fns = {"cols": (lambda: SINKSTEP(cost, log_marg, log_u, lam),
+                        lambda: log_sinkstep(neg_c, log_marg, log_u)),
+               "rows": (lambda: SINKSTEP(cost, log_marg, log_u, lam, transposed=True),
+                        lambda: log_sinkstep(neg_c_t, log_marg, log_u))}
+        errs, ms, plain_ms = {}, {}, {}
+        iters = 20 if N >= 1024 else 100
+        for name, (kern, plain) in fns.items():
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            errs[name] = sink_errs(out, ref, mask, (B, N, name))
+            ms[name] = cuda_time_ms(kern, iters)
+            plain_ms[name] = cuda_time_ms(plain, max(iters // 4, 5))
+        library = lambda: log_marg - torch.logsumexp(neg_c + log_u[..., :, None], dim=-2)
+        library_ms = cuda_time_ms(library, max(iters // 4, 5))
+        elements = float(B) * N * N
+        nbytes = 4.0 * (elements + 4 * B * N)  # cost, marginal and log_u read, out written
+        bnd = max(bound(elements * SINK_FP32_OPS, FP32_PEAK, nbytes),
+                  bound(elements, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
+        dense = check_both(*sink_case(B, N, None, seed=1, dense=True), 0.3, (B, N, "dense"))
+        rec = {"shape": [B, N, N], "lam": lam, "max_neg_cost_over_lam": float(neg_c.abs().max()),
+               "max_abs_err": {k: e[0] for k, e in errs.items()},
+               "share_of_limit": {k: e[1] for k, e in errs.items()},
+               "dense_cost_max_abs_err": {k: e[0] for k, e in dense.items()},
+               "dense_cost_share_of_limit": {k: e[1] for k, e in dense.items()},
+               "ms": ms, "plain_ms": plain_ms, "library_ms_cols": library_ms, **bnd}
+        print("sinkstep " + json.dumps(rec) + f"  [{card}]", flush=True)
+        if N == SINK_RECORD[1]:
+            # a step launches as many of one orientation as of the other: the
+            # record holds the mean of the two
+            record = {"max_abs_err": max(e[0] for e in (*errs.values(), *dense.values())),
+                      "ms": sum(ms.values()) / 2, "plain_ms": sum(plain_ms.values()) / 2,
+                      "library_ms": library_ms, **bnd}
+            log_nu = log_marg
+            start = SINKSTEP.launches
+            got = sinkhorn_log_scalings(log_u, log_nu, cost, lam, 20)
+            launched = SINKSTEP.launches - start
+            want = sinkhorn_log_scalings(log_u, log_nu, cost, lam, 20, use_pallas=False)
+            plain_launched = SINKSTEP.launches - start - launched
+            torch.cuda.synchronize()
+            if launched != 40 or plain_launched != 0:
+                raise AssertionError(f"20 iterations launched the kernel {launched} times, and "
+                                     f"{plain_launched} times under use_pallas=False")
+            scal = {name: rel_err(a, b) for name, a, b in zip(("log_u", "log_v"), got, want)}
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            print("sinkhorn_scalings " + json.dumps({"iterations": 20, "rel_err": scal,
+                                                      "max_abs": float(want[0].abs().max())})
+                  + f"  [{card}]", flush=True)
+            if not finite or not max(scal.values()) <= SINK_SCALINGS_TOL:
+                raise AssertionError(f"20 Sinkhorn iterations, kernel against plain: {scal} "
+                                     f"(tol {SINK_SCALINGS_TOL}), all finite: {finite}")
+    return {"sinkstep": record}
+
+
 def post_json(url: str, body: bytes) -> dict:
     import urllib.request
 
@@ -640,10 +810,11 @@ def kernel_counters():
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
                                                    FLASH_ATTN_FWD)
     from ptranking_tpu_torch.ops.pairwise_fused import PAIRWISE_LAMBDA_BWD, PAIRWISE_LAMBDA_FWD
+    from ptranking_tpu_torch.ops.sinkhorn_fused import SINKSTEP
 
     return {"flash_attn_fwd": FLASH_ATTN_FWD, "flash_attn_bwd_dkdv": FLASH_ATTN_BWD_DKDV,
             "flash_attn_bwd_dq": FLASH_ATTN_BWD_DQ, "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
-            "pairwise_lambda_bwd": PAIRWISE_LAMBDA_BWD}
+            "pairwise_lambda_bwd": PAIRWISE_LAMBDA_BWD, "sinkstep": SINKSTEP}
 
 
 def reset_counts():
@@ -655,21 +826,25 @@ def read_counts() -> dict:
     return {name: k.launches for name, k in kernel_counters().items()}
 
 
-def check_counts(counts: dict, steps: int, what: str):
-    want = {name: n * steps for name, n in LAUNCHES_PER_STEP.items()}
+def check_counts(counts: dict, steps: int, what: str, per_step: dict = LAUNCHES_PER_STEP):
+    want = {name: n * steps for name, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"{what}: kernel launches {counts}, expected {want} "
                              f"for {steps} steps")
 
 
-def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16"):
+def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16",
+                    model_id: str = "LambdaRank"):
+    """The flagship scorer under a loss with its default paras; LambdaRank
+    goes through the fused pairwise kernel."""
     from ptranking_tpu_torch import LTR_SEED
     from ptranking_tpu_torch.models import ScorerConfig
     from ptranking_tpu_torch.train import AdhocRanker, OptimizerConfig
 
     cfg = ScorerConfig.default_listsf(NUM_FEATURES, compute_dtype=compute_dtype,
                                       flash_attn=True, dropout=dropout)
-    return AdhocRanker("LambdaRank", cfg, model_paras={"use_pallas": True},
+    model_paras = {"use_pallas": True} if model_id == "LambdaRank" else {}
+    return AdhocRanker(model_id, cfg, model_paras=model_paras,
                        opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED,
                        device="cuda").init()
 
@@ -885,6 +1060,164 @@ def train_phase(card: str, work_dir: str) -> dict:
     return epoch_counts
 
 
+def wassrank_phase(card: str, work_dir: str) -> dict:
+    """Phase 6: the flagship ranker trained with WassRank and evaluated on the
+    card. Returns the launch counts of the train_epoch run (c)."""
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+    from ptranking_tpu_torch.losses.wassrank import wass_rank
+    from ptranking_tpu_torch.models import apply_scorer
+    from ptranking_tpu_torch.models.scorers import tree_leaves
+    from ptranking_tpu_torch.train import AdhocRanker
+
+    # (a) one step's fp32 gradients with every half-step through the kernel
+    # against the same step on the plain half-step (use_pallas=False), dropout
+    # 0, on 31 ragged lists and an all-padded row; then both losses on the
+    # same scores
+    batch = train_batch(TRAIN_B, TRAIN_N, ragged=True, seed=1)
+    x, labels, mask = (torch.from_numpy(a).cuda() for a in (batch.features, batch.labels, batch.mask))
+    ranker = flagship_ranker(dropout=0.0, compute_dtype="float32", model_id="WassRank")
+    leaves, names = tree_leaves(ranker.params), leaf_names(ranker.params)
+    paras = ranker.model_paras
+
+    def grads(use_pallas):
+        scores = apply_scorer(ranker.params, ranker.scorer_cfg, x, mask, training=True)
+        loss = wass_rank(scores, labels, mask, **paras, use_pallas=use_pallas)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    reset_counts()
+    loss_k, grads_k = grads(None)
+    if read_counts() != WASS_LAUNCHES_PER_STEP:
+        raise AssertionError(f"wassrank gradient check: kernel launches {read_counts()}, "
+                             f"expected {WASS_LAUNCHES_PER_STEP}")
+    loss_p, grads_p = grads(False)
+    errs = rel_errs(grads_k, grads_p, names)
+    with torch.no_grad():
+        scores = apply_scorer(ranker.params, ranker.scorer_cfg, x, mask)
+    same = {}
+    for name, use_pallas in (("kernel", None), ("plain", False)):
+        s = scores.clone().requires_grad_(True)
+        loss = wass_rank(s, labels, mask, **paras, use_pallas=use_pallas)
+        same[name] = (float(loss.detach()), torch.autograd.grad(loss, s)[0])
+    same_rec = {"loss_kernel": same["kernel"][0], "loss_plain": same["plain"][0],
+                "loss_rel_err": abs(same["kernel"][0] - same["plain"][0]) / abs(same["plain"][0]),
+                "score_grad_rel_err": rel_err(same["kernel"][1], same["plain"][1])}
+    print("wassrank_grad " + json.dumps({"loss_kernel": loss_k, "loss_plain": loss_p, **errs,
+                                         "same_scores": same_rec}) + f"  [{card}]", flush=True)
+    if not math.isfinite(loss_k) or not errs["worst"][1] <= GRAD_TOL:
+        raise AssertionError(f"wassrank gradient check: {errs['worst']} relative error "
+                             f"(tol {GRAD_TOL}); loss {loss_k} vs {loss_p}")
+    if not max(same_rec["loss_rel_err"], same_rec["score_grad_rel_err"]) <= SAME_SCORES_TOL:
+        raise AssertionError(f"wassrank on the same scores, kernel against plain: {same_rec} "
+                             f"(tol {SAME_SCORES_TOL})")
+
+    # (b) timed steps at 32 lists of 1408 docs through train_epoch, bf16,
+    # dropout 0.1
+    ranker = flagship_ranker(model_id="WassRank")
+    batch = train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2)
+    ranker.train_epoch([batch] * 2, epoch_k=1)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mean_loss, stop = ranker.train_epoch([batch] * WASS_STEPS, epoch_k=1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check_counts(read_counts(), WASS_STEPS, "wassrank timed steps", WASS_LAUNCHES_PER_STEP)
+    if stop or not math.isfinite(mean_loss):
+        raise AssertionError(f"wassrank timed steps: loss {mean_loss}, stop {stop}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    busy_ms, sink_ms, prof_ms, top = profile_ms(
+        lambda: ranker.train_epoch([batch] * 3, epoch_k=1), kernel="sinkstep_", top=14)
+    flash_ms = sum(ms for name, ms, _ in top if "flash_" in name)  # the three largest items
+    # the loss alone, forward and backward, on this batch's scores: through the
+    # kernel, and on the plain half-step
+    x, labels, mask = (torch.from_numpy(a).cuda() for a in (batch.features, batch.labels, batch.mask))
+    with torch.no_grad():
+        scores = apply_scorer(ranker.params, ranker.scorer_cfg, x, mask)
+
+    def loss_fwd_bwd(use_pallas):
+        s = scores.clone().requires_grad_(True)
+        wass_rank(s, labels, mask, **ranker.model_paras, use_pallas=use_pallas).backward()
+
+    loss_ms = {"kernel": cuda_time_ms(lambda: loss_fwd_bwd(None), 5),
+               "plain": cuda_time_ms(lambda: loss_fwd_bwd(False), 5)}
+    steps_rec = {"B": TRAIN_B, "N": TRAIN_N, "steps": WASS_STEPS, "wall_s": wall_s,
+                 "ms_per_step": wall_s * 1e3 / WASS_STEPS, "loss_fwd_bwd_ms": loss_ms,
+                 "lists_per_s": TRAIN_B * WASS_STEPS / wall_s, "mean_loss": mean_loss,
+                 "peak_mem_gb": peak_gb, "profiled_steps": 3, "profiled_wall_ms": prof_ms,
+                 "profiled_device_busy_ms": busy_ms, "profiled_sinkstep_kernels_ms": sink_ms,
+                 "profiled_flash_kernels_ms": flash_ms,
+                 "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+                 "top_kernels_ms_calls": top}
+    print("wassrank_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
+
+    # (c) evaluate on ragged lists at the server's 100 docs per batch, one
+    # train_epoch of EPOCH_PASSES passes over them, evaluate again
+    ranker = flagship_ranker(model_id="WassRank")
+    queries = make_synthetic_queries(EPOCH_QUERIES, num_features=NUM_FEATURES, max_label=4,
+                                     min_docs=20, max_docs=TRAIN_N, seed=3)
+    ds = BucketedDataset(queries, batch_docs=100, num_features=NUM_FEATURES)
+    batches = list(ds.batches())
+
+    def evaluate(what):
+        t0 = time.perf_counter()
+        means = ranker.evaluate(ds, ks=EVAL_KS)
+        eval_s = time.perf_counter() - t0
+        per_query = ranker.evaluate_per_query(batches, ks=EVAL_KS)
+        for m, v in means.items():
+            if v.shape != (len(EVAL_KS),) or not np.all(np.isfinite(v)) or v.min() < 0 or v.max() > 1:
+                raise AssertionError(f"evaluate {what}: {m} = {v.tolist()}")
+            if per_query[m].shape != (EPOCH_QUERIES, len(EVAL_KS)):
+                raise AssertionError(f"evaluate {what}: {per_query[m].shape[0]} real queries "
+                                     f"counted, expected {EPOCH_QUERIES}")
+            if not np.allclose(per_query[m].mean(0), v, atol=1e-5):
+                raise AssertionError(f"evaluate {what}: {m} means {v.tolist()} are not the "
+                                     f"per-query means {per_query[m].mean(0).tolist()}")
+        return {"eval_s": eval_s, **{m: v.tolist() for m, v in means.items()}}
+
+    before = evaluate("before")
+    reset_counts()
+    t0 = time.perf_counter()
+    mean_loss, stop = ranker.train_epoch(batches * EPOCH_PASSES, epoch_k=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_counts = read_counts()
+    steps = len(batches) * EPOCH_PASSES
+    check_counts(epoch_counts, steps, "wassrank train_epoch", WASS_LAUNCHES_PER_STEP)
+    if stop or not math.isfinite(mean_loss):
+        raise AssertionError(f"wassrank train_epoch: mean loss {mean_loss}, stop {stop}")
+    reset_counts()
+    after = evaluate("after")
+    eval_counts = read_counts()
+    if eval_counts["flash_attn_fwd"] != 2 * 6 * len(batches) or eval_counts["sinkstep"] != 0:
+        raise AssertionError(f"evaluate: kernel launches {eval_counts} for {len(batches)} batches "
+                             f"scored twice")
+    k10 = EVAL_KS.index(10)
+    epoch_rec = {"queries": EPOCH_QUERIES, "batches": len(batches), "passes": EPOCH_PASSES,
+                 "steps": steps, "epoch_s": epoch_s, "mean_loss_per_query": mean_loss,
+                 "launches": epoch_counts, "ks": list(EVAL_KS), "nDCG@10_before": before["nDCG"][k10],
+                 "nDCG@10_after": after["nDCG"][k10], "before": before, "after": after}
+    print("wassrank_epoch " + json.dumps(epoch_rec) + f"  [{card}]", flush=True)
+
+    # (d) resume: save, restore into a second ranker, one more step on both
+    ckpt = os.path.join(work_dir, "wassrank.pt")
+    ranker.save(ckpt)
+    again = AdhocRanker.from_checkpoint(ckpt, device="cuda")
+    loss_a, _ = ranker.train_epoch(batches[:1], epoch_k=2)
+    loss_b, _ = again.train_epoch(batches[:1], epoch_k=2)
+    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+               zip(tree_leaves(ranker.params), tree_leaves(again.params)))
+    if not diff <= RESUME_TOL or loss_a != loss_b:
+        raise AssertionError(f"wassrank resume: params differ by {diff} (tol {RESUME_TOL}), "
+                             f"losses {loss_a} vs {loss_b}")
+    print("wassrank_resume " + json.dumps({"max_abs_param_diff": diff, "loss": loss_a})
+          + f"  [{card}]", flush=True)
+    return epoch_counts
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -916,6 +1249,7 @@ def main() -> int:
     records["flash_attn_fwd"].update({k: flash[k] for k in ("max_abs_err", "plain_ms",
                                                             "library_ms")})
     records.update(check_pairwise(card))
+    records.update(check_sinkstep(card))
 
     phase("serve")
     work_dir = os.path.join(here, "build", "chip_smoke")
@@ -924,6 +1258,9 @@ def main() -> int:
 
     phase("train")
     launches = train_phase(card, work_dir)
+
+    phase("wassrank")
+    launches["sinkstep"] = wassrank_phase(card, work_dir)["sinkstep"]
 
     sources = {
         "flash_attn_fwd": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
@@ -936,6 +1273,8 @@ def main() -> int:
                                 "ptranking_tpu/ops/pallas/pairwise.py:60"),
         "pairwise_lambda_bwd": ("ptranking_tpu_torch/ops/csrc/pairwise_lambda.cu",
                                 "ptranking_tpu/ops/pallas/pairwise.py:93"),
+        "sinkstep": ("ptranking_tpu_torch/ops/csrc/sinkstep.cu",
+                     "ptranking_tpu/ops/pallas/sinkhorn.py:26"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

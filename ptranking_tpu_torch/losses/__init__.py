@@ -1,17 +1,30 @@
 """The LTR loss registry, as in ptranking_tpu/losses/__init__.py: losses are
 pure `f(scores, labels, mask, **hyper) -> scalar`, and a model id names one.
 
-`LOSSES` holds the losses ported so far; `DEFAULT_PARAS`, `STOCHASTIC` and
-`REQUIRES_LISTSF` are the JAX package's, whole, so a checkpoint of any model
-id keeps its hyper-parameters. `get_loss` of an id the JAX package has but
-the port does not yet raises a KeyError that says so.
+`LOSSES` holds all 14 model ids of the JAX package, with its
+`DEFAULT_PARAS`, `STOCHASTIC` and `REQUIRES_LISTSF`. A loss whose id is in
+`STOCHASTIC` takes its random draws from `gen=` (a torch.Generator) or, in
+their place, `noise=` (the uniform draws themselves). `get_loss` of an
+unknown id raises a KeyError that lists the known ones.
 """
 
 from typing import Any, Callable, Dict
 
-from ptranking_tpu_torch.losses.listwise import lambda_rank, listnet
+from ptranking_tpu_torch.losses.listwise import (
+    approx_ndcg,
+    lambda_loss,
+    lambda_rank,
+    listmle,
+    listnet,
+    mdp_rank,
+    neural_ndcg,
+    rank_cosine,
+    soft_rank,
+    st_listnet,
+)
 from ptranking_tpu_torch.losses.pairwise import ranknet
 from ptranking_tpu_torch.losses.pointwise import rank_mse
+from ptranking_tpu_torch.losses.wassrank import wass_rank
 
 LossFn = Callable[..., Any]
 
@@ -20,7 +33,16 @@ LOSSES: Dict[str, LossFn] = {
     "RankNet": ranknet,
     "LambdaRank": lambda_rank,
     "ListNet": listnet,
+    "STListNet": st_listnet,
+    "ListMLE": listmle,
+    "RankCosine": rank_cosine,
+    "ApproxNDCG": approx_ndcg,
+    "LambdaLoss": lambda_loss,
+    "SoftRank": soft_rank,
+    "MDPRank": mdp_rank,
+    "WassRank": wass_rank,
     "DASALC": listnet,  # ListNet loss on the DASALC listwise scorer
+    "NeuralNDCG": neural_ndcg,
 }
 
 # Per-model default hyper-parameters (the reference's default_para_dict).
@@ -56,10 +78,7 @@ def get_loss(model_id: str) -> LossFn:
     try:
         return LOSSES[model_id]
     except KeyError:
-        if model_id in DEFAULT_PARAS:
-            raise KeyError(f"model id {model_id!r} is not ported yet; ported: "
-                           f"{sorted(LOSSES)}") from None
-        raise KeyError(f"unknown model id {model_id!r}; ported: {sorted(LOSSES)}") from None
+        raise KeyError(f"unknown model id {model_id!r}; implemented: {sorted(LOSSES)}") from None
 
 
 __all__ = ["LOSSES", "DEFAULT_PARAS", "STOCHASTIC", "REQUIRES_LISTSF", "get_loss"]

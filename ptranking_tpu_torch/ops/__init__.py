@@ -1,6 +1,9 @@
-"""Masked ranking primitives, as in ptranking_tpu/ops/__init__.py (the
-sigmoid and cumulative helpers come with the rest of the loss zoo)."""
+"""Masked ranking primitives, as in ptranking_tpu/ops/__init__.py. The
+Sinkhorn iterations (ops/sinkhorn.py) and the kernels' wrappers
+(ops/attention.py, ops/pairwise_fused.py, ops/sinkhorn_fused.py) are imported
+from their own modules."""
 
+from ptranking_tpu_torch.ops.cumulative import logcumsumexp_reverse
 from ptranking_tpu_torch.ops.gains import gain, masked_log_softmax, masked_softmax
 from ptranking_tpu_torch.ops.pairwise import (
     delta_ndcg,
@@ -9,6 +12,7 @@ from ptranking_tpu_torch.ops.pairwise import (
     pairwise_diffs,
     triu_pair_mask,
 )
+from ptranking_tpu_torch.ops.sigmoid import robust_sigmoid, vanilla_sigmoid
 from ptranking_tpu_torch.ops.sorting import (
     ideal_sorted_labels,
     mask_scores,
@@ -29,4 +33,7 @@ __all__ = [
     "gain",
     "masked_softmax",
     "masked_log_softmax",
+    "robust_sigmoid",
+    "vanilla_sigmoid",
+    "logcumsumexp_reverse",
 ]

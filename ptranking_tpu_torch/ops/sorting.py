@@ -6,6 +6,8 @@ gathers are `torch.gather`, through which gradients flow to the scores.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ptranking_tpu_torch import PAD_SCORE
@@ -35,16 +37,19 @@ def ideal_sorted_labels(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
     return torch.where(out <= PAD_SCORE, 0.0, out)
 
 
-def shuffle_ties_argsort(gen: torch.Generator, labels: torch.Tensor, mask: torch.Tensor,
-                         descending: bool = True) -> torch.Tensor:
+def shuffle_ties_argsort(gen: Optional[torch.Generator], labels: torch.Tensor,
+                         mask: torch.Tensor, descending: bool = True,
+                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Indices sorting labels (descending by default) with ties broken
-    uniformly at random from `gen` (a generator on the labels' device); pads
-    last. A lexicographic sort on (label, uniform noise): a sort by the noise,
-    then a stable sort by the label."""
+    uniformly at random; pads last. The tie-breaking uniform draws come from
+    `gen` (a generator on the labels' device), or are `noise` itself (of the
+    labels' shape) when given. A lexicographic sort on (label, noise): a sort
+    by the noise, then a stable sort by the label."""
     sign = -1.0 if descending else 1.0
-    noise = torch.rand(labels.shape, generator=gen, device=labels.device)
+    if noise is None:
+        noise = torch.rand(labels.shape, generator=gen, device=labels.device)
     # pads always sort last: the ascending sort needs them at +inf-like keys
     primary = torch.where(mask, sign * labels, -PAD_SCORE)
-    by_noise = torch.argsort(noise, dim=-1)
+    by_noise = torch.argsort(noise, dim=-1, stable=True)
     by_label = torch.argsort(torch.gather(primary, -1, by_noise), dim=-1, stable=True)
     return torch.gather(by_noise, -1, by_label)

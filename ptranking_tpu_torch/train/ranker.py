@@ -2,9 +2,11 @@
 
 Counterpart of ptranking_tpu/train/ranker.py. A ranker holds a scorer config,
 its fp32 params on one device, the optimizer and one torch.Generator for
-dropout, all seeded from `seed`. `train_epoch` runs one optimizer step per
-batch, eagerly (the JAX package's scan of K steps per dispatch has no
-counterpart yet); `predict` scores a padded batch.
+dropout and the stochastic losses' draws, all seeded from `seed`.
+`train_epoch` runs one optimizer step per batch, eagerly (the JAX package's
+scan of K steps per dispatch has no counterpart yet); `predict` scores a
+padded batch; `evaluate` gives dataset-level nDCG, nERR, AP and P at each k,
+one batch at a time, with one host fetch at the end.
 
 Checkpoints:
   * the port's own `.pt` (torch.save of plain dicts, configs as dicts, params
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from ptranking_tpu_torch import LTR_SEED, resolve_device
-from ptranking_tpu_torch.losses import DEFAULT_PARAS, REQUIRES_LISTSF, get_loss
+from ptranking_tpu_torch.losses import DEFAULT_PARAS, REQUIRES_LISTSF, STOCHASTIC, get_loss
+from ptranking_tpu_torch.metrics.adhoc import evaluate_all_at_ks
 from ptranking_tpu_torch.models.convert import JaxNamedTuple, opt_state_from_jax, params_from_jax
 from ptranking_tpu_torch.models.scorers import (ScorerConfig, apply_scorer, init_scorer,
                                                 map_params, tree_leaves)
@@ -37,6 +40,7 @@ from ptranking_tpu_torch.train.optimizer import OptimizerConfig, epoch_lr, make_
 from ptranking_tpu_torch.types import LabelType, RankingBatch
 
 CHECKPOINT_FORMAT = "ptranking_tpu_torch/1"
+METRICS = ("nDCG", "nERR", "AP", "P")
 
 
 class _JaxCheckpointUnpickler(pickle.Unpickler):
@@ -107,8 +111,7 @@ class AdhocRanker:
         self.device = resolve_device(device)
         self.model_id = model_id
         self.scorer_cfg = scorer_cfg
-        # the loss itself is looked up at the first step, so a checkpoint of
-        # a model whose loss is not ported yet still serves
+        # the loss itself is looked up at the first step: serving needs none
         self.model_paras = {**DEFAULT_PARAS.get(model_id, {}), **(model_paras or {})}
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.label_type = label_type
@@ -142,7 +145,9 @@ class AdhocRanker:
         self._optimizer.zero_grad(set_to_none=True)
         scores = apply_scorer(self.params, self.scorer_cfg, features, mask,
                               training=True, gen=self._gen)
-        loss = loss_fn(scores, labels, mask, label_type=self.label_type, **self.model_paras)
+        # a stochastic loss draws from the same generator, after the scorer's dropout
+        kw = {"gen": self._gen} if self.model_id in STOCHASTIC else {}
+        loss = loss_fn(scores, labels, mask, label_type=self.label_type, **self.model_paras, **kw)
         loss.backward()
         self._optimizer.step()
         return loss.detach()
@@ -190,6 +195,60 @@ class AdhocRanker:
         x = _to_device(batch.features, self.device)
         mask = _to_device(batch.mask, self.device, torch.bool)
         return apply_scorer(self.params, self.scorer_cfg, x, mask)
+
+    # ------------------------------------------------------------------ eval
+
+    @torch.inference_mode()
+    def evaluate(self, batches, ks=(1, 3, 5, 10, 20, 50)) -> Dict[str, np.ndarray]:
+        """Dataset-level metric means {nDCG, nERR, AP, P: [len(ks)]} over the
+        real queries. `batches` is an iterable of padded batches or an object
+        with `.batches()`. Batches are evaluated one at a time and never
+        merged (BN uses batch statistics at eval); each leaves a packed
+        [4 * len(ks) + 1] sum on the device, the real-query count in the last
+        slot, and the host fetches their total once, at the end."""
+        if self.params is None:
+            raise RuntimeError("init() or load() the ranker first")
+        ks = tuple(ks)
+        K = len(ks)
+        if hasattr(batches, "batches"):
+            batches = batches.batches()
+        packed_rows = []
+        for batch in batches:
+            labels = _to_device(batch.labels, self.device, torch.float32)
+            mask = _to_device(batch.mask, self.device, torch.bool)
+            scores = apply_scorer(self.params, self.scorer_cfg,
+                                  _to_device(batch.features, self.device), mask)
+            out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
+            # all-padded remainder rows add zero metric and must not count
+            count = torch.sum(torch.any(mask, dim=-1)).to(torch.float32)
+            packed_rows.append(torch.cat([torch.sum(out[m], dim=0) for m in METRICS]
+                                         + [count[None]]))
+        if not packed_rows:
+            return {m: np.zeros(K) for m in METRICS}
+        total = torch.stack(packed_rows).sum(0).cpu().numpy()
+        count = float(total[len(METRICS) * K])
+        if count == 0:
+            return {m: np.zeros(K) for m in METRICS}
+        return {m: total[i * K:(i + 1) * K] / count for i, m in enumerate(METRICS)}
+
+    def validation(self, batches, k: int = 5, metric: str = "nDCG") -> float:
+        """One validation scalar: `metric`@k over the batches."""
+        return float(self.evaluate(batches, ks=(k,))[metric][0])
+
+    @torch.inference_mode()
+    def evaluate_per_query(self, batches: Iterable[RankingBatch],
+                           ks=(1, 3, 5, 10, 20, 50)) -> Dict[str, np.ndarray]:
+        """Per-query metric matrices [num_queries, len(ks)] for real queries."""
+        ks = tuple(ks)
+        rows: Dict[str, list] = {m: [] for m in METRICS}
+        for batch in batches:
+            labels = _to_device(batch.labels, self.device, torch.float32)
+            mask = _to_device(batch.mask, self.device, torch.bool)
+            out = evaluate_all_at_ks(self.predict(batch), labels, mask, ks, self.label_type)
+            real = torch.any(mask, dim=-1)
+            for m in rows:
+                rows[m].append(out[m][real].cpu().numpy())
+        return {m: (np.concatenate(v) if v else np.zeros((0, len(ks)))) for m, v in rows.items()}
 
     # ------------------------------------------------------------------- io
 

@@ -1,8 +1,10 @@
-"""The port's ranking primitives (ptranking_tpu_torch/ops/{gains,sorting,pairwise}.py)
+"""The port's ranking primitives
+(ptranking_tpu_torch/ops/{gains,sorting,pairwise,sigmoid,cumulative}.py)
 against the JAX package's, on lists with ties, ragged masks and an all-padded
 row. Outputs are compared exactly where both compute the same operations in
 the same order, else at fp32 rounding."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,6 +65,12 @@ CASES = {
                               lambda s, l, m: tops.pairwise_comp_probs(s, l, sigma=1.5)[0], False),
     "pairwise_comp_probs_std": (lambda s, l, m: jops.pairwise_comp_probs(s, l)[1],
                                 lambda s, l, m: tops.pairwise_comp_probs(s, l)[1], True),
+    "robust_sigmoid": (lambda s, l, m: jops.robust_sigmoid(s - 1.0, 10.0),
+                       lambda s, l, m: tops.robust_sigmoid(s - 1.0, 10.0), False),
+    "vanilla_sigmoid": (lambda s, l, m: jops.vanilla_sigmoid(s - 1.0, 0.5),
+                        lambda s, l, m: tops.vanilla_sigmoid(s - 1.0, 0.5), False),
+    "logcumsumexp_reverse": (lambda s, l, m: jops.logcumsumexp_reverse(s, m),
+                             lambda s, l, m: tops.logcumsumexp_reverse(s, m), False),
 }
 
 
@@ -112,3 +120,31 @@ def test_shuffle_ties_argsort_orders_labels_and_shuffles_ties():
             assert bool(torch.all(real[:-1] >= real[1:]))
         orders.add(tuple(order[0].tolist()))
     assert len(orders) > 1
+
+
+def test_logcumsumexp_reverse_with_pads_anywhere_matches_jax():
+    """Pads in the middle of a list add nothing; value and gradient."""
+    scores, _, _ = _inputs()
+    mask = np.random.RandomState(3).rand(B, N) < 0.6
+    mask[3] = False
+    want_g = jax.grad(lambda x: jnp.sum(jnp.where(
+        jnp.asarray(mask), jops.logcumsumexp_reverse(x, jnp.asarray(mask)), 0.0)))(jnp.asarray(scores))
+    ts = torch.from_numpy(scores).requires_grad_(True)
+    tm = torch.from_numpy(mask)
+    out = tops.logcumsumexp_reverse(ts, tm)
+    _close(out.detach().numpy(), jops.logcumsumexp_reverse(jnp.asarray(scores), jnp.asarray(mask)))
+    (grad,) = torch.autograd.grad(torch.sum(torch.where(tm, out, 0.0)), ts)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("descending", [True, False])
+def test_shuffle_ties_argsort_with_injected_noise_gives_the_jax_order(descending):
+    """The JAX package sorts on (label, uniform(key)) pairs; given the same
+    draws as `noise`, the port's two sorts give the same order, exactly."""
+    _, labels, mask = _inputs()
+    key = jax.random.PRNGKey(11)
+    want = jops.shuffle_ties_argsort(key, jnp.asarray(labels), jnp.asarray(mask), descending)
+    noise = torch.from_numpy(np.array(jax.random.uniform(key, labels.shape)))
+    got = tops.shuffle_ties_argsort(None, torch.from_numpy(labels), torch.from_numpy(mask),
+                                    descending, noise=noise)
+    _close(got.numpy(), want, exact=True)

@@ -3,7 +3,10 @@ the flagship wiring (DASALC listsf, flash attention, LambdaRank through the
 fused pairwise loss) at a small size, for each optimizer; resuming from a
 JAX checkpoint; the port's own checkpoints, stop guard, dropout and remat;
 and the two faults repaired in the port (LayerNorm's gradient on an
-all-padded row, and the eps rule of Adagrad and RMSprop)."""
+all-padded row, and the eps rule of Adagrad and RMSprop). Then the WassRank
+and evaluation slice: a WassRank step and its gradients (pointsf and a small
+listsf) and `evaluate`, both against the JAX package from carried-over
+params; a stochastic loss (ListMLE) in the step; a WassRank `.pt` resume."""
 
 import dataclasses
 
@@ -272,3 +275,166 @@ def test_remat_gives_the_same_gradients_with_dropout():
         grads.append(torch.autograd.grad(torch.sum(torch.where(mask, scores, 0.0) ** 2), leaves))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- WassRank, evaluate, ListMLE
+
+WASS_CFGS = {
+    "pointsf": lambda: JaxScorerConfig(sf_id="pointsf", num_features=F, h_dim=16, num_layers=3,
+                                       dropout=0.0),
+    "listsf": lambda: _listsf(dropout=0.0),
+}
+# per parameter tensor ||port - jax|| / max(||jax||, 1e-2 * the largest ||jax||):
+# fp32 on both sides, through 20 Sinkhorn iterations whose log-scalings reach
+# the hundreds under the `eg` cost; the worst seen is 2e-5 (listsf) and 3e-6
+# (pointsf), held with a margin
+WASS_GRAD_TOL = 2e-4
+
+
+@pytest.mark.parametrize("sf", sorted(WASS_CFGS))
+def test_wassrank_step_matches_jax(sf, tmp_path):
+    """From a JAX WassRank ranker's params, carried across through its .pkl:
+    the same loss, the same gradients per parameter tensor (WASS_GRAD_TOL) and
+    the same first Adagrad step as `AdhocRanker._compiled_step`."""
+    from ptranking_tpu.models import apply_scorer as jax_apply_scorer
+
+    cfg = WASS_CFGS[sf]()
+    jr = JaxRanker("WassRank", cfg, opt_cfg=JaxOptimizerConfig(opt="Adagrad", lr=LR)).init()
+    jr.save(str(tmp_path / "init.pkl"))
+    batch = _batch()
+    args = tuple(jnp.asarray(a) for a in (batch.features, batch.labels, batch.mask))
+
+    def loss_of(p):
+        scores = jax_apply_scorer(p, cfg, args[0], args[2], training=True,
+                                  key=jax.random.PRNGKey(0))
+        return jr.loss_fn(scores, args[1], args[2], **jr.model_paras)
+
+    want_loss, want_grads = jax.value_and_grad(loss_of)(jr.params)
+    want_grads = _np_leaves(jax.tree_util.tree_map(np.asarray, want_grads), cfg)
+
+    ranker = AdhocRanker.from_checkpoint(str(tmp_path / "init.pkl"), device="cpu")
+    assert ranker.model_id == "WassRank" and ranker.model_paras["sh_itr"] == 20
+    leaves = tsc.tree_leaves(ranker.params)
+    mask = torch.from_numpy(batch.mask)
+    scores = tsc.apply_scorer(ranker.params, ranker.scorer_cfg, torch.from_numpy(batch.features),
+                              mask, training=True)
+    from ptranking_tpu_torch.losses import get_loss
+
+    loss = get_loss("WassRank")(scores, torch.from_numpy(batch.labels), mask, **ranker.model_paras)
+    grads = [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+    floor = 1e-2 * max(np.linalg.norm(w) for w in want_grads)
+    for name, g, w in zip(_names(ranker.params), grads, want_grads):
+        rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), floor)
+        assert rel <= WASS_GRAD_TOL, (name, rel)
+
+    before = [t.detach().numpy().copy() for t in leaves]
+    jparams, _, jloss = jr._compiled_step(jr.params, jr.opt_state, jax.random.PRNGKey(0), *args)
+    mean_loss, stop = ranker.train_epoch([batch], epoch_k=1)
+    assert not stop
+    np.testing.assert_allclose(mean_loss * sum(1 for n in LENGTHS if n), float(jloss), rtol=1e-5)
+    # Adagrad's first step is -lr * g' / sqrt(g'^2 + 1e-10) with g' = g + wd * p:
+    # where |g'| is near 1e-5 it magnifies the gradient's fp32 rounding, so
+    # each package's step is held to the formula on its own gradients (the
+    # gradients themselves were held together above). A bias in front of a
+    # BatchNorm has an exactly zero gradient: such a tensor (gradient norm
+    # under 1e-4 of the largest) holds rounding noise, which differs between
+    # two runs of one package, and its step is only held to |step| <= 1.01 * lr.
+    wd = ranker.opt_cfg.weight_decay
+    jax_after = _np_leaves(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    noise_floor = 1e-4 * max(np.linalg.norm(w) for w in want_grads)
+    for name, t, old, g, jnew, jg in zip(_names(ranker.params), leaves, before, grads, jax_after,
+                                         want_grads):
+        for new, grad in ((t.detach().numpy(), g), (jnew, jg)):
+            assert np.all(np.abs(new - old) <= 1.01 * LR), name
+            if np.linalg.norm(jg) < noise_floor:
+                continue
+            full = grad + wd * old
+            np.testing.assert_allclose(new - old, -LR * full / np.sqrt(full * full + 1e-10),
+                                       rtol=1e-3, atol=2e-2 * LR, err_msg=name)
+
+
+def _eval_batches():
+    """Three batches of other shapes, ragged, with all-padded remainder rows."""
+    out = []
+    for seed, (b, n, lengths) in enumerate([(3, 64, (64, 23, 0)), (4, 32, (32, 7, 1, 0)),
+                                            (2, 128, (100, 128))]):
+        rng = np.random.RandomState(10 + seed)
+        mask = np.arange(n)[None, :] < np.asarray(lengths)[:, None]
+        x = rng.randn(b, n, F).astype(np.float32)
+        x[~mask] = 0.0
+        labels = np.where(mask, rng.randint(0, 5, (b, n)), 0).astype(np.float32)
+        out.append(RankingBatch(x, labels, mask))
+    return out
+
+
+@pytest.mark.parametrize("sf", sorted(WASS_CFGS))
+def test_evaluate_matches_jax(sf, tmp_path):
+    """`evaluate` (and `validation`, `evaluate_per_query`) on the same params
+    and batches as the JAX package's, to 1e-5: metric means over the real
+    queries, all-padded rows not counted."""
+    cfg = WASS_CFGS[sf]()
+    jr = JaxRanker("WassRank", cfg).init()
+    jr.save(str(tmp_path / "init.pkl"))
+    ranker = AdhocRanker.from_checkpoint(str(tmp_path / "init.pkl"), device="cpu")
+    batches = _eval_batches()
+    ks = (1, 3, 5, 10, 20, 50)
+    want = jr.evaluate(iter(batches), ks=ks)
+    got = ranker.evaluate(iter(batches), ks=ks)
+    assert sorted(got) == sorted(want) == ["AP", "P", "nDCG", "nERR"]
+    for m in want:
+        assert got[m].shape == (len(ks),)
+        np.testing.assert_allclose(got[m], np.asarray(want[m]), rtol=1e-5, atol=1e-5, err_msg=m)
+    assert got["nDCG"][0] > 0.0
+
+    class Dataset:  # an object with .batches() is accepted too
+        def batches(self):
+            return iter(batches)
+
+    np.testing.assert_allclose(ranker.validation(Dataset(), k=5, metric="nDCG"),
+                               jr.validation(iter(batches), k=5, metric="nDCG"),
+                               rtol=1e-5, atol=1e-5)
+    per_query = ranker.evaluate_per_query(iter(batches), ks=ks)
+    want_pq = jr.evaluate_per_query(iter(batches), ks=ks)
+    for m in want_pq:
+        assert per_query[m].shape == (7, len(ks))  # 7 real queries of 9 rows
+        np.testing.assert_allclose(per_query[m], want_pq[m], rtol=1e-5, atol=1e-5, err_msg=m)
+    empty = ranker.evaluate([], ks=(1, 5))
+    assert all(not empty[m].any() and empty[m].shape == (2,) for m in empty)
+
+
+def _zoo_ranker(model_id, **kw):
+    return AdhocRanker(model_id, _port_cfg(_listsf(dropout=0.1)),
+                       opt_cfg=OptimizerConfig(opt="Adam", lr=LR), device="cpu", **kw).init()
+
+
+def test_stochastic_loss_trains_and_repeats_from_the_seed():
+    """ListMLE draws its tie-breaking noise from the ranker's generator, after
+    the scorer's dropout draws: steps run, the loss is finite, the same seed
+    gives the same steps and another seed other ones."""
+    batch = _batch()
+    runs = []
+    for seed in (1, 1, 2):
+        ranker = _zoo_ranker("ListMLE", seed=seed)
+        losses = [ranker.train_epoch([batch, batch], epoch_k=k)[0] for k in (1, 2)]
+        assert all(np.isfinite(l) for l in losses)
+        runs.append((losses, [t.detach().clone() for t in tsc.tree_leaves(ranker.params)]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert runs[0][0] != runs[2][0]
+
+
+def test_wassrank_pt_checkpoint_resumes_to_the_same_next_step(tmp_path):
+    ranker = _zoo_ranker("WassRank")
+    batch = _batch()
+    ranker.train_epoch([batch], epoch_k=1)
+    ranker.save(str(tmp_path / "w.pt"))
+    again = AdhocRanker.from_checkpoint(str(tmp_path / "w.pt"), device="cpu")
+    assert again.model_id == "WassRank" and again.model_paras == ranker.model_paras
+    assert ranker.train_epoch([batch], epoch_k=2) == again.train_epoch([batch], epoch_k=2)
+    for a, b in zip(tsc.tree_leaves(ranker.params), tsc.tree_leaves(again.params)):
+        assert torch.equal(a, b)
+    before = ranker.evaluate([batch])
+    after = again.evaluate([batch])
+    for m in before:
+        np.testing.assert_array_equal(before[m], after[m])
