@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
      times for the kernel, the plain version and one PyTorch library call of
      the same function where there is one: the flash attention forward (bf16
      and fp32), its backward (dk/dv and dq kernels, against autograd through
-     the plain blockwise attention), the fused pairwise lambda loss
+     the plain blockwise attention and against the explicit plain backward;
+     the bf16 kernels run on the tensor cores, and their build must not
+     spill at the flagship's head dim), the fused pairwise lambda loss
      (forward and backward, LambdaRank and RankNet), and the Sinkhorn
      half-step (both orientations, then 20 iterations of scalings);
   4. serve: the flagship ranker (F=136 DASALC listsf, 6 layers, 2 heads, bf16,
@@ -73,12 +75,21 @@ EDGE_SHAPES = [(2, 3, 1, 1, False), (2, 2, 65, 8, True), (1, 3, 100, 24, False),
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # max |kernel - plain| / max |plain| per gradient (dq, dk, dv) over the lists
 # with a real document (all-padded lists differ by contract, as in the
-# forward, and are checked for finiteness only). fp32: summation order and
-# exp rounding. bf16: autograd through the plain version rounds p and the
-# gradient of p to bf16 where the kernels keep fp32, and both round the
-# outputs to bf16. The first chip run's worst over every shape was 1.3e-6
-# (fp32) and 6.8e-3 (bf16); the tolerances hold a margin of 3x and more.
+# forward, and are checked for finiteness only), against two plain versions:
+# autograd through blockwise_attention, and attention_backward_plain (the
+# kernels' own formulas from the same row statistics). fp32: summation order
+# and exp rounding. bf16: the kernels round P and dS to bf16 before the second
+# products, as attention_backward_plain does at the same points (what is left
+# is the tensor cores' summation order, the fast exp and one bf16 ulp at the
+# outputs), while autograd through blockwise_attention rounds each block's
+# unnormalised p and the gradient of p; all round the outputs to bf16.
+# The worst of a run on an H100 over all 12 shapes: 7.6e-3 (bf16) and 1.7e-6
+# (fp32) against autograd, 3.3e-3 and 6.1e-7 against attention_backward_plain;
+# the tolerances hold a margin of 2.6x and more.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the tensor-core instantiation the flagship's head dim (68 -> 5 steps of 16)
+# runs: its build must not spill
+FLAGSHIP_KC = 5
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -173,37 +184,74 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def ptxas_entries(log: str):
+    """[(mangled entry name, registers, spill bytes)] from nvcc's -Xptxas -v output."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
+        out.append((part.split("'", 1)[0], int(regs.group(1)) if regs else -1,
+                    sum(int(x) for x in spills)))
+    return out
+
+
 def ptxas_summary(log: str) -> str:
-    """One line per kernel from nvcc's -Xptxas -v output: entries compiled,
-    register range and spill bytes."""
-    name = log.split(":", 1)[0]
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
-    return (f"{name}: {len(regs)} entries, registers {min(regs, default=0)}.."
-            f"{max(regs, default=0)}, spill stores {spills} bytes")
+    """One line per kernel source from nvcc's -Xptxas -v output: entries
+    compiled, register range and spill bytes (stores and loads)."""
+    entries = ptxas_entries(log)
+    regs = [e[1] for e in entries]
+    return (f"{log.split(':', 1)[0]}: {len(entries)} entries, registers {min(regs, default=0)}.."
+            f"{max(regs, default=0)}, spill {sum(e[2] for e in entries)} bytes")
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+def check_mma_build(log: str):
+    """Registers and spills of the backward's tensor-core kernels, by their
+    head-dim steps KC; raises if the flagship's instantiation spills or is
+    missing."""
+    found = {}
+    for name, regs, spill in ptxas_entries(log):
+        m = re.search(r"flash_bwd_(dkdv|dq)_mma_kernelILi(\d+)E", name)
+        if m:
+            found[(m.group(1), int(m.group(2)))] = (regs, spill)
+    for kind in ("dkdv", "dq"):
+        row = {kc: v for (k_, kc), v in sorted(found.items()) if k_ == kind}
+        print(f"flash_bwd_{kind}_mma_kernel registers/spill bytes by KC: "
+              + ", ".join(f"{kc}: {r}/{sp}" for kc, (r, sp) in row.items()), flush=True)
+        if FLAGSHIP_KC not in row or row[FLAGSHIP_KC][1] != 0:
+            raise AssertionError(f"flash_bwd_{kind}_mma_kernel<{FLAGSHIP_KC}>: "
+                                 f"{row.get(FLAGSHIP_KC, 'not built')} (registers, spill bytes)")
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3, blocks: int = 3) -> float:
+    """ms per call of `fn`: the median over `blocks` timed blocks of `iters`
+    calls each, CUDA events around every block. A block's time includes the
+    host's enqueueing wherever the host is slower than the card, so one stall
+    of the host would end up in a single block's mean; the median drops it."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(blocks)]
+    for start, end in events:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sorted(start.elapsed_time(end) for start, end in events)[blocks // 2] / iters
 
 
 def profile_ms(fn, kernel="flash_fwd_kernel", top=0):
     """(device busy ms, ms of the kernels whose name holds `kernel`, wall ms)
-    of one call of `fn` under torch.profiler: the sum of the kernels' own
-    device times, on one stream. The first two are None when the profiler
-    recorded no device time. With top > 0, a fourth item: the `top` kernels
-    by device time, as [name (cut to 60 characters), ms, calls]."""
+    of one call of `fn` under torch.profiler: the sum of the kernels' and
+    copies' own device times, on one stream. The profiler's user annotations
+    on the device (`Optimizer.step#...`) are left out: each spans its kernels
+    and the gaps between them, so it would count them twice and count idle
+    time as busy. The first two are None when the profiler recorded no device
+    time. With top > 0, a fourth item: the `top` kernels by device time, as
+    [name (cut to 60 characters), ms, calls]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,7 +264,8 @@ def profile_ms(fn, kernel="flash_fwd_kernel", top=0):
     busy = named = 0.0
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = e.self_device_time_total
         busy += us / 1e3
@@ -338,10 +387,10 @@ def attention_grads(fn, q, k, v, mask, dout):
     return [t.grad for t in leaves]
 
 
-def check_bwd_close(got, ref, mask, shape, dtype):
-    """The kernels' (dq, dk, dv) against the plain version's, over the lists
-    with a real document, under BWD_TOL; every gradient finite. Returns the
-    {name: (max abs err, relative err)}."""
+def check_bwd_close(got, ref, mask, shape, dtype, plain="autograd"):
+    """The kernels' (dq, dk, dv) against the plain version's (`plain` names
+    it), over the lists with a real document, under BWD_TOL; every gradient
+    finite. Returns the {name: (max abs err, relative err)}."""
     import torch
 
     name = str(dtype).split(".")[1]
@@ -356,23 +405,23 @@ def check_bwd_close(got, ref, mask, shape, dtype):
         else:
             errs[g_name] = (0.0, 0.0)
         if not errs[g_name][1] <= BWD_TOL[name]:
-            raise AssertionError(f"flash_attn_bwd {name} {shape}: {g_name} relative error "
-                                 f"{errs[g_name][1]} (tol {BWD_TOL[name]})")
+            raise AssertionError(f"flash_attn_bwd {name} {shape} against {plain}: {g_name} "
+                                 f"relative error {errs[g_name][1]} (tol {BWD_TOL[name]})")
     return errs
 
 
 def check_attention_bwd(card):
     """Phase 3: the backward kernels (through flash_attention's autograd)
-    against autograd through the plain blockwise attention at every shape and
-    dtype, and their times; returns the bf16 records at RECORD_SHAPE for the
-    dk/dv kernel, the dq kernel and the forward with row statistics (the
-    call training makes)."""
+    against autograd through the plain blockwise attention and against
+    attention_backward_plain at every shape and dtype, and their times;
+    returns the bf16 records at RECORD_SHAPE for the dk/dv kernel, the dq
+    kernel and the forward with row statistics (the call training makes)."""
     import torch
     import torch.nn.functional as Fn
 
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
-                                                   FLASH_ATTN_FWD, blockwise_attention,
-                                                   flash_attention)
+                                                   FLASH_ATTN_FWD, attention_backward_plain,
+                                                   blockwise_attention, flash_attention)
 
     def plain_fn(q, k, v, m):
         return blockwise_attention(q, k, v, m, block_size=min(128, q.shape[2]))
@@ -383,16 +432,29 @@ def check_attention_bwd(card):
         dout = torch.randn(B, H, N, d, generator=g).to("cuda", dtype)
         return q, k, v, mask, dout
 
-    worst = {"bfloat16": 0.0, "float32": 0.0}
+    def both_errs(q, k, v, mask, dout, dtype):
+        """The kernels' gradients against the two plain versions."""
+        shape = tuple(q.shape)
+        got = attention_grads(flash_attention, q, k, v, mask, dout)
+        ref = attention_grads(plain_fn, q, k, v, mask, dout)
+        out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        explicit = attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask)
+        torch.cuda.synchronize()
+        return (check_bwd_close(got, ref, mask, shape, dtype),
+                check_bwd_close(got, explicit, mask, shape, dtype, "attention_backward_plain"))
+
+    worst = {"autograd": {"bfloat16": 0.0, "float32": 0.0},
+             "plain_backward": {"bfloat16": 0.0, "float32": 0.0}}
+
+    def note(errs, errs_explicit, dtype):
+        name = str(dtype).split(".")[1]
+        for key, e in (("autograd", errs), ("plain_backward", errs_explicit)):
+            worst[key][name] = max(worst[key][name], *(x[1] for x in e.values()))
+
     for (B, H, N, d, all_padded) in EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, mask, dout = case(B, H, N, d, all_padded, dtype)
-            got = attention_grads(flash_attention, q, k, v, mask, dout)
-            ref = attention_grads(plain_fn, q, k, v, mask, dout)
-            torch.cuda.synchronize()
-            errs = check_bwd_close(got, ref, mask, (B, H, N, d), dtype)
-            name = str(dtype).split(".")[1]
-            worst[name] = max(worst[name], *(e[1] for e in errs.values()))
+            note(*both_errs(q, k, v, mask, dout, dtype), dtype)
     print(f"attn bwd edge shapes: {len(EDGE_SHAPES)} x 2 dtypes agree; worst relative "
           f"error {json.dumps(worst)}", flush=True)
 
@@ -400,10 +462,8 @@ def check_attention_bwd(card):
     for (B, H, N, d, all_padded) in ATTN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, mask, dout = case(B, H, N, d, all_padded, dtype)
-            got = attention_grads(flash_attention, q, k, v, mask, dout)
-            ref = attention_grads(plain_fn, q, k, v, mask, dout)
-            torch.cuda.synchronize()
-            errs = check_bwd_close(got, ref, mask, (B, H, N, d), dtype)
+            errs, errs_explicit = both_errs(q, k, v, mask, dout, dtype)
+            note(errs, errs_explicit, dtype)
 
             out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
             dsum = torch.sum(dout.float() * out.float(), dim=-1)
@@ -412,23 +472,38 @@ def check_attention_bwd(card):
             dq = lambda: FLASH_ATTN_BWD_DQ(q, k, v, dout, row_max, row_sum, dsum, mask)
             leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
             plain_out = plain_fn(*leaves, mask)
-            plain = lambda: plain_out.backward(dout, retain_graph=True)
+
+            def backward_only(out_, leaves_):
+                """One backward from a kept graph into fresh .grad tensors."""
+                for t in leaves_:
+                    t.grad = None
+                out_.backward(dout, retain_graph=True)
+
+            plain = lambda: backward_only(plain_out, leaves)
             bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :].expand(B, H, N, N)
             lib_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-            library = lambda: Fn.scaled_dot_product_attention(
-                *lib_leaves, attn_mask=bias).backward(dout)
+            library = lambda: backward_only(
+                Fn.scaled_dot_product_attention(*lib_leaves, attn_mask=bias), lib_leaves)
+            # the library's backward alone: one call yields dq, dk and dv, so
+            # it stands against the two backward kernels together
+            lib_out = Fn.scaled_dot_product_attention(*lib_leaves, attn_mask=bias)
+            library_bwd = lambda: backward_only(lib_out, lib_leaves)
             iters = 10 if N >= 1024 else 100
             times = {"fwd_stats": cuda_time_ms(fwd, iters), "dkdv": cuda_time_ms(dkdv, iters),
                      "dq": cuda_time_ms(dq, iters),
                      "plain_bwd": cuda_time_ms(plain, max(iters // 4, 3)),
-                     "library_fwd_bwd": cuda_time_ms(library, iters)}
+                     "library_fwd_bwd": cuda_time_ms(library, iters),
+                     "library_bwd": cuda_time_ms(library_bwd, iters)}
+            times["dkdv_plus_dq"] = times["dkdv"] + times["dq"]
             name = str(dtype).split(".")[1]
             peak = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
             val = B * H * N * d * q.element_size()
             stats_bytes = B * H * N * 4
             rec = {"shape": [B, H, N, d], "dtype": name,
                    "max_abs_err": {g: e[0] for g, e in errs.items()},
-                   "rel_err": {g: e[1] for g, e in errs.items()}, "ms": times,
+                   "rel_err": {g: e[1] for g, e in errs.items()},
+                   "rel_err_vs_plain_backward": {g: e[1] for g, e in errs_explicit.items()},
+                   "ms": times,
                    "bound_ms": {
                        "fwd_stats": bound(4.0 * B * H * N * N * d, peak,
                                           4 * val + B * N + 2 * stats_bytes),
@@ -438,7 +513,7 @@ def check_attention_bwd(card):
                                    5 * val + 3 * stats_bytes + B * N)}}
             print("attn_bwd " + json.dumps(rec) + f"  [{card}]", flush=True)
             if (B, H, N, d) == RECORD_SHAPE and dtype == torch.bfloat16:
-                common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_fwd_bwd"]}
+                common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
                 records["flash_attn_fwd"] = {"ms": times["fwd_stats"],
                                              **rec["bound_ms"]["fwd_stats"]}
                 records["flash_attn_bwd_dkdv"] = {
@@ -447,6 +522,7 @@ def check_attention_bwd(card):
                 records["flash_attn_bwd_dq"] = {
                     "max_abs_err": errs["dq"][0], "ms": times["dq"], **common,
                     **rec["bound_ms"]["dq"]}
+    print(f"attn bwd worst relative error over every shape: {json.dumps(worst)}", flush=True)
     return records
 
 
@@ -1241,6 +1317,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for log in cuda_build.build(cuda_build.all_kernels()):
         print(ptxas_summary(log), flush=True)
+        if log.startswith("flash_attn_bwd:"):
+            check_mma_build(log)
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     phase("kernels")

@@ -10,9 +10,14 @@ dropout (the JAX package applies none on its flash path either):
   * `flash_attention` — the same function through the hand-written CUDA
     kernels for CUDA tensors: `csrc/flash_attn_fwd.cu` forward, and when a
     gradient is needed, `csrc/flash_attn_bwd.cu` backward (dq, and dk with dv)
-    from the forward's row statistics, as a `torch.autograd.Function`. CPU
+    from the forward's row statistics, as a `torch.autograd.Function`: bf16
+    inputs on the tensor cores, fp32 inputs on the fp32 CUDA cores. CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
+  * `attention_backward_plain` — the backward kernels' formulas in plain
+    torch, from the same row statistics and with the kernels' rounding
+    points. Tests and the card check hold the kernels against it; no
+    training or serving path calls it.
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -63,6 +68,36 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mx = new_mx
     out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             dout: torch.Tensor, out: torch.Tensor, row_max: torch.Tensor,
+                             row_sum: torch.Tensor, mask: torch.Tensor):
+    """(dq, dk, dv) of masked attention for the output gradient `dout`, as
+    the backward kernels compute them: from the forward's output and each
+    query row's softmax max `row_max` and sum `row_sum` ([B, H, N] fp32, a
+    masked key's logit being the constant -1e9),
+
+        P = exp(x - m) / l,  dP = dO v^T,  dS = P * (dP - rowsum(dO * O))
+
+    for a real key and dS = 0 for a masked one, then dv = P^T dO,
+    dk = scale * dS^T q, dq = scale * dS k. Logits, P and dS are fp32; P and
+    dS are rounded to the inputs' dtype before the last three products (a
+    no-op in fp32), which accumulate in fp32; outputs in the inputs' dtype.
+    Materialises [B, H, N, N]."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    real = mask[:, None, None, :]
+    x = torch.where(real, torch.matmul(qf, kf.transpose(-1, -2)) * scale, _NEG)
+    p = torch.exp(x - row_max[..., None]) / row_sum[..., None]
+    dsum = torch.sum(dof * out.float(), dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = torch.where(real, p * (dp - dsum[..., None]), 0.0)
+    p, ds = (t.to(q.dtype).float() for t in (p, ds))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(ds, kf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -144,8 +179,9 @@ class FlashAttnFwd:
 
 
 class FlashAttnBwdDkdv:
-    """ctypes wrapper of the dk, dv kernel of `csrc/flash_attn_bwd.cu`, with
-    its launch count. `dsum` is D = rowsum(dO * O), [B, H, N] fp32."""
+    """ctypes wrapper of the dk, dv kernels of `csrc/flash_attn_bwd.cu` (bf16:
+    tensor cores; fp32: CUDA cores), with its launch count. `dsum` is
+    D = rowsum(dO * O), [B, H, N] fp32."""
 
     name = "flash_attn_bwd_dkdv"
 
@@ -166,8 +202,8 @@ class FlashAttnBwdDkdv:
 
 
 class FlashAttnBwdDq:
-    """ctypes wrapper of the dq kernel of `csrc/flash_attn_bwd.cu`, with its
-    launch count."""
+    """ctypes wrapper of the dq kernels of `csrc/flash_attn_bwd.cu` (bf16:
+    tensor cores; fp32: CUDA cores), with its launch count."""
 
     name = "flash_attn_bwd_dq"
 

@@ -24,20 +24,59 @@
 // finite P*dO terms to dv.
 //
 // Layout, FA2-style, no atomics (the same inputs give the same bits):
-//   * flash_bwd_dkdv_kernel: one block per (b*h, 64-key tile); it loops over
-//     the 64-query tiles and accumulates its keys' dk and dv in registers;
-//   * flash_bwd_dq_kernel: one block per (b*h, 64-query tile); it loops over
-//     the 64-key tiles and accumulates its rows' dq in registers.
-// 128 threads per block: 16 row groups of 4 rows x 8 lanes, as the forward.
-// The head dim is padded inside the kernels to a multiple of 16 (DP = 8*NC
-// accumulator columns per row; the pad columns are zero in shared memory).
+//   * the dk/dv kernels: one block per (b*h, 64-key tile); it loops over the
+//     64-query tiles and accumulates its keys' dk and dv in registers;
+//   * the dq kernels: one block per (b*h, 64-query tile); it loops over the
+//     64-key tiles and accumulates its rows' dq in registers.
+// The head dim is padded inside the kernels to a multiple of 16 (the pad
+// columns are zero in shared memory).
 //
 // What bounds it: 8*B*H*N^2*d operations (dkdv: P recomputed, dP, dv, dk)
 // plus 6*B*H*N^2*d (dq: P, dP, dq) over about 7*B*H*N*d values moved, far
-// above the H100's bf16 ridge: arithmetic is the bound. Like the forward, this
-// first version does the products on the fp32 CUDA cores, from transposed
-// tiles in shared memory with 4x8 register blocks; the tensor cores (mma.sync,
-// then wgmma) are the way toward the bound.
+// above the H100's bf16 ridge: arithmetic is the bound, so the products have
+// to run on the tensor cores and nothing else may stand in their way. What
+// stands in their way in this design is the shared-memory pipe: the ldmatrix
+// reads (a warp owns only 16 rows, so every B fragment feeds one product) and
+// the 8-byte tile copies (ptranking_tpu_torch/tools/attn_bwd_variants.py
+// times the kernels with each phase cut out).
+//
+// bf16 inputs: flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel.
+//   * All four products are mma.sync.m16n8k16 (bf16 x bf16 -> fp32) with
+//     operands read from shared memory by ldmatrix. 4 warps a block; a warp
+//     owns 16 of the block's 64 keys (dk/dv) or 64 query rows (dq). (The
+//     same kernels with wgmma products, experiments/flash_attn_bwd_wgmma.cu,
+//     give the same bits and were not faster.)
+//   * The dk/dv kernel computes the TRANSPOSED tiles S^T = K Q^T and
+//     dP^T = V dO^T (rows = the warp's keys, columns = queries). The fp32
+//     accumulator fragment of two adjacent 8-column tiles is, element for
+//     element, the A-operand fragment of a 16-deep product: after the softmax
+//     arithmetic on the fragment (fp32, with the key's flag of the thread's
+//     two rows and m, 1/l, D of its columns), P^T and dS^T are rounded to
+//     bf16 in registers and feed dv += P^T dO and dk += dS^T Q directly, with
+//     B read from the same Q / dO tiles by ldmatrix.trans. The dq kernel does
+//     the same untransposed: S = Q K^T, dP = dO V^T, dq += dS K. P and dS
+//     never touch shared or device memory.
+//   * Tiles stay bf16 in shared memory, rows padded to DP + 8 elements
+//     (DP = 16*ceil(d/16)): every row starts 16-byte aligned, as ldmatrix
+//     needs, and 8 consecutive rows fall into 8 different 16-byte bank groups
+//     (the stride is an odd number of 16-byte units).
+//   * The tiles a block loops over are double-buffered: tile t+1 is copied by
+//     cp.async while tile t is multiplied, one __syncthreads a tile. A row of
+//     d = 68 bf16 is 136 bytes, a multiple of 8 but not of 16, so the copies
+//     are 8 bytes wide (d % 4 == 0 and 8-byte-aligned tensors; other shapes
+//     take a scalar, synchronous copy into the same buffers). The next tile's
+//     row statistics (dk/dv) or key flags (dq) are prefetched into registers
+//     and stored to the other buffer after the arithmetic.
+//   * Rounding: P and dS are rounded to bf16 before the second products, as
+//     autograd through the plain blockwise attention rounds them; all sums
+//     are fp32 and the outputs are rounded once at the store.
+//
+// fp32 inputs: flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, on the fp32 CUDA
+// cores by design. The tensor cores have no fp32 product (TF32 keeps about 3
+// digits) and the fp32 path is the exact one that gradient checks and
+// checkpoint-resume checks rest on. Products run from transposed fp32 tiles in
+// shared memory with 4x8 register blocks; 128 threads as 16 row groups of 4
+// rows x 8 lanes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,29 +85,504 @@
 
 namespace {
 
-constexpr int BM = 64;       // query rows per tile
-constexpr int BN = 64;       // keys per tile
-constexpr int NT = 128;      // threads
-constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
+constexpr int BM = 64;       // fp32 kernels: query rows per tile
+constexpr int BN = 64;       // fp32 kernels: keys per tile
+constexpr int NT = 128;      // fp32 kernels: threads
 constexpr float MASKED_LOGIT = -1e9f;
 
 enum : int { KEY_REAL = 0, KEY_MASKED = 1, KEY_OUT = 2 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
+__device__ __forceinline__ int key_flag(const uint8_t* __restrict__ mask_row, int key, int N) {
+    return key >= N ? KEY_OUT : (mask_row[key] ? KEY_REAL : KEY_MASKED);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int MMA_WARPS = 4;            // warps a block
+constexpr int MMA_NT = 32 * MMA_WARPS;  // threads a block
+constexpr int OWN = 16 * MMA_WARPS;     // rows a block owns: keys (dk/dv) or query rows (dq)
+constexpr int TILE = 64;                // rows of a tile it loops over: queries or keys
+constexpr int SUB = 32;                 // columns of S / dP a warp holds in registers at a time
+enum : int { COPY_8B = 1, STORE_PAIRS = 2 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
+// With g = lane / 4, t = lane % 4 a thread holds c[0..1] = (row g, columns 2t,
+// 2t+1), c[2..3] = (row g+8, the same columns); a[0] = (row g, k 2t, 2t+1),
+// a[1] = (row g+8, the same k), a[2], a[3] = the same rows at k + 8;
+// b0 = (k 2t, 2t+1; column g), b1 = the same at k + 8.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :
+                 : "r"(dst), "l"(__cvta_generic_to_global(src))
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A thread's share of a tile copy in 8-byte chunks (4 bf16): chunk tid + MMA_NT*i
+// of the tile is (row, chunk of the row); one division a kernel, not one a chunk.
+struct Chunks {
+    int per_row, row, col, row_step, col_step;
+    __device__ Chunks(int d, int tid) {
+        per_row = max(d >> 2, 1);
+        row = tid / per_row;
+        col = tid - row * per_row;
+        row_step = MMA_NT / per_row;
+        col_step = MMA_NT - row_step * per_row;
+    }
+};
+
+// Rows r < nrows of the contiguous [nrows, d] tile at src into the shared
+// [rows][LDS] tile at dst (columns < d), zeros in the rows past nrows. With
+// copy_8b the copies are cp.async (the caller commits and waits); otherwise
+// scalar and synchronous.
+template <int LDS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int nrows,
+                                          int rows, int d, bool copy_8b, const Chunks& ch) {
+    if (copy_8b) {
+        int r = ch.row, c = ch.col;
+        while (r < rows) {
+            bf16* p = dst + r * LDS + c * 4;
+            if (r < nrows) cp_async_8(smem_addr(p), src + size_t(r) * d + c * 4);
+            else *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
+            r += ch.row_step;
+            c += ch.col_step;
+            if (c >= ch.per_row) {
+                c -= ch.per_row;
+                ++r;
+            }
+        }
+    } else {
+        const bf16 zero = __float2bfloat16(0.f);
+        for (int i = threadIdx.x; i < rows * d; i += MMA_NT) {
+            const int r = i / d, c = i - r * d;
+            dst[r * LDS + c] = r < nrows ? src[size_t(r) * d + c] : zero;
+        }
+    }
+}
+
+// columns d .. LDS-1 of `rows` shared rows: written once, no copy touches them
+template <int LDS>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows, int d) {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int r = threadIdx.x; r < rows; r += MMA_NT)
+        for (int c = d; c < LDS; ++c) tiles[r * LDS + c] = zero;
+}
+
+// The A fragments (16 rows from row0, all KC 16-deep steps) of a [rows][LDS] tile.
+template <int KC>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KC][4], const bf16* tile, int row0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
+    const uint32_t addr = smem_addr(tile + (row0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks) ldmatrix_x4(a[ks], addr + ks * 32);
+}
+
+// acc[j] (16 x 8) += A (16 x 16*KC, fragments) * B_j^T, where B_j = rows
+// n0 + 8j .. n0 + 8j + 7 of the [TILE][LDS] tile at btile: the tile holds B
+// as [column][k], which is mma's column-major B, so ldmatrix reads it as is.
+template <int KC, int NTILES>
+__device__ __forceinline__ void product_nk(float (&acc)[NTILES][4], const uint32_t (&a)[KC][4],
+                                           const bf16* btile, int n0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+    const uint32_t addr = smem_addr(btile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS
+                                    + (((lane >> 3) & 1) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks)
+#pragma unroll
+        for (int np = 0; np < NTILES / 2; ++np) {
+            uint32_t b[4];
+            ldmatrix_x4(b, addr + (np * 16 * LDS + ks * 16) * 2);
+            mma_16816(acc[2 * np], a[ks], b[0], b[1]);
+            mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
+        }
+}
+
+// acc[j] (16 x 8: tile columns 8j .. 8j+7, j < 2*KC) += A (16 x 16*NCH,
+// fragments in registers) * B, where B = rows k0 .. k0 + 16*NCH - 1 of the
+// [TILE][LDS] tile at btile: the tile holds B as [k][column], so ldmatrix
+// transposes each 8 x 8 block on the way.
+template <int KC, int NCH>
+__device__ __forceinline__ void product_kn(float (&acc)[2 * KC][4], const uint32_t (&a)[NCH][4],
+                                           const bf16* btile, int k0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+    const uint32_t addr = smem_addr(btile + (k0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int np = 0; np < KC; ++np) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, addr + (ch * 16 * LDS + np * 16) * 2);
+            mma_16816(acc[2 * np], a[ch], b[0], b[1]);
+            mma_16816(acc[2 * np + 1], a[ch], b[2], b[3]);
+        }
+}
+
+// (x, y) at columns col, col + 1 of an output row of d columns
+__device__ __forceinline__ void store_pair(bf16* row, int col, float x, float y, int d,
+                                           bool pairs) {
+    if (pairs) {  // d even and the row 4-byte aligned: col + 1 < d whenever col < d
+        if (col < d) *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+    } else {
+        if (col < d) row[col] = __float2bfloat16(x);
+        if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+    }
+}
+
+// The dk/dv kernels' arithmetic on a fragment of S^T and dP^T (rows = the
+// thread's two keys with their flags, 8-column tiles j = queries): P^T and
+// dS^T packed as the A operand of the next products, two adjacent tiles to
+// one 16-deep step. st points at the statistics [m, 1/l, D][TILE] of the
+// thread's first column (2 * (lane % 4) past the fragment's first query).
+template <int NTILES>
+__device__ __forceinline__ void p_ds_transposed(uint32_t (&pa)[NTILES / 2][4],
+                                                uint32_t (&dsa)[NTILES / 2][4],
+                                                const float (&s)[NTILES][4],
+                                                const float (&dp)[NTILES][4], const float* st,
+                                                const int (&flag)[2], float scale) {
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(st + 8 * j);
+        const float2 inv2 = *reinterpret_cast<const float2*>(st + TILE + 8 * j);
+        const float2 D2 = *reinterpret_cast<const float2*>(st + 2 * TILE + 8 * j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const bool real = flag[h] == KEY_REAL, in = flag[h] != KEY_OUT;
+            const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;
+            const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;
+            // a query row past N has 1/l = 0 here and zero q, dO rows: P = dS = 0
+            const float p0 = in ? __expf(x0 - m2.x) * inv2.x : 0.f;
+            const float p1 = in ? __expf(x1 - m2.y) * inv2.y : 0.f;
+            const float ds0 = real ? p0 * (dp[j][2 * h] - D2.x) : 0.f;
+            const float ds1 = real ? p1 * (dp[j][2 * h + 1] - D2.y) : 0.f;
+            pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(p0, p1);
+            dsa[j >> 1][(j & 1) * 2 + h] = pack_bf16(ds0, ds1);
+        }
+    }
+}
+
+// The dq kernels' arithmetic on a fragment of S and dP (rows = the thread's
+// two query rows with m, 1/l, D; 8-column tiles j = keys): dS packed as the
+// next product's A operand. kf points at the flag of the thread's first key.
+// Masked and out-of-range keys: dS = 0.
+template <int NTILES>
+__device__ __forceinline__ void ds_fragment(uint32_t (&dsa)[NTILES / 2][4],
+                                            const float (&s)[NTILES][4],
+                                            const float (&dp)[NTILES][4], const int* kf,
+                                            const float (&m)[2], const float (&inv)[2],
+                                            const float (&D)[2], float scale) {
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+        const int2 f2 = *reinterpret_cast<const int2*>(kf + 8 * j);
+        const bool real0 = f2.x == KEY_REAL, real1 = f2.y == KEY_REAL;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float p0 = __expf(s[j][2 * h] * scale - m[h]) * inv[h];
+            const float p1 = __expf(s[j][2 * h + 1] * scale - m[h]) * inv[h];
+            const float ds0 = real0 ? p0 * (dp[j][2 * h] - D[h]) : 0.f;
+            const float ds1 = real1 ? p1 * (dp[j][2 * h + 1] - D[h]) : 0.f;
+            dsa[j >> 1][(j & 1) * 2 + h] = pack_bf16(ds0, ds1);
+        }
+    }
+}
+
+// two [OWN][LDS] and four [TILE][LDS] bf16 tiles, and 6*TILE 4-byte values
+// (row statistics or key flags)
+__host__ __device__ constexpr size_t mma_smem_bytes(int kc) {
+    return size_t(2 * OWN + 4 * TILE) * (16 * kc + 8) * sizeof(bf16) + size_t(6) * TILE * 4;
+}
+
+// blocks an SM that the register budget is cut for: the accumulators grow with KC
+__host__ __device__ constexpr int mma_min_blocks(int kc) { return kc <= 5 ? 3 : 2; }
+
+template <int KC>
+__global__ void __launch_bounds__(MMA_NT, mma_min_blocks(KC))
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                          const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, int d,
+                          float scale, int how) {
+    constexpr int LDS = 16 * KC + 8;
+    constexpr int TILE_ELEMS = TILE * LDS;
+    extern __shared__ uint4 smem_mma[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem_mma);  // the block's keys, resident
+    bf16* Vs = Ks + OWN * LDS;
+    bf16* Qs = Vs + OWN * LDS;                     // two buffers each
+    bf16* dOs = Qs + 2 * TILE_ELEMS;
+    float* stats = reinterpret_cast<float*>(dOs + 2 * TILE_ELEMS);  // [2][m, 1/l, D][TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int k0 = blockIdx.x * OWN;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int krows = min(OWN, N - k0);
+    const bool copy_8b = how & COPY_8B;
+    const Chunks ch(d, tid);
+
+    zero_pad_columns<LDS>(Ks, 2 * OWN + 4 * TILE, d);
+    load_tile<LDS>(Ks, k + base + size_t(k0) * d, krows, OWN, d, copy_8b, ch);
+    load_tile<LDS>(Vs, v + base + size_t(k0) * d, krows, OWN, d, copy_8b, ch);
+    load_tile<LDS>(Qs, q + base, min(TILE, N), TILE, d, copy_8b, ch);
+    load_tile<LDS>(dOs, dout + base, min(TILE, N), TILE, d, copy_8b, ch);
+    cp_async_commit();
+    if (tid < TILE) {
+        const bool in = tid < N;
+        stats[tid] = in ? row_max[stat + tid] : 0.f;
+        stats[TILE + tid] = in ? 1.f / row_sum[stat + tid] : 0.f;  // l >= 1
+        stats[2 * TILE + tid] = in ? dsum[stat + tid] : 0.f;
+    }
+    int flag[2];  // of the thread's two keys: rows g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        flag[h] = key_flag(mask + size_t(b) * N, k0 + warp * 16 + g + 8 * h, N);
+
+    float acc_k[2 * KC][4], acc_v[2 * KC][4];
+#pragma unroll
+    for (int j = 0; j < 2 * KC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int tiles = (N + TILE - 1) / TILE;
+    for (int t = 0; t < tiles; ++t) {
+        const int buf = t & 1;
+        const bool more = t + 1 < tiles;
+        // the next query tile: copies in flight, its statistics in registers
+        float next_m = 0.f, next_l = 1.f, next_D = 0.f;
+        bool next_in = false;
+        if (more) {
+            const int q1 = (t + 1) * TILE;
+            const int nrows = min(TILE, N - q1);
+            load_tile<LDS>(Qs + (buf ^ 1) * TILE_ELEMS, q + base + size_t(q1) * d, nrows, TILE,
+                           d, copy_8b, ch);
+            load_tile<LDS>(dOs + (buf ^ 1) * TILE_ELEMS, dout + base + size_t(q1) * d, nrows,
+                           TILE, d, copy_8b, ch);
+            cp_async_commit();
+            next_in = tid < TILE && q1 + tid < N;
+            if (next_in) {
+                next_m = row_max[stat + q1 + tid];
+                next_l = row_sum[stat + q1 + tid];
+                next_D = dsum[stat + q1 + tid];
+            }
+        }
+
+        const bf16* Qt = Qs + buf * TILE_ELEMS;
+        const bf16* dOt = dOs + buf * TILE_ELEMS;
+        const float* st = stats + buf * 3 * TILE;
+#pragma unroll 1
+        for (int sub = 0; sub < TILE; sub += SUB) {
+            // S^T and dP^T: the warp's 16 keys x SUB queries
+            float s[SUB / 8][4], dp[SUB / 8][4];
+#pragma unroll
+            for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            uint32_t a[KC][4];
+            load_a<KC>(a, Ks, warp * 16, lane);
+            product_nk<KC, SUB / 8>(s, a, Qt, sub, lane);
+            load_a<KC>(a, Vs, warp * 16, lane);
+            product_nk<KC, SUB / 8>(dp, a, dOt, sub, lane);
+
+            uint32_t pa[SUB / 16][4], dsa[SUB / 16][4];
+            p_ds_transposed<SUB / 8>(pa, dsa, s, dp, st + sub + 2 * t4, flag, scale);
+            product_kn<KC, SUB / 16>(acc_v, pa, dOt, sub, lane);   // dv += P^T dO
+            product_kn<KC, SUB / 16>(acc_k, dsa, Qt, sub, lane);   // dk += dS^T Q
+        }
+
+        if (more && tid < TILE) {
+            float* nx = stats + (buf ^ 1) * 3 * TILE;
+            nx[tid] = next_m;
+            nx[TILE + tid] = next_in ? 1.f / next_l : 0.f;
+            nx[2 * TILE + tid] = next_D;
+        }
+        cp_async_wait_all();
+        __syncthreads();  // tile t+1 has landed, and no warp reads tile t any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= krows) continue;
+        bf16* dkrow = dk + base + size_t(k0 + r) * d;
+        bf16* dvrow = dv + base + size_t(k0 + r) * d;
+#pragma unroll
+        for (int j = 0; j < 2 * KC; ++j) {
+            const int col = 8 * j + 2 * t4;
+            store_pair(dkrow, col, acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale, d, pairs);
+            store_pair(dvrow, col, acc_v[j][2 * h], acc_v[j][2 * h + 1], d, pairs);
+        }
+    }
+}
+
+template <int KC>
+__global__ void __launch_bounds__(MMA_NT, mma_min_blocks(KC))
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                        const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                        bf16* __restrict__ dq, int H, int N, int d, float scale, int how) {
+    constexpr int LDS = 16 * KC + 8;
+    constexpr int TILE_ELEMS = TILE * LDS;
+    extern __shared__ uint4 smem_mma[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // the block's query rows, read once
+    bf16* dOs = Qs + OWN * LDS;
+    bf16* Ks = dOs + OWN * LDS;                    // two buffers each
+    bf16* Vs = Ks + 2 * TILE_ELEMS;
+    int* kflag = reinterpret_cast<int*>(Vs + 2 * TILE_ELEMS);  // [2][TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int q0 = blockIdx.x * OWN;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int qrows = min(OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const bool copy_8b = how & COPY_8B;
+    const Chunks ch(d, tid);
+
+    zero_pad_columns<LDS>(Qs, 2 * OWN + 4 * TILE, d);
+    load_tile<LDS>(Qs, q + base + size_t(q0) * d, qrows, OWN, d, copy_8b, ch);
+    load_tile<LDS>(dOs, dout + base + size_t(q0) * d, qrows, OWN, d, copy_8b, ch);
+    load_tile<LDS>(Ks, k + base, min(TILE, N), TILE, d, copy_8b, ch);
+    load_tile<LDS>(Vs, v + base, min(TILE, N), TILE, d, copy_8b, ch);
+    cp_async_commit();
+    if (tid < TILE) kflag[tid] = key_flag(mask_row, tid, N);
+    float m[2], inv[2], D[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const bool in = r < qrows;  // a row past N: zero q and dO rows, 1/l = 0, so dS = 0
+        m[h] = in ? row_max[stat + q0 + r] : 0.f;
+        inv[h] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;  // l >= 1
+        D[h] = in ? dsum[stat + q0 + r] : 0.f;
+    }
+
+    float acc[2 * KC][4];
+#pragma unroll
+    for (int j = 0; j < 2 * KC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t aq[KC][4], ado[KC][4];  // the warp's Q and dO rows stay in registers
+    load_a<KC>(aq, Qs, warp * 16, lane);
+    load_a<KC>(ado, dOs, warp * 16, lane);
+
+    const int tiles = (N + TILE - 1) / TILE;
+    for (int t = 0; t < tiles; ++t) {
+        const int buf = t & 1;
+        const bool more = t + 1 < tiles;
+        int next_flag = KEY_OUT;
+        if (more) {  // the next key tile: copies in flight, its flags in a register
+            const int k1 = (t + 1) * TILE;
+            const int nrows = min(TILE, N - k1);
+            load_tile<LDS>(Ks + (buf ^ 1) * TILE_ELEMS, k + base + size_t(k1) * d, nrows, TILE,
+                           d, copy_8b, ch);
+            load_tile<LDS>(Vs + (buf ^ 1) * TILE_ELEMS, v + base + size_t(k1) * d, nrows, TILE,
+                           d, copy_8b, ch);
+            cp_async_commit();
+            if (tid < TILE) next_flag = key_flag(mask_row, k1 + tid, N);
+        }
+
+        const bf16* Kt = Ks + buf * TILE_ELEMS;
+        const bf16* Vt = Vs + buf * TILE_ELEMS;
+        const int* kf = kflag + buf * TILE;
+#pragma unroll 1
+        for (int sub = 0; sub < TILE; sub += SUB) {
+            // S and dP: the warp's 16 query rows x SUB keys
+            float s[SUB / 8][4], dp[SUB / 8][4];
+#pragma unroll
+            for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            product_nk<KC, SUB / 8>(s, aq, Kt, sub, lane);
+            product_nk<KC, SUB / 8>(dp, ado, Vt, sub, lane);
+
+            uint32_t dsa[SUB / 16][4];
+            ds_fragment<SUB / 8>(dsa, s, dp, kf + sub + 2 * t4, m, inv, D, scale);
+            product_kn<KC, SUB / 16>(acc, dsa, Kt, sub, lane);  // dq += dS K
+        }
+
+        if (more && tid < TILE) kflag[(buf ^ 1) * TILE + tid] = next_flag;
+        cp_async_wait_all();
+        __syncthreads();  // tile t+1 has landed, and no warp reads tile t any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= qrows) continue;
+        bf16* dqrow = dq + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int j = 0; j < 2 * KC; ++j)
+            store_pair(dqrow, 8 * j + 2 * t4, acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale, d,
+                       pairs);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
+
 // rows r < nrows of a [rows, d] tile at src into dst[c * LDT + r] (c < d), zeros past nrows
-template <typename T>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src, int nrows, int d) {
+__device__ __forceinline__ void load_transposed(float* dst, const float* src, int nrows, int d) {
     for (int i = threadIdx.x; i < BM * d; i += NT) {
         const int r = i / d, c = i - r * d;
-        dst[c * LDT + r] = (r < nrows) ? to_f32(src[size_t(r) * d + c]) : 0.f;
+        dst[c * LDT + r] = (r < nrows) ? src[size_t(r) * d + c] : 0.f;
     }
 }
 
@@ -96,13 +610,14 @@ __host__ __device__ constexpr size_t dkdv_smem_floats(int d, int dp) {
     return size_t(2) * d * LDT + size_t(2) * dp * LDT + size_t(2) * BM * LDT + 3 * BM + BN;
 }
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ row_max,
-                      const float* __restrict__ row_sum, const float* __restrict__ dsum,
-                      const uint8_t* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
-                      int H, int N, int d, float scale) {
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                      const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                      float* __restrict__ dk, float* __restrict__ dv, int H, int N, int d,
+                      float scale) {
     constexpr int DP = 8 * NC;
     extern __shared__ float4 smem4[];
     float* Kt = reinterpret_cast<float*>(smem4);
@@ -132,7 +647,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         Qt[d * LDT + i] = 0.f;
         dOt[d * LDT + i] = 0.f;
     }
-    if (tid < BN) kflag[tid] = tid >= krows ? KEY_OUT : (mask[size_t(b) * N + k0 + tid] ? KEY_REAL : KEY_MASKED);
+    if (tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
 
     float acc_k[4][NC], acc_v[4][NC];
 #pragma unroll
@@ -201,14 +716,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
         if (r >= krows) continue;
-        T* dkrow = dk + base + size_t(k0 + r) * d;
-        T* dvrow = dv + base + size_t(k0 + r) * d;
+        float* dkrow = dk + base + size_t(k0 + r) * d;
+        float* dvrow = dv + base + size_t(k0 + r) * d;
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
             const int col = tx + 8 * cc;
             if (col < d) {
-                dkrow[col] = from_f32<T>(acc_k[i][cc] * scale);
-                dvrow[col] = from_f32<T>(acc_v[i][cc]);
+                dkrow[col] = acc_k[i][cc] * scale;
+                dvrow[col] = acc_v[i][cc];
             }
         }
     }
@@ -219,13 +734,13 @@ __host__ __device__ constexpr size_t dq_smem_floats(int d, int dp) {
     return size_t(3) * d * LDT + size_t(dp) * LDT + size_t(BN) * LDT + BN;
 }
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ row_max,
-                    const float* __restrict__ row_sum, const float* __restrict__ dsum,
-                    const uint8_t* __restrict__ mask, T* __restrict__ dq, int H, int N, int d,
-                    float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                    const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                    float* __restrict__ dq, int H, int N, int d, float scale) {
     constexpr int DP = 8 * NC;
     extern __shared__ float4 smem4[];
     float* Qt = reinterpret_cast<float*>(smem4);
@@ -269,7 +784,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         __syncthreads();  // the previous key tile is no longer read
         load_transposed(Kt, k + base + size_t(k0) * d, krows, d);
         load_transposed(Vt, v + base + size_t(k0) * d, krows, d);
-        if (tid < BN) kflag[tid] = tid >= krows ? KEY_OUT : (mask[size_t(b) * N + k0 + tid] ? KEY_REAL : KEY_MASKED);
+        if (tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
         __syncthreads();
 
         float s[4][8], dp[4][8];
@@ -311,14 +826,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
         if (r >= qrows) continue;
-        T* dqrow = dq + base + size_t(q0 + r) * d;
+        float* dqrow = dq + base + size_t(q0 + r) * d;
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
             const int col = tx + 8 * cc;
-            if (col < d) dqrow[col] = from_f32<T>(acc[i][cc] * scale);
+            if (col < d) dqrow[col] = acc[i][cc] * scale;
         }
     }
 }
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
 struct Args {
     const void *q, *k, *v, *dout, *row_max, *row_sum, *dsum, *mask;
@@ -326,35 +845,84 @@ struct Args {
     cudaStream_t stream;
 };
 
-template <typename T, int NC>
-cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
-    const size_t bytes = dkdv_smem_floats(a.d, 8 * NC) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, NC>,
+bool aligned(const void* p, uintptr_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// 8-byte tile copies need rows of a multiple of 8 bytes on 8-byte-aligned tensors
+int copy_mode(const Args& a) {
+    const bool ok = a.d % 4 == 0 && aligned(a.q, 8) && aligned(a.k, 8) && aligned(a.v, 8)
+                    && aligned(a.dout, 8);
+    return ok ? COPY_8B : 0;
+}
+
+// 4-byte stores of two bf16 need even rows on a 4-byte-aligned tensor
+int store_mode(const Args& a, const void* out) {
+    return (a.d % 2 == 0 && aligned(out, 4)) ? STORE_PAIRS : 0;
+}
+
+template <int KC>
+cudaError_t launch_dkdv_mma(const Args& a, void* dk, void* dv) {
+    const size_t bytes = mma_smem_bytes(KC);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<KC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.N + BN - 1) / BN, a.B * a.H);
-    flash_bwd_dkdv_kernel<T, NC><<<grid, NT, bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.row_max),
-        static_cast<const float*>(a.row_sum), static_cast<const float*>(a.dsum),
-        static_cast<const uint8_t*>(a.mask), static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.N,
-        a.d, 1.0f / sqrtf(float(a.d)));
+    const dim3 grid((a.N + OWN - 1) / OWN, a.B * a.H);
+    flash_bwd_dkdv_mma_kernel<KC><<<grid, MMA_NT, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)),
+        copy_mode(a) | (store_mode(a, dk) & store_mode(a, dv)));
     return cudaGetLastError();
 }
 
-template <typename T, int NC>
+template <int KC>
+cudaError_t launch_dq_mma(const Args& a, void* dq) {
+    const size_t bytes = mma_smem_bytes(KC);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<KC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.N + OWN - 1) / OWN, a.B * a.H);
+    flash_bwd_dq_mma_kernel<KC><<<grid, MMA_NT, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<bf16*>(dq), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)),
+        copy_mode(a) | store_mode(a, dq));
+    return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
+    const size_t bytes = dkdv_smem_floats(a.d, 8 * NC) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<NC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.N + BN - 1) / BN, a.B * a.H);
+    flash_bwd_dkdv_kernel<NC><<<grid, NT, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.N, a.d,
+        1.0f / sqrtf(float(a.d)));
+    return cudaGetLastError();
+}
+
+template <int NC>
 cudaError_t launch_dq(const Args& a, void* dq) {
     const size_t bytes = dq_smem_floats(a.d, 8 * NC) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, NC>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<NC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
     if (err != cudaSuccess) return err;
     const dim3 grid((a.N + BM - 1) / BM, a.B * a.H);
-    flash_bwd_dq_kernel<T, NC><<<grid, NT, bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.row_max),
-        static_cast<const float*>(a.row_sum), static_cast<const float*>(a.dsum),
-        static_cast<const uint8_t*>(a.mask), static_cast<T*>(dq), a.H, a.N, a.d,
-        1.0f / sqrtf(float(a.d)));
+    flash_bwd_dq_kernel<NC><<<grid, NT, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<float*>(dq), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)));
     return cudaGetLastError();
 }
 
@@ -365,18 +933,21 @@ bool valid(const Args& a, int dtype) {
 
 }  // namespace
 
-// Dispatch on the head dim padded to a multiple of 16 (NC = 2 .. 16) and the dtype.
-#define FLASH_BWD_DISPATCH(CALL)                                                   \
-    switch ((a.d + 15) / 16 * 2) {                                                 \
-        case 2: return int(dtype == 1 ? CALL(__nv_bfloat16, 2) : CALL(float, 2));   \
-        case 4: return int(dtype == 1 ? CALL(__nv_bfloat16, 4) : CALL(float, 4));   \
-        case 6: return int(dtype == 1 ? CALL(__nv_bfloat16, 6) : CALL(float, 6));   \
-        case 8: return int(dtype == 1 ? CALL(__nv_bfloat16, 8) : CALL(float, 8));   \
-        case 10: return int(dtype == 1 ? CALL(__nv_bfloat16, 10) : CALL(float, 10)); \
-        case 12: return int(dtype == 1 ? CALL(__nv_bfloat16, 12) : CALL(float, 12)); \
-        case 14: return int(dtype == 1 ? CALL(__nv_bfloat16, 14) : CALL(float, 14)); \
-        case 16: return int(dtype == 1 ? CALL(__nv_bfloat16, 16) : CALL(float, 16)); \
-    }                                                                              \
+// Dispatch on the head dim padded to a multiple of 16 (KC = 1 .. 8 steps of
+// 16; the fp32 kernels count 8-column blocks, NC = 2*KC) and on the dtype.
+#define FLASH_BWD_CASE(KC, MMA, F32) \
+    case KC: return int(dtype == 1 ? MMA<KC> ARGS : F32<2 * KC> ARGS);
+#define FLASH_BWD_DISPATCH(MMA, F32)  \
+    switch ((a.d + 15) / 16) {        \
+        FLASH_BWD_CASE(1, MMA, F32)   \
+        FLASH_BWD_CASE(2, MMA, F32)   \
+        FLASH_BWD_CASE(3, MMA, F32)   \
+        FLASH_BWD_CASE(4, MMA, F32)   \
+        FLASH_BWD_CASE(5, MMA, F32)   \
+        FLASH_BWD_CASE(6, MMA, F32)   \
+        FLASH_BWD_CASE(7, MMA, F32)   \
+        FLASH_BWD_CASE(8, MMA, F32)   \
+    }                                 \
     return int(cudaErrorInvalidValue);
 
 extern "C" {
@@ -390,9 +961,9 @@ int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void*
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
     if (!valid(a, dtype)) return int(cudaErrorInvalidValue);
-#define DKDV(T, NC) launch_dkdv<T, NC>(a, dk, dv)
-    FLASH_BWD_DISPATCH(DKDV)
-#undef DKDV
+#define ARGS (a, dk, dv)
+    FLASH_BWD_DISPATCH(launch_dkdv_mma, launch_dkdv)
+#undef ARGS
 }
 
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -402,9 +973,9 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
     if (!valid(a, dtype)) return int(cudaErrorInvalidValue);
-#define DQ(T, NC) launch_dq<T, NC>(a, dq)
-    FLASH_BWD_DISPATCH(DQ)
-#undef DQ
+#define ARGS (a, dq)
+    FLASH_BWD_DISPATCH(launch_dq_mma, launch_dq)
+#undef ARGS
 }
 
 const char* flash_attn_bwd_error_string(int err) {

@@ -116,3 +116,98 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
         with pytest.raises(ValueError, match="CUDA tensors"):
             bwd(q, k, v, q, stats, stats, stats, mask)
         assert bwd.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# attention_backward_plain: the backward kernels' formulas in plain torch
+# ---------------------------------------------------------------------------
+
+# (B, H, N, d): three lists, the second ragged, the third all padding; N is
+# ragged against the kernels' 64-row tiles; d = 68 is the flagship head dim
+_BWD_SHAPES = [(3, 2, 150, 68), (3, 2, 50, 8), (3, 1, 97, 68)]
+
+
+def _bwd_case(B, H, N, d, dtype=torch.float32, seed=0):
+    """Inputs from a seed (numpy), the forward's output and its row
+    statistics as the forward kernel defines them: m = max_j x_ij and
+    l = sum_j exp(x_ij - m) over all N keys, a masked key's x being -1e9."""
+    rng = np.random.RandomState(seed)
+    q, k, v, dout = (rng.randn(B, H, N, d).astype(np.float32) for _ in range(4))
+    lengths = np.array([N, max(1, (3 * N) // 5), 0])[:B]
+    mask = np.arange(N)[None, :] < lengths[:, None]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in (q, k, v, dout))
+    tm = torch.from_numpy(mask)
+    x = torch.matmul(tq.float(), tk.float().transpose(-1, -2)) / float(d) ** 0.5
+    x = torch.where(tm[:, None, None, :], x, -1e9)
+    row_max = x.amax(dim=-1)
+    row_sum = torch.exp(x - row_max[..., None]).sum(dim=-1)
+    out = tattn.blockwise_attention(tq, tk, tv, tm, block_size=min(128, N))
+    return (q, k, v, dout, mask), (tq, tk, tv, tdo, tm), (out, row_max, row_sum)
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_plain_matches_autograd(shape, dtype):
+    """The explicit backward == autograd through blockwise_attention on the
+    lists with a real document, max |a - b| / max |b| per gradient: fp32
+    1e-5 (summation order), bf16 2e-2 (both round P and dS to bf16, at other
+    points: blockwise rounds the block's unnormalised p). Masked keys get
+    dk = 0 exactly and a finite dv; the all-padded list stays finite."""
+    tdt = getattr(torch, dtype)
+    _, (q, k, v, dout, mask), (out, row_max, row_sum) = _bwd_case(*shape, dtype=tdt)
+    got = tattn.attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tattn.blockwise_attention(*leaves, mask, block_size=min(128, shape[2])).backward(dout)
+    real = mask.any(dim=1)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, g, leaf in zip(("dq", "dk", "dv"), got, leaves):
+        assert g.dtype == tdt and g.shape == leaf.shape
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g[real], leaf.grad[real]) <= tol, name
+    masked_keys = ~mask[:, None, :, None].expand_as(got[1])
+    assert float(got[1][masked_keys].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES[:2], ids=lambda s: "x".join(map(str, s)))
+def test_backward_plain_matches_jax_pallas_interpret(shape):
+    """The explicit backward against jax.grad through the Pallas flash kernel
+    in interpret mode, for an output gradient on real query rows, over the
+    lists with a real document. fp32; rtol 1e-4, atol 1e-5 (summation order)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    (q, k, v, cot, mask), (tq, tk, tv, _, tm), (out, row_max, row_sum) = _bwd_case(*shape)
+    cot = np.where(mask[:, None, :, None], cot, 0.0).astype(np.float32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jattn.flash_attention(q, k, v, jnp.asarray(mask)) * cot)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    got = tattn.attention_backward_plain(tq, tk, tv, torch.from_numpy(cot), out, row_max,
+                                         row_sum, tm)
+    real = mask.any(axis=1)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(g.numpy()[real], np.asarray(r)[real], rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_variant_tool_substitutions_match_the_kernel_source():
+    """Every text substitution of tools/attn_bwd_variants.py (a knob turned, a
+    phase cut out) still finds its target in csrc/flash_attn_bwd.cu, and the
+    warpgroup experiment it builds is there: an edit of the kernel source
+    that orphans the tool fails here, not on the card."""
+    from ptranking_tpu_torch.tools import attn_bwd_variants as tool
+
+    source = tool.SOURCE.read_text()
+    assert tool.VARIANTS["shipped"] == []
+    for name, subs in tool.VARIANTS.items():
+        for old, new in subs:
+            assert old in source, (name, old)
+            assert old != new
+    assert tool.EXPERIMENT.exists()
+    assert '#include "../flash_attn_bwd.cu"' in tool.EXPERIMENT.read_text()
