@@ -10,10 +10,12 @@ Phases, in order; any failure exits non-zero:
      shapes the serving and training paths give it and at edge shapes, with
      times for the kernel, the plain version and one PyTorch library call of
      the same function where there is one: the flash attention forward (bf16
-     and fp32), its backward (dk/dv and dq kernels, against autograd through
-     the plain blockwise attention and against the explicit plain backward;
-     the bf16 kernels run on the tensor cores, and their build must not
-     spill at the flagship's head dim), the fused pairwise lambda loss
+     and fp32, against the plain blockwise attention and against the explicit
+     plain forward with its row statistics), its backward (dk/dv and dq
+     kernels, against autograd through the plain blockwise attention and
+     against the explicit plain backward); the bf16 forward and backward run
+     on the tensor cores, and their build must not spill at the flagship's
+     head dim; the fused pairwise lambda loss
      (forward and backward, LambdaRank and RankNet), and the Sinkhorn
      half-step (both orientations, then 20 iterations of scalings);
   4. serve: the flagship ranker (F=136 DASALC listsf, 6 layers, 2 heads, bf16,
@@ -73,6 +75,21 @@ EDGE_SHAPES = [(2, 3, 1, 1, False), (2, 2, 65, 8, True), (1, 3, 100, 24, False),
 # version rounds p to bf16 before p.v (as the JAX package does) and the
 # kernel keeps p in fp32, and both round the output to bf16 (ulp 2^-8 near 1).
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# max |kernel - plain| / max |plain| over every query row (padded and
+# all-padded ones included: both compute the same thing there) against
+# attention_forward_plain, the kernels' own formulas (64-key tiles, a running
+# max, p rounded to the inputs' dtype before p.v at the same points). What is
+# left: the tensor cores' summation order, ex2.approx in log2 units against
+# expf, so now and then a p or an output rounded to the other side in bf16
+# (one bf16 ulp at the largest output). The first run on an H100 over all 12
+# shapes: 3.2e-3 (bf16), 2.3e-6 (fp32); the tolerances hold a margin of 3x
+# and more.
+FWD_PLAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# row_max: max |kernel - plain| / (1 + |plain|); row_sum: max |kernel -
+# plain| / plain; both fp32 (the bf16 kernel keeps the max in log2 units and
+# converts it back, ex2.approx against expf). The first run: 4.2e-7 and
+# 1.8e-6; a margin of 5x.
+STATS_TOL = 1e-5
 # max |kernel - plain| / max |plain| per gradient (dq, dk, dv) over the lists
 # with a real document (all-padded lists differ by contract, as in the
 # forward, and are checked for finiteness only), against two plain versions:
@@ -90,6 +107,9 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the tensor-core instantiation the flagship's head dim (68 -> 5 steps of 16)
 # runs: its build must not spill
 FLAGSHIP_KC = 5
+# the tensor-core kernels of each library, by the library's name
+MMA_KERNELS = {"flash_attn_fwd": ("flash_fwd_mma_kernel",),
+               "flash_attn_bwd": ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -204,21 +224,20 @@ def ptxas_summary(log: str) -> str:
             f"{max(regs, default=0)}, spill {sum(e[2] for e in entries)} bytes")
 
 
-def check_mma_build(log: str):
-    """Registers and spills of the backward's tensor-core kernels, by their
-    head-dim steps KC; raises if the flagship's instantiation spills or is
-    missing."""
-    found = {}
-    for name, regs, spill in ptxas_entries(log):
-        m = re.search(r"flash_bwd_(dkdv|dq)_mma_kernelILi(\d+)E", name)
-        if m:
-            found[(m.group(1), int(m.group(2)))] = (regs, spill)
-    for kind in ("dkdv", "dq"):
-        row = {kc: v for (k_, kc), v in sorted(found.items()) if k_ == kind}
-        print(f"flash_bwd_{kind}_mma_kernel registers/spill bytes by KC: "
-              + ", ".join(f"{kc}: {r}/{sp}" for kc, (r, sp) in row.items()), flush=True)
+def check_mma_build(log: str, kernels):
+    """Registers and spills of the named tensor-core kernels, by their
+    head-dim steps KC; raises if the flagship's instantiation of one spills or
+    is missing."""
+    for kernel in kernels:
+        row = {}
+        for name, regs, spill in ptxas_entries(log):
+            m = re.search(kernel + r"ILi(\d+)E", name)
+            if m:
+                row[int(m.group(1))] = (regs, spill)
+        print(f"{kernel} registers/spill bytes by KC: "
+              + ", ".join(f"{kc}: {r}/{sp}" for kc, (r, sp) in sorted(row.items())), flush=True)
         if FLAGSHIP_KC not in row or row[FLAGSHIP_KC][1] != 0:
-            raise AssertionError(f"flash_bwd_{kind}_mma_kernel<{FLAGSHIP_KC}>: "
+            raise AssertionError(f"{kernel}<{FLAGSHIP_KC}>: "
                                  f"{row.get(FLAGSHIP_KC, 'not built')} (registers, spill bytes)")
 
 
@@ -243,7 +262,7 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3, blocks: int = 3) -> float:
     return sorted(start.elapsed_time(end) for start, end in events)[blocks // 2] / iters
 
 
-def profile_ms(fn, kernel="flash_fwd_kernel", top=0):
+def profile_ms(fn, kernel="flash_fwd", top=0):
     """(device busy ms, ms of the kernels whose name holds `kernel`, wall ms)
     of one call of `fn` under torch.profiler: the sum of the kernels' and
     copies' own device times, on one stream. The profiler's user annotations
@@ -324,8 +343,38 @@ def check_close(out, ref, mask, shape, dtype) -> float:
     return err
 
 
+def check_plain_forward(q, k, v, mask, worst) -> float:
+    """The kernel, with and without row statistics, against
+    attention_forward_plain over every query row: the same bits either way,
+    the output within FWD_PLAIN_TOL (relative to its largest value) and the
+    statistics within STATS_TOL. Notes the worst errors by dtype in `worst`
+    and returns the output's."""
+    import torch
+
+    from ptranking_tpu_torch.ops.attention import FLASH_ATTN_FWD, attention_forward_plain
+
+    out = FLASH_ATTN_FWD(q, k, v, mask)
+    out_s, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+    ref, ref_max, ref_sum = attention_forward_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    name = str(q.dtype).split(".")[1]
+    errs = {"out": rel_err(out, ref),
+            "row_max": float(((row_max - ref_max).abs() / (1.0 + ref_max.abs())).max()),
+            "row_sum": float(((row_sum - ref_sum).abs() / ref_sum).max())}
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (out_s, row_max, row_sum))
+    if (not torch.equal(out, out_s) or not finite or not errs["out"] <= FWD_PLAIN_TOL[name]
+            or not max(errs["row_max"], errs["row_sum"]) <= STATS_TOL):
+        raise AssertionError(f"flash_attn_fwd {name} {tuple(q.shape)} against "
+                             f"attention_forward_plain: {errs} (tol {FWD_PLAIN_TOL[name]}, "
+                             f"statistics {STATS_TOL}), all finite: {finite}, same output "
+                             f"with statistics: {torch.equal(out, out_s)}")
+    for key, e in errs.items():
+        worst[name][key] = max(worst[name][key], e)
+    return errs["out"]
+
+
 def check_attention(card: str):
-    """Phase 3: the flash kernel against its plain version at every shape and
+    """Phase 3: the flash kernel against its plain versions at every shape and
     dtype; returns the bf16 record at RECORD_SHAPE."""
     import torch
     import torch.nn.functional as Fn
@@ -334,6 +383,7 @@ def check_attention(card: str):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    worst = {n: {"out": 0.0, "row_max": 0.0, "row_sum": 0.0} for n in ("bfloat16", "float32")}
     for (B, H, N, d, all_padded) in EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
@@ -341,6 +391,7 @@ def check_attention(card: str):
             ref = blockwise_attention(q, k, v, mask, block_size=min(128, N))
             torch.cuda.synchronize()
             check_close(out, ref, mask, (B, H, N, d), dtype)
+            check_plain_forward(q, k, v, mask, worst)
     print(f"attn edge shapes: {len(EDGE_SHAPES)} x 2 dtypes agree", flush=True)
     record = None
     for (B, H, N, d, all_padded) in ATTN_SHAPES:
@@ -351,6 +402,7 @@ def check_attention(card: str):
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             err = check_close(out, ref, mask, (B, H, N, d), dtype)
+            err_plain = check_plain_forward(q, k, v, mask, worst)
             name = str(dtype).split(".")[1]
             bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :].expand(B, H, N, N)
             library = lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=bias)
@@ -363,12 +415,15 @@ def check_attention(card: str):
             t_ops = flops / (BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK) * 1e3
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             rec = {"shape": [B, H, N, d], "dtype": name, "max_abs_err": err,
+                   "rel_err_vs_plain_forward": err_plain,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
             print("attn " + json.dumps(rec) + f"  [{card}]", flush=True)
             if (B, H, N, d) == RECORD_SHAPE and dtype == torch.bfloat16:
                 record = rec
+    print(f"attn worst error against attention_forward_plain over every shape: "
+          f"{json.dumps(worst)}", flush=True)
     return record
 
 
@@ -608,14 +663,17 @@ def check_pairwise(card):
     return records
 
 
-def sink_case(B, N, lengths, seed=0, dense=False):
+def sink_case(B, N, lengths, seed=0, dense=False, extreme=False):
     """Inputs of the half-step on the card as WassRank builds them: the `eg`
     cost of presorted labels, the log of the labels' softmax histogram as the
     marginal, and a log-scaling (the log of a random histogram); pads carry
     -1e30 in both. Under the `eg` cost at lam 0.1 a column's sum is its
     largest term (the others fall below fp32's epsilon), so `dense` swaps in
     a cost of |normal| draws, under which hundreds of terms of like size add
-    up. Returns (cost, log_marginal, log_u, mask)."""
+    up. `extreme` (with `dense`) scales every 7th entry by 1e-35 and every
+    11th by 1e35: values outside the range the kernels' FMA division takes,
+    so their chunks go through the division itself. Returns (cost,
+    log_marginal, log_u, mask)."""
     import torch
 
     from ptranking_tpu_torch.losses.wassrank import cost_mat_group, std_histogram_st
@@ -630,6 +688,10 @@ def sink_case(B, N, lengths, seed=0, dense=False):
     cost = cost_mat_group(labels, mask).contiguous()
     if dense:
         cost = torch.randn(B, N, N, generator=g).abs().cuda()
+    if extreme:
+        flat = cost.view(-1)
+        flat[::7] *= 1e-35
+        flat[::11] *= 1e35
     log_marg = _safe_log(std_histogram_st(labels, mask))
     log_u = _safe_log(masked_softmax(torch.randn(B, N, generator=g).cuda(), mask))
     return cost, log_marg, log_u, mask
@@ -678,13 +740,14 @@ def check_sinkstep(card):
             errs[name] = sink_errs(out, ref, mask, what + (name,))
         return errs
 
+    costs = ((False, False), (True, False), (True, True))  # eg, dense, dense with extremes
     for (N, lengths, lam) in SINK_EDGES:
-        for dense in (False, True):  # the dense cost is asymmetric: a swapped orientation shows
-            errs = check_both(*sink_case(len(lengths), N, lengths, dense=dense), lam,
-                              (N, lengths, lam, dense))
+        for dense, extreme in costs:  # the dense cost is asymmetric: a swapped orientation shows
+            errs = check_both(*sink_case(len(lengths), N, lengths, dense=dense, extreme=extreme),
+                              lam, (N, lengths, lam, dense, extreme))
             worst = max(worst, *(e[1] for e in errs.values()))
-    print(f"sinkstep edge cases: {len(SINK_EDGES)} x 2 costs x 2 orientations agree; worst share "
-          f"of the limit {worst}", flush=True)
+    print(f"sinkstep edge cases: {len(SINK_EDGES)} x {len(costs)} costs x 2 orientations agree; "
+          f"worst share of the limit {worst}", flush=True)
 
     record = None
     B = SINK_RECORD[0]
@@ -1083,6 +1146,7 @@ def train_phase(card: str, work_dir: str) -> dict:
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                  "profiled_steps": 3, "profiled_wall_ms": prof_ms,
                  "profiled_device_busy_ms": busy_ms, "profiled_flash_kernels_ms": flash_ms,
+                 "profiled_flash_fwd_ms": sum(ms for name, ms, _ in top if "flash_fwd" in name),
                  "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
                  "top_kernels_ms_calls": top}
     print("train_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
@@ -1226,6 +1290,7 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
                  "peak_mem_gb": peak_gb, "profiled_steps": 3, "profiled_wall_ms": prof_ms,
                  "profiled_device_busy_ms": busy_ms, "profiled_sinkstep_kernels_ms": sink_ms,
                  "profiled_flash_kernels_ms": flash_ms,
+                 "profiled_flash_fwd_ms": sum(ms for name, ms, _ in top if "flash_fwd" in name),
                  "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
                  "top_kernels_ms_calls": top}
     print("wassrank_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
@@ -1317,8 +1382,9 @@ def main() -> int:
     t0 = time.perf_counter()
     for log in cuda_build.build(cuda_build.all_kernels()):
         print(ptxas_summary(log), flush=True)
-        if log.startswith("flash_attn_bwd:"):
-            check_mma_build(log)
+        lib = log.split(":", 1)[0]
+        if lib in MMA_KERNELS:
+            check_mma_build(log, MMA_KERNELS[lib])
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     phase("kernels")

@@ -14,10 +14,10 @@ dropout (the JAX package applies none on its flash path either):
     inputs on the tensor cores, fp32 inputs on the fp32 CUDA cores. CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
-  * `attention_backward_plain` — the backward kernels' formulas in plain
-    torch, from the same row statistics and with the kernels' rounding
-    points. Tests and the card check hold the kernels against it; no
-    training or serving path calls it.
+  * `attention_forward_plain` and `attention_backward_plain` — the forward
+    and backward kernels' formulas in plain torch, with the kernels' tiles,
+    row statistics and rounding points. Tests and the card check hold the
+    kernels against them; no training or serving path calls them.
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -68,6 +68,39 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mx = new_mx
     out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def attention_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mask: torch.Tensor, tile: int = 64):
+    """(out, row_max, row_sum) of masked attention as the forward kernels
+    compute them: a loop over `tile`-key tiles with a running max m (from
+    -1e30) and sum l,
+
+        x = q k^T * scale (a masked key: the constant -1e9), m' = max(m, max x),
+        p = exp(x - m'),  l' = l exp(m - m') + sum p,  O' = O exp(m - m') + p v,
+
+    with fp32 logits, p and l (l summed from the fp32 p), p rounded to the
+    inputs' dtype before p v (a no-op in fp32), fp32 accumulation, and one
+    rounding at the output O / l. row_max and row_sum ([B, H, N] fp32) are the
+    final m and l, so that p = exp(x - m) / l; a list with no real key gets
+    m = -1e9, l = N and the mean of v."""
+    B, H, N, d = q.shape
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32, device=q.device))
+    qf = q.float()
+    m = torch.full((B, H, N), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, N), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, N, d), dtype=torch.float32, device=q.device)
+    for s in range(0, N, tile):
+        kb, vb = k[:, :, s:s + tile].float(), v[:, :, s:s + tile].float()
+        x = torch.where(mask[:, None, None, s:s + tile], torch.matmul(qf, kb.transpose(-1, -2)) * scale,
+                        _NEG)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(), vb)
+        m = m_new
+    return (acc * (1.0 / l)[..., None]).to(q.dtype), m, l
 
 
 def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

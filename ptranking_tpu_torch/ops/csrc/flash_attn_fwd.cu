@@ -13,32 +13,78 @@
 //
 // Row statistics for the backward (flash_attn_bwd.cu): when the pointers are
 // not null, row_max and row_sum ([B, H, N] fp32) get each query row's final
-// running max m and sum l, so that p = exp(logit - m) / l. They are kept as
-// two values, not as m + log(l): on a row whose keys are all masked, m = -1e9
-// and fp32 rounds -1e9 + log(N) back to -1e9, which would lose the 1/N. The
-// serving path passes null pointers and writes nothing more.
-//
-// What bounds it: 4*B*H*N^2*d operations over 4*B*H*N*d values. At the
-// flagship serving shape (B=32, H=2, N=1408, d=68, bf16) that is about 700
-// operations per byte moved, far above the H100's ~295 bf16 ops/byte ridge, so
-// the arithmetic is the bound, not memory. This first version does that
-// arithmetic on the fp32 CUDA cores (register-blocked 4x8 tiles per thread,
-// operands from shared memory), not on the tensor cores: it is simple and
-// exact in fp32, and it runs well below the bf16 tensor-core bound. Moving the
-// two products onto wgmma with TMA-fed tiles is the way to that bound.
-//
-// Design: one block of 128 threads per (b, h, 64-query tile), looping over
-// 64-key tiles staged in shared memory with an online (running-max) softmax,
-// so no N x N buffer exists in any memory. The head dim is padded inside the
-// kernel to a multiple of 16 (d <= 128); the scale uses the real d. N is
-// ragged: the kernel masks the last tile's edge itself.
+// running max m and sum l, so that p = exp(logit - m) / l, m in natural-log
+// units. They are kept as two values, not as m + log(l): on a row whose keys
+// are all masked, m = -1e9 and fp32 rounds -1e9 + log(N) back to -1e9, which
+// would lose the 1/N. The serving path passes null pointers and writes
+// nothing more.
 //
 // Padding rules that keep every row finite:
 //   * a masked key gets the finite logit -1e9, never -inf, so a query row
 //     whose keys are all masked (the all-padded remainder rows of a bucket)
-//     averages v uniformly instead of dividing 0 by 0;
+//     averages v uniformly over the N keys instead of dividing 0 by 0;
 //   * a key past N (the ragged tile edge) is left out: p = 0 and its v row is
-//     zero in shared memory, so no uninitialised value reaches 0 * x.
+//     zero in shared memory, so no uninitialised value reaches 0 * x;
+//   * the running max starts at -1e30, below every logit, -1e9 included, and
+//     finite, so m_old - m_new is never NaN.
+//
+// What bounds it: 4*B*H*N^2*d operations over 4*B*H*N*d values. At the
+// flagship training shape (B=32, H=2, N=1408, d=68, bf16) that is about 700
+// operations per byte moved, far above the H100's ~295 bf16 ops/byte ridge:
+// the arithmetic is the bound, so both products have to run on the tensor
+// cores. At d = 68 the softmax's exponentials weigh as much as the products:
+// the SFUs give 16 results a clock per SM, the tensor cores 4096 bf16
+// operations, and each logit costs 2 * 2 * 80 of those (d padded to 80) and
+// one exponential.
+//
+// bf16 inputs: flash_fwd_mma_kernel, on the tensor cores. One block of 4
+// warps per (b*h, 64 query rows); a warp owns 16 rows. It is the dq kernel of
+// flash_attn_bwd.cu with the dP product dropped and an online softmax and
+// O += P V added:
+//   * the warp's Q rows are read once by ldmatrix into A fragments that stay
+//     in registers (KC = ceil(d/16) 16-deep steps: 5 at d = 68);
+//   * a loop over 64-key tiles of K and V, bf16 in shared memory with rows
+//     padded to 16*KC + 8 elements (16-byte aligned for ldmatrix, no bank
+//     conflicts), double-buffered: tile t+1 is copied by 8-byte cp.async
+//     while tile t is multiplied (a row of d = 68 bf16 is 136 bytes, a
+//     multiple of 8 but not of 16; d % 4 != 0 or tensors not 8-byte aligned
+//     take a scalar, synchronous copy into the same buffers), and the next
+//     tile's key flags are prefetched into a register. A thread's copies of
+//     a tile are independent of each other (a chunk's row by a multiply, a
+//     row past N zero-filled by the copy itself), so they issue back to back;
+//   * S = Q K^T by mma.sync.m16n8k16 (bf16 x bf16 -> fp32), B = K rows by
+//     ldmatrix;
+//   * the online softmax on the accumulator fragment: a thread holds rows g
+//     and g+8 of the warp's 16 and two columns of every 8-key tile, so each
+//     row's tile max takes two __shfl_xor in its quad of 4 threads; logits
+//     are scaled by log2(e)/sqrt(d) and exponentiated by ex2.approx (the
+//     masked logit is the same constant in log2 units, so a row of masked
+//     keys still gets exp(0) = 1 each); the O accumulators are rescaled by
+//     2^(m_old - m_new); each thread sums its own p in fp32 and the quad's
+//     four shares are added at the end;
+//   * O += P V: the fp32 fragment of two adjacent 8-key tiles is, element
+//     for element, the A fragment of a 16-deep product, so P is rounded to
+//     bf16 in registers and handed straight over; V is read by
+//     ldmatrix.trans. P never reaches shared memory;
+//   * O / l is rounded to bf16 once at the store; row_max goes back to
+//     natural-log units (the masked constant to exactly -1e9).
+// 168 registers at d = 68 (KC = 5), no spill, 56,832 bytes of shared memory
+// a block, three blocks an SM.
+//
+// What still holds it (ptranking_tpu_torch/tools/fwd_sink_variants.py on an
+// NVIDIA H100 80GB HBM3 at 700 W, (32, 2, 1408, 68) with statistics: about
+// 0.20 ms, 5.8x its bound): the tile copies. Without them it takes 0.14 ms;
+// with every copy from one cache-hot tile 0.19, so it is their instructions
+// (2,176 8-byte copies a block and tile; a 16-byte-aligned row would halve
+// them) and not the L2's bytes. Without P V it takes 0.19, without the
+// exponentials 0.20. Two blocks an SM change nothing; 32 keys of S at a time
+// (0.22) or 8 warps owning 128 query rows (0.24) are slower.
+//
+// fp32 inputs: flash_fwd_kernel, on the fp32 CUDA cores by design, as the
+// backward's fp32 kernels (TF32 keeps about 3 digits, and the fp32 path is
+// the exact one that gradient and resume checks rest on): register-blocked
+// 4x8 tiles per thread over transposed fp32 tiles in shared memory, 128
+// threads as 16 row groups of 4 rows x 8 lanes, the same padding rules.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,23 +93,23 @@
 
 namespace {
 
-constexpr int BM = 64;       // query rows per block
-constexpr int BN = 64;       // keys per tile
-constexpr int NT = 128;      // threads: 16 row groups (4 rows each) x 8 column lanes
+constexpr int BM = 64;       // fp32 kernel: query rows per block
+constexpr int BN = 64;       // fp32 kernel: keys per tile
+constexpr int NT = 128;      // fp32 kernel: 16 row groups (4 rows each) x 8 column lanes
 constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
 constexpr float MASKED_LOGIT = -1e9f;
 constexpr float M_INIT = -1e30f;  // below any logit, -1e9 included; finite, so m_old - m_new never is NaN
 
 enum : int { KEY_REAL = 0, KEY_MASKED = 1, KEY_OUT = 2 };
 
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max8(float x) {  // over the 8 column lanes of a row group
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -256,12 +302,387 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
     return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int MMA_WARPS = 4;            // warps a block
+constexpr int MMA_NT = 32 * MMA_WARPS;  // threads a block
+constexpr int OWN = 16 * MMA_WARPS;     // query rows a block owns, 16 a warp
+constexpr int TILE = 64;                // keys a tile
+constexpr int SUB = 64;                 // keys of S a warp holds in registers at a time
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float MASKED_LOGIT2 = MASKED_LOGIT * LOG2E;  // the masked logit in log2 units
+enum : int { COPY_8B = 1, STORE_PAIRS = 2 };
+
+__device__ __forceinline__ int key_flag(const uint8_t* __restrict__ mask_row, int key, int N) {
+    return key >= N ? KEY_OUT : (mask_row[key] ? KEY_REAL : KEY_MASKED);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
+// With g = lane / 4, t = lane % 4 a thread holds c[0..1] = (row g, columns 2t,
+// 2t+1), c[2..3] = (row g+8, the same columns); a[0] = (row g, k 2t, 2t+1),
+// a[1] = (row g+8, the same k), a[2], a[3] = the same rows at k + 8;
+// b0 = (k 2t, 2t+1; column g), b1 = the same at k + 8.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bytes from src to dst, of which the first src_bytes (8 or 0) are read
+// and the rest are zero-filled
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :
+                 : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the SFU; 2^0 = 1 and 2^-inf = 0 exactly
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Rows r < nrows of the contiguous [nrows, d] tile at src into the shared
+// [ROWS][16*KC + 8] tile at dst (columns < d), zeros in the rows past nrows.
+// With copy_8b (d % 4 == 0) the copies are 8-byte cp.async (the caller
+// commits and waits): the tile's 4-element chunk L = tid + MMA_NT * i lies
+// in row L / (d/4) = (2L * magic) >> 32 with magic = ceil(2^31 / (d/4))
+// (exact for these L), so a thread's copies are a fixed, unrolled number of
+// independent instructions with no loop-carried state, each from the
+// thread's first chunk plus a constant; a row past nrows reads nothing and
+// is zero-filled. Otherwise the copy is scalar and synchronous.
+template <int KC, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int nrows,
+                                          int d, bool copy_8b, uint32_t magic) {
+    constexpr int LDS = 16 * KC + 8;
+    constexpr int COPIES = (ROWS * 4 * KC + MMA_NT - 1) / MMA_NT;  // a thread's, at most
+    if (copy_8b) {
+        const int total = ROWS * (d >> 2);
+        const uint32_t at = smem_addr(dst) + 8 * threadIdx.x;  // before the row padding
+        const uint32_t pad = 2 * (LDS - d);                    // bytes of padding a row
+        const bf16* from = src + 4 * threadIdx.x;
+#pragma unroll
+        for (int i = 0; i < COPIES; ++i) {
+            const uint32_t chunk = threadIdx.x + MMA_NT * i;
+            const int r = __umulhi(2u * chunk, magic);
+            const bool in = r < nrows;
+            if (chunk < uint32_t(total))
+                cp_async_8(at + 8 * MMA_NT * i + r * pad, in ? from + 4 * MMA_NT * i : src,
+                           in ? 8 : 0);
+        }
+    } else {
+        const bf16 zero = __float2bfloat16(0.f);
+        for (int i = threadIdx.x; i < ROWS * d; i += MMA_NT) {
+            const int r = i / d, c = i - r * d;
+            dst[r * LDS + c] = r < nrows ? src[size_t(r) * d + c] : zero;
+        }
+    }
+}
+
+// columns d .. LDS-1 of `rows` shared rows: written once, no copy touches them
+template <int LDS>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows, int d) {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int r = threadIdx.x; r < rows; r += MMA_NT)
+        for (int c = d; c < LDS; ++c) tiles[r * LDS + c] = zero;
+}
+
+// The A fragments (16 rows from row0, all KC 16-deep steps) of a [rows][LDS] tile.
+template <int KC>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KC][4], const bf16* tile, int row0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
+    const uint32_t addr = smem_addr(tile + (row0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks) ldmatrix_x4(a[ks], addr + ks * 32);
+}
+
+// acc[j] (16 x 8) += A (16 x 16*KC, fragments) * B_j^T, where B_j = rows
+// n0 + 8j .. n0 + 8j + 7 of the [TILE][LDS] tile at btile: the tile holds B
+// as [column][k], which is mma's column-major B, so ldmatrix reads it as is.
+template <int KC, int NTILES>
+__device__ __forceinline__ void product_nk(float (&acc)[NTILES][4], const uint32_t (&a)[KC][4],
+                                           const bf16* btile, int n0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+    const uint32_t addr = smem_addr(btile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS
+                                    + (((lane >> 3) & 1) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks)
+#pragma unroll
+        for (int np = 0; np < NTILES / 2; ++np) {
+            uint32_t b[4];
+            ldmatrix_x4(b, addr + (np * 16 * LDS + ks * 16) * 2);
+            mma_16816(acc[2 * np], a[ks], b[0], b[1]);
+            mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
+        }
+}
+
+// acc[j] (16 x 8: tile columns 8j .. 8j+7, j < 2*KC) += A (16 x 16*NCH,
+// fragments in registers) * B, where B = rows k0 .. k0 + 16*NCH - 1 of the
+// [TILE][LDS] tile at btile: the tile holds B as [k][column], so ldmatrix
+// transposes each 8 x 8 block on the way.
+template <int KC, int NCH>
+__device__ __forceinline__ void product_kn(float (&acc)[2 * KC][4], const uint32_t (&a)[NCH][4],
+                                           const bf16* btile, int k0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+    const uint32_t addr = smem_addr(btile + (k0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int np = 0; np < KC; ++np) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, addr + (ch * 16 * LDS + np * 16) * 2);
+            mma_16816(acc[2 * np], a[ch], b[0], b[1]);
+            mma_16816(acc[2 * np + 1], a[ch], b[2], b[3]);
+        }
+}
+
+// (x, y) at columns col, col + 1 of an output row of d columns
+__device__ __forceinline__ void store_pair(bf16* row, int col, float x, float y, int d,
+                                           bool pairs) {
+    if (pairs) {  // d even and the row 4-byte aligned: col + 1 < d whenever col < d
+        if (col < d) *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+    } else {
+        if (col < d) row[col] = __float2bfloat16(x);
+        if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+    }
+}
+
+// The online softmax on a fragment of S (rows = the thread's two query rows,
+// 8-column tiles j = keys; kf points at the flag of the thread's first key):
+// the logits in log2 units (a masked key: the constant; a key past N: -inf),
+// the running max m[h] and this thread's share l[h] of the running sum, the
+// O accumulators rescaled, and P = 2^(x - m) packed as the A operand of the
+// next product. The quad's four threads hold the row's columns between them,
+// so two shuffles give its max; the tile's first key is < N, so m is finite.
+template <int NTILES, int NACC>
+__device__ __forceinline__ void online_softmax(uint32_t (&pa)[NTILES / 2][4], float (&s)[NTILES][4],
+                                               const int* kf, float (&m)[2], float (&l)[2],
+                                               float (&acc)[NACC][4], float scale2) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+        const int2 f2 = *reinterpret_cast<const int2*>(kf + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int f = (e & 1) ? f2.y : f2.x;
+            const float x = f == KEY_REAL ? s[j][e] * scale2
+                            : (f == KEY_MASKED ? MASKED_LOGIT2 : -INFINITY);
+            s[j][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float p0 = ex2(s[j][2 * h] - m[h]);  // 0 past N
+            const float p1 = ex2(s[j][2 * h + 1] - m[h]);
+            l[h] += p0 + p1;  // fp32 p, before rounding
+            pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(p0, p1);
+        }
+}
+
+// the Q tile, two K and two V tiles ([rows][16*kc + 8] bf16), two tiles' key flags
+__host__ __device__ constexpr size_t mma_smem_bytes(int kc) {
+    return size_t(OWN + 4 * TILE) * (16 * kc + 8) * sizeof(bf16) + size_t(2) * TILE * 4;
+}
+
+// blocks an SM that the register budget is cut for: the accumulators grow with KC
+__host__ __device__ constexpr int mma_min_blocks(int kc) { return kc <= 5 ? 3 : 2; }
+
+template <int KC>
+__global__ void __launch_bounds__(MMA_NT, mma_min_blocks(KC))
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     bf16* __restrict__ o, float* __restrict__ row_max,
+                     float* __restrict__ row_sum, int H, int N, int d, float scale2, int how) {
+    constexpr int LDS = 16 * KC + 8;
+    constexpr int TILE_ELEMS = TILE * LDS;
+    extern __shared__ uint4 smem_mma[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // the block's query rows, read once
+    bf16* Ks = Qs + OWN * LDS;                     // two buffers each
+    bf16* Vs = Ks + 2 * TILE_ELEMS;
+    int* kflag = reinterpret_cast<int*>(Vs + 2 * TILE_ELEMS);  // [2][TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int q0 = blockIdx.x * OWN;
+    const size_t base = size_t(bh) * N * d;
+    const int qrows = min(OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const bool copy_8b = how & COPY_8B;
+    const uint32_t magic = ((1u << 31) + uint32_t(d >> 2) - 1u) / uint32_t(max(d >> 2, 1));
+
+    zero_pad_columns<LDS>(Qs, OWN + 4 * TILE, d);
+    load_tile<KC, OWN>(Qs, q + base + size_t(q0) * d, qrows, d, copy_8b, magic);
+    load_tile<KC, TILE>(Ks, k + base, min(TILE, N), d, copy_8b, magic);
+    load_tile<KC, TILE>(Vs, v + base, min(TILE, N), d, copy_8b, magic);
+    cp_async_commit();
+    if (tid < TILE) kflag[tid] = key_flag(mask_row, tid, N);
+
+    float acc[2 * KC][4];
+#pragma unroll
+    for (int j = 0; j < 2 * KC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    // of the thread's two query rows (g and g + 8 of the warp's 16): the
+    // running max in log2 units and the thread's share of the running sum
+    float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};
+
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t aq[KC][4];  // the warp's Q rows stay in registers
+    load_a<KC>(aq, Qs, warp * 16, lane);
+
+    const int tiles = (N + TILE - 1) / TILE;
+    for (int t = 0; t < tiles; ++t) {
+        const int buf = t & 1;
+        const bool more = t + 1 < tiles;
+        int next_flag = KEY_OUT;
+        if (more) {  // the next key tile: copies in flight, its flags in a register
+            const int k1 = (t + 1) * TILE;
+            const int nrows = min(TILE, N - k1);
+            load_tile<KC, TILE>(Ks + (buf ^ 1) * TILE_ELEMS, k + base + size_t(k1) * d, nrows, d,
+                                copy_8b, magic);
+            load_tile<KC, TILE>(Vs + (buf ^ 1) * TILE_ELEMS, v + base + size_t(k1) * d, nrows, d,
+                                copy_8b, magic);
+            cp_async_commit();
+            if (tid < TILE) next_flag = key_flag(mask_row, k1 + tid, N);
+        }
+
+        const bf16* Kt = Ks + buf * TILE_ELEMS;
+        const bf16* Vt = Vs + buf * TILE_ELEMS;
+        const int* kf = kflag + buf * TILE;
+#pragma unroll 1
+        for (int sub = 0; sub < TILE; sub += SUB) {
+            float s[SUB / 8][4];  // S: the warp's 16 query rows x SUB keys
+#pragma unroll
+            for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            product_nk<KC, SUB / 8>(s, aq, Kt, sub, lane);
+
+            uint32_t pa[SUB / 16][4];
+            online_softmax<SUB / 8>(pa, s, kf + sub + 2 * t4, m, l, acc, scale2);
+            product_kn<KC, SUB / 16>(acc, pa, Vt, sub, lane);  // O += P V
+        }
+
+        if (more && tid < TILE) kflag[(buf ^ 1) * TILE + tid] = next_flag;
+        cp_async_wait_all();
+        __syncthreads();  // tile t+1 has landed, and no warp reads tile t any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float sum = l[h];  // the quad's four shares
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= qrows) continue;
+        const float inv = 1.f / sum;  // sum >= 1: the row max contributes 2^0
+        bf16* orow = o + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int j = 0; j < 2 * KC; ++j)
+            store_pair(orow, 8 * j + 2 * t4, acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv, d,
+                       pairs);
+        if (row_max != nullptr && t4 == 0) {  // the quad holds the same m and sum
+            const size_t at = size_t(bh) * N + q0 + r;
+            row_max[at] = m[h] == MASKED_LOGIT2 ? MASKED_LOGIT : m[h] * LN2;
+            row_sum[at] = sum;
+        }
+    }
+}
+
+bool aligned(const void* p, uintptr_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+template <int KC>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask, void* o,
+                       float* row_max, float* row_sum, int B, int H, int N, int d,
+                       cudaStream_t stream) {
+    const size_t bytes = mma_smem_bytes(KC);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<KC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    // 8-byte tile copies need rows of a multiple of 8 bytes on 8-byte-aligned
+    // tensors; 4-byte stores of two bf16 need even rows on a 4-byte-aligned one
+    const int how = (d % 4 == 0 && aligned(q, 8) && aligned(k, 8) && aligned(v, 8) ? COPY_8B : 0)
+                    | (d % 2 == 0 && aligned(o, 4) ? STORE_PAIRS : 0);
+    const dim3 grid((N + OWN - 1) / OWN, B * H);
+    flash_fwd_mma_kernel<KC><<<grid, MMA_NT, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), row_max, row_sum, H, N, d,
+        LOG2E / sqrtf(float(d)), how);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). dtype: 0 = fp32, 1 = bf16. row_max and
-// row_sum are both null (no statistics) or both [B, H, N] fp32.
+// Returns a cudaError_t (0 on success). dtype: 0 = fp32 (CUDA cores), 1 = bf16
+// (tensor cores). row_max and row_sum are both null (no statistics) or both
+// [B, H, N] fp32.
 int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                    void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
                    void* stream) {
@@ -271,19 +692,21 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* rm = static_cast<float*>(row_max);
     float* rs = static_cast<float*>(row_sum);
-#define FLASH_CASE(NC)                                                                        \
-    case NC:                                                                                  \
-        return int(dtype == 1 ? launch<__nv_bfloat16, NC>(q, k, v, mask, o, rm, rs, B, H, N, d, st) \
-                              : launch<float, NC>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
-    switch ((d + 15) / 16 * 2) {  // head dim padded to a multiple of 16
+    // the head dim padded to a multiple of 16: KC steps of 16 (the fp32
+    // kernel counts 8-column blocks, NC = 2 * KC)
+#define FLASH_CASE(KC)                                                                     \
+    case KC:                                                                               \
+        return int(dtype == 1 ? launch_mma<KC>(q, k, v, mask, o, rm, rs, B, H, N, d, st)   \
+                              : launch<float, 2 * KC>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
+    switch ((d + 15) / 16) {
+        FLASH_CASE(1)
         FLASH_CASE(2)
+        FLASH_CASE(3)
         FLASH_CASE(4)
+        FLASH_CASE(5)
         FLASH_CASE(6)
+        FLASH_CASE(7)
         FLASH_CASE(8)
-        FLASH_CASE(10)
-        FLASH_CASE(12)
-        FLASH_CASE(14)
-        FLASH_CASE(16)
     }
 #undef FLASH_CASE
     return int(cudaErrorInvalidValue);

@@ -46,15 +46,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def nvcc(src: Path, out: Path) -> subprocess.Popen:
+    """Start compiling `src` into the shared library `out` with NVCC_FLAGS;
+    the compiler's output (with -Xptxas -v) is the process's stdout."""
+    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name: str) -> "subprocess.Popen | None":
     lib = library_path(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    return nvcc(CSRC / f"{name}.cu", lib.with_suffix(f".{os.getpid()}.tmp"))
 
 
 def build(names: Iterable[str]) -> List[str]:

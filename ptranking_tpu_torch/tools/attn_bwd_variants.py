@@ -105,9 +105,7 @@ def build_all():
         sources[name] = out_dir / f"{name}.cu"
         sources[name].write_text(s)
     sources["wgmma_experiment"] = EXPERIMENT
-    procs = {name: subprocess.Popen(
-        [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, src in sources.items()}
+    procs = {name: cuda_build.nvcc(src, out_dir / f"{name}.so") for name, src in sources.items()}
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()

@@ -1,8 +1,9 @@
 """The port's masked attention (ptranking_tpu_torch/ops/attention.py) against
 the JAX package's: the flash path (forward, and dq, dk, dv) against the Pallas
-flash kernel run in interpret mode, and the blockwise plain version against
-JAX's blockwise. The CUDA kernels themselves run only on the card:
-chip_smoke.py holds them against the plain version there."""
+flash kernel run in interpret mode, the blockwise plain version against JAX's
+blockwise, and the kernels' formulas in plain torch (attention_forward_plain,
+attention_backward_plain) against both. The CUDA kernels themselves run only
+on the card: chip_smoke.py holds them against the plain versions there."""
 
 import jax
 import jax.numpy as jnp
@@ -211,3 +212,102 @@ def test_variant_tool_substitutions_match_the_kernel_source():
             assert old != new
     assert tool.EXPERIMENT.exists()
     assert '#include "../flash_attn_bwd.cu"' in tool.EXPERIMENT.read_text()
+
+
+# ---------------------------------------------------------------------------
+# attention_forward_plain: the forward kernels' formulas in plain torch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES[:2], ids=lambda s: "x".join(map(str, s)))
+def test_forward_plain_matches_jax_pallas_interpret(shape):
+    """fp32: the plain forward == the JAX Pallas flash kernel in interpret mode
+    on real query rows, atol 1e-5 (summation order and tile boundaries only;
+    the all-padded list has no real row: garbage by contract)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    (q, k, v, _, mask), (tq, tk, tv, _, tm), _ = _bwd_case(*shape)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jattn.flash_attention(*(jnp.asarray(a) for a in (q, k, v, mask))))
+    out, _, _ = tattn.attention_forward_plain(tq, tk, tv, tm)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_real_rows(out.numpy(), mask), _real_rows(ref, mask), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_forward_plain_bf16_matches_blockwise(shape):
+    """bf16: the plain forward against blockwise_attention on real query rows,
+    atol 2e-2 (the card's ATTN_TOL). Both keep fp32 logits and sums and round
+    p and the output to bf16, but p relative to another max (a 64-key tile's
+    running max, a 128-key block's own max), so they part by output-rounding
+    flips: one or two bf16 ulps (2^-7 for |out| in [1, 2))."""
+    _, (q, k, v, _, mask), _ = _bwd_case(*shape, dtype=torch.bfloat16)
+    out, _, _ = tattn.attention_forward_plain(q, k, v, mask)
+    ref = tattn.blockwise_attention(q, k, v, mask, block_size=min(128, shape[2]))
+    assert out.dtype == torch.bfloat16
+    real = mask[:, None, :, None].expand_as(out)
+    assert float((out.float() - ref.float()).abs()[real].max()) <= 2e-2
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_plain_statistics_match_definition(shape, dtype):
+    """row_max and row_sum are m = max_j x_ij and l = sum_j exp(x_ij - m) over
+    all N keys, a masked key's x being -1e9 (the definition _bwd_case uses,
+    and what the backward kernels read): rtol 1e-5 (fp32 on both sides, tiled
+    against whole-row sums). The all-padded list gets m = -1e9 exactly."""
+    _, (q, k, v, _, mask), (_, row_max, row_sum) = _bwd_case(*shape, dtype=getattr(torch, dtype))
+    _, m, l = tattn.attention_forward_plain(q, k, v, mask)
+    assert m.dtype == l.dtype == torch.float32 and m.shape == l.shape == shape[:3]
+    torch.testing.assert_close(m, row_max, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, row_sum, rtol=1e-5, atol=0)
+    assert bool((m[2] == -1e9).all()) and bool((l[2] == shape[2]).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_plain_all_padded_list_stays_finite(dtype):
+    """A list with no real document averages v over its N keys (every masked
+    logit is the same -1e9): finite, as the kernels' contract says."""
+    _, (q, k, v, _, mask), _ = _bwd_case(3, 2, 50, 8, dtype=getattr(torch, dtype))
+    out, _, _ = tattn.attention_forward_plain(q, k, v, mask)
+    assert torch.isfinite(out.float()).all()
+    mean_v = v[2].float().mean(dim=1, keepdim=True).expand_as(out[2])
+    tol = 1e-6 if dtype == "float32" else 1e-2  # bf16: p = 1 exact; the output's one rounding
+    assert float((out[2].float() - mean_v).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_plain_ignores_appended_padded_keys(dtype):
+    """Appending masked documents (a longer bucket) leaves the real lists'
+    rows unchanged: a masked key's p is exp(-1e9 - m) = 0 exactly. atol 1e-6
+    in fp32 (a tile's product sums over more zero terms), bf16 one ulp at
+    |out| < 1 (the same, after the output's rounding)."""
+    tdt = getattr(torch, dtype)
+    B, H, N, d, extra = 2, 2, 100, 68, 37
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(B, H, N + extra, d).astype(np.float32)).to(tdt)
+               for _ in range(3))
+    lengths = torch.tensor([N, 61])
+    long_mask = torch.arange(N + extra)[None, :] < lengths[:, None]
+    short = tattn.attention_forward_plain(q[:, :, :N], k[:, :, :N], v[:, :, :N], long_mask[:, :N])
+    long = tattn.attention_forward_plain(q, k, v, long_mask)
+    real = long_mask[:, None, :N, None].expand_as(short[0])
+    tol = 1e-6 if dtype == "float32" else 2 ** -8
+    assert float((short[0].float() - long[0][:, :, :N].float()).abs()[real].max()) <= tol
+    torch.testing.assert_close(long[1][:, :, :N], short[1], rtol=0, atol=0)
+    torch.testing.assert_close(long[2][:, :, :N], short[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("lib", ["flash_attn_fwd", "sinkstep"])
+def test_fwd_sink_variant_substitutions_match_the_kernel_sources(lib):
+    """Every text substitution of tools/fwd_sink_variants.py still finds its
+    target in csrc/<lib>.cu (sources() raises otherwise) and changes it: an
+    edit of a kernel source that orphans the tool fails here, not on the card."""
+    from ptranking_tpu_torch.tools import fwd_sink_variants as tool
+
+    text = tool.SOURCES[lib].read_text()
+    built = tool.sources()
+    assert built[(lib, "shipped")] == text
+    for name in tool.VARIANTS[lib]:
+        assert name == "shipped" or built[(lib, name)] != text, name
