@@ -139,6 +139,15 @@ SINK_EDGES = [(1, (1, 1, 0), 0.1), (2, (2, 1, 0), 0.3), (16, (16, 9, 0), 0.1),
 # the scalings). The 20-iteration scalings are held to
 # max |kernel - plain| / max |plain| <= SINK_SCALINGS_TOL.
 SINK_RTOL, SINK_ATOL, SINK_SCALINGS_TOL = 1e-4, 1e-5, 1e-4
+# costs with entries outside the range the vector kernels' FMA division takes
+# (sink_case's `extreme`: every s-th entry scaled by 1e-35, every t-th by
+# 1e35). (7, 11) puts one in every whole chunk of 4 x 4 loads, so every chunk
+# goes through the division (and, at N % 4 != 0, the scalar kernels meet
+# them); (1009, 1013) in about 3% of the chunks, so a reduction mixes chunks
+# of the FMA path and of the division. Whole chunks exist in the column
+# kernel at N = 128, 512 and 1408, in the row kernel at 512 and 1408 (a row
+# of 128 is all remainder).
+SINK_EXTREMES = ((7, 11), (1009, 1013))
 # per element of the cost matrix: fp32 operations of the half-step (negate,
 # divide, add, subtract, abs, select, multiply-add, max) beside its one exp
 SINK_FP32_OPS = 10
@@ -663,17 +672,17 @@ def check_pairwise(card):
     return records
 
 
-def sink_case(B, N, lengths, seed=0, dense=False, extreme=False):
+def sink_case(B, N, lengths, seed=0, dense=False, extreme=None):
     """Inputs of the half-step on the card as WassRank builds them: the `eg`
     cost of presorted labels, the log of the labels' softmax histogram as the
     marginal, and a log-scaling (the log of a random histogram); pads carry
     -1e30 in both. Under the `eg` cost at lam 0.1 a column's sum is its
     largest term (the others fall below fp32's epsilon), so `dense` swaps in
     a cost of |normal| draws, under which hundreds of terms of like size add
-    up. `extreme` (with `dense`) scales every 7th entry by 1e-35 and every
-    11th by 1e35: values outside the range the kernels' FMA division takes,
-    so their chunks go through the division itself. Returns (cost,
-    log_marginal, log_u, mask)."""
+    up. `extreme` = (s, t) (with `dense`) scales every s-th entry by 1e-35
+    and every t-th by 1e35: values outside the range the vector kernels' FMA
+    division takes, so their chunks go through the division itself
+    (SINK_EXTREMES). Returns (cost, log_marginal, log_u, mask)."""
     import torch
 
     from ptranking_tpu_torch.losses.wassrank import cost_mat_group, std_histogram_st
@@ -690,8 +699,8 @@ def sink_case(B, N, lengths, seed=0, dense=False, extreme=False):
         cost = torch.randn(B, N, N, generator=g).abs().cuda()
     if extreme:
         flat = cost.view(-1)
-        flat[::7] *= 1e-35
-        flat[::11] *= 1e35
+        flat[::extreme[0]] *= 1e-35
+        flat[::extreme[1]] *= 1e35
     log_marg = _safe_log(std_histogram_st(labels, mask))
     log_u = _safe_log(masked_softmax(torch.randn(B, N, generator=g).cuda(), mask))
     return cost, log_marg, log_u, mask
@@ -740,7 +749,7 @@ def check_sinkstep(card):
             errs[name] = sink_errs(out, ref, mask, what + (name,))
         return errs
 
-    costs = ((False, False), (True, False), (True, True))  # eg, dense, dense with extremes
+    costs = ((False, None), (True, None), *((True, e) for e in SINK_EXTREMES))  # eg, dense
     for (N, lengths, lam) in SINK_EDGES:
         for dense, extreme in costs:  # the dense cost is asymmetric: a swapped orientation shows
             errs = check_both(*sink_case(len(lengths), N, lengths, dense=dense, extreme=extreme),
@@ -775,17 +784,23 @@ def check_sinkstep(card):
         bnd = max(bound(elements * SINK_FP32_OPS, FP32_PEAK, nbytes),
                   bound(elements, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
         dense = check_both(*sink_case(B, N, None, seed=1, dense=True), 0.3, (B, N, "dense"))
+        extremes = {e: check_both(*sink_case(B, N, None, seed=2, dense=True, extreme=e), 0.3,
+                                  (B, N, "extreme", e)) for e in SINK_EXTREMES}
         rec = {"shape": [B, N, N], "lam": lam, "max_neg_cost_over_lam": float(neg_c.abs().max()),
                "max_abs_err": {k: e[0] for k, e in errs.items()},
                "share_of_limit": {k: e[1] for k, e in errs.items()},
                "dense_cost_max_abs_err": {k: e[0] for k, e in dense.items()},
                "dense_cost_share_of_limit": {k: e[1] for k, e in dense.items()},
+               "extreme_cost_share_of_limit": {f"{s}/{t}": {k: e[1] for k, e in errs_e.items()}
+                                               for (s, t), errs_e in extremes.items()},
                "ms": ms, "plain_ms": plain_ms, "library_ms_cols": library_ms, **bnd}
         print("sinkstep " + json.dumps(rec) + f"  [{card}]", flush=True)
         if N == SINK_RECORD[1]:
             # a step launches as many of one orientation as of the other: the
             # record holds the mean of the two
-            record = {"max_abs_err": max(e[0] for e in (*errs.values(), *dense.values())),
+            checked = [*errs.values(), *dense.values(),
+                       *(e for errs_e in extremes.values() for e in errs_e.values())]
+            record = {"max_abs_err": max(e[0] for e in checked),
                       "ms": sum(ms.values()) / 2, "plain_ms": sum(plain_ms.values()) / 2,
                       "library_ms": library_ms, **bnd}
             log_nu = log_marg

@@ -34,6 +34,8 @@ import torch
 from ptranking_tpu_torch.ops import cuda_build
 
 _NEG = -1e9
+# keys a tile of the forward kernels (TILE and BN in csrc/flash_attn_fwd.cu)
+_FWD_TILE = 64
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,10 +73,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            mask: torch.Tensor, tile: int = 64):
+                            mask: torch.Tensor):
     """(out, row_max, row_sum) of masked attention as the forward kernels
-    compute them: a loop over `tile`-key tiles with a running max m (from
-    -1e30) and sum l,
+    compute them: a loop over 64-key tiles with a running max m (from -1e30)
+    and sum l,
 
         x = q k^T * scale (a masked key: the constant -1e9), m' = max(m, max x),
         p = exp(x - m'),  l' = l exp(m - m') + sum p,  O' = O exp(m - m') + p v,
@@ -90,10 +92,10 @@ def attention_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((B, H, N), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, N), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, N, d), dtype=torch.float32, device=q.device)
-    for s in range(0, N, tile):
-        kb, vb = k[:, :, s:s + tile].float(), v[:, :, s:s + tile].float()
-        x = torch.where(mask[:, None, None, s:s + tile], torch.matmul(qf, kb.transpose(-1, -2)) * scale,
-                        _NEG)
+    for s in range(0, N, _FWD_TILE):
+        kb, vb = k[:, :, s:s + _FWD_TILE].float(), v[:, :, s:s + _FWD_TILE].float()
+        x = torch.where(mask[:, None, None, s:s + _FWD_TILE],
+                        torch.matmul(qf, kb.transpose(-1, -2)) * scale, _NEG)
         m_new = torch.maximum(m, x.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(x - m_new[..., None])

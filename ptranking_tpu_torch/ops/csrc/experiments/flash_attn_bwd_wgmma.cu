@@ -2,7 +2,7 @@
 // ../flash_attn_bwd.cu with all four products as warpgroup instructions
 // (wgmma.mma_async, m64n64k16 and m64n80k16), for head dims 65..80 with
 // 8-byte-aligned rows (the flagship's d = 68). Built and timed against the
-// shipped mma.sync kernels by ptranking_tpu_torch/tools/attn_bwd_variants.py;
+// shipped mma.sync kernels by ptranking_tpu_torch/tools/kernel_variants.py;
 // it gives the same bits and was not faster on an H100 (PERF.md has the
 // times), so the package keeps mma.sync. It stays as the measured record and
 // as a checked example of wgmma operand descriptors without swizzle.
@@ -108,13 +108,26 @@ __device__ __forceinline__ void fence_accumulator(float (&d)[NTILES][4]) {
         for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
+// A thread's share of a tile copy in 8-byte chunks (4 bf16): chunk tid + MMA_NT*i
+// of the tile is (row, chunk of the row); one division a kernel, not one a chunk.
+struct Chunks {
+    int per_row, row, col, row_step, col_step;
+    __device__ Chunks(int d, int tid) {
+        per_row = max(d >> 2, 1);
+        row = tid / per_row;
+        col = tid - row * per_row;
+        row_step = MMA_NT / per_row;
+        col_step = MMA_NT - row_step * per_row;
+    }
+};
+
 // load_tile for the core-matrix layout: 8-byte cp.async only
 __device__ __forceinline__ void load_tile_cm(unsigned char* dst, const bf16* __restrict__ src,
                                              int nrows, int d, const Chunks& ch) {
     int r = ch.row, c = ch.col;
     while (r < TILE) {
         unsigned char* p = dst + cm_offset(r, c * 4);
-        if (r < nrows) cp_async_8(smem_addr(p), src + size_t(r) * d + c * 4);
+        if (r < nrows) cp_async_8(smem_addr(p), src + size_t(r) * d + c * 4, 8);
         else *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
         r += ch.row_step;
         c += ch.col_step;

@@ -37,8 +37,11 @@
 // to run on the tensor cores and nothing else may stand in their way. What
 // stands in their way in this design is the shared-memory pipe: the ldmatrix
 // reads (a warp owns only 16 rows, so every B fragment feeds one product) and
-// the 8-byte tile copies (ptranking_tpu_torch/tools/attn_bwd_variants.py
-// times the kernels with each phase cut out).
+// the 8-byte tile copies (ptranking_tpu_torch/tools/kernel_variants.py
+// times the kernels with each phase cut out: on an NVIDIA H100 80GB HBM3 at
+// 700 W, at (32, 2, 1408, 68), dk/dv takes 0.391..0.397 ms and dq
+// 0.265..0.267, and without the next tiles' copies 0.326..0.328 and
+// 0.184..0.186; PERF.md keeps the runs).
 //
 // bf16 inputs: flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel.
 //   * All four products are mma.sync.m16n8k16 (bf16 x bf16 -> fp32) with
@@ -64,9 +67,14 @@
 //     cp.async while tile t is multiplied, one __syncthreads a tile. A row of
 //     d = 68 bf16 is 136 bytes, a multiple of 8 but not of 16, so the copies
 //     are 8 bytes wide (d % 4 == 0 and 8-byte-aligned tensors; other shapes
-//     take a scalar, synchronous copy into the same buffers). The next tile's
-//     row statistics (dk/dv) or key flags (dq) are prefetched into registers
-//     and stored to the other buffer after the arithmetic.
+//     take a scalar, synchronous copy into the same buffers). A thread's
+//     copies of a tile are independent of each other (a chunk's row by a
+//     multiply, a row past N zero-filled by the copy itself), so they issue
+//     back to back. The next tile's row statistics (dk/dv) or key flags (dq)
+//     are prefetched into registers and stored to the other buffer after the
+//     arithmetic.
+//   * The fragments, products and copies are those of the forward's
+//     tensor-core kernel, from mma_common.cuh.
 //   * Rounding: P and dS are rounded to bf16 before the second products, as
 //     autograd through the plain blockwise attention rounds them; all sums
 //     are fp32 and the outputs are rounded once at the store.
@@ -78,197 +86,27 @@
 // shared memory with 4x8 register blocks; 128 threads as 16 row groups of 4
 // rows x 8 lanes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
 constexpr int BM = 64;       // fp32 kernels: query rows per tile
 constexpr int BN = 64;       // fp32 kernels: keys per tile
 constexpr int NT = 128;      // fp32 kernels: threads
-constexpr float MASKED_LOGIT = -1e9f;
-
-enum : int { KEY_REAL = 0, KEY_MASKED = 1, KEY_OUT = 2 };
-
-__device__ __forceinline__ int key_flag(const uint8_t* __restrict__ mask_row, int key, int N) {
-    return key >= N ? KEY_OUT : (mask_row[key] ? KEY_REAL : KEY_MASKED);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int MMA_WARPS = 4;            // warps a block
 constexpr int MMA_NT = 32 * MMA_WARPS;  // threads a block
 constexpr int OWN = 16 * MMA_WARPS;     // rows a block owns: keys (dk/dv) or query rows (dq)
 constexpr int TILE = 64;                // rows of a tile it loops over: queries or keys
 constexpr int SUB = 32;                 // columns of S / dP a warp holds in registers at a time
-enum : int { COPY_8B = 1, STORE_PAIRS = 2 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
-// With g = lane / 4, t = lane % 4 a thread holds c[0..1] = (row g, columns 2t,
-// 2t+1), c[2..3] = (row g+8, the same columns); a[0] = (row g, k 2t, 2t+1),
-// a[1] = (row g+8, the same k), a[2], a[3] = the same rows at k + 8;
-// b0 = (k 2t, 2t+1; column g), b1 = the same at k + 8.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-                 :
-                 : "r"(dst), "l"(__cvta_generic_to_global(src))
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A thread's share of a tile copy in 8-byte chunks (4 bf16): chunk tid + MMA_NT*i
-// of the tile is (row, chunk of the row); one division a kernel, not one a chunk.
-struct Chunks {
-    int per_row, row, col, row_step, col_step;
-    __device__ Chunks(int d, int tid) {
-        per_row = max(d >> 2, 1);
-        row = tid / per_row;
-        col = tid - row * per_row;
-        row_step = MMA_NT / per_row;
-        col_step = MMA_NT - row_step * per_row;
-    }
-};
-
-// Rows r < nrows of the contiguous [nrows, d] tile at src into the shared
-// [rows][LDS] tile at dst (columns < d), zeros in the rows past nrows. With
-// copy_8b the copies are cp.async (the caller commits and waits); otherwise
-// scalar and synchronous.
-template <int LDS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int nrows,
-                                          int rows, int d, bool copy_8b, const Chunks& ch) {
-    if (copy_8b) {
-        int r = ch.row, c = ch.col;
-        while (r < rows) {
-            bf16* p = dst + r * LDS + c * 4;
-            if (r < nrows) cp_async_8(smem_addr(p), src + size_t(r) * d + c * 4);
-            else *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
-            r += ch.row_step;
-            c += ch.col_step;
-            if (c >= ch.per_row) {
-                c -= ch.per_row;
-                ++r;
-            }
-        }
-    } else {
-        const bf16 zero = __float2bfloat16(0.f);
-        for (int i = threadIdx.x; i < rows * d; i += MMA_NT) {
-            const int r = i / d, c = i - r * d;
-            dst[r * LDS + c] = r < nrows ? src[size_t(r) * d + c] : zero;
-        }
-    }
-}
-
-// columns d .. LDS-1 of `rows` shared rows: written once, no copy touches them
-template <int LDS>
-__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows, int d) {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int r = threadIdx.x; r < rows; r += MMA_NT)
-        for (int c = d; c < LDS; ++c) tiles[r * LDS + c] = zero;
-}
-
-// The A fragments (16 rows from row0, all KC 16-deep steps) of a [rows][LDS] tile.
-template <int KC>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KC][4], const bf16* tile, int row0, int lane) {
-    constexpr int LDS = 16 * KC + 8;
-    // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
-    const uint32_t addr = smem_addr(tile + (row0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
-#pragma unroll
-    for (int ks = 0; ks < KC; ++ks) ldmatrix_x4(a[ks], addr + ks * 32);
-}
-
-// acc[j] (16 x 8) += A (16 x 16*KC, fragments) * B_j^T, where B_j = rows
-// n0 + 8j .. n0 + 8j + 7 of the [TILE][LDS] tile at btile: the tile holds B
-// as [column][k], which is mma's column-major B, so ldmatrix reads it as is.
-template <int KC, int NTILES>
-__device__ __forceinline__ void product_nk(float (&acc)[NTILES][4], const uint32_t (&a)[KC][4],
-                                           const bf16* btile, int n0, int lane) {
-    constexpr int LDS = 16 * KC + 8;
-    // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-    const uint32_t addr = smem_addr(btile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                                    + (((lane >> 3) & 1) << 3));
-#pragma unroll
-    for (int ks = 0; ks < KC; ++ks)
-#pragma unroll
-        for (int np = 0; np < NTILES / 2; ++np) {
-            uint32_t b[4];
-            ldmatrix_x4(b, addr + (np * 16 * LDS + ks * 16) * 2);
-            mma_16816(acc[2 * np], a[ks], b[0], b[1]);
-            mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
-        }
-}
-
-// acc[j] (16 x 8: tile columns 8j .. 8j+7, j < 2*KC) += A (16 x 16*NCH,
-// fragments in registers) * B, where B = rows k0 .. k0 + 16*NCH - 1 of the
-// [TILE][LDS] tile at btile: the tile holds B as [k][column], so ldmatrix
-// transposes each 8 x 8 block on the way.
-template <int KC, int NCH>
-__device__ __forceinline__ void product_kn(float (&acc)[2 * KC][4], const uint32_t (&a)[NCH][4],
-                                           const bf16* btile, int k0, int lane) {
-    constexpr int LDS = 16 * KC + 8;
-    // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-    const uint32_t addr = smem_addr(btile + (k0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-        for (int np = 0; np < KC; ++np) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, addr + (ch * 16 * LDS + np * 16) * 2);
-            mma_16816(acc[2 * np], a[ch], b[0], b[1]);
-            mma_16816(acc[2 * np + 1], a[ch], b[2], b[3]);
-        }
-}
-
-// (x, y) at columns col, col + 1 of an output row of d columns
-__device__ __forceinline__ void store_pair(bf16* row, int col, float x, float y, int d,
-                                           bool pairs) {
-    if (pairs) {  // d even and the row 4-byte aligned: col + 1 < d whenever col < d
-        if (col < d) *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
-    } else {
-        if (col < d) row[col] = __float2bfloat16(x);
-        if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
-    }
-}
 
 // The dk/dv kernels' arithmetic on a fragment of S^T and dP^T (rows = the
 // thread's two keys with their flags, 8-column tiles j = queries): P^T and
@@ -362,13 +200,13 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const size_t stat = size_t(bh) * N;
     const int krows = min(OWN, N - k0);
     const bool copy_8b = how & COPY_8B;
-    const Chunks ch(d, tid);
+    const uint32_t magic = copy_magic(d);
 
-    zero_pad_columns<LDS>(Ks, 2 * OWN + 4 * TILE, d);
-    load_tile<LDS>(Ks, k + base + size_t(k0) * d, krows, OWN, d, copy_8b, ch);
-    load_tile<LDS>(Vs, v + base + size_t(k0) * d, krows, OWN, d, copy_8b, ch);
-    load_tile<LDS>(Qs, q + base, min(TILE, N), TILE, d, copy_8b, ch);
-    load_tile<LDS>(dOs, dout + base, min(TILE, N), TILE, d, copy_8b, ch);
+    zero_pad_columns<MMA_NT, LDS>(Ks, 2 * OWN + 4 * TILE, d);
+    load_tile<MMA_NT, KC, OWN>(Ks, k + base + size_t(k0) * d, krows, d, copy_8b, magic);
+    load_tile<MMA_NT, KC, OWN>(Vs, v + base + size_t(k0) * d, krows, d, copy_8b, magic);
+    load_tile<MMA_NT, KC, TILE>(Qs, q + base, min(TILE, N), d, copy_8b, magic);
+    load_tile<MMA_NT, KC, TILE>(dOs, dout + base, min(TILE, N), d, copy_8b, magic);
     cp_async_commit();
     if (tid < TILE) {
         const bool in = tid < N;
@@ -400,10 +238,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         if (more) {
             const int q1 = (t + 1) * TILE;
             const int nrows = min(TILE, N - q1);
-            load_tile<LDS>(Qs + (buf ^ 1) * TILE_ELEMS, q + base + size_t(q1) * d, nrows, TILE,
-                           d, copy_8b, ch);
-            load_tile<LDS>(dOs + (buf ^ 1) * TILE_ELEMS, dout + base + size_t(q1) * d, nrows,
-                           TILE, d, copy_8b, ch);
+            load_tile<MMA_NT, KC, TILE>(Qs + (buf ^ 1) * TILE_ELEMS, q + base + size_t(q1) * d,
+                                        nrows, d, copy_8b, magic);
+            load_tile<MMA_NT, KC, TILE>(dOs + (buf ^ 1) * TILE_ELEMS, dout + base + size_t(q1) * d,
+                                        nrows, d, copy_8b, magic);
             cp_async_commit();
             next_in = tid < TILE && q1 + tid < N;
             if (next_in) {
@@ -488,13 +326,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qrows = min(OWN, N - q0);
     const uint8_t* mask_row = mask + size_t(b) * N;
     const bool copy_8b = how & COPY_8B;
-    const Chunks ch(d, tid);
+    const uint32_t magic = copy_magic(d);
 
-    zero_pad_columns<LDS>(Qs, 2 * OWN + 4 * TILE, d);
-    load_tile<LDS>(Qs, q + base + size_t(q0) * d, qrows, OWN, d, copy_8b, ch);
-    load_tile<LDS>(dOs, dout + base + size_t(q0) * d, qrows, OWN, d, copy_8b, ch);
-    load_tile<LDS>(Ks, k + base, min(TILE, N), TILE, d, copy_8b, ch);
-    load_tile<LDS>(Vs, v + base, min(TILE, N), TILE, d, copy_8b, ch);
+    zero_pad_columns<MMA_NT, LDS>(Qs, 2 * OWN + 4 * TILE, d);
+    load_tile<MMA_NT, KC, OWN>(Qs, q + base + size_t(q0) * d, qrows, d, copy_8b, magic);
+    load_tile<MMA_NT, KC, OWN>(dOs, dout + base + size_t(q0) * d, qrows, d, copy_8b, magic);
+    load_tile<MMA_NT, KC, TILE>(Ks, k + base, min(TILE, N), d, copy_8b, magic);
+    load_tile<MMA_NT, KC, TILE>(Vs, v + base, min(TILE, N), d, copy_8b, magic);
     cp_async_commit();
     if (tid < TILE) kflag[tid] = key_flag(mask_row, tid, N);
     float m[2], inv[2], D[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
@@ -527,10 +365,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (more) {  // the next key tile: copies in flight, its flags in a register
             const int k1 = (t + 1) * TILE;
             const int nrows = min(TILE, N - k1);
-            load_tile<LDS>(Ks + (buf ^ 1) * TILE_ELEMS, k + base + size_t(k1) * d, nrows, TILE,
-                           d, copy_8b, ch);
-            load_tile<LDS>(Vs + (buf ^ 1) * TILE_ELEMS, v + base + size_t(k1) * d, nrows, TILE,
-                           d, copy_8b, ch);
+            load_tile<MMA_NT, KC, TILE>(Ks + (buf ^ 1) * TILE_ELEMS, k + base + size_t(k1) * d,
+                                        nrows, d, copy_8b, magic);
+            load_tile<MMA_NT, KC, TILE>(Vs + (buf ^ 1) * TILE_ELEMS, v + base + size_t(k1) * d,
+                                        nrows, d, copy_8b, magic);
             cp_async_commit();
             if (tid < TILE) next_flag = key_flag(mask_row, k1 + tid, N);
         }
@@ -844,8 +682,6 @@ struct Args {
     int B, H, N, d;
     cudaStream_t stream;
 };
-
-bool aligned(const void* p, uintptr_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 // 8-byte tile copies need rows of a multiple of 8 bytes on 8-byte-aligned tensors
 int copy_mode(const Args& a) {

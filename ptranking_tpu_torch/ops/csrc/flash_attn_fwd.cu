@@ -40,7 +40,8 @@
 // bf16 inputs: flash_fwd_mma_kernel, on the tensor cores. One block of 4
 // warps per (b*h, 64 query rows); a warp owns 16 rows. It is the dq kernel of
 // flash_attn_bwd.cu with the dP product dropped and an online softmax and
-// O += P V added:
+// O += P V added, and shares its fragments, products and copies
+// (mma_common.cuh):
 //   * the warp's Q rows are read once by ldmatrix into A fragments that stay
 //     in registers (KC = ceil(d/16) 16-deep steps: 5 at d = 68);
 //   * a loop over 64-key tiles of K and V, bf16 in shared memory with rows
@@ -71,14 +72,15 @@
 // 168 registers at d = 68 (KC = 5), no spill, 56,832 bytes of shared memory
 // a block, three blocks an SM.
 //
-// What still holds it (ptranking_tpu_torch/tools/fwd_sink_variants.py on an
-// NVIDIA H100 80GB HBM3 at 700 W, (32, 2, 1408, 68) with statistics: about
-// 0.20 ms, 5.8x its bound): the tile copies. Without them it takes 0.14 ms;
-// with every copy from one cache-hot tile 0.19, so it is their instructions
-// (2,176 8-byte copies a block and tile; a 16-byte-aligned row would halve
-// them) and not the L2's bytes. Without P V it takes 0.19, without the
-// exponentials 0.20. Two blocks an SM change nothing; 32 keys of S at a time
-// (0.22) or 8 warps owning 128 query rows (0.24) are slower.
+// What still holds it (ptranking_tpu_torch/tools/kernel_variants.py on an
+// NVIDIA H100 80GB HBM3 at 700 W, (32, 2, 1408, 68) with statistics:
+// 0.208..0.212 ms, 6.0x its bound; PERF.md keeps the runs): the tile copies.
+// Without them it takes 0.134..0.139 ms; with every copy from one cache-hot
+// tile 0.191..0.199, so it is their instructions (2,176 8-byte copies a block
+// and tile; a 16-byte-aligned row would halve them) and not the L2's bytes.
+// Without P V it takes 0.203..0.206, without the exponentials 0.201..0.208.
+// Two blocks an SM change nothing; 32 keys of S at a time (0.224..0.229) or
+// 8 warps owning 128 query rows (0.236..0.245) are slower.
 //
 // fp32 inputs: flash_fwd_kernel, on the fp32 CUDA cores by design, as the
 // backward's fp32 kernels (TF32 keeps about 3 digits, and the fp32 path is
@@ -86,10 +88,11 @@
 // 4x8 tiles per thread over transposed fp32 tiles in shared memory, 128
 // threads as 16 row groups of 4 rows x 8 lanes, the same padding rules.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -97,10 +100,7 @@ constexpr int BM = 64;       // fp32 kernel: query rows per block
 constexpr int BN = 64;       // fp32 kernel: keys per tile
 constexpr int NT = 128;      // fp32 kernel: 16 row groups (4 rows each) x 8 column lanes
 constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
-constexpr float MASKED_LOGIT = -1e9f;
 constexpr float M_INIT = -1e30f;  // below any logit, -1e9 included; finite, so m_old - m_new never is NaN
-
-enum : int { KEY_REAL = 0, KEY_MASKED = 1, KEY_OUT = 2 };
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores
@@ -307,8 +307,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int MMA_WARPS = 4;            // warps a block
 constexpr int MMA_NT = 32 * MMA_WARPS;  // threads a block
 constexpr int OWN = 16 * MMA_WARPS;     // query rows a block owns, 16 a warp
@@ -317,175 +315,12 @@ constexpr int SUB = 64;                 // keys of S a warp holds in registers a
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED_LOGIT2 = MASKED_LOGIT * LOG2E;  // the masked logit in log2 units
-enum : int { COPY_8B = 1, STORE_PAIRS = 2 };
-
-__device__ __forceinline__ int key_flag(const uint8_t* __restrict__ mask_row, int key, int N) {
-    return key >= N ? KEY_OUT : (mask_row[key] ? KEY_REAL : KEY_MASKED);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
-// With g = lane / 4, t = lane % 4 a thread holds c[0..1] = (row g, columns 2t,
-// 2t+1), c[2..3] = (row g+8, the same columns); a[0] = (row g, k 2t, 2t+1),
-// a[1] = (row g+8, the same k), a[2], a[3] = the same rows at k + 8;
-// b0 = (k 2t, 2t+1; column g), b1 = the same at k + 8.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 8 bytes from src to dst, of which the first src_bytes (8 or 0) are read
-// and the rest are zero-filled
-__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :
-                 : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // 2^x on the SFU; 2^0 = 1 and 2^-inf = 0 exactly
 __device__ __forceinline__ float ex2(float x) {
     float y;
     asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
     return y;
-}
-
-// Rows r < nrows of the contiguous [nrows, d] tile at src into the shared
-// [ROWS][16*KC + 8] tile at dst (columns < d), zeros in the rows past nrows.
-// With copy_8b (d % 4 == 0) the copies are 8-byte cp.async (the caller
-// commits and waits): the tile's 4-element chunk L = tid + MMA_NT * i lies
-// in row L / (d/4) = (2L * magic) >> 32 with magic = ceil(2^31 / (d/4))
-// (exact for these L), so a thread's copies are a fixed, unrolled number of
-// independent instructions with no loop-carried state, each from the
-// thread's first chunk plus a constant; a row past nrows reads nothing and
-// is zero-filled. Otherwise the copy is scalar and synchronous.
-template <int KC, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int nrows,
-                                          int d, bool copy_8b, uint32_t magic) {
-    constexpr int LDS = 16 * KC + 8;
-    constexpr int COPIES = (ROWS * 4 * KC + MMA_NT - 1) / MMA_NT;  // a thread's, at most
-    if (copy_8b) {
-        const int total = ROWS * (d >> 2);
-        const uint32_t at = smem_addr(dst) + 8 * threadIdx.x;  // before the row padding
-        const uint32_t pad = 2 * (LDS - d);                    // bytes of padding a row
-        const bf16* from = src + 4 * threadIdx.x;
-#pragma unroll
-        for (int i = 0; i < COPIES; ++i) {
-            const uint32_t chunk = threadIdx.x + MMA_NT * i;
-            const int r = __umulhi(2u * chunk, magic);
-            const bool in = r < nrows;
-            if (chunk < uint32_t(total))
-                cp_async_8(at + 8 * MMA_NT * i + r * pad, in ? from + 4 * MMA_NT * i : src,
-                           in ? 8 : 0);
-        }
-    } else {
-        const bf16 zero = __float2bfloat16(0.f);
-        for (int i = threadIdx.x; i < ROWS * d; i += MMA_NT) {
-            const int r = i / d, c = i - r * d;
-            dst[r * LDS + c] = r < nrows ? src[size_t(r) * d + c] : zero;
-        }
-    }
-}
-
-// columns d .. LDS-1 of `rows` shared rows: written once, no copy touches them
-template <int LDS>
-__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows, int d) {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int r = threadIdx.x; r < rows; r += MMA_NT)
-        for (int c = d; c < LDS; ++c) tiles[r * LDS + c] = zero;
-}
-
-// The A fragments (16 rows from row0, all KC 16-deep steps) of a [rows][LDS] tile.
-template <int KC>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KC][4], const bf16* tile, int row0, int lane) {
-    constexpr int LDS = 16 * KC + 8;
-    // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
-    const uint32_t addr = smem_addr(tile + (row0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
-#pragma unroll
-    for (int ks = 0; ks < KC; ++ks) ldmatrix_x4(a[ks], addr + ks * 32);
-}
-
-// acc[j] (16 x 8) += A (16 x 16*KC, fragments) * B_j^T, where B_j = rows
-// n0 + 8j .. n0 + 8j + 7 of the [TILE][LDS] tile at btile: the tile holds B
-// as [column][k], which is mma's column-major B, so ldmatrix reads it as is.
-template <int KC, int NTILES>
-__device__ __forceinline__ void product_nk(float (&acc)[NTILES][4], const uint32_t (&a)[KC][4],
-                                           const bf16* btile, int n0, int lane) {
-    constexpr int LDS = 16 * KC + 8;
-    // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-    const uint32_t addr = smem_addr(btile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                                    + (((lane >> 3) & 1) << 3));
-#pragma unroll
-    for (int ks = 0; ks < KC; ++ks)
-#pragma unroll
-        for (int np = 0; np < NTILES / 2; ++np) {
-            uint32_t b[4];
-            ldmatrix_x4(b, addr + (np * 16 * LDS + ks * 16) * 2);
-            mma_16816(acc[2 * np], a[ks], b[0], b[1]);
-            mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
-        }
-}
-
-// acc[j] (16 x 8: tile columns 8j .. 8j+7, j < 2*KC) += A (16 x 16*NCH,
-// fragments in registers) * B, where B = rows k0 .. k0 + 16*NCH - 1 of the
-// [TILE][LDS] tile at btile: the tile holds B as [k][column], so ldmatrix
-// transposes each 8 x 8 block on the way.
-template <int KC, int NCH>
-__device__ __forceinline__ void product_kn(float (&acc)[2 * KC][4], const uint32_t (&a)[NCH][4],
-                                           const bf16* btile, int k0, int lane) {
-    constexpr int LDS = 16 * KC + 8;
-    // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-    const uint32_t addr = smem_addr(btile + (k0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-        for (int np = 0; np < KC; ++np) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, addr + (ch * 16 * LDS + np * 16) * 2);
-            mma_16816(acc[2 * np], a[ch], b[0], b[1]);
-            mma_16816(acc[2 * np + 1], a[ch], b[2], b[3]);
-        }
-}
-
-// (x, y) at columns col, col + 1 of an output row of d columns
-__device__ __forceinline__ void store_pair(bf16* row, int col, float x, float y, int d,
-                                           bool pairs) {
-    if (pairs) {  // d even and the row 4-byte aligned: col + 1 < d whenever col < d
-        if (col < d) *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
-    } else {
-        if (col < d) row[col] = __float2bfloat16(x);
-        if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
-    }
 }
 
 // The online softmax on a fragment of S (rows = the thread's two query rows,
@@ -571,12 +406,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qrows = min(OWN, N - q0);
     const uint8_t* mask_row = mask + size_t(b) * N;
     const bool copy_8b = how & COPY_8B;
-    const uint32_t magic = ((1u << 31) + uint32_t(d >> 2) - 1u) / uint32_t(max(d >> 2, 1));
+    const uint32_t magic = copy_magic(d);
 
-    zero_pad_columns<LDS>(Qs, OWN + 4 * TILE, d);
-    load_tile<KC, OWN>(Qs, q + base + size_t(q0) * d, qrows, d, copy_8b, magic);
-    load_tile<KC, TILE>(Ks, k + base, min(TILE, N), d, copy_8b, magic);
-    load_tile<KC, TILE>(Vs, v + base, min(TILE, N), d, copy_8b, magic);
+    zero_pad_columns<MMA_NT, LDS>(Qs, OWN + 4 * TILE, d);
+    load_tile<MMA_NT, KC, OWN>(Qs, q + base + size_t(q0) * d, qrows, d, copy_8b, magic);
+    load_tile<MMA_NT, KC, TILE>(Ks, k + base, min(TILE, N), d, copy_8b, magic);
+    load_tile<MMA_NT, KC, TILE>(Vs, v + base, min(TILE, N), d, copy_8b, magic);
     cp_async_commit();
     if (tid < TILE) kflag[tid] = key_flag(mask_row, tid, N);
 
@@ -602,10 +437,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (more) {  // the next key tile: copies in flight, its flags in a register
             const int k1 = (t + 1) * TILE;
             const int nrows = min(TILE, N - k1);
-            load_tile<KC, TILE>(Ks + (buf ^ 1) * TILE_ELEMS, k + base + size_t(k1) * d, nrows, d,
-                                copy_8b, magic);
-            load_tile<KC, TILE>(Vs + (buf ^ 1) * TILE_ELEMS, v + base + size_t(k1) * d, nrows, d,
-                                copy_8b, magic);
+            load_tile<MMA_NT, KC, TILE>(Ks + (buf ^ 1) * TILE_ELEMS, k + base + size_t(k1) * d,
+                                        nrows, d, copy_8b, magic);
+            load_tile<MMA_NT, KC, TILE>(Vs + (buf ^ 1) * TILE_ELEMS, v + base + size_t(k1) * d,
+                                        nrows, d, copy_8b, magic);
             cp_async_commit();
             if (tid < TILE) next_flag = key_flag(mask_row, k1 + tid, N);
         }
@@ -653,8 +488,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
     }
 }
-
-bool aligned(const void* p, uintptr_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 template <int KC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask, void* o,

@@ -1,0 +1,197 @@
+// Tensor-core building blocks of the bf16 flash-attention kernels
+// (flash_attn_fwd.cu, flash_attn_bwd.cu): mma.sync.m16n8k16 products on
+// fragments read by ldmatrix, bf16 tiles in shared memory with rows padded
+// to LDS = 16*KC + 8 elements (KC = ceil(d/16) 16-deep steps: every row
+// starts 16-byte aligned, as ldmatrix needs, and 8 consecutive rows fall into
+// 8 different 16-byte bank groups), and the 8-byte cp.async tile copies.
+// cuda_build.library_path hashes this header into each including library's
+// name, so an edit rebuilds them.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float MASKED_LOGIT = -1e9f;  // a masked key's logit: finite, so an all-masked row stays finite
+
+enum : int { KEY_REAL = 0, KEY_MASKED = 1, KEY_OUT = 2 };
+// launch options of the tensor-core kernels: 8-byte tile copies, 4-byte stores of two bf16
+enum : int { COPY_8B = 1, STORE_PAIRS = 2 };
+
+__device__ __forceinline__ int key_flag(const uint8_t* __restrict__ mask_row, int key, int N) {
+    return key >= N ? KEY_OUT : (mask_row[key] ? KEY_REAL : KEY_MASKED);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
+// With g = lane / 4, t = lane % 4 a thread holds c[0..1] = (row g, columns 2t,
+// 2t+1), c[2..3] = (row g+8, the same columns); a[0] = (row g, k 2t, 2t+1),
+// a[1] = (row g+8, the same k), a[2], a[3] = the same rows at k + 8;
+// b0 = (k 2t, 2t+1; column g), b1 = the same at k + 8.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bytes from src to dst, of which the first src_bytes (8 or 0) are read
+// and the rest are zero-filled
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :
+                 : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// load_tile's magic number: ceil(2^31 / (d/4))
+__device__ __forceinline__ uint32_t copy_magic(int d) {
+    return ((1u << 31) + uint32_t(d >> 2) - 1u) / uint32_t(max(d >> 2, 1));
+}
+
+// Rows r < nrows of the contiguous [nrows, d] tile at src into the shared
+// [ROWS][16*KC + 8] tile at dst (columns < d), zeros in the rows past nrows,
+// by the block's NT threads. With copy_8b (d % 4 == 0) the copies are 8-byte
+// cp.async (the caller commits and waits): the tile's 4-element chunk
+// L = tid + NT * i lies in row L / (d/4) = (2L * magic) >> 32 with
+// magic = copy_magic(d) (exact for these L), so a thread's copies are a
+// fixed, unrolled number of independent instructions with no loop-carried
+// state, each from the thread's first chunk plus a constant; a row past
+// nrows reads nothing and is zero-filled. Otherwise the copy is scalar and
+// synchronous.
+template <int NT, int KC, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int nrows,
+                                          int d, bool copy_8b, uint32_t magic) {
+    constexpr int LDS = 16 * KC + 8;
+    constexpr int COPIES = (ROWS * 4 * KC + NT - 1) / NT;  // a thread's, at most
+    if (copy_8b) {
+        const int total = ROWS * (d >> 2);
+        const uint32_t at = smem_addr(dst) + 8 * threadIdx.x;  // before the row padding
+        const uint32_t pad = 2 * (LDS - d);                    // bytes of padding a row
+        const bf16* from = src + 4 * threadIdx.x;
+#pragma unroll
+        for (int i = 0; i < COPIES; ++i) {
+            const uint32_t chunk = threadIdx.x + NT * i;
+            const int r = __umulhi(2u * chunk, magic);
+            const bool in = r < nrows;
+            if (chunk < uint32_t(total))
+                cp_async_8(at + 8 * NT * i + r * pad, in ? from + 4 * NT * i : src, in ? 8 : 0);
+        }
+    } else {
+        const bf16 zero = __float2bfloat16(0.f);
+        for (int i = threadIdx.x; i < ROWS * d; i += NT) {
+            const int r = i / d, c = i - r * d;
+            dst[r * LDS + c] = r < nrows ? src[size_t(r) * d + c] : zero;
+        }
+    }
+}
+
+// columns d .. LDS-1 of `rows` shared rows: written once, no copy touches them
+template <int NT, int LDS>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows, int d) {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int r = threadIdx.x; r < rows; r += NT)
+        for (int c = d; c < LDS; ++c) tiles[r * LDS + c] = zero;
+}
+
+// The A fragments (16 rows from row0, all KC 16-deep steps) of a [rows][LDS] tile.
+template <int KC>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KC][4], const bf16* tile, int row0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
+    const uint32_t addr = smem_addr(tile + (row0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks) ldmatrix_x4(a[ks], addr + ks * 32);
+}
+
+// acc[j] (16 x 8) += A (16 x 16*KC, fragments) * B_j^T, where B_j = rows
+// n0 + 8j .. n0 + 8j + 7 of the [rows][LDS] tile at btile: the tile holds B
+// as [column][k], which is mma's column-major B, so ldmatrix reads it as is.
+template <int KC, int NTILES>
+__device__ __forceinline__ void product_nk(float (&acc)[NTILES][4], const uint32_t (&a)[KC][4],
+                                           const bf16* btile, int n0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+    const uint32_t addr = smem_addr(btile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS
+                                    + (((lane >> 3) & 1) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks)
+#pragma unroll
+        for (int np = 0; np < NTILES / 2; ++np) {
+            uint32_t b[4];
+            ldmatrix_x4(b, addr + (np * 16 * LDS + ks * 16) * 2);
+            mma_16816(acc[2 * np], a[ks], b[0], b[1]);
+            mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
+        }
+}
+
+// acc[j] (16 x 8: tile columns 8j .. 8j+7, j < 2*KC) += A (16 x 16*NCH,
+// fragments in registers) * B, where B = rows k0 .. k0 + 16*NCH - 1 of the
+// [rows][LDS] tile at btile: the tile holds B as [k][column], so ldmatrix
+// transposes each 8 x 8 block on the way.
+template <int KC, int NCH>
+__device__ __forceinline__ void product_kn(float (&acc)[2 * KC][4], const uint32_t (&a)[NCH][4],
+                                           const bf16* btile, int k0, int lane) {
+    constexpr int LDS = 16 * KC + 8;
+    // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+    const uint32_t addr = smem_addr(btile + (k0 + (lane & 15)) * LDS + ((lane >> 4) << 3));
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int np = 0; np < KC; ++np) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, addr + (ch * 16 * LDS + np * 16) * 2);
+            mma_16816(acc[2 * np], a[ch], b[0], b[1]);
+            mma_16816(acc[2 * np + 1], a[ch], b[2], b[3]);
+        }
+}
+
+// (x, y) at columns col, col + 1 of an output row of d columns
+__device__ __forceinline__ void store_pair(bf16* row, int col, float x, float y, int d,
+                                           bool pairs) {
+    if (pairs) {  // d even and the row 4-byte aligned: col + 1 < d whenever col < d
+        if (col < d) *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+    } else {
+        if (col < d) row[col] = __float2bfloat16(x);
+        if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+    }
+}
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+}  // namespace

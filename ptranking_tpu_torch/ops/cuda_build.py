@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into `build/kernels/lib<name>-<hash>.so` at the repo
-root, at first use. The file name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded. Nothing
-is compiled or loaded when this module is imported.
+root, at first use. The file name carries a hash of the source, of the
+headers it includes (`#include "..."`, such as `csrc/mma_common.cuh`) and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing is compiled or loaded when this module is imported.
 
 Every entry returns a cudaError_t as an int, and each library exports
 `<name>_error_string(int)`; `KernelLib` binds the entries' ctypes signatures
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -40,16 +43,38 @@ def find_nvcc() -> str:
     return found
 
 
+def source_files(src: Path) -> List[Path]:
+    """`src` and every file it includes by `#include "..."` (beside the
+    including file, where nvcc looks first), recursively, in the order first
+    met; raises if one is missing."""
+    files: List[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            found = path.parent / inc
+            if not found.exists():
+                raise FileNotFoundError(f'{path.name}: #include "{inc}" not found')
+            todo.append(found.resolve())
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(CSRC / f"{name}.cu"):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def nvcc(src: Path, out: Path) -> subprocess.Popen:
-    """Start compiling `src` into the shared library `out` with NVCC_FLAGS;
-    the compiler's output (with -Xptxas -v) is the process's stdout."""
-    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+    """Start compiling `src` into the shared library `out` with NVCC_FLAGS
+    (and CSRC on the include path, so that a copy of a kernel source built
+    elsewhere finds the headers); the compiler's output (with -Xptxas -v) is
+    the process's stdout."""
+    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

@@ -198,19 +198,23 @@ def test_backward_plain_matches_jax_pallas_interpret(shape):
 
 
 def test_variant_tool_substitutions_match_the_kernel_source():
-    """Every text substitution of tools/attn_bwd_variants.py (a knob turned, a
-    phase cut out) still finds its target in csrc/flash_attn_bwd.cu, and the
-    warpgroup experiment it builds is there: an edit of the kernel source
-    that orphans the tool fails here, not on the card."""
-    from ptranking_tpu_torch.tools import attn_bwd_variants as tool
+    """Every text substitution of tools/kernel_variants.py for the backward (a
+    knob turned, a phase cut out) still finds its target in
+    csrc/flash_attn_bwd.cu, and the warpgroup experiment it builds is there:
+    an edit of the kernel source that orphans the tool fails here, not on
+    the card."""
+    from ptranking_tpu_torch.tools import kernel_variants as tool
 
-    source = tool.SOURCE.read_text()
-    assert tool.VARIANTS["shipped"] == []
-    for name, subs in tool.VARIANTS.items():
+    source = tool.source_path("flash_attn_bwd").read_text()
+    variants = tool.VARIANTS["flash_attn_bwd"]
+    assert variants["shipped"] == []
+    for name, subs in variants.items():
+        if name == "wgmma_experiment":
+            continue
         for old, new in subs:
             assert old in source, (name, old)
             assert old != new
-    assert tool.EXPERIMENT.exists()
+    assert variants["wgmma_experiment"] == tool.EXPERIMENT and tool.EXPERIMENT.exists()
     assert '#include "../flash_attn_bwd.cu"' in tool.EXPERIMENT.read_text()
 
 
@@ -301,13 +305,14 @@ def test_forward_plain_ignores_appended_padded_keys(dtype):
 
 @pytest.mark.parametrize("lib", ["flash_attn_fwd", "sinkstep"])
 def test_fwd_sink_variant_substitutions_match_the_kernel_sources(lib):
-    """Every text substitution of tools/fwd_sink_variants.py still finds its
-    target in csrc/<lib>.cu (sources() raises otherwise) and changes it: an
-    edit of a kernel source that orphans the tool fails here, not on the card."""
-    from ptranking_tpu_torch.tools import fwd_sink_variants as tool
+    """Every text substitution of tools/kernel_variants.py for the forward and
+    the half-step still finds its target in csrc/<lib>.cu (sources() raises
+    otherwise) and changes it: an edit of a kernel source that orphans the
+    tool fails here, not on the card."""
+    from ptranking_tpu_torch.tools import kernel_variants as tool
 
-    text = tool.SOURCES[lib].read_text()
-    built = tool.sources()
+    text = tool.source_path(lib).read_text()
+    built = tool.sources([lib])
     assert built[(lib, "shipped")] == text
     for name in tool.VARIANTS[lib]:
         assert name == "shipped" or built[(lib, name)] != text, name
