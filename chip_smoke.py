@@ -13,11 +13,14 @@ Phases, in order; any failure exits non-zero:
      and fp32, against the plain blockwise attention and against the explicit
      plain forward with its row statistics), its backward (dk/dv and dq
      kernels, against autograd through the plain blockwise attention and
-     against the explicit plain backward); the bf16 forward and backward run
-     on the tensor cores, and their build must not spill at the flagship's
-     head dim; the fused pairwise lambda loss
-     (forward and backward, LambdaRank and RankNet), and the Sinkhorn
-     half-step (both orientations, then 20 iterations of scalings);
+     against the explicit plain backward), at head dims up to 128 and, through
+     the wide kernels, above; the bf16 forward and backward run on the tensor
+     cores; no instantiation of an attention kernel may spill; the fused
+     pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
+     same bits on two runs); shapes past grid.y's 65535 (attention at
+     B*H = 65538 in two launches of whole lists, the pairwise loss at
+     B = 70000 folded into grid.x); and the Sinkhorn half-step (both orientations, then 20
+     iterations of scalings);
   4. serve: the flagship ranker (F=136 DASALC listsf, 6 layers, 2 heads, bf16,
      flash_attn=True) from a seeded init, saved as a .pt checkpoint, served over
      HTTP on a local port; the answers are held against the same ranker with
@@ -35,7 +38,14 @@ Phases, in order; any failure exits non-zero:
      half-step; (b) timed steps at 32 lists of 1408 docs with exact launch
      counts (40 half-steps per step); (c) evaluate (nDCG, nERR, AP, P at
      each k) on ragged lists, one train_epoch, evaluate again; (d) save,
-     restore, one more step on both.
+     restore, one more step on both;
+  7. wide: the same DASALC listsf at head dims above 128 (the wide attention
+     kernels): at Yahoo! LTR's 700 features (2 heads of 350, and of 384
+     under lane_align) and at 136 features with one head (136), LambdaRank
+     through the fused loss: served over HTTP, one step's gradients against
+     dense attention, timed steps of 32,768 docs in each of Yahoo!'s buckets
+     of 16 to 128 docs (the one-head model: 256 lists of 128) with exact
+     launch counts, save, restore and step.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -57,19 +67,37 @@ HBM_BYTES_S = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16  # transcendental results per clock per SM, compute capability 9.0
 
 # (B, H, N, d, all_padded_rows): the long-list batch that bench.py measures
-# for the JAX package (32 lists of 1408 docs), and the two ends of what the
+# for the JAX package (32 lists of 1408 docs), the two ends of what the
 # server's default 100-doc batches give the kernel: one list in the top
-# bucket, and the smallest bucket whose remainder rows are all padding
-ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68, True)]
-# the shape whose numbers go into the kernels' JSON record: the training
+# bucket, and the smallest bucket whose remainder rows are all padding; and
+# the Yahoo! LTR listsf's training batches (32,768 docs in the buckets of 16,
+# 32 and 128 docs, 2 heads of 350, or of 384 under lane_align: the wide
+# kernels; phase 7 says why these buckets)
+ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68, True),
+               (2048, 2, 16, 350, False), (1024, 2, 32, 350, False), (256, 2, 128, 350, False),
+               (2048, 2, 16, 384, False), (1024, 2, 32, 384, False), (256, 2, 128, 384, False)]
+# the shapes whose numbers go into the kernels' JSON record: the training
 # batch of phase 5 (32 lists of 1408 docs), whose train_epoch gives the
-# record's launch counts
+# record's launch counts, and that of phase 7 (the wide kernels) at its
+# worst case, the 128-doc bucket
 RECORD_SHAPE = (32, 2, 1408, 68)
-# correctness only, no timing: every padded head width the kernel dispatches
-# on (d rounded up to 16), N of one key and N one past a 64-key tile
+WIDE_RECORD_SHAPE = (256, 2, 128, 350)
+# correctness only, no timing: every padded head width the narrow kernels
+# dispatch on (d rounded up to 16), N of one key and N one past a 64-key
+# tile; then the wide kernels (d > 128) at each d-chunk and output-chunk
+# boundary (64 and 128 columns), at odd head dims (129, 131: synchronous
+# copies of the bf16 kernels), 2 mod 4 (350: 4-byte copies), 4 mod 8 (132,
+# 196: 8-byte copies; the inputs are fresh tensors, 16-byte aligned) and
+# 0 mod 8 (136 .. 520: 16-byte copies)
 EDGE_SHAPES = [(2, 3, 1, 1, False), (2, 2, 65, 8, True), (1, 3, 100, 24, False),
                (2, 1, 64, 33, True), (1, 2, 129, 64, False), (2, 2, 77, 75, True),
-               (1, 1, 200, 96, False), (2, 1, 50, 112, True), (1, 2, 129, 128, False)]
+               (1, 1, 200, 96, False), (2, 1, 50, 112, True), (1, 2, 129, 128, False),
+               (2, 2, 77, 129, True), (2, 1, 50, 131, False), (1, 2, 100, 132, False),
+               (1, 2, 130, 136, False), (2, 1, 65, 192, True), (2, 1, 65, 196, True),
+               (2, 1, 65, 200, True), (2, 2, 128, 256, False), (2, 2, 128, 350, True),
+               (1, 2, 100, 384, False), (2, 1, 70, 520, True)]
+# B*H = 65538 (b, h) pairs: past grid.y's 65535, so two launches of whole lists
+GRID_SHAPE = (32769, 2, 16, 8)
 # max |kernel - plain| over real query rows. fp32: both sides accumulate in
 # fp32, differing only in summation order and exp rounding. bf16: the plain
 # version rounds p to bf16 before p.v (as the JAX package does) and the
@@ -104,26 +132,39 @@ STATS_TOL = 1e-5
 # (fp32) against autograd, 3.3e-3 and 6.1e-7 against attention_backward_plain;
 # the tolerances hold a margin of 2.6x and more.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# the tensor-core instantiation the flagship's head dim (68 -> 5 steps of 16)
-# runs: its build must not spill
-FLAGSHIP_KC = 5
-# the tensor-core kernels of each library, by the library's name
-MMA_KERNELS = {"flash_attn_fwd": ("flash_fwd_mma_kernel",),
-               "flash_attn_bwd": ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")}
+# the attention kernels of each library and how many instantiations each
+# has: the kernels of d <= 128 one per head-dim step of 16 (KC = 1 .. 8;
+# the fp32 ones by 8-column blocks, 2 .. 16), the wide kernels (d > 128)
+# one. Every instantiation is one that some head dim dispatches to, so no
+# entry of these libraries may spill.
+BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
+                                    "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1},
+                 "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
+                                    "flash_bwd_dkdv_kernel": 8, "flash_bwd_dq_kernel": 8,
+                                    "flash_bwd_dkdv_wide_mma_kernel": 1,
+                                    "flash_bwd_dq_wide_mma_kernel": 1,
+                                    "flash_bwd_dkdv_wide_kernel": 1,
+                                    "flash_bwd_dq_wide_kernel": 1}}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
                (3, 2, (2, 1, 0), True, 1.0), (4, 255, (255, 200, 17, 0), True, 1.0),
                (4, 257, (257, 256, 1, 0), True, 1.0), (4, 300, (300, 257, 40, 0), False, 1.5)]
 PAIR_RECORD = (32, 1408)
+# B past grid.y's 65535, folded into grid.x (16-doc lists)
+PAIR_BIG = (70000, 16)
 # |kernel - plain| / |plain| of the loss, and max |kernel - plain| / max |plain|
 # of the gradient, both fp32: the two sum in other orders (the first chip
 # run's worst: 1.1e-7 and 9.5e-7)
 PAIR_TOL = 1e-5
 # per pair: fp32 operations and transcendental (SFU) operations of the formula
 # (pairwise_lambda.cu header): forward softplus(x) - t*x weighted, backward
-# sigma*(sigmoid(x) - t) weighted
-PAIR_FWD_OPS, PAIR_BWD_OPS, PAIR_SFU_OPS = 19, 18, 2
+# sigma*(sigmoid(x) - t) weighted. Both count unordered pairs: the backward's
+# term is odd in the pair, so each unordered pair gives both of its rows
+# their terms (the record also states the reading on ordered pairs, twice as
+# many, which the first backward design evaluated); the backward's 20 are the
+# term's 18 and its adds into both rows' sums
+PAIR_FWD_OPS, PAIR_BWD_OPS, PAIR_SFU_OPS = 19, 20, 2
 
 # the Sinkhorn half-step: the WassRank training batch of phase 6 (the `eg`
 # cost of its labels, lam 0.1, where -C/lam reaches thousands), the two
@@ -155,9 +196,10 @@ SINK_FP32_OPS = 10
 # phase 5, the flagship model's training
 TRAIN_B, TRAIN_N = 32, 1408
 TRAIN_STEPS = 10
-# launches per training step: 6 encoder layers, one loss
+# launches per training step: 6 encoder layers, one loss (whose backward is
+# two kernels: the pair kernel and the fixed-order reduction)
 LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
-                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 1, "sinkstep": 0}
+                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 2, "sinkstep": 0}
 # phase 6, per WassRank step: 20 Sinkhorn iterations of two half-steps each
 # in the loss's forward, none in its analytic backward
 WASS_LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
@@ -190,6 +232,29 @@ EPOCH_QUERIES, EPOCH_PASSES = 16, 4
 # a restored ranker's next step against the ranker that was not reloaded:
 # the same kernels on the same inputs
 RESUME_TOL = 1e-6
+
+# phase 7: Yahoo! LTR's 700 features (ptranking_tpu_torch/data/meta.py, data
+# id Set1), 2 heads of 350 (384 under lane_align). Its lists are short:
+# Set 1's training split holds 473,134 documents over 19,944 queries, 23.7 a
+# query (Chapelle and Chang, "Yahoo! Learning to Rank Challenge Overview",
+# JMLR W&CP 14, 2011, Table 1), so the mean list falls in the 32-doc bucket
+# (data/dataset.py's DEFAULT_BUCKETS), and by that mean alone (Markov's
+# bound) at least 63% of the lists in the buckets of 16 to 64 docs. The
+# timed steps run each bucket of 16 to 128 docs at YAHOO_DOCS docs a step
+# (2048 lists of 16 .. 256 of 128; 128 is the worst case); the gradient
+# check runs ragged lists of 20..128 docs in the 128-doc bucket; the served
+# lists spread log-evenly over 5..139 docs, so a request fills every bucket
+# up to 256.
+YAHOO_FEATURES, YAHOO_DATA_ID = 700, "Set1"
+YAHOO_DOCS, YAHOO_BUCKETS, YAHOO_STEPS = 32768, (16, 32, 64, 128), 10
+YAHOO_SERVE_LENGTHS = [int(round(5 * (139 / 5) ** (i / 15))) for i in range(16)]
+# the listsfs of phase 7, each with a head dim above 128: (name, features,
+# heads, lane_align, LETOR data id): Yahoo!'s at d = 350 (its launch counts
+# go into the kernels' record) and under lane_align at d = 384, and the
+# flagship's width (MSLR-WEB30K) with one head, d = 136
+WIDE_MODELS = [("yahoo", YAHOO_FEATURES, 2, False, YAHOO_DATA_ID),
+               ("yahoo", YAHOO_FEATURES, 2, True, YAHOO_DATA_ID),
+               ("mslr_1head", 136, 1, False, "MSLRWEB30K")]
 
 NUM_FEATURES = 136  # MSLR-WEB30K
 # 16 queries of ragged lengths, log-spaced over 20..1408 docs
@@ -233,21 +298,25 @@ def ptxas_summary(log: str) -> str:
             f"{max(regs, default=0)}, spill {sum(e[2] for e in entries)} bytes")
 
 
-def check_mma_build(log: str, kernels):
-    """Registers and spills of the named tensor-core kernels, by their
-    head-dim steps KC; raises if the flagship's instantiation of one spills or
-    is missing."""
-    for kernel in kernels:
+def check_build(log: str, kernels: dict):
+    """Registers and spill bytes of each named kernel of one library, by its
+    template arguments (the head-dim steps); raises if a kernel has not as
+    many instantiations as named, or if any entry of the library spills."""
+    entries = ptxas_entries(log)
+    for kernel, count in kernels.items():
         row = {}
-        for name, regs, spill in ptxas_entries(log):
-            m = re.search(kernel + r"ILi(\d+)E", name)
+        for name, regs, spill in entries:
+            m = re.search(str(len(kernel)) + kernel + r"I(\w*?)EEv", name)
             if m:
-                row[int(m.group(1))] = (regs, spill)
-        print(f"{kernel} registers/spill bytes by KC: "
-              + ", ".join(f"{kc}: {r}/{sp}" for kc, (r, sp) in sorted(row.items())), flush=True)
-        if FLAGSHIP_KC not in row or row[FLAGSHIP_KC][1] != 0:
-            raise AssertionError(f"{kernel}<{FLAGSHIP_KC}>: "
-                                 f"{row.get(FLAGSHIP_KC, 'not built')} (registers, spill bytes)")
+                row[",".join(re.findall(r"Li(\d+)E", m.group(1) + "E"))] = (regs, spill)
+        print(f"{kernel} registers/spill bytes: "
+              + ", ".join(f"<{t}> {r}/{sp}" for t, (r, sp) in row.items()), flush=True)
+        if len(row) != count:
+            raise AssertionError(f"{kernel}: {len(row)} instantiations built, {count} expected")
+    spilled = [(name, regs, spill) for name, regs, spill in entries if spill]
+    if spilled:
+        raise AssertionError(f"{log.split(':', 1)[0]}: entries spill: {spilled} "
+                             f"(name, registers, spill bytes)")
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3, blocks: int = 3) -> float:
@@ -271,15 +340,15 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3, blocks: int = 3) -> float:
     return sorted(start.elapsed_time(end) for start, end in events)[blocks // 2] / iters
 
 
-def profile_ms(fn, kernel="flash_fwd", top=0):
+def profile_ms(fn, kernel="flash_fwd", every=False):
     """(device busy ms, ms of the kernels whose name holds `kernel`, wall ms)
     of one call of `fn` under torch.profiler: the sum of the kernels' and
     copies' own device times, on one stream. The profiler's user annotations
     on the device (`Optimizer.step#...`) are left out: each spans its kernels
     and the gaps between them, so it would count them twice and count idle
     time as busy. The first two are None when the profiler recorded no device
-    time. With top > 0, a fourth item: the `top` kernels by device time, as
-    [name (cut to 60 characters), ms, calls]."""
+    time. With every=True, a fourth item: every kernel and copy by device
+    time, as [name (cut to 60 characters), ms, calls]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,8 +370,8 @@ def profile_ms(fn, kernel="flash_fwd", top=0):
         if kernel in e.key:
             named += us / 1e3
     out = (None, None, wall) if busy <= 0.0 else (busy, named, wall)  # None: not measured
-    if top:
-        out += (sorted(kernels, key=lambda k: -k[1])[:top],)
+    if every:
+        out += (sorted(kernels, key=lambda k: -k[1]),)
     return out
 
 
@@ -384,7 +453,8 @@ def check_plain_forward(q, k, v, mask, worst) -> float:
 
 def check_attention(card: str):
     """Phase 3: the flash kernel against its plain versions at every shape and
-    dtype; returns the bf16 record at RECORD_SHAPE."""
+    dtype; returns the bf16 records at RECORD_SHAPE and WIDE_RECORD_SHAPE, by
+    shape."""
     import torch
     import torch.nn.functional as Fn
 
@@ -402,7 +472,7 @@ def check_attention(card: str):
             check_close(out, ref, mask, (B, H, N, d), dtype)
             check_plain_forward(q, k, v, mask, worst)
     print(f"attn edge shapes: {len(EDGE_SHAPES)} x 2 dtypes agree", flush=True)
-    record = None
+    records = {}
     for (B, H, N, d, all_padded) in ATTN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
@@ -429,11 +499,11 @@ def check_attention(card: str):
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
             print("attn " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if (B, H, N, d) == RECORD_SHAPE and dtype == torch.bfloat16:
-                record = rec
+            if (B, H, N, d) in (RECORD_SHAPE, WIDE_RECORD_SHAPE) and dtype == torch.bfloat16:
+                records[(B, H, N, d)] = rec
     print(f"attn worst error against attention_forward_plain over every shape: "
           f"{json.dumps(worst)}", flush=True)
-    return record
+    return records
 
 
 def rel_err(out, ref) -> float:
@@ -478,8 +548,10 @@ def check_attention_bwd(card):
     """Phase 3: the backward kernels (through flash_attention's autograd)
     against autograd through the plain blockwise attention and against
     attention_backward_plain at every shape and dtype, and their times;
-    returns the bf16 records at RECORD_SHAPE for the dk/dv kernel, the dq
-    kernel and the forward with row statistics (the call training makes)."""
+    returns the bf16 records for the dk/dv kernel, the dq kernel and the
+    forward with row statistics (the call training makes) at RECORD_SHAPE
+    (by the wrappers' names) and at WIDE_RECORD_SHAPE (the same names with
+    "_wide")."""
     import torch
     import torch.nn.functional as Fn
 
@@ -576,14 +648,15 @@ def check_attention_bwd(card):
                        "dq": bound(6.0 * B * H * N * N * d, peak,
                                    5 * val + 3 * stats_bytes + B * N)}}
             print("attn_bwd " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if (B, H, N, d) == RECORD_SHAPE and dtype == torch.bfloat16:
+            if (B, H, N, d) in (RECORD_SHAPE, WIDE_RECORD_SHAPE) and dtype == torch.bfloat16:
+                tag = "" if (B, H, N, d) == RECORD_SHAPE else "_wide"
                 common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
-                records["flash_attn_fwd"] = {"ms": times["fwd_stats"],
-                                             **rec["bound_ms"]["fwd_stats"]}
-                records["flash_attn_bwd_dkdv"] = {
+                records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
+                                                   **rec["bound_ms"]["fwd_stats"]}
+                records["flash_attn_bwd_dkdv" + tag] = {
                     "max_abs_err": max(errs["dk"][0], errs["dv"][0]), "ms": times["dkdv"],
                     **common, **rec["bound_ms"]["dkdv"]}
-                records["flash_attn_bwd_dq"] = {
+                records["flash_attn_bwd_dq" + tag] = {
                     "max_abs_err": errs["dq"][0], "ms": times["dq"], **common,
                     **rec["bound_ms"]["dq"]}
     print(f"attn bwd worst relative error over every shape: {json.dumps(worst)}", flush=True)
@@ -634,7 +707,11 @@ def check_pairwise(card):
         plain_fwd = lambda: pairwise_lambda_loss_plain(s, l, g, m, sigma, weighted)
         plain_bwd = lambda: 0.75 * pairwise_lambda_grad_plain(s, l, g, m, sigma, weighted)
         loss, loss_ref, grad, grad_ref = fwd(), plain_fwd(), bwd(), plain_bwd()
+        loss2, grad2 = fwd(), bwd()  # no atomics, a fixed order: the same bits again
         torch.cuda.synchronize()
+        if not torch.equal(loss, loss2) or not torch.equal(grad, grad2):
+            raise AssertionError(f"pairwise_lambda {(B, N, lengths, weighted, sigma)}: two runs "
+                                 f"on the same inputs differ")
         loss_err = abs(float(loss) - float(loss_ref))
         loss_rel = loss_err / abs(float(loss_ref)) if float(loss_ref) != 0 else loss_err
         grad_err = float((grad - grad_ref).abs().max())
@@ -654,12 +731,13 @@ def check_pairwise(card):
                  "plain_fwd": cuda_time_ms(plain_fwd, 5), "plain_bwd": cuda_time_ms(plain_bwd, 5)}
         bound_fwd = max(bound(pairs * PAIR_FWD_OPS, FP32_PEAK, row_bytes + B * 4 * ((N + 255) // 256)),
                         bound(pairs * PAIR_SFU_OPS, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
-        bound_bwd = max(bound(2 * pairs * PAIR_BWD_OPS, FP32_PEAK, row_bytes + B * N * 4),
-                        bound(2 * pairs * PAIR_SFU_OPS, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
-        rec = {"shape": [B, N], "pairs_fwd": pairs, "pairs_bwd": 2 * pairs,
+        bound_bwd = max(bound(pairs * PAIR_BWD_OPS, FP32_PEAK, row_bytes + B * N * 4),
+                        bound(pairs * PAIR_SFU_OPS, sfu_rate, 0.0), key=lambda b: b["bound_ms"])
+        rec = {"shape": [B, N], "pairs_fwd": pairs, "pairs_bwd": pairs,
                "sfu_ops_per_s": sfu_rate, "loss_abs_err": loss_err, "loss_rel_err": loss_rel,
                "grad_abs_err": grad_err, "grad_rel_err": grad_rel, "ms": times,
-               "bound_fwd": bound_fwd, "bound_bwd": bound_bwd}
+               "bound_fwd": bound_fwd, "bound_bwd": bound_bwd,
+               "bound_bwd_ms_on_ordered_pairs": 2 * pairs * PAIR_SFU_OPS / sfu_rate * 1e3}
         print("pairwise " + json.dumps(rec) + f"  [{card}]", flush=True)
         records["pairwise_lambda_fwd"] = {"max_abs_err": loss_err, "ms": times["fwd"],
                                           "plain_ms": times["plain_fwd"], "library_ms": None,
@@ -667,9 +745,59 @@ def check_pairwise(card):
         records["pairwise_lambda_bwd"] = {"max_abs_err": grad_err, "ms": times["bwd"],
                                           "plain_ms": times["plain_bwd"], "library_ms": None,
                                           **bound_bwd}
-    print(f"pairwise: {len(PAIR_SHAPES)} cases agree; worst relative error "
-          f"{json.dumps(worst)}", flush=True)
+    print(f"pairwise: {len(PAIR_SHAPES)} cases agree, each the same bits on two runs; worst "
+          f"relative error {json.dumps(worst)}", flush=True)
     return records
+
+
+def check_grid_limits(card):
+    """Phase 3: shapes past grid.y's 65535: attention at B*H = 65538
+    (GRID_SHAPE; two launches of each kernel, whole lists each), bf16 and
+    fp32, forward and backward against attention_forward_plain and
+    attention_backward_plain under the usual tolerances; the pairwise loss
+    at PAIR_BIG against its plain versions under PAIR_TOL."""
+    import torch
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
+                                                   FLASH_ATTN_FWD, attention_backward_plain)
+    from ptranking_tpu_torch.ops.pairwise_fused import (PAIRWISE_LAMBDA_BWD, PAIRWISE_LAMBDA_FWD,
+                                                        pairwise_lambda_grad_plain,
+                                                        pairwise_lambda_loss_plain)
+
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, mask = attention_inputs(*GRID_SHAPE, True, dtype)
+        worst = {n: {"out": 0.0, "row_max": 0.0, "row_sum": 0.0} for n in ("bfloat16", "float32")}
+        fwd_err = check_plain_forward(q, k, v, mask, worst)
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to("cuda", dtype)
+        start = FLASH_ATTN_FWD.launches
+        out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        if FLASH_ATTN_FWD.launches - start != 2:
+            raise AssertionError(f"attention at {GRID_SHAPE}: "
+                                 f"{FLASH_ATTN_FWD.launches - start} launches, expected 2")
+        dsum = torch.sum(dout.float() * out.float(), dim=-1)
+        dk, dv = FLASH_ATTN_BWD_DKDV(q, k, v, dout, row_max, row_sum, dsum, mask)
+        dq = FLASH_ATTN_BWD_DQ(q, k, v, dout, row_max, row_sum, dsum, mask)
+        ref = attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask)
+        torch.cuda.synchronize()
+        errs = check_bwd_close((dq, dk, dv), ref, mask, GRID_SHAPE, dtype,
+                               "attention_backward_plain")
+        rec[str(dtype).split(".")[1]] = {"fwd_rel_err": fwd_err,
+                                         "bwd_rel_err": {g: e[1] for g, e in errs.items()}}
+    s, l, g, m = pair_case(*PAIR_BIG, None, True)
+    scale = torch.tensor([0.75], device="cuda")
+    loss = torch.sum(PAIRWISE_LAMBDA_FWD(s, l, g, m))
+    grad = PAIRWISE_LAMBDA_BWD(s, l, g, m, scale)
+    loss_ref = pairwise_lambda_loss_plain(s, l, g, m)
+    grad_ref = 0.75 * pairwise_lambda_grad_plain(s, l, g, m)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    grad_rel = rel_err(grad, grad_ref)
+    rec["pairwise"] = {"shape": list(PAIR_BIG), "loss_rel_err": loss_rel, "grad_rel_err": grad_rel}
+    print("grid_limits " + json.dumps({"attention_shape": list(GRID_SHAPE), **rec})
+          + f"  [{card}]", flush=True)
+    if not max(loss_rel, grad_rel) <= PAIR_TOL:
+        raise AssertionError(f"pairwise_lambda {PAIR_BIG}: {rec['pairwise']} (tol {PAIR_TOL})")
 
 
 def sink_case(B, N, lengths, seed=0, dense=False, extreme=None):
@@ -845,9 +973,12 @@ def scores_by_docid(results) -> dict:
     return out
 
 
-def serve_phase(card: str, work_dir: str) -> int:
-    """Phase 4: the flagship ranker served over HTTP on the card. Returns the
-    kernel's launch count from the one served request."""
+def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
+                data_id: str = "MSLRWEB30K", letor_docs=(20, 400), tag: str = "flagship") -> int:
+    """Phase 4: a ranker served over HTTP on the card: the flagship by
+    default, or `cfg` on `lengths`; score_file then scores a LETOR file of
+    `data_id` (of the model's width) with 8 queries of `letor_docs` docs.
+    Returns the kernel's launch count from the one served request."""
     import dataclasses
     import threading
 
@@ -863,20 +994,22 @@ def serve_phase(card: str, work_dir: str) -> int:
     from ptranking_tpu_torch.serve import ScoringService, make_server
     from ptranking_tpu_torch.train import AdhocRanker
 
-    cfg = ScorerConfig.default_listsf(NUM_FEATURES, compute_dtype="bfloat16", flash_attn=True)
-    ckpt = os.path.join(work_dir, "flagship.pt")
+    if cfg is None:
+        cfg = ScorerConfig.default_listsf(NUM_FEATURES, compute_dtype="bfloat16", flash_attn=True)
+    F = cfg.num_features
+    ckpt = os.path.join(work_dir, f"{tag}.pt")
     AdhocRanker("LambdaRank", cfg, seed=LTR_SEED, device="cuda").init().save(ckpt)
     service = ScoringService(ckpt, device="cuda")  # the server's default batch_docs
     dense = ScoringService(ckpt, device="cuda")
     dense.ranker.scorer_cfg = dataclasses.replace(cfg, flash_attn=False)
 
     rng = np.random.RandomState(LTR_SEED)
-    docs = [rng.randn(n, NUM_FEATURES).astype(np.float32) for n in SERVE_LENGTHS]
+    docs = [rng.randn(n, F).astype(np.float32) for n in lengths]
     payload = {"queries": [{"qid": f"q{i}", "docs": d.tolist()} for i, d in enumerate(docs)]}
     body = json.dumps(payload).encode()
     ds = BucketedDataset([(str(i), d, np.zeros(len(d), np.float32)) for i, d in enumerate(docs)],
-                         batch_docs=service.batch_docs, num_features=NUM_FEATURES)
-    n_docs = sum(SERVE_LENGTHS)
+                         batch_docs=service.batch_docs, num_features=F)
+    n_docs = sum(lengths)
 
     server = make_server(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -926,12 +1059,12 @@ def serve_phase(card: str, work_dir: str) -> int:
             scorer_ms[name] = cuda_time_ms(run, SERVE_REPEATS, warmup=1)
 
     # batch scoring of a LETOR file written by the port
-    queries = make_synthetic_queries(8, num_features=NUM_FEATURES, max_label=4, min_docs=20,
-                                     max_docs=400, seed=LTR_SEED)
-    letor = write_letor_file(queries, os.path.join(work_dir, "test.txt"), with_comment=False)
-    run_path = os.path.join(work_dir, "flagship.run")
+    queries = make_synthetic_queries(8, num_features=F, max_label=4, min_docs=letor_docs[0],
+                                     max_docs=letor_docs[1], seed=LTR_SEED)
+    letor = write_letor_file(queries, os.path.join(work_dir, f"{tag}.txt"), with_comment=False)
+    run_path = os.path.join(work_dir, f"{tag}.run")
     FLASH_ATTN_FWD.launches = 0
-    rows = score_file(ckpt, letor, run_path, data_id="MSLRWEB30K", device="cuda")
+    rows = score_file(ckpt, letor, run_path, data_id=data_id, device="cuda")
     file_launches = FLASH_ATTN_FWD.launches
     with open(run_path) as f:
         lines = [line.split() for line in f]
@@ -946,10 +1079,11 @@ def serve_phase(card: str, work_dir: str) -> int:
                              f"{file_batches} batches; expected 6 per batch")
 
     med = sorted(http_s)[len(http_s) // 2]
-    rec = {"lists": len(SERVE_LENGTHS), "docs": n_docs, "batches": len(ds),
+    rec = {"model": tag, "head_dim": cfg.width // cfg.n_heads, "lists": len(lengths),
+           "docs": n_docs, "batches": len(ds),
            "batch_docs": service.batch_docs, "launches": launches,
            "max_abs_score_err_vs_dense": score_err,
-           "http_s": http_s, "lists_per_s": len(SERVE_LENGTHS) / med, "docs_per_s": n_docs / med,
+           "http_s": http_s, "lists_per_s": len(lengths) / med, "docs_per_s": n_docs / med,
            "service_s": service_s, "profiled_service_ms": wall_ms,
            "profiled_device_busy_ms": busy_ms, "profiled_flash_kernel_ms": flash_ms,
            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
@@ -988,30 +1122,33 @@ def check_counts(counts: dict, steps: int, what: str, per_step: dict = LAUNCHES_
 
 
 def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16",
-                    model_id: str = "LambdaRank"):
-    """The flagship scorer under a loss with its default paras; LambdaRank
-    goes through the fused pairwise kernel."""
+                    model_id: str = "LambdaRank", num_features: int = NUM_FEATURES,
+                    lane_align: bool = False, n_heads: int = 2):
+    """The flagship scorer (or the same DASALC listsf at another width) under
+    a loss with its default paras; LambdaRank goes through the fused pairwise
+    kernel."""
     from ptranking_tpu_torch import LTR_SEED
     from ptranking_tpu_torch.models import ScorerConfig
     from ptranking_tpu_torch.train import AdhocRanker, OptimizerConfig
 
-    cfg = ScorerConfig.default_listsf(NUM_FEATURES, compute_dtype=compute_dtype,
-                                      flash_attn=True, dropout=dropout)
+    cfg = ScorerConfig.default_listsf(num_features, compute_dtype=compute_dtype,
+                                      flash_attn=True, dropout=dropout, lane_align=lane_align,
+                                      n_heads=n_heads)
     model_paras = {"use_pallas": True} if model_id == "LambdaRank" else {}
     return AdhocRanker(model_id, cfg, model_paras=model_paras,
                        opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED,
                        device="cuda").init()
 
 
-def train_batch(B: int, N: int, ragged: bool, seed: int):
+def train_batch(B: int, N: int, ragged: bool, seed: int, num_features: int = NUM_FEATURES):
     """One padded batch of B lists in one N-doc bucket: full lists, or B-1
     lists of 20..N docs and an all-padded remainder row."""
     from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
 
-    queries = make_synthetic_queries(B - 1 if ragged else B, num_features=NUM_FEATURES,
+    queries = make_synthetic_queries(B - 1 if ragged else B, num_features=num_features,
                                      max_label=4, min_docs=20 if ragged else N, max_docs=N,
                                      seed=seed)
-    ds = BucketedDataset(queries, batch_docs=B * N, buckets=(N,), num_features=NUM_FEATURES)
+    ds = BucketedDataset(queries, batch_docs=B * N, buckets=(N,), num_features=num_features)
     return next(iter(ds.batches()))
 
 
@@ -1075,19 +1212,119 @@ def rel_errs(got, want, names) -> dict:
             "global": math.sqrt(diff2 / ref2), "zero_grad_param_norms": zero[0]}
 
 
-def train_phase(card: str, work_dir: str) -> dict:
-    """Phase 5: the flagship ranker's training on the card. Returns the
-    launch counts of the train_epoch run (c)."""
+def grads_vs_dense(ranker, x, labels, mask, what: str) -> dict:
+    """One step's gradients of `ranker` (dropout 0) through the kernels (flash
+    attention, the fused LambdaRank loss) against dense attention and the
+    dense loss, with exactly LAUNCHES_PER_STEP kernel launches; in fp32 held
+    to GRAD_TOL, and the fused loss on the kernel path's own scores to
+    SAME_SCORES_TOL; in bf16 printed only. Returns the record."""
     import dataclasses
 
     import torch
 
-    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
     from ptranking_tpu_torch.losses.listwise import lambda_rank
     from ptranking_tpu_torch.models import apply_scorer
     from ptranking_tpu_torch.models.scorers import tree_leaves
     from ptranking_tpu_torch.ops import mask_scores
+
+    leaves, names = tree_leaves(ranker.params), leaf_names(ranker.params)
+    kernel_cfg = ranker.scorer_cfg
+    dense_cfg = dataclasses.replace(kernel_cfg, flash_attn=False)
+    dtype = kernel_cfg.compute_dtype
+
+    def grads(cfg, loss_fn):
+        scores = apply_scorer(ranker.params, cfg, x, mask, training=True)
+        loss = loss_fn(scores, labels, mask)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    fused = lambda s, l, m: lambda_rank(s, l, m, use_pallas=True)
+    dense = lambda s, l, m: lambda_rank(s, l, m, use_pallas=False)
+    reset_counts()
+    loss_k, grads_k = grads(kernel_cfg, fused)
+    if read_counts() != LAUNCHES_PER_STEP:
+        raise AssertionError(f"{what}: kernel launches {read_counts()}, "
+                             f"expected {LAUNCHES_PER_STEP}")
+    loss_d, grads_d = grads(dense_cfg, dense)
+    with torch.no_grad():
+        orders = [torch.argsort(-mask_scores(apply_scorer(ranker.params, cfg, x, mask), mask),
+                                dim=-1, stable=True) for cfg in (kernel_cfg, dense_cfg)]
+    errs = rel_errs(grads_k, grads_d, names)
+    rec = {"loss_kernels": loss_k, "loss_dense": loss_d,
+           "sorted_positions_differing": int((orders[0] != orders[1]).sum()), **errs}
+    if not math.isfinite(loss_k) or (dtype == "float32" and not errs["worst"][1] <= GRAD_TOL):
+        raise AssertionError(f"{what} {dtype}: {errs['worst']} relative error "
+                             f"(tol {GRAD_TOL}); loss {loss_k} vs {loss_d}")
+    if dtype == "float32":
+        _, grads_kd = grads(kernel_cfg, dense)
+        same = rel_errs(grads_k, grads_kd, names)
+        rec["fused_vs_dense_loss_same_scores"] = same
+        if not same["worst"][1] <= SAME_SCORES_TOL:
+            raise AssertionError(f"{what}, fused loss on the same scores: "
+                                 f"{same['worst']} relative error (tol {SAME_SCORES_TOL})")
+    return rec
+
+
+def timed_steps(ranker, batch, steps: int, what: str,
+                per_step: dict = LAUNCHES_PER_STEP) -> dict:
+    """`steps` steps of `ranker` on `batch` through train_epoch after a
+    warm-up, on the host's clock, with exactly `per_step` kernel launches a
+    step; then three profiled steps. Returns the record (without printing)."""
+    import torch
+
+    ranker.train_epoch([batch] * 2, epoch_k=1)  # warm up: cuBLAS handles, kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mean_loss, stop = ranker.train_epoch([batch] * steps, epoch_k=1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, steps, what, per_step)
+    if stop or not math.isfinite(mean_loss):
+        raise AssertionError(f"{what}: loss {mean_loss}, stop {stop}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    busy_ms, _, prof_ms, every = profile_ms(
+        lambda: ranker.train_epoch([batch] * 3, epoch_k=1), every=True)
+
+    def item(name):  # ms of the kernels whose name holds `name`, over the 3 steps
+        return sum(ms for key, ms, _ in every if name in key)
+
+    B, N = batch.mask.shape
+    return {"B": B, "N": N, "steps": steps, "wall_s": wall_s, "ms_per_step": wall_s * 1e3 / steps,
+            "lists_per_s": B * steps / wall_s, "mean_loss": mean_loss, "launches": counts,
+            "peak_mem_gb": peak_gb, "profiled_steps": 3, "profiled_wall_ms": prof_ms,
+            "profiled_device_busy_ms": busy_ms, "profiled_flash_ms": item("flash_"),
+            "profiled_flash_fwd_ms": item("flash_fwd"), "profiled_pair_ms": item("pair_"),
+            "profiled_sinkstep_ms": item("sinkstep_"),
+            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+            "top_kernels_ms_calls": every[:14]}
+
+
+def resume_check(ranker, batches, path: str, what: str) -> dict:
+    """Save `ranker`, restore it into a second ranker, one more step on both:
+    the same parameters within RESUME_TOL and the same loss. Returns the record."""
+    from ptranking_tpu_torch.models.scorers import tree_leaves
     from ptranking_tpu_torch.train import AdhocRanker
+
+    ranker.save(path)
+    again = AdhocRanker.from_checkpoint(path, device="cuda")
+    loss_a, _ = ranker.train_epoch(batches[:1], epoch_k=2)
+    loss_b, _ = again.train_epoch(batches[:1], epoch_k=2)
+    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+               zip(tree_leaves(ranker.params), tree_leaves(again.params)))
+    if not diff <= RESUME_TOL or loss_a != loss_b:
+        raise AssertionError(f"{what}: params differ by {diff} (tol {RESUME_TOL}), "
+                             f"losses {loss_a} vs {loss_b}")
+    return {"max_abs_param_diff": diff, "loss": loss_a}
+
+
+def train_phase(card: str, work_dir: str) -> dict:
+    """Phase 5: the flagship ranker's training on the card. Returns the
+    launch counts of the train_epoch run (c)."""
+    import torch
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
 
     # (a) one step's gradients through the kernels against dense attention
     # and the dense loss, dropout 0, on 31 ragged lists and an all-padded row
@@ -1096,74 +1333,20 @@ def train_phase(card: str, work_dir: str) -> dict:
     grad_rec = {}
     for dtype in ("float32", "bfloat16"):
         ranker = flagship_ranker(dropout=0.0, compute_dtype=dtype)
-        leaves = tree_leaves(ranker.params)
-        names = leaf_names(ranker.params)
-        kernel_cfg = ranker.scorer_cfg
-        dense_cfg = dataclasses.replace(kernel_cfg, flash_attn=False)
-
-        def grads(cfg, loss_fn):
-            scores = apply_scorer(ranker.params, cfg, x, mask, training=True)
-            loss = loss_fn(scores, labels, mask)
-            return float(loss.detach()), torch.autograd.grad(loss, leaves)
-
-        fused = lambda s, l, m: lambda_rank(s, l, m, use_pallas=True)
-        dense = lambda s, l, m: lambda_rank(s, l, m, use_pallas=False)
-        reset_counts()
-        loss_k, grads_k = grads(kernel_cfg, fused)
-        if read_counts() != LAUNCHES_PER_STEP:
-            raise AssertionError(f"gradient check: kernel launches {read_counts()}, "
-                                 f"expected {LAUNCHES_PER_STEP}")
-        loss_d, grads_d = grads(dense_cfg, dense)
-        with torch.no_grad():
-            orders = [torch.argsort(-mask_scores(apply_scorer(ranker.params, cfg, x, mask), mask),
-                                    dim=-1, stable=True) for cfg in (kernel_cfg, dense_cfg)]
-        errs = rel_errs(grads_k, grads_d, names)
-        rec = {"loss_kernels": loss_k, "loss_dense": loss_d,
-               "sorted_positions_differing": int((orders[0] != orders[1]).sum()), **errs}
-        if not math.isfinite(loss_k) or (dtype == "float32" and not errs["worst"][1] <= GRAD_TOL):
-            raise AssertionError(f"gradient check {dtype}: {errs['worst']} relative error "
-                                 f"(tol {GRAD_TOL}); loss {loss_k} vs {loss_d}")
+        grad_rec[dtype] = rec = grads_vs_dense(ranker, x, labels, mask, "gradient check")
         if dtype == "float32":
-            _, grads_kd = grads(kernel_cfg, dense)
-            same = rel_errs(grads_k, grads_kd, names)
-            rec["fused_vs_dense_loss_same_scores"] = same
-            if not same["worst"][1] <= SAME_SCORES_TOL:
-                raise AssertionError(f"gradient check, fused loss on the same scores: "
-                                     f"{same['worst']} relative error (tol {SAME_SCORES_TOL})")
+            names = leaf_names(ranker.params)
             for seed in VS_CPU_SEEDS:
                 rec[f"vs_cpu_batch{seed}"] = cmp = vs_cpu(ranker, names, seed)
                 if not cmp["card_kernels_vs_cpu_plain"]["worst"][1] <= GRAD_TOL:
                     raise AssertionError(f"gradient check, kernels against the CPU, batch {seed}: "
                                          f"{cmp['card_kernels_vs_cpu_plain']['worst']} relative "
                                          f"error (tol {GRAD_TOL})")
-        grad_rec[dtype] = rec
     print("train_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
 
     # (b) timed steps at 32 lists of 1408 docs through train_epoch, dropout 0.1
-    ranker = flagship_ranker()
-    batch = train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2)
-    ranker.train_epoch([batch] * 2, epoch_k=1)  # warm up: cuBLAS handles, kernel loads
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    mean_loss, stop = ranker.train_epoch([batch] * TRAIN_STEPS, epoch_k=1)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    check_counts(read_counts(), TRAIN_STEPS, "timed steps")
-    if stop or not math.isfinite(mean_loss):
-        raise AssertionError(f"timed steps: loss {mean_loss}, stop {stop}")
-    busy_ms, flash_ms, prof_ms, top = profile_ms(
-        lambda: ranker.train_epoch([batch] * 3, epoch_k=1), kernel="flash_", top=12)
-    steps_rec = {"B": TRAIN_B, "N": TRAIN_N, "steps": TRAIN_STEPS, "wall_s": wall_s,
-                 "ms_per_step": wall_s * 1e3 / TRAIN_STEPS,
-                 "lists_per_s": TRAIN_B * TRAIN_STEPS / wall_s, "mean_loss": mean_loss,
-                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-                 "profiled_steps": 3, "profiled_wall_ms": prof_ms,
-                 "profiled_device_busy_ms": busy_ms, "profiled_flash_kernels_ms": flash_ms,
-                 "profiled_flash_fwd_ms": sum(ms for name, ms, _ in top if "flash_fwd" in name),
-                 "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
-                 "top_kernels_ms_calls": top}
+    steps_rec = timed_steps(flagship_ranker(), train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2),
+                            TRAIN_STEPS, "timed steps")
     print("train_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
 
     # (c) one train_epoch over ragged lists at the server's 100 docs per
@@ -1200,18 +1383,8 @@ def train_phase(card: str, work_dir: str) -> dict:
     print("train_epoch " + json.dumps(epoch_rec) + f"  [{card}]", flush=True)
 
     # (d) resume: save, restore into a second ranker, one more step on both
-    ckpt = os.path.join(work_dir, "trained.pt")
-    ranker.save(ckpt)
-    again = AdhocRanker.from_checkpoint(ckpt, device="cuda")
-    loss_a, _ = ranker.train_epoch(batches[:1], epoch_k=2)
-    loss_b, _ = again.train_epoch(batches[:1], epoch_k=2)
-    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in
-               zip(tree_leaves(ranker.params), tree_leaves(again.params)))
-    if not diff <= RESUME_TOL or loss_a != loss_b:
-        raise AssertionError(f"resume: params differ by {diff} (tol {RESUME_TOL}), "
-                             f"losses {loss_a} vs {loss_b}")
-    print("train_resume " + json.dumps({"max_abs_param_diff": diff, "loss": loss_a})
-          + f"  [{card}]", flush=True)
+    rec = resume_check(ranker, batches, os.path.join(work_dir, "trained.pt"), "resume")
+    print("train_resume " + json.dumps(rec) + f"  [{card}]", flush=True)
     return epoch_counts
 
 
@@ -1225,7 +1398,6 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
     from ptranking_tpu_torch.losses.wassrank import wass_rank
     from ptranking_tpu_torch.models import apply_scorer
     from ptranking_tpu_torch.models.scorers import tree_leaves
-    from ptranking_tpu_torch.train import AdhocRanker
 
     # (a) one step's fp32 gradients with every half-step through the kernel
     # against the same step on the plain half-step (use_pallas=False), dropout
@@ -1272,21 +1444,8 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
     # dropout 0.1
     ranker = flagship_ranker(model_id="WassRank")
     batch = train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2)
-    ranker.train_epoch([batch] * 2, epoch_k=1)  # warm up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    mean_loss, stop = ranker.train_epoch([batch] * WASS_STEPS, epoch_k=1)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    check_counts(read_counts(), WASS_STEPS, "wassrank timed steps", WASS_LAUNCHES_PER_STEP)
-    if stop or not math.isfinite(mean_loss):
-        raise AssertionError(f"wassrank timed steps: loss {mean_loss}, stop {stop}")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    busy_ms, sink_ms, prof_ms, top = profile_ms(
-        lambda: ranker.train_epoch([batch] * 3, epoch_k=1), kernel="sinkstep_", top=14)
-    flash_ms = sum(ms for name, ms, _ in top if "flash_" in name)  # the three largest items
+    steps_rec = timed_steps(ranker, batch, WASS_STEPS, "wassrank timed steps",
+                            WASS_LAUNCHES_PER_STEP)
     # the loss alone, forward and backward, on this batch's scores: through the
     # kernel, and on the plain half-step
     x, labels, mask = (torch.from_numpy(a).cuda() for a in (batch.features, batch.labels, batch.mask))
@@ -1297,17 +1456,8 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
         s = scores.clone().requires_grad_(True)
         wass_rank(s, labels, mask, **ranker.model_paras, use_pallas=use_pallas).backward()
 
-    loss_ms = {"kernel": cuda_time_ms(lambda: loss_fwd_bwd(None), 5),
-               "plain": cuda_time_ms(lambda: loss_fwd_bwd(False), 5)}
-    steps_rec = {"B": TRAIN_B, "N": TRAIN_N, "steps": WASS_STEPS, "wall_s": wall_s,
-                 "ms_per_step": wall_s * 1e3 / WASS_STEPS, "loss_fwd_bwd_ms": loss_ms,
-                 "lists_per_s": TRAIN_B * WASS_STEPS / wall_s, "mean_loss": mean_loss,
-                 "peak_mem_gb": peak_gb, "profiled_steps": 3, "profiled_wall_ms": prof_ms,
-                 "profiled_device_busy_ms": busy_ms, "profiled_sinkstep_kernels_ms": sink_ms,
-                 "profiled_flash_kernels_ms": flash_ms,
-                 "profiled_flash_fwd_ms": sum(ms for name, ms, _ in top if "flash_fwd" in name),
-                 "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
-                 "top_kernels_ms_calls": top}
+    steps_rec["loss_fwd_bwd_ms"] = {"kernel": cuda_time_ms(lambda: loss_fwd_bwd(None), 5),
+                                    "plain": cuda_time_ms(lambda: loss_fwd_bwd(False), 5)}
     print("wassrank_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
 
     # (c) evaluate on ragged lists at the server's 100 docs per batch, one
@@ -1359,19 +1509,61 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
     print("wassrank_epoch " + json.dumps(epoch_rec) + f"  [{card}]", flush=True)
 
     # (d) resume: save, restore into a second ranker, one more step on both
-    ckpt = os.path.join(work_dir, "wassrank.pt")
-    ranker.save(ckpt)
-    again = AdhocRanker.from_checkpoint(ckpt, device="cuda")
-    loss_a, _ = ranker.train_epoch(batches[:1], epoch_k=2)
-    loss_b, _ = again.train_epoch(batches[:1], epoch_k=2)
-    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in
-               zip(tree_leaves(ranker.params), tree_leaves(again.params)))
-    if not diff <= RESUME_TOL or loss_a != loss_b:
-        raise AssertionError(f"wassrank resume: params differ by {diff} (tol {RESUME_TOL}), "
-                             f"losses {loss_a} vs {loss_b}")
-    print("wassrank_resume " + json.dumps({"max_abs_param_diff": diff, "loss": loss_a})
-          + f"  [{card}]", flush=True)
+    rec = resume_check(ranker, batches, os.path.join(work_dir, "wassrank.pt"), "wassrank resume")
+    print("wassrank_resume " + json.dumps(rec) + f"  [{card}]", flush=True)
     return epoch_counts
+
+
+def wide_phase(card: str, work_dir: str) -> dict:
+    """Phase 7: the DASALC listsf at head dims above 128 (WIDE_MODELS: 6
+    layers, bf16, flash attention through the wide kernels), trained with
+    LambdaRank through the fused pairwise kernel and Adagrad: (a) served over
+    HTTP (16 ragged lists of 5..139 docs) and score_file; (b) one step's
+    gradients through the kernels against dense attention and the dense loss,
+    fp32 held, bf16 printed; (c) timed steps of YAHOO_DOCS docs in each of
+    Yahoo!'s YAHOO_BUCKETS (the one-head model: the 128-doc bucket), with
+    exact launch counts; (d) save, restore, one more step on both. Returns
+    the launch counts of (c) for the first model, summed over its buckets."""
+    import torch
+
+    from ptranking_tpu_torch.models import ScorerConfig
+
+    counts, first = {}, True
+    for name, F, n_heads, lane_align, data_id in WIDE_MODELS:
+        cfg = ScorerConfig.default_listsf(F, compute_dtype="bfloat16", flash_attn=True,
+                                          lane_align=lane_align, n_heads=n_heads)
+        d = cfg.width // cfg.n_heads
+        tag = f"{name}_d{d}"
+        serve_phase(card, work_dir, cfg, YAHOO_SERVE_LENGTHS, data_id,
+                    (min(YAHOO_SERVE_LENGTHS), max(YAHOO_SERVE_LENGTHS)), tag)
+        ranker_kw = {"num_features": F, "lane_align": lane_align, "n_heads": n_heads}
+
+        N = max(YAHOO_BUCKETS)
+        batch = train_batch(YAHOO_DOCS // N, N, ragged=True, seed=1, num_features=F)
+        x, labels, mask = (torch.from_numpy(a).cuda()
+                           for a in (batch.features, batch.labels, batch.mask))
+        grad_rec = {dtype: grads_vs_dense(flagship_ranker(dropout=0.0, compute_dtype=dtype,
+                                                          **ranker_kw),
+                                          x, labels, mask, f"{tag} gradient check")
+                    for dtype in ("float32", "bfloat16")}
+        print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
+
+        ranker = flagship_ranker(**ranker_kw)
+        # Yahoo!'s buckets, short lists first; the one-head MSLR-WEB30K model
+        # (long lists) at the 128-doc bucket only
+        for N in YAHOO_BUCKETS if name == "yahoo" else (max(YAHOO_BUCKETS),):
+            batch = train_batch(YAHOO_DOCS // N, N, ragged=False, seed=2, num_features=F)
+            steps_rec = timed_steps(ranker, batch, YAHOO_STEPS, f"{tag} timed steps at {N} docs")
+            print(f"{tag}_steps " + json.dumps({"head_dim": d, **steps_rec}) + f"  [{card}]",
+                  flush=True)
+            if first:
+                counts = {k: counts.get(k, 0) + n for k, n in steps_rec["launches"].items()}
+        first = False
+
+        rec = resume_check(ranker, [batch], os.path.join(work_dir, f"{tag}.trained.pt"),
+                           f"{tag} resume")
+        print(f"{tag}_resume " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -1397,17 +1589,22 @@ def main() -> int:
     t0 = time.perf_counter()
     for log in cuda_build.build(cuda_build.all_kernels()):
         print(ptxas_summary(log), flush=True)
+        for name, regs, spill in ptxas_entries(log):
+            if spill:
+                print(f"  spills: {name} {regs} registers, {spill} bytes", flush=True)
         lib = log.split(":", 1)[0]
-        if lib in MMA_KERNELS:
-            check_mma_build(log, MMA_KERNELS[lib])
+        if lib in BUILD_KERNELS:
+            check_build(log, BUILD_KERNELS[lib])
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     phase("kernels")
     flash = check_attention(card)
     records = check_attention_bwd(card)
-    records["flash_attn_fwd"].update({k: flash[k] for k in ("max_abs_err", "plain_ms",
-                                                            "library_ms")})
+    for shape, name in ((RECORD_SHAPE, "flash_attn_fwd"), (WIDE_RECORD_SHAPE, "flash_attn_fwd_wide")):
+        records[name].update({k: flash[shape][k] for k in ("max_abs_err", "plain_ms",
+                                                           "library_ms")})
     records.update(check_pairwise(card))
+    check_grid_limits(card)
     records.update(check_sinkstep(card))
 
     phase("serve")
@@ -1420,6 +1617,11 @@ def main() -> int:
 
     phase("wassrank")
     launches["sinkstep"] = wassrank_phase(card, work_dir)["sinkstep"]
+
+    phase("wide")
+    wide = wide_phase(card, work_dir)
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
+        launches[name + "_wide"] = wide[name]
 
     sources = {
         "flash_attn_fwd": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
@@ -1434,6 +1636,14 @@ def main() -> int:
                                 "ptranking_tpu/ops/pallas/pairwise.py:93"),
         "sinkstep": ("ptranking_tpu_torch/ops/csrc/sinkstep.cu",
                      "ptranking_tpu/ops/pallas/sinkhorn.py:26"),
+        # the same wrappers at d > 128 (the Yahoo! LTR listsf's d = 350): the
+        # wide kernels; launches from phase 7's timed steps of that model
+        "flash_attn_fwd_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                                "ptranking_tpu/ops/attention.py:129"),
+        "flash_attn_bwd_dkdv_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                     "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_bwd_dq_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                   "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

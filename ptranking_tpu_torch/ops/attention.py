@@ -144,6 +144,38 @@ _BWD_LIB = cuda_build.KernelLib("flash_attn_bwd",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the kernels' row tile (query rows or keys a block owns), the widest head dim
+# of the kernels that keep a whole row per block, and the narrowest output
+# chunk of the wide kernels above it (csrc/flash_attn_{fwd,bwd}.cu: 64
+# columns for the fp32 kernels and bf16 dk/dv, 128 for the bf16 forward and dq)
+_ROWS, _NARROW_D, _WIDE_COLUMNS = 64, 128, 64
+_MAX_X, _MAX_Y = 2 ** 31 - 1, 65535  # blocks on grid.x and on grid.y
+
+
+def kernel_launches(B: int, H: int, N: int, d: int) -> int:
+    """Kernel launches of one wrapper call. The kernels of d <= 128 take b*h
+    from grid.y (at most 65535 blocks), so a batch of more than 65535 // H
+    lists runs in launches of whole lists; the wide kernels (d > 128) fold
+    every axis into grid.x, one launch."""
+    return 1 if d > _NARROW_D else -(-B // (_MAX_Y // H))
+
+
+def check_grid(B: int, H: int, N: int, d: int) -> None:
+    """The shapes the kernels take: any positive B, H, N and d whose launches
+    fit the grid. For d <= 128, H up to 65535 (grid.y); for d > 128, the
+    64-row tiles x B*H x the output chunks (64 columns at the finest) up to
+    2^31 - 1 blocks (grid.x). Raises otherwise."""
+    if min(B, H, N, d) < 1:
+        raise ValueError(f"unsupported shape {(B, H, N, d)}")
+    if d <= _NARROW_D and H > _MAX_Y:
+        raise ValueError(f"shape {(B, H, N, d)} needs {H} blocks on grid.y, past the "
+                         f"card's {_MAX_Y}")
+    blocks = -(-N // _ROWS) * B * H * -(-d // _WIDE_COLUMNS)
+    if d > _NARROW_D and blocks > _MAX_X:
+        raise ValueError(f"shape {(B, H, N, d)} needs {blocks} blocks on grid.x, past the "
+                         f"card's {_MAX_X}")
+
+
 def _check_qkv(q, k, v, mask, *more):
     """Shapes, dtypes, device and contiguity the kernels take; raises otherwise.
     `more` are further [B, H, N, d] tensors of q's dtype (the output gradient)."""
@@ -157,10 +189,7 @@ def _check_qkv(q, k, v, mask, *more):
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
         raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not 1 <= d <= 128:
-        raise ValueError(f"head dim d={d} outside the kernel's 1..128")
-    if B * H > 65535 or min(B, H, N) < 1:
-        raise ValueError(f"unsupported shape {tuple(q.shape)}")
+    check_grid(B, H, N, d)
     tensors = (q, k, v, mask, *more)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError("q, k, v and mask must be CUDA tensors on one device")
@@ -185,8 +214,9 @@ def _stream(device) -> int:
 class FlashAttnFwd:
     """ctypes wrapper of `csrc/flash_attn_fwd.cu` with its launch count.
 
-    `launches` grows by one at each kernel launch and nowhere else, so a run
-    can show that its attention went through the kernel. With `stats=True`
+    `launches` grows by one at each kernel launch and nowhere else (one a
+    call, or kernel_launches(...) for a batch past grid.y), so a run can show
+    that its attention went through the kernel. With `stats=True`
     it also returns each query row's softmax max m and sum l ([B, H, N]
     fp32), which the backward kernels read."""
 
@@ -209,7 +239,7 @@ class FlashAttnFwd:
                 out.data_ptr(), None if row_max is None else row_max.data_ptr(),
                 None if row_sum is None else row_sum.data_ptr(),
                 B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
-        self.launches += 1
+        self.launches += kernel_launches(B, H, N, d)
         return (out, row_max, row_sum) if stats else out
 
 
@@ -232,7 +262,7 @@ class FlashAttnBwdDkdv:
                 self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
-        self.launches += 1
+        self.launches += kernel_launches(B, H, N, d)
         return dk, dv
 
 
@@ -254,7 +284,7 @@ class FlashAttnBwdDq:
                 self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
                 dq.data_ptr(), B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
-        self.launches += 1
+        self.launches += kernel_launches(B, H, N, d)
         return dq
 
 

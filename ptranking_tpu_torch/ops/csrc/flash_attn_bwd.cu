@@ -79,6 +79,13 @@
 //     autograd through the plain blockwise attention rounds them; all sums
 //     are fp32 and the outputs are rounded once at the store.
 //
+// Head dims above 128: flash_bwd_{dkdv,dq}_wide_mma_kernel (bf16) and
+// flash_bwd_{dkdv,dq}_wide_kernel (fp32), which split the outputs' head dim
+// over the grid and stream the contractions over d (the section "d > 128"
+// below). Any d and any batch is taken: the kernels here take b*h from
+// grid.y, so a batch past 65535 (b, h) pairs runs in several launches of
+// whole lists; the wide kernels fold every axis into grid.x.
+//
 // fp32 inputs: flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, on the fp32 CUDA
 // cores by design. The tensor cores have no fp32 product (TF32 keeps about 3
 // digits) and the fp32 path is the exact one that gradient checks and
@@ -87,6 +94,7 @@
 // rows x 8 lanes.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -674,6 +682,548 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// d > 128: the wide kernels
+// ---------------------------------------------------------------------------
+//
+// As in flash_attn_fwd.cu: the kernels above keep d-wide tiles (and, in
+// bf16, d-wide accumulators) per block, which at d = 384 exceeds the SM's
+// registers and shared memory. The wide kernels split the OUTPUT's head dim
+// over the grid: a block owns 64 rows (keys for dk/dv, query rows for dq) and
+// one chunk of output columns, and streams the contractions of S and dP over
+// d in 64-column chunks staged in shared memory. Every chunk-block of a row
+// tile computes S, P, dP and dS with the same instructions in the same order,
+// so the blocks agree bit for bit on them; each writes only its own columns.
+// No atomics. Q, K, V and dO are read once per output chunk. grid.x folds
+// (b*h, output chunk, 64-row tile) (mma_common.cuh's fold_wide).
+//
+// What holds them (ptranking_tpu_torch/tools/kernel_variants.py on an NVIDIA
+// H100 80GB HBM3 at 700 W; PERF.md): the chunk copies and the re-reads they
+// stand for. At (256, 2, 128, 350) bf16 dk/dv takes 1.84 ms and dq 1.47 ms
+// against byte bounds of 0.082 and 0.069 ms; at d = 384 (16-byte copies)
+// 0.75 and 0.56 ms. The copies unrolled by 4 rather than not at all save a
+// quarter (2.51 / 2.09 ms at d = 350); fully unrolled, both kernels spill.
+// dk/dv keeps 64-column chunks: its two accumulators with S and dP in
+// registers spill at 128 (and gain nothing); dq takes 128 (1.70 ms at 64).
+
+constexpr int DCH = 64;     // columns of a d-chunk of the S and dP products
+// 16-column steps of the bf16 kernels' output chunks: 128 columns for dq; 64
+// for dk and dv, whose two accumulators and two products (S, dP) would
+// otherwise spill
+constexpr int WIDE_CW_DQ = 8, WIDE_CW_DKDV = 4;
+constexpr int WIDE_NC = 8;  // output columns a thread of the fp32 kernels: a 64-column chunk
+
+// bf16: two stages of four d-chunk tiles ([64][72]: the block's rows twice,
+// the loop's tile twice), two stages of the two output-chunk tiles of the
+// loop's tile ([TILE][16*CW + 8]), and 6*TILE 4-byte values (row statistics or
+// key flags)
+__host__ __device__ constexpr size_t wide_mma_smem_bytes(int cw) {
+    return (size_t(2) * 4 * 64 * (DCH + 8) + size_t(2) * 2 * TILE * (16 * cw + 8)) * sizeof(bf16)
+           + size_t(6) * TILE * 4;
+}
+
+// dk, dv of a block's 64 keys and output chunk: for each 64-query tile t, the
+// stages (t, d-chunk c) accumulate S^T = K Q^T and dP^T = V dO^T over d, the
+// first stage of a tile also brings its Q and dO columns of the output chunk
+// and its row statistics; after the last, flash_bwd_dkdv_mma_kernel's
+// arithmetic on the fragments and its two products into the chunk's dk, dv.
+template <int CW>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_bwd_dkdv_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ row_max,
+                               const float* __restrict__ row_sum, const float* __restrict__ dsum,
+                               const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int H, int N, int d, float scale, int copy,
+                               int how) {
+    constexpr int KS = DCH / 16;
+    constexpr int LDC = DCH + 8;
+    constexpr int LDO = 16 * CW + 8;
+    constexpr int CHUNK = 64 * LDC;
+    constexpr int STAGE = 4 * CHUNK;      // K, V (the block's keys), Q, dO (the query tile)
+    constexpr int OUT = 2 * TILE * LDO;   // Q, dO of the tile, the output chunk's columns
+    extern __shared__ uint4 smem_mma[];
+    bf16* Cs = reinterpret_cast<bf16*>(smem_mma);  // [2][STAGE]
+    bf16* Os = Cs + 2 * STAGE;                     // [2][OUT]
+    float* stats = reinterpret_cast<float*>(Os + 2 * OUT);  // [2][m, 1/l, D][TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    int oc, bh;
+    const int k0 = fold_wide(N, d, 16 * CW, oc, bh);
+    const int c0 = oc * 16 * CW;
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int krows = min(OWN, N - k0);
+    const int chunks = (d + DCH - 1) / DCH;
+    const int stages = ((N + TILE - 1) / TILE) * chunks;
+
+    auto prefetch = [&](int st) {
+        const int t = st / chunks, c = st - t * chunks;
+        const int q1 = t * TILE, nrows = min(TILE, N - q1);
+        bf16* cs = Cs + (st & 1) * STAGE;
+        load_chunk<MMA_NT, KS, OWN>(cs, k + base + size_t(k0) * d, krows, d, c * DCH, copy);
+        load_chunk<MMA_NT, KS, OWN>(cs + CHUNK, v + base + size_t(k0) * d, krows, d, c * DCH, copy);
+        load_chunk<MMA_NT, KS, TILE>(cs + 2 * CHUNK, q + base + size_t(q1) * d, nrows, d, c * DCH,
+                                     copy);
+        load_chunk<MMA_NT, KS, TILE>(cs + 3 * CHUNK, dout + base + size_t(q1) * d, nrows, d,
+                                     c * DCH, copy);
+        if (c == 0) {
+            bf16* os = Os + (t & 1) * OUT;
+            load_chunk<MMA_NT, CW, TILE>(os, q + base + size_t(q1) * d, nrows, d, c0, copy);
+            load_chunk<MMA_NT, CW, TILE>(os + TILE * LDO, dout + base + size_t(q1) * d, nrows, d,
+                                         c0, copy);
+            if (tid < TILE) {
+                float* nx = stats + (t & 1) * 3 * TILE;
+                const bool in = tid < nrows;
+                nx[tid] = in ? row_max[stat + q1 + tid] : 0.f;
+                nx[TILE + tid] = in ? 1.f / row_sum[stat + q1 + tid] : 0.f;  // l >= 1
+                nx[2 * TILE + tid] = in ? dsum[stat + q1 + tid] : 0.f;
+            }
+        }
+        cp_async_commit();
+    };
+
+    int flag[2];  // of the thread's two keys: rows g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        flag[h] = key_flag(mask + size_t(b) * N, k0 + warp * 16 + g + 8 * h, N);
+    float acc_k[2 * CW][4], acc_v[2 * CW][4];
+#pragma unroll
+    for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+    float s[TILE / 8][4], dp[TILE / 8][4];
+
+    prefetch(0);
+    for (int st = 0; st < stages; ++st) {
+        const int t = st / chunks, c = st - t * chunks;
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();  // stage st has landed
+        if (c == 0) {
+#pragma unroll
+            for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+        const bf16* cs = Cs + (st & 1) * STAGE;
+        uint32_t a[KS][4];
+        load_a<KS>(a, cs, warp * 16, lane);
+        product_nk<KS, TILE / 8>(s, a, cs + 2 * CHUNK, 0, lane);
+        load_a<KS>(a, cs + CHUNK, warp * 16, lane);
+        product_nk<KS, TILE / 8>(dp, a, cs + 3 * CHUNK, 0, lane);
+        if (c == chunks - 1) {
+            const bf16* os = Os + (t & 1) * OUT;
+            uint32_t pa[TILE / 16][4], dsa[TILE / 16][4];
+            p_ds_transposed<TILE / 8>(pa, dsa, s, dp, stats + (t & 1) * 3 * TILE + 2 * t4, flag,
+                                      scale);
+            product_kn<CW, TILE / 16>(acc_v, pa, os + TILE * LDO, 0, lane);  // dv += P^T dO
+            product_kn<CW, TILE / 16>(acc_k, dsa, os, 0, lane);             // dk += dS^T Q
+        }
+        __syncthreads();  // no warp reads stage st's buffers any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= krows) continue;
+        bf16* dkrow = dk + base + size_t(k0 + r) * d;
+        bf16* dvrow = dv + base + size_t(k0 + r) * d;
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j) {
+            const int col = c0 + 8 * j + 2 * t4;
+            store_pair(dkrow, col, acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale, d, pairs);
+            store_pair(dvrow, col, acc_v[j][2 * h], acc_v[j][2 * h + 1], d, pairs);
+        }
+    }
+}
+
+// dq of a block's 64 query rows and output chunk: for each 64-key tile, the
+// stages accumulate S = Q K^T and dP = dO V^T over d; the first stage of a
+// tile also brings its K columns of the output chunk and its key flags; after
+// the last, flash_bwd_dq_mma_kernel's arithmetic and dq += dS K.
+template <int CW>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_bwd_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                             const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                             bf16* __restrict__ dq, int H, int N, int d, float scale, int copy,
+                             int how) {
+    constexpr int KS = DCH / 16;
+    constexpr int LDC = DCH + 8;
+    constexpr int LDO = 16 * CW + 8;
+    constexpr int CHUNK = 64 * LDC;
+    constexpr int STAGE = 4 * CHUNK;  // Q, dO (the block's rows), K, V (the key tile)
+    constexpr int OUT = TILE * LDO;   // K of the tile, the output chunk's columns
+    extern __shared__ uint4 smem_mma[];
+    bf16* Cs = reinterpret_cast<bf16*>(smem_mma);  // [2][STAGE]
+    bf16* Os = Cs + 2 * STAGE;                     // [2][OUT]
+    int* kflag = reinterpret_cast<int*>(Os + 2 * OUT);  // [2][TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    int oc, bh;
+    const int q0 = fold_wide(N, d, 16 * CW, oc, bh);
+    const int c0 = oc * 16 * CW;
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int qrows = min(OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const int chunks = (d + DCH - 1) / DCH;
+    const int stages = ((N + TILE - 1) / TILE) * chunks;
+
+    auto prefetch = [&](int st) {
+        const int t = st / chunks, c = st - t * chunks;
+        const int k1 = t * TILE, nrows = min(TILE, N - k1);
+        bf16* cs = Cs + (st & 1) * STAGE;
+        load_chunk<MMA_NT, KS, OWN>(cs, q + base + size_t(q0) * d, qrows, d, c * DCH, copy);
+        load_chunk<MMA_NT, KS, OWN>(cs + CHUNK, dout + base + size_t(q0) * d, qrows, d, c * DCH,
+                                    copy);
+        load_chunk<MMA_NT, KS, TILE>(cs + 2 * CHUNK, k + base + size_t(k1) * d, nrows, d, c * DCH,
+                                     copy);
+        load_chunk<MMA_NT, KS, TILE>(cs + 3 * CHUNK, v + base + size_t(k1) * d, nrows, d, c * DCH,
+                                     copy);
+        if (c == 0) {
+            load_chunk<MMA_NT, CW, TILE>(Os + (t & 1) * OUT, k + base + size_t(k1) * d, nrows, d,
+                                         c0, copy);
+            if (tid < TILE) kflag[(t & 1) * TILE + tid] = key_flag(mask_row, k1 + tid, N);
+        }
+        cp_async_commit();
+    };
+
+    float m[2], inv[2], D[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const bool in = r < qrows;  // a row past N: zero q and dO rows, 1/l = 0, so dS = 0
+        m[h] = in ? row_max[stat + q0 + r] : 0.f;
+        inv[h] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;
+        D[h] = in ? dsum[stat + q0 + r] : 0.f;
+    }
+    float acc[2 * CW][4];
+#pragma unroll
+    for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float s[TILE / 8][4], dp[TILE / 8][4];
+
+    prefetch(0);
+    for (int st = 0; st < stages; ++st) {
+        const int t = st / chunks, c = st - t * chunks;
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();  // stage st has landed
+        if (c == 0) {
+#pragma unroll
+            for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+        const bf16* cs = Cs + (st & 1) * STAGE;
+        uint32_t a[KS][4];
+        load_a<KS>(a, cs, warp * 16, lane);
+        product_nk<KS, TILE / 8>(s, a, cs + 2 * CHUNK, 0, lane);
+        load_a<KS>(a, cs + CHUNK, warp * 16, lane);
+        product_nk<KS, TILE / 8>(dp, a, cs + 3 * CHUNK, 0, lane);
+        if (c == chunks - 1) {
+            uint32_t dsa[TILE / 16][4];
+            ds_fragment<TILE / 8>(dsa, s, dp, kflag + (t & 1) * TILE + 2 * t4, m, inv, D, scale);
+            product_kn<CW, TILE / 16>(acc, dsa, Os + (t & 1) * OUT, 0, lane);  // dq += dS K
+        }
+        __syncthreads();  // no warp reads stage st's buffers any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= qrows) continue;
+        bf16* dqrow = dq + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j)
+            store_pair(dqrow, c0 + 8 * j + 2 * t4, acc[j][2 * h] * scale,
+                       acc[j][2 * h + 1] * scale, d, pairs);
+    }
+}
+
+// fp32 dk, dv of a block's 64 keys and 64-column output chunk, on the CUDA
+// cores: flash_bwd_dkdv_kernel's tiles and arithmetic, with the products
+// S^T and dP^T accumulated over d-chunks and the chunk's Q and dO columns
+// staged (in the same buffers) for the second products.
+__host__ __device__ constexpr size_t dkdv_wide_smem_floats() {
+    // Kt, Vt, Qt, dOt d-chunks [DCH][LDT]; Pq, dSq [BM][LDT]; m, 1/l, D [BM]; key flags [BN]
+    return size_t(4) * DCH * LDT + size_t(2) * BM * LDT + 3 * BM + BN;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                           const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                           float* __restrict__ dk, float* __restrict__ dv, int H, int N, int d,
+                           float scale) {
+    static_assert(8 * NC == DCH, "the output chunk is staged in the d-chunk buffers");
+    extern __shared__ float4 smem4[];
+    float* Kt = reinterpret_cast<float*>(smem4);
+    float* Vt = Kt + DCH * LDT;
+    float* Qt = Vt + DCH * LDT;
+    float* dOt = Qt + DCH * LDT;
+    float* Pq = dOt + DCH * LDT;
+    float* dSq = Pq + BM * LDT;
+    float* qm = dSq + BM * LDT;
+    float* qinv = qm + BM;
+    float* qD = qinv + BM;
+    int* kflag = reinterpret_cast<int*>(qD + BM);
+
+    const int tid = threadIdx.x;
+    const int ty = tid >> 3;
+    const int tx = tid & 7;
+    int oc, bh;
+    const int k0 = fold_wide(N, d, DCH, oc, bh);
+    const int c0 = oc * DCH;
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int krows = min(BN, N - k0);
+    const float* kb = k + base + size_t(k0) * d;
+    const float* vb = v + base + size_t(k0) * d;
+
+    if (tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
+    float acc_k[4][NC], acc_v[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+    for (int q0 = 0; q0 < N; q0 += BM) {
+        const int qrows = min(BM, N - q0);
+        const float* qb = q + base + size_t(q0) * d;
+        const float* dob = dout + base + size_t(q0) * d;
+        float s[4][8], dp[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int dc = 0; dc < d; dc += DCH) {
+            __syncthreads();  // the previous chunk or tile is no longer read
+            for (int i = tid; i < 64 * DCH; i += NT) {
+                const int r = i / DCH, c = i - r * DCH;
+                const bool col = dc + c < d;
+                const size_t off = size_t(r) * d + dc + c;
+                Kt[c * LDT + r] = r < krows && col ? kb[off] : 0.f;
+                Vt[c * LDT + r] = r < krows && col ? vb[off] : 0.f;
+                Qt[c * LDT + r] = r < qrows && col ? qb[off] : 0.f;
+                dOt[c * LDT + r] = r < qrows && col ? dob[off] : 0.f;
+            }
+            if (dc == 0 && tid < BM) {
+                const bool in = tid < qrows;
+                qm[tid] = in ? row_max[stat + q0 + tid] : 0.f;
+                qinv[tid] = in ? 1.f / row_sum[stat + q0 + tid] : 0.f;
+                qD[tid] = in ? dsum[stat + q0 + tid] : 0.f;
+            }
+            __syncthreads();
+            product_4x8(s, Kt, Qt, DCH, ty, tx);
+            product_4x8(dp, Vt, dOt, DCH, ty, tx);
+        }
+
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int col = column(tx, j);
+            const bool qin = col < qrows;
+            float p4[4], ds4[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int flag = kflag[ty * 4 + i];
+                const float x = flag == KEY_REAL ? s[i][j] * scale : MASKED_LOGIT;
+                const float p = (qin && flag != KEY_OUT) ? expf(x - qm[col]) * qinv[col] : 0.f;
+                p4[i] = p;
+                ds4[i] = (qin && flag == KEY_REAL) ? p * (dp[i][j] - qD[col]) : 0.f;
+            }
+            *reinterpret_cast<float4*>(&Pq[col * LDT + ty * 4]) = make_float4(p4[0], p4[1], p4[2], p4[3]);
+            *reinterpret_cast<float4*>(&dSq[col * LDT + ty * 4]) = make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
+        }
+        __syncthreads();  // Qt, dOt free; Pq, dSq written
+        for (int i = tid; i < BM * DCH; i += NT) {  // the output chunk's columns of q, dO
+            const int r = i / DCH, c = i - r * DCH;
+            const bool in = r < qrows && c0 + c < d;
+            const size_t off = size_t(r) * d + c0 + c;
+            Qt[c * LDT + r] = in ? qb[off] : 0.f;
+            dOt[c * LDT + r] = in ? dob[off] : 0.f;
+        }
+        __syncthreads();
+
+        for (int r = 0; r < qrows; ++r) {
+            const float4 p = *reinterpret_cast<const float4*>(&Pq[r * LDT + ty * 4]);
+            const float4 ds = *reinterpret_cast<const float4*>(&dSq[r * LDT + ty * 4]);
+            const float pv[4] = {p.x, p.y, p.z, p.w};
+            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+                const float qv = Qt[(tx + 8 * cc) * LDT + r];
+                const float dov = dOt[(tx + 8 * cc) * LDT + r];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    acc_v[i][cc] = fmaf(pv[i], dov, acc_v[i][cc]);
+                    acc_k[i][cc] = fmaf(dsv[i], qv, acc_k[i][cc]);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        if (r >= krows) continue;
+        float* dkrow = dk + base + size_t(k0 + r) * d;
+        float* dvrow = dv + base + size_t(k0 + r) * d;
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+            const int col = c0 + tx + 8 * cc;
+            if (col < d) {
+                dkrow[col] = acc_k[i][cc] * scale;
+                dvrow[col] = acc_v[i][cc];
+            }
+        }
+    }
+}
+
+// fp32 dq of a block's 64 query rows and 64-column output chunk:
+// flash_bwd_dq_kernel's arithmetic, S and dP accumulated over d-chunks, the
+// chunk's K columns staged (in Kt's buffer) for dq += dS K.
+__host__ __device__ constexpr size_t dq_wide_smem_floats() {
+    // Qt, dOt, Kt, Vt d-chunks [DCH][LDT]; dSk [BN][LDT]; key flags [BN]
+    return size_t(4) * DCH * LDT + size_t(BN) * LDT + BN;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                         const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                         float* __restrict__ dq, int H, int N, int d, float scale) {
+    static_assert(8 * NC == DCH, "the output chunk is staged in a d-chunk buffer");
+    extern __shared__ float4 smem4[];
+    float* Qt = reinterpret_cast<float*>(smem4);
+    float* dOt = Qt + DCH * LDT;
+    float* Kt = dOt + DCH * LDT;
+    float* Vt = Kt + DCH * LDT;
+    float* dSk = Vt + DCH * LDT;
+    int* kflag = reinterpret_cast<int*>(dSk + BN * LDT);
+
+    const int tid = threadIdx.x;
+    const int ty = tid >> 3;
+    const int tx = tid & 7;
+    int oc, bh;
+    const int q0 = fold_wide(N, d, DCH, oc, bh);
+    const int c0 = oc * DCH;
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int qrows = min(BM, N - q0);
+    const float* qb = q + base + size_t(q0) * d;
+    const float* dob = dout + base + size_t(q0) * d;
+
+    float m_i[4], inv_i[4], D_i[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        const bool in = r < qrows;
+        m_i[i] = in ? row_max[stat + q0 + r] : 0.f;
+        inv_i[i] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;
+        D_i[i] = in ? dsum[stat + q0 + r] : 0.f;
+    }
+    float acc[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+
+    for (int k0 = 0; k0 < N; k0 += BN) {
+        const int krows = min(BN, N - k0);
+        const float* kb = k + base + size_t(k0) * d;
+        const float* vb = v + base + size_t(k0) * d;
+        float s[4][8], dp[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int dc = 0; dc < d; dc += DCH) {
+            __syncthreads();  // the previous chunk or tile is no longer read
+            for (int i = tid; i < 64 * DCH; i += NT) {
+                const int r = i / DCH, c = i - r * DCH;
+                const bool col = dc + c < d;
+                const size_t off = size_t(r) * d + dc + c;
+                Qt[c * LDT + r] = r < qrows && col ? qb[off] : 0.f;
+                dOt[c * LDT + r] = r < qrows && col ? dob[off] : 0.f;
+                Kt[c * LDT + r] = r < krows && col ? kb[off] : 0.f;
+                Vt[c * LDT + r] = r < krows && col ? vb[off] : 0.f;
+            }
+            if (dc == 0 && tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
+            __syncthreads();
+            product_4x8(s, Qt, Kt, DCH, ty, tx);
+            product_4x8(dp, dOt, Vt, DCH, ty, tx);
+        }
+
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int col = column(tx, j);
+            const bool real = kflag[col] == KEY_REAL;
+            float ds4[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const bool in = ty * 4 + i < qrows;
+                const float p = expf(s[i][j] * scale - m_i[i]) * inv_i[i];
+                ds4[i] = (in && real) ? p * (dp[i][j] - D_i[i]) : 0.f;
+            }
+            *reinterpret_cast<float4*>(&dSk[col * LDT + ty * 4]) = make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
+        }
+        __syncthreads();  // Kt free; dSk written
+        for (int i = tid; i < BN * DCH; i += NT) {  // the output chunk's columns of k
+            const int r = i / DCH, c = i - r * DCH;
+            Kt[c * LDT + r] = r < krows && c0 + c < d ? kb[size_t(r) * d + c0 + c] : 0.f;
+        }
+        __syncthreads();
+
+        for (int c = 0; c < krows; ++c) {
+            const float4 ds = *reinterpret_cast<const float4*>(&dSk[c * LDT + ty * 4]);
+            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+                const float kv = Kt[(tx + 8 * cc) * LDT + c];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(dsv[i], kv, acc[i][cc]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        if (r >= qrows) continue;
+        float* dqrow = dq + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+            const int col = c0 + tx + 8 * cc;
+            if (col < d) dqrow[col] = acc[i][cc] * scale;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -762,15 +1312,90 @@ cudaError_t launch_dq(const Args& a, void* dq) {
     return cudaGetLastError();
 }
 
+// the widest copy of the bf16 wide kernels' chunks (mma_common.cuh)
+int wide_copy(const Args& a) {
+    return chunk_copy(a.d, std::min(std::min(alignment(a.q), alignment(a.k)),
+                                    std::min(alignment(a.v), alignment(a.dout))));
+}
+
+cudaError_t launch_dkdv_wide(const Args& a, int dtype, void* dk, void* dv) {
+    const float scale = 1.0f / sqrtf(float(a.d));
+    if (dtype == 1) {
+        const size_t bytes = wide_mma_smem_bytes(WIDE_CW_DKDV);
+        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_mma_kernel<WIDE_CW_DKDV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(bytes));
+        if (err != cudaSuccess) return err;
+        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, 16 * WIDE_CW_DKDV));
+        flash_bwd_dkdv_wide_mma_kernel<WIDE_CW_DKDV><<<blocks, MMA_NT, bytes, a.stream>>>(
+                static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+                static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+                static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.N, a.d, scale,
+                wide_copy(a), store_mode(a, dk) & store_mode(a, dv));
+    } else {
+        const size_t bytes = dkdv_wide_smem_floats() * sizeof(float);
+        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_kernel<WIDE_NC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(bytes));
+        if (err != cudaSuccess) return err;
+        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, DCH));
+        flash_bwd_dkdv_wide_kernel<WIDE_NC><<<blocks, NT, bytes, a.stream>>>(
+            static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+            static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+            static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+            static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+            static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.N, a.d, scale);
+    }
+    return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wide(const Args& a, int dtype, void* dq) {
+    const float scale = 1.0f / sqrtf(float(a.d));
+    if (dtype == 1) {
+        const size_t bytes = wide_mma_smem_bytes(WIDE_CW_DQ);
+        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_mma_kernel<WIDE_CW_DQ>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(bytes));
+        if (err != cudaSuccess) return err;
+        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, 16 * WIDE_CW_DQ));
+        flash_bwd_dq_wide_mma_kernel<WIDE_CW_DQ><<<blocks, MMA_NT, bytes, a.stream>>>(
+                static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+                static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+                static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+                static_cast<bf16*>(dq), a.H, a.N, a.d, scale, wide_copy(a), store_mode(a, dq));
+    } else {
+        const size_t bytes = dq_wide_smem_floats() * sizeof(float);
+        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<WIDE_NC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(bytes));
+        if (err != cudaSuccess) return err;
+        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, DCH));
+        flash_bwd_dq_wide_kernel<WIDE_NC><<<blocks, NT, bytes, a.stream>>>(
+            static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+            static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+            static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+            static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+            static_cast<float*>(dq), a.H, a.N, a.d, scale);
+    }
+    return cudaGetLastError();
+}
+
+// Any d: d <= 128 runs the kernels above (in launches of at most
+// narrow_lists(H) lists), d > 128 the wide ones; the grids must fit
+// (mma_common.cuh's grid_fits).
 bool valid(const Args& a, int dtype) {
-    return a.B >= 1 && a.H >= 1 && a.N >= 1 && a.d >= 1 && a.d <= 128 && a.B * a.H <= 65535
-           && (dtype == 0 || dtype == 1);
+    if (a.B < 1 || a.H < 1 || a.N < 1 || a.d < 1 || (dtype != 0 && dtype != 1)) return false;
+    return grid_fits(a.B, a.H, a.N, a.d, dtype == 1 ? 16 * WIDE_CW_DKDV : DCH);
 }
 
 }  // namespace
 
-// Dispatch on the head dim padded to a multiple of 16 (KC = 1 .. 8 steps of
-// 16; the fp32 kernels count 8-column blocks, NC = 2*KC) and on the dtype.
+// Dispatch for d <= 128 on the head dim padded to a multiple of 16 (KC = 1 ..
+// 8 steps of 16; the fp32 kernels count 8-column blocks, NC = 2*KC) and on the
+// dtype.
 #define FLASH_BWD_CASE(KC, MMA, F32) \
     case KC: return int(dtype == 1 ? MMA<KC> ARGS : F32<2 * KC> ARGS);
 #define FLASH_BWD_DISPATCH(MMA, F32)  \
@@ -786,6 +1411,42 @@ bool valid(const Args& a, int dtype) {
     }                                 \
     return int(cudaErrorInvalidValue);
 
+namespace {
+
+int narrow_dkdv(const Args& a, int dtype, void* dk, void* dv) {
+#define ARGS (a, dk, dv)
+    FLASH_BWD_DISPATCH(launch_dkdv_mma, launch_dkdv)
+#undef ARGS
+}
+
+int narrow_dq(const Args& a, int dtype, void* dq) {
+#define ARGS (a, dq)
+    FLASH_BWD_DISPATCH(launch_dq_mma, launch_dq)
+#undef ARGS
+}
+
+// d <= 128 in launches of at most narrow_lists(H) lists (mma_common.cuh):
+// `run` is called with the arguments of lists b0 .. b0 + n - 1 and the byte
+// offset of list b0 in a [B, H, N, d] tensor, for each launch in turn.
+template <typename Run>
+int by_lists(const Args& a, int dtype, Run run) {
+    const size_t list = size_t(a.H) * a.N * a.d * (dtype == 1 ? 2 : 4);
+    const size_t stat = size_t(a.H) * a.N * 4;
+    for (int b0 = 0; b0 < a.B; b0 += narrow_lists(a.H)) {
+        const size_t l = b0;
+        const Args part{advance(a.q, l * list), advance(a.k, l * list), advance(a.v, l * list),
+                        advance(a.dout, l * list), advance(a.row_max, l * stat),
+                        advance(a.row_sum, l * stat), advance(a.dsum, l * stat),
+                        advance(a.mask, l * a.N), std::min(narrow_lists(a.H), a.B - b0), a.H,
+                        a.N, a.d, a.stream};
+        const int err = run(part, l * list);
+        if (err != 0) return err;
+    }
+    return 0;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Both return a cudaError_t (0 on success). dtype: 0 = fp32, 1 = bf16 (q, k, v,
@@ -797,9 +1458,10 @@ int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void*
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
     if (!valid(a, dtype)) return int(cudaErrorInvalidValue);
-#define ARGS (a, dk, dv)
-    FLASH_BWD_DISPATCH(launch_dkdv_mma, launch_dkdv)
-#undef ARGS
+    if (d > 128) return int(launch_dkdv_wide(a, dtype, dk, dv));
+    return by_lists(a, dtype, [&](const Args& part, size_t at) {
+        return narrow_dkdv(part, dtype, advance(dk, at), advance(dv, at));
+    });
 }
 
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -809,9 +1471,10 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
     if (!valid(a, dtype)) return int(cudaErrorInvalidValue);
-#define ARGS (a, dq)
-    FLASH_BWD_DISPATCH(launch_dq_mma, launch_dq)
-#undef ARGS
+    if (d > 128) return int(launch_dq_wide(a, dtype, dq));
+    return by_lists(a, dtype, [&](const Args& part, size_t at) {
+        return narrow_dq(part, dtype, advance(dq, at));
+    });
 }
 
 const char* flash_attn_bwd_error_string(int err) {

@@ -82,6 +82,13 @@
 // Two blocks an SM change nothing; 32 keys of S at a time (0.224..0.229) or
 // 8 warps owning 128 query rows (0.236..0.245) are slower.
 //
+// Head dims above 128: flash_fwd_wide_mma_kernel (bf16) and
+// flash_fwd_wide_kernel (fp32), which split the output's head dim over the
+// grid and stream the contraction over d (the section "d > 128" below says
+// why and how). Any d and any batch is taken: the kernels here take b*h
+// from grid.y, so a batch past 65535 (b, h) pairs runs in several launches
+// of whole lists; the wide kernels fold every axis into grid.x.
+//
 // fp32 inputs: flash_fwd_kernel, on the fp32 CUDA cores by design, as the
 // backward's fp32 kernels (TF32 keeps about 3 digits, and the fp32 path is
 // the exact one that gradient and resume checks rest on): register-blocked
@@ -89,6 +96,7 @@
 // threads as 16 row groups of 4 rows x 8 lanes, the same padding rules.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -509,24 +517,347 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
     return cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// d > 128: the wide kernels
+// ---------------------------------------------------------------------------
+//
+// The kernels above keep every column of a row at hand (the bf16 one holds
+// the warp's Q in registers, KC fragments, and both keep d-wide tiles in
+// shared memory), so their resources grow with d: at d = 384 the bf16 one
+// would need 251,392 bytes of shared memory (the H100 allows 232,448) and the
+// fp32 one 324,864. The wide kernels split the OUTPUT's head dim over the
+// grid instead: a block owns 64 query rows and one chunk of output columns,
+// and streams the contraction of S = Q K^T over d in 64-column chunks staged
+// in shared memory, so nothing of theirs grows with d. Every chunk-block of a
+// row tile computes S, the running max and the running sum in the same order
+// with the same instructions, so their normalisations agree bit for bit; the
+// block of chunk 0 alone writes the row statistics. No atomics. The price is
+// that Q and K are read once per output chunk (ceil(d / chunk) times) and S
+// computed as often. grid.x folds (b*h, output chunk, 64-row tile)
+// (mma_common.cuh's fold_wide).
+//
+// What bounds them: at the Yahoo! LTR listsf's shapes (N = 128) attention
+// does N/2 = 64 operations a byte, below the H100's ~295 bf16 ridge, so the
+// bytes do: 0.055 ms at (256, 2, 128, 350) bf16. What holds the bf16 kernel
+// (ptranking_tpu_torch/tools/kernel_variants.py on an NVIDIA H100 80GB HBM3
+// at 700 W; PERF.md keeps the runs): its chunk copies, 0.53..0.54 ms at
+// d = 350, whose 700-byte rows allow only 4-byte copies, against
+// 0.23 ms at d = 384 (16-byte copies); 64-column output chunks (twice the
+// re-reads) take 0.94 / 0.39 ms.
 
-extern "C" {
+constexpr int DCH = 64;  // columns of a d-chunk of the S product
+constexpr int WIDE_CW = 8;  // 16-column steps of the bf16 kernel's output chunk: 128 columns
+constexpr int WIDE_NC = 8;  // output columns a thread of the fp32 kernel: a 64-column chunk
 
-// Returns a cudaError_t (0 on success). dtype: 0 = fp32 (CUDA cores), 1 = bf16
-// (tensor cores). row_max and row_sum are both null (no statistics) or both
-// [B, H, N] fp32.
-int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
-                   void* stream) {
-    if (B < 1 || H < 1 || N < 1 || d < 1 || d > 128 || B * H > 65535 || (dtype != 0 && dtype != 1)
-        || ((row_max == nullptr) != (row_sum == nullptr)))
-        return int(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    float* rm = static_cast<float*>(row_max);
-    float* rs = static_cast<float*>(row_sum);
-    // the head dim padded to a multiple of 16: KC steps of 16 (the fp32
-    // kernel counts 8-column blocks, NC = 2 * KC)
+// fp32: Qt and Kt d-chunks [DCH][LDT] (transposed), Vs [BN][8*NC] (the
+// output chunk's columns), Pt [BN][LDT], then BN int key flags.
+__host__ __device__ constexpr size_t wide_smem_floats(int nc) {
+    return size_t(2) * DCH * LDT + size_t(BN) * 8 * nc + size_t(BN) * LDT + BN;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(NT)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                      float* __restrict__ o, float* __restrict__ row_max,
+                      float* __restrict__ row_sum, int H, int N, int d, float scale) {
+    constexpr int W = 8 * NC;  // the output chunk's columns
+    extern __shared__ float4 smem4[];
+    float* Qt = reinterpret_cast<float*>(smem4);
+    float* Kt = Qt + DCH * LDT;
+    float* Vs = Kt + DCH * LDT;
+    float* Pt = Vs + BN * W;
+    int* kflag = reinterpret_cast<int*>(Pt + BN * LDT);
+
+    const int tid = threadIdx.x;
+    const int ty = tid >> 3;  // rows ty*4 .. ty*4+3 of the query tile
+    const int tx = tid & 7;   // logit columns tx*4+j and 32+tx*4+j; output columns tx+8*c
+    int oc, bh;
+    const int q0 = fold_wide(N, d, W, oc, bh);
+    const int c0 = oc * W;
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const float* qb = q + base;
+    const float* kb = k + base;
+    const float* vb = v + base;
+    const uint8_t* mb = mask + size_t(b) * N;
+    const int qrows = min(BM, N - q0);
+
+    float acc[4][NC];
+    float m_run[4], l_run[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        m_run[i] = M_INIT;
+        l_run[i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < N; k0 += BN) {
+        const int krows = min(BN, N - k0);
+        float s[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+        for (int dc = 0; dc < d; dc += DCH) {
+            __syncthreads();  // the previous chunk (and tile: Vs, Pt) is no longer read
+            for (int i = tid; i < BM * DCH; i += NT) {
+                const int r = i / DCH, c = i - r * DCH;
+                const bool col = dc + c < d;
+                Qt[c * LDT + r] = r < qrows && col ? qb[size_t(q0 + r) * d + dc + c] : 0.f;
+                Kt[c * LDT + r] = r < krows && col ? kb[size_t(k0 + r) * d + dc + c] : 0.f;
+            }
+            if (dc == 0) {
+                for (int i = tid; i < BN * W; i += NT) {
+                    const int r = i / W, c = i - r * W;
+                    Vs[i] = r < krows && c0 + c < d ? vb[size_t(k0 + r) * d + c0 + c] : 0.f;
+                }
+                if (tid < BN)
+                    kflag[tid] = tid >= krows ? KEY_OUT : (mb[k0 + tid] ? KEY_REAL : KEY_MASKED);
+            }
+            __syncthreads();
+#pragma unroll 4
+            for (int c = 0; c < DCH; ++c) {
+                const float4 a = *reinterpret_cast<const float4*>(&Qt[c * LDT + ty * 4]);
+                const float4 b0 = *reinterpret_cast<const float4*>(&Kt[c * LDT + tx * 4]);
+                const float4 b1 = *reinterpret_cast<const float4*>(&Kt[c * LDT + 32 + tx * 4]);
+                const float av[4] = {a.x, a.y, a.z, a.w};
+                const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+            }
+        }
+
+        // Scale and mask, then the online softmax update: flash_fwd_kernel's steps.
+        float tmax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int col = (j < 4) ? tx * 4 + j : 32 + tx * 4 + (j - 4);
+            const int flag = kflag[col];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float x = flag == KEY_REAL ? s[i][j] * scale
+                                : (flag == KEY_MASKED ? MASKED_LOGIT : -INFINITY);
+                s[i][j] = x;
+                tmax[i] = fmaxf(tmax[i], x);
+            }
+        }
+        float m_new[4], rsum[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            m_new[i] = fmaxf(m_run[i], warp_max8(tmax[i]));
+            rsum[i] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float p = expf(s[i][j] - m_new[i]);
+                s[i][j] = p;
+                rsum[i] += p;
+            }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float alpha = expf(m_run[i] - m_new[i]);
+            l_run[i] = l_run[i] * alpha + warp_sum8(rsum[i]);
+            m_run[i] = m_new[i];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int col = (j < 4) ? tx * 4 + j : 32 + tx * 4 + (j - 4);
+            *reinterpret_cast<float4*>(&Pt[col * LDT + ty * 4]) =
+                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+        }
+        __syncthreads();
+
+        for (int c = 0; c < krows; ++c) {
+            const float4 p = *reinterpret_cast<const float4*>(&Pt[c * LDT + ty * 4]);
+            const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+                const float vv = Vs[c * W + tx + 8 * cc];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        if (r >= qrows) continue;
+        const float inv = 1.f / l_run[i];
+        if (row_max != nullptr && tx == 0 && oc == 0) {
+            row_max[size_t(bh) * N + q0 + r] = m_run[i];
+            row_sum[size_t(bh) * N + q0 + r] = l_run[i];
+        }
+        float* orow = o + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+            const int col = c0 + tx + 8 * cc;
+            if (col < d) orow[col] = acc[i][cc] * inv;
+        }
+    }
+}
+
+// bf16: two stages of (Q d-chunk [OWN][72], K d-chunk [TILE][72]), two V
+// tiles of the output chunk [TILE][16*CW + 8], two tiles' key flags
+__host__ __device__ constexpr size_t wide_mma_smem_bytes(int cw) {
+    return (size_t(2) * (OWN + TILE) * (16 * (DCH / 16) + 8) + size_t(2) * TILE * (16 * cw + 8))
+               * sizeof(bf16) + size_t(2) * TILE * 4;
+}
+
+// The bf16 wide kernel: flash_fwd_mma_kernel's warps, fragments, online
+// softmax and P V product, with S accumulated over d-chunks. Its stages are
+// (key tile t, d-chunk c) in order; stage s + 1's copies are in flight while
+// stage s is multiplied (double-buffered cp.async 16, 8 or 4 bytes wide as d
+// and alignment allow, or synchronous for odd d). The first stage of a tile also brings the tile's V
+// columns of the output chunk and its key flags, into the buffer of the
+// tile's parity.
+template <int CW>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_fwd_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                          bf16* __restrict__ o, float* __restrict__ row_max,
+                          float* __restrict__ row_sum, int H, int N, int d, float scale2,
+                          int copy, int how) {
+    constexpr int KS = DCH / 16;        // 16-deep steps of a d-chunk
+    constexpr int LDC = 16 * KS + 8;    // row stride of the d-chunk tiles
+    constexpr int LDV = 16 * CW + 8;    // row stride of the V tiles
+    constexpr int STAGE = (OWN + TILE) * LDC;
+    extern __shared__ uint4 smem_mma[];
+    bf16* QK = reinterpret_cast<bf16*>(smem_mma);  // [2][Q chunk; K chunk]
+    bf16* Vs = QK + 2 * STAGE;                     // [2][TILE][LDV]
+    int* kflag = reinterpret_cast<int*>(Vs + 2 * TILE * LDV);  // [2][TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    int oc, bh;
+    const int q0 = fold_wide(N, d, 16 * CW, oc, bh);
+    const int c0 = oc * 16 * CW;
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const int qrows = min(OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const int chunks = (d + DCH - 1) / DCH;
+    const int tiles = (N + TILE - 1) / TILE;
+    const int stages = tiles * chunks;
+
+    auto prefetch = [&](int st) {
+        const int t = st / chunks, c = st - t * chunks;
+        const int k0 = t * TILE, krows = min(TILE, N - k0);
+        bf16* qs = QK + (st & 1) * STAGE;
+        load_chunk<MMA_NT, KS, OWN>(qs, q + base + size_t(q0) * d, qrows, d, c * DCH, copy);
+        load_chunk<MMA_NT, KS, TILE>(qs + OWN * LDC, k + base + size_t(k0) * d, krows, d,
+                                     c * DCH, copy);
+        if (c == 0) {
+            load_chunk<MMA_NT, CW, TILE>(Vs + (t & 1) * TILE * LDV, v + base + size_t(k0) * d,
+                                         krows, d, c0, copy);
+            if (tid < TILE) kflag[(t & 1) * TILE + tid] = key_flag(mask_row, k0 + tid, N);
+        }
+        cp_async_commit();
+    };
+
+    float acc[2 * CW][4];
+#pragma unroll
+    for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};
+    float s[TILE / 8][4];
+
+    prefetch(0);
+    for (int st = 0; st < stages; ++st) {
+        const int t = st / chunks, c = st - t * chunks;
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();  // stage st has landed
+        if (c == 0) {
+#pragma unroll
+            for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        }
+        const bf16* qs = QK + (st & 1) * STAGE;
+        uint32_t a[KS][4];
+        load_a<KS>(a, qs, warp * 16, lane);
+        product_nk<KS, TILE / 8>(s, a, qs + OWN * LDC, 0, lane);
+        if (c == chunks - 1) {
+            uint32_t pa[TILE / 16][4];
+            online_softmax<TILE / 8>(pa, s, kflag + (t & 1) * TILE + 2 * t4, m, l, acc, scale2);
+            product_kn<CW, TILE / 16>(acc, pa, Vs + (t & 1) * TILE * LDV, 0, lane);  // O += P V
+        }
+        __syncthreads();  // no warp reads stage st's buffers any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float sum = l[h];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= qrows) continue;
+        const float inv = 1.f / sum;
+        bf16* orow = o + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j)
+            store_pair(orow, c0 + 8 * j + 2 * t4, acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv, d,
+                       pairs);
+        if (row_max != nullptr && t4 == 0 && oc == 0) {
+            const size_t at = size_t(bh) * N + q0 + r;
+            row_max[at] = m[h] == MASKED_LOGIT2 ? MASKED_LOGIT : m[h] * LN2;
+            row_sum[at] = sum;
+        }
+    }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        float* row_max, float* row_sum, int B, int H, int N, int d,
+                        cudaStream_t stream) {
+    const size_t bytes = wide_smem_floats(WIDE_NC) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<WIDE_NC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(unsigned(wide_blocks(B, H, N, d, 8 * WIDE_NC)));
+    flash_fwd_wide_kernel<WIDE_NC><<<grid, NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(o), row_max, row_sum, H, N, d,
+        1.0f / sqrtf(float(d)));
+    return cudaGetLastError();
+}
+
+cudaError_t launch_wide_mma(const void* q, const void* k, const void* v, const void* mask,
+                            void* o, float* row_max, float* row_sum, int B, int H, int N, int d,
+                            cudaStream_t stream) {
+    const size_t bytes = wide_mma_smem_bytes(WIDE_CW);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_mma_kernel<WIDE_CW>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    const int copy = chunk_copy(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 4) ? STORE_PAIRS : 0;
+    const dim3 grid(unsigned(wide_blocks(B, H, N, d, 16 * WIDE_CW)));
+    flash_fwd_wide_mma_kernel<WIDE_CW><<<grid, MMA_NT, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), row_max, row_sum, H, N, d,
+        LOG2E / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
+// d <= 128: the kernels above, on the head dim padded to a multiple of 16:
+// KC steps of 16 (the fp32 kernel counts 8-column blocks, NC = 2 * KC)
+int launch_narrow(const void* q, const void* k, const void* v, const void* mask, void* o,
+                  float* rm, float* rs, int B, int H, int N, int d, int dtype,
+                  cudaStream_t st) {
 #define FLASH_CASE(KC)                                                                     \
     case KC:                                                                               \
         return int(dtype == 1 ? launch_mma<KC>(q, k, v, mask, o, rm, rs, B, H, N, d, st)   \
@@ -543,6 +874,43 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask
     }
 #undef FLASH_CASE
     return int(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t (0 on success). dtype: 0 = fp32 (CUDA cores), 1 = bf16
+// (tensor cores). row_max and row_sum are both null (no statistics) or both
+// [B, H, N] fp32. d <= 128 runs the kernels above, in launches of at most
+// narrow_lists(H) lists (mma_common.cuh), d > 128 the wide ones; every shape
+// is taken whose grids fit (grid_fits).
+int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
+                   void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
+                   void* stream) {
+    if (B < 1 || H < 1 || N < 1 || d < 1 || (dtype != 0 && dtype != 1)
+        || ((row_max == nullptr) != (row_sum == nullptr)))
+        return int(cudaErrorInvalidValue);
+    if (!grid_fits(B, H, N, d, dtype == 1 ? 16 * WIDE_CW : 8 * WIDE_NC))
+        return int(cudaErrorInvalidConfiguration);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* rm = static_cast<float*>(row_max);
+    float* rs = static_cast<float*>(row_sum);
+    if (d > 128)
+        return int(dtype == 1 ? launch_wide_mma(q, k, v, mask, o, rm, rs, B, H, N, d, st)
+                              : launch_wide(q, k, v, mask, o, rm, rs, B, H, N, d, st));
+    // bytes of one list: of q, k, v and o, and of a row statistic
+    const size_t list = size_t(H) * N * d * (dtype == 1 ? 2 : 4), stat = size_t(H) * N * 4;
+    for (int b0 = 0; b0 < B; b0 += narrow_lists(H)) {
+        const size_t l = b0;
+        const int err = launch_narrow(advance(q, l * list), advance(k, l * list),
+                                      advance(v, l * list), advance(mask, l * N),
+                                      advance(o, l * list), advance(rm, l * stat),
+                                      advance(rs, l * stat), std::min(narrow_lists(H), B - b0),
+                                      H, N, d, dtype, st);
+        if (err != 0) return err;
+    }
+    return 0;
 }
 
 const char* flash_attn_fwd_error_string(int err) {

@@ -65,11 +65,29 @@ __device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, int sr
                  : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
                  : "memory");
 }
+// 16 bytes likewise (src_bytes 16 or 0), bypassing L1
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :
+                 : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+                 : "memory");
+}
+// 4 bytes likewise (src_bytes 4 or 0)
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :
+                 : "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+                 : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// every group but the one committed last has landed
+__device__ __forceinline__ void cp_async_wait_prior() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -115,6 +133,121 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
         for (int i = threadIdx.x; i < ROWS * d; i += NT) {
             const int r = i / d, c = i - r * d;
             dst[r * LDS + c] = r < nrows ? src[size_t(r) * d + c] : zero;
+        }
+    }
+}
+
+// The wide kernels (head dims above 128) of flash_attn_{fwd,bwd}.cu: a block
+// owns 64 rows and one chunk of `width` output columns. grid.x folds (b*h,
+// output chunk, 64-row tile), the row tile fastest, so the blocks that read
+// one (b, h)'s rows run close together: the block's first row, its chunk oc
+// and its b*h.
+__device__ __forceinline__ int fold_wide(int N, int d, int width, int& oc, int& bh) {
+    const int row_tiles = (N + 63) / 64, chunks = (d + width - 1) / width;
+    const int x = blockIdx.x / row_tiles;
+    oc = x % chunks;
+    bh = x / chunks;
+    return (blockIdx.x - x * row_tiles) * 64;
+}
+
+// blocks of a wide kernel's grid
+inline long long wide_blocks(int B, int H, int N, int d, int width) {
+    return (long long)((N + 63) / 64) * ((d + width - 1) / width) * B * H;
+}
+
+// The kernels of d <= 128 take b*h from grid.y, which holds at most 65535
+// blocks, and their row tiles from grid.x: a batch of more lists than
+// narrow_lists(H) runs in several launches of whole lists, each on tensors
+// advanced to its first list. The wide kernels fold every axis into grid.x.
+inline int narrow_lists(int H) { return 65535 / H; }
+
+// Whether a shape's launches fit the card's grid limits (`width`: the
+// narrowest output chunk of the wide kernels).
+inline bool grid_fits(int B, int H, int N, int d, int width) {
+    return d > 128 ? wide_blocks(B, H, N, d, width) < (1LL << 31) : H <= 65535;
+}
+
+// p advanced by `bytes`; a null pointer stays null
+template <typename T>
+T* advance(T* p, size_t bytes) {
+    return p == nullptr ? p : reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) + bytes);
+}
+
+// Copy widths of load_chunk: elements a copy instruction moves
+enum : int { CHUNK_SYNC = 1, CHUNK_4B = 2, CHUNK_8B = 4, CHUNK_16B = 8 };
+
+// The widest copy a [*, d] bf16 tensor's rows allow, given the largest
+// power-of-two alignment (bytes, up to 16) that all its tensors share:
+// 16-byte cp.async when d is a multiple of 8, 8-byte when of 4, 4-byte when d
+// is even, else a synchronous element copy.
+inline int chunk_copy(int d, int align) {
+    if (d % 8 == 0 && align >= 16) return CHUNK_16B;
+    if (d % 4 == 0 && align >= 8) return CHUNK_8B;
+    if (d % 2 == 0 && align >= 4) return CHUNK_4B;
+    return CHUNK_SYNC;
+}
+
+// the largest power of two (up to 16) that divides the address
+inline int alignment(const void* p) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : a % 2 == 0 ? 2 : 1;
+}
+
+// load_chunk's asynchronous copies of E elements (8: 16 bytes, 4: 8, 2: 4)
+template <int NT, int CW, int ROWS, int E>
+__device__ __forceinline__ void load_chunk_async(bf16* dst, const bf16* __restrict__ src,
+                                                 int nrows, int d, int c0) {
+    constexpr int LDS = 16 * CW + 8;
+    constexpr int UNITS = 16 * CW / E;  // copies a row
+    constexpr int COPIES = (ROWS * UNITS + NT - 1) / NT;
+    const uint32_t base = smem_addr(dst);
+    // unrolled by 4, not fully: fully unrolled, the compiler keeps every
+    // copy's address across the caller's loop and the wide kernels spill;
+    // not unrolled, the copies' index arithmetic costs a fifth of their time
+    // (tools/kernel_variants.py, PERF.md)
+#pragma unroll 4
+    for (int i = 0; i < COPIES; ++i) {
+        const int u = threadIdx.x + NT * i;
+        const int r = u / UNITS, cu = u % UNITS;
+        const int col = c0 + E * cu;
+        const bool in = r < nrows && col < d;
+        const bf16* from = in ? src + size_t(r) * d + col : src;
+        const uint32_t at = base + 2 * (r * LDS + E * cu);
+        if (u < ROWS * UNITS) {
+            if (E == 8)
+                cp_async_16(at, from, in ? 16 : 0);
+            else if (E == 4)
+                cp_async_8(at, from, in ? 8 : 0);
+            else
+                cp_async_4(at, from, in ? 4 : 0);
+        }
+    }
+}
+
+// Columns c0 .. c0 + 16*CW - 1 of rows r < nrows of the row-major [*, d]
+// tile at src into the shared [ROWS][16*CW + 8] tile at dst, zero where the
+// row is >= nrows or the column >= d (so a ragged d-chunk adds nothing to a
+// product), by the block's NT threads. `copy` (chunk_copy) is the elements a
+// copy moves: CHUNK_16B, CHUNK_8B and CHUNK_4B start cp.async copies (the caller commits and
+// waits; zeros come from the copy's own zero-fill), CHUNK_SYNC stores
+// element by element. The wide kernels stream d through these chunks, so
+// nothing of theirs grows with d.
+template <int NT, int CW, int ROWS>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* __restrict__ src, int nrows,
+                                           int d, int c0, int copy) {
+    constexpr int LDS = 16 * CW + 8;
+    constexpr int W = 16 * CW;
+    if (copy == CHUNK_16B) {
+        load_chunk_async<NT, CW, ROWS, 8>(dst, src, nrows, d, c0);
+    } else if (copy == CHUNK_8B) {
+        load_chunk_async<NT, CW, ROWS, 4>(dst, src, nrows, d, c0);
+    } else if (copy == CHUNK_4B) {
+        load_chunk_async<NT, CW, ROWS, 2>(dst, src, nrows, d, c0);
+    } else {
+        const bf16 zero = __float2bfloat16(0.f);
+        for (int i = threadIdx.x; i < ROWS * W; i += NT) {
+            const int r = i / W, c = i - r * W;
+            dst[r * LDS + c] = r < nrows && c0 + c < d ? src[size_t(r) * d + c0 + c] : zero;
         }
     }
 }

@@ -37,7 +37,25 @@ from ptranking_tpu_torch.ops.pairwise import pair_mask, pairwise_diffs
 from ptranking_tpu_torch.ops.sorting import sort_labels_by_scores
 from ptranking_tpu_torch.types import LabelType
 
-TILE = 256  # rows per block of the kernels, and keys per staged tile
+TILE = 128  # rows and columns of a block's tile of pairs (TI in csrc/pairwise_lambda.cu)
+_MAX_BLOCKS = 2 ** 31 - 1  # grid.x, which folds the rows B into the tile pairs
+
+
+def tile_pairs(N: int) -> int:
+    """Tile pairs ti <= tj of one row: the forward's partials a row."""
+    t = -(-N // TILE)
+    return t * (t + 1) // 2
+
+
+def check_row_shape(B: int, N: int) -> None:
+    """The [B, N] shapes the kernels take: any positive B and N whose grids
+    (tile pairs x B, and B*N / 256 for the backward's reduction) stay within
+    2^31 - 1 blocks; raises otherwise."""
+    if min(B, N) < 1:
+        raise ValueError(f"unsupported shape {(B, N)}")
+    blocks = max(tile_pairs(N) * B, -(-B * N // 256))
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"shape {(B, N)} needs {blocks} blocks, past the grid's {_MAX_BLOCKS}")
 
 
 def _pair_terms(s, l, g, mask, sigma, weighted):
@@ -86,8 +104,7 @@ def _check_rows(s, l, g, mask):
                          f"{tuple(mask.shape)}")
     if any(t.dtype != torch.float32 for t in (s, l, g)):
         raise ValueError("scores, labels and gains must be float32")
-    if not 1 <= B <= 65535 or N < 1:
-        raise ValueError(f"unsupported shape {(B, N)}")
+    check_row_shape(B, N)
     tensors = (s, l, g, mask)
     if any(not t.is_cuda or t.device != s.device for t in tensors):
         raise ValueError("scores, labels, gains and mask must be CUDA tensors on one device")
@@ -99,7 +116,7 @@ def _check_rows(s, l, g, mask):
 _P = ctypes.c_void_p
 _ROW_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]  # B, N, sigma, weighted, stream
 _LIB = cuda_build.KernelLib("pairwise_lambda", {"pairwise_lambda_fwd": [_P] * 5 + _ROW_ARGS,
-                                                "pairwise_lambda_bwd": [_P] * 6 + _ROW_ARGS})
+                                                "pairwise_lambda_bwd": [_P] * 7 + _ROW_ARGS})
 
 
 def _launch(entry, ptrs, B, N, sigma, weighted, device):
@@ -110,7 +127,7 @@ def _launch(entry, ptrs, B, N, sigma, weighted, device):
 
 class PairwiseLambdaFwd:
     """ctypes wrapper of the forward kernel of `csrc/pairwise_lambda.cu`:
-    per-(query, 256-row tile) partial sums of the loss, [B, ceil(N/256)]
+    per-(query, tile pair) partial sums of the loss, [B, tile_pairs(N)]
     fp32. `launches` grows by one at each launch and nowhere else."""
 
     name = "pairwise_lambda_fwd"
@@ -120,7 +137,7 @@ class PairwiseLambdaFwd:
 
     def __call__(self, s, l, g, mask, sigma: float = 1.0, weighted: bool = True):
         B, N = _check_rows(s, l, g, mask)
-        partials = torch.empty((B, (N + TILE - 1) // TILE), dtype=torch.float32, device=s.device)
+        partials = torch.empty((B, tile_pairs(N)), dtype=torch.float32, device=s.device)
         _launch(self.name, (s.data_ptr(), l.data_ptr(), g.data_ptr(), mask.data_ptr(),
                             partials.data_ptr()), B, N, sigma, weighted, s.device)
         self.launches += 1
@@ -128,10 +145,13 @@ class PairwiseLambdaFwd:
 
 
 class PairwiseLambdaBwd:
-    """ctypes wrapper of the backward kernel of `csrc/pairwise_lambda.cu`:
-    dL/ds [B, N] fp32, scaled by the upstream gradient `scale` (a one-element
-    fp32 tensor on the device, read by the kernel: no host sync), with its
-    launch count."""
+    """ctypes wrapper of the backward of `csrc/pairwise_lambda.cu`: dL/ds
+    [B, N] fp32, scaled by the upstream gradient `scale` (a one-element fp32
+    tensor on the device, read by the kernel: no host sync). One call runs
+    the pair kernel, which writes each tile pair's row and column partials
+    into a scratch tensor of 2 * B * ceil(N / TILE) * N floats, and the
+    kernel that sums them per document in a fixed order: `launches` grows by
+    two a call, one for each kernel launched, and nowhere else."""
 
     name = "pairwise_lambda_bwd"
 
@@ -144,9 +164,11 @@ class PairwiseLambdaBwd:
             raise ValueError("scale must be one float32 value on the scores' device")
         scale = scale.contiguous()
         grad = torch.empty_like(s)
+        scratch = torch.empty(2 * B * -(-N // TILE) * N, dtype=torch.float32, device=s.device)
         _launch(self.name, (s.data_ptr(), l.data_ptr(), g.data_ptr(), mask.data_ptr(),
-                            scale.data_ptr(), grad.data_ptr()), B, N, sigma, weighted, s.device)
-        self.launches += 1
+                            scale.data_ptr(), grad.data_ptr(), scratch.data_ptr()),
+                B, N, sigma, weighted, s.device)
+        self.launches += 2  # the pair kernel and the reduction
         return grad
 
 

@@ -3,15 +3,20 @@
     python3 -m ptranking_tpu_torch.tools.kernel_variants [library ...]
 
 For each library named (by default all of those in VARIANTS: the bf16
-flash-attention backward and forward, and the Sinkhorn half-step), builds the
+flash-attention backward and forward, the Sinkhorn half-step and the pairwise
+lambda loss), builds the
 shipped `ops/csrc/<library>.cu` and copies of it with one knob turned or one
 phase cut out (text substitutions, each asserted to match), and for the
 backward the warpgroup experiment `ops/csrc/experiments/flash_attn_bwd_wgmma.cu`,
 all with nvcc started together. Then it times each variant's kernels, once in
 the listed order and once in reverse: the backward's dk/dv and dq at the
-training shape (32, 2, 1408, 68) bf16; the forward with row statistics at that
-shape and at the one-list serving shape (1, 2, 1536, 68); the half-step over
-rows and over columns at 32 x 1408 x 1408 fp32. It prints one JSON line per
+training shape (32, 2, 1408, 68) bf16 and at the Yahoo! LTR listsf's
+WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16, 32 and
+128 docs); the forward
+with row statistics at those shapes and at the one-list serving shape
+(1, 2, 1536, 68); the half-step over rows and over columns at 32 x 1408 x
+1408 fp32; the pairwise loss forward (with the partials' sum) and backward
+at 32 x 1408. It prints one JSON line per
 variant: registers and spill bytes of the kernels in question, the two times
 of each case in ms (CUDA events, the median of three blocks of calls), and
 whether the outputs equal the shipped kernels' bit for bit, with the largest
@@ -22,6 +27,7 @@ out cannot agree, it shows what the phase costs).
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -34,14 +40,38 @@ from ptranking_tpu_torch.ops import attention, cuda_build
 
 ITERS = 20
 ATTN_SHAPE = (32, 2, 1408, 68)
-FWD_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68)]
+# the Yahoo! LTR listsf's attention through the wide kernels: 2 heads of 350
+# (or 384 under lane_align), 32,768 docs in the buckets of 16, 32 and 128
+# docs (chip_smoke.py's phase 7 says why these buckets)
+WIDE_SHAPES = [(2048, 2, 16, 350), (1024, 2, 32, 350), (256, 2, 128, 350),
+               (2048, 2, 16, 384), (1024, 2, 32, 384), (256, 2, 128, 384)]
+FWD_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68), *WIDE_SHAPES]
+BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
 SINK_SHAPE = (32, 1408)
+PAIR_SHAPE = (32, 1408)
 EXPERIMENT = cuda_build.CSRC / "experiments" / "flash_attn_bwd_wgmma.cu"
 
 _BLOCKS = "return kc <= 5 ? 3 : 2;"
 _MORE = "const bool more = t + 1 < tiles;"
 _WARPS = "constexpr int MMA_WARPS = 4;"
 _CUT_COPIES = [(_MORE, _MORE.replace(";", " && N < 0;"))]
+
+# The wide kernels' chunk copies (mma_common.cuh's load_chunk_async) not
+# unrolled or fully unrolled instead of by 4: the variant's source carries the
+# header's text in place of its #include.
+_HEADER_INCLUDE = '#include "mma_common.cuh"'
+_COPY_LOOP = "#pragma unroll 4\n    for (int i = 0; i < COPIES; ++i) {"
+
+
+def _header_with(pragma: str) -> str:
+    text = (cuda_build.CSRC / "mma_common.cuh").read_text()
+    if _COPY_LOOP not in text:
+        raise RuntimeError(f"{_COPY_LOOP!r} is not in mma_common.cuh")
+    return text.replace(_COPY_LOOP, _COPY_LOOP.replace("#pragma unroll 4", pragma))
+
+
+_UNROLL_COPIES = {"copies_not_unrolled": [(_HEADER_INCLUDE, _header_with("#pragma unroll 1"))],
+                  "copies_unrolled": [(_HEADER_INCLUDE, _header_with("#pragma unroll"))]}
 
 # The backward: warps a block (rows a block owns = 16 x warps) with the blocks
 # an SM the register budget is cut for, and the columns of S / dP held at a
@@ -85,6 +115,11 @@ BWD_VARIANTS = {
          "acc_k[0][0] += __uint_as_float(dsa[0][0] ^ dsa[1][3]);")],
     "cut_copies_and_softmax": [*_CUT_COPIES, *_BWD_NO_SOFTMAX],
     "wgmma_experiment": EXPERIMENT,
+    # the wide kernels (d > 128): dk/dv in 128-column output chunks instead
+    # of 64, dq in 64 instead of 128
+    "wide_dkdv_cw8": [("WIDE_CW_DKDV = 4;", "WIDE_CW_DKDV = 8;")],
+    "wide_dq_cw4": [("constexpr int WIDE_CW_DQ = 8,", "constexpr int WIDE_CW_DQ = 4,")],
+    **_UNROLL_COPIES,
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -107,6 +142,9 @@ FWD_VARIANTS = {
                  "const float p1 = s[j][2 * h + 1] - m[h];")],
     "cut_pv": [("product_kn<KC, SUB / 16>(acc, pa, Vt, sub, lane);",
                 "acc[0][0] += __uint_as_float(pa[0][0] ^ pa[SUB / 16 - 1][3]);")],
+    # the wide kernel (d > 128): 64-column output chunks instead of 128
+    "wide_cw4": [("constexpr int WIDE_CW = 8;", "constexpr int WIDE_CW = 4;")],
+    **_UNROLL_COPIES,
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -130,14 +168,27 @@ SINK_VARIANTS = {
                    "*reinterpret_cast<const float4*>(row + 128 * r)")],
 }
 
+# The pairwise loss: the exact transcendentals (expf, log1pf, a true
+# division) for the fast ones; 64 x 64 tiles of pairs (a thread owns 4 x 4)
+# instead of 128 x 128.
+PAIR_VARIANTS = {
+    "shipped": [],
+    "exact": [("return __expf(-fabsf(x));", "return expf(-fabsf(x));"),
+              ("fmaxf(x, 0.0f) + __logf(1.0f + e);", "fmaxf(x, 0.0f) + log1pf(e);"),
+              ("const float r = __frcp_rn(1.0f + e);", "const float r = 1.0f / (1.0f + e);")],
+    "tile64": [("constexpr int TI = 128;", "constexpr int TI = 64;")],
+}
+
 # library -> {variant: substitutions in the shipped source, or a source of its own}
 VARIANTS = {"flash_attn_bwd": BWD_VARIANTS, "flash_attn_fwd": FWD_VARIANTS,
-            "sinkstep": SINK_VARIANTS}
+            "sinkstep": SINK_VARIANTS, "pairwise_lambda": PAIR_VARIANTS}
 # the kernels whose registers and spills each library's lines report
 _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_dq_mma_kernelILi5E",
-                                r"flash_bwd_dkdv_wgmma_kernel", r"flash_bwd_dq_wgmma_kernel"],
-             "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E"],
-             "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"]}
+                                r"flash_bwd_dkdv_wgmma_kernel", r"flash_bwd_dq_wgmma_kernel",
+                                r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel"],
+             "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel"],
+             "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
+             "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -221,8 +272,11 @@ def _entry(dll, name, argtypes):
     return fn
 
 
-def _attention_inputs(B, H, N, d, count, g):
-    """`count` bf16 [B, H, N, d] tensors and a ragged mask (list 0 full)."""
+@functools.lru_cache(maxsize=None)
+def _attention_inputs(B, H, N, d, count):
+    """`count` bf16 [B, H, N, d] tensors and a ragged mask (list 0 full), from
+    seed 0: one set a shape, which every variant's cases read."""
+    g = torch.Generator().manual_seed(0)
     tensors = [torch.randn(B, H, N, d, generator=g).to("cuda", torch.bfloat16)
                for _ in range(count)]
     lengths = torch.randint(N // 4, N + 1, (B,), generator=g)
@@ -230,36 +284,49 @@ def _attention_inputs(B, H, N, d, count, g):
     return tensors, (torch.arange(N)[None, :] < lengths[:, None]).cuda()
 
 
-def bwd_cases(dll, variant):
-    """[(case, launch, outputs, inputs)] of the backward's two kernels at ATTN_SHAPE,
-    on the shipped forward's output and row statistics."""
-    B, H, N, d = ATTN_SHAPE
-    (q, k, v, dout), mask = _attention_inputs(B, H, N, d, 4, torch.Generator().manual_seed(0))
+@functools.lru_cache(maxsize=None)
+def _bwd_inputs(B, H, N, d):
+    """The backward's inputs at one shape: q, k, v, dout, the mask, and the
+    shipped forward's output, row statistics and row sums of dout * out."""
+    (q, k, v, dout), mask = _attention_inputs(B, H, N, d, 4)
     out, row_max, row_sum = attention.FLASH_ATTN_FWD(q, k, v, mask, stats=True)
     dsum = torch.sum(dout.float() * out.float(), dim=-1)
-    common = [t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask)]
+    return q, k, v, dout, mask, out, row_max, row_sum, dsum
+
+
+def bwd_cases(dll, variant):
+    """[(case, launch, outputs, inputs)] of the backward's two kernels at
+    BWD_SHAPES (the warpgroup experiment: ATTN_SHAPE only), on the shipped
+    forward's output and row statistics."""
     stream = torch.cuda.current_stream().cuda_stream
     wgmma = variant == "wgmma_experiment"
-    tail = [B, H, N, d, stream] if wgmma else [B, H, N, d, 1, stream]
-    ints = len(tail) - 1
-    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     dkdv = _entry(dll, "flash_attn_bwd_dkdv" + ("_wgmma" if wgmma else ""),
-                  [_P] * 10 + [_I] * ints + [_P])
+                  [_P] * 10 + [_I] * (4 if wgmma else 5) + [_P])
     dq_fn = _entry(dll, "flash_attn_bwd_dq" + ("_wgmma" if wgmma else ""),
-                   [_P] * 9 + [_I] * ints + [_P])
-    keep = (q, k, v, dout, mask, out, row_max, row_sum, dsum)
-    return [("dkdv", lambda: dkdv(*common, dk.data_ptr(), dv.data_ptr(), *tail), (dk, dv), keep),
-            ("dq", lambda: dq_fn(*common, dq.data_ptr(), *tail), (dq,), keep)]
+                   [_P] * 9 + [_I] * (4 if wgmma else 5) + [_P])
+    cases = []
+    for B, H, N, d in [ATTN_SHAPE] if wgmma else BWD_SHAPES:
+        keep = _bwd_inputs(B, H, N, d)
+        q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+        common = [t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask)]
+        tail = [B, H, N, d, stream] if wgmma else [B, H, N, d, 1, stream]
+        dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+        cases += [
+            (f"dkdv {[B, H, N, d]}",
+             lambda c=common, t=tail, o=(dk, dv): dkdv(*c, o[0].data_ptr(), o[1].data_ptr(), *t),
+             (dk, dv), keep),
+            (f"dq {[B, H, N, d]}", lambda c=common, t=tail, o=dq: dq_fn(*c, o.data_ptr(), *t),
+             (dq,), keep)]
+    return cases
 
 
 def fwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the forward with row statistics at FWD_SHAPES."""
     fn = _entry(dll, "flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P])
-    g = torch.Generator().manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     cases = []
     for B, H, N, d in FWD_SHAPES:
-        (q, k, v), mask = _attention_inputs(B, H, N, d, 3, g)
+        (q, k, v), mask = _attention_inputs(B, H, N, d, 3)
         outs = (torch.empty_like(q), torch.empty(B, H, N, device="cuda"),
                 torch.empty(B, H, N, device="cuda"))
         args = [t.data_ptr() for t in (q, k, v, mask, *outs)] + [B, H, N, d, 1, stream]
@@ -285,9 +352,46 @@ def sink_cases(dll, variant):
     return cases
 
 
+def pair_cases(dll, variant):
+    """[(case, launch, outputs, inputs)] of the pairwise loss, LambdaRank, at
+    PAIR_SHAPE: the forward (its output the partials' sum, since the tile
+    size sets their number) and the backward, each with its own partials or
+    scratch sized by the variant's tile."""
+    text = sources(["pairwise_lambda"])[("pairwise_lambda", variant)]
+    tile = int(re.search(r"constexpr int TI = (\d+);", text).group(1))
+    row_args = [_I, _I, ctypes.c_float, _I, _P]
+    fwd = _entry(dll, "pairwise_lambda_fwd", [_P] * 5 + row_args)
+    bwd = _entry(dll, "pairwise_lambda_bwd", [_P] * 7 + row_args)
+    B, N = PAIR_SHAPE
+    g = torch.Generator().manual_seed(0)
+    s = torch.randn(B, N, generator=g).sort(dim=1, descending=True).values.cuda()
+    l = torch.randint(0, 5, (B, N), generator=g).float().cuda()
+    gains = (torch.rand(B, N, generator=g) / N).cuda()
+    mask = torch.ones(B, N, dtype=torch.bool, device="cuda")
+    tiles = -(-N // tile)
+    partials = torch.empty(B, tiles * (tiles + 1) // 2, device="cuda")
+    total = torch.empty((), device="cuda")
+    scale = torch.ones(1, device="cuda")
+    grad = torch.empty(B, N, device="cuda")
+    scratch = torch.empty(2 * B * tiles * N, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = [t.data_ptr() for t in (s, l, gains, mask)]
+
+    def forward():
+        err = fwd(*rows, partials.data_ptr(), B, N, 1.0, 1, stream)
+        torch.sum(partials, dim=(0, 1), out=total)
+        return err
+
+    keep = (s, l, gains, mask, partials, scale, scratch)
+    return [("fwd", forward, (total,), keep),
+            ("bwd", lambda: bwd(*rows, scale.data_ptr(), grad.data_ptr(), scratch.data_ptr(), B, N,
+                                1.0, 1, stream), (grad,), keep)]
+
+
 # library -> its cases: [(case, launch, outputs, inputs)] from (CDLL, variant);
 # a case keeps its inputs, which own the launch's pointers
-CASES = {"flash_attn_bwd": bwd_cases, "flash_attn_fwd": fwd_cases, "sinkstep": sink_cases}
+CASES = {"flash_attn_bwd": bwd_cases, "flash_attn_fwd": fwd_cases, "sinkstep": sink_cases,
+         "pairwise_lambda": pair_cases}
 
 
 def main(argv=None) -> int:

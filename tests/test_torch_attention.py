@@ -106,9 +106,9 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
     kern = tattn.FlashAttnFwd()
     with pytest.raises(ValueError, match="CUDA tensors"):
         kern(q, k, v, mask)
-    wide = torch.zeros(1, 1, 8, 130)
-    with pytest.raises(ValueError, match="head dim"):
-        kern(wide, wide, wide, torch.ones(1, 8, dtype=torch.bool))
+    empty = torch.zeros(1, 1, 8, 0)  # every d >= 1 is taken; d = 0 is not a shape
+    with pytest.raises(ValueError, match="unsupported shape"):
+        kern(empty, empty, empty, torch.ones(1, 8, dtype=torch.bool))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kern(q.double(), k.double(), v.double(), mask)
     assert kern.launches == 0
@@ -303,12 +303,12 @@ def test_forward_plain_ignores_appended_padded_keys(dtype):
     torch.testing.assert_close(long[2][:, :, :N], short[2], rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("lib", ["flash_attn_fwd", "sinkstep"])
+@pytest.mark.parametrize("lib", ["flash_attn_fwd", "sinkstep", "pairwise_lambda"])
 def test_fwd_sink_variant_substitutions_match_the_kernel_sources(lib):
-    """Every text substitution of tools/kernel_variants.py for the forward and
-    the half-step still finds its target in csrc/<lib>.cu (sources() raises
-    otherwise) and changes it: an edit of a kernel source that orphans the
-    tool fails here, not on the card."""
+    """Every text substitution of tools/kernel_variants.py for the forward,
+    the half-step and the pairwise loss still finds its target in
+    csrc/<lib>.cu (sources() raises otherwise) and changes it: an edit of a
+    kernel source that orphans the tool fails here, not on the card."""
     from ptranking_tpu_torch.tools import kernel_variants as tool
 
     text = tool.source_path(lib).read_text()

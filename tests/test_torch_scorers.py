@@ -1,6 +1,7 @@
 """The port's scorers against the JAX package's `apply_scorer`, with the JAX
 params carried across by `params_from_jax`, at a small size (F=16, 2 encoder
-layers, narrow FFNs)."""
+layers, narrow FFNs), and the listsf at Yahoo! LTR's width (F=700: head dims
+350 and 384) in value and gradient."""
 
 import dataclasses
 
@@ -98,3 +99,49 @@ def test_params_from_jax_refuses_another_config():
     other = tsc.ScorerConfig.default_listsf(F, encoder_layers=3, ff_dims=(16, 32))
     with pytest.raises(ValueError, match="expected a list of 3"):
         params_from_jax(np_tree, other)
+
+
+# ---------------------------------------------------------------------------
+# the Yahoo! LTR listsf (F=700, 2 heads) against the JAX scorer
+# ---------------------------------------------------------------------------
+
+YF, SB, SN = 700, 3, 24
+S_LENGTHS = (SN, 11, 0)
+
+
+@pytest.mark.parametrize("lane_align", [False, True], ids=["d350", "d384"])
+def test_yahoo_listsf_matches_jax(lane_align):
+    """The DASALC listsf at Yahoo's width (1 encoder layer, 2 heads, narrow
+    FFNs), flash_attn=True (the CPU path: blockwise attention on both sides),
+    fp32, with the JAX params carried over: the scores on real docs within
+    atol 1e-4, and the gradients of sum(scores * w) over real docs within
+    2e-4 of each tensor's largest entry (summation order over 700 and 768
+    wide rows)."""
+    jcfg = jsc.ScorerConfig.default_listsf(YF, encoder_layers=1, ff_dims=(8,),
+                                           flash_attn=True, lane_align=lane_align)
+    tcfg = tsc.ScorerConfig(**dataclasses.asdict(jcfg))
+    assert tcfg.width // tcfg.n_heads == (384 if lane_align else 350)
+    rng = np.random.RandomState(1)
+    x = rng.randn(SB, SN, YF).astype(np.float32)
+    mask = np.arange(SN)[None, :] < np.asarray(S_LENGTHS)[:, None]
+    x[~mask] = 0.0
+    w = np.where(mask, rng.randn(SB, SN), 0.0).astype(np.float32)
+
+    jparams = jsc.init_scorer(jax.random.PRNGKey(0), jcfg)
+
+    def jloss(p):
+        scores = jsc.apply_scorer(p, jcfg, jnp.asarray(x), jnp.asarray(mask))
+        return jnp.sum(scores * w), scores
+
+    (_, ref), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    leaves = [t.requires_grad_(True) for t in tsc.tree_leaves(tparams)]
+    out = tsc.apply_scorer(tparams, tcfg, torch.from_numpy(x), torch.from_numpy(mask))
+    got = torch.autograd.grad(torch.sum(out * torch.from_numpy(w)), leaves)
+    np.testing.assert_allclose(out.detach().numpy()[mask], np.asarray(ref)[mask], rtol=0,
+                               atol=1e-4)
+    want = tsc.tree_leaves(params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads), tcfg))
+    assert len(want) == len(got)
+    for i, (g, r) in enumerate(zip(got, want)):
+        scale = max(float(r.abs().max()), 1e-6)
+        assert float((g - r).abs().max()) <= 2e-4 * scale, i
