@@ -14,8 +14,12 @@ Phases, in order; any failure exits non-zero:
      plain forward with its row statistics), its backward (dk/dv and dq
      kernels, against autograd through the plain blockwise attention and
      against the explicit plain backward), at head dims up to 128 and, through
-     the wide kernels, above; the bf16 forward and backward run on the tensor
-     cores; no instantiation of an attention kernel may spill; the fused
+     the wide kernels, above; the packed backward of bf16 lists of at most 64
+     docs at head dims above 128 (dq, dk, dv of several lists a block, one
+     launch) against both explicit plain backwards, the same bits twice,
+     timed beside the wide pair it replaces and SDPA's backward; the bf16
+     forward and backward run on the tensor cores; no instantiation of an
+     attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
      same bits on two runs); shapes past grid.y's 65535 (attention at
      B*H = 65538 in two launches of whole lists, the pairwise loss at
@@ -43,9 +47,11 @@ Phases, in order; any failure exits non-zero:
      kernels): at Yahoo! LTR's 700 features (2 heads of 350, and of 384
      under lane_align) and at 136 features with one head (136), LambdaRank
      through the fused loss: served over HTTP, one step's gradients against
-     dense attention, timed steps of 32,768 docs in each of Yahoo!'s buckets
-     of 16 to 128 docs (the one-head model: 256 lists of 128) with exact
-     launch counts, save, restore and step.
+     dense attention (Yahoo!'s also at 32 docs, through the packed backward),
+     timed steps of 32,768 docs in each of Yahoo!'s buckets of 16 to 128 docs
+     (the one-head model: 256 lists of 128) with exact launch counts (the
+     packed backward in the buckets of at most PACK_MAX_N docs, the wide pair
+     above), save, restore and step.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -132,11 +138,38 @@ STATS_TOL = 1e-5
 # (fp32) against autograd, 3.3e-3 and 6.1e-7 against attention_backward_plain;
 # the tolerances hold a margin of 2.6x and more.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the packed backward (bf16 lists of at most 64 docs, several a 64-row tile,
+# csrc/flash_attn_bwd.cu's flash_bwd_packed_mma_kernel), correctness only: every
+# copy width and chunk boundary of the wide kernels' head dims (129: element
+# copies, 136: 16-byte, 200: 8-byte, 350: 4-byte, 384, 520: more d-chunks than
+# the 384 the variant tables time) x list lengths around the tile (one list a
+# tile at 33, 63 and 64 docs, 64 at 1, N dividing 64 or not), at
+# PACK_LISTS = (B, H): B*H = 10 lists leave a partial last tile wherever
+# 64 // N > 1 does not divide 10; the last b fully padded, the others ragged;
+# then B*H = 65538 lists (PACK_BIG)
+PACK_DS = (129, 136, 200, 350, 384, 520)
+PACK_NS = (1, 5, 16, 20, 33, 63, 64)
+PACK_LISTS = (5, 2)
+PACK_BIG = (32769, 2, 5, 136)
+# timed, the Yahoo! LTR listsf's buckets of at most 64 docs at 32,768 docs a
+# layer (the record: the 16-doc bucket at d = 350)
+PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350),
+              (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384)]
+PACK_RECORD = (2048, 2, 16, 350)
+# The packed kernel against attention_backward_packed_plain and
+# attention_backward_plain: BWD_TOL's bf16 2e-2 on max |kernel - plain| per
+# gradient over EVERY list (a fully padded one too: all three compute the
+# same there), relative to max(max |plain|, PACK_FLOOR x max |plain dv|): dq
+# and dk of a one-doc list (every list at N = 1) are sums of P (dP - D) that
+# cancel to rounding noise, so they are held at a tenth of dv's scale.
+PACK_FLOOR = 0.1
 # the attention kernels of each library and how many instantiations each
 # has: the kernels of d <= 128 one per head-dim step of 16 (KC = 1 .. 8;
 # the fp32 ones by 8-column blocks, 2 .. 16), the wide kernels (d > 128)
-# one. Every instantiation is one that some head dim dispatches to, so no
-# entry of these libraries may spill.
+# one, the packed backward two (inputs kept where they fit, d <= 448, and
+# re-read beyond: check_packed meets both).
+# Every instantiation is one that some shape dispatches to, so no entry of
+# these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
                                     "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1},
                  "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
@@ -144,7 +177,8 @@ BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
                                     "flash_bwd_dq_wide_mma_kernel": 1,
                                     "flash_bwd_dkdv_wide_kernel": 1,
-                                    "flash_bwd_dq_wide_kernel": 1}}
+                                    "flash_bwd_dq_wide_kernel": 1,
+                                    "flash_bwd_packed_mma_kernel": 2}}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -199,11 +233,13 @@ TRAIN_STEPS = 10
 # launches per training step: 6 encoder layers, one loss (whose backward is
 # two kernels: the pair kernel and the fixed-order reduction)
 LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
-                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 2, "sinkstep": 0}
+                     "flash_attn_bwd_packed": 0, "pairwise_lambda_fwd": 1,
+                     "pairwise_lambda_bwd": 2, "sinkstep": 0}
 # phase 6, per WassRank step: 20 Sinkhorn iterations of two half-steps each
 # in the loss's forward, none in its analytic backward
 WASS_LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
-                          "pairwise_lambda_fwd": 0, "pairwise_lambda_bwd": 0, "sinkstep": 40}
+                          "flash_attn_bwd_packed": 0, "pairwise_lambda_fwd": 0,
+                          "pairwise_lambda_bwd": 0, "sinkstep": 40}
 WASS_STEPS = 10
 EVAL_KS = (1, 3, 5, 10, 20, 50)
 # One step's gradients, fp32, compared per parameter tensor as
@@ -247,6 +283,9 @@ RESUME_TOL = 1e-6
 # up to 256.
 YAHOO_FEATURES, YAHOO_DATA_ID = 700, "Set1"
 YAHOO_DOCS, YAHOO_BUCKETS, YAHOO_STEPS = 32768, (16, 32, 64, 128), 10
+# the bucket of Yahoo!'s mean list, where the bf16 gradient check runs a
+# second time, through the packed backward (ragged lists of 20..32 docs)
+YAHOO_PACKED_CHECK = 32
 YAHOO_SERVE_LENGTHS = [int(round(5 * (139 / 5) ** (i / 15))) for i in range(16)]
 # the listsfs of phase 7, each with a head dim above 128: (name, features,
 # heads, lane_align, LETOR data id): Yahoo!'s at d = 350 (its launch counts
@@ -308,7 +347,7 @@ def check_build(log: str, kernels: dict):
         for name, regs, spill in entries:
             m = re.search(str(len(kernel)) + kernel + r"I(\w*?)EEv", name)
             if m:
-                row[",".join(re.findall(r"Li(\d+)E", m.group(1) + "E"))] = (regs, spill)
+                row[",".join(re.findall(r"L[ib](\d+)E", m.group(1) + "E"))] = (regs, spill)
         print(f"{kernel} registers/spill bytes: "
               + ", ".join(f"<{t}> {r}/{sp}" for t, (r, sp) in row.items()), flush=True)
         if len(row) != count:
@@ -545,9 +584,11 @@ def check_bwd_close(got, ref, mask, shape, dtype, plain="autograd"):
 
 
 def check_attention_bwd(card):
-    """Phase 3: the backward kernels (through flash_attention's autograd)
-    against autograd through the plain blockwise attention and against
-    attention_backward_plain at every shape and dtype, and their times;
+    """Phase 3: the backward kernels (through flash_attention's autograd, so
+    the packed kernel where bwd_route takes it) against autograd through the
+    plain blockwise attention and against attention_backward_plain at every
+    shape and dtype, and the times of the dk/dv and dq kernels (the wide
+    pair at every wide shape, routed or not);
     returns the bf16 records for the dk/dv kernel, the dq kernel and the
     forward with row statistics (the call training makes) at RECORD_SHAPE
     (by the wrappers' names) and at WIDE_RECORD_SHAPE (the same names with
@@ -798,6 +839,99 @@ def check_grid_limits(card):
           + f"  [{card}]", flush=True)
     if not max(loss_rel, grad_rel) <= PAIR_TOL:
         raise AssertionError(f"pairwise_lambda {PAIR_BIG}: {rec['pairwise']} (tol {PAIR_TOL})")
+
+
+def check_packed(card):
+    """Phase 3: the packed backward kernel (FLASH_ATTN_BWD_PACKED: dq, dk, dv
+    of bf16 lists of at most 64 docs, one launch) against
+    attention_backward_packed_plain and attention_backward_plain on the
+    forward kernel's output and row statistics, at PACK_DS x PACK_NS, at
+    PACK_BIG and at PACK_TIMED, each the same bits on two runs and one launch
+    a call; at PACK_TIMED also the time of the kernel, of the wide dk/dv and
+    dq pair it replaces there, of SDPA's backward alone, of the packed plain
+    version, and the bound. Returns the record at PACK_RECORD."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
+                                                   FLASH_ATTN_BWD_PACKED, FLASH_ATTN_FWD,
+                                                   attention_backward_packed_plain,
+                                                   attention_backward_plain)
+
+    def run(B, H, N, d, all_padded):
+        """The kernel against both plain versions; returns (inputs, errors)."""
+        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, torch.bfloat16)
+        g = torch.Generator(device="cpu").manual_seed(1)
+        dout = torch.randn(B, H, N, d, generator=g).to("cuda", torch.bfloat16)
+        out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        dsum = torch.sum(dout.float() * out.float(), dim=-1)
+        args = (q, k, v, dout, row_max, row_sum, dsum, mask)
+        start = FLASH_ATTN_BWD_PACKED.launches
+        got, again = FLASH_ATTN_BWD_PACKED(*args), FLASH_ATTN_BWD_PACKED(*args)
+        launched = FLASH_ATTN_BWD_PACKED.launches - start
+        plains = {"packed_plain": attention_backward_packed_plain(q, k, v, dout, out, row_max,
+                                                                  row_sum, mask),
+                  "plain": attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask)}
+        torch.cuda.synchronize()
+        shape = (B, H, N, d)
+        if launched != 2 or not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attn_bwd_packed {shape}: {launched} launches for 2 "
+                                 f"calls, the same bits twice: "
+                                 f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
+        errs = {}
+        for which, ref in plains.items():
+            floor = PACK_FLOOR * float(ref[2].float().abs().max())
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                if not bool(torch.isfinite(a.float()).all()):
+                    raise AssertionError(f"flash_attn_bwd_packed {shape}: non-finite {name}")
+                diff = float((a.float() - b.float()).abs().max())
+                rel = diff / max(float(b.float().abs().max()), floor)
+                if not rel <= BWD_TOL["bfloat16"]:
+                    raise AssertionError(f"flash_attn_bwd_packed {shape} against {which}: "
+                                         f"{name} relative error {rel} (tol {BWD_TOL['bfloat16']})")
+                errs[f"{which}_{name}"] = (diff, rel)
+        return args, out, errs
+
+    worst = {}
+    shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in PACK_NS] + [(*PACK_BIG, True)]
+    for shape in shapes:
+        _, _, errs = run(*shape)
+        for key, (_, rel) in errs.items():
+            worst[key] = max(worst.get(key, 0.0), rel)
+    print(f"attn bwd packed: {len(shapes)} shapes agree with both plain versions, each the same "
+          f"bits on two runs; worst relative error {json.dumps(worst)}  [{card}]", flush=True)
+
+    record = None
+    for (B, H, N, d) in PACK_TIMED:
+        args, out, errs = run(B, H, N, d, False)
+        q, k, v, dout, row_max, row_sum, dsum, mask = args
+        packed = lambda: FLASH_ATTN_BWD_PACKED(*args)
+        pair = lambda: (FLASH_ATTN_BWD_DKDV(*args), FLASH_ATTN_BWD_DQ(*args))
+        plain = lambda: attention_backward_packed_plain(q, k, v, dout, out, row_max, row_sum, mask)
+        bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(B, H, N, N)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
+
+        def library():  # SDPA's backward alone, from a kept graph
+            for t in leaves:
+                t.grad = None
+            lib_out.backward(dout, retain_graph=True)
+
+        times = {"packed": cuda_time_ms(packed, 50), "pair": cuda_time_ms(pair, 20),
+                 "library_bwd": cuda_time_ms(library, 50), "plain": cuda_time_ms(plain, 5)}
+        val = B * H * N * d * 2
+        # q, k, v, dO read, dq, dk, dv written once; m, l, D read; the mask
+        bnd = bound(10.0 * B * H * N * N * d, BF16_PEAK, 7 * val + 3 * B * H * N * 4 + B * N)
+        rec = {"shape": [B, H, N, d], "ms": times, "pair_over_packed": times["pair"] / times["packed"],
+               "library_over_packed": times["library_bwd"] / times["packed"],
+               "max_abs_err": {key: e[0] for key, e in errs.items()},
+               "rel_err": {key: e[1] for key, e in errs.items()}, **bnd}
+        print("attn_bwd_packed " + json.dumps(rec) + f"  [{card}]", flush=True)
+        if (B, H, N, d) == PACK_RECORD:
+            record = {"max_abs_err": max(e[0] for key, e in errs.items() if key.startswith("plain_")),
+                      "ms": times["packed"], "plain_ms": times["plain"],
+                      "library_ms": times["library_bwd"], **bnd}
+    return {"flash_attn_bwd_packed": record}
 
 
 def sink_case(B, N, lengths, seed=0, dense=False, extreme=None):
@@ -1096,12 +1230,13 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
 
 def kernel_counters():
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
-                                                   FLASH_ATTN_FWD)
+                                                   FLASH_ATTN_BWD_PACKED, FLASH_ATTN_FWD)
     from ptranking_tpu_torch.ops.pairwise_fused import PAIRWISE_LAMBDA_BWD, PAIRWISE_LAMBDA_FWD
     from ptranking_tpu_torch.ops.sinkhorn_fused import SINKSTEP
 
     return {"flash_attn_fwd": FLASH_ATTN_FWD, "flash_attn_bwd_dkdv": FLASH_ATTN_BWD_DKDV,
-            "flash_attn_bwd_dq": FLASH_ATTN_BWD_DQ, "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
+            "flash_attn_bwd_dq": FLASH_ATTN_BWD_DQ, "flash_attn_bwd_packed": FLASH_ATTN_BWD_PACKED,
+            "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
             "pairwise_lambda_bwd": PAIRWISE_LAMBDA_BWD, "sinkstep": SINKSTEP}
 
 
@@ -1212,10 +1347,11 @@ def rel_errs(got, want, names) -> dict:
             "global": math.sqrt(diff2 / ref2), "zero_grad_param_norms": zero[0]}
 
 
-def grads_vs_dense(ranker, x, labels, mask, what: str) -> dict:
+def grads_vs_dense(ranker, x, labels, mask, what: str,
+                   per_step: dict = LAUNCHES_PER_STEP) -> dict:
     """One step's gradients of `ranker` (dropout 0) through the kernels (flash
     attention, the fused LambdaRank loss) against dense attention and the
-    dense loss, with exactly LAUNCHES_PER_STEP kernel launches; in fp32 held
+    dense loss, with exactly `per_step` kernel launches; in fp32 held
     to GRAD_TOL, and the fused loss on the kernel path's own scores to
     SAME_SCORES_TOL; in bf16 printed only. Returns the record."""
     import dataclasses
@@ -1241,9 +1377,8 @@ def grads_vs_dense(ranker, x, labels, mask, what: str) -> dict:
     dense = lambda s, l, m: lambda_rank(s, l, m, use_pallas=False)
     reset_counts()
     loss_k, grads_k = grads(kernel_cfg, fused)
-    if read_counts() != LAUNCHES_PER_STEP:
-        raise AssertionError(f"{what}: kernel launches {read_counts()}, "
-                             f"expected {LAUNCHES_PER_STEP}")
+    if read_counts() != per_step:
+        raise AssertionError(f"{what}: kernel launches {read_counts()}, expected {per_step}")
     loss_d, grads_d = grads(dense_cfg, dense)
     with torch.no_grad():
         orders = [torch.argsort(-mask_scores(apply_scorer(ranker.params, cfg, x, mask), mask),
@@ -1514,16 +1649,28 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
     return epoch_counts
 
 
+def wide_launches(N: int, d: int) -> dict:
+    """Launches a bf16 step of the listsf at head dim d > 128 with lists of N
+    docs: the packed backward at N <= PACK_MAX_N, the wide pair above."""
+    from ptranking_tpu_torch.ops.attention import PACK_MAX_N
+
+    packed = N <= PACK_MAX_N
+    return {**LAUNCHES_PER_STEP, "flash_attn_bwd_dkdv": 0 if packed else 6,
+            "flash_attn_bwd_dq": 0 if packed else 6, "flash_attn_bwd_packed": 6 if packed else 0}
+
+
 def wide_phase(card: str, work_dir: str) -> dict:
     """Phase 7: the DASALC listsf at head dims above 128 (WIDE_MODELS: 6
     layers, bf16, flash attention through the wide kernels), trained with
     LambdaRank through the fused pairwise kernel and Adagrad: (a) served over
     HTTP (16 ragged lists of 5..139 docs) and score_file; (b) one step's
     gradients through the kernels against dense attention and the dense loss,
-    fp32 held, bf16 printed; (c) timed steps of YAHOO_DOCS docs in each of
+    fp32 held, bf16 printed (Yahoo!'s also at YAHOO_PACKED_CHECK docs,
+    through the packed backward); (c) timed steps of YAHOO_DOCS docs in each of
     Yahoo!'s YAHOO_BUCKETS (the one-head model: the 128-doc bucket), with
-    exact launch counts; (d) save, restore, one more step on both. Returns
-    the launch counts of (c) for the first model, summed over its buckets."""
+    exact launch counts (wide_launches); (d) save, restore, one more step on
+    both. Returns the launch counts of (c) for the first model, summed over
+    its buckets."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
@@ -1548,12 +1695,23 @@ def wide_phase(card: str, work_dir: str) -> dict:
                     for dtype in ("float32", "bfloat16")}
         print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
 
+        if name == "yahoo":  # the same in a bucket of the packed backward: the mean list's
+            N = YAHOO_PACKED_CHECK
+            batch = train_batch(YAHOO_DOCS // N, N, ragged=True, seed=1, num_features=F)
+            x, labels, mask = (torch.from_numpy(a).cuda()
+                               for a in (batch.features, batch.labels, batch.mask))
+            rec = grads_vs_dense(flagship_ranker(dropout=0.0, **ranker_kw), x, labels, mask,
+                                 f"{tag} gradient check at {N} docs", wide_launches(N, d))
+            print(f"{tag}_grad_{N}docs " + json.dumps({"bfloat16": rec}) + f"  [{card}]",
+                  flush=True)
+
         ranker = flagship_ranker(**ranker_kw)
         # Yahoo!'s buckets, short lists first; the one-head MSLR-WEB30K model
         # (long lists) at the 128-doc bucket only
         for N in YAHOO_BUCKETS if name == "yahoo" else (max(YAHOO_BUCKETS),):
             batch = train_batch(YAHOO_DOCS // N, N, ragged=False, seed=2, num_features=F)
-            steps_rec = timed_steps(ranker, batch, YAHOO_STEPS, f"{tag} timed steps at {N} docs")
+            steps_rec = timed_steps(ranker, batch, YAHOO_STEPS, f"{tag} timed steps at {N} docs",
+                                    wide_launches(N, d))
             print(f"{tag}_steps " + json.dumps({"head_dim": d, **steps_rec}) + f"  [{card}]",
                   flush=True)
             if first:
@@ -1605,6 +1763,7 @@ def main() -> int:
                                                            "library_ms")})
     records.update(check_pairwise(card))
     check_grid_limits(card)
+    records.update(check_packed(card))
     records.update(check_sinkstep(card))
 
     phase("serve")
@@ -1622,6 +1781,7 @@ def main() -> int:
     wide = wide_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide[name]
+    launches["flash_attn_bwd_packed"] = wide["flash_attn_bwd_packed"]
 
     sources = {
         "flash_attn_fwd": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
@@ -1644,6 +1804,11 @@ def main() -> int:
                                      "ptranking_tpu/ops/attention.py:172"),
         "flash_attn_bwd_dq_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                    "ptranking_tpu/ops/attention.py:172"),
+        # the bf16 backward of lists of at most PACK_MAX_N docs at d > 128
+        # (Yahoo!'s buckets up to 64 docs): record at PACK_RECORD, launches
+        # from phase 7's timed steps of the d = 350 model
+        "flash_attn_bwd_packed": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                  "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

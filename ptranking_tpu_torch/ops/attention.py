@@ -16,8 +16,14 @@ dropout (the JAX package applies none on its flash path either):
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
     and backward kernels' formulas in plain torch, with the kernels' tiles,
-    row statistics and rounding points. Tests and the card check hold the
-    kernels against them; no training or serving path calls them.
+    row statistics and rounding points, and `attention_backward_packed_plain`,
+    the same backward in the packed kernel's tiles of several short lists.
+    Tests and the card check hold the kernels against them; no training or
+    serving path calls them.
+
+The bf16 backward at head dims above 128 takes, for lists of at most
+PACK_MAX_N docs, the packed kernel (dq, dk and dv of 64 // N lists a block,
+one launch), and the wide dk/dv and dq kernels otherwise (`bwd_route`).
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -135,12 +141,63 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def attention_backward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    dout: torch.Tensor, out: torch.Tensor,
+                                    row_max: torch.Tensor, row_sum: torch.Tensor,
+                                    mask: torch.Tensor):
+    """attention_backward_plain's (dq, dk, dv) for lists of N <= 64 docs, in
+    the packed kernel's tiles: the [B*H*N, d] rows cut into tiles of
+    p = 64 // N consecutive (b, h) lists (the last one padded with empty
+    lists), each tile's 64 rows (p*N of them real, the rest empty) both query
+    rows and keys. Within a tile, a key of another list is left out (P = dS = 0),
+    a masked key of the row's own list gets the logit -1e9 and dS = 0; then
+    attention_backward_plain's formulas and rounding points on the 64 x 64
+    tile, and the empty rows dropped."""
+    B, H, N, d = q.shape
+    if N > _ROWS:
+        raise ValueError(f"packed tiles take lists of at most {_ROWS} docs; got N = {N}")
+    lists, per_tile = B * H, _ROWS // N
+    tiles = -(-lists // per_tile)
+    scale = 1.0 / float(d) ** 0.5
+
+    def packed(t, fill=0.0):  # [B, H, N, ...] -> [tiles, 64, ...], fp32
+        flat = t.float().reshape(lists * N, -1)
+        flat = torch.nn.functional.pad(flat, (0, 0, 0, (tiles * per_tile - lists) * N), value=fill)
+        flat = flat.reshape(tiles, per_tile * N, -1)
+        return torch.nn.functional.pad(flat, (0, 0, 0, _ROWS - per_tile * N), value=fill)
+
+    qf, kf, vf, dof = (packed(t) for t in (q, k, v, dout))
+    m, l = packed(row_max)[..., 0], packed(row_sum, fill=1.0)[..., 0]
+    dsum = packed(torch.sum(dout.float() * out.float(), dim=-1))[..., 0]
+    seg = torch.arange(_ROWS, device=q.device) // N          # a tile row's list in the tile
+    lst = torch.arange(tiles, device=q.device)[:, None] * per_tile + seg  # its (b, h) list
+    valid = (seg < per_tile) & (lst < lists)                 # [tiles, 64]
+    key_real = valid & mask[torch.clamp(lst, max=lists - 1) // H,
+                            torch.arange(_ROWS, device=q.device) % N]
+    same = (seg[:, None] == seg[None, :]) & valid[:, :, None] & valid[:, None, :]
+    real = same & key_real[:, None, :]
+    x = torch.where(real, torch.matmul(qf, kf.transpose(-1, -2)) * scale, _NEG)
+    p = torch.where(same, torch.exp(x - m[..., None]) / l[..., None], 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = torch.where(real, p * (dp - dsum[..., None]), 0.0)
+    p, ds = (t.to(q.dtype).float() for t in (p, ds))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(ds, kf) * scale
+
+    def unpacked(t):  # [tiles, 64, d] -> [B, H, N, d] in q's dtype
+        return t[:, :per_tile * N].reshape(-1, d)[:lists * N].reshape(B, H, N, d).to(q.dtype)
+
+    return unpacked(dq), unpacked(dk), unpacked(dv)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_LIB = cuda_build.KernelLib("flash_attn_fwd",
                                 {"flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_P]})
 _BWD_LIB = cuda_build.KernelLib("flash_attn_bwd",
                                 {"flash_attn_bwd_dkdv": [_P] * 10 + [_I] * 5 + [_P],
-                                 "flash_attn_bwd_dq": [_P] * 9 + [_I] * 5 + [_P]})
+                                 "flash_attn_bwd_dq": [_P] * 9 + [_I] * 5 + [_P],
+                                 "flash_attn_bwd_packed": [_P] * 11 + [_I] * 5 + [_P]})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -151,22 +208,48 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS, _NARROW_D, _WIDE_COLUMNS = 64, 128, 64
 _MAX_X, _MAX_Y = 2 ** 31 - 1, 65535  # blocks on grid.x and on grid.y
 
+# The bf16 backward at d > 128 for lists of at most PACK_MAX_N docs runs the
+# packed kernel (one launch for dq, dk and dv, 64 // N lists a 64-row tile)
+# in place of the wide dk/dv and dq pair: the widest bucket at which it beat
+# the pair at both d = 350 and d = 384 on an NVIDIA H100 (PERF.md).
+PACK_MAX_N = 64
 
-def kernel_launches(B: int, H: int, N: int, d: int) -> int:
+
+def bwd_route(dtype: torch.dtype, N: int, d: int) -> str:
+    """The backward's kernels for inputs of `dtype` with N docs a list and
+    head dim d: "packed" (FlashAttnBwdPacked) for bf16, d > 128 and
+    N <= PACK_MAX_N; else "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
+    packed = dtype == torch.bfloat16 and d > _NARROW_D and N <= PACK_MAX_N
+    return "packed" if packed else "pair"
+
+
+def packed_blocks(B: int, H: int, N: int) -> int:
+    """Blocks of the packed kernel's grid (grid.x): one per tile of 64 // N lists."""
+    return -(-B * H // (_ROWS // N))
+
+
+def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int:
     """Kernel launches of one wrapper call. The kernels of d <= 128 take b*h
     from grid.y (at most 65535 blocks), so a batch of more than 65535 // H
     lists runs in launches of whole lists; the wide kernels (d > 128) fold
-    every axis into grid.x, one launch."""
-    return 1 if d > _NARROW_D else -(-B // (_MAX_Y // H))
+    every axis into grid.x, and the packed kernel (`packed`) puts its tiles
+    there: one launch."""
+    return 1 if packed or d > _NARROW_D else -(-B // (_MAX_Y // H))
 
 
-def check_grid(B: int, H: int, N: int, d: int) -> None:
+def check_grid(B: int, H: int, N: int, d: int, packed: bool = False) -> None:
     """The shapes the kernels take: any positive B, H, N and d whose launches
     fit the grid. For d <= 128, H up to 65535 (grid.y); for d > 128, the
     64-row tiles x B*H x the output chunks (64 columns at the finest) up to
-    2^31 - 1 blocks (grid.x). Raises otherwise."""
+    2^31 - 1 blocks (grid.x). The packed kernel (`packed`): N up to 64 and
+    B*H up to 2^31 - 1 lists (so its tiles fit grid.x). Raises otherwise."""
     if min(B, H, N, d) < 1:
         raise ValueError(f"unsupported shape {(B, H, N, d)}")
+    if packed:
+        if N > _ROWS or B * H > _MAX_X:
+            raise ValueError(f"shape {(B, H, N, d)}: the packed kernel takes lists of at most "
+                             f"{_ROWS} docs, at most {_MAX_X} of them")
+        return
     if d <= _NARROW_D and H > _MAX_Y:
         raise ValueError(f"shape {(B, H, N, d)} needs {H} blocks on grid.y, past the "
                          f"card's {_MAX_Y}")
@@ -176,9 +259,10 @@ def check_grid(B: int, H: int, N: int, d: int) -> None:
                          f"card's {_MAX_X}")
 
 
-def _check_qkv(q, k, v, mask, *more):
-    """Shapes, dtypes, device and contiguity the kernels take; raises otherwise.
-    `more` are further [B, H, N, d] tensors of q's dtype (the output gradient)."""
+def _check_qkv(q, k, v, mask, *more, packed=False):
+    """Shapes, dtypes, device and contiguity the kernels take (`packed`: the
+    packed kernel's); raises otherwise. `more` are further [B, H, N, d]
+    tensors of q's dtype (the output gradient)."""
     if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *more)):
         raise ValueError(f"q, k, v must share one [B, H, N, d] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -189,7 +273,9 @@ def _check_qkv(q, k, v, mask, *more):
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
         raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    check_grid(B, H, N, d)
+    if packed and q.dtype != torch.bfloat16:
+        raise ValueError(f"the packed kernel takes bfloat16 inputs; got {q.dtype}")
+    check_grid(B, H, N, d, packed)
     tensors = (q, k, v, mask, *more)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError("q, k, v and mask must be CUDA tensors on one device")
@@ -288,14 +374,40 @@ class FlashAttnBwdDq:
         return dq
 
 
+class FlashAttnBwdPacked:
+    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s packed kernel (bf16, lists
+    of at most 64 docs, any d): dq, dk and dv in one launch, with its launch
+    count. `dsum` is D = rowsum(dO * O), [B, H, N] fp32."""
+
+    name = "flash_attn_bwd_packed"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, dout, row_max, row_sum, dsum, mask):
+        B, H, N, d = _check_qkv(q, k, v, mask, dout, packed=True)
+        _check_stats(q, row_max, row_sum, dsum)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        with torch.cuda.device(q.device):
+            _BWD_LIB.call(
+                self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, N, d, _DTYPES[q.dtype],
+                _stream(q.device))
+        self.launches += kernel_launches(B, H, N, d, packed=True)
+        return dq, dk, dv
+
+
 FLASH_ATTN_FWD = FlashAttnFwd()
 FLASH_ATTN_BWD_DKDV = FlashAttnBwdDkdv()
 FLASH_ATTN_BWD_DQ = FlashAttnBwdDq()
+FLASH_ATTN_BWD_PACKED = FlashAttnBwdPacked()
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernels' forward and backward on CUDA tensors. D = rowsum(dO * O)
-    is plain torch, as the JAX library computes it outside its kernels."""
+    """The kernels' forward and backward on CUDA tensors; the backward's
+    kernels by bwd_route. D = rowsum(dO * O) is plain torch, as the JAX
+    library computes it outside its kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
@@ -309,8 +421,12 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, mask, out, row_max, row_sum = ctx.saved_tensors
         dout = dout.contiguous()
         dsum = torch.sum(dout.float() * out.float(), dim=-1)
-        dk, dv = FLASH_ATTN_BWD_DKDV(q, k, v, dout, row_max, row_sum, dsum, mask)
-        dq = FLASH_ATTN_BWD_DQ(q, k, v, dout, row_max, row_sum, dsum, mask)
+        args = (q, k, v, dout, row_max, row_sum, dsum, mask)
+        if bwd_route(q.dtype, q.shape[2], q.shape[3]) == "packed":
+            dq, dk, dv = FLASH_ATTN_BWD_PACKED(*args)
+        else:
+            dk, dv = FLASH_ATTN_BWD_DKDV(*args)
+            dq = FLASH_ATTN_BWD_DQ(*args)
         return dq, dk, dv, None
 
 

@@ -86,6 +86,14 @@
 // grid.y, so a batch past 65535 (b, h) pairs runs in several launches of
 // whole lists; the wide kernels fold every axis into grid.x.
 //
+// Short lists: flash_bwd_packed_mma_kernel (bf16, N <= 64, any d; entry
+// flash_attn_bwd_packed) puts 64 / N lists in one 64-row tile and writes dq,
+// dk and dv of the tile in one launch (the section "the packed kernel"
+// below). The package routes the bf16 backward at d > 128 and N <= PACK_MAX_N
+// to it in place of the wide pair (ops/attention.py's bwd_route); the
+// kernels of d <= 128, the fp32 ones and the wide pair at longer lists keep
+// their route.
+//
 // fp32 inputs: flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, on the fp32 CUDA
 // cores by design. The tensor cores have no fp32 product (TF32 keeps about 3
 // digits) and the fp32 path is the exact one that gradient checks and
@@ -704,6 +712,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // quarter (2.51 / 2.09 ms at d = 350); fully unrolled, both kernels spill.
 // dk/dv keeps 64-column chunks: its two accumulators with S and dP in
 // registers spill at 128 (and gain nothing); dq takes 128 (1.70 ms at 64).
+// At lists of 16 to 64 docs a block fills N of its 64 rows and each of the 9
+// output-chunk blocks of d = 350 re-reads the inputs: 5.53 ms for the pair
+// at 16 docs against SDPA's 0.89..1.06. The bf16 backward there runs the
+// packed kernel below instead; the pair stays the bf16 route above 64 docs
+// (and above PACK_MAX_N) and the fp32 one everywhere.
 
 constexpr int DCH = 64;     // columns of a d-chunk of the S and dP products
 // 16-column steps of the bf16 kernels' output chunks: 128 columns for dq; 64
@@ -1224,6 +1237,346 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// bf16, lists of at most 64 docs: the packed kernel
+// ---------------------------------------------------------------------------
+//
+// At N <= 64 a wide block fills N of its 64 rows and N of its 64 keys, and
+// each of its output chunks recomputes S and dP over the whole d. Here
+// p = 64 / N consecutive (b, h) lists share one 64-row tile: q, k, v and dO
+// are [B*H*N, d] row-major, so tile t is the contiguous span of rows
+// t*p*N .. t*p*N + p*N - 1 (fewer in the last tile when B*H % p != 0; rows
+// p*N .. 63 stay empty when N does not divide 64). A list attends only to
+// itself, so the tile is closed under attention, and one block computes dq,
+// dk and dv of all its rows in one launch, with no atomics:
+//   1. S = Q K^T and dP = dO V^T (64 x 64, fp32; a warp's 16 query rows by all
+//      64 keys) accumulated over d in 64-column chunks, double-buffered
+//      through shared memory like the wide kernels;
+//   2. P and dS on the fragments, with flash_bwd_dq_mma_kernel's arithmetic
+//      and one more rule: a key of ANOTHER list of the tile is left out
+//      (P = dS = 0), not masked to -1e9. (The row statistics come from the
+//      unpacked forward, whose l sums over the list's own N keys: a list with
+//      no real key has m = -1e9 and P = 1/l on its own masked keys, and would
+//      put the same 1/l on every other list's keys if they were only masked.)
+//      P and dS are rounded to bf16 and stored as [64][72] tiles: dk and dv
+//      contract over the query rows, which span the warps;
+//   3. for each 64-column output chunk: dv = P^T dO, dk = scale * dS^T Q
+//      (ldmatrix.trans of the P and dS tiles gives the A fragments of P^T
+//      and dS^T for the warp's 16 keys) and dq = scale * dS K (dS of the
+//      warp's own rows, still in registers), from the chunk's columns of
+//      Q, dO and K: with KEEP, step 1's chunks kept in shared memory (d up
+//      to 448, one block an SM); past that, re-read into the same double
+//      buffer (mostly L2 hits: the block read the same rows in step 1).
+// A row of d = 350 is 700 bytes, so the chunk copies are 4 bytes wide; at
+// d = 352 (16-byte copies, the same work) the kernel takes half the time.
+// STAGED (off: PACK_STAGED) brings the kept Q, K and dO by a staging copy
+// instead: the tile is contiguous, so each 16-row quarter, a span of 32*d
+// bytes, lands by 16-byte cp.async in a buffer (the P and dS tiles, then the
+// V stage buffers, in turn) and is moved 4 bytes at a time into the chunk
+// tiles. Its twelve rounds run before step 1, and it was slower
+// (tools/kernel_variants.py, PERF.md).
+// What bounds it: bytes. It reads Q, K, V, dO once from device memory and
+// writes dq, dk, dv once (7 values a row and column, plus 3 statistics a
+// row); the products, those on the zeros of other lists included, are
+// 14 * 64 * 64 * d operations a tile, an order below the tensor cores' ridge.
+// On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 0.41 ms at (2048, 2, 16,
+// 350) against a byte bound of 0.096 ms and the wide pair's 5.46 ms; 0.23 ms
+// at d = 384 against 0.105.
+
+constexpr int PACK_ROWS = 64;  // rows of a packed tile: query rows and keys alike
+constexpr int PACK_NT = 2 * PACK_ROWS;  // threads: a warp for each 16 rows
+// the packed kernel's output chunk (16-column steps); whether step 3's
+// inputs are kept from step 1 where they fit (else re-read), and whether the
+// kept Q, K and dO are staged where the tiles allow it (launch_bwd_packed):
+// tools/kernel_variants.py times each turned the other way
+constexpr int PACK_CW = 4;
+constexpr bool PACK_KEEP = true;
+constexpr bool PACK_STAGED = false;
+constexpr int PACK_LAND_ROWS = 16;  // rows of a staged span
+
+// The packed kernel's arithmetic on a fragment of S and dP (rows = the
+// thread's two query rows with their list in the tile, m, 1/l, D; 8-column
+// tiles j = keys): P and dS packed as A operands, two adjacent tiles to one
+// 16-deep step. ki points at the key info of the thread's first key: its list
+// in the tile << 2 | its flag (key_flag), or -1 past the tile's rows; a row
+// past them has list -2. A key of another list: P = dS = 0; a masked key of
+// the row's own list: logit -1e9, dS = 0.
+template <int NTILES>
+__device__ __forceinline__ void p_ds_packed(uint32_t (&pa)[NTILES / 2][4],
+                                            uint32_t (&dsa)[NTILES / 2][4],
+                                            const float (&s)[NTILES][4],
+                                            const float (&dp)[NTILES][4], const int* ki,
+                                            const int (&seg)[2], const float (&m)[2],
+                                            const float (&inv)[2], const float (&D)[2],
+                                            float scale) {
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+        const int2 f = *reinterpret_cast<const int2*>(ki + 8 * j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const bool same0 = (f.x >> 2) == seg[h], same1 = (f.y >> 2) == seg[h];
+            const bool real0 = same0 && (f.x & 3) == KEY_REAL;
+            const bool real1 = same1 && (f.y & 3) == KEY_REAL;
+            const float x0 = real0 ? s[j][2 * h] * scale : MASKED_LOGIT;
+            const float x1 = real1 ? s[j][2 * h + 1] * scale : MASKED_LOGIT;
+            const float p0 = same0 ? __expf(x0 - m[h]) * inv[h] : 0.f;
+            const float p1 = same1 ? __expf(x1 - m[h]) * inv[h] : 0.f;
+            const float ds0 = real0 ? p0 * (dp[j][2 * h] - D[h]) : 0.f;
+            const float ds1 = real1 ? p1 * (dp[j][2 * h + 1] - D[h]) : 0.f;
+            pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(p0, p1);
+            dsa[j >> 1][(j & 1) * 2 + h] = pack_bf16(ds0, ds1);
+        }
+    }
+}
+
+// The A fragments of T^T for its 16 rows from col0 (columns col0 .. col0 + 15
+// of T) and all KC 16-deep steps over T's rows, T a [16*KC][LDS] bf16 tile:
+// ldmatrix.trans of T's 8 x 8 blocks.
+template <int KC, int LDS>
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[KC][4], const bf16* tile, int col0,
+                                             int lane) {
+    // matrices: (T rows 0-7, columns 0-7), (rows 0-7, columns 8-15), (rows 8-15,
+    // columns 0-7), (rows 8-15, columns 8-15): transposed, a[0] .. a[3]
+    const uint32_t addr = smem_addr(tile + ((lane & 7) + ((lane >> 4) << 3)) * LDS + col0
+                                    + (((lane >> 3) & 1) << 3));
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks) ldmatrix_x4_trans(a[ks], addr + ks * 16 * LDS * 2);
+}
+
+// STAGED: rows < nrows of the contiguous [*, d] tiles at q, k, dout (16-byte
+// aligned, d even) into the kept chunk tiles at Rs ([Q, K, dO][chunks][64]
+// [LDC]), zeros in their rows past nrows and columns past d. The twelve
+// 16-row spans (4 a tensor) land by 16-byte cp.async in the buffers at
+// land0 and land1 in turn (each at least 16 * d elements), the next span's
+// copies in flight while the last one is moved on, 4 bytes a thread.
+template <int CHUNK, int LDC>
+__device__ __forceinline__ void stage_kept(bf16* Rs, bf16* land0, bf16* land1,
+                                           const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                           const bf16* __restrict__ dout, int nrows, int d,
+                                           int chunks) {
+    const int tid = threadIdx.x, half_d = d >> 1;
+    constexpr int SPANS = PACK_ROWS / PACK_LAND_ROWS;
+    auto land = [&](int i) {  // span i % SPANS of tensor i / SPANS
+        const bf16* t = i < SPANS ? q : i < 2 * SPANS ? k : dout;
+        const int r0 = (i % SPANS) * PACK_LAND_ROWS;
+        const int bytes = 2 * d * max(min(PACK_LAND_ROWS, nrows - r0), 0);
+        const char* src = reinterpret_cast<const char*>(t + size_t(r0) * d);
+        const uint32_t dst = smem_addr(i & 1 ? land1 : land0);
+        for (int u = 16 * tid; u < bytes; u += 16 * PACK_NT)
+            cp_async_16(dst + u, src + u, min(16, bytes - u));
+        cp_async_commit();
+    };
+    land(0);
+    // zeros where no span writes: the last chunk (its columns past d), and
+    // every chunk's rows past nrows
+    for (int t = 0; t < 3; ++t)
+        for (int c = 0; c < chunks; ++c) {
+            uint32_t* tile = reinterpret_cast<uint32_t*>(Rs + (t * chunks + c) * CHUNK);
+            for (int i = (c == chunks - 1 ? 0 : nrows * LDC / 2) + tid; i < CHUNK / 2;
+                 i += PACK_NT)
+                tile[i] = 0u;
+        }
+    for (int i = 0; i < 3 * SPANS; ++i) {
+        if (i + 1 < 3 * SPANS) {
+            land(i + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();  // span i has landed; the zeros are written
+        const uint32_t* from = reinterpret_cast<const uint32_t*>(i & 1 ? land1 : land0);
+        bf16* to = Rs + (i / SPANS) * chunks * CHUNK;
+        const int r0 = (i % SPANS) * PACK_LAND_ROWS;
+        const int rows = min(PACK_LAND_ROWS, nrows - r0);
+        for (int r = 0; r < rows; ++r)
+            for (int p = tid; p < half_d; p += PACK_NT) {
+                const int col = 2 * p;
+                *reinterpret_cast<uint32_t*>(to + (col >> 6) * CHUNK + (r0 + r) * LDC
+                                             + (col & 63)) = from[r * half_d + p];
+            }
+        __syncthreads();  // no thread reads span i's buffer any more
+    }
+}
+
+// P and dS tiles, the stage buffers (two; a stage holds step 1's four d-chunk
+// tiles or step 3's three output-chunk tiles; with KEEP only V's chunk), with
+// KEEP the Q, K and dO chunks of the whole d, and the key info of 64 keys
+constexpr size_t packed_smem_bytes(int cw, bool keep, int chunks) {
+    const size_t chunk = size_t(PACK_ROWS) * (DCH + 8), out = size_t(PACK_ROWS) * (16 * cw + 8);
+    const size_t stage = keep ? chunk : (4 * chunk > 3 * out ? 4 * chunk : 3 * out);
+    return (2 * chunk + 2 * stage + (keep ? 3 * size_t(chunks) * chunk : 0)) * sizeof(bf16)
+           + PACK_ROWS * sizeof(int);
+}
+
+template <int CW, bool KEEP, bool STAGED>
+__global__ void __launch_bounds__(PACK_NT, 2)
+flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                            const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                            const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                            bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int lists, int H, int N, int d, float scale, int copy, int how) {
+    static_assert(!KEEP || CW == DCH / 16, "kept chunks serve as the output chunks");
+    static_assert(!STAGED || KEEP, "Q, K and dO are staged into the kept chunks");
+    constexpr int KS = DCH / 16;
+    constexpr int LDC = DCH + 8;
+    constexpr int LDO = 16 * CW + 8;
+    constexpr int CHUNK = PACK_ROWS * LDC;
+    constexpr int OUT = PACK_ROWS * LDO;
+    constexpr int STAGE = KEEP ? CHUNK : (4 * CHUNK > 3 * OUT ? 4 * CHUNK : 3 * OUT);
+    extern __shared__ uint4 smem_mma[];
+    bf16* Ps = reinterpret_cast<bf16*>(smem_mma);  // [64 query rows][LDC]
+    bf16* dSs = Ps + CHUNK;
+    bf16* Cs = dSs + CHUNK;                        // [2][STAGE]
+    bf16* Rs = Cs + 2 * STAGE;                     // KEEP: [Q, K, dO][chunks][CHUNK]
+    const int chunks = (d + DCH - 1) / DCH;
+    const int out_chunks = (d + 16 * CW - 1) / (16 * CW);
+    int* kinfo = reinterpret_cast<int*>(Rs + (KEEP ? 3 * chunks * CHUNK : 0));
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = PACK_ROWS / N;
+    const int l0 = blockIdx.x * per_tile;  // the tile's first (b, h) list
+    const int nrows = min(per_tile, lists - l0) * N;
+    const size_t row0 = size_t(l0) * N;
+    const size_t base = row0 * d;
+
+    // stage st < chunks: step 1's d-chunk st of Q, K, dO, V; st >= chunks:
+    // step 3's output chunk st - chunks of Q, dO, K (nothing with KEEP)
+    auto prefetch = [&](int st) {
+        bf16* cs = Cs + (st & 1) * STAGE;
+        if (st < chunks) {
+            const int c0 = st * DCH;
+            if (!STAGED) {
+                load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? Rs + st * CHUNK : cs, q + base, nrows,
+                                                  d, c0, copy);
+                load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? Rs + (chunks + st) * CHUNK
+                                                       : cs + CHUNK,
+                                                  k + base, nrows, d, c0, copy);
+                load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? Rs + (2 * chunks + st) * CHUNK
+                                                       : cs + 2 * CHUNK,
+                                                  dout + base, nrows, d, c0, copy);
+            }
+            load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? cs : cs + 3 * CHUNK, v + base, nrows, d, c0,
+                                              copy);
+        } else if (!KEEP) {
+            const int c0 = (st - chunks) * 16 * CW;
+            load_chunk<PACK_NT, CW, PACK_ROWS>(cs, q + base, nrows, d, c0, copy);
+            load_chunk<PACK_NT, CW, PACK_ROWS>(cs + OUT, dout + base, nrows, d, c0, copy);
+            load_chunk<PACK_NT, CW, PACK_ROWS>(cs + 2 * OUT, k + base, nrows, d, c0, copy);
+        }
+        cp_async_commit();
+    };
+    const int stages = chunks + out_chunks;
+    auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+    };
+
+    if (!STAGED) prefetch(0);
+    if (tid < PACK_ROWS) {
+        int info = -1;
+        if (tid < nrows) {
+            const int list = tid / N, key = tid - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[tid] = info;
+    }
+    int seg[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+    float m[2], inv[2], D[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const bool in = r < nrows;  // a row past them: zero q and dO rows, P = dS = 0
+        seg[h] = in ? r / N : -2;
+        m[h] = in ? row_max[row0 + r] : 0.f;
+        inv[h] = in ? 1.f / row_sum[row0 + r] : 0.f;  // l >= 1
+        D[h] = in ? dsum[row0 + r] : 0.f;
+    }
+    if (STAGED) {
+        stage_kept<CHUNK, LDC>(Rs, Ps, Cs, q + base, k + base, dout + base, nrows, d, chunks);
+        prefetch(0);
+    }
+
+    // step 1
+    float s[PACK_ROWS / 8][4], dp[PACK_ROWS / 8][4];
+#pragma unroll
+    for (int j = 0; j < PACK_ROWS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+        next(c);
+        const bf16* cs = Cs + (c & 1) * STAGE;
+        uint32_t a[KS][4];
+        load_a<KS>(a, KEEP ? Rs + c * CHUNK : cs, warp * 16, lane);
+        product_nk<KS, PACK_ROWS / 8>(s, a, KEEP ? Rs + (chunks + c) * CHUNK : cs + CHUNK, 0,
+                                      lane);
+        load_a<KS>(a, KEEP ? Rs + (2 * chunks + c) * CHUNK : cs + 2 * CHUNK, warp * 16, lane);
+        product_nk<KS, PACK_ROWS / 8>(dp, a, KEEP ? cs : cs + 3 * CHUNK, 0, lane);
+        __syncthreads();  // no warp reads stage c's buffers any more
+    }
+
+    // step 2 (stage `chunks`, step 3's first, is in flight)
+    uint32_t dsa[PACK_ROWS / 16][4];  // dS of the warp's rows: A of dq += dS K
+    {
+        uint32_t pa[PACK_ROWS / 16][4];
+        p_ds_packed<PACK_ROWS / 8>(pa, dsa, s, dp, kinfo + 2 * t4, seg, m, inv, D, scale);
+#pragma unroll
+        for (int j = 0; j < PACK_ROWS / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int at = (warp * 16 + g + 8 * h) * LDC + 8 * j + 2 * t4;
+                *reinterpret_cast<uint32_t*>(Ps + at) = pa[j >> 1][(j & 1) * 2 + h];
+                *reinterpret_cast<uint32_t*>(dSs + at) = dsa[j >> 1][(j & 1) * 2 + h];
+            }
+    }
+    __syncthreads();
+    uint32_t pta[PACK_ROWS / 16][4], dsta[PACK_ROWS / 16][4];  // P^T, dS^T of the warp's keys
+    load_a_trans<PACK_ROWS / 16, LDC>(pta, Ps, warp * 16, lane);
+    load_a_trans<PACK_ROWS / 16, LDC>(dsta, dSs, warp * 16, lane);
+
+    // step 3
+    const bool pairs = how & STORE_PAIRS;
+    for (int oc = 0; oc < out_chunks; ++oc) {
+        const int st = chunks + oc;
+        next(st);
+        const bf16* cs = Cs + (st & 1) * STAGE;
+        const bf16* Qo = KEEP ? Rs + oc * CHUNK : cs;
+        const bf16* dOo = KEEP ? Rs + (2 * chunks + oc) * CHUNK : cs + OUT;
+        const bf16* Ko = KEEP ? Rs + (chunks + oc) * CHUNK : cs + 2 * OUT;
+        float acc_q[2 * CW][4], acc_k[2 * CW][4], acc_v[2 * CW][4];
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc_q[j][e] = acc_k[j][e] = acc_v[j][e] = 0.f;
+        product_kn<CW, PACK_ROWS / 16>(acc_v, pta, dOo, 0, lane);   // dv += P^T dO
+        product_kn<CW, PACK_ROWS / 16>(acc_k, dsta, Qo, 0, lane);   // dk += dS^T Q
+        product_kn<CW, PACK_ROWS / 16>(acc_q, dsa, Ko, 0, lane);    // dq += dS K
+        const int c0 = oc * 16 * CW;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;  // a query row and a key
+            if (r >= nrows) continue;
+            const size_t at = base + size_t(r) * d;
+#pragma unroll
+            for (int j = 0; j < 2 * CW; ++j) {
+                const int col = c0 + 8 * j + 2 * t4;
+                store_pair(dq + at, col, acc_q[j][2 * h] * scale, acc_q[j][2 * h + 1] * scale, d,
+                           pairs);
+                store_pair(dk + at, col, acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale, d,
+                           pairs);
+                store_pair(dv + at, col, acc_v[j][2 * h], acc_v[j][2 * h + 1], d, pairs);
+            }
+        }
+        __syncthreads();  // no warp reads stage st's buffers any more
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1383,6 +1736,52 @@ cudaError_t launch_dq_wide(const Args& a, int dtype, void* dq) {
     return cudaGetLastError();
 }
 
+// one block per packed tile of 64 / N lists
+template <int CW, bool KEEP, bool STAGED>
+cudaError_t launch_packed_as(const Args& a, void* dq, void* dk, void* dv) {
+    const auto kernel = flash_bwd_packed_mma_kernel<CW, KEEP, STAGED>;
+    const size_t bytes = packed_smem_bytes(CW, KEEP, (a.d + DCH - 1) / DCH);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int lists = a.B * a.H, per_tile = PACK_ROWS / a.N;
+    kernel<<<unsigned((lists + per_tile - 1) / per_tile), PACK_NT, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), lists, a.H, a.N,
+        a.d, 1.0f / sqrtf(float(a.d)), wide_copy(a),
+        store_mode(a, dq) & store_mode(a, dk) & store_mode(a, dv));
+    return cudaGetLastError();
+}
+
+// Step 3's inputs kept where they fit the block's shared memory (d <= 448 on
+// an H100), else re-read; with PACK_STAGED, kept Q, K, dO staged by 16-byte
+// copies where the chunks' own copies are narrower and every tile's span
+// (64 / N * N rows of d) starts 16-byte aligned. (Kept chunks are the output
+// chunks: CW = 4 only.)
+template <int CW>
+cudaError_t launch_bwd_packed(const Args& a, void* dq, void* dk, void* dv) {
+    if constexpr (PACK_KEEP && CW == DCH / 16) {
+        int device = 0, most = 0;
+        cudaError_t err = cudaGetDevice(&device);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+        if (err != cudaSuccess) return err;
+        if (packed_smem_bytes(CW, true, (a.d + DCH - 1) / DCH) <= size_t(most)) {
+            if constexpr (PACK_STAGED) {
+                if (wide_copy(a) != CHUNK_16B && a.d % 2 == 0
+                    && (long long)(PACK_ROWS / a.N) * a.N * a.d % 8 == 0
+                    && aligned(a.q, 16) && aligned(a.k, 16) && aligned(a.dout, 16))
+                    return launch_packed_as<CW, true, true>(a, dq, dk, dv);
+            }
+            return launch_packed_as<CW, true, false>(a, dq, dk, dv);
+        }
+    }
+    return launch_packed_as<CW, false, false>(a, dq, dk, dv);
+}
+
 // Any d: d <= 128 runs the kernels above (in launches of at most
 // narrow_lists(H) lists), d > 128 the wide ones; the grids must fit
 // (mma_common.cuh's grid_fits).
@@ -1449,8 +1848,8 @@ int by_lists(const Args& a, int dtype, Run run) {
 
 extern "C" {
 
-// Both return a cudaError_t (0 on success). dtype: 0 = fp32, 1 = bf16 (q, k, v,
-// dout and the outputs); row_max, row_sum and dsum are [B, H, N] fp32.
+// Each returns a cudaError_t (0 on success). dtype: 0 = fp32, 1 = bf16 (q, k,
+// v, dout and the outputs); row_max, row_sum and dsum are [B, H, N] fp32.
 int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                         const void* row_max, const void* row_sum, const void* dsum,
                         const void* mask, void* dk, void* dv, int B, int H, int N, int d,
@@ -1475,6 +1874,20 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
     return by_lists(a, dtype, [&](const Args& part, size_t at) {
         return narrow_dq(part, dtype, advance(dq, at));
     });
+}
+
+// dq, dk and dv of bf16 lists of at most 64 docs (any d) in one launch of
+// the packed kernel; B*H lists below 2^31.
+int flash_attn_bwd_packed(const void* q, const void* k, const void* v, const void* dout,
+                          const void* row_max, const void* row_sum, const void* dsum,
+                          const void* mask, void* dq, void* dk, void* dv, int B, int H, int N,
+                          int d, int dtype, void* stream) {
+    const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
+                 static_cast<cudaStream_t>(stream)};
+    if (B < 1 || H < 1 || N < 1 || N > PACK_ROWS || d < 1 || dtype != 1
+        || (long long)B * H >= (1LL << 31))
+        return int(cudaErrorInvalidValue);
+    return int(launch_bwd_packed<PACK_CW>(a, dq, dk, dv));
 }
 
 const char* flash_attn_bwd_error_string(int err) {

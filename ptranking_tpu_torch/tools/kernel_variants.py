@@ -11,8 +11,9 @@ backward the warpgroup experiment `ops/csrc/experiments/flash_attn_bwd_wgmma.cu`
 all with nvcc started together. Then it times each variant's kernels, once in
 the listed order and once in reverse: the backward's dk/dv and dq at the
 training shape (32, 2, 1408, 68) bf16 and at the Yahoo! LTR listsf's
-WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16, 32 and
-128 docs); the forward
+WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16, 32, 64
+and 128 docs), and the packed backward (dq, dk, dv in one launch) at the
+WIDE_SHAPES of at most 64 docs and at PACK_COPY_SHAPES; the forward
 with row statistics at those shapes and at the one-list serving shape
 (1, 2, 1536, 68); the half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
@@ -41,10 +42,15 @@ from ptranking_tpu_torch.ops import attention, cuda_build
 ITERS = 20
 ATTN_SHAPE = (32, 2, 1408, 68)
 # the Yahoo! LTR listsf's attention through the wide kernels: 2 heads of 350
-# (or 384 under lane_align), 32,768 docs in the buckets of 16, 32 and 128
+# (or 384 under lane_align), 32,768 docs in the buckets of 16, 32, 64 and 128
 # docs (chip_smoke.py's phase 7 says why these buckets)
-WIDE_SHAPES = [(2048, 2, 16, 350), (1024, 2, 32, 350), (256, 2, 128, 350),
-               (2048, 2, 16, 384), (1024, 2, 32, 384), (256, 2, 128, 384)]
+WIDE_SHAPES = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 2, 128, 350),
+               (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384)]
+# The packed backward's copy width: d = 352 does d = 350's work (the same six
+# 64-column d-chunks and output chunks) with 16-byte copies of its 704-byte
+# rows where d = 350's 700-byte rows take 4-byte ones, so the difference is
+# the most that any wider staging of d = 350's contiguous tiles could gain.
+PACK_COPY_SHAPES = [(2048, 2, 16, 352), (1024, 2, 32, 352)]
 FWD_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68), *WIDE_SHAPES]
 BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
 SINK_SHAPE = (32, 1408)
@@ -79,6 +85,9 @@ _UNROLL_COPIES = {"copies_not_unrolled": [(_HEADER_INCLUDE, _header_with("#pragm
 # them from one cache-hot tile; in the dk/dv kernel no softmax arithmetic, no
 # second products; and the warpgroup experiment, a source of its own.
 _BWD_SUB = "constexpr int SUB = 32;"
+_PACK_KEEP = "constexpr bool PACK_KEEP = true;"
+_PACK_STAGED = "constexpr bool PACK_STAGED = false;"
+_PACK_CW = "constexpr int PACK_CW = 4;"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -120,6 +129,15 @@ BWD_VARIANTS = {
     "wide_dkdv_cw8": [("WIDE_CW_DKDV = 4;", "WIDE_CW_DKDV = 8;")],
     "wide_dq_cw4": [("constexpr int WIDE_CW_DQ = 8,", "constexpr int WIDE_CW_DQ = 4,")],
     **_UNROLL_COPIES,
+    # the packed kernel: step 3's inputs re-read (two blocks an SM) instead
+    # of kept in shared memory from step 1 (one block an SM at d = 350 and
+    # 384); the kept Q, K and dO staged by 16-byte copies of the tile's
+    # contiguous 16-row spans instead of the d-chunks' own copies (4 bytes
+    # wide at d = 350); 128-column output chunks (re-read: kept chunks are
+    # 64 columns) instead of 64
+    "packed_reread": [(_PACK_KEEP, _PACK_KEEP.replace("true", "false"))],
+    "packed_staged": [(_PACK_STAGED, _PACK_STAGED.replace("false", "true"))],
+    "packed_cw8": [(_PACK_CW, _PACK_CW.replace("4", "8"))],
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -185,7 +203,8 @@ VARIANTS = {"flash_attn_bwd": BWD_VARIANTS, "flash_attn_fwd": FWD_VARIANTS,
 # the kernels whose registers and spills each library's lines report
 _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_dq_mma_kernelILi5E",
                                 r"flash_bwd_dkdv_wgmma_kernel", r"flash_bwd_dq_wgmma_kernel",
-                                r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel"],
+                                r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel",
+                                r"flash_bwd_packed_mma_kernel"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
              "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
@@ -296,8 +315,9 @@ def _bwd_inputs(B, H, N, d):
 
 def bwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the backward's two kernels at
-    BWD_SHAPES (the warpgroup experiment: ATTN_SHAPE only), on the shipped
-    forward's output and row statistics."""
+    BWD_SHAPES (the warpgroup experiment: ATTN_SHAPE only), and of the packed
+    kernel at the BWD_SHAPES of at most 64 docs and at PACK_COPY_SHAPES, on
+    the shipped forward's output and row statistics."""
     stream = torch.cuda.current_stream().cuda_stream
     wgmma = variant == "wgmma_experiment"
     dkdv = _entry(dll, "flash_attn_bwd_dkdv" + ("_wgmma" if wgmma else ""),
@@ -317,6 +337,16 @@ def bwd_cases(dll, variant):
              (dk, dv), keep),
             (f"dq {[B, H, N, d]}", lambda c=common, t=tail, o=dq: dq_fn(*c, o.data_ptr(), *t),
              (dq,), keep)]
+    if wgmma:
+        return cases
+    packed = _entry(dll, "flash_attn_bwd_packed", [_P] * 11 + [_I] * 5 + [_P])
+    for B, H, N, d in [s for s in BWD_SHAPES if s[2] <= 64] + PACK_COPY_SHAPES:
+        keep = _bwd_inputs(B, H, N, d)
+        q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
+                + [B, H, N, d, 1, stream])
+        cases.append((f"packed {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
     return cases
 
 
