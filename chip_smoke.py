@@ -16,8 +16,13 @@ Phases, in order; any failure exits non-zero:
      against the explicit plain backward), at head dims up to 128 and, through
      the wide kernels, above; the packed backward of bf16 lists of at most 64
      docs at head dims above 128 (dq, dk, dv of several lists a block, one
-     launch) against both explicit plain backwards, the same bits twice,
-     timed beside the wide pair it replaces and SDPA's backward; the bf16
+     launch) and the list backward (the same on a 128-row tile of one list
+     of 65..128 docs) against both explicit plain backwards, the same bits
+     twice, timed beside the wide pair they replace and SDPA's backward; the
+     packed forward of bf16 lists of at most 128 docs at head dims above 128
+     (S once a tile) against both explicit plain forwards and their row
+     statistics, the same bits twice, timed beside the wide forward it
+     replaces and SDPA; the bf16
      forward and backward run on the tensor cores; no instantiation of an
      attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
@@ -47,11 +52,12 @@ Phases, in order; any failure exits non-zero:
      kernels): at Yahoo! LTR's 700 features (2 heads of 350, and of 384
      under lane_align) and at 136 features with one head (136), LambdaRank
      through the fused loss: served over HTTP, one step's gradients against
-     dense attention (Yahoo!'s also at 32 docs, through the packed backward),
-     timed steps of 32,768 docs in each of Yahoo!'s buckets of 16 to 128 docs
+     dense attention (in the 128-doc bucket, and Yahoo!'s also at 32 docs),
+     timed steps of 32,768 docs in each of Yahoo!'s buckets of 16 to 256 docs
      (the one-head model: 256 lists of 128) with exact launch counts (the
-     packed backward in the buckets of at most PACK_MAX_N docs, the wide pair
-     above), save, restore and step.
+     packed forward up to FWD_PACK_MAX_N docs, the wide forward above; the
+     packed backward up to PACK_MAX_N docs, the list backward up to
+     LIST_MAX_N, the wide pair above), save, restore and step.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -76,18 +82,20 @@ SFU_PER_CLOCK_PER_SM = 16  # transcendental results per clock per SM, compute ca
 # for the JAX package (32 lists of 1408 docs), the two ends of what the
 # server's default 100-doc batches give the kernel: one list in the top
 # bucket, and the smallest bucket whose remainder rows are all padding; and
-# the Yahoo! LTR listsf's training batches (32,768 docs in the buckets of 16,
-# 32 and 128 docs, 2 heads of 350, or of 384 under lane_align: the wide
-# kernels; phase 7 says why these buckets)
+# the Yahoo! LTR listsf's training batches (32,768 docs in each of the
+# buckets of 16 to 256 docs, 2 heads of 350, or of 384 under lane_align: the
+# wide kernels, whatever the route; phase 7 says why these buckets)
 ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68, True),
-               (2048, 2, 16, 350, False), (1024, 2, 32, 350, False), (256, 2, 128, 350, False),
-               (2048, 2, 16, 384, False), (1024, 2, 32, 384, False), (256, 2, 128, 384, False)]
+               (2048, 2, 16, 350, False), (1024, 2, 32, 350, False), (512, 2, 64, 350, False),
+               (256, 2, 128, 350, False), (128, 2, 256, 350, False),
+               (2048, 2, 16, 384, False), (1024, 2, 32, 384, False), (512, 2, 64, 384, False),
+               (256, 2, 128, 384, False), (128, 2, 256, 384, False)]
 # the shapes whose numbers go into the kernels' JSON record: the training
 # batch of phase 5 (32 lists of 1408 docs), whose train_epoch gives the
-# record's launch counts, and that of phase 7 (the wide kernels) at its
-# worst case, the 128-doc bucket
+# record's launch counts, and that of phase 7 where the wide kernels stay on
+# its path, the 256-doc bucket
 RECORD_SHAPE = (32, 2, 1408, 68)
-WIDE_RECORD_SHAPE = (256, 2, 128, 350)
+WIDE_RECORD_SHAPE = (128, 2, 256, 350)
 # correctness only, no timing: every padded head width the narrow kernels
 # dispatch on (d rounded up to 16), N of one key and N one past a 64-key
 # tile; then the wide kernels (d > 128) at each d-chunk and output-chunk
@@ -156,6 +164,23 @@ PACK_BIG = (32769, 2, 5, 136)
 PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350),
               (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384)]
 PACK_RECORD = (2048, 2, 16, 350)
+# the list backward (bf16 lists of 65..128 docs, one a 128-row tile), the
+# same way: PACK_DS x lengths around its tile (65, 100, 127, 128 docs, the
+# last b fully padded) at PACK_LISTS; timed in Yahoo!'s 128-doc bucket
+LIST_NS = (65, 100, 127, 128)
+LIST_TIMED = [(256, 2, 128, 350), (256, 2, 128, 384)]
+LIST_RECORD = (256, 2, 128, 350)
+# the packed forward (bf16 lists of at most 128 docs: 64 // N a 64-key tile,
+# or one a 128-key tile), correctness at PACK_DS x FWD_PACK_NS at PACK_LISTS
+# and at PACK_BIG, each the same bits twice and with or without statistics:
+# the output within FWD_PLAIN_TOL of attention_forward_packed_plain (its own
+# formulas) and ATTN_TOL of attention_forward_plain (above 64 docs the two
+# round p against other maxima), the statistics within STATS_TOL of both;
+# timed in Yahoo!'s buckets of 16 to 128 docs beside the wide forward and SDPA
+FWD_PACK_NS = (1, 5, 16, 20, 33, 63, 64, 65, 100, 127, 128)
+FWD_PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 2, 128, 350),
+                  (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384)]
+FWD_PACK_RECORD = (2048, 2, 16, 350)
 # The packed kernel against attention_backward_packed_plain and
 # attention_backward_plain: BWD_TOL's bf16 2e-2 on max |kernel - plain| per
 # gradient over EVERY list (a fully padded one too: all three compute the
@@ -166,19 +191,22 @@ PACK_FLOOR = 0.1
 # the attention kernels of each library and how many instantiations each
 # has: the kernels of d <= 128 one per head-dim step of 16 (KC = 1 .. 8;
 # the fp32 ones by 8-column blocks, 2 .. 16), the wide kernels (d > 128)
-# one, the packed backward two (inputs kept where they fit, d <= 448, and
-# re-read beyond: check_packed meets both).
+# one, the packed forward two (a 64-key tile of 64 // N lists, a 128-key
+# tile of one list), the packed backward three (64 rows with inputs kept
+# where they fit, d <= 448, and re-read beyond: check_packed meets both; the
+# list kernel's 128 rows).
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
-                                    "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1},
+                                    "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1,
+                                    "flash_fwd_packed_mma_kernel": 2},
                  "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
                                     "flash_bwd_dkdv_kernel": 8, "flash_bwd_dq_kernel": 8,
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
                                     "flash_bwd_dq_wide_mma_kernel": 1,
                                     "flash_bwd_dkdv_wide_kernel": 1,
                                     "flash_bwd_dq_wide_kernel": 1,
-                                    "flash_bwd_packed_mma_kernel": 2}}
+                                    "flash_bwd_packed_mma_kernel": 3}}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -232,13 +260,12 @@ TRAIN_B, TRAIN_N = 32, 1408
 TRAIN_STEPS = 10
 # launches per training step: 6 encoder layers, one loss (whose backward is
 # two kernels: the pair kernel and the fixed-order reduction)
-LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
-                     "flash_attn_bwd_packed": 0, "pairwise_lambda_fwd": 1,
-                     "pairwise_lambda_bwd": 2, "sinkstep": 0}
+LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_fwd_packed": 0, "flash_attn_bwd_dkdv": 6,
+                     "flash_attn_bwd_dq": 6, "flash_attn_bwd_packed": 0, "flash_attn_bwd_list": 0,
+                     "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 2, "sinkstep": 0}
 # phase 6, per WassRank step: 20 Sinkhorn iterations of two half-steps each
 # in the loss's forward, none in its analytic backward
-WASS_LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6,
-                          "flash_attn_bwd_packed": 0, "pairwise_lambda_fwd": 0,
+WASS_LAUNCHES_PER_STEP = {**LAUNCHES_PER_STEP, "pairwise_lambda_fwd": 0,
                           "pairwise_lambda_bwd": 0, "sinkstep": 40}
 WASS_STEPS = 10
 EVAL_KS = (1, 3, 5, 10, 20, 50)
@@ -276,13 +303,15 @@ RESUME_TOL = 1e-6
 # JMLR W&CP 14, 2011, Table 1), so the mean list falls in the 32-doc bucket
 # (data/dataset.py's DEFAULT_BUCKETS), and by that mean alone (Markov's
 # bound) at least 63% of the lists in the buckets of 16 to 64 docs. The
-# timed steps run each bucket of 16 to 128 docs at YAHOO_DOCS docs a step
-# (2048 lists of 16 .. 256 of 128; 128 is the worst case); the gradient
+# timed steps run each bucket of 16 to 256 docs at YAHOO_DOCS docs a step
+# (2048 lists of 16 .. 128 of 256; Yahoo!'s longest lists, 139 docs, land in
+# the 256-doc bucket, where the wide kernels stay on the path); the gradient
 # check runs ragged lists of 20..128 docs in the 128-doc bucket; the served
 # lists spread log-evenly over 5..139 docs, so a request fills every bucket
 # up to 256.
 YAHOO_FEATURES, YAHOO_DATA_ID = 700, "Set1"
-YAHOO_DOCS, YAHOO_BUCKETS, YAHOO_STEPS = 32768, (16, 32, 64, 128), 10
+YAHOO_DOCS, YAHOO_BUCKETS, YAHOO_STEPS = 32768, (16, 32, 64, 128, 256), 10
+YAHOO_GRAD_CHECK = 128
 # the bucket of Yahoo!'s mean list, where the bf16 gradient check runs a
 # second time, through the packed backward (ragged lists of 20..32 docs)
 YAHOO_PACKED_CHECK = 32
@@ -842,23 +871,27 @@ def check_grid_limits(card):
 
 
 def check_packed(card):
-    """Phase 3: the packed backward kernel (FLASH_ATTN_BWD_PACKED: dq, dk, dv
-    of bf16 lists of at most 64 docs, one launch) against
-    attention_backward_packed_plain and attention_backward_plain on the
-    forward kernel's output and row statistics, at PACK_DS x PACK_NS, at
-    PACK_BIG and at PACK_TIMED, each the same bits on two runs and one launch
-    a call; at PACK_TIMED also the time of the kernel, of the wide dk/dv and
-    dq pair it replaces there, of SDPA's backward alone, of the packed plain
-    version, and the bound. Returns the record at PACK_RECORD."""
+    """Phase 3: the backward kernels that pack whole lists into a block
+    (FLASH_ATTN_BWD_PACKED: bf16 lists of at most 64 docs, several a 64-row
+    tile; FLASH_ATTN_BWD_LIST: lists of 65..128 docs, one a 128-row tile;
+    each dq, dk, dv in one launch) against attention_backward_packed_plain
+    and attention_backward_plain on the forward kernel's output and row
+    statistics: the packed kernel at PACK_DS x PACK_NS and at PACK_BIG, the
+    list kernel at PACK_DS x LIST_NS, and both where they are timed, each the
+    same bits on two runs and one launch a call; where timed (PACK_TIMED,
+    LIST_TIMED) also the time of the kernel, of the wide dk/dv and dq pair it
+    replaces there, of SDPA's backward alone, of the plain version, and the
+    bound. Returns the records at PACK_RECORD and LIST_RECORD."""
     import torch
     import torch.nn.functional as Fn
 
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
-                                                   FLASH_ATTN_BWD_PACKED, FLASH_ATTN_FWD,
+                                                   FLASH_ATTN_BWD_LIST, FLASH_ATTN_BWD_PACKED,
+                                                   FLASH_ATTN_FWD,
                                                    attention_backward_packed_plain,
                                                    attention_backward_plain)
 
-    def run(B, H, N, d, all_padded):
+    def run(kernel, B, H, N, d, all_padded):
         """The kernel against both plain versions; returns (inputs, errors)."""
         q, k, v, mask = attention_inputs(B, H, N, d, all_padded, torch.bfloat16)
         g = torch.Generator(device="cpu").manual_seed(1)
@@ -866,72 +899,165 @@ def check_packed(card):
         out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
         dsum = torch.sum(dout.float() * out.float(), dim=-1)
         args = (q, k, v, dout, row_max, row_sum, dsum, mask)
-        start = FLASH_ATTN_BWD_PACKED.launches
-        got, again = FLASH_ATTN_BWD_PACKED(*args), FLASH_ATTN_BWD_PACKED(*args)
-        launched = FLASH_ATTN_BWD_PACKED.launches - start
+        start = kernel.launches
+        got, again = kernel(*args), kernel(*args)
+        launched = kernel.launches - start
         plains = {"packed_plain": attention_backward_packed_plain(q, k, v, dout, out, row_max,
                                                                   row_sum, mask),
                   "plain": attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask)}
         torch.cuda.synchronize()
         shape = (B, H, N, d)
         if launched != 2 or not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash_attn_bwd_packed {shape}: {launched} launches for 2 "
-                                 f"calls, the same bits twice: "
+            raise AssertionError(f"{kernel.name} {shape}: {launched} launches for 2 calls, the "
+                                 f"same bits twice: "
                                  f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
         errs = {}
         for which, ref in plains.items():
             floor = PACK_FLOOR * float(ref[2].float().abs().max())
             for name, a, b in zip(("dq", "dk", "dv"), got, ref):
                 if not bool(torch.isfinite(a.float()).all()):
-                    raise AssertionError(f"flash_attn_bwd_packed {shape}: non-finite {name}")
+                    raise AssertionError(f"{kernel.name} {shape}: non-finite {name}")
                 diff = float((a.float() - b.float()).abs().max())
                 rel = diff / max(float(b.float().abs().max()), floor)
                 if not rel <= BWD_TOL["bfloat16"]:
-                    raise AssertionError(f"flash_attn_bwd_packed {shape} against {which}: "
-                                         f"{name} relative error {rel} (tol {BWD_TOL['bfloat16']})")
+                    raise AssertionError(f"{kernel.name} {shape} against {which}: {name} "
+                                         f"relative error {rel} (tol {BWD_TOL['bfloat16']})")
                 errs[f"{which}_{name}"] = (diff, rel)
         return args, out, errs
 
+    records = {}
+    for kernel, ns, big, timed, record in (
+            (FLASH_ATTN_BWD_PACKED, PACK_NS, [(*PACK_BIG, True)], PACK_TIMED, PACK_RECORD),
+            (FLASH_ATTN_BWD_LIST, LIST_NS, [], LIST_TIMED, LIST_RECORD)):
+        worst = {}
+        shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in ns] + big
+        for shape in shapes:
+            _, _, errs = run(kernel, *shape)
+            for key, (_, rel) in errs.items():
+                worst[key] = max(worst.get(key, 0.0), rel)
+        print(f"attn bwd {kernel.name}: {len(shapes)} shapes agree with both plain versions, "
+              f"each the same bits on two runs; worst relative error {json.dumps(worst)}  "
+              f"[{card}]", flush=True)
+
+        for (B, H, N, d) in timed:
+            args, out, errs = run(kernel, B, H, N, d, False)
+            q, k, v, dout, row_max, row_sum, dsum, mask = args
+            fused = lambda: kernel(*args)
+            pair = lambda: (FLASH_ATTN_BWD_DKDV(*args), FLASH_ATTN_BWD_DQ(*args))
+            plain = lambda: attention_backward_packed_plain(q, k, v, dout, out, row_max, row_sum,
+                                                            mask)
+            bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(
+                B, H, N, N)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            lib_out = Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
+
+            def library():  # SDPA's backward alone, from a kept graph
+                for t in leaves:
+                    t.grad = None
+                lib_out.backward(dout, retain_graph=True)
+
+            times = {"kernel": cuda_time_ms(fused, 50), "pair": cuda_time_ms(pair, 20),
+                     "library_bwd": cuda_time_ms(library, 50), "plain": cuda_time_ms(plain, 5)}
+            val = B * H * N * d * 2
+            # q, k, v, dO read, dq, dk, dv written once; m, l, D read; the mask
+            bnd = bound(10.0 * B * H * N * N * d, BF16_PEAK, 7 * val + 3 * B * H * N * 4 + B * N)
+            rec = {"shape": [B, H, N, d], "ms": times,
+                   "pair_over_kernel": times["pair"] / times["kernel"],
+                   "library_over_kernel": times["library_bwd"] / times["kernel"],
+                   "max_abs_err": {key: e[0] for key, e in errs.items()},
+                   "rel_err": {key: e[1] for key, e in errs.items()}, **bnd}
+            print(f"attn_bwd_{kernel.name.split('_')[-1]} " + json.dumps(rec) + f"  [{card}]",
+                  flush=True)
+            if (B, H, N, d) == record:
+                records[kernel.name] = {
+                    "max_abs_err": max(e[0] for key, e in errs.items() if key.startswith("plain_")),
+                    "ms": times["kernel"], "plain_ms": times["plain"],
+                    "library_ms": times["library_bwd"], **bnd}
+    return records
+
+
+def check_packed_fwd(card):
+    """Phase 3: the packed forward kernel (FLASH_ATTN_FWD_PACKED: bf16 lists
+    of at most 128 docs, S once a tile, one launch) against
+    attention_forward_packed_plain and attention_forward_plain, output and
+    row statistics, at PACK_DS x FWD_PACK_NS and at PACK_BIG: the same bits
+    on two runs, the same output with and without statistics, one launch a
+    call; at FWD_PACK_TIMED also the time of the kernel with statistics (the
+    call training makes), of the wide forward it replaces there, of SDPA's
+    forward, of the packed plain version, and the bound. Returns the record
+    at FWD_PACK_RECORD."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED,
+                                                   attention_forward_packed_plain,
+                                                   attention_forward_plain)
+
+    kernel = FLASH_ATTN_FWD_PACKED
+
+    def run(B, H, N, d, all_padded):
+        """The kernel against both plain versions; returns (inputs, errors)."""
+        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, torch.bfloat16)
+        start = kernel.launches
+        got, again = kernel(q, k, v, mask, stats=True), kernel(q, k, v, mask, stats=True)
+        bare = kernel(q, k, v, mask)
+        launched = kernel.launches - start
+        plains = {"packed_plain": attention_forward_packed_plain(q, k, v, mask),
+                  "plain": attention_forward_plain(q, k, v, mask)}
+        torch.cuda.synchronize()
+        shape = (B, H, N, d)
+        same = [torch.equal(a, b) for a, b in zip(got, again)] + [torch.equal(got[0], bare)]
+        if launched != 3 or not all(same):
+            raise AssertionError(f"{kernel.name} {shape}: {launched} launches for 3 calls, the "
+                                 f"same bits (twice with statistics, and without): {same}")
+        if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+            raise AssertionError(f"{kernel.name} {shape}: non-finite output or statistics")
+        errs = {}
+        for which, (ref, ref_max, ref_sum) in plains.items():
+            out_err = (rel_err(got[0], ref) if which == "packed_plain"
+                       else float((got[0].float() - ref.float()).abs().max()))
+            tol = FWD_PLAIN_TOL["bfloat16"] if which == "packed_plain" else ATTN_TOL["bfloat16"]
+            e = {"out": out_err,
+                 "row_max": float(((got[1] - ref_max).abs() / (1.0 + ref_max.abs())).max()),
+                 "row_sum": float(((got[2] - ref_sum).abs() / ref_sum).max())}
+            if not e["out"] <= tol or not max(e["row_max"], e["row_sum"]) <= STATS_TOL:
+                raise AssertionError(f"{kernel.name} {shape} against {which}: {e} (out tol "
+                                     f"{tol}, statistics {STATS_TOL})")
+            errs.update({f"{which}_{key}": x for key, x in e.items()})
+        return (q, k, v, mask), errs
+
     worst = {}
-    shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in PACK_NS] + [(*PACK_BIG, True)]
+    shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in FWD_PACK_NS] + [(*PACK_BIG, True)]
     for shape in shapes:
-        _, _, errs = run(*shape)
-        for key, (_, rel) in errs.items():
-            worst[key] = max(worst.get(key, 0.0), rel)
-    print(f"attn bwd packed: {len(shapes)} shapes agree with both plain versions, each the same "
-          f"bits on two runs; worst relative error {json.dumps(worst)}  [{card}]", flush=True)
+        _, errs = run(*shape)
+        for key, e in errs.items():
+            worst[key] = max(worst.get(key, 0.0), e)
+    print(f"attn fwd packed: {len(shapes)} shapes agree with both plain versions, each the same "
+          f"bits on two runs; worst error (out: relative to the packed plain version, absolute "
+          f"to attention_forward_plain) {json.dumps(worst)}  [{card}]", flush=True)
 
     record = None
-    for (B, H, N, d) in PACK_TIMED:
-        args, out, errs = run(B, H, N, d, False)
-        q, k, v, dout, row_max, row_sum, dsum, mask = args
-        packed = lambda: FLASH_ATTN_BWD_PACKED(*args)
-        pair = lambda: (FLASH_ATTN_BWD_DKDV(*args), FLASH_ATTN_BWD_DQ(*args))
-        plain = lambda: attention_backward_packed_plain(q, k, v, dout, out, row_max, row_sum, mask)
+    for (B, H, N, d) in FWD_PACK_TIMED:
+        (q, k, v, mask), errs = run(B, H, N, d, False)
         bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(B, H, N, N)
-        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        lib_out = Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
-
-        def library():  # SDPA's backward alone, from a kept graph
-            for t in leaves:
-                t.grad = None
-            lib_out.backward(dout, retain_graph=True)
-
-        times = {"packed": cuda_time_ms(packed, 50), "pair": cuda_time_ms(pair, 20),
-                 "library_bwd": cuda_time_ms(library, 50), "plain": cuda_time_ms(plain, 5)}
-        val = B * H * N * d * 2
-        # q, k, v, dO read, dq, dk, dv written once; m, l, D read; the mask
-        bnd = bound(10.0 * B * H * N * N * d, BF16_PEAK, 7 * val + 3 * B * H * N * 4 + B * N)
-        rec = {"shape": [B, H, N, d], "ms": times, "pair_over_packed": times["pair"] / times["packed"],
-               "library_over_packed": times["library_bwd"] / times["packed"],
-               "max_abs_err": {key: e[0] for key, e in errs.items()},
-               "rel_err": {key: e[1] for key, e in errs.items()}, **bnd}
-        print("attn_bwd_packed " + json.dumps(rec) + f"  [{card}]", flush=True)
-        if (B, H, N, d) == PACK_RECORD:
-            record = {"max_abs_err": max(e[0] for key, e in errs.items() if key.startswith("plain_")),
-                      "ms": times["packed"], "plain_ms": times["plain"],
-                      "library_ms": times["library_bwd"], **bnd}
-    return {"flash_attn_bwd_packed": record}
+        times = {"kernel": cuda_time_ms(lambda: kernel(q, k, v, mask, stats=True), 50),
+                 "wide": cuda_time_ms(lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True), 20),
+                 "library": cuda_time_ms(
+                     lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=bias), 50),
+                 "plain": cuda_time_ms(lambda: attention_forward_packed_plain(q, k, v, mask), 5)}
+        # q, k, v read and o written once; the mask; the row statistics written
+        bnd = bound(4.0 * B * H * N * N * d, BF16_PEAK,
+                    4 * B * H * N * d * 2 + B * N + 2 * B * H * N * 4)
+        rec = {"shape": [B, H, N, d], "ms": times, "wide_over_kernel": times["wide"] / times["kernel"],
+               "library_over_kernel": times["library"] / times["kernel"], "errors": errs, **bnd}
+        print("attn_fwd_packed " + json.dumps(rec) + f"  [{card}]", flush=True)
+        if (B, H, N, d) == FWD_PACK_RECORD:
+            record = {"max_abs_err": float((kernel(q, k, v, mask).float()
+                                            - attention_forward_plain(q, k, v, mask)[0].float())
+                                           .abs().max()),
+                      "ms": times["kernel"], "plain_ms": times["plain"],
+                      "library_ms": times["library"], **bnd}
+    return {kernel.name: record}
 
 
 def sink_case(B, N, lengths, seed=0, dense=False, extreme=None):
@@ -1123,7 +1249,7 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
     from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
     from ptranking_tpu_torch.data.letor import write_letor_file
     from ptranking_tpu_torch.models import ScorerConfig, apply_scorer
-    from ptranking_tpu_torch.ops.attention import FLASH_ATTN_FWD
+    from ptranking_tpu_torch.ops.attention import FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED
     from ptranking_tpu_torch.score import score_file
     from ptranking_tpu_torch.serve import ScoringService, make_server
     from ptranking_tpu_torch.train import AdhocRanker
@@ -1149,10 +1275,13 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/score"
+    forwards = (FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED)  # by fwd_route, batch by batch
     try:
-        FLASH_ATTN_FWD.launches = 0
+        for k in forwards:
+            k.launches = 0
         answer = post_json(url, body)
-        launches = FLASH_ATTN_FWD.launches
+        by_kernel = {k.name: k.launches for k in forwards}
+        launches = sum(by_kernel.values())
         http_s = []
         for _ in range(SERVE_REPEATS):
             t0 = time.perf_counter()
@@ -1163,7 +1292,7 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
         server.server_close()
         thread.join(timeout=60)
     if launches != 6 * len(ds):
-        raise AssertionError(f"flash_attn_fwd launched {launches} times for "
+        raise AssertionError(f"the forward kernels launched {by_kernel} times for "
                              f"{len(ds)} batches; expected 6 per batch")
     got = scores_by_docid(answer["results"])
     want = scores_by_docid(dense.score(payload)["results"])
@@ -1197,9 +1326,10 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
                                      max_docs=letor_docs[1], seed=LTR_SEED)
     letor = write_letor_file(queries, os.path.join(work_dir, f"{tag}.txt"), with_comment=False)
     run_path = os.path.join(work_dir, f"{tag}.run")
-    FLASH_ATTN_FWD.launches = 0
+    for k in forwards:
+        k.launches = 0
     rows = score_file(ckpt, letor, run_path, data_id=data_id, device="cuda")
-    file_launches = FLASH_ATTN_FWD.launches
+    file_launches = sum(k.launches for k in forwards)
     with open(run_path) as f:
         lines = [line.split() for line in f]
     if rows != sum(len(q[2]) for q in queries) or len(lines) != rows:
@@ -1216,6 +1346,7 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
     rec = {"model": tag, "head_dim": cfg.width // cfg.n_heads, "lists": len(lengths),
            "docs": n_docs, "batches": len(ds),
            "batch_docs": service.batch_docs, "launches": launches,
+           "launches_by_kernel": by_kernel,
            "max_abs_score_err_vs_dense": score_err,
            "http_s": http_s, "lists_per_s": len(lengths) / med, "docs_per_s": n_docs / med,
            "service_s": service_s, "profiled_service_ms": wall_ms,
@@ -1229,14 +1360,14 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
 
 
 def kernel_counters():
-    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
-                                                   FLASH_ATTN_BWD_PACKED, FLASH_ATTN_FWD)
+    from ptranking_tpu_torch.ops import attention
     from ptranking_tpu_torch.ops.pairwise_fused import PAIRWISE_LAMBDA_BWD, PAIRWISE_LAMBDA_FWD
     from ptranking_tpu_torch.ops.sinkhorn_fused import SINKSTEP
 
-    return {"flash_attn_fwd": FLASH_ATTN_FWD, "flash_attn_bwd_dkdv": FLASH_ATTN_BWD_DKDV,
-            "flash_attn_bwd_dq": FLASH_ATTN_BWD_DQ, "flash_attn_bwd_packed": FLASH_ATTN_BWD_PACKED,
-            "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
+    attn = (attention.FLASH_ATTN_FWD, attention.FLASH_ATTN_FWD_PACKED,
+            attention.FLASH_ATTN_BWD_DKDV, attention.FLASH_ATTN_BWD_DQ,
+            attention.FLASH_ATTN_BWD_PACKED, attention.FLASH_ATTN_BWD_LIST)
+    return {**{k.name: k for k in attn}, "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
             "pairwise_lambda_bwd": PAIRWISE_LAMBDA_BWD, "sinkstep": SINKSTEP}
 
 
@@ -1649,14 +1780,23 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
     return epoch_counts
 
 
-def wide_launches(N: int, d: int) -> dict:
-    """Launches a bf16 step of the listsf at head dim d > 128 with lists of N
-    docs: the packed backward at N <= PACK_MAX_N, the wide pair above."""
-    from ptranking_tpu_torch.ops.attention import PACK_MAX_N
+def wide_launches(N: int, d: int, dtype: str = "bfloat16") -> dict:
+    """Launches a step of the listsf (6 layers) at head dim d > 128 with
+    lists of N docs in `dtype`, by the routes: the forward's (the packed
+    forward in bf16 up to FWD_PACK_MAX_N docs, else the wide kernel) and the
+    backward's (in bf16 the packed backward up to PACK_MAX_N docs, the list
+    backward up to LIST_MAX_N, else the wide pair)."""
+    import torch
 
-    packed = N <= PACK_MAX_N
-    return {**LAUNCHES_PER_STEP, "flash_attn_bwd_dkdv": 0 if packed else 6,
-            "flash_attn_bwd_dq": 0 if packed else 6, "flash_attn_bwd_packed": 6 if packed else 0}
+    from ptranking_tpu_torch.ops.attention import bwd_route, fwd_route
+
+    dt = getattr(torch, dtype)
+    fwd, bwd = fwd_route(dt, N, d), bwd_route(dt, N, d)
+    return {**LAUNCHES_PER_STEP, "flash_attn_fwd": 6 * (fwd == "flash"),
+            "flash_attn_fwd_packed": 6 * (fwd == "packed"),
+            "flash_attn_bwd_dkdv": 6 * (bwd == "pair"), "flash_attn_bwd_dq": 6 * (bwd == "pair"),
+            "flash_attn_bwd_packed": 6 * (bwd == "packed"),
+            "flash_attn_bwd_list": 6 * (bwd == "list")}
 
 
 def wide_phase(card: str, work_dir: str) -> dict:
@@ -1665,12 +1805,12 @@ def wide_phase(card: str, work_dir: str) -> dict:
     LambdaRank through the fused pairwise kernel and Adagrad: (a) served over
     HTTP (16 ragged lists of 5..139 docs) and score_file; (b) one step's
     gradients through the kernels against dense attention and the dense loss,
-    fp32 held, bf16 printed (Yahoo!'s also at YAHOO_PACKED_CHECK docs,
-    through the packed backward); (c) timed steps of YAHOO_DOCS docs in each of
-    Yahoo!'s YAHOO_BUCKETS (the one-head model: the 128-doc bucket), with
-    exact launch counts (wide_launches); (d) save, restore, one more step on
-    both. Returns the launch counts of (c) for the first model, summed over
-    its buckets."""
+    in the YAHOO_GRAD_CHECK bucket, fp32 held, bf16 printed (Yahoo!'s also at
+    YAHOO_PACKED_CHECK docs, through the packed kernels); (c) timed steps of
+    YAHOO_DOCS docs in each of Yahoo!'s YAHOO_BUCKETS (the one-head model:
+    the 128-doc bucket), with exact launch counts (wide_launches); (d) save,
+    restore, one more step on both. Returns the launch counts of (c) for the
+    first model, summed over its buckets."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
@@ -1685,13 +1825,14 @@ def wide_phase(card: str, work_dir: str) -> dict:
                     (min(YAHOO_SERVE_LENGTHS), max(YAHOO_SERVE_LENGTHS)), tag)
         ranker_kw = {"num_features": F, "lane_align": lane_align, "n_heads": n_heads}
 
-        N = max(YAHOO_BUCKETS)
+        N = YAHOO_GRAD_CHECK
         batch = train_batch(YAHOO_DOCS // N, N, ragged=True, seed=1, num_features=F)
         x, labels, mask = (torch.from_numpy(a).cuda()
                            for a in (batch.features, batch.labels, batch.mask))
         grad_rec = {dtype: grads_vs_dense(flagship_ranker(dropout=0.0, compute_dtype=dtype,
                                                           **ranker_kw),
-                                          x, labels, mask, f"{tag} gradient check")
+                                          x, labels, mask, f"{tag} gradient check",
+                                          wide_launches(N, d, dtype))
                     for dtype in ("float32", "bfloat16")}
         print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
 
@@ -1708,7 +1849,7 @@ def wide_phase(card: str, work_dir: str) -> dict:
         ranker = flagship_ranker(**ranker_kw)
         # Yahoo!'s buckets, short lists first; the one-head MSLR-WEB30K model
         # (long lists) at the 128-doc bucket only
-        for N in YAHOO_BUCKETS if name == "yahoo" else (max(YAHOO_BUCKETS),):
+        for N in YAHOO_BUCKETS if name == "yahoo" else (YAHOO_GRAD_CHECK,):
             batch = train_batch(YAHOO_DOCS // N, N, ragged=False, seed=2, num_features=F)
             steps_rec = timed_steps(ranker, batch, YAHOO_STEPS, f"{tag} timed steps at {N} docs",
                                     wide_launches(N, d))
@@ -1764,6 +1905,7 @@ def main() -> int:
     records.update(check_pairwise(card))
     check_grid_limits(card)
     records.update(check_packed(card))
+    records.update(check_packed_fwd(card))
     records.update(check_sinkstep(card))
 
     phase("serve")
@@ -1781,7 +1923,8 @@ def main() -> int:
     wide = wide_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide[name]
-    launches["flash_attn_bwd_packed"] = wide["flash_attn_bwd_packed"]
+    for name in ("flash_attn_fwd_packed", "flash_attn_bwd_packed", "flash_attn_bwd_list"):
+        launches[name] = wide[name]
 
     sources = {
         "flash_attn_fwd": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
@@ -1797,7 +1940,8 @@ def main() -> int:
         "sinkstep": ("ptranking_tpu_torch/ops/csrc/sinkstep.cu",
                      "ptranking_tpu/ops/pallas/sinkhorn.py:26"),
         # the same wrappers at d > 128 (the Yahoo! LTR listsf's d = 350): the
-        # wide kernels; launches from phase 7's timed steps of that model
+        # wide kernels, record in the 256-doc bucket (WIDE_RECORD_SHAPE);
+        # launches from phase 7's timed steps of that model
         "flash_attn_fwd_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                 "ptranking_tpu/ops/attention.py:129"),
         "flash_attn_bwd_dkdv_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
@@ -1808,6 +1952,14 @@ def main() -> int:
         # (Yahoo!'s buckets up to 64 docs): record at PACK_RECORD, launches
         # from phase 7's timed steps of the d = 350 model
         "flash_attn_bwd_packed": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                  "ptranking_tpu/ops/attention.py:172"),
+        # the bf16 backward of lists of 65 .. LIST_MAX_N docs at d > 128
+        # (Yahoo!'s 128-doc bucket): record at LIST_RECORD
+        "flash_attn_bwd_list": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                "ptranking_tpu/ops/attention.py:172"),
+        # the bf16 forward of lists of at most FWD_PACK_MAX_N docs at d > 128:
+        # record at FWD_PACK_RECORD
+        "flash_attn_fwd_packed": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                   "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -16,14 +16,20 @@ dropout (the JAX package applies none on its flash path either):
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
     and backward kernels' formulas in plain torch, with the kernels' tiles,
-    row statistics and rounding points, and `attention_backward_packed_plain`,
-    the same backward in the packed kernel's tiles of several short lists.
+    row statistics and rounding points, and `attention_forward_packed_plain`
+    and `attention_backward_packed_plain`, the same forward and backward in
+    the tiles of the kernels that pack whole short lists into a block.
     Tests and the card check hold the kernels against them; no training or
     serving path calls them.
 
-The bf16 backward at head dims above 128 takes, for lists of at most
-PACK_MAX_N docs, the packed kernel (dq, dk and dv of 64 // N lists a block,
-one launch), and the wide dk/dv and dq kernels otherwise (`bwd_route`).
+At head dims above 128 the bf16 forward takes, for lists of at most
+FWD_PACK_MAX_N docs, the packed forward kernel (S once a tile of 64 // N
+lists, or of one list of up to 128 docs), and the wide kernel otherwise
+(`fwd_route`). The bf16 backward takes, for lists of at most PACK_MAX_N
+docs, the packed kernel (dq, dk and dv of 64 // N lists a block, one
+launch), for lists of at most LIST_MAX_N docs the list kernel (the same on
+a 128-row tile, one list a block), and the wide dk/dv and dq kernels
+otherwise (`bwd_route`).
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -141,41 +147,93 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _tile_rows(N: int) -> int:
+    """Rows of the packed kernels' tile for lists of N docs: 64 (64 // N
+    lists a tile) up to 64 docs, 128 (one list) up to 128; raises beyond."""
+    if not 1 <= N <= _LIST_ROWS:
+        raise ValueError(f"packed tiles take lists of at most {_LIST_ROWS} docs; got N = {N}")
+    return _ROWS if N <= _ROWS else _LIST_ROWS
+
+
+def _packing(mask: torch.Tensor, H: int, N: int, rows: int):
+    """The [B*H*N] rows of B*H lists of N docs cut into tiles of `rows` rows:
+    p = rows // N consecutive (b, h) lists a tile (the last one padded with
+    empty lists), each tile's rows both query rows and keys, rows p*N .. up
+    empty. Returns (pack, unpack, same, real): pack(t, fill) turns a [B, H,
+    N, ...] tensor into [tiles, rows, ...] fp32 (empty rows `fill`),
+    unpack(t, dtype) a [tiles, rows, d] one back into [B, H, N, d] of
+    `dtype`; same [tiles, rows, rows] says a query row and a key belong to
+    one list of the tile, real that the key is also a real document."""
+    B = mask.shape[0]
+    lists, per_tile = B * H, rows // N
+    tiles = -(-lists // per_tile)
+
+    def pack(t, fill=0.0):
+        flat = t.float().reshape(lists * N, -1)
+        flat = torch.nn.functional.pad(flat, (0, 0, 0, (tiles * per_tile - lists) * N), value=fill)
+        flat = flat.reshape(tiles, per_tile * N, -1)
+        return torch.nn.functional.pad(flat, (0, 0, 0, rows - per_tile * N), value=fill)
+
+    def unpack(t, dtype):
+        d = t.shape[-1]
+        return t[:, :per_tile * N].reshape(-1, d)[:lists * N].reshape(B, H, N, d).to(dtype)
+
+    seg = torch.arange(rows, device=mask.device) // N         # a tile row's list in the tile
+    lst = torch.arange(tiles, device=mask.device)[:, None] * per_tile + seg  # its (b, h) list
+    valid = (seg < per_tile) & (lst < lists)                 # [tiles, rows]
+    key_real = valid & mask[torch.clamp(lst, max=lists - 1) // H,
+                            torch.arange(rows, device=mask.device) % N]
+    same = (seg[:, None] == seg[None, :]) & valid[:, :, None] & valid[:, None, :]
+    return pack, unpack, same, same & key_real[:, None, :]
+
+
+def attention_forward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   mask: torch.Tensor):
+    """attention_forward_plain's (out, row_max, row_sum) for lists of N <= 128
+    docs, in the packed forward kernel's tiles (`_packing`): 64 // N lists a
+    64-row tile up to 64 docs, one list a 128-row tile above. All of a row's
+    keys lie in its tile, so the softmax takes them in one pass:
+
+        x = q k^T * scale (a masked key of the row's list: the constant -1e9;
+        a key of another list: left out, p = 0), m = max(-1e30, max x),
+        p = exp(x - m), l = sum p, O = (p rounded to the inputs' dtype) v / l
+
+    with fp32 logits, p, l and accumulation and one rounding at the output.
+    Up to 64 docs that is attention_forward_plain's one 64-key tile; above,
+    attention_forward_plain rescales between two 64-key tiles, so its first
+    tile's p is rounded against that tile's max, the kernel's against the
+    row's. A list with no real key gets m = -1e9, l = N and the mean of v."""
+    B, H, N, d = q.shape
+    pack, unpack, same, real = _packing(mask, H, N, _tile_rows(N))
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32, device=q.device))
+    qf, kf, vf = pack(q), pack(k), pack(v)
+    x = torch.where(real, torch.matmul(qf, kf.transpose(-1, -2)) * scale,
+                    torch.where(same, _NEG, float("-inf")))
+    m = torch.clamp(x.amax(dim=-1), min=-1e30)  # -1e30 on an empty row: every p is 0
+    p = torch.exp(x - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.matmul(p.to(v.dtype).float(), vf) * (1.0 / l)[..., None]
+    stats = (unpack(t[..., None], torch.float32)[..., 0] for t in (m, l))
+    return (unpack(out, q.dtype), *stats)
+
+
 def attention_backward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     dout: torch.Tensor, out: torch.Tensor,
                                     row_max: torch.Tensor, row_sum: torch.Tensor,
                                     mask: torch.Tensor):
-    """attention_backward_plain's (dq, dk, dv) for lists of N <= 64 docs, in
-    the packed kernel's tiles: the [B*H*N, d] rows cut into tiles of
-    p = 64 // N consecutive (b, h) lists (the last one padded with empty
-    lists), each tile's 64 rows (p*N of them real, the rest empty) both query
-    rows and keys. Within a tile, a key of another list is left out (P = dS = 0),
-    a masked key of the row's own list gets the logit -1e9 and dS = 0; then
-    attention_backward_plain's formulas and rounding points on the 64 x 64
-    tile, and the empty rows dropped."""
+    """attention_backward_plain's (dq, dk, dv) for lists of N <= 128 docs, in
+    the tiles of the packed kernel (64 // N lists a 64-row tile, N <= 64) and
+    of the list kernel (one list a 128-row tile, 64 < N <= 128): `_packing`.
+    Within a tile, a key of another list is left out (P = dS = 0), a masked
+    key of the row's own list gets the logit -1e9 and dS = 0; then
+    attention_backward_plain's formulas and rounding points on the tile, and
+    the empty rows dropped."""
     B, H, N, d = q.shape
-    if N > _ROWS:
-        raise ValueError(f"packed tiles take lists of at most {_ROWS} docs; got N = {N}")
-    lists, per_tile = B * H, _ROWS // N
-    tiles = -(-lists // per_tile)
+    pack, unpack, same, real = _packing(mask, H, N, _tile_rows(N))
     scale = 1.0 / float(d) ** 0.5
-
-    def packed(t, fill=0.0):  # [B, H, N, ...] -> [tiles, 64, ...], fp32
-        flat = t.float().reshape(lists * N, -1)
-        flat = torch.nn.functional.pad(flat, (0, 0, 0, (tiles * per_tile - lists) * N), value=fill)
-        flat = flat.reshape(tiles, per_tile * N, -1)
-        return torch.nn.functional.pad(flat, (0, 0, 0, _ROWS - per_tile * N), value=fill)
-
-    qf, kf, vf, dof = (packed(t) for t in (q, k, v, dout))
-    m, l = packed(row_max)[..., 0], packed(row_sum, fill=1.0)[..., 0]
-    dsum = packed(torch.sum(dout.float() * out.float(), dim=-1))[..., 0]
-    seg = torch.arange(_ROWS, device=q.device) // N          # a tile row's list in the tile
-    lst = torch.arange(tiles, device=q.device)[:, None] * per_tile + seg  # its (b, h) list
-    valid = (seg < per_tile) & (lst < lists)                 # [tiles, 64]
-    key_real = valid & mask[torch.clamp(lst, max=lists - 1) // H,
-                            torch.arange(_ROWS, device=q.device) % N]
-    same = (seg[:, None] == seg[None, :]) & valid[:, :, None] & valid[:, None, :]
-    real = same & key_real[:, None, :]
+    qf, kf, vf, dof = (pack(t) for t in (q, k, v, dout))
+    m, l = pack(row_max)[..., 0], pack(row_sum, fill=1.0)[..., 0]
+    dsum = pack(torch.sum(dout.float() * out.float(), dim=-1))[..., 0]
     x = torch.where(real, torch.matmul(qf, kf.transpose(-1, -2)) * scale, _NEG)
     p = torch.where(same, torch.exp(x - m[..., None]) / l[..., None], 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
@@ -184,20 +242,18 @@ def attention_backward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.T
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dq = torch.matmul(ds, kf) * scale
-
-    def unpacked(t):  # [tiles, 64, d] -> [B, H, N, d] in q's dtype
-        return t[:, :per_tile * N].reshape(-1, d)[:lists * N].reshape(B, H, N, d).to(q.dtype)
-
-    return unpacked(dq), unpacked(dk), unpacked(dv)
+    return unpack(dq, q.dtype), unpack(dk, q.dtype), unpack(dv, q.dtype)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_LIB = cuda_build.KernelLib("flash_attn_fwd",
-                                {"flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_P]})
+                                {"flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_P],
+                                 "flash_attn_fwd_packed": [_P] * 7 + [_I] * 5 + [_P]})
 _BWD_LIB = cuda_build.KernelLib("flash_attn_bwd",
                                 {"flash_attn_bwd_dkdv": [_P] * 10 + [_I] * 5 + [_P],
                                  "flash_attn_bwd_dq": [_P] * 9 + [_I] * 5 + [_P],
-                                 "flash_attn_bwd_packed": [_P] * 11 + [_I] * 5 + [_P]})
+                                 "flash_attn_bwd_packed": [_P] * 11 + [_I] * 5 + [_P],
+                                 "flash_attn_bwd_list": [_P] * 11 + [_I] * 5 + [_P]})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -206,49 +262,92 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # chunk of the wide kernels above it (csrc/flash_attn_{fwd,bwd}.cu: 64
 # columns for the fp32 kernels and bf16 dk/dv, 128 for the bf16 forward and dq)
 _ROWS, _NARROW_D, _WIDE_COLUMNS = 64, 128, 64
+# the tile of one list of up to 128 docs: the packed forward's keys
+# (LIST_KEYS) and the list backward's rows (LIST_ROWS)
+_LIST_ROWS = 128
 _MAX_X, _MAX_Y = 2 ** 31 - 1, 65535  # blocks on grid.x and on grid.y
 
-# The bf16 backward at d > 128 for lists of at most PACK_MAX_N docs runs the
-# packed kernel (one launch for dq, dk and dv, 64 // N lists a 64-row tile)
-# in place of the wide dk/dv and dq pair: the widest bucket at which it beat
-# the pair at both d = 350 and d = 384 on an NVIDIA H100 (PERF.md).
+# Routes of the bf16 kernels at d > 128, each the widest bucket at which the
+# kernel beat the wide kernels it replaces at both d = 350 and d = 384 on an
+# NVIDIA H100 (PERF.md): the packed forward (S once a tile of 64 // N lists,
+# or of one list of up to 128 docs) up to FWD_PACK_MAX_N docs; the packed
+# backward (one launch for dq, dk and dv, 64 // N lists a 64-row tile) up to
+# PACK_MAX_N docs, and the list backward (the same on a 128-row tile of one
+# list) up to LIST_MAX_N, in place of the wide dk/dv and dq pair.
+FWD_PACK_MAX_N = 128
 PACK_MAX_N = 64
+LIST_MAX_N = 128
+
+
+def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:
+    """The forward's kernel for inputs of `dtype` with N docs a list and head
+    dim d: "packed" (FlashAttnFwdPacked) for bf16, d > 128 and
+    N <= FWD_PACK_MAX_N; else "flash" (FlashAttnFwd)."""
+    packed = dtype == torch.bfloat16 and d > _NARROW_D and N <= FWD_PACK_MAX_N
+    return "packed" if packed else "flash"
 
 
 def bwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     """The backward's kernels for inputs of `dtype` with N docs a list and
-    head dim d: "packed" (FlashAttnBwdPacked) for bf16, d > 128 and
-    N <= PACK_MAX_N; else "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
-    packed = dtype == torch.bfloat16 and d > _NARROW_D and N <= PACK_MAX_N
-    return "packed" if packed else "pair"
+    head dim d: for bf16 and d > 128, "packed" (FlashAttnBwdPacked) at
+    N <= PACK_MAX_N and "list" (FlashAttnBwdList) at N <= LIST_MAX_N; else
+    "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
+    if dtype == torch.bfloat16 and d > _NARROW_D:
+        if N <= PACK_MAX_N:
+            return "packed"
+        if N <= LIST_MAX_N:
+            return "list"
+    return "pair"
 
 
-def packed_blocks(B: int, H: int, N: int) -> int:
-    """Blocks of the packed kernel's grid (grid.x): one per tile of 64 // N lists."""
-    return -(-B * H // (_ROWS // N))
+def packed_blocks(B: int, H: int, N: int, rows: int = _ROWS) -> int:
+    """Blocks of a packed backward's grid (grid.x): one per tile of rows // N
+    lists (the packed kernel: 64 rows; the list kernel: 128)."""
+    return -(-B * H // (rows // N))
+
+
+def fwd_packed_blocks(B: int, H: int, N: int) -> int:
+    """Blocks of the packed forward's grid (grid.x): its key tile holds
+    64 // N lists up to 64 docs, one list of up to 128 above, and a block
+    owns 64 of the tile's query rows."""
+    rows = _tile_rows(N)
+    return packed_blocks(B, H, N, rows) * (rows // _ROWS)
 
 
 def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int:
     """Kernel launches of one wrapper call. The kernels of d <= 128 take b*h
     from grid.y (at most 65535 blocks), so a batch of more than 65535 // H
     lists runs in launches of whole lists; the wide kernels (d > 128) fold
-    every axis into grid.x, and the packed kernel (`packed`) puts its tiles
-    there: one launch."""
+    every axis into grid.x, and the kernels that pack whole lists into a
+    block (`packed`) put their tiles there: one launch."""
     return 1 if packed or d > _NARROW_D else -(-B // (_MAX_Y // H))
 
 
-def check_grid(B: int, H: int, N: int, d: int, packed: bool = False) -> None:
+# the kernels that pack whole lists into a block, by wrapper: the longest
+# list each takes
+_PACKED_MAX_N = {"flash_attn_fwd_packed": _LIST_ROWS, "flash_attn_bwd_packed": _ROWS,
+                 "flash_attn_bwd_list": _LIST_ROWS}
+
+
+def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
     """The shapes the kernels take: any positive B, H, N and d whose launches
     fit the grid. For d <= 128, H up to 65535 (grid.y); for d > 128, the
     64-row tiles x B*H x the output chunks (64 columns at the finest) up to
-    2^31 - 1 blocks (grid.x). The packed kernel (`packed`): N up to 64 and
-    B*H up to 2^31 - 1 lists (so its tiles fit grid.x). Raises otherwise."""
+    2^31 - 1 blocks (grid.x). A kernel that packs whole lists into a block
+    (`packed`, its wrapper's name: "flash_attn_fwd_packed",
+    "flash_attn_bwd_packed", "flash_attn_bwd_list"): N up to 64 (the packed
+    backward) or 128, B*H up to 2^31 - 1 lists, and its tiles on grid.x.
+    Raises otherwise."""
     if min(B, H, N, d) < 1:
         raise ValueError(f"unsupported shape {(B, H, N, d)}")
     if packed:
-        if N > _ROWS or B * H > _MAX_X:
-            raise ValueError(f"shape {(B, H, N, d)}: the packed kernel takes lists of at most "
-                             f"{_ROWS} docs, at most {_MAX_X} of them")
+        max_n = _PACKED_MAX_N[packed]
+        if N > max_n or B * H > _MAX_X:
+            raise ValueError(f"shape {(B, H, N, d)}: {packed} takes lists of at most "
+                             f"{max_n} docs, at most {_MAX_X} of them")
+        if packed == "flash_attn_fwd_packed" and fwd_packed_blocks(B, H, N) > _MAX_X:
+            raise ValueError(f"shape {(B, H, N, d)} needs {fwd_packed_blocks(B, H, N)} blocks "
+                             f"of {packed} on grid.x, past the card's {_MAX_X}")
         return
     if d <= _NARROW_D and H > _MAX_Y:
         raise ValueError(f"shape {(B, H, N, d)} needs {H} blocks on grid.y, past the "
@@ -259,10 +358,11 @@ def check_grid(B: int, H: int, N: int, d: int, packed: bool = False) -> None:
                          f"card's {_MAX_X}")
 
 
-def _check_qkv(q, k, v, mask, *more, packed=False):
+def _check_qkv(q, k, v, mask, *more, packed=""):
     """Shapes, dtypes, device and contiguity the kernels take (`packed`: the
-    packed kernel's); raises otherwise. `more` are further [B, H, N, d]
-    tensors of q's dtype (the output gradient)."""
+    name of a packing kernel's wrapper, as check_grid takes it); raises
+    otherwise. `more` are further [B, H, N, d] tensors of q's dtype (the
+    output gradient)."""
     if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *more)):
         raise ValueError(f"q, k, v must share one [B, H, N, d] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -274,7 +374,7 @@ def _check_qkv(q, k, v, mask, *more, packed=False):
         raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if packed and q.dtype != torch.bfloat16:
-        raise ValueError(f"the packed kernel takes bfloat16 inputs; got {q.dtype}")
+        raise ValueError(f"{packed} takes bfloat16 inputs; got {q.dtype}")
     check_grid(B, H, N, d, packed)
     tensors = (q, k, v, mask, *more)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
@@ -307,13 +407,14 @@ class FlashAttnFwd:
     fp32), which the backward kernels read."""
 
     name = "flash_attn_fwd"
+    packed = ""  # the packing kernel's name, as check_grid takes it
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: torch.Tensor, stats: bool = False):
-        B, H, N, d = _check_qkv(q, k, v, mask)
+        B, H, N, d = _check_qkv(q, k, v, mask, packed=self.packed)
         out = torch.empty_like(q)
         row_max = row_sum = None
         if stats:
@@ -325,8 +426,17 @@ class FlashAttnFwd:
                 out.data_ptr(), None if row_max is None else row_max.data_ptr(),
                 None if row_sum is None else row_sum.data_ptr(),
                 B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
-        self.launches += kernel_launches(B, H, N, d)
+        self.launches += kernel_launches(B, H, N, d, packed=bool(self.packed))
         return (out, row_max, row_sum) if stats else out
+
+
+class FlashAttnFwdPacked(FlashAttnFwd):
+    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s packed kernel (bf16, lists
+    of at most 128 docs, any d: S once a tile of 64 // N lists, or of one
+    list above 64 docs), FlashAttnFwd's call and statistics, with its own
+    launch count (one a call)."""
+
+    name = packed = "flash_attn_fwd_packed"
 
 
 class FlashAttnBwdDkdv:
@@ -385,7 +495,7 @@ class FlashAttnBwdPacked:
         self.launches = 0
 
     def __call__(self, q, k, v, dout, row_max, row_sum, dsum, mask):
-        B, H, N, d = _check_qkv(q, k, v, mask, dout, packed=True)
+        B, H, N, d = _check_qkv(q, k, v, mask, dout, packed=self.name)
         _check_stats(q, row_max, row_sum, dsum)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         with torch.cuda.device(q.device):
@@ -398,21 +508,38 @@ class FlashAttnBwdPacked:
         return dq, dk, dv
 
 
+class FlashAttnBwdList(FlashAttnBwdPacked):
+    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s list kernel (bf16, lists
+    of at most 128 docs, any d; the packed kernel on a 128-row tile, one list
+    of 65 .. 128 docs a block): FlashAttnBwdPacked's call, with its own
+    launch count."""
+
+    name = "flash_attn_bwd_list"
+
+
 FLASH_ATTN_FWD = FlashAttnFwd()
+FLASH_ATTN_FWD_PACKED = FlashAttnFwdPacked()
 FLASH_ATTN_BWD_DKDV = FlashAttnBwdDkdv()
 FLASH_ATTN_BWD_DQ = FlashAttnBwdDq()
 FLASH_ATTN_BWD_PACKED = FlashAttnBwdPacked()
+FLASH_ATTN_BWD_LIST = FlashAttnBwdList()
+
+
+def _forward_kernel(q: torch.Tensor) -> FlashAttnFwd:
+    """The forward's wrapper for q's dtype and shape, by fwd_route."""
+    packed = fwd_route(q.dtype, q.shape[2], q.shape[3]) == "packed"
+    return FLASH_ATTN_FWD_PACKED if packed else FLASH_ATTN_FWD
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernels' forward and backward on CUDA tensors; the backward's
-    kernels by bwd_route. D = rowsum(dO * O) is plain torch, as the JAX
-    library computes it outside its kernels."""
+    """The kernels' forward and backward on CUDA tensors; the forward's
+    kernel by fwd_route, the backward's by bwd_route. D = rowsum(dO * O) is
+    plain torch, as the JAX library computes it outside its kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
         q, k, v, mask = (t.contiguous() for t in (q, k, v, mask))
-        out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        out, row_max, row_sum = _forward_kernel(q)(q, k, v, mask, stats=True)
         ctx.save_for_backward(q, k, v, mask, out, row_max, row_sum)
         return out
 
@@ -422,8 +549,11 @@ class _FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         dsum = torch.sum(dout.float() * out.float(), dim=-1)
         args = (q, k, v, dout, row_max, row_sum, dsum, mask)
-        if bwd_route(q.dtype, q.shape[2], q.shape[3]) == "packed":
+        route = bwd_route(q.dtype, q.shape[2], q.shape[3])
+        if route == "packed":
             dq, dk, dv = FLASH_ATTN_BWD_PACKED(*args)
+        elif route == "list":
+            dq, dk, dv = FLASH_ATTN_BWD_LIST(*args)
         else:
             dk, dv = FLASH_ATTN_BWD_DKDV(*args)
             dq = FLASH_ATTN_BWD_DQ(*args)
@@ -435,15 +565,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked non-causal attention, `sm_scale = 1/sqrt(d)`, no dropout.
 
     CUDA tensors go through the hand-written kernels (a failed build or
-    launch raises; there is no fallback): the forward alone when no gradient
-    is needed (under `inference_mode` or `no_grad`, or for inputs that do not
-    require one), else forward and backward. CPU tensors go through
-    `blockwise_attention(block_size=min(128, N))`, and autograd through it."""
+    launch raises; there is no fallback): the forward alone (by fwd_route)
+    when no gradient is needed (under `inference_mode` or `no_grad`, or for
+    inputs that do not require one), else forward and backward. CPU tensors
+    go through `blockwise_attention(block_size=min(128, N))`, and autograd
+    through it."""
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return _FlashAttention.apply(q, k, v, mask)
-        return FLASH_ATTN_FWD(q.contiguous(), k.contiguous(), v.contiguous(),
-                              mask.contiguous())
+        return _forward_kernel(q)(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  mask.contiguous())
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
     return blockwise_attention(q, k, v, mask, block_size=min(128, max(q.shape[2], 1)))

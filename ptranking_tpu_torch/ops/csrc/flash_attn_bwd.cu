@@ -86,13 +86,16 @@
 // grid.y, so a batch past 65535 (b, h) pairs runs in several launches of
 // whole lists; the wide kernels fold every axis into grid.x.
 //
-// Short lists: flash_bwd_packed_mma_kernel (bf16, N <= 64, any d; entry
-// flash_attn_bwd_packed) puts 64 / N lists in one 64-row tile and writes dq,
-// dk and dv of the tile in one launch (the section "the packed kernel"
-// below). The package routes the bf16 backward at d > 128 and N <= PACK_MAX_N
-// to it in place of the wide pair (ops/attention.py's bwd_route); the
-// kernels of d <= 128, the fp32 ones and the wide pair at longer lists keep
-// their route.
+// Short lists: flash_bwd_packed_mma_kernel (bf16, any d), templated on its
+// tile's rows. With 64 (entry flash_attn_bwd_packed, N <= 64) it puts 64 / N
+// lists in one 64-row tile and writes dq, dk and dv of the tile in one
+// launch (the section "the packed kernel" below); with 128 (the list kernel,
+// entry flash_attn_bwd_list, N <= 128) one list of 65 .. 128 docs a block of
+// 8 warps (the section "the list kernel"). The package routes the bf16
+// backward at d > 128 to the first at N <= PACK_MAX_N and to the second at
+// PACK_MAX_N < N <= LIST_MAX_N, in place of the wide pair (ops/attention.py's
+// bwd_route); the kernels of d <= 128, the fp32 ones and the wide pair at
+// longer lists keep their route.
 //
 // fp32 inputs: flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, on the fp32 CUDA
 // cores by design. The tensor cores have no fp32 product (TF32 keeps about 3
@@ -715,8 +718,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // At lists of 16 to 64 docs a block fills N of its 64 rows and each of the 9
 // output-chunk blocks of d = 350 re-reads the inputs: 5.53 ms for the pair
 // at 16 docs against SDPA's 0.89..1.06. The bf16 backward there runs the
-// packed kernel below instead; the pair stays the bf16 route above 64 docs
-// (and above PACK_MAX_N) and the fp32 one everywhere.
+// packed kernel below instead, and at 65 .. 128 docs the list kernel; the
+// pair stays the bf16 route above LIST_MAX_N docs and the fp32 one
+// everywhere.
 
 constexpr int DCH = 64;     // columns of a d-chunk of the S and dP products
 // 16-column steps of the bf16 kernels' output chunks: 128 columns for dq; 64
@@ -1284,13 +1288,18 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 constexpr int PACK_ROWS = 64;  // rows of a packed tile: query rows and keys alike
 constexpr int PACK_NT = 2 * PACK_ROWS;  // threads: a warp for each 16 rows
+constexpr int LIST_ROWS = 128;  // rows of the list kernel's tile (the section below)
 // the packed kernel's output chunk (16-column steps); whether step 3's
 // inputs are kept from step 1 where they fit (else re-read), and whether the
-// kept Q, K and dO are staged where the tiles allow it (launch_bwd_packed):
-// tools/kernel_variants.py times each turned the other way
+// kept Q, K and dO are staged where the tiles allow it (launch_bwd_packed);
+// the list kernel's output chunk, and whether it computes S and dP in two
+// 64-key halves (each over the whole d) instead of one pass over its 128
+// keys: tools/kernel_variants.py times each turned the other way
 constexpr int PACK_CW = 4;
 constexpr bool PACK_KEEP = true;
 constexpr bool PACK_STAGED = false;
+constexpr int LIST_CW = 4;
+constexpr bool LIST_HALVES = false;
 constexpr int PACK_LAND_ROWS = 16;  // rows of a staged span
 
 // The packed kernel's arithmetic on a fragment of S and dP (rows = the
@@ -1397,18 +1406,50 @@ __device__ __forceinline__ void stage_kept(bf16* Rs, bf16* land0, bf16* land1,
     }
 }
 
-// P and dS tiles, the stage buffers (two; a stage holds step 1's four d-chunk
-// tiles or step 3's three output-chunk tiles; with KEEP only V's chunk), with
-// KEEP the Q, K and dO chunks of the whole d, and the key info of 64 keys
-constexpr size_t packed_smem_bytes(int cw, bool keep, int chunks) {
-    const size_t chunk = size_t(PACK_ROWS) * (DCH + 8), out = size_t(PACK_ROWS) * (16 * cw + 8);
+// P and dS tiles ([rows][rows + 8]), the stage buffers (two; a stage holds
+// step 1's four d-chunk tiles or step 3's three output-chunk tiles; with KEEP
+// only V's chunk), with KEEP the Q, K and dO chunks of the whole d, and the
+// key info of `rows` keys
+constexpr size_t packed_smem_bytes(int rows, int cw, bool keep, int chunks) {
+    const size_t chunk = size_t(rows) * (DCH + 8), out = size_t(rows) * (16 * cw + 8);
     const size_t stage = keep ? chunk : (4 * chunk > 3 * out ? 4 * chunk : 3 * out);
-    return (2 * chunk + 2 * stage + (keep ? 3 * size_t(chunks) * chunk : 0)) * sizeof(bf16)
-           + PACK_ROWS * sizeof(int);
+    return (2 * size_t(rows) * (rows + 8) + 2 * stage + (keep ? 3 * size_t(chunks) * chunk : 0))
+               * sizeof(bf16) + rows * sizeof(int);
 }
 
-template <int CW, bool KEEP, bool STAGED>
-__global__ void __launch_bounds__(PACK_NT, 2)
+// ---------------------------------------------------------------------------
+// bf16, lists of 65 .. 128 docs: the list kernel
+// ---------------------------------------------------------------------------
+//
+// At 65 .. 128 docs the wide pair takes two launches: dk/dv in 64-column
+// output chunks (6 at d = 350), each block recomputing S^T and dP^T over the
+// whole d, and dq in 128-column chunks (3), recomputing S and dP again: per
+// list, S and dP are computed about 9 times and Q, K, V, dO read as often.
+// The list kernel is the packed kernel's three steps on a 128-row tile, one
+// list a block (128 / N lists at N <= 64), 8 warps of 16 rows:
+//   1. S and dP (the warp's 16 query rows by all 128 keys, 128 fp32 values a
+//      thread) once a list over d in double-buffered 64-column chunks of Q,
+//      K, V and dO; with LIST_HALVES in two passes of 64 keys, each over d
+//      again (half the registers, Q and dO read twice);
+//   2. P and dS on the fragments (p_ds_packed), rounded to bf16 and stored as
+//      [128][136] tiles;
+//   3. for each 64-column output chunk, its Q, dO and K columns re-read
+//      (mostly L2 hits: the block read them in step 1; keeping step 1's
+//      chunks of all of d would need 3 * 6 * 18,432 bytes at d = 350 beside
+//      the P and dS tiles, past the 232,448 a block may have), then
+//      dv = P^T dO, dk = scale * dS^T Q (ldmatrix.trans of the P and dS
+//      tiles gives the A fragments of P^T and dS^T for the warp's 16 keys)
+//      and dq = scale * dS K (the warp's rows of the dS tile), one product at
+//      a time, each from fragments read anew from the tiles.
+// Shared memory: the P and dS tiles (69,632 bytes) and two stages of four
+// [128][72] chunk tiles (147,456), 217,600 bytes with the key info: one
+// block an SM. What bounds it: bytes, as the packed kernel. On an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md): 0.47 ms at (256, 2, 128, 350) against
+// a byte bound of 0.096 ms and the wide pair's 3.30; 0.27 ms at d = 384.
+//
+// ROWS = PACK_ROWS: the packed kernel; ROWS = LIST_ROWS: the list kernel.
+template <int ROWS, int CW, bool KEEP, bool STAGED>
+__global__ void __launch_bounds__(2 * ROWS, ROWS == PACK_ROWS ? 2 : 1)
 flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
                             const float* __restrict__ row_max, const float* __restrict__ row_sum,
@@ -1416,17 +1457,22 @@ flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int lists, int H, int N, int d, float scale, int copy, int how) {
     static_assert(!KEEP || CW == DCH / 16, "kept chunks serve as the output chunks");
+    static_assert(!KEEP || ROWS == PACK_ROWS, "the list kernel re-reads step 3's inputs");
     static_assert(!STAGED || KEEP, "Q, K and dO are staged into the kept chunks");
+    constexpr int NTH = 2 * ROWS;  // threads: a warp for each 16 rows
+    constexpr int PASSES = ROWS == LIST_ROWS && LIST_HALVES ? 2 : 1;
+    constexpr int KEYS = ROWS / PASSES;  // keys of S and dP a pass of step 1
     constexpr int KS = DCH / 16;
     constexpr int LDC = DCH + 8;
     constexpr int LDO = 16 * CW + 8;
-    constexpr int CHUNK = PACK_ROWS * LDC;
-    constexpr int OUT = PACK_ROWS * LDO;
+    constexpr int LDP = ROWS + 8;  // row stride of the P and dS tiles
+    constexpr int CHUNK = ROWS * LDC;
+    constexpr int OUT = ROWS * LDO;
     constexpr int STAGE = KEEP ? CHUNK : (4 * CHUNK > 3 * OUT ? 4 * CHUNK : 3 * OUT);
     extern __shared__ uint4 smem_mma[];
-    bf16* Ps = reinterpret_cast<bf16*>(smem_mma);  // [64 query rows][LDC]
-    bf16* dSs = Ps + CHUNK;
-    bf16* Cs = dSs + CHUNK;                        // [2][STAGE]
+    bf16* Ps = reinterpret_cast<bf16*>(smem_mma);  // [ROWS query rows][LDP]
+    bf16* dSs = Ps + ROWS * LDP;
+    bf16* Cs = dSs + ROWS * LDP;                   // [2][STAGE]
     bf16* Rs = Cs + 2 * STAGE;                     // KEEP: [Q, K, dO][chunks][CHUNK]
     const int chunks = (d + DCH - 1) / DCH;
     const int out_chunks = (d + 16 * CW - 1) / (16 * CW);
@@ -1434,39 +1480,40 @@ flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t4 = lane & 3;
-    const int per_tile = PACK_ROWS / N;
+    const int per_tile = ROWS / N;
     const int l0 = blockIdx.x * per_tile;  // the tile's first (b, h) list
     const int nrows = min(per_tile, lists - l0) * N;
     const size_t row0 = size_t(l0) * N;
     const size_t base = row0 * d;
 
-    // stage st < chunks: step 1's d-chunk st of Q, K, dO, V; st >= chunks:
-    // step 3's output chunk st - chunks of Q, dO, K (nothing with KEEP)
+    // stage st < PASSES * chunks: step 1's d-chunk of Q, dO (every row) and
+    // of K, V (the pass's keys); st >= PASSES * chunks: step 3's output chunk
+    // of Q, dO, K (nothing with KEEP)
     auto prefetch = [&](int st) {
         bf16* cs = Cs + (st & 1) * STAGE;
-        if (st < chunks) {
-            const int c0 = st * DCH;
+        if (st < PASSES * chunks) {
+            const int pass = PASSES == 1 ? 0 : st / chunks;
+            const int c0 = (st - pass * chunks) * DCH;
+            const size_t kbase = base + size_t(pass) * KEYS * d;
+            const int krows = PASSES == 1 ? nrows : min(max(nrows - pass * KEYS, 0), KEYS);
             if (!STAGED) {
-                load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? Rs + st * CHUNK : cs, q + base, nrows,
-                                                  d, c0, copy);
-                load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? Rs + (chunks + st) * CHUNK
-                                                       : cs + CHUNK,
-                                                  k + base, nrows, d, c0, copy);
-                load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? Rs + (2 * chunks + st) * CHUNK
-                                                       : cs + 2 * CHUNK,
-                                                  dout + base, nrows, d, c0, copy);
+                load_chunk<NTH, KS, ROWS>(KEEP ? Rs + st * CHUNK : cs, q + base, nrows, d, c0,
+                                          copy);
+                load_chunk<NTH, KS, KEYS>(KEEP ? Rs + (chunks + st) * CHUNK : cs + CHUNK,
+                                          k + kbase, krows, d, c0, copy);
+                load_chunk<NTH, KS, ROWS>(KEEP ? Rs + (2 * chunks + st) * CHUNK : cs + 2 * CHUNK,
+                                          dout + base, nrows, d, c0, copy);
             }
-            load_chunk<PACK_NT, KS, PACK_ROWS>(KEEP ? cs : cs + 3 * CHUNK, v + base, nrows, d, c0,
-                                              copy);
+            load_chunk<NTH, KS, KEYS>(KEEP ? cs : cs + 3 * CHUNK, v + kbase, krows, d, c0, copy);
         } else if (!KEEP) {
-            const int c0 = (st - chunks) * 16 * CW;
-            load_chunk<PACK_NT, CW, PACK_ROWS>(cs, q + base, nrows, d, c0, copy);
-            load_chunk<PACK_NT, CW, PACK_ROWS>(cs + OUT, dout + base, nrows, d, c0, copy);
-            load_chunk<PACK_NT, CW, PACK_ROWS>(cs + 2 * OUT, k + base, nrows, d, c0, copy);
+            const int c0 = (st - PASSES * chunks) * 16 * CW;
+            load_chunk<NTH, CW, ROWS>(cs, q + base, nrows, d, c0, copy);
+            load_chunk<NTH, CW, ROWS>(cs + OUT, dout + base, nrows, d, c0, copy);
+            load_chunk<NTH, CW, ROWS>(cs + 2 * OUT, k + base, nrows, d, c0, copy);
         }
         cp_async_commit();
     };
-    const int stages = chunks + out_chunks;
+    const int stages = PASSES * chunks + out_chunks;
     auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
         if (st + 1 < stages) {
             prefetch(st + 1);
@@ -1478,7 +1525,7 @@ flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     };
 
     if (!STAGED) prefetch(0);
-    if (tid < PACK_ROWS) {
+    if (tid < ROWS) {
         int info = -1;
         if (tid < nrows) {
             const int list = tid / N, key = tid - list * N;
@@ -1502,77 +1549,122 @@ flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         prefetch(0);
     }
 
-    // step 1
-    float s[PACK_ROWS / 8][4], dp[PACK_ROWS / 8][4];
+    // steps 1 and 2, for each pass's keys
+    uint32_t dsa[KEYS / 16][4];  // dS of the warp's rows: A of dq += dS K (ROWS = PACK_ROWS)
+    for (int pass = 0; pass < PASSES; ++pass) {
+        float s[KEYS / 8][4], dp[KEYS / 8][4];
 #pragma unroll
-    for (int j = 0; j < PACK_ROWS / 8; ++j)
+        for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-        next(c);
-        const bf16* cs = Cs + (c & 1) * STAGE;
-        uint32_t a[KS][4];
-        load_a<KS>(a, KEEP ? Rs + c * CHUNK : cs, warp * 16, lane);
-        product_nk<KS, PACK_ROWS / 8>(s, a, KEEP ? Rs + (chunks + c) * CHUNK : cs + CHUNK, 0,
-                                      lane);
-        load_a<KS>(a, KEEP ? Rs + (2 * chunks + c) * CHUNK : cs + 2 * CHUNK, warp * 16, lane);
-        product_nk<KS, PACK_ROWS / 8>(dp, a, KEEP ? cs : cs + 3 * CHUNK, 0, lane);
-        __syncthreads();  // no warp reads stage c's buffers any more
-    }
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        for (int c = 0; c < chunks; ++c) {
+            const int st = pass * chunks + c;
+            next(st);
+            const bf16* cs = Cs + (st & 1) * STAGE;
+            uint32_t a[KS][4];
+            load_a<KS>(a, KEEP ? Rs + c * CHUNK : cs, warp * 16, lane);
+            product_nk<KS, KEYS / 8>(s, a, KEEP ? Rs + (chunks + c) * CHUNK : cs + CHUNK, 0,
+                                     lane);
+            load_a<KS>(a, KEEP ? Rs + (2 * chunks + c) * CHUNK : cs + 2 * CHUNK, warp * 16, lane);
+            product_nk<KS, KEYS / 8>(dp, a, KEEP ? cs : cs + 3 * CHUNK, 0, lane);
+            __syncthreads();  // no warp reads stage st's buffers any more
+        }
 
-    // step 2 (stage `chunks`, step 3's first, is in flight)
-    uint32_t dsa[PACK_ROWS / 16][4];  // dS of the warp's rows: A of dq += dS K
-    {
-        uint32_t pa[PACK_ROWS / 16][4];
-        p_ds_packed<PACK_ROWS / 8>(pa, dsa, s, dp, kinfo + 2 * t4, seg, m, inv, D, scale);
+        // step 2 (the next stage is in flight)
+        uint32_t pa[KEYS / 16][4];
+        p_ds_packed<KEYS / 8>(pa, dsa, s, dp, kinfo + pass * KEYS + 2 * t4, seg, m, inv, D,
+                              scale);
 #pragma unroll
-        for (int j = 0; j < PACK_ROWS / 8; ++j)
+        for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-                const int at = (warp * 16 + g + 8 * h) * LDC + 8 * j + 2 * t4;
+                const int at = (warp * 16 + g + 8 * h) * LDP + pass * KEYS + 8 * j + 2 * t4;
                 *reinterpret_cast<uint32_t*>(Ps + at) = pa[j >> 1][(j & 1) * 2 + h];
                 *reinterpret_cast<uint32_t*>(dSs + at) = dsa[j >> 1][(j & 1) * 2 + h];
             }
     }
     __syncthreads();
-    uint32_t pta[PACK_ROWS / 16][4], dsta[PACK_ROWS / 16][4];  // P^T, dS^T of the warp's keys
-    load_a_trans<PACK_ROWS / 16, LDC>(pta, Ps, warp * 16, lane);
-    load_a_trans<PACK_ROWS / 16, LDC>(dsta, dSs, warp * 16, lane);
 
     // step 3
     const bool pairs = how & STORE_PAIRS;
-    for (int oc = 0; oc < out_chunks; ++oc) {
-        const int st = chunks + oc;
-        next(st);
-        const bf16* cs = Cs + (st & 1) * STAGE;
-        const bf16* Qo = KEEP ? Rs + oc * CHUNK : cs;
-        const bf16* dOo = KEEP ? Rs + (2 * chunks + oc) * CHUNK : cs + OUT;
-        const bf16* Ko = KEEP ? Rs + (chunks + oc) * CHUNK : cs + 2 * OUT;
-        float acc_q[2 * CW][4], acc_k[2 * CW][4], acc_v[2 * CW][4];
+    if constexpr (ROWS == PACK_ROWS) {
+        uint32_t pta[ROWS / 16][4], dsta[ROWS / 16][4];  // P^T, dS^T of the warp's keys
+        load_a_trans<ROWS / 16, LDP>(pta, Ps, warp * 16, lane);
+        load_a_trans<ROWS / 16, LDP>(dsta, dSs, warp * 16, lane);
+        for (int oc = 0; oc < out_chunks; ++oc) {
+            const int st = chunks + oc;
+            next(st);
+            const bf16* cs = Cs + (st & 1) * STAGE;
+            const bf16* Qo = KEEP ? Rs + oc * CHUNK : cs;
+            const bf16* dOo = KEEP ? Rs + (2 * chunks + oc) * CHUNK : cs + OUT;
+            const bf16* Ko = KEEP ? Rs + (chunks + oc) * CHUNK : cs + 2 * OUT;
+            float acc_q[2 * CW][4], acc_k[2 * CW][4], acc_v[2 * CW][4];
 #pragma unroll
-        for (int j = 0; j < 2 * CW; ++j)
+            for (int j = 0; j < 2 * CW; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc_q[j][e] = acc_k[j][e] = acc_v[j][e] = 0.f;
-        product_kn<CW, PACK_ROWS / 16>(acc_v, pta, dOo, 0, lane);   // dv += P^T dO
-        product_kn<CW, PACK_ROWS / 16>(acc_k, dsta, Qo, 0, lane);   // dk += dS^T Q
-        product_kn<CW, PACK_ROWS / 16>(acc_q, dsa, Ko, 0, lane);    // dq += dS K
-        const int c0 = oc * 16 * CW;
+                for (int e = 0; e < 4; ++e) acc_q[j][e] = acc_k[j][e] = acc_v[j][e] = 0.f;
+            product_kn<CW, ROWS / 16>(acc_v, pta, dOo, 0, lane);   // dv += P^T dO
+            product_kn<CW, ROWS / 16>(acc_k, dsta, Qo, 0, lane);   // dk += dS^T Q
+            product_kn<CW, ROWS / 16>(acc_q, dsa, Ko, 0, lane);    // dq += dS K
+            const int c0 = oc * 16 * CW;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int r = warp * 16 + g + 8 * h;  // a query row and a key
-            if (r >= nrows) continue;
-            const size_t at = base + size_t(r) * d;
+            for (int h = 0; h < 2; ++h) {
+                const int r = warp * 16 + g + 8 * h;  // a query row and a key
+                if (r >= nrows) continue;
+                const size_t at = base + size_t(r) * d;
 #pragma unroll
-            for (int j = 0; j < 2 * CW; ++j) {
-                const int col = c0 + 8 * j + 2 * t4;
-                store_pair(dq + at, col, acc_q[j][2 * h] * scale, acc_q[j][2 * h + 1] * scale, d,
-                           pairs);
-                store_pair(dk + at, col, acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale, d,
-                           pairs);
-                store_pair(dv + at, col, acc_v[j][2 * h], acc_v[j][2 * h + 1], d, pairs);
+                for (int j = 0; j < 2 * CW; ++j) {
+                    const int col = c0 + 8 * j + 2 * t4;
+                    store_pair(dq + at, col, acc_q[j][2 * h] * scale, acc_q[j][2 * h + 1] * scale,
+                               d, pairs);
+                    store_pair(dk + at, col, acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale,
+                               d, pairs);
+                    store_pair(dv + at, col, acc_v[j][2 * h], acc_v[j][2 * h + 1], d, pairs);
+                }
             }
+            __syncthreads();  // no warp reads stage st's buffers any more
         }
-        __syncthreads();  // no warp reads stage st's buffers any more
+    } else {
+        // One product at a time, its A fragments read from the P and dS tiles
+        // for each output chunk: 128-deep fragments of all three products
+        // (96 registers) would not fit beside their three accumulators.
+        auto store = [&](bf16* out, const float (&acc)[2 * CW][4], float mul, int c0) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = warp * 16 + g + 8 * h;  // a query row and a key
+                if (r >= nrows) continue;
+                bf16* row = out + base + size_t(r) * d;
+#pragma unroll
+                for (int j = 0; j < 2 * CW; ++j)
+                    store_pair(row, c0 + 8 * j + 2 * t4, acc[j][2 * h] * mul,
+                               acc[j][2 * h + 1] * mul, d, pairs);
+            }
+        };
+        for (int oc = 0; oc < out_chunks; ++oc) {
+            const int st = PASSES * chunks + oc;
+            next(st);
+            const bf16* cs = Cs + (st & 1) * STAGE;
+            const int c0 = oc * 16 * CW;
+            uint32_t fa[ROWS / 16][4];
+            float acc[2 * CW][4];
+            auto product = [&](const bf16* btile) {
+#pragma unroll
+                for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+                product_kn<CW, ROWS / 16>(acc, fa, btile, 0, lane);
+            };
+            load_a_trans<ROWS / 16, LDP>(fa, Ps, warp * 16, lane);
+            product(cs + OUT);  // dv = P^T dO
+            store(dv, acc, 1.f, c0);
+            load_a_trans<ROWS / 16, LDP>(fa, dSs, warp * 16, lane);
+            product(cs);  // dk = scale * dS^T Q
+            store(dk, acc, scale, c0);
+            load_a<ROWS / 16>(fa, dSs, warp * 16, lane);
+            product(cs + 2 * OUT);  // dq = scale * dS K
+            store(dq, acc, scale, c0);
+            __syncthreads();  // no warp reads stage st's buffers any more
+        }
     }
 }
 
@@ -1736,16 +1828,16 @@ cudaError_t launch_dq_wide(const Args& a, int dtype, void* dq) {
     return cudaGetLastError();
 }
 
-// one block per packed tile of 64 / N lists
-template <int CW, bool KEEP, bool STAGED>
+// one block per tile of ROWS / N lists
+template <int ROWS, int CW, bool KEEP, bool STAGED>
 cudaError_t launch_packed_as(const Args& a, void* dq, void* dk, void* dv) {
-    const auto kernel = flash_bwd_packed_mma_kernel<CW, KEEP, STAGED>;
-    const size_t bytes = packed_smem_bytes(CW, KEEP, (a.d + DCH - 1) / DCH);
+    const auto kernel = flash_bwd_packed_mma_kernel<ROWS, CW, KEEP, STAGED>;
+    const size_t bytes = packed_smem_bytes(ROWS, CW, KEEP, (a.d + DCH - 1) / DCH);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            int(bytes));
     if (err != cudaSuccess) return err;
-    const int lists = a.B * a.H, per_tile = PACK_ROWS / a.N;
-    kernel<<<unsigned((lists + per_tile - 1) / per_tile), PACK_NT, bytes, a.stream>>>(
+    const int lists = a.B * a.H, per_tile = ROWS / a.N;
+    kernel<<<unsigned((lists + per_tile - 1) / per_tile), 2 * ROWS, bytes, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
@@ -1769,17 +1861,17 @@ cudaError_t launch_bwd_packed(const Args& a, void* dq, void* dk, void* dv) {
         if (err == cudaSuccess)
             err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
         if (err != cudaSuccess) return err;
-        if (packed_smem_bytes(CW, true, (a.d + DCH - 1) / DCH) <= size_t(most)) {
+        if (packed_smem_bytes(PACK_ROWS, CW, true, (a.d + DCH - 1) / DCH) <= size_t(most)) {
             if constexpr (PACK_STAGED) {
                 if (wide_copy(a) != CHUNK_16B && a.d % 2 == 0
                     && (long long)(PACK_ROWS / a.N) * a.N * a.d % 8 == 0
                     && aligned(a.q, 16) && aligned(a.k, 16) && aligned(a.dout, 16))
-                    return launch_packed_as<CW, true, true>(a, dq, dk, dv);
+                    return launch_packed_as<PACK_ROWS, CW, true, true>(a, dq, dk, dv);
             }
-            return launch_packed_as<CW, true, false>(a, dq, dk, dv);
+            return launch_packed_as<PACK_ROWS, CW, true, false>(a, dq, dk, dv);
         }
     }
-    return launch_packed_as<CW, false, false>(a, dq, dk, dv);
+    return launch_packed_as<PACK_ROWS, CW, false, false>(a, dq, dk, dv);
 }
 
 // Any d: d <= 128 runs the kernels above (in launches of at most
@@ -1888,6 +1980,21 @@ int flash_attn_bwd_packed(const void* q, const void* k, const void* v, const voi
         || (long long)B * H >= (1LL << 31))
         return int(cudaErrorInvalidValue);
     return int(launch_bwd_packed<PACK_CW>(a, dq, dk, dv));
+}
+
+// dq, dk and dv of bf16 lists of at most 128 docs (any d; the route takes it
+// at 65 .. 128) in one launch of the list kernel, 128 / N lists a block;
+// B*H lists below 2^31.
+int flash_attn_bwd_list(const void* q, const void* k, const void* v, const void* dout,
+                        const void* row_max, const void* row_sum, const void* dsum,
+                        const void* mask, void* dq, void* dk, void* dv, int B, int H, int N,
+                        int d, int dtype, void* stream) {
+    const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
+                 static_cast<cudaStream_t>(stream)};
+    if (B < 1 || H < 1 || N < 1 || N > LIST_ROWS || d < 1 || dtype != 1
+        || (long long)B * H >= (1LL << 31))
+        return int(cudaErrorInvalidValue);
+    return int(launch_packed_as<LIST_ROWS, LIST_CW, false, false>(a, dq, dk, dv));
 }
 
 const char* flash_attn_bwd_error_string(int err) {

@@ -89,6 +89,13 @@
 // from grid.y, so a batch past 65535 (b, h) pairs runs in several launches
 // of whole lists; the wide kernels fold every axis into grid.x.
 //
+// Short lists: flash_fwd_packed_mma_kernel (bf16, N <= 128, any d; entry
+// flash_attn_fwd_packed) puts 64 / N lists of at most 64 docs, or one list of
+// 65 .. 128 docs, in one key tile and computes S once a tile (the section
+// "the packed kernel" below). The package routes the bf16 forward at d > 128
+// and N <= FWD_PACK_MAX_N to it in place of the wide kernel
+// (ops/attention.py's fwd_route).
+//
 // fp32 inputs: flash_fwd_kernel, on the fp32 CUDA cores by design, as the
 // backward's fp32 kernels (TF32 keeps about 3 digits, and the fp32 path is
 // the exact one that gradient and resume checks rest on): register-blocked
@@ -853,6 +860,263 @@ cudaError_t launch_wide_mma(const void* q, const void* k, const void* v, const v
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, short lists: the packed kernel
+// ---------------------------------------------------------------------------
+//
+// At N <= 64 a wide block fills N of its 64 rows, and each of its output
+// chunks streams the whole of S = Q K^T over d again (3 chunks at d = 350
+// and 384). Here, as in flash_attn_bwd.cu's packed backward, KEYS / N
+// consecutive (b, h) lists share one key tile: q, k and v are [B*H*N, d]
+// row-major, so tile t is the contiguous span of rows t*p*N .. t*p*N + p*N - 1
+// with p = KEYS / N (fewer in the last tile when B*H % p != 0; rows past p*N
+// stay empty). A list attends only to itself, so the tile is closed under
+// attention. KEYS = 64 takes lists of at most 64 docs, one block a tile;
+// KEYS = 128 one list of 65 .. 128 docs a tile, with a block for each 64
+// query rows of it. A block of 4 warps owns 64 query rows, 16 a warp:
+//   1. S = Q K^T (the warp's 16 rows by all KEYS keys, fp32) computed once,
+//      over d in 64-column chunks double-buffered through shared memory as
+//      the wide kernel streams them;
+//   2. the softmax on the fragment: every key of the row's list lies in the
+//      tile, so it takes one max and one sum, no online rescale. A key of
+//      ANOTHER list of the tile is left out (P = 0), not masked: the
+//      unpacked kernels' rules hold within the list, so a list with no real
+//      key gets m = -1e9, l = N and the mean of its own v (as
+//      flash_fwd_mma_kernel gives it). P is rounded to bf16 in registers as
+//      the A operand: the warp's 16 rows hold all KEYS keys, so P never
+//      reaches shared memory;
+//   3. for each output chunk of 16*CW columns, O = P V with V's chunk
+//      streamed through the same double buffer; O / l rounded once at the
+//      store, row_max and row_sum (when asked) in natural-log units as the
+//      other kernels write them.
+// Q and K are read once a block and V once (KEYS = 128: K and V once for
+// each of the list's two query blocks, the second mostly from L2), and O is
+// written once. What bounds it: bytes; the products, those on the zeros of
+// other lists included, are 4 * 64 * KEYS * d operations a block, far below
+// the tensor cores' ridge. A row of d = 350 is 700 bytes, so its chunk
+// copies are 4 bytes wide (tools/kernel_variants.py times d = 352, the same
+// work with 16-byte copies). On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// 0.119 ms with statistics at (2048, 2, 16, 350), and at 32 and 64 docs,
+// against a byte bound of 0.055 ms and the wide kernel's 0.86; 0.20 ms at
+// (256, 2, 128, 350) (128 keys) against 0.53; 0.092 / 0.108 ms at d = 384.
+
+constexpr int PACK_KEYS = OWN;  // keys of the packed tile for lists of at most 64 docs
+constexpr int LIST_KEYS = 2 * OWN;  // keys of the tile of one list of 65 .. 128 docs
+constexpr int PACK_CW = 4;  // 16-column steps of the packed kernel's output chunk: 64 columns
+
+// two stages (step 1's Q and K d-chunks, or step 3's V chunk) and the key info
+__host__ __device__ constexpr size_t packed_stage_elems(int keys, int cw) {
+    return size_t(OWN + keys) * (DCH + 8) > size_t(keys) * (16 * cw + 8)
+               ? size_t(OWN + keys) * (DCH + 8) : size_t(keys) * (16 * cw + 8);
+}
+__host__ __device__ constexpr size_t packed_smem_bytes(int keys, int cw) {
+    return 2 * packed_stage_elems(keys, cw) * sizeof(bf16) + size_t(keys) * sizeof(int);
+}
+
+// The packed kernel's softmax on the fragment of S (rows = the thread's two
+// query rows with their list in the tile; 8-column tiles j = keys): ki points
+// at the key info of the thread's first key, its list in the tile << 2 | its
+// flag (key_flag), or -1 past the tile's rows; a row past them has list -2.
+// A real key of the row's own list: the logit in log2 units; a masked one:
+// the constant; a key of another list: -inf (p = 0). m (log2 units, from
+// M_INIT as the online softmax starts) and the thread's share l of the row's
+// sum; P = 2^(x - m) packed as the A operand of O = P V.
+template <int NTILES>
+__device__ __forceinline__ void softmax_packed(uint32_t (&pa)[NTILES / 2][4],
+                                               float (&s)[NTILES][4], const int* ki,
+                                               const int (&seg)[2], float (&m)[2], float (&l)[2],
+                                               float scale2) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+        const int2 f2 = *reinterpret_cast<const int2*>(ki + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int f = (e & 1) ? f2.y : f2.x, h = e >> 1;
+            const bool same = (f >> 2) == seg[h];
+            const float x = !same ? -INFINITY
+                            : (f & 3) == KEY_REAL ? s[j][e] * scale2 : MASKED_LOGIT2;
+            s[j][e] = x;
+            mx[h] = fmaxf(mx[h], x);
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        m[h] = fmaxf(M_INIT, mx[h]);  // M_INIT on a row past the tile's: every p is 0
+        l[h] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float p0 = ex2(s[j][2 * h] - m[h]);  // 0 on another list's key
+            const float p1 = ex2(s[j][2 * h + 1] - m[h]);
+            l[h] += p0 + p1;  // fp32 p, before rounding
+            pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(p0, p1);
+        }
+}
+
+template <int KEYS, int CW>
+__global__ void __launch_bounds__(MMA_NT, KEYS == PACK_KEYS ? 4 : 2)
+flash_fwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                            bf16* __restrict__ o, float* __restrict__ row_max,
+                            float* __restrict__ row_sum, int lists, int H, int N, int d,
+                            float scale2, int copy, int how) {
+    constexpr int KS = DCH / 16;          // 16-deep steps of a d-chunk
+    constexpr int LDC = 16 * KS + 8;      // row stride of the d-chunk tiles
+    constexpr int QCHUNK = OWN * LDC;     // a Q d-chunk; the K d-chunk follows it
+    constexpr int STAGE = int(packed_stage_elems(KEYS, CW));
+    constexpr int QBLOCKS = KEYS / OWN;   // blocks of a key tile: one for each 64 query rows
+    extern __shared__ uint4 smem_mma[];
+    bf16* Cs = reinterpret_cast<bf16*>(smem_mma);         // [2][STAGE]
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);  // [KEYS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = KEYS / N;
+    const int tile = blockIdx.x / QBLOCKS;
+    const int l0 = tile * per_tile;                      // the tile's first (b, h) list
+    const int nkeys = min(per_tile, lists - l0) * N;     // the tile's rows
+    const int qoff = (blockIdx.x - tile * QBLOCKS) * OWN;  // the block's first query row in it
+    const int nq = min(OWN, nkeys - qoff);
+    if (nq <= 0) return;  // a query block past a short tile's rows (not at 65 <= N <= 128)
+    const size_t row0 = size_t(l0) * N;
+    const bf16* qb = q + (row0 + qoff) * d;
+    const bf16* kb = k + row0 * d;
+    const bf16* vb = v + row0 * d;
+    const int chunks = (d + DCH - 1) / DCH;
+    const int out_chunks = (d + 16 * CW - 1) / (16 * CW);
+    const int stages = chunks + out_chunks;
+
+    // stage st < chunks: step 1's d-chunk st of Q and K; st >= chunks: step
+    // 3's output chunk st - chunks of V
+    auto prefetch = [&](int st) {
+        bf16* cs = Cs + (st & 1) * STAGE;
+        if (st < chunks) {
+            load_chunk<MMA_NT, KS, OWN>(cs, qb, nq, d, st * DCH, copy);
+            load_chunk<MMA_NT, KS, KEYS>(cs + QCHUNK, kb, nkeys, d, st * DCH, copy);
+        } else {
+            load_chunk<MMA_NT, CW, KEYS>(cs, vb, nkeys, d, (st - chunks) * 16 * CW, copy);
+        }
+        cp_async_commit();
+    };
+    auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+    };
+
+    prefetch(0);
+    for (int j = tid; j < KEYS; j += MMA_NT) {
+        int info = -1;
+        if (j < nkeys) {
+            const int list = j / N, key = j - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[j] = info;
+    }
+    int seg[2];  // of the thread's two query rows (g and g + 8 of the warp's 16): its list
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        seg[h] = r < nq ? (qoff + r) / N : -2;
+    }
+
+    // step 1
+    float s[KEYS / 8][4];
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+        next(c);
+        const bf16* cs = Cs + (c & 1) * STAGE;
+        uint32_t a[KS][4];
+        load_a<KS>(a, cs, warp * 16, lane);
+        product_nk<KS, KEYS / 8>(s, a, cs + QCHUNK, 0, lane);
+        __syncthreads();  // no warp reads stage c's buffers any more
+    }
+
+    // step 2 (stage `chunks`, step 3's first, is in flight)
+    uint32_t pa[KEYS / 16][4];
+    float m[2], l[2];
+    softmax_packed<KEYS / 8>(pa, s, kinfo + 2 * t4, seg, m, l, scale2);
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);  // the quad's four shares
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        inv[h] = 1.f / l[h];  // l >= 1 on a row of the tile: its max contributes 2^0
+    }
+
+    // step 3
+    const bool pairs = how & STORE_PAIRS;
+    for (int oc = 0; oc < out_chunks; ++oc) {
+        const int st = chunks + oc;
+        next(st);
+        float acc[2 * CW][4];
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        product_kn<CW, KEYS / 16>(acc, pa, Cs + (st & 1) * STAGE, 0, lane);  // O = P V
+        const int c0 = oc * 16 * CW;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nq) continue;
+            bf16* orow = o + (row0 + qoff + r) * d;
+#pragma unroll
+            for (int j = 0; j < 2 * CW; ++j)
+                store_pair(orow, c0 + 8 * j + 2 * t4, acc[j][2 * h] * inv[h],
+                           acc[j][2 * h + 1] * inv[h], d, pairs);
+        }
+        __syncthreads();  // no warp reads stage st's buffer any more
+    }
+    if (row_max != nullptr && t4 == 0) {  // the quad holds the same m and l
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nq) continue;
+            const size_t at = row0 + qoff + r;
+            row_max[at] = m[h] == MASKED_LOGIT2 ? MASKED_LOGIT : m[h] * LN2;
+            row_sum[at] = l[h];
+        }
+    }
+}
+
+// blocks of the packed kernel's grid for B*H lists of N <= 128 docs
+inline long long packed_blocks(long long lists, int N) {
+    const int keys = N <= PACK_KEYS ? PACK_KEYS : LIST_KEYS;
+    return (lists + keys / N - 1) / (keys / N) * (keys / OWN);
+}
+
+template <int KEYS>
+cudaError_t launch_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
+                          float* row_max, float* row_sum, int B, int H, int N, int d,
+                          cudaStream_t stream) {
+    const auto kernel = flash_fwd_packed_mma_kernel<KEYS, PACK_CW>;
+    const size_t bytes = packed_smem_bytes(KEYS, PACK_CW);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int copy = chunk_copy(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 4) ? STORE_PAIRS : 0;
+    const dim3 grid(unsigned(packed_blocks((long long)B * H, N)));
+    kernel<<<grid, MMA_NT, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), row_max, row_sum, B * H, H, N,
+        d, LOG2E / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
 // d <= 128: the kernels above, on the head dim padded to a multiple of 16:
 // KC steps of 16 (the fp32 kernel counts 8-column blocks, NC = 2 * KC)
 int launch_narrow(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -911,6 +1175,23 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask
         if (err != 0) return err;
     }
     return 0;
+}
+
+// The packed kernel: bf16 lists of at most 128 docs (any d), the same
+// arguments as flash_attn_fwd; one launch, whose grid (packed_blocks) must
+// fit grid.x.
+int flash_attn_fwd_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
+                          void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
+                          void* stream) {
+    if (B < 1 || H < 1 || N < 1 || N > LIST_KEYS || d < 1 || dtype != 1
+        || ((row_max == nullptr) != (row_sum == nullptr))
+        || packed_blocks((long long)B * H, N) >= (1LL << 31))
+        return int(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* rm = static_cast<float*>(row_max);
+    float* rs = static_cast<float*>(row_sum);
+    return int(N <= PACK_KEYS ? launch_packed<PACK_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st)
+                              : launch_packed<LIST_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
 }
 
 const char* flash_attn_fwd_error_string(int err) {

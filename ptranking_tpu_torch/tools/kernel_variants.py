@@ -12,10 +12,13 @@ all with nvcc started together. Then it times each variant's kernels, once in
 the listed order and once in reverse: the backward's dk/dv and dq at the
 training shape (32, 2, 1408, 68) bf16 and at the Yahoo! LTR listsf's
 WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16, 32, 64
-and 128 docs), and the packed backward (dq, dk, dv in one launch) at the
-WIDE_SHAPES of at most 64 docs and at PACK_COPY_SHAPES; the forward
-with row statistics at those shapes and at the one-list serving shape
-(1, 2, 1536, 68); the half-step over rows and over columns at 32 x 1408 x
+and 128 docs), the packed backward (dq, dk, dv in one launch) at the
+WIDE_SHAPES of at most 64 docs and at PACK_COPY_SHAPES, and the list
+backward (the same on a 128-row tile of one list) at the WIDE_SHAPES of 128
+docs and at LIST_COPY_SHAPES; the forward with row statistics at those
+shapes and at the one-list serving shape (1, 2, 1536, 68), and the packed
+forward at every WIDE_SHAPE (at 128 docs its tile of one list and all of its
+128 keys) and at PACK_COPY_SHAPES; the half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
 at 32 x 1408. It prints one JSON line per
 variant: registers and spill bytes of the kernels in question, the two times
@@ -51,6 +54,7 @@ WIDE_SHAPES = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 
 # rows where d = 350's 700-byte rows take 4-byte ones, so the difference is
 # the most that any wider staging of d = 350's contiguous tiles could gain.
 PACK_COPY_SHAPES = [(2048, 2, 16, 352), (1024, 2, 32, 352)]
+LIST_COPY_SHAPES = [(256, 2, 128, 352)]
 FWD_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68), *WIDE_SHAPES]
 BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
 SINK_SHAPE = (32, 1408)
@@ -88,6 +92,7 @@ _BWD_SUB = "constexpr int SUB = 32;"
 _PACK_KEEP = "constexpr bool PACK_KEEP = true;"
 _PACK_STAGED = "constexpr bool PACK_STAGED = false;"
 _PACK_CW = "constexpr int PACK_CW = 4;"
+_LIST_HALVES = "constexpr bool LIST_HALVES = false;"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -138,6 +143,9 @@ BWD_VARIANTS = {
     "packed_reread": [(_PACK_KEEP, _PACK_KEEP.replace("true", "false"))],
     "packed_staged": [(_PACK_STAGED, _PACK_STAGED.replace("false", "true"))],
     "packed_cw8": [(_PACK_CW, _PACK_CW.replace("4", "8"))],
+    # the list kernel: S and dP in two 64-key halves, each over the whole d
+    # (Q and dO read twice), instead of one pass over the 128 keys
+    "list_halves": [(_LIST_HALVES, _LIST_HALVES.replace("false", "true"))],
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -163,6 +171,8 @@ FWD_VARIANTS = {
     # the wide kernel (d > 128): 64-column output chunks instead of 128
     "wide_cw4": [("constexpr int WIDE_CW = 8;", "constexpr int WIDE_CW = 4;")],
     **_UNROLL_COPIES,
+    # the packed kernel: 128-column output chunks (step 3's V chunks) instead of 64
+    "packed_cw8": [("constexpr int PACK_CW = 4;", "constexpr int PACK_CW = 8;")],
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -205,7 +215,8 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_dkdv_wgmma_kernel", r"flash_bwd_dq_wgmma_kernel",
                                 r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel",
                                 r"flash_bwd_packed_mma_kernel"],
-             "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel"],
+             "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
+                                r"flash_fwd_packed_mma_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
              "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -257,15 +268,17 @@ def build_all(libs):
 
 
 def registers(lib: str, log: str) -> dict:
-    """{kernel: [registers, spill bytes]} of the library's reported kernels."""
+    """{kernel<template arguments>: [registers, spill bytes]} of the
+    library's reported kernels, one entry for each instantiation."""
     out = {}
     for part in log.split("Compiling entry function '")[1:]:
         entry = part.split("'", 1)[0]
         for pattern in _REPORTED[lib]:
             if re.search(pattern, entry):
                 spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
-                out[pattern] = [int(re.search(r"Used (\d+) registers", part).group(1)),
-                                sum(int(x) for x in spills)]
+                args = ",".join(re.findall(r"L[ib](\d+)E", entry.split(pattern.split("I")[0])[-1]))
+                out[f"{pattern}<{args}>"] = [int(re.search(r"Used (\d+) registers", part).group(1)),
+                                             sum(int(x) for x in spills)]
     return out
 
 
@@ -347,20 +360,35 @@ def bwd_cases(dll, variant):
         args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
                 + [B, H, N, d, 1, stream])
         cases.append((f"packed {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
+    listk = _entry(dll, "flash_attn_bwd_list", [_P] * 11 + [_I] * 5 + [_P])
+    for B, H, N, d in [s for s in BWD_SHAPES if 64 < s[2] <= 128] + LIST_COPY_SHAPES:
+        keep = _bwd_inputs(B, H, N, d)
+        q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
+                + [B, H, N, d, 1, stream])
+        cases.append((f"list {[B, H, N, d]}", lambda a=args: listk(*a), outs, keep))
     return cases
 
 
 def fwd_cases(dll, variant):
-    """[(case, launch, outputs, inputs)] of the forward with row statistics at FWD_SHAPES."""
-    fn = _entry(dll, "flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P])
+    """[(case, launch, outputs, inputs)] of the forward with row statistics at
+    FWD_SHAPES, and of the packed forward at the WIDE_SHAPES (of at most 128
+    docs) and PACK_COPY_SHAPES."""
     stream = torch.cuda.current_stream().cuda_stream
     cases = []
-    for B, H, N, d in FWD_SHAPES:
-        (q, k, v), mask = _attention_inputs(B, H, N, d, 3)
-        outs = (torch.empty_like(q), torch.empty(B, H, N, device="cuda"),
-                torch.empty(B, H, N, device="cuda"))
-        args = [t.data_ptr() for t in (q, k, v, mask, *outs)] + [B, H, N, d, 1, stream]
-        cases.append((str([B, H, N, d]), lambda args=args: fn(*args), outs, (q, k, v, mask)))
+    for entry, shapes in (("flash_attn_fwd", FWD_SHAPES),
+                          ("flash_attn_fwd_packed",
+                           [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES)):
+        fn = _entry(dll, entry, [_P] * 7 + [_I] * 5 + [_P])
+        tag = "packed " if entry.endswith("packed") else ""
+        for B, H, N, d in shapes:
+            (q, k, v), mask = _attention_inputs(B, H, N, d, 3)
+            outs = (torch.empty_like(q), torch.empty(B, H, N, device="cuda"),
+                    torch.empty(B, H, N, device="cuda"))
+            args = [t.data_ptr() for t in (q, k, v, mask, *outs)] + [B, H, N, d, 1, stream]
+            cases.append((tag + str([B, H, N, d]), lambda fn=fn, args=args: fn(*args), outs,
+                          (q, k, v, mask)))
     return cases
 
 

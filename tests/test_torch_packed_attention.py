@@ -1,20 +1,22 @@
-"""The packed attention backward: short lists (N <= 64 docs) at head dims
+"""The packed attention backward: short lists (N <= 128 docs) at head dims
 above 128 in bf16.
 
 csrc/flash_attn_bwd.cu's flash_bwd_packed_mma_kernel puts 64 // N
-consecutive (b, h) lists in one 64-row tile and computes dq, dk and dv of the
-tile in one block; its plain version is attention_backward_packed_plain, the
-same formulas in the same tiles. Here that plain version is held against
-attention_backward_plain (one list at a time) and against the JAX package's
-blockwise attention and its gradients, at the list lengths around the tile
-(N = 1, 5, 16, 20, 33, 64: one list a tile up to 64 a tile, N dividing 64
-or not) and the head dims of a one-head F=136 listsf (136) and the Yahoo!
-LTR listsf (350). B*H = 10 lists leave a partial last tile wherever
-64 // N > 1 does not divide 10, and the lists hold a fully padded one beside
-real ones of every length. Then the route by shape (`bwd_route`, and which
-wrappers `_FlashAttention.backward` calls), the packed grid's shape contract
-and the wrapper's refusals. The kernel itself runs only on the card
-(chip_smoke.py)."""
+consecutive (b, h) lists in one 64-row tile (the packed kernel, N <= 64), or
+one list of 65 .. 128 docs in a 128-row tile (the list kernel), and computes
+dq, dk and dv of the tile in one block; its plain version is
+attention_backward_packed_plain, the same formulas in the same tiles. Here
+that plain version is held against attention_backward_plain (one list at a
+time) and against the JAX package's blockwise attention and its gradients,
+at the list lengths around the tiles (N = 1, 5, 16, 20, 33, 64: one list a
+tile up to 64 a tile, N dividing 64 or not; 65, 100, 128: the list kernel's
+one list a tile, 128 dividing N or not) and the head dims of a one-head
+F=136 listsf (136) and the Yahoo! LTR listsf (350). B*H = 10 lists leave a
+partial last tile wherever 64 // N > 1 does not divide 10, and the lists
+hold a fully padded one beside real ones of every length. Then the route by
+shape (`bwd_route`, and which wrappers `_FlashAttention.backward` calls),
+the packed grids' shape contract and the wrappers' refusals. The kernels
+themselves run only on the card (chip_smoke.py)."""
 
 import types
 
@@ -30,7 +32,7 @@ from ptranking_tpu_torch.ops import attention as tattn
 torch.set_num_threads(1)
 
 B, H = 5, 2
-NS = [1, 5, 16, 20, 33, 64]
+NS = [1, 5, 16, 20, 33, 64, 65, 100, 128]
 DS = [136, 350]
 
 
@@ -149,23 +151,30 @@ def test_packed_plain_leaves_other_lists_keys_out():
 @pytest.mark.parametrize("dtype, N, d, route", [
     (torch.bfloat16, 1, 350, "packed"), (torch.bfloat16, 64, 129, "packed"),
     (torch.bfloat16, tattn.PACK_MAX_N, 384, "packed"),
-    (torch.bfloat16, tattn.PACK_MAX_N + 1, 350, "pair"), (torch.bfloat16, 128, 350, "pair"),
+    (torch.bfloat16, tattn.PACK_MAX_N + 1, 350, "list"), (torch.bfloat16, 128, 350, "list"),
+    (torch.bfloat16, 100, 136, "list"), (torch.bfloat16, 129, 350, "pair"),
+    (torch.bfloat16, 256, 384, "pair"),
     (torch.bfloat16, 16, 128, "pair"), (torch.bfloat16, 16, 68, "pair"),
-    (torch.float32, 16, 350, "pair"), (torch.float32, 64, 136, "pair")])
+    (torch.bfloat16, 128, 128, "pair"),
+    (torch.float32, 16, 350, "pair"), (torch.float32, 64, 136, "pair"),
+    (torch.float32, 128, 350, "pair")])
 def test_bwd_route_by_shape(dtype, N, d, route):
-    """The packed kernel takes bf16, d > 128 and N <= PACK_MAX_N (<= 64);
-    everything else keeps the dk/dv and dq pair."""
-    assert 1 <= tattn.PACK_MAX_N <= 64
+    """At bf16 and d > 128 the packed kernel takes N <= PACK_MAX_N (64), the
+    list kernel PACK_MAX_N < N <= LIST_MAX_N (128); everything else keeps the
+    dk/dv and dq pair."""
+    assert 1 <= tattn.PACK_MAX_N <= 64 and tattn.PACK_MAX_N <= tattn.LIST_MAX_N <= 128
     assert tattn.bwd_route(dtype, N, d) == route
 
 
 @pytest.mark.parametrize("dtype, shape, route", [
-    (torch.bfloat16, (2, 2, 16, 136), "packed"), (torch.bfloat16, (2, 2, 65, 136), "pair"),
+    (torch.bfloat16, (2, 2, 16, 136), "packed"), (torch.bfloat16, (2, 2, 65, 136), "list"),
+    (torch.bfloat16, (2, 2, 129, 136), "pair"),
     (torch.bfloat16, (2, 2, 16, 128), "pair"), (torch.float32, (2, 2, 16, 136), "pair")])
 def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, route):
-    """_FlashAttention.backward calls the packed wrapper alone, or the dk/dv
-    and dq wrappers, as bwd_route says (the wrappers stubbed: the kernels run
-    only on the card), and returns their gradients in the order (dq, dk, dv)."""
+    """_FlashAttention.backward calls the packed or the list wrapper alone,
+    or the dk/dv and dq wrappers, as bwd_route says (the wrappers stubbed:
+    the kernels run only on the card), and returns their gradients in the
+    order (dq, dk, dv)."""
     calls = []
 
     def stub(name, outputs):
@@ -176,6 +185,7 @@ def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, rout
         return run
 
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_PACKED", stub("packed", 3))
+    monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_LIST", stub("list", 3))
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_DKDV", stub("dkdv", 2))
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_DQ", stub("dq", 1))
     q, k, v, dout = (torch.randn(shape).to(dtype) for _ in range(4))
@@ -184,8 +194,8 @@ def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, rout
     ctx = types.SimpleNamespace(saved_tensors=(q, k, v, mask, out, m, l))
     dq, dk, dv, none = tattn._FlashAttention.backward(ctx, dout)
     assert none is None
-    if route == "packed":
-        assert calls == ["packed"]
+    if route in ("packed", "list"):
+        assert calls == [route]
         assert [float(t.float().mean()) for t in (dq, dk, dv)] == [1.0, 2.0, 3.0]
     else:
         assert calls == ["dkdv", "dq"]
@@ -195,7 +205,9 @@ def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, rout
 def test_packed_grid_contract():
     """The packed grid: one block per tile of 64 // N lists on grid.x, one
     launch whatever the batch (B*H past 65535 included); N above 64 and
-    B*H past 2^31 - 1 lists (which the C entry refuses) are refused."""
+    B*H past 2^31 - 1 lists (which the C entry refuses) are refused. The
+    list kernel's: one block per list of 65 .. 128 docs (per 128 // N lists
+    below), N above 128 refused."""
     assert tattn.packed_blocks(2048, 2, 16) == 1024
     assert tattn.packed_blocks(1024, 2, 32) == 1024
     assert tattn.packed_blocks(512, 2, 64) == 1024
@@ -204,23 +216,34 @@ def test_packed_grid_contract():
     assert tattn.packed_blocks(32769, 2, 5) == 5462
     assert tattn.kernel_launches(32769, 2, 5, 8, packed=True) == 1
     assert tattn.kernel_launches(2048, 2, 16, 350, packed=True) == 1
-    tattn.check_grid(32769, 2, 5, 136, packed=True)
-    tattn.check_grid(1, 1, 64, 520, packed=True)
+    packed, listk = "flash_attn_bwd_packed", "flash_attn_bwd_list"
+    tattn.check_grid(32769, 2, 5, 136, packed=packed)
+    tattn.check_grid(1, 1, 64, 520, packed=packed)
     with pytest.raises(ValueError, match="at most 64 docs"):
-        tattn.check_grid(2, 2, 65, 350, packed=True)
+        tattn.check_grid(2, 2, 65, 350, packed=packed)
     with pytest.raises(ValueError, match="at most 2147483647 of them"):
-        tattn.check_grid(2 ** 30, 4, 64, 350, packed=True)
+        tattn.check_grid(2 ** 30, 4, 64, 350, packed=packed)
+    assert tattn.packed_blocks(256, 2, 128, rows=128) == 512
+    assert tattn.packed_blocks(5, 2, 65, rows=128) == 10
+    assert tattn.packed_blocks(5, 2, 64, rows=128) == 5  # two lists a tile below 65 docs
+    tattn.check_grid(256, 2, 128, 350, packed=listk)
+    tattn.check_grid(32769, 2, 100, 136, packed=listk)
+    with pytest.raises(ValueError, match="at most 128 docs"):
+        tattn.check_grid(2, 2, 129, 350, packed=listk)
+    with pytest.raises(ValueError, match="at most 2147483647 of them"):
+        tattn.check_grid(2 ** 30, 4, 128, 350, packed=listk)
     source = (tattn.cuda_build.CSRC / "flash_attn_bwd.cu").read_text()
     assert f"constexpr int PACK_ROWS = {tattn._ROWS};" in source
+    assert f"constexpr int LIST_ROWS = {tattn._LIST_ROWS};" in source
 
 
-def test_packed_wrapper_refuses_what_it_cannot_run():
-    """The wrapper refuses fp32 inputs, lists above 64 docs and CPU tensors,
+def _refuses(kern, longest):
+    """kern refuses fp32 inputs, lists above `longest` docs and CPU tensors,
     each before anything is launched."""
-    kern = tattn.FlashAttnBwdPacked()
     stats = lambda B, N: torch.zeros(B, 2, N)
     for shape, dtype, match in (((2, 2, 16, 136), torch.float32, "bfloat16"),
-                                ((2, 2, 65, 136), torch.bfloat16, "at most 64 docs"),
+                                ((2, 2, longest + 1, 136), torch.bfloat16,
+                                 f"at most {longest} docs"),
                                 ((2, 2, 16, 350), torch.bfloat16, "CUDA tensors")):
         t = torch.zeros(shape, dtype=dtype)
         mask = torch.ones(shape[0], shape[2], dtype=torch.bool)
@@ -228,3 +251,14 @@ def test_packed_wrapper_refuses_what_it_cannot_run():
         with pytest.raises(ValueError, match=match):
             kern(t, t, t, t, s, s, s, mask)
     assert kern.launches == 0
+
+
+def test_packed_wrapper_refuses_what_it_cannot_run():
+    """The wrapper refuses fp32 inputs, lists above 64 docs and CPU tensors,
+    each before anything is launched."""
+    _refuses(tattn.FlashAttnBwdPacked(), 64)
+
+
+def test_list_wrapper_refuses_what_it_cannot_run():
+    """The list kernel's wrapper likewise, with lists above 128 docs."""
+    _refuses(tattn.FlashAttnBwdList(), 128)
