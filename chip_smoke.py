@@ -19,10 +19,12 @@ Phases, in order; any failure exits non-zero:
      launch) and the list backward (the same on a 128-row tile of one list
      of 65..128 docs) against both explicit plain backwards, the same bits
      twice, timed beside the wide pair they replace and SDPA's backward; the
-     packed forward of bf16 lists of at most 128 docs at head dims above 128
-     (S once a tile) against both explicit plain forwards and their row
-     statistics, the same bits twice, timed beside the wide forward it
-     replaces and SDPA; the bf16
+     long backward (one list of 129..256 docs a block, its keys in two
+     halves) likewise; the packed forward of bf16 lists of at most 128 docs
+     at head dims above 128 (S once a tile) and the long forward (lists of
+     129..256 docs, S once in two halves of keys) against both explicit
+     plain forwards and their row statistics, the same bits twice, timed
+     beside the wide forward they replace and SDPA; the bf16
      forward and backward run on the tensor cores; no instantiation of an
      attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
@@ -55,9 +57,10 @@ Phases, in order; any failure exits non-zero:
      dense attention (in the 128-doc bucket, and Yahoo!'s also at 32 docs),
      timed steps of 32,768 docs in each of Yahoo!'s buckets of 16 to 256 docs
      (the one-head model: 256 lists of 128) with exact launch counts (the
-     packed forward up to FWD_PACK_MAX_N docs, the wide forward above; the
-     packed backward up to PACK_MAX_N docs, the list backward up to
-     LIST_MAX_N, the wide pair above), save, restore and step.
+     packed forward up to FWD_PACK_MAX_N docs, the long forward up to
+     LONG_MAX_N, the wide forward above; the packed backward up to
+     PACK_MAX_N docs, the list backward up to LIST_MAX_N, the long backward
+     up to LONG_MAX_N, the wide pair above), save, restore and step.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -91,11 +94,14 @@ ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68,
                (2048, 2, 16, 384, False), (1024, 2, 32, 384, False), (512, 2, 64, 384, False),
                (256, 2, 128, 384, False), (128, 2, 256, 384, False)]
 # the shapes whose numbers go into the kernels' JSON record: the training
-# batch of phase 5 (32 lists of 1408 docs), whose train_epoch gives the
-# record's launch counts, and that of phase 7 where the wide kernels stay on
-# its path, the 256-doc bucket
+# batch of phase 5 (32 lists of 1408 docs) in bf16, whose train_epoch gives
+# the record's launch counts, and for the wide kernels the Yahoo! 256-doc
+# bucket in fp32: in bf16 the packed and long kernels take every Yahoo!
+# bucket, so the wide kernels stay on the path of the fp32 model, whose
+# gradient checks in phase 7 give their launch counts
 RECORD_SHAPE = (32, 2, 1408, 68)
 WIDE_RECORD_SHAPE = (128, 2, 256, 350)
+WIDE_RECORD_DTYPE = "float32"
 # correctness only, no timing: every padded head width the narrow kernels
 # dispatch on (d rounded up to 16), N of one key and N one past a 64-key
 # tile; then the wide kernels (d > 128) at each d-chunk and output-chunk
@@ -170,6 +176,16 @@ PACK_RECORD = (2048, 2, 16, 350)
 LIST_NS = (65, 100, 127, 128)
 LIST_TIMED = [(256, 2, 128, 350), (256, 2, 128, 384)]
 LIST_RECORD = (256, 2, 128, 350)
+# the long backward and forward (bf16 lists of 129..256 docs, one a 256-row
+# tile, its keys in two halves of 128), the same way: PACK_DS x lengths
+# around its halves and tile (129: one key in the second half; 200; 255;
+# 256) at PACK_LISTS, the last b fully padded; B*H = 65538 lists of 129 docs
+# (LONG_BIG: held against the plain versions on its first and last b, by
+# check_long_big); timed in Yahoo!'s 256-doc bucket
+LONG_NS = (129, 200, 255, 256)
+LONG_BIG = (32769, 2, 129, 136)
+LONG_TIMED = [(128, 2, 256, 350), (128, 2, 256, 384)]
+LONG_RECORD = (128, 2, 256, 350)
 # the packed forward (bf16 lists of at most 128 docs: 64 // N a 64-key tile,
 # or one a 128-key tile), correctness at PACK_DS x FWD_PACK_NS at PACK_LISTS
 # and at PACK_BIG, each the same bits twice and with or without statistics:
@@ -194,19 +210,21 @@ PACK_FLOOR = 0.1
 # one, the packed forward two (a 64-key tile of 64 // N lists, a 128-key
 # tile of one list), the packed backward three (64 rows with inputs kept
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
-# list kernel's 128 rows).
+# list kernel's 128 rows), the long forward and backward one each.
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
                                     "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1,
-                                    "flash_fwd_packed_mma_kernel": 2},
+                                    "flash_fwd_packed_mma_kernel": 2,
+                                    "flash_fwd_long_mma_kernel": 1},
                  "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
                                     "flash_bwd_dkdv_kernel": 8, "flash_bwd_dq_kernel": 8,
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
                                     "flash_bwd_dq_wide_mma_kernel": 1,
                                     "flash_bwd_dkdv_wide_kernel": 1,
                                     "flash_bwd_dq_wide_kernel": 1,
-                                    "flash_bwd_packed_mma_kernel": 3}}
+                                    "flash_bwd_packed_mma_kernel": 3,
+                                    "flash_bwd_long_mma_kernel": 1}}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -260,8 +278,9 @@ TRAIN_B, TRAIN_N = 32, 1408
 TRAIN_STEPS = 10
 # launches per training step: 6 encoder layers, one loss (whose backward is
 # two kernels: the pair kernel and the fixed-order reduction)
-LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_fwd_packed": 0, "flash_attn_bwd_dkdv": 6,
-                     "flash_attn_bwd_dq": 6, "flash_attn_bwd_packed": 0, "flash_attn_bwd_list": 0,
+LAUNCHES_PER_STEP = {"flash_attn_fwd": 6, "flash_attn_fwd_packed": 0, "flash_attn_fwd_long": 0,
+                     "flash_attn_bwd_dkdv": 6, "flash_attn_bwd_dq": 6, "flash_attn_bwd_packed": 0,
+                     "flash_attn_bwd_list": 0, "flash_attn_bwd_long": 0,
                      "pairwise_lambda_fwd": 1, "pairwise_lambda_bwd": 2, "sinkstep": 0}
 # phase 6, per WassRank step: 20 Sinkhorn iterations of two half-steps each
 # in the loss's forward, none in its analytic backward
@@ -305,7 +324,7 @@ RESUME_TOL = 1e-6
 # bound) at least 63% of the lists in the buckets of 16 to 64 docs. The
 # timed steps run each bucket of 16 to 256 docs at YAHOO_DOCS docs a step
 # (2048 lists of 16 .. 128 of 256; Yahoo!'s longest lists, 139 docs, land in
-# the 256-doc bucket, where the wide kernels stay on the path); the gradient
+# the 256-doc bucket, the long kernels' route); the gradient
 # check runs ragged lists of 20..128 docs in the 128-doc bucket; the served
 # lists spread log-evenly over 5..139 docs, so a request fills every bucket
 # up to 256.
@@ -521,8 +540,8 @@ def check_plain_forward(q, k, v, mask, worst) -> float:
 
 def check_attention(card: str):
     """Phase 3: the flash kernel against its plain versions at every shape and
-    dtype; returns the bf16 records at RECORD_SHAPE and WIDE_RECORD_SHAPE, by
-    shape."""
+    dtype; returns the records at RECORD_SHAPE (bf16) and WIDE_RECORD_SHAPE
+    (WIDE_RECORD_DTYPE), by shape."""
     import torch
     import torch.nn.functional as Fn
 
@@ -567,7 +586,8 @@ def check_attention(card: str):
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
             print("attn " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if (B, H, N, d) in (RECORD_SHAPE, WIDE_RECORD_SHAPE) and dtype == torch.bfloat16:
+            if ((B, H, N, d), name) in ((RECORD_SHAPE, "bfloat16"),
+                                        (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE)):
                 records[(B, H, N, d)] = rec
     print(f"attn worst error against attention_forward_plain over every shape: "
           f"{json.dumps(worst)}", flush=True)
@@ -618,10 +638,10 @@ def check_attention_bwd(card):
     plain blockwise attention and against attention_backward_plain at every
     shape and dtype, and the times of the dk/dv and dq kernels (the wide
     pair at every wide shape, routed or not);
-    returns the bf16 records for the dk/dv kernel, the dq kernel and the
-    forward with row statistics (the call training makes) at RECORD_SHAPE
-    (by the wrappers' names) and at WIDE_RECORD_SHAPE (the same names with
-    "_wide")."""
+    returns the records for the dk/dv kernel, the dq kernel and the forward
+    with row statistics (the call training makes) at RECORD_SHAPE in bf16
+    (by the wrappers' names) and at WIDE_RECORD_SHAPE in WIDE_RECORD_DTYPE
+    (the same names with "_wide")."""
     import torch
     import torch.nn.functional as Fn
 
@@ -718,7 +738,8 @@ def check_attention_bwd(card):
                        "dq": bound(6.0 * B * H * N * N * d, peak,
                                    5 * val + 3 * stats_bytes + B * N)}}
             print("attn_bwd " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if (B, H, N, d) in (RECORD_SHAPE, WIDE_RECORD_SHAPE) and dtype == torch.bfloat16:
+            if ((B, H, N, d), name) in ((RECORD_SHAPE, "bfloat16"),
+                                        (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE)):
                 tag = "" if (B, H, N, d) == RECORD_SHAPE else "_wide"
                 common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
                 records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
@@ -871,23 +892,26 @@ def check_grid_limits(card):
 
 
 def check_packed(card):
-    """Phase 3: the backward kernels that pack whole lists into a block
+    """Phase 3: the backward kernels that take whole lists into a block
     (FLASH_ATTN_BWD_PACKED: bf16 lists of at most 64 docs, several a 64-row
     tile; FLASH_ATTN_BWD_LIST: lists of 65..128 docs, one a 128-row tile;
-    each dq, dk, dv in one launch) against attention_backward_packed_plain
-    and attention_backward_plain on the forward kernel's output and row
+    FLASH_ATTN_BWD_LONG: lists of 129..256 docs, one a 256-row tile; each
+    dq, dk, dv in one launch) against attention_backward_packed_plain and
+    attention_backward_plain on the forward kernel's output and row
     statistics: the packed kernel at PACK_DS x PACK_NS and at PACK_BIG, the
-    list kernel at PACK_DS x LIST_NS, and both where they are timed, each the
+    list kernel at PACK_DS x LIST_NS, the long kernel at PACK_DS x LONG_NS
+    (and at LONG_BIG: check_long_big), and each where it is timed, each the
     same bits on two runs and one launch a call; where timed (PACK_TIMED,
-    LIST_TIMED) also the time of the kernel, of the wide dk/dv and dq pair it
-    replaces there, of SDPA's backward alone, of the plain version, and the
-    bound. Returns the records at PACK_RECORD and LIST_RECORD."""
+    LIST_TIMED, LONG_TIMED) also the time of the kernel, of the wide dk/dv
+    and dq pair it replaces there, of SDPA's backward alone, of the plain
+    version, and the bound. Returns the records at PACK_RECORD, LIST_RECORD
+    and LONG_RECORD."""
     import torch
     import torch.nn.functional as Fn
 
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
-                                                   FLASH_ATTN_BWD_LIST, FLASH_ATTN_BWD_PACKED,
-                                                   FLASH_ATTN_FWD,
+                                                   FLASH_ATTN_BWD_LIST, FLASH_ATTN_BWD_LONG,
+                                                   FLASH_ATTN_BWD_PACKED, FLASH_ATTN_FWD,
                                                    attention_backward_packed_plain,
                                                    attention_backward_plain)
 
@@ -928,7 +952,8 @@ def check_packed(card):
     records = {}
     for kernel, ns, big, timed, record in (
             (FLASH_ATTN_BWD_PACKED, PACK_NS, [(*PACK_BIG, True)], PACK_TIMED, PACK_RECORD),
-            (FLASH_ATTN_BWD_LIST, LIST_NS, [], LIST_TIMED, LIST_RECORD)):
+            (FLASH_ATTN_BWD_LIST, LIST_NS, [], LIST_TIMED, LIST_RECORD),
+            (FLASH_ATTN_BWD_LONG, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
         worst = {}
         shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in ns] + big
         for shape in shapes:
@@ -977,25 +1002,27 @@ def check_packed(card):
 
 
 def check_packed_fwd(card):
-    """Phase 3: the packed forward kernel (FLASH_ATTN_FWD_PACKED: bf16 lists
-    of at most 128 docs, S once a tile, one launch) against
-    attention_forward_packed_plain and attention_forward_plain, output and
-    row statistics, at PACK_DS x FWD_PACK_NS and at PACK_BIG: the same bits
-    on two runs, the same output with and without statistics, one launch a
-    call; at FWD_PACK_TIMED also the time of the kernel with statistics (the
-    call training makes), of the wide forward it replaces there, of SDPA's
-    forward, of the packed plain version, and the bound. Returns the record
-    at FWD_PACK_RECORD."""
+    """Phase 3: the forward kernels that take whole lists into a block
+    (FLASH_ATTN_FWD_PACKED: bf16 lists of at most 128 docs, S once a tile;
+    FLASH_ATTN_FWD_LONG: lists of 129..256 docs, S once a 256-key tile in
+    two halves; one launch each) against attention_forward_packed_plain and
+    attention_forward_plain, output and row statistics, the packed kernel
+    at PACK_DS x FWD_PACK_NS and at PACK_BIG, the long kernel at PACK_DS x
+    LONG_NS (and at LONG_BIG: check_long_big): the same bits on two runs,
+    the same output with and without statistics, one launch a call; at
+    FWD_PACK_TIMED and LONG_TIMED also the time of the kernel with
+    statistics (the call training makes), of the wide forward it replaces
+    there, of SDPA's forward, of the packed plain version, and the bound.
+    Returns the records at FWD_PACK_RECORD and LONG_RECORD."""
     import torch
     import torch.nn.functional as Fn
 
-    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED,
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_FWD, FLASH_ATTN_FWD_LONG,
+                                                   FLASH_ATTN_FWD_PACKED,
                                                    attention_forward_packed_plain,
                                                    attention_forward_plain)
 
-    kernel = FLASH_ATTN_FWD_PACKED
-
-    def run(B, H, N, d, all_padded):
+    def run(kernel, B, H, N, d, all_padded):
         """The kernel against both plain versions; returns (inputs, errors)."""
         q, k, v, mask = attention_inputs(B, H, N, d, all_padded, torch.bfloat16)
         start = kernel.launches
@@ -1026,38 +1053,113 @@ def check_packed_fwd(card):
             errs.update({f"{which}_{key}": x for key, x in e.items()})
         return (q, k, v, mask), errs
 
-    worst = {}
-    shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in FWD_PACK_NS] + [(*PACK_BIG, True)]
-    for shape in shapes:
-        _, errs = run(*shape)
-        for key, e in errs.items():
-            worst[key] = max(worst.get(key, 0.0), e)
-    print(f"attn fwd packed: {len(shapes)} shapes agree with both plain versions, each the same "
-          f"bits on two runs; worst error (out: relative to the packed plain version, absolute "
-          f"to attention_forward_plain) {json.dumps(worst)}  [{card}]", flush=True)
+    records = {}
+    for kernel, ns, big, timed, record in (
+            (FLASH_ATTN_FWD_PACKED, FWD_PACK_NS, [(*PACK_BIG, True)], FWD_PACK_TIMED,
+             FWD_PACK_RECORD),
+            (FLASH_ATTN_FWD_LONG, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+        worst = {}
+        shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in ns] + big
+        for shape in shapes:
+            _, errs = run(kernel, *shape)
+            for key, e in errs.items():
+                worst[key] = max(worst.get(key, 0.0), e)
+        print(f"attn fwd {kernel.name}: {len(shapes)} shapes agree with both plain versions, "
+              f"each the same bits on two runs; worst error (out: relative to the packed plain "
+              f"version, absolute to attention_forward_plain) {json.dumps(worst)}  [{card}]",
+              flush=True)
 
-    record = None
-    for (B, H, N, d) in FWD_PACK_TIMED:
-        (q, k, v, mask), errs = run(B, H, N, d, False)
-        bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(B, H, N, N)
-        times = {"kernel": cuda_time_ms(lambda: kernel(q, k, v, mask, stats=True), 50),
-                 "wide": cuda_time_ms(lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True), 20),
-                 "library": cuda_time_ms(
-                     lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=bias), 50),
-                 "plain": cuda_time_ms(lambda: attention_forward_packed_plain(q, k, v, mask), 5)}
-        # q, k, v read and o written once; the mask; the row statistics written
-        bnd = bound(4.0 * B * H * N * N * d, BF16_PEAK,
-                    4 * B * H * N * d * 2 + B * N + 2 * B * H * N * 4)
-        rec = {"shape": [B, H, N, d], "ms": times, "wide_over_kernel": times["wide"] / times["kernel"],
-               "library_over_kernel": times["library"] / times["kernel"], "errors": errs, **bnd}
-        print("attn_fwd_packed " + json.dumps(rec) + f"  [{card}]", flush=True)
-        if (B, H, N, d) == FWD_PACK_RECORD:
-            record = {"max_abs_err": float((kernel(q, k, v, mask).float()
-                                            - attention_forward_plain(q, k, v, mask)[0].float())
-                                           .abs().max()),
-                      "ms": times["kernel"], "plain_ms": times["plain"],
-                      "library_ms": times["library"], **bnd}
-    return {kernel.name: record}
+        for (B, H, N, d) in timed:
+            (q, k, v, mask), errs = run(kernel, B, H, N, d, False)
+            bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(
+                B, H, N, N)
+            times = {"kernel": cuda_time_ms(lambda: kernel(q, k, v, mask, stats=True), 50),
+                     "wide": cuda_time_ms(lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True), 20),
+                     "library": cuda_time_ms(
+                         lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=bias), 50),
+                     "plain": cuda_time_ms(lambda: attention_forward_packed_plain(q, k, v, mask),
+                                           5)}
+            # q, k, v read and o written once; the mask; the row statistics written
+            bnd = bound(4.0 * B * H * N * N * d, BF16_PEAK,
+                        4 * B * H * N * d * 2 + B * N + 2 * B * H * N * 4)
+            rec = {"shape": [B, H, N, d], "ms": times,
+                   "wide_over_kernel": times["wide"] / times["kernel"],
+                   "library_over_kernel": times["library"] / times["kernel"], "errors": errs, **bnd}
+            print(f"attn_fwd_{kernel.name.split('_')[-1]} " + json.dumps(rec) + f"  [{card}]",
+                  flush=True)
+            if (B, H, N, d) == record:
+                records[kernel.name] = {
+                    "max_abs_err": float((kernel(q, k, v, mask).float()
+                                          - attention_forward_plain(q, k, v, mask)[0].float())
+                                         .abs().max()),
+                    "ms": times["kernel"], "plain_ms": times["plain"],
+                    "library_ms": times["library"], **bnd}
+    return records
+
+
+def check_long_big(card):
+    """Phase 3: the long forward and backward at LONG_BIG, B*H past 65535
+    lists (bf16, the last b fully padded, inputs drawn on the card): each
+    the same bits on two runs and one launch a call, and on the first and
+    the last two b (the last blocks of the grid) against both plain versions
+    of those lists alone (a list's outputs depend on that list alone), under
+    the gates of check_packed_fwd and check_packed."""
+    import torch
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_LONG, FLASH_ATTN_FWD_LONG,
+                                                   attention_backward_packed_plain,
+                                                   attention_backward_plain,
+                                                   attention_forward_packed_plain,
+                                                   attention_forward_plain)
+
+    B, H, N, d = LONG_BIG
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn(B, H, N, d, device="cuda", generator=g).to(torch.bfloat16)
+                     for _ in range(4))
+    lengths = torch.randint(N // 4, N + 1, (B,), device="cuda", generator=g)
+    lengths[0], lengths[-1] = N, 0
+    mask = torch.arange(N, device="cuda")[None, :] < lengths[:, None]
+    start = (FLASH_ATTN_FWD_LONG.launches, FLASH_ATTN_BWD_LONG.launches)
+    fwd = [FLASH_ATTN_FWD_LONG(q, k, v, mask, stats=True) for _ in range(2)]
+    out, row_max, row_sum = fwd[0]
+    dsum = torch.sum(dout.float() * out.float(), dim=-1)
+    args = (q, k, v, dout, row_max, row_sum, dsum, mask)
+    bwd = [FLASH_ATTN_BWD_LONG(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = (FLASH_ATTN_FWD_LONG.launches - start[0], FLASH_ATTN_BWD_LONG.launches - start[1])
+    same = [torch.equal(a, b) for a, b in zip((*fwd[0], *bwd[0]), (*fwd[1], *bwd[1]))]
+    if launched != (2, 2) or not all(same):
+        raise AssertionError(f"long kernels at {LONG_BIG}: {launched} launches for 2 calls each, "
+                             f"the same bits twice: {same}")
+    rec = {"shape": list(LONG_BIG)}
+    for name, part in (("first", slice(0, 1)), ("last", slice(B - 2, B))):
+        sub = [t[part] for t in (q, k, v, dout, mask)]
+        sq, sk, sv, sdo, sm = sub
+        ref_plain = attention_forward_packed_plain(sq, sk, sv, sm)
+        ref = attention_forward_plain(sq, sk, sv, sm)
+        got = [t[part] for t in fwd[0]]
+        e = {"out_vs_packed_plain": rel_err(got[0], ref_plain[0]),
+             "out_vs_plain": float((got[0].float() - ref[0].float()).abs().max()),
+             "row_max": max(float(((got[1] - r[1]).abs() / (1.0 + r[1].abs())).max())
+                            for r in (ref_plain, ref)),
+             "row_sum": max(float(((got[2] - r[2]).abs() / r[2]).max()) for r in (ref_plain, ref))}
+        if (not e["out_vs_packed_plain"] <= FWD_PLAIN_TOL["bfloat16"]
+                or not e["out_vs_plain"] <= ATTN_TOL["bfloat16"]
+                or not max(e["row_max"], e["row_sum"]) <= STATS_TOL):
+            raise AssertionError(f"{FLASH_ATTN_FWD_LONG.name} {LONG_BIG}, {name} b: {e}")
+        plain_args = (sq, sk, sv, sdo, got[0], got[1], got[2], sm)
+        for which, ref_b in (("packed_plain", attention_backward_packed_plain(*plain_args)),
+                             ("plain", attention_backward_plain(*plain_args))):
+            floor = PACK_FLOOR * float(ref_b[2].float().abs().max())
+            for gname, a, b in zip(("dq", "dk", "dv"), (t[part] for t in bwd[0]), ref_b):
+                rel = float((a.float() - b.float()).abs().max()) / max(
+                    float(b.float().abs().max()), floor)
+                if not bool(torch.isfinite(a.float()).all()) or not rel <= BWD_TOL["bfloat16"]:
+                    raise AssertionError(f"{FLASH_ATTN_BWD_LONG.name} {LONG_BIG}, {name} b, "
+                                         f"against {which}: {gname} relative error {rel}")
+                e[f"{which}_{gname}"] = rel
+        rec[name] = e
+    print("long_big " + json.dumps(rec) + f"  [{card}]", flush=True)
 
 
 def sink_case(B, N, lengths, seed=0, dense=False, extreme=None):
@@ -1238,7 +1340,9 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
     """Phase 4: a ranker served over HTTP on the card: the flagship by
     default, or `cfg` on `lengths`; score_file then scores a LETOR file of
     `data_id` (of the model's width) with 8 queries of `letor_docs` docs.
-    Returns the kernel's launch count from the one served request."""
+    Returns the kernel's launch count from the one served request: 6 a
+    batch, each batch's through the forward wrapper that fwd_route names for
+    its list length."""
     import dataclasses
     import threading
 
@@ -1249,7 +1353,8 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
     from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
     from ptranking_tpu_torch.data.letor import write_letor_file
     from ptranking_tpu_torch.models import ScorerConfig, apply_scorer
-    from ptranking_tpu_torch.ops.attention import FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_FWD, FLASH_ATTN_FWD_LONG,
+                                                   FLASH_ATTN_FWD_PACKED, fwd_route)
     from ptranking_tpu_torch.score import score_file
     from ptranking_tpu_torch.serve import ScoringService, make_server
     from ptranking_tpu_torch.train import AdhocRanker
@@ -1275,7 +1380,14 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/score"
-    forwards = (FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED)  # by fwd_route, batch by batch
+    forwards = (FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED, FLASH_ATTN_FWD_LONG)
+    wrapper = {"flash": FLASH_ATTN_FWD.name, "packed": FLASH_ATTN_FWD_PACKED.name,
+               "long": FLASH_ATTN_FWD_LONG.name}
+    expected = {k.name: 0 for k in forwards}  # by fwd_route, batch by batch
+    for b in ds.batches():
+        route = fwd_route(getattr(torch, cfg.compute_dtype), b.mask.shape[1],
+                          cfg.width // cfg.n_heads)
+        expected[wrapper[route]] += 6
     try:
         for k in forwards:
             k.launches = 0
@@ -1291,9 +1403,9 @@ def serve_phase(card: str, work_dir: str, cfg=None, lengths=SERVE_LENGTHS,
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    if launches != 6 * len(ds):
+    if launches != 6 * len(ds) or by_kernel != expected:
         raise AssertionError(f"the forward kernels launched {by_kernel} times for "
-                             f"{len(ds)} batches; expected 6 per batch")
+                             f"{len(ds)} batches; expected {expected}: 6 per batch")
     got = scores_by_docid(answer["results"])
     want = scores_by_docid(dense.score(payload)["results"])
     if len(got) != n_docs or set(got) != set(want):
@@ -1365,8 +1477,9 @@ def kernel_counters():
     from ptranking_tpu_torch.ops.sinkhorn_fused import SINKSTEP
 
     attn = (attention.FLASH_ATTN_FWD, attention.FLASH_ATTN_FWD_PACKED,
-            attention.FLASH_ATTN_BWD_DKDV, attention.FLASH_ATTN_BWD_DQ,
-            attention.FLASH_ATTN_BWD_PACKED, attention.FLASH_ATTN_BWD_LIST)
+            attention.FLASH_ATTN_FWD_LONG, attention.FLASH_ATTN_BWD_DKDV,
+            attention.FLASH_ATTN_BWD_DQ, attention.FLASH_ATTN_BWD_PACKED,
+            attention.FLASH_ATTN_BWD_LIST, attention.FLASH_ATTN_BWD_LONG)
     return {**{k.name: k for k in attn}, "pairwise_lambda_fwd": PAIRWISE_LAMBDA_FWD,
             "pairwise_lambda_bwd": PAIRWISE_LAMBDA_BWD, "sinkstep": SINKSTEP}
 
@@ -1782,10 +1895,11 @@ def wassrank_phase(card: str, work_dir: str) -> dict:
 
 def wide_launches(N: int, d: int, dtype: str = "bfloat16") -> dict:
     """Launches a step of the listsf (6 layers) at head dim d > 128 with
-    lists of N docs in `dtype`, by the routes: the forward's (the packed
-    forward in bf16 up to FWD_PACK_MAX_N docs, else the wide kernel) and the
-    backward's (in bf16 the packed backward up to PACK_MAX_N docs, the list
-    backward up to LIST_MAX_N, else the wide pair)."""
+    lists of N docs in `dtype`, by the routes: the forward's (in bf16 the
+    packed forward up to FWD_PACK_MAX_N docs, the long forward up to
+    LONG_MAX_N, else the wide kernel) and the backward's (in bf16 the packed
+    backward up to PACK_MAX_N docs, the list backward up to LIST_MAX_N, the
+    long backward up to LONG_MAX_N, else the wide pair)."""
     import torch
 
     from ptranking_tpu_torch.ops.attention import bwd_route, fwd_route
@@ -1794,9 +1908,11 @@ def wide_launches(N: int, d: int, dtype: str = "bfloat16") -> dict:
     fwd, bwd = fwd_route(dt, N, d), bwd_route(dt, N, d)
     return {**LAUNCHES_PER_STEP, "flash_attn_fwd": 6 * (fwd == "flash"),
             "flash_attn_fwd_packed": 6 * (fwd == "packed"),
+            "flash_attn_fwd_long": 6 * (fwd == "long"),
             "flash_attn_bwd_dkdv": 6 * (bwd == "pair"), "flash_attn_bwd_dq": 6 * (bwd == "pair"),
             "flash_attn_bwd_packed": 6 * (bwd == "packed"),
-            "flash_attn_bwd_list": 6 * (bwd == "list")}
+            "flash_attn_bwd_list": 6 * (bwd == "list"),
+            "flash_attn_bwd_long": 6 * (bwd == "long")}
 
 
 def wide_phase(card: str, work_dir: str) -> dict:
@@ -1808,14 +1924,16 @@ def wide_phase(card: str, work_dir: str) -> dict:
     in the YAHOO_GRAD_CHECK bucket, fp32 held, bf16 printed (Yahoo!'s also at
     YAHOO_PACKED_CHECK docs, through the packed kernels); (c) timed steps of
     YAHOO_DOCS docs in each of Yahoo!'s YAHOO_BUCKETS (the one-head model:
-    the 128-doc bucket), with exact launch counts (wide_launches); (d) save,
-    restore, one more step on both. Returns the launch counts of (c) for the
-    first model, summed over its buckets."""
+    the 128-doc bucket), with exact launch counts (wide_launches: in bf16 no
+    Yahoo! bucket reaches a wide kernel); (d) save, restore, one more step
+    on both. Returns the launch counts of (c) for the first model, summed
+    over its buckets, and those of its fp32 gradient check (b): the wide
+    kernels' path."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
 
-    counts, first = {}, True
+    counts, fp32_counts, first = {}, {}, True
     for name, F, n_heads, lane_align, data_id in WIDE_MODELS:
         cfg = ScorerConfig.default_listsf(F, compute_dtype="bfloat16", flash_attn=True,
                                           lane_align=lane_align, n_heads=n_heads)
@@ -1834,6 +1952,8 @@ def wide_phase(card: str, work_dir: str) -> dict:
                                           x, labels, mask, f"{tag} gradient check",
                                           wide_launches(N, d, dtype))
                     for dtype in ("float32", "bfloat16")}
+        if first:  # grads_vs_dense held the counts to wide_launches
+            fp32_counts = wide_launches(N, d, "float32")
         print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
 
         if name == "yahoo":  # the same in a bucket of the packed backward: the mean list's
@@ -1862,7 +1982,7 @@ def wide_phase(card: str, work_dir: str) -> dict:
         rec = resume_check(ranker, [batch], os.path.join(work_dir, f"{tag}.trained.pt"),
                            f"{tag} resume")
         print(f"{tag}_resume " + json.dumps(rec) + f"  [{card}]", flush=True)
-    return counts
+    return counts, fp32_counts
 
 
 def main() -> int:
@@ -1906,6 +2026,7 @@ def main() -> int:
     check_grid_limits(card)
     records.update(check_packed(card))
     records.update(check_packed_fwd(card))
+    check_long_big(card)
     records.update(check_sinkstep(card))
 
     phase("serve")
@@ -1920,11 +2041,15 @@ def main() -> int:
     launches["sinkstep"] = wassrank_phase(card, work_dir)["sinkstep"]
 
     phase("wide")
-    wide = wide_phase(card, work_dir)
+    wide, wide_fp32 = wide_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
-        launches[name + "_wide"] = wide[name]
-    for name in ("flash_attn_fwd_packed", "flash_attn_bwd_packed", "flash_attn_bwd_list"):
+        launches[name + "_wide"] = wide_fp32[name]
+    for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",
+                 "flash_attn_bwd_list", "flash_attn_bwd_long"):
         launches[name] = wide[name]
+    idle = [name for name, n in launches.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
 
     sources = {
         "flash_attn_fwd": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
@@ -1940,8 +2065,9 @@ def main() -> int:
         "sinkstep": ("ptranking_tpu_torch/ops/csrc/sinkstep.cu",
                      "ptranking_tpu/ops/pallas/sinkhorn.py:26"),
         # the same wrappers at d > 128 (the Yahoo! LTR listsf's d = 350): the
-        # wide kernels, record in the 256-doc bucket (WIDE_RECORD_SHAPE);
-        # launches from phase 7's timed steps of that model
+        # wide kernels, record in the 256-doc bucket (WIDE_RECORD_SHAPE) in
+        # fp32 (WIDE_RECORD_DTYPE), launches from phase 7's fp32 gradient
+        # check of that model: in bf16 no Yahoo! bucket reaches them
         "flash_attn_fwd_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                 "ptranking_tpu/ops/attention.py:129"),
         "flash_attn_bwd_dkdv_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
@@ -1961,6 +2087,13 @@ def main() -> int:
         # record at FWD_PACK_RECORD
         "flash_attn_fwd_packed": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                   "ptranking_tpu/ops/attention.py:172"),
+        # the bf16 forward and backward of lists of FWD_PACK_MAX_N + 1 ..
+        # LONG_MAX_N docs at d > 128 (Yahoo!'s 256-doc bucket): record at
+        # LONG_RECORD, launches from phase 7's timed steps of the d = 350 model
+        "flash_attn_fwd_long": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                                "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_bwd_long": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

@@ -18,17 +18,21 @@ dropout (the JAX package applies none on its flash path either):
     and backward kernels' formulas in plain torch, with the kernels' tiles,
     row statistics and rounding points, and `attention_forward_packed_plain`
     and `attention_backward_packed_plain`, the same forward and backward in
-    the tiles of the kernels that pack whole short lists into a block.
+    the tiles of the kernels that take whole lists of at most 256 docs into
+    a block.
     Tests and the card check hold the kernels against them; no training or
     serving path calls them.
 
 At head dims above 128 the bf16 forward takes, for lists of at most
 FWD_PACK_MAX_N docs, the packed forward kernel (S once a tile of 64 // N
-lists, or of one list of up to 128 docs), and the wide kernel otherwise
-(`fwd_route`). The bf16 backward takes, for lists of at most PACK_MAX_N
-docs, the packed kernel (dq, dk and dv of 64 // N lists a block, one
-launch), for lists of at most LIST_MAX_N docs the list kernel (the same on
-a 128-row tile, one list a block), and the wide dk/dv and dq kernels
+lists, or of one list of up to 128 docs), for lists of at most LONG_MAX_N
+docs the long forward kernel (S once a 256-key tile of one list, in two
+halves), and the wide kernel otherwise (`fwd_route`). The bf16 backward
+takes, for lists of at most PACK_MAX_N docs, the packed kernel (dq, dk and
+dv of 64 // N lists a block, one launch), for lists of at most LIST_MAX_N
+docs the list kernel (the same on a 128-row tile, one list a block), for
+lists of at most LONG_MAX_N docs the long kernel (one list of up to 256
+docs a block, in two halves of its keys), and the wide dk/dv and dq kernels
 otherwise (`bwd_route`).
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
@@ -148,11 +152,12 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _tile_rows(N: int) -> int:
-    """Rows of the packed kernels' tile for lists of N docs: 64 (64 // N
-    lists a tile) up to 64 docs, 128 (one list) up to 128; raises beyond."""
-    if not 1 <= N <= _LIST_ROWS:
-        raise ValueError(f"packed tiles take lists of at most {_LIST_ROWS} docs; got N = {N}")
-    return _ROWS if N <= _ROWS else _LIST_ROWS
+    """Rows of the packing kernels' tile for lists of N docs: 64 (64 // N
+    lists a tile) up to 64 docs, 128 (one list) up to 128, 256 (one list,
+    the long kernels) up to 256; raises beyond."""
+    if not 1 <= N <= _LONG_ROWS:
+        raise ValueError(f"packed tiles take lists of at most {_LONG_ROWS} docs; got N = {N}")
+    return _ROWS if N <= _ROWS else _LIST_ROWS if N <= _LIST_ROWS else _LONG_ROWS
 
 
 def _packing(mask: torch.Tensor, H: int, N: int, rows: int):
@@ -189,30 +194,45 @@ def _packing(mask: torch.Tensor, H: int, N: int, rows: int):
 
 def attention_forward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    mask: torch.Tensor):
-    """attention_forward_plain's (out, row_max, row_sum) for lists of N <= 128
-    docs, in the packed forward kernel's tiles (`_packing`): 64 // N lists a
-    64-row tile up to 64 docs, one list a 128-row tile above. All of a row's
-    keys lie in its tile, so the softmax takes them in one pass:
+    """attention_forward_plain's (out, row_max, row_sum) for lists of N <= 256
+    docs, in the tiles of the packed forward kernel (64 // N lists a 64-row
+    tile up to 64 docs, one list a 128-row tile up to 128) and of the long
+    forward kernel (one list a 256-row tile above): `_packing`. All of a
+    row's keys lie in its tile; the softmax takes them in halves of at most
+    128 keys (one up to 128 docs, two above), online from m = -1e30, l = 0,
+    O = 0:
 
         x = q k^T * scale (a masked key of the row's list: the constant -1e9;
-        a key of another list: left out, p = 0), m = max(-1e30, max x),
-        p = exp(x - m), l = sum p, O = (p rounded to the inputs' dtype) v / l
+        a key of another list: left out, p = 0), m' = max(m, max x over the
+        half), p = exp(x - m'), l' = l exp(m - m') + sum p,
+        O' = O exp(m - m') + (p rounded to the inputs' dtype) v,
 
-    with fp32 logits, p, l and accumulation and one rounding at the output.
-    Up to 64 docs that is attention_forward_plain's one 64-key tile; above,
-    attention_forward_plain rescales between two 64-key tiles, so its first
-    tile's p is rounded against that tile's max, the kernel's against the
-    row's. A list with no real key gets m = -1e9, l = N and the mean of v."""
+    with fp32 logits, p, l and accumulation and one rounding at the output
+    O / l. Up to 64 docs that is attention_forward_plain's one 64-key tile;
+    above, attention_forward_plain rescales between 64-key tiles, so its p
+    is rounded against each tile's running max, the kernels' against each
+    half's (up to 128 docs: the row's). A list with no real key gets
+    m = -1e9, l = N and the mean of v."""
     B, H, N, d = q.shape
-    pack, unpack, same, real = _packing(mask, H, N, _tile_rows(N))
+    rows = _tile_rows(N)
+    pack, unpack, same, real = _packing(mask, H, N, rows)
     scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32, device=q.device))
     qf, kf, vf = pack(q), pack(k), pack(v)
     x = torch.where(real, torch.matmul(qf, kf.transpose(-1, -2)) * scale,
                     torch.where(same, _NEG, float("-inf")))
-    m = torch.clamp(x.amax(dim=-1), min=-1e30)  # -1e30 on an empty row: every p is 0
-    p = torch.exp(x - m[..., None])
-    l = p.sum(dim=-1)
-    out = torch.matmul(p.to(v.dtype).float(), vf) * (1.0 / l)[..., None]
+    m = torch.full(x.shape[:-1], -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    out = torch.zeros_like(qf)
+    for s in range(0, rows, _LONG_HALF):
+        xs = x[..., s:s + _LONG_HALF]
+        m_new = torch.maximum(m, xs.amax(dim=-1))  # -1e30 on an empty row: every p is 0
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(xs - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        out = out * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                    vf[:, s:s + _LONG_HALF])
+        m = m_new
+    out = out * (1.0 / l)[..., None]
     stats = (unpack(t[..., None], torch.float32)[..., 0] for t in (m, l))
     return (unpack(out, q.dtype), *stats)
 
@@ -221,13 +241,16 @@ def attention_backward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.T
                                     dout: torch.Tensor, out: torch.Tensor,
                                     row_max: torch.Tensor, row_sum: torch.Tensor,
                                     mask: torch.Tensor):
-    """attention_backward_plain's (dq, dk, dv) for lists of N <= 128 docs, in
-    the tiles of the packed kernel (64 // N lists a 64-row tile, N <= 64) and
-    of the list kernel (one list a 128-row tile, 64 < N <= 128): `_packing`.
-    Within a tile, a key of another list is left out (P = dS = 0), a masked
-    key of the row's own list gets the logit -1e9 and dS = 0; then
+    """attention_backward_plain's (dq, dk, dv) for lists of N <= 256 docs, in
+    the tiles of the packed kernel (64 // N lists a 64-row tile, N <= 64), of
+    the list kernel (one list a 128-row tile, 64 < N <= 128) and of the long
+    kernel (one list a 256-row tile, 128 < N <= 256): `_packing`. Within a
+    tile, a key of another list is left out (P = dS = 0), a masked key of
+    the row's own list gets the logit -1e9 and dS = 0; then
     attention_backward_plain's formulas and rounding points on the tile, and
-    the empty rows dropped."""
+    the empty rows dropped. (The long kernel sums dq over its two halves of
+    keys in fp32 before the one rounding: a summation order, not a rounding
+    point.)"""
     B, H, N, d = q.shape
     pack, unpack, same, real = _packing(mask, H, N, _tile_rows(N))
     scale = 1.0 / float(d) ** 0.5
@@ -248,12 +271,14 @@ def attention_backward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.T
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_LIB = cuda_build.KernelLib("flash_attn_fwd",
                                 {"flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_P],
-                                 "flash_attn_fwd_packed": [_P] * 7 + [_I] * 5 + [_P]})
+                                 "flash_attn_fwd_packed": [_P] * 7 + [_I] * 5 + [_P],
+                                 "flash_attn_fwd_long": [_P] * 7 + [_I] * 5 + [_P]})
 _BWD_LIB = cuda_build.KernelLib("flash_attn_bwd",
                                 {"flash_attn_bwd_dkdv": [_P] * 10 + [_I] * 5 + [_P],
                                  "flash_attn_bwd_dq": [_P] * 9 + [_I] * 5 + [_P],
                                  "flash_attn_bwd_packed": [_P] * 11 + [_I] * 5 + [_P],
-                                 "flash_attn_bwd_list": [_P] * 11 + [_I] * 5 + [_P]})
+                                 "flash_attn_bwd_list": [_P] * 11 + [_I] * 5 + [_P],
+                                 "flash_attn_bwd_long": [_P] * 12 + [_I] * 5 + [_P]})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -263,8 +288,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # columns for the fp32 kernels and bf16 dk/dv, 128 for the bf16 forward and dq)
 _ROWS, _NARROW_D, _WIDE_COLUMNS = 64, 128, 64
 # the tile of one list of up to 128 docs: the packed forward's keys
-# (LIST_KEYS) and the list backward's rows (LIST_ROWS)
+# (LIST_KEYS) and the list backward's rows (LIST_ROWS); of one list of up to
+# 256 docs, the long kernels' (LONG_KEYS, LONG_ROWS), whose keys go in two
+# halves (LONG_HALF)
 _LIST_ROWS = 128
+_LONG_ROWS, _LONG_HALF = 256, 128
 _MAX_X, _MAX_Y = 2 ** 31 - 1, 65535  # blocks on grid.x and on grid.y
 
 # Routes of the bf16 kernels at d > 128, each the widest bucket at which the
@@ -273,43 +301,56 @@ _MAX_X, _MAX_Y = 2 ** 31 - 1, 65535  # blocks on grid.x and on grid.y
 # or of one list of up to 128 docs) up to FWD_PACK_MAX_N docs; the packed
 # backward (one launch for dq, dk and dv, 64 // N lists a 64-row tile) up to
 # PACK_MAX_N docs, and the list backward (the same on a 128-row tile of one
-# list) up to LIST_MAX_N, in place of the wide dk/dv and dq pair.
+# list) up to LIST_MAX_N, in place of the wide dk/dv and dq pair; the long
+# forward and backward (one list of up to 256 docs a block, its keys in two
+# halves of 128) up to LONG_MAX_N.
 FWD_PACK_MAX_N = 128
 PACK_MAX_N = 64
 LIST_MAX_N = 128
+LONG_MAX_N = 256
 
 
 def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     """The forward's kernel for inputs of `dtype` with N docs a list and head
-    dim d: "packed" (FlashAttnFwdPacked) for bf16, d > 128 and
-    N <= FWD_PACK_MAX_N; else "flash" (FlashAttnFwd)."""
-    packed = dtype == torch.bfloat16 and d > _NARROW_D and N <= FWD_PACK_MAX_N
-    return "packed" if packed else "flash"
+    dim d: for bf16 and d > 128, "packed" (FlashAttnFwdPacked) at
+    N <= FWD_PACK_MAX_N and "long" (FlashAttnFwdLong) at N <= LONG_MAX_N;
+    else "flash" (FlashAttnFwd)."""
+    if dtype == torch.bfloat16 and d > _NARROW_D:
+        if N <= FWD_PACK_MAX_N:
+            return "packed"
+        if N <= LONG_MAX_N:
+            return "long"
+    return "flash"
 
 
 def bwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     """The backward's kernels for inputs of `dtype` with N docs a list and
     head dim d: for bf16 and d > 128, "packed" (FlashAttnBwdPacked) at
-    N <= PACK_MAX_N and "list" (FlashAttnBwdList) at N <= LIST_MAX_N; else
-    "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
+    N <= PACK_MAX_N, "list" (FlashAttnBwdList) at N <= LIST_MAX_N and "long"
+    (FlashAttnBwdLong) at N <= LONG_MAX_N; else "pair" (FlashAttnBwdDkdv and
+    FlashAttnBwdDq)."""
     if dtype == torch.bfloat16 and d > _NARROW_D:
         if N <= PACK_MAX_N:
             return "packed"
         if N <= LIST_MAX_N:
             return "list"
+        if N <= LONG_MAX_N:
+            return "long"
     return "pair"
 
 
 def packed_blocks(B: int, H: int, N: int, rows: int = _ROWS) -> int:
     """Blocks of a packed backward's grid (grid.x): one per tile of rows // N
-    lists (the packed kernel: 64 rows; the list kernel: 128)."""
+    lists (the packed kernel: 64 rows; the list kernel: 128; the long
+    kernel: 256)."""
     return -(-B * H // (rows // N))
 
 
 def fwd_packed_blocks(B: int, H: int, N: int) -> int:
-    """Blocks of the packed forward's grid (grid.x): its key tile holds
-    64 // N lists up to 64 docs, one list of up to 128 above, and a block
-    owns 64 of the tile's query rows."""
+    """Blocks of the packed or long forward's grid (grid.x): its key tile
+    holds 64 // N lists up to 64 docs, one list of up to 128 up to 128 docs,
+    one of up to 256 (the long kernel) above, and a block owns 64 of the
+    tile's query rows."""
     rows = _tile_rows(N)
     return packed_blocks(B, H, N, rows) * (rows // _ROWS)
 
@@ -323,20 +364,22 @@ def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int
     return 1 if packed or d > _NARROW_D else -(-B // (_MAX_Y // H))
 
 
-# the kernels that pack whole lists into a block, by wrapper: the longest
+# the kernels that take whole lists into a block, by wrapper: the longest
 # list each takes
 _PACKED_MAX_N = {"flash_attn_fwd_packed": _LIST_ROWS, "flash_attn_bwd_packed": _ROWS,
-                 "flash_attn_bwd_list": _LIST_ROWS}
+                 "flash_attn_bwd_list": _LIST_ROWS, "flash_attn_fwd_long": _LONG_ROWS,
+                 "flash_attn_bwd_long": _LONG_ROWS}
 
 
 def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
     """The shapes the kernels take: any positive B, H, N and d whose launches
     fit the grid. For d <= 128, H up to 65535 (grid.y); for d > 128, the
     64-row tiles x B*H x the output chunks (64 columns at the finest) up to
-    2^31 - 1 blocks (grid.x). A kernel that packs whole lists into a block
+    2^31 - 1 blocks (grid.x). A kernel that takes whole lists into a block
     (`packed`, its wrapper's name: "flash_attn_fwd_packed",
-    "flash_attn_bwd_packed", "flash_attn_bwd_list"): N up to 64 (the packed
-    backward) or 128, B*H up to 2^31 - 1 lists, and its tiles on grid.x.
+    "flash_attn_bwd_packed", "flash_attn_bwd_list", "flash_attn_fwd_long",
+    "flash_attn_bwd_long"): N up to 64 (the packed backward), 128 or 256
+    (the long kernels), B*H up to 2^31 - 1 lists, and its tiles on grid.x.
     Raises otherwise."""
     if min(B, H, N, d) < 1:
         raise ValueError(f"unsupported shape {(B, H, N, d)}")
@@ -345,7 +388,7 @@ def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
         if N > max_n or B * H > _MAX_X:
             raise ValueError(f"shape {(B, H, N, d)}: {packed} takes lists of at most "
                              f"{max_n} docs, at most {_MAX_X} of them")
-        if packed == "flash_attn_fwd_packed" and fwd_packed_blocks(B, H, N) > _MAX_X:
+        if packed.startswith("flash_attn_fwd") and fwd_packed_blocks(B, H, N) > _MAX_X:
             raise ValueError(f"shape {(B, H, N, d)} needs {fwd_packed_blocks(B, H, N)} blocks "
                              f"of {packed} on grid.x, past the card's {_MAX_X}")
         return
@@ -439,6 +482,15 @@ class FlashAttnFwdPacked(FlashAttnFwd):
     name = packed = "flash_attn_fwd_packed"
 
 
+class FlashAttnFwdLong(FlashAttnFwd):
+    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s long kernel (bf16, lists
+    of at most 256 docs, any d: S once a 256-key tile of one list of 129 ..
+    256 docs, in two halves of 128 keys), FlashAttnFwd's call and
+    statistics, with its own launch count (one a call)."""
+
+    name = packed = "flash_attn_fwd_long"
+
+
 class FlashAttnBwdDkdv:
     """ctypes wrapper of the dk, dv kernels of `csrc/flash_attn_bwd.cu` (bf16:
     tensor cores; fp32: CUDA cores), with its launch count. `dsum` is
@@ -498,14 +550,19 @@ class FlashAttnBwdPacked:
         B, H, N, d = _check_qkv(q, k, v, mask, dout, packed=self.name)
         _check_stats(q, row_max, row_sum, dsum)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        scratch = self._scratch(q)
         with torch.cuda.device(q.device):
             _BWD_LIB.call(
                 self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, N, d, _DTYPES[q.dtype],
-                _stream(q.device))
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(t.data_ptr() for t in scratch),
+                B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
         self.launches += kernel_launches(B, H, N, d, packed=True)
         return dq, dk, dv
+
+    def _scratch(self, q) -> tuple:
+        """Device scratch the kernel takes after its outputs: none."""
+        return ()
 
 
 class FlashAttnBwdList(FlashAttnBwdPacked):
@@ -517,18 +574,35 @@ class FlashAttnBwdList(FlashAttnBwdPacked):
     name = "flash_attn_bwd_list"
 
 
+class FlashAttnBwdLong(FlashAttnBwdPacked):
+    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s long kernel (bf16, lists
+    of at most 256 docs, any d; one list of 129 .. 256 docs a block, its
+    keys in two halves of 128): FlashAttnBwdPacked's call, with its own
+    launch count, and the fp32 [B*H*N, d] scratch in which the kernel keeps
+    the first half's share of dq until the second half adds its own."""
+
+    name = "flash_attn_bwd_long"
+
+    def _scratch(self, q) -> tuple:
+        B, H, N, d = q.shape
+        return (torch.empty((B * H * N, d), dtype=torch.float32, device=q.device),)
+
+
 FLASH_ATTN_FWD = FlashAttnFwd()
 FLASH_ATTN_FWD_PACKED = FlashAttnFwdPacked()
+FLASH_ATTN_FWD_LONG = FlashAttnFwdLong()
 FLASH_ATTN_BWD_DKDV = FlashAttnBwdDkdv()
 FLASH_ATTN_BWD_DQ = FlashAttnBwdDq()
 FLASH_ATTN_BWD_PACKED = FlashAttnBwdPacked()
 FLASH_ATTN_BWD_LIST = FlashAttnBwdList()
+FLASH_ATTN_BWD_LONG = FlashAttnBwdLong()
 
 
 def _forward_kernel(q: torch.Tensor) -> FlashAttnFwd:
     """The forward's wrapper for q's dtype and shape, by fwd_route."""
-    packed = fwd_route(q.dtype, q.shape[2], q.shape[3]) == "packed"
-    return FLASH_ATTN_FWD_PACKED if packed else FLASH_ATTN_FWD
+    route = fwd_route(q.dtype, q.shape[2], q.shape[3])
+    return {"packed": FLASH_ATTN_FWD_PACKED, "long": FLASH_ATTN_FWD_LONG}.get(route,
+                                                                             FLASH_ATTN_FWD)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -554,6 +628,8 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = FLASH_ATTN_BWD_PACKED(*args)
         elif route == "list":
             dq, dk, dv = FLASH_ATTN_BWD_LIST(*args)
+        elif route == "long":
+            dq, dk, dv = FLASH_ATTN_BWD_LONG(*args)
         else:
             dk, dv = FLASH_ATTN_BWD_DKDV(*args)
             dq = FLASH_ATTN_BWD_DQ(*args)

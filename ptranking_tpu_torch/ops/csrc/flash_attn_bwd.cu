@@ -91,9 +91,12 @@
 // lists in one 64-row tile and writes dq, dk and dv of the tile in one
 // launch (the section "the packed kernel" below); with 128 (the list kernel,
 // entry flash_attn_bwd_list, N <= 128) one list of 65 .. 128 docs a block of
-// 8 warps (the section "the list kernel"). The package routes the bf16
-// backward at d > 128 to the first at N <= PACK_MAX_N and to the second at
-// PACK_MAX_N < N <= LIST_MAX_N, in place of the wide pair (ops/attention.py's
+// 8 warps (the section "the list kernel"). Lists of 129 .. 256 docs:
+// flash_bwd_long_mma_kernel (entry flash_attn_bwd_long), one list a block of
+// 8 warps in two halves of 128 keys (the section "the long kernel"). The
+// package routes the bf16 backward at d > 128 to the first at
+// N <= PACK_MAX_N, to the second at N <= LIST_MAX_N and to the third at
+// N <= LONG_MAX_N, in place of the wide pair (ops/attention.py's
 // bwd_route); the kernels of d <= 128, the fp32 ones and the wide pair at
 // longer lists keep their route.
 //
@@ -1669,6 +1672,307 @@ flash_bwd_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 }
 
 // ---------------------------------------------------------------------------
+// bf16, lists of 129 .. 256 docs: the long kernel
+// ---------------------------------------------------------------------------
+//
+// At 129 .. 256 docs the wide pair computes S and dP about 9 times a list
+// (6 dk/dv chunks and 3 dq chunks at d = 350, each over the whole d), as it
+// did at 65 .. 128 docs before the list kernel. The list kernel's tile does
+// not stretch to 256 rows: a warp's 16 rows by 256 keys are 256 fp32 values
+// of S and dP a thread (the limit is 255 registers), and P and dS of 256 x
+// 256 as bf16 tiles are 270,336 bytes (a block may have 232,448). Here one
+// block of 8 warps owns one list (256 / N lists at N <= 128) and takes its
+// keys in two halves of 128, each half the list kernel's steps with the
+// roles of rows and keys arranged so that only dq is split:
+//   1. for each pass of 128 query rows: S and dP of the pass's rows by the
+//      half's 128 keys (a warp's 16 rows, 128 fp32 values a thread: the list
+//      kernel's registers) over d in double-buffered 32-column chunks of Q,
+//      dO (the pass's rows) and K, V (the half's keys);
+//   2. P and dS on the fragments (p_ds_packed, the list kernel's rules),
+//      rounded to bf16 and stored as [256 query rows][136] tiles: the half's
+//      keys against every query row of the list;
+//   3. for each 32-column output chunk of Q and dO (all 256 rows): dv =
+//      P^T dO and dk = scale * dS^T Q of the warp's 16 keys of the half,
+//      whole (they contract over every query row), written once;
+//   4. for each 64-column output chunk of the half's K: dq of the warp's
+//      rows of each pass over the half's keys: the first half writes this
+//      partial to dq_part (fp32, [B*H*N, d]) and the second reads it back,
+//      adds its own and writes dq = scale * (first + second), rounded once.
+//      Each thread reads back exactly the values it wrote (the same
+//      fragment of the same rows and columns), so no barrier or atomic is
+//      needed, and fp32 addition of two terms gives the same bits whichever
+//      comes first.
+// Shared memory: the P and dS tiles (139,264 bytes) and two stages of four
+// [128][40] chunk tiles (81,920; steps 3 and 4 use the same buffers), with
+// the key info 222,208 bytes: one block an SM. Two stages of 64-column
+// chunks would need 147,456 beside the tiles. LONG_SUM picks how the two
+// halves' dq partials are summed: 0 (shipped) one block a tile runs both
+// halves as above; 1: a block for each half, each writing its partial to
+// its own half of a [2][B*H*N][d] buffer, then a second kernel adds the
+// two in a fixed order; 2: a block for each half adding its partial into
+// a zeroed buffer by atomicAdd (two addends onto zero: order-free), then
+// the same kernel rounds it (tools/kernel_variants.py times all three).
+// What bounds it: bytes, as the list kernel (the products are 10 * N^2 * d
+// operations a list, far below the tensor cores' ridge).
+
+constexpr int LONG_ROWS = 256;            // rows of the long kernel's tile: one list of 129 .. 256 docs
+constexpr int LONG_HALF = LONG_ROWS / 2;  // keys of a half; query rows of a pass
+constexpr int LONG_NT = 2 * LONG_HALF;    // threads: a warp for each 16 rows of a half
+constexpr int LONG_CW = 2;     // 16-column steps of step 1's d-chunks and step 3's output chunks
+constexpr int LONG_DQ_CW = 4;  // of step 4's output chunks: 64 columns
+constexpr int LONG_SUM = 0;
+
+// a stage: step 1's four [128][16*cw + 8] chunk tiles, step 3's Q and dO of
+// every row, or step 4's K chunk of a half
+__host__ __device__ constexpr size_t long_stage_elems(int cw, int dq_cw) {
+    return size_t(4) * LONG_HALF * (16 * cw + 8) > size_t(LONG_HALF) * (16 * dq_cw + 8)
+               ? size_t(4) * LONG_HALF * (16 * cw + 8)  // = 2 * LONG_ROWS * (16 * cw + 8)
+               : size_t(LONG_HALF) * (16 * dq_cw + 8);
+}
+// the P and dS tiles, two stages, the key info
+__host__ __device__ constexpr size_t long_smem_bytes(int cw, int dq_cw) {
+    return (2 * size_t(LONG_ROWS) * (LONG_HALF + 8) + 2 * long_stage_elems(cw, dq_cw))
+               * sizeof(bf16) + LONG_ROWS * sizeof(int);
+}
+
+template <int CW, int DQ_CW, int SUM>
+__global__ void __launch_bounds__(LONG_NT, 1)
+flash_bwd_long_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                          const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          float* dq_part, int lists, int H, int N, int d, float scale, int copy,
+                          int how) {
+    static_assert(LONG_NT == LONG_ROWS, "a thread writes the key info of one tile row");
+    constexpr int KS = CW;                      // 16-deep steps of a step-1 d-chunk
+    constexpr int LDC = 16 * CW + 8;            // row stride of the chunk tiles of steps 1 and 3
+    constexpr int LDP = LONG_HALF + 8;          // of the P and dS tiles
+    constexpr int HALF_CHUNK = LONG_HALF * LDC;  // a chunk tile of 128 rows
+    constexpr int STAGE = int(long_stage_elems(CW, DQ_CW));
+    extern __shared__ uint4 smem_mma[];
+    bf16* Ps = reinterpret_cast<bf16*>(smem_mma);  // [LONG_ROWS query rows][LDP]: the half's keys
+    bf16* dSs = Ps + LONG_ROWS * LDP;
+    bf16* Cs = dSs + LONG_ROWS * LDP;              // [2][STAGE]
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);  // [LONG_ROWS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = LONG_ROWS / N;
+    const int tile = SUM == 0 ? blockIdx.x : blockIdx.x >> 1;
+    const int l0 = tile * per_tile;  // the tile's first (b, h) list
+    const int nrows = min(per_tile, lists - l0) * N;
+    const size_t row0 = size_t(l0) * N;
+    const size_t base = row0 * d;
+    const int chunks = (d + 16 * CW - 1) / (16 * CW);  // step 1's d-chunks, step 3's output chunks
+    const int dq_chunks = (d + 16 * DQ_CW - 1) / (16 * DQ_CW);
+    const int per_half = 3 * chunks + dq_chunks;       // stages of a half
+    const int first = SUM == 0 ? 0 : blockIdx.x & 1;   // the block's first half
+    const int halves = SUM == 0 ? 2 : 1;
+    const int stages = halves * per_half;
+    auto rows_from = [&](int r0) { return max(min(nrows - r0, LONG_HALF), 0); };
+
+    // stage st: of half first + st / per_half, at u = st % per_half: u < 2 *
+    // chunks step 1's d-chunk u % chunks of pass u / chunks (Q, dO of the
+    // pass's rows; K, V of the half's keys), u < 3 * chunks step 3's output
+    // chunk (Q, dO of every row), else step 4's (K of the half)
+    auto prefetch = [&](int st) {
+        bf16* cs = Cs + (st & 1) * STAGE;
+        const int half = first + st / per_half, u = st % per_half;
+        const size_t kb = base + size_t(half) * LONG_HALF * d;
+        const int krows = rows_from(half * LONG_HALF);
+        if (u < 2 * chunks) {
+            const int pass = u / chunks, c0 = (u - pass * chunks) * 16 * CW;
+            const size_t qb = base + size_t(pass) * LONG_HALF * d;
+            const int qrows = rows_from(pass * LONG_HALF);
+            load_chunk<LONG_NT, CW, LONG_HALF>(cs, q + qb, qrows, d, c0, copy);
+            load_chunk<LONG_NT, CW, LONG_HALF>(cs + HALF_CHUNK, dout + qb, qrows, d, c0, copy);
+            load_chunk<LONG_NT, CW, LONG_HALF>(cs + 2 * HALF_CHUNK, k + kb, krows, d, c0, copy);
+            load_chunk<LONG_NT, CW, LONG_HALF>(cs + 3 * HALF_CHUNK, v + kb, krows, d, c0, copy);
+        } else if (u < 3 * chunks) {
+            const int c0 = (u - 2 * chunks) * 16 * CW;
+            load_chunk<LONG_NT, CW, LONG_ROWS>(cs, q + base, nrows, d, c0, copy);
+            load_chunk<LONG_NT, CW, LONG_ROWS>(cs + 2 * HALF_CHUNK, dout + base, nrows, d, c0,
+                                               copy);
+        } else {
+            load_chunk<LONG_NT, DQ_CW, LONG_HALF>(cs, k + kb, krows, d,
+                                                  (u - 3 * chunks) * 16 * DQ_CW, copy);
+        }
+        cp_async_commit();
+    };
+    auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+    };
+
+    prefetch(0);
+    {
+        int info = -1;
+        if (tid < nrows) {
+            const int list = tid / N, key = tid - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[tid] = info;
+    }
+    const bool pairs = how & STORE_PAIRS;
+    // rows r0 + g and r0 + g + 8 of a fragment's product into `out`, times mul
+    auto store = [&](bf16* out, const float (&acc)[2 * CW][4], float mul, int r0, int c0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = r0 + g + 8 * h;
+            if (r >= nrows) continue;
+            bf16* row = out + base + size_t(r) * d;
+#pragma unroll
+            for (int j = 0; j < 2 * CW; ++j)
+                store_pair(row, c0 + 8 * j + 2 * t4, acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul,
+                           d, pairs);
+        }
+    };
+
+    int st = 0;
+    for (int half = first; half < first + halves; ++half) {
+        // steps 1 and 2, for each pass's query rows against the half's keys
+        for (int pass = 0; pass < 2; ++pass) {
+            int seg[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+            float m[2], inv[2], D[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = pass * LONG_HALF + warp * 16 + g + 8 * h;
+                const bool in = r < nrows;  // a row past them: zero q and dO rows, P = dS = 0
+                seg[h] = in ? r / N : -2;
+                m[h] = in ? row_max[row0 + r] : 0.f;
+                inv[h] = in ? 1.f / row_sum[row0 + r] : 0.f;  // l >= 1
+                D[h] = in ? dsum[row0 + r] : 0.f;
+            }
+            float s[LONG_HALF / 8][4], dp[LONG_HALF / 8][4];
+#pragma unroll
+            for (int j = 0; j < LONG_HALF / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            for (int c = 0; c < chunks; ++c, ++st) {
+                next(st);
+                const bf16* cs = Cs + (st & 1) * STAGE;
+                uint32_t a[KS][4];
+                load_a<KS>(a, cs, warp * 16, lane);
+                product_nk<KS, LONG_HALF / 8>(s, a, cs + 2 * HALF_CHUNK, 0, lane);
+                load_a<KS>(a, cs + HALF_CHUNK, warp * 16, lane);
+                product_nk<KS, LONG_HALF / 8>(dp, a, cs + 3 * HALF_CHUNK, 0, lane);
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+            // step 2 (the next stage is in flight)
+            uint32_t pa[LONG_HALF / 16][4], dsa[LONG_HALF / 16][4];
+            p_ds_packed<LONG_HALF / 8>(pa, dsa, s, dp, kinfo + half * LONG_HALF + 2 * t4, seg, m,
+                                       inv, D, scale);
+#pragma unroll
+            for (int j = 0; j < LONG_HALF / 8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int at = (pass * LONG_HALF + warp * 16 + g + 8 * h) * LDP + 8 * j + 2 * t4;
+                    *reinterpret_cast<uint32_t*>(Ps + at) = pa[j >> 1][(j & 1) * 2 + h];
+                    *reinterpret_cast<uint32_t*>(dSs + at) = dsa[j >> 1][(j & 1) * 2 + h];
+                }
+        }
+
+        // step 3: dv and dk of the warp's 16 keys of the half, from the
+        // fragments of P^T and dS^T over all LONG_ROWS query rows, read anew
+        // from the tiles for each output chunk
+        for (int oc = 0; oc < chunks; ++oc, ++st) {
+            next(st);  // its barrier also orders step 2's tile stores before these reads
+            const bf16* cs = Cs + (st & 1) * STAGE;
+            const int c0 = oc * 16 * CW;
+            uint32_t fa[LONG_ROWS / 16][4];
+            float acc[2 * CW][4];
+            auto product = [&](const bf16* btile) {
+#pragma unroll
+                for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+                product_kn<CW, LONG_ROWS / 16>(acc, fa, btile, 0, lane);
+            };
+            load_a_trans<LONG_ROWS / 16, LDP>(fa, Ps, warp * 16, lane);
+            product(cs + 2 * HALF_CHUNK);  // dv = P^T dO
+            store(dv, acc, 1.f, half * LONG_HALF + warp * 16, c0);
+            load_a_trans<LONG_ROWS / 16, LDP>(fa, dSs, warp * 16, lane);
+            product(cs);  // dk = scale * dS^T Q
+            store(dk, acc, scale, half * LONG_HALF + warp * 16, c0);
+            __syncthreads();  // no warp reads stage st's buffers any more
+        }
+
+        // step 4: dq of the warp's rows of each pass over the half's keys
+        for (int oc = 0; oc < dq_chunks; ++oc, ++st) {
+            next(st);
+            const bf16* ks = Cs + (st & 1) * STAGE;
+            const int c0 = oc * 16 * DQ_CW;
+#pragma unroll 1
+            for (int pass = 0; pass < 2; ++pass) {
+                uint32_t fa[LONG_HALF / 16][4];
+                float acc[2 * DQ_CW][4];
+#pragma unroll
+                for (int j = 0; j < 2 * DQ_CW; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+                load_a<LONG_HALF / 16>(fa, dSs, pass * LONG_HALF + warp * 16, lane);
+                product_kn<DQ_CW, LONG_HALF / 16>(acc, fa, ks, 0, lane);  // dS K
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = pass * LONG_HALF + warp * 16 + g + 8 * h;
+                    if (r >= nrows) continue;
+                    float* part = dq_part + (SUM == 1 ? size_t(half) * lists * N * d : 0)
+                                  + (row0 + r) * d;
+                    bf16* row = dq + base + size_t(r) * d;
+#pragma unroll
+                    for (int j = 0; j < 2 * DQ_CW; ++j) {
+                        const int col = c0 + 8 * j + 2 * t4;
+                        float x = acc[j][2 * h], y = acc[j][2 * h + 1];
+                        if (SUM == 2) {
+                            if (col < d) atomicAdd(part + col, x);
+                            if (col + 1 < d) atomicAdd(part + col + 1, y);
+                        } else if (SUM == 1 || half == 0) {
+                            if (pairs) {
+                                if (col < d) *reinterpret_cast<float2*>(part + col) = make_float2(x, y);
+                            } else {
+                                if (col < d) part[col] = x;
+                                if (col + 1 < d) part[col + 1] = y;
+                            }
+                        } else {
+                            if (pairs) {
+                                if (col < d) {
+                                    const float2 p = *reinterpret_cast<const float2*>(part + col);
+                                    x += p.x;
+                                    y += p.y;
+                                }
+                            } else {
+                                if (col < d) x += part[col];
+                                if (col + 1 < d) y += part[col + 1];
+                            }
+                            store_pair(row, col, x * scale, y * scale, d, pairs);
+                        }
+                    }
+                }
+            }
+            __syncthreads();  // no warp reads stage st's buffers any more
+        }
+    }
+}
+
+// LONG_SUM 1 and 2: dq = scale * the sum of the PARTS [n] fp32 partials at part
+template <int PARTS>
+__global__ void __launch_bounds__(256)
+flash_bwd_long_dq_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dq, size_t n,
+                             float scale) {
+    for (size_t i = blockIdx.x * size_t(256) + threadIdx.x; i < n; i += size_t(gridDim.x) * 256) {
+        float x = part[i];
+        if (PARTS == 2) x += part[n + i];
+        dq[i] = __float2bfloat16(x * scale);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1874,6 +2178,42 @@ cudaError_t launch_bwd_packed(const Args& a, void* dq, void* dk, void* dv) {
     return launch_packed_as<PACK_ROWS, CW, false, false>(a, dq, dk, dv);
 }
 
+// One block per tile of LONG_ROWS / N lists (LONG_SUM 1, 2: two, one a half,
+// then the partials' sum: two launches)
+template <int SUM>
+cudaError_t launch_bwd_long(const Args& a, void* dq, void* dk, void* dv, float* dq_part) {
+    const auto kernel = flash_bwd_long_mma_kernel<LONG_CW, LONG_DQ_CW, SUM>;
+    const size_t bytes = long_smem_bytes(LONG_CW, LONG_DQ_CW);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int lists = a.B * a.H, per_tile = LONG_ROWS / a.N;
+    const long long tiles = (lists + per_tile - 1) / per_tile;
+    const size_t n = size_t(lists) * a.N * a.d;
+    const float scale = 1.0f / sqrtf(float(a.d));
+    if (SUM == 2) {
+        err = cudaMemsetAsync(dq_part, 0, n * sizeof(float), a.stream);
+        if (err != cudaSuccess) return err;
+    }
+    kernel<<<unsigned(SUM == 0 ? tiles : 2 * tiles), LONG_NT, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq_part, lists,
+        a.H, a.N, a.d, scale, wide_copy(a),
+        store_mode(a, dq) & store_mode(a, dk) & store_mode(a, dv));
+    err = cudaGetLastError();
+    if constexpr (SUM != 0) {
+        if (err != cudaSuccess) return err;
+        const unsigned blocks = unsigned(std::min<size_t>((n + 255) / 256, 132 * 16));
+        flash_bwd_long_dq_sum_kernel<SUM == 1 ? 2 : 1><<<blocks, 256, 0, a.stream>>>(
+            dq_part, static_cast<bf16*>(dq), n, scale);
+        err = cudaGetLastError();
+    }
+    return err;
+}
+
 // Any d: d <= 128 runs the kernels above (in launches of at most
 // narrow_lists(H) lists), d > 128 the wide ones; the grids must fit
 // (mma_common.cuh's grid_fits).
@@ -1995,6 +2335,22 @@ int flash_attn_bwd_list(const void* q, const void* k, const void* v, const void*
         || (long long)B * H >= (1LL << 31))
         return int(cudaErrorInvalidValue);
     return int(launch_packed_as<LIST_ROWS, LIST_CW, false, false>(a, dq, dk, dv));
+}
+
+// dq, dk and dv of bf16 lists of at most 256 docs (any d; the route takes it
+// at 129 .. 256) in one launch of the long kernel, 256 / N lists a block;
+// dq_part is fp32 scratch of B*H*N*d values (2*B*H*N*d with LONG_SUM = 1),
+// written and read by the kernel alone; B*H lists below 2^31.
+int flash_attn_bwd_long(const void* q, const void* k, const void* v, const void* dout,
+                        const void* row_max, const void* row_sum, const void* dsum,
+                        const void* mask, void* dq, void* dk, void* dv, void* dq_part, int B,
+                        int H, int N, int d, int dtype, void* stream) {
+    const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
+                 static_cast<cudaStream_t>(stream)};
+    if (B < 1 || H < 1 || N < 1 || N > LONG_ROWS || d < 1 || dtype != 1
+        || (long long)B * H * (LONG_SUM == 0 ? 1 : 2) >= (1LL << 31))
+        return int(cudaErrorInvalidValue);
+    return int(launch_bwd_long<LONG_SUM>(a, dq, dk, dv, static_cast<float*>(dq_part)));
 }
 
 const char* flash_attn_bwd_error_string(int err) {

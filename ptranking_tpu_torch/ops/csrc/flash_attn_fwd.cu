@@ -92,8 +92,11 @@
 // Short lists: flash_fwd_packed_mma_kernel (bf16, N <= 128, any d; entry
 // flash_attn_fwd_packed) puts 64 / N lists of at most 64 docs, or one list of
 // 65 .. 128 docs, in one key tile and computes S once a tile (the section
-// "the packed kernel" below). The package routes the bf16 forward at d > 128
-// and N <= FWD_PACK_MAX_N to it in place of the wide kernel
+// "the packed kernel" below); flash_fwd_long_mma_kernel (entry
+// flash_attn_fwd_long) one list of 129 .. 256 docs in a 256-key tile, S once
+// in two halves of 128 keys (the section "the long kernel"). The package
+// routes the bf16 forward at d > 128 to the first at N <= FWD_PACK_MAX_N and
+// to the second at N <= LONG_MAX_N, in place of the wide kernel
 // (ops/attention.py's fwd_route).
 //
 // fp32 inputs: flash_fwd_kernel, on the fp32 CUDA cores by design, as the
@@ -1117,6 +1120,272 @@ cudaError_t launch_packed(const void* q, const void* k, const void* v, const voi
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, lists of 129 .. 256 docs: the long kernel
+// ---------------------------------------------------------------------------
+//
+// At 129 .. 256 docs the wide kernel recomputes S for each of its 128-column
+// output chunks (3 at d = 350 and 384). Here, as in the packed kernel, a tile
+// holds 256 / N lists (one list of 129 .. 256 docs) with a block for each 64
+// query rows of it (4 warps of 16 rows), and S is computed once; but a warp's
+// 16 rows by 256 keys would be 128 fp32 values of S a thread beside 64 more
+// of P's fragments, so the keys go in two halves of 128:
+//   1. S of the warp's rows by the half's keys (64 fp32 a thread) over d in
+//      the packed kernel's double-buffered 64-column chunks of Q and K;
+//   2. the softmax on the fragment with softmax_packed's rules, online
+//      across the halves: the first half's P is rounded to bf16 against its
+//      own max m0, the second's against m = max(m0, its max), and the first
+//      half's share of l and of O is scaled by 2^(m0 - m), as the unpacked
+//      kernels rescale between their 64-key tiles. Both halves' P stay in
+//      registers as A operands (64 registers);
+//   3. for each 64-column output chunk of V (all 256 keys): O = 2^(m0 - m)
+//      P0 V0 + P1 V1, O / l rounded once at the store; row_max and row_sum
+//      as the other kernels write them.
+// LONG_TWO_PASS computes S twice instead: a first pass over both halves
+// finds m, the second rounds every P against it (no rescale; Q and K read
+// twice, the second time mostly from L2). tools/kernel_variants.py times it.
+// What bounds it: bytes, as the packed kernel.
+
+constexpr int LONG_KEYS = 4 * OWN;  // keys of the tile of one list of 129 .. 256 docs
+constexpr int LONG_HALF = 2 * OWN;  // keys of S a warp holds at a time
+constexpr int LONG_CW = 4;          // 16-column steps of the long kernel's output chunk: 64 columns
+constexpr bool LONG_TWO_PASS = false;
+
+// two stages (step 1's Q and K d-chunks of a half, or step 3's V chunk) and the key info
+__host__ __device__ constexpr size_t long_stage_elems(int cw) {
+    return size_t(OWN + LONG_HALF) * (DCH + 8) > size_t(LONG_KEYS) * (16 * cw + 8)
+               ? size_t(OWN + LONG_HALF) * (DCH + 8) : size_t(LONG_KEYS) * (16 * cw + 8);
+}
+__host__ __device__ constexpr size_t long_smem_bytes(int cw) {
+    return 2 * long_stage_elems(cw) * sizeof(bf16) + size_t(LONG_KEYS) * sizeof(int);
+}
+
+// softmax_packed on one half's fragment of S, online: m (log2 units, from
+// M_INIT) and the thread's share l of the row's sum (from 0) carry the
+// halves before; the new max m' = max(m, the half's max), l' = l 2^(m - m')
+// + sum p, P = 2^(x - m') packed as the A operand, and alpha = 2^(m - m'),
+// the factor of what the halves before contributed.
+template <int NTILES>
+__device__ __forceinline__ void softmax_online_packed(uint32_t (&pa)[NTILES / 2][4],
+                                                      float (&s)[NTILES][4], const int* ki,
+                                                      const int (&seg)[2], float (&m)[2],
+                                                      float (&l)[2], float (&alpha)[2],
+                                                      float scale2) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+        const int2 f2 = *reinterpret_cast<const int2*>(ki + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int f = (e & 1) ? f2.y : f2.x, h = e >> 1;
+            const bool same = (f >> 2) == seg[h];
+            const float x = !same ? -INFINITY
+                            : (f & 3) == KEY_REAL ? s[j][e] * scale2 : MASKED_LOGIT2;
+            s[j][e] = x;
+            mx[h] = fmaxf(mx[h], x);
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);  // M_INIT where no key of the row's list is seen yet
+        alpha[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float p0 = ex2(s[j][2 * h] - m[h]);  // 0 on another list's key
+            const float p1 = ex2(s[j][2 * h + 1] - m[h]);
+            l[h] += p0 + p1;  // fp32 p, before rounding
+            pa[j >> 1][(j & 1) * 2 + h] = pack_bf16(p0, p1);
+        }
+}
+
+template <int CW, bool TWO_PASS>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_fwd_long_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                          bf16* __restrict__ o, float* __restrict__ row_max,
+                          float* __restrict__ row_sum, int lists, int H, int N, int d,
+                          float scale2, int copy, int how) {
+    constexpr int KS = DCH / 16;          // 16-deep steps of a d-chunk
+    constexpr int LDC = 16 * KS + 8;      // row stride of the d-chunk tiles
+    constexpr int QCHUNK = OWN * LDC;     // a Q d-chunk; the K d-chunk follows it
+    constexpr int STAGE = int(long_stage_elems(CW));
+    constexpr int QBLOCKS = LONG_KEYS / OWN;  // blocks of a key tile: one for each 64 query rows
+    constexpr int HALVES = LONG_KEYS / LONG_HALF;
+    constexpr int PASSES = TWO_PASS ? 2 : 1;
+    static_assert(HALVES == 2, "the output rescales one half against the other");
+    extern __shared__ uint4 smem_mma[];
+    bf16* Cs = reinterpret_cast<bf16*>(smem_mma);         // [2][STAGE]
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);  // [LONG_KEYS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = LONG_KEYS / N;
+    const int tile = blockIdx.x / QBLOCKS;
+    const int l0 = tile * per_tile;                      // the tile's first (b, h) list
+    const int nkeys = min(per_tile, lists - l0) * N;     // the tile's rows
+    const int qoff = (blockIdx.x - tile * QBLOCKS) * OWN;  // the block's first query row in it
+    const int nq = min(OWN, nkeys - qoff);
+    if (nq <= 0) return;  // a query block past a short tile's rows
+    const size_t row0 = size_t(l0) * N;
+    const bf16* qb = q + (row0 + qoff) * d;
+    const bf16* kb = k + row0 * d;
+    const bf16* vb = v + row0 * d;
+    const int chunks = (d + DCH - 1) / DCH;
+    const int out_chunks = (d + 16 * CW - 1) / (16 * CW);
+    const int s_stages = PASSES * HALVES * chunks;
+    const int stages = s_stages + out_chunks;
+
+    // stage st < s_stages: step 1's d-chunk st % chunks of Q and of the
+    // half (st / chunks) % HALVES of K; st >= s_stages: step 3's output
+    // chunk st - s_stages of V
+    auto prefetch = [&](int st) {
+        bf16* cs = Cs + (st & 1) * STAGE;
+        if (st < s_stages) {
+            const int h = (st / chunks) % HALVES, c = st % chunks;
+            load_chunk<MMA_NT, KS, OWN>(cs, qb, nq, d, c * DCH, copy);
+            load_chunk<MMA_NT, KS, LONG_HALF>(cs + QCHUNK, kb + size_t(h) * LONG_HALF * d,
+                                              max(min(nkeys - h * LONG_HALF, LONG_HALF), 0), d,
+                                              c * DCH, copy);
+        } else {
+            load_chunk<MMA_NT, CW, LONG_KEYS>(cs, vb, nkeys, d, (st - s_stages) * 16 * CW, copy);
+        }
+        cp_async_commit();
+    };
+    auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+    };
+
+    prefetch(0);
+    for (int j = tid; j < LONG_KEYS; j += MMA_NT) {
+        int info = -1;
+        if (j < nkeys) {
+            const int list = j / N, key = j - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[j] = info;
+    }
+    int seg[2];  // of the thread's two query rows (g and g + 8 of the warp's 16): its list
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        seg[h] = r < nq ? (qoff + r) / N : -2;
+    }
+
+    // steps 1 and 2: for each half, S over the d-chunks, then its softmax
+    uint32_t pa[HALVES][LONG_HALF / 16][4];
+    float m[2] = {M_INIT, M_INIT}, l[2], alpha[2];
+    int st = 0;
+#pragma unroll 1
+    for (int pass = 0; pass < PASSES; ++pass) {
+        l[0] = l[1] = 0.f;  // a second pass keeps the first one's m
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+            float s[LONG_HALF / 8][4];
+#pragma unroll
+            for (int j = 0; j < LONG_HALF / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            for (int c = 0; c < chunks; ++c, ++st) {
+                next(st);
+                const bf16* cs = Cs + (st & 1) * STAGE;
+                uint32_t a[KS][4];
+                load_a<KS>(a, cs, warp * 16, lane);
+                product_nk<KS, LONG_HALF / 8>(s, a, cs + QCHUNK, 0, lane);
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+            softmax_online_packed<LONG_HALF / 8>(pa[h], s, kinfo + h * LONG_HALF + 2 * t4, seg,
+                                                 m, l, alpha, scale2);
+        }
+    }
+    // alpha is now the second half's factor of the first half's share
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);  // the quad's four shares
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        inv[h] = 1.f / l[h];  // l >= 1 on a row of the tile: its max contributes 2^0
+    }
+
+    // step 3
+    const bool pairs = how & STORE_PAIRS;
+    for (int oc = 0; oc < out_chunks; ++oc, ++st) {
+        next(st);
+        const bf16* vs = Cs + (st & 1) * STAGE;
+        float acc[2 * CW][4];
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        product_kn<CW, LONG_HALF / 16>(acc, pa[0], vs, 0, lane);  // P0 V0
+#pragma unroll
+        for (int j = 0; j < 2 * CW; ++j) {
+            acc[j][0] *= alpha[0];
+            acc[j][1] *= alpha[0];
+            acc[j][2] *= alpha[1];
+            acc[j][3] *= alpha[1];
+        }
+        product_kn<CW, LONG_HALF / 16>(acc, pa[1], vs, LONG_HALF, lane);  // + P1 V1
+        const int c0 = oc * 16 * CW;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nq) continue;
+            bf16* orow = o + (row0 + qoff + r) * d;
+#pragma unroll
+            for (int j = 0; j < 2 * CW; ++j)
+                store_pair(orow, c0 + 8 * j + 2 * t4, acc[j][2 * h] * inv[h],
+                           acc[j][2 * h + 1] * inv[h], d, pairs);
+        }
+        __syncthreads();  // no warp reads stage st's buffer any more
+    }
+    if (row_max != nullptr && t4 == 0) {  // the quad holds the same m and l
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nq) continue;
+            const size_t at = row0 + qoff + r;
+            row_max[at] = m[h] == MASKED_LOGIT2 ? MASKED_LOGIT : m[h] * LN2;
+            row_sum[at] = l[h];
+        }
+    }
+}
+
+// blocks of the long kernel's grid for B*H lists of N <= 256 docs
+inline long long long_blocks(long long lists, int N) {
+    return (lists + LONG_KEYS / N - 1) / (LONG_KEYS / N) * (LONG_KEYS / OWN);
+}
+
+cudaError_t launch_long(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        float* row_max, float* row_sum, int B, int H, int N, int d,
+                        cudaStream_t stream) {
+    const auto kernel = flash_fwd_long_mma_kernel<LONG_CW, LONG_TWO_PASS>;
+    const size_t bytes = long_smem_bytes(LONG_CW);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int copy = chunk_copy(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 4) ? STORE_PAIRS : 0;
+    const dim3 grid(unsigned(long_blocks((long long)B * H, N)));
+    kernel<<<grid, MMA_NT, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), row_max, row_sum, B * H, H, N,
+        d, LOG2E / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
 // d <= 128: the kernels above, on the head dim padded to a multiple of 16:
 // KC steps of 16 (the fp32 kernel counts 8-column blocks, NC = 2 * KC)
 int launch_narrow(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -1192,6 +1461,21 @@ int flash_attn_fwd_packed(const void* q, const void* k, const void* v, const voi
     float* rs = static_cast<float*>(row_sum);
     return int(N <= PACK_KEYS ? launch_packed<PACK_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st)
                               : launch_packed<LIST_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
+}
+
+// The long kernel: bf16 lists of at most 256 docs (any d; the route takes
+// it at 129 .. 256), the same arguments as flash_attn_fwd; one launch, whose
+// grid (long_blocks) must fit grid.x.
+int flash_attn_fwd_long(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
+                        void* stream) {
+    if (B < 1 || H < 1 || N < 1 || N > LONG_KEYS || d < 1 || dtype != 1
+        || ((row_max == nullptr) != (row_sum == nullptr))
+        || long_blocks((long long)B * H, N) >= (1LL << 31))
+        return int(cudaErrorInvalidValue);
+    return int(launch_long(q, k, v, mask, o, static_cast<float*>(row_max),
+                           static_cast<float*>(row_sum), B, H, N, d,
+                           static_cast<cudaStream_t>(stream)));
 }
 
 const char* flash_attn_fwd_error_string(int err) {

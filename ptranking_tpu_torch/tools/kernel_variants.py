@@ -1,24 +1,28 @@
 """Time design variants of the hand-written kernels on one CUDA card.
 
-    python3 -m ptranking_tpu_torch.tools.kernel_variants [library ...]
+    python3 -m ptranking_tpu_torch.tools.kernel_variants [library[:variant,...] ...]
 
 For each library named (by default all of those in VARIANTS: the bf16
 flash-attention backward and forward, the Sinkhorn half-step and the pairwise
-lambda loss), builds the
+lambda loss; `library:a,b` takes the shipped source and variants a and b
+only), builds the
 shipped `ops/csrc/<library>.cu` and copies of it with one knob turned or one
 phase cut out (text substitutions, each asserted to match), and for the
 backward the warpgroup experiment `ops/csrc/experiments/flash_attn_bwd_wgmma.cu`,
 all with nvcc started together. Then it times each variant's kernels, once in
 the listed order and once in reverse: the backward's dk/dv and dq at the
 training shape (32, 2, 1408, 68) bf16 and at the Yahoo! LTR listsf's
-WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16, 32, 64
-and 128 docs), the packed backward (dq, dk, dv in one launch) at the
-WIDE_SHAPES of at most 64 docs and at PACK_COPY_SHAPES, and the list
-backward (the same on a 128-row tile of one list) at the WIDE_SHAPES of 128
-docs and at LIST_COPY_SHAPES; the forward with row statistics at those
-shapes and at the one-list serving shape (1, 2, 1536, 68), and the packed
-forward at every WIDE_SHAPE (at 128 docs its tile of one list and all of its
-128 keys) and at PACK_COPY_SHAPES; the half-step over rows and over columns at 32 x 1408 x
+WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16 to 256
+docs), the packed backward (dq, dk, dv in one launch) at the WIDE_SHAPES of
+at most 64 docs and at PACK_COPY_SHAPES, the list backward (the same on a
+128-row tile of one list) at the WIDE_SHAPES of 128 docs and at
+LIST_COPY_SHAPES, and the long backward (one list of 129..256 docs a block,
+its keys in two halves) at the WIDE_SHAPES of 256 docs and at
+LONG_COPY_SHAPES; the forward with row statistics at those shapes and at the
+one-list serving shape (1, 2, 1536, 68), the packed forward at the
+WIDE_SHAPES of at most 128 docs (at 128 docs its tile of one list and all of
+its 128 keys) and at PACK_COPY_SHAPES, and the long forward at the
+WIDE_SHAPES of 256 docs and at LONG_COPY_SHAPES; the half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
 at 32 x 1408. It prints one JSON line per
 variant: registers and spill bytes of the kernels in question, the two times
@@ -45,21 +49,28 @@ from ptranking_tpu_torch.ops import attention, cuda_build
 ITERS = 20
 ATTN_SHAPE = (32, 2, 1408, 68)
 # the Yahoo! LTR listsf's attention through the wide kernels: 2 heads of 350
-# (or 384 under lane_align), 32,768 docs in the buckets of 16, 32, 64 and 128
-# docs (chip_smoke.py's phase 7 says why these buckets)
+# (or 384 under lane_align), 32,768 docs in the buckets of 16 to 256 docs
+# (chip_smoke.py's phase 7 says why these buckets)
 WIDE_SHAPES = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 2, 128, 350),
-               (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384)]
+               (128, 2, 256, 350),
+               (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384),
+               (128, 2, 256, 384)]
 # The packed backward's copy width: d = 352 does d = 350's work (the same six
 # 64-column d-chunks and output chunks) with 16-byte copies of its 704-byte
 # rows where d = 350's 700-byte rows take 4-byte ones, so the difference is
 # the most that any wider staging of d = 350's contiguous tiles could gain.
 PACK_COPY_SHAPES = [(2048, 2, 16, 352), (1024, 2, 32, 352)]
 LIST_COPY_SHAPES = [(256, 2, 128, 352)]
+LONG_COPY_SHAPES = [(128, 2, 256, 352)]
 FWD_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68), *WIDE_SHAPES]
 BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
 SINK_SHAPE = (32, 1408)
 PAIR_SHAPE = (32, 1408)
 EXPERIMENT = cuda_build.CSRC / "experiments" / "flash_attn_bwd_wgmma.cu"
+# the long backward with the other ownership (query rows in two passes, dk
+# and dv summed from two partials): a source of its own, timed on the long
+# shapes alone
+LONG_ROWS_EXPERIMENT = cuda_build.CSRC / "experiments" / "flash_attn_bwd_long_rows.cu"
 
 _BLOCKS = "return kc <= 5 ? 3 : 2;"
 _MORE = "const bool more = t + 1 < tiles;"
@@ -93,6 +104,7 @@ _PACK_KEEP = "constexpr bool PACK_KEEP = true;"
 _PACK_STAGED = "constexpr bool PACK_STAGED = false;"
 _PACK_CW = "constexpr int PACK_CW = 4;"
 _LIST_HALVES = "constexpr bool LIST_HALVES = false;"
+_LONG_SUM = "constexpr int LONG_SUM = 0;"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -146,6 +158,17 @@ BWD_VARIANTS = {
     # the list kernel: S and dP in two 64-key halves, each over the whole d
     # (Q and dO read twice), instead of one pass over the 128 keys
     "list_halves": [(_LIST_HALVES, _LIST_HALVES.replace("false", "true"))],
+    # the long kernel: how the two halves' dq partials are summed. Shipped:
+    # one block a list runs both halves and keeps the first half's partial
+    # in fp32 scratch that its own threads read back. Instead, a block for
+    # each half (twice the blocks, each half the work): each writes its
+    # partial to its own fp32 buffer and a second kernel adds the two in a
+    # fixed order (`long_sum_split`), or each adds its partial into a zeroed
+    # buffer by atomicAdd and the second kernel rounds it
+    # (`long_sum_atomic`); both give the same bits on every run
+    "long_sum_split": [(_LONG_SUM, _LONG_SUM.replace("0", "1"))],
+    "long_sum_atomic": [(_LONG_SUM, _LONG_SUM.replace("0", "2"))],
+    "long_rows_experiment": LONG_ROWS_EXPERIMENT,
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -173,6 +196,11 @@ FWD_VARIANTS = {
     **_UNROLL_COPIES,
     # the packed kernel: 128-column output chunks (step 3's V chunks) instead of 64
     "packed_cw8": [("constexpr int PACK_CW = 4;", "constexpr int PACK_CW = 8;")],
+    # the long kernel: S computed twice, a first pass over both halves for
+    # the row's max and a second that rounds every p against it, instead of
+    # one pass with an online rescale between the halves
+    "long_two_pass": [("constexpr bool LONG_TWO_PASS = false;",
+                       "constexpr bool LONG_TWO_PASS = true;")],
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -214,9 +242,10 @@ VARIANTS = {"flash_attn_bwd": BWD_VARIANTS, "flash_attn_fwd": FWD_VARIANTS,
 _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_dq_mma_kernelILi5E",
                                 r"flash_bwd_dkdv_wgmma_kernel", r"flash_bwd_dq_wgmma_kernel",
                                 r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel",
-                                r"flash_bwd_packed_mma_kernel"],
+                                r"flash_bwd_packed_mma_kernel", r"flash_bwd_long_mma_kernel",
+                                r"flash_bwd_long_rows_mma_kernel"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
-                                r"flash_fwd_packed_mma_kernel"],
+                                r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
              "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -226,13 +255,16 @@ def source_path(lib: str) -> Path:
     return cuda_build.CSRC / f"{lib}.cu"
 
 
-def sources(libs=tuple(VARIANTS)):
-    """{(library, variant): source text, or the Path of a source of its own};
-    raises if a substitution misses."""
+def sources(libs=tuple(VARIANTS), only=None):
+    """{(library, variant): source text, or the Path of a source of its own}
+    (`only`: {library: variant names}, the shipped source always among
+    them); raises if a substitution misses."""
     out = {}
     for lib in libs:
         text = source_path(lib).read_text()
         for name, subs in VARIANTS[lib].items():
+            if only and only.get(lib) and name != "shipped" and name not in only[lib]:
+                continue
             if isinstance(subs, Path):
                 out[(lib, name)] = subs
                 continue
@@ -245,12 +277,12 @@ def sources(libs=tuple(VARIANTS)):
     return out
 
 
-def build_all(libs):
+def build_all(libs, only=None):
     """{(library, variant): (CDLL, ptxas log)}; every nvcc started together."""
     out_dir = cuda_build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for (lib, name), text in sources(libs).items():
+    for (lib, name), text in sources(libs, only).items():
         so = out_dir / f"{lib}_{name}.so"
         if isinstance(text, Path):
             src = text
@@ -326,11 +358,34 @@ def _bwd_inputs(B, H, N, d):
     return q, k, v, dout, mask, out, row_max, row_sum, dsum
 
 
+def long_cases(dll, entry):
+    """[(case, launch, outputs, inputs)] of a long backward's C entry at the
+    BWD_SHAPES of 129..256 docs and at LONG_COPY_SHAPES, with fp32 scratch
+    of 2*B*H*N*d values (as much as any variant takes)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = _entry(dll, entry, [_P] * 12 + [_I] * 5 + [_P])
+    cases = []
+    for B, H, N, d in [s for s in BWD_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES:
+        keep = _bwd_inputs(B, H, N, d)
+        q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        scratch = torch.empty(2 * B * H * N * d, device="cuda")
+        args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs,
+                                        scratch)] + [B, H, N, d, 1, stream])
+        cases.append((f"long {[B, H, N, d]}", lambda a=args: fn(*a), outs, keep + (scratch,)))
+    return cases
+
+
 def bwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the backward's two kernels at
-    BWD_SHAPES (the warpgroup experiment: ATTN_SHAPE only), and of the packed
-    kernel at the BWD_SHAPES of at most 64 docs and at PACK_COPY_SHAPES, on
-    the shipped forward's output and row statistics."""
+    BWD_SHAPES (the warpgroup experiment: ATTN_SHAPE only), of the packed
+    kernel at the BWD_SHAPES of at most 64 docs and at PACK_COPY_SHAPES, of
+    the list kernel at those of 128 docs and LIST_COPY_SHAPES, and of the
+    long kernel at those of 256 docs and LONG_COPY_SHAPES (the ownership
+    experiment: those alone), on the shipped forward's output and row
+    statistics."""
+    if variant == "long_rows_experiment":
+        return long_cases(dll, "flash_attn_bwd_long_rows")
     stream = torch.cuda.current_stream().cuda_stream
     wgmma = variant == "wgmma_experiment"
     dkdv = _entry(dll, "flash_attn_bwd_dkdv" + ("_wgmma" if wgmma else ""),
@@ -368,20 +423,24 @@ def bwd_cases(dll, variant):
         args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
                 + [B, H, N, d, 1, stream])
         cases.append((f"list {[B, H, N, d]}", lambda a=args: listk(*a), outs, keep))
-    return cases
+    return cases + long_cases(dll, "flash_attn_bwd_long")
 
 
 def fwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the forward with row statistics at
-    FWD_SHAPES, and of the packed forward at the WIDE_SHAPES (of at most 128
-    docs) and PACK_COPY_SHAPES."""
+    FWD_SHAPES, of the packed forward at the WIDE_SHAPES (of at most 128
+    docs) and PACK_COPY_SHAPES, and of the long forward at the WIDE_SHAPES
+    of 256 docs and LONG_COPY_SHAPES."""
     stream = torch.cuda.current_stream().cuda_stream
     cases = []
     for entry, shapes in (("flash_attn_fwd", FWD_SHAPES),
                           ("flash_attn_fwd_packed",
-                           [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES)):
+                           [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES),
+                          ("flash_attn_fwd_long",
+                           [s for s in WIDE_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES)):
         fn = _entry(dll, entry, [_P] * 7 + [_I] * 5 + [_P])
-        tag = "packed " if entry.endswith("packed") else ""
+        tag = {"flash_attn_fwd": "", "flash_attn_fwd_packed": "packed ",
+               "flash_attn_fwd_long": "long "}[entry]
         for B, H, N, d in shapes:
             (q, k, v), mask = _attention_inputs(B, H, N, d, 3)
             outs = (torch.empty_like(q), torch.empty(B, H, N, device="cuda"),
@@ -453,8 +512,12 @@ CASES = {"flash_attn_bwd": bwd_cases, "flash_attn_fwd": fwd_cases, "sinkstep": s
 
 
 def main(argv=None) -> int:
-    libs = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    args = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    libs = [a.split(":", 1)[0] for a in args]
+    only = {a.split(":", 1)[0]: a.split(":", 1)[1].split(",") for a in args if ":" in a}
     unknown = [lib for lib in libs if lib not in VARIANTS]
+    unknown += [f"{lib}:{v}" for lib, names in only.items() for v in names
+                if lib in VARIANTS and v not in VARIANTS[lib]]
     if unknown:
         print(f"kernel_variants: unknown libraries {unknown}; known: {list(VARIANTS)}",
               file=sys.stderr)
@@ -464,7 +527,7 @@ def main(argv=None) -> int:
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    built = build_all(libs)
+    built = build_all(libs, only)
     cases = {key: CASES[key[0]](built[key][0], key[1]) for key in built}
     results = {key: {"ms": {}} for key in built}
     shipped = {}

@@ -200,22 +200,28 @@ def test_backward_plain_matches_jax_pallas_interpret(shape):
 def test_variant_tool_substitutions_match_the_kernel_source():
     """Every text substitution of tools/kernel_variants.py for the backward (a
     knob turned, a phase cut out) still finds its target in
-    csrc/flash_attn_bwd.cu, and the warpgroup experiment it builds is there:
-    an edit of the kernel source that orphans the tool fails here, not on
-    the card."""
+    csrc/flash_attn_bwd.cu, and the experiments it builds (the warpgroup
+    products, the long kernel's query-row ownership) are there and build on
+    that source: an edit of the kernel source that orphans the tool fails
+    here, not on the card."""
+    from pathlib import Path
+
     from ptranking_tpu_torch.tools import kernel_variants as tool
 
     source = tool.source_path("flash_attn_bwd").read_text()
     variants = tool.VARIANTS["flash_attn_bwd"]
     assert variants["shipped"] == []
     for name, subs in variants.items():
-        if name == "wgmma_experiment":
+        if isinstance(subs, Path):
             continue
         for old, new in subs:
             assert old in source, (name, old)
             assert old != new
-    assert variants["wgmma_experiment"] == tool.EXPERIMENT and tool.EXPERIMENT.exists()
-    assert '#include "../flash_attn_bwd.cu"' in tool.EXPERIMENT.read_text()
+    assert variants["wgmma_experiment"] == tool.EXPERIMENT
+    assert variants["long_rows_experiment"] == tool.LONG_ROWS_EXPERIMENT
+    for experiment in (tool.EXPERIMENT, tool.LONG_ROWS_EXPERIMENT):
+        assert experiment.exists()
+        assert '#include "../flash_attn_bwd.cu"' in experiment.read_text()
 
 
 # ---------------------------------------------------------------------------

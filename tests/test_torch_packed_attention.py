@@ -152,27 +152,30 @@ def test_packed_plain_leaves_other_lists_keys_out():
     (torch.bfloat16, 1, 350, "packed"), (torch.bfloat16, 64, 129, "packed"),
     (torch.bfloat16, tattn.PACK_MAX_N, 384, "packed"),
     (torch.bfloat16, tattn.PACK_MAX_N + 1, 350, "list"), (torch.bfloat16, 128, 350, "list"),
-    (torch.bfloat16, 100, 136, "list"), (torch.bfloat16, 129, 350, "pair"),
-    (torch.bfloat16, 256, 384, "pair"),
+    (torch.bfloat16, 100, 136, "list"), (torch.bfloat16, 129, 350, "long"),
+    (torch.bfloat16, 256, 384, "long"), (torch.bfloat16, 200, 136, "long"),
+    (torch.bfloat16, 257, 350, "pair"),
     (torch.bfloat16, 16, 128, "pair"), (torch.bfloat16, 16, 68, "pair"),
     (torch.bfloat16, 128, 128, "pair"),
     (torch.float32, 16, 350, "pair"), (torch.float32, 64, 136, "pair"),
     (torch.float32, 128, 350, "pair")])
 def test_bwd_route_by_shape(dtype, N, d, route):
     """At bf16 and d > 128 the packed kernel takes N <= PACK_MAX_N (64), the
-    list kernel PACK_MAX_N < N <= LIST_MAX_N (128); everything else keeps the
-    dk/dv and dq pair."""
+    list kernel PACK_MAX_N < N <= LIST_MAX_N (128), the long kernel
+    LIST_MAX_N < N <= LONG_MAX_N (256); everything else keeps the dk/dv and
+    dq pair."""
     assert 1 <= tattn.PACK_MAX_N <= 64 and tattn.PACK_MAX_N <= tattn.LIST_MAX_N <= 128
+    assert tattn.LIST_MAX_N <= tattn.LONG_MAX_N <= 256
     assert tattn.bwd_route(dtype, N, d) == route
 
 
 @pytest.mark.parametrize("dtype, shape, route", [
     (torch.bfloat16, (2, 2, 16, 136), "packed"), (torch.bfloat16, (2, 2, 65, 136), "list"),
-    (torch.bfloat16, (2, 2, 129, 136), "pair"),
+    (torch.bfloat16, (2, 2, 129, 136), "long"), (torch.bfloat16, (2, 2, 257, 136), "pair"),
     (torch.bfloat16, (2, 2, 16, 128), "pair"), (torch.float32, (2, 2, 16, 136), "pair")])
 def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, route):
-    """_FlashAttention.backward calls the packed or the list wrapper alone,
-    or the dk/dv and dq wrappers, as bwd_route says (the wrappers stubbed:
+    """_FlashAttention.backward calls the packed, the list or the long
+    wrapper alone, or the dk/dv and dq wrappers, as bwd_route says (the wrappers stubbed:
     the kernels run only on the card), and returns their gradients in the
     order (dq, dk, dv)."""
     calls = []
@@ -186,6 +189,7 @@ def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, rout
 
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_PACKED", stub("packed", 3))
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_LIST", stub("list", 3))
+    monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_LONG", stub("long", 3))
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_DKDV", stub("dkdv", 2))
     monkeypatch.setattr(tattn, "FLASH_ATTN_BWD_DQ", stub("dq", 1))
     q, k, v, dout = (torch.randn(shape).to(dtype) for _ in range(4))
@@ -194,7 +198,7 @@ def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, rout
     ctx = types.SimpleNamespace(saved_tensors=(q, k, v, mask, out, m, l))
     dq, dk, dv, none = tattn._FlashAttention.backward(ctx, dout)
     assert none is None
-    if route in ("packed", "list"):
+    if route in ("packed", "list", "long"):
         assert calls == [route]
         assert [float(t.float().mean()) for t in (dq, dk, dv)] == [1.0, 2.0, 3.0]
     else:

@@ -113,23 +113,26 @@ def test_packed_forward_plain_leaves_other_lists_keys_out():
 
 
 def test_packed_forward_plain_refuses_long_lists():
-    """Above 128 docs a list fits no packed tile."""
-    _, (q, k, v, mask) = _case(129, 8, torch.float32)
-    with pytest.raises(ValueError, match="at most 128 docs"):
+    """Above 256 docs a list fits no packed tile (the long kernel's 256-key
+    tile is the largest)."""
+    _, (q, k, v, mask) = _case(257, 8, torch.float32)
+    with pytest.raises(ValueError, match="at most 256 docs"):
         tattn.attention_forward_packed_plain(q, k, v, mask)
 
 
 @pytest.mark.parametrize("dtype, N, d, route", [
     (torch.bfloat16, 1, 350, "packed"), (torch.bfloat16, 16, 129, "packed"),
     (torch.bfloat16, 64, 384, "packed"), (torch.bfloat16, 128, 350, "packed"),
-    (torch.bfloat16, 65, 136, "packed"), (torch.bfloat16, 129, 350, "flash"),
-    (torch.bfloat16, 256, 384, "flash"), (torch.bfloat16, 16, 128, "flash"),
+    (torch.bfloat16, 65, 136, "packed"), (torch.bfloat16, 129, 350, "long"),
+    (torch.bfloat16, 256, 384, "long"), (torch.bfloat16, 200, 136, "long"),
+    (torch.bfloat16, 257, 350, "flash"), (torch.bfloat16, 16, 128, "flash"),
     (torch.bfloat16, 32, 68, "flash"), (torch.float32, 16, 350, "flash"),
     (torch.float32, 128, 136, "flash")])
 def test_fwd_route_by_shape(dtype, N, d, route):
-    """The packed forward takes bf16, d > 128 and N <= FWD_PACK_MAX_N (128);
-    everything else keeps FlashAttnFwd (the wide kernel at d > 128)."""
-    assert 64 <= tattn.FWD_PACK_MAX_N <= 128
+    """The packed forward takes bf16, d > 128 and N <= FWD_PACK_MAX_N (128),
+    the long forward FWD_PACK_MAX_N < N <= LONG_MAX_N (256); everything else
+    keeps FlashAttnFwd (the wide kernel at d > 128)."""
+    assert 64 <= tattn.FWD_PACK_MAX_N <= 128 and tattn.FWD_PACK_MAX_N <= tattn.LONG_MAX_N <= 256
     assert tattn.fwd_route(dtype, N, d) == route
 
 
@@ -144,25 +147,26 @@ class _OnCuda(torch.Tensor):
 
 @pytest.mark.parametrize("dtype, shape, route", [
     (torch.bfloat16, (2, 2, 16, 350), "packed"), (torch.bfloat16, (2, 2, 128, 136), "packed"),
-    (torch.bfloat16, (2, 2, 129, 136), "flash"), (torch.bfloat16, (2, 2, 16, 128), "flash"),
-    (torch.float32, (2, 2, 16, 350), "flash")])
+    (torch.bfloat16, (2, 2, 129, 136), "long"), (torch.bfloat16, (2, 2, 257, 136), "flash"),
+    (torch.bfloat16, (2, 2, 16, 128), "flash"), (torch.float32, (2, 2, 16, 350), "flash")])
 def test_flash_forward_calls_the_routed_kernel(monkeypatch, dtype, shape, route):
     """_FlashAttention.forward (with row statistics, which it saves for the
     backward) and flash_attention's no-grad path (without) call the packed
-    wrapper or FlashAttnFwd as fwd_route says (the wrappers stubbed: the
-    kernels run only on the card)."""
+    wrapper, the long one or FlashAttnFwd as fwd_route says (the wrappers
+    stubbed: the kernels run only on the card)."""
     calls = []
 
     def stub(name):
         def run(q, k, v, mask, stats=False):
             calls.append((name, stats))
-            out = torch.full_like(q, 1.0 if name == "packed" else 2.0)
+            out = torch.full_like(q, {"packed": 1.0, "flash": 2.0, "long": 3.0}[name])
             B, H, N, _ = q.shape
             return (out, torch.zeros(B, H, N), torch.ones(B, H, N)) if stats else out
         return run
 
     monkeypatch.setattr(tattn, "FLASH_ATTN_FWD_PACKED", stub("packed"))
     monkeypatch.setattr(tattn, "FLASH_ATTN_FWD", stub("flash"))
+    monkeypatch.setattr(tattn, "FLASH_ATTN_FWD_LONG", stub("long"))
     q, k, v = (torch.randn(shape).to(dtype) for _ in range(3))
     mask = torch.ones(shape[0], shape[2], dtype=torch.bool)
     saved = []
@@ -173,8 +177,8 @@ def test_flash_forward_calls_the_routed_kernel(monkeypatch, dtype, shape, route)
         served = tattn.flash_attention(*(torch.Tensor._make_subclass(_OnCuda, t)
                                          for t in (q, k, v, mask)))
     assert calls == [(route, True), (route, False)]
-    assert float(out.float().mean()) == float(served.float().mean()) == (
-        1.0 if route == "packed" else 2.0)
+    assert float(out.float().mean()) == float(served.float().mean()) == {
+        "packed": 1.0, "flash": 2.0, "long": 3.0}[route]
 
 
 def test_packed_forward_grid_contract():
