@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero:
      at head dims above 128 (S once a tile) and the long forward (lists of
      129..256 docs, S once in two halves of keys) against both explicit
      plain forwards and their row statistics, the same bits twice, timed
-     beside the wide forward they replace and SDPA; the bf16
+     beside the wide forward they replace and SDPA; the fp32 packed forward
+     and backward (lists of at most 64 docs at head dims above 128, 3xTF32
+     tensor-core products) likewise, timed beside the fp32 wide kernels and
+     SDPA in fp32 (TF32 off); the bf16
      forward and backward run on the tensor cores; no instantiation of an
      attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
@@ -60,7 +63,10 @@ Phases, in order; any failure exits non-zero:
      packed forward up to FWD_PACK_MAX_N docs, the long forward up to
      LONG_MAX_N, the wide forward above; the packed backward up to
      PACK_MAX_N docs, the list backward up to LIST_MAX_N, the long backward
-     up to LONG_MAX_N, the wide pair above), save, restore and step.
+     up to LONG_MAX_N, the wide pair above), save, restore and step; then
+     the Yahoo! model at d = 350 in fp32, timed in the buckets of 16 to 128
+     docs (the fp32 packed kernels up to F32_PACK_MAX_N docs, the wide
+     kernels above).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -78,6 +84,9 @@ import time
 
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 FP32_PEAK = 67e12    # fp32 FLOP/s outside the tensor cores, H100 SXM data sheet
+TF32_PEAK = 495e12   # dense TF32 tensor-core FLOP/s, H100 SXM data sheet
+# the fp32 packed kernels take each fp32 product as three TF32 products (3xTF32)
+TF32_PRODUCTS = 3
 HBM_BYTES_S = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16  # transcendental results per clock per SM, compute capability 9.0
 
@@ -160,7 +169,9 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # tile at 33, 63 and 64 docs, 64 at 1, N dividing 64 or not), at
 # PACK_LISTS = (B, H): B*H = 10 lists leave a partial last tile wherever
 # 64 // N > 1 does not divide 10; the last b fully padded, the others ragged;
-# then B*H = 65538 lists (PACK_BIG)
+# then B*H = 65538 lists (PACK_BIG). The fp32 packed backward (3xTF32) is
+# held the same way at the same shapes, in both plain versions' fp32, to
+# BWD_TOL's fp32 1e-5 with the same floor.
 PACK_DS = (129, 136, 200, 350, 384, 520)
 PACK_NS = (1, 5, 16, 20, 33, 63, 64)
 PACK_LISTS = (5, 2)
@@ -192,7 +203,10 @@ LONG_RECORD = (128, 2, 256, 350)
 # the output within FWD_PLAIN_TOL of attention_forward_packed_plain (its own
 # formulas) and ATTN_TOL of attention_forward_plain (above 64 docs the two
 # round p against other maxima), the statistics within STATS_TOL of both;
-# timed in Yahoo!'s buckets of 16 to 128 docs beside the wide forward and SDPA
+# timed in Yahoo!'s buckets of 16 to 128 docs beside the wide forward and SDPA;
+# the fp32 packed forward (3xTF32, lists of at most 64 docs) likewise at
+# PACK_DS x PACK_NS and PACK_BIG, to FWD_PLAIN_TOL, ATTN_TOL and STATS_TOL's
+# fp32 gates, timed in the buckets of 16 to 64 docs
 FWD_PACK_NS = (1, 5, 16, 20, 33, 63, 64, 65, 100, 127, 128)
 FWD_PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 2, 128, 350),
                   (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384)]
@@ -210,13 +224,15 @@ PACK_FLOOR = 0.1
 # one, the packed forward two (a 64-key tile of 64 // N lists, a 128-key
 # tile of one list), the packed backward three (64 rows with inputs kept
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
-# list kernel's 128 rows), the long forward and backward one each.
+# list kernel's 128 rows), the long forward and backward one each, the
+# fp32 packed forward and backward (3xTF32) one each.
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
                                     "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1,
                                     "flash_fwd_packed_mma_kernel": 2,
-                                    "flash_fwd_long_mma_kernel": 1},
+                                    "flash_fwd_long_mma_kernel": 1,
+                                    "flash_fwd_packed_tf32_kernel": 1},
                  "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
                                     "flash_bwd_dkdv_kernel": 8, "flash_bwd_dq_kernel": 8,
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
@@ -224,7 +240,8 @@ BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel
                                     "flash_bwd_dkdv_wide_kernel": 1,
                                     "flash_bwd_dq_wide_kernel": 1,
                                     "flash_bwd_packed_mma_kernel": 3,
-                                    "flash_bwd_long_mma_kernel": 1}}
+                                    "flash_bwd_long_mma_kernel": 1,
+                                    "flash_bwd_packed_tf32_kernel": 1}}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -331,9 +348,14 @@ RESUME_TOL = 1e-6
 YAHOO_FEATURES, YAHOO_DATA_ID = 700, "Set1"
 YAHOO_DOCS, YAHOO_BUCKETS, YAHOO_STEPS = 32768, (16, 32, 64, 128, 256), 10
 YAHOO_GRAD_CHECK = 128
-# the bucket of Yahoo!'s mean list, where the bf16 gradient check runs a
-# second time, through the packed backward (ragged lists of 20..32 docs)
+# the bucket of Yahoo!'s mean list, where the gradient checks (fp32 held,
+# bf16 printed) run a second time, through the packed forward and backward
+# (ragged lists of 20..32 docs)
 YAHOO_PACKED_CHECK = 32
+# the timed fp32 Yahoo! steps (compute_dtype's default, with flash
+# attention), at d = 350: through the fp32 packed forward and backward
+# (3xTF32) up to F32_PACK_MAX_N docs, through the wide kernels at 128
+YAHOO_F32_BUCKETS = (16, 32, 64, 128)
 YAHOO_SERVE_LENGTHS = [int(round(5 * (139 / 5) ** (i / 15))) for i in range(16)]
 # the listsfs of phase 7, each with a head dim above 128: (name, features,
 # heads, lane_align, LETOR data id): Yahoo!'s at d = 350 (its launch counts
@@ -893,21 +915,27 @@ def check_grid_limits(card):
 
 def check_packed(card):
     """Phase 3: the backward kernels that take whole lists into a block
-    (FLASH_ATTN_BWD_PACKED: bf16 lists of at most 64 docs, several a 64-row
-    tile; FLASH_ATTN_BWD_LIST: lists of 65..128 docs, one a 128-row tile;
-    FLASH_ATTN_BWD_LONG: lists of 129..256 docs, one a 256-row tile; each
-    dq, dk, dv in one launch) against attention_backward_packed_plain and
+    (FLASH_ATTN_BWD_PACKED: bf16 and fp32 lists of at most 64 docs, several
+    a 64-row tile, fp32 on 3xTF32 tensor-core products; FLASH_ATTN_BWD_LIST:
+    bf16 lists of 65..128 docs, one a 128-row tile; FLASH_ATTN_BWD_LONG:
+    lists of 129..256 docs, one a 256-row tile; each dq, dk, dv in one
+    launch) against attention_backward_packed_plain and
     attention_backward_plain on the forward kernel's output and row
-    statistics: the packed kernel at PACK_DS x PACK_NS and at PACK_BIG, the
-    list kernel at PACK_DS x LIST_NS, the long kernel at PACK_DS x LONG_NS
-    (and at LONG_BIG: check_long_big), and each where it is timed, each the
-    same bits on two runs and one launch a call; where timed (PACK_TIMED,
-    LIST_TIMED, LONG_TIMED) also the time of the kernel, of the wide dk/dv
-    and dq pair it replaces there, of SDPA's backward alone, of the plain
-    version, and the bound. Returns the records at PACK_RECORD, LIST_RECORD
-    and LONG_RECORD."""
+    statistics: the packed kernel at PACK_DS x PACK_NS and at PACK_BIG in
+    both dtypes, the list kernel at PACK_DS x LIST_NS, the long kernel at
+    PACK_DS x LONG_NS (and at LONG_BIG: check_long_big), and each where it is
+    timed, each the same bits on two runs and one launch a call; where timed
+    (PACK_TIMED, LIST_TIMED, LONG_TIMED) also the time of the kernel, of the
+    wide dk/dv and dq pair it replaces there, of SDPA's backward alone (fp32:
+    with TF32 off, so that it computes in fp32), of the plain version, and
+    the bound. Returns the records at PACK_RECORD (bf16, and fp32 under
+    "flash_attn_bwd_packed_fp32"), LIST_RECORD and LONG_RECORD."""
     import torch
     import torch.nn.functional as Fn
+
+    # fp32 products of the plain versions and of SDPA in fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
                                                    FLASH_ATTN_BWD_LIST, FLASH_ATTN_BWD_LONG,
@@ -915,11 +943,11 @@ def check_packed(card):
                                                    attention_backward_packed_plain,
                                                    attention_backward_plain)
 
-    def run(kernel, B, H, N, d, all_padded):
+    def run(kernel, dtype, B, H, N, d, all_padded):
         """The kernel against both plain versions; returns (inputs, errors)."""
-        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, torch.bfloat16)
+        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
         g = torch.Generator(device="cpu").manual_seed(1)
-        dout = torch.randn(B, H, N, d, generator=g).to("cuda", torch.bfloat16)
+        dout = torch.randn(B, H, N, d, generator=g).to("cuda", dtype)
         out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
         dsum = torch.sum(dout.float() * out.float(), dim=-1)
         args = (q, k, v, dout, row_max, row_sum, dsum, mask)
@@ -936,43 +964,48 @@ def check_packed(card):
                                  f"same bits twice: "
                                  f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
         errs = {}
+        tol = BWD_TOL[str(dtype).split(".")[1]]
         for which, ref in plains.items():
             floor = PACK_FLOOR * float(ref[2].float().abs().max())
             for name, a, b in zip(("dq", "dk", "dv"), got, ref):
                 if not bool(torch.isfinite(a.float()).all()):
-                    raise AssertionError(f"{kernel.name} {shape}: non-finite {name}")
+                    raise AssertionError(f"{kernel.name} {dtype} {shape}: non-finite {name}")
                 diff = float((a.float() - b.float()).abs().max())
                 rel = diff / max(float(b.float().abs().max()), floor)
-                if not rel <= BWD_TOL["bfloat16"]:
-                    raise AssertionError(f"{kernel.name} {shape} against {which}: {name} "
-                                         f"relative error {rel} (tol {BWD_TOL['bfloat16']})")
+                if not rel <= tol:
+                    raise AssertionError(f"{kernel.name} {dtype} {shape} against {which}: "
+                                         f"{name} relative error {rel} (tol {tol})")
                 errs[f"{which}_{name}"] = (diff, rel)
         return args, out, errs
 
     records = {}
-    for kernel, ns, big, timed, record in (
-            (FLASH_ATTN_BWD_PACKED, PACK_NS, [(*PACK_BIG, True)], PACK_TIMED, PACK_RECORD),
-            (FLASH_ATTN_BWD_LIST, LIST_NS, [], LIST_TIMED, LIST_RECORD),
-            (FLASH_ATTN_BWD_LONG, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+    for kernel, dtype, ns, big, timed, record in (
+            (FLASH_ATTN_BWD_PACKED, torch.bfloat16, PACK_NS, [(*PACK_BIG, True)], PACK_TIMED,
+             PACK_RECORD),
+            (FLASH_ATTN_BWD_PACKED, torch.float32, PACK_NS, [(*PACK_BIG, True)], PACK_TIMED,
+             PACK_RECORD),
+            (FLASH_ATTN_BWD_LIST, torch.bfloat16, LIST_NS, [], LIST_TIMED, LIST_RECORD),
+            (FLASH_ATTN_BWD_LONG, torch.bfloat16, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+        fp32 = dtype == torch.float32
+        tag = kernel.name + ("_fp32" if fp32 else "")
         worst = {}
         shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in ns] + big
         for shape in shapes:
-            _, _, errs = run(kernel, *shape)
+            _, _, errs = run(kernel, dtype, *shape)
             for key, (_, rel) in errs.items():
                 worst[key] = max(worst.get(key, 0.0), rel)
-        print(f"attn bwd {kernel.name}: {len(shapes)} shapes agree with both plain versions, "
+        print(f"attn bwd {tag}: {len(shapes)} shapes agree with both plain versions, "
               f"each the same bits on two runs; worst relative error {json.dumps(worst)}  "
               f"[{card}]", flush=True)
 
         for (B, H, N, d) in timed:
-            args, out, errs = run(kernel, B, H, N, d, False)
+            args, out, errs = run(kernel, dtype, B, H, N, d, False)
             q, k, v, dout, row_max, row_sum, dsum, mask = args
             fused = lambda: kernel(*args)
             pair = lambda: (FLASH_ATTN_BWD_DKDV(*args), FLASH_ATTN_BWD_DQ(*args))
             plain = lambda: attention_backward_packed_plain(q, k, v, dout, out, row_max, row_sum,
                                                             mask)
-            bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(
-                B, H, N, N)
+            bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :].expand(B, H, N, N)
             leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
             lib_out = Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
 
@@ -983,10 +1016,12 @@ def check_packed(card):
 
             times = {"kernel": cuda_time_ms(fused, 50), "pair": cuda_time_ms(pair, 20),
                      "library_bwd": cuda_time_ms(library, 50), "plain": cuda_time_ms(plain, 5)}
-            val = B * H * N * d * 2
+            val = B * H * N * d * q.element_size()
             # q, k, v, dO read, dq, dk, dv written once; m, l, D read; the mask
-            bnd = bound(10.0 * B * H * N * N * d, BF16_PEAK, 7 * val + 3 * B * H * N * 4 + B * N)
-            rec = {"shape": [B, H, N, d], "ms": times,
+            flops = 10.0 * B * H * N * N * d
+            bnd = bound(TF32_PRODUCTS * flops if fp32 else flops, TF32_PEAK if fp32 else BF16_PEAK,
+                        7 * val + 3 * B * H * N * 4 + B * N)
+            rec = {"shape": [B, H, N, d], "dtype": str(dtype).split(".")[1], "ms": times,
                    "pair_over_kernel": times["pair"] / times["kernel"],
                    "library_over_kernel": times["library_bwd"] / times["kernel"],
                    "max_abs_err": {key: e[0] for key, e in errs.items()},
@@ -994,7 +1029,7 @@ def check_packed(card):
             print(f"attn_bwd_{kernel.name.split('_')[-1]} " + json.dumps(rec) + f"  [{card}]",
                   flush=True)
             if (B, H, N, d) == record:
-                records[kernel.name] = {
+                records[tag] = {
                     "max_abs_err": max(e[0] for key, e in errs.items() if key.startswith("plain_")),
                     "ms": times["kernel"], "plain_ms": times["plain"],
                     "library_ms": times["library_bwd"], **bnd}
@@ -1003,28 +1038,35 @@ def check_packed(card):
 
 def check_packed_fwd(card):
     """Phase 3: the forward kernels that take whole lists into a block
-    (FLASH_ATTN_FWD_PACKED: bf16 lists of at most 128 docs, S once a tile;
-    FLASH_ATTN_FWD_LONG: lists of 129..256 docs, S once a 256-key tile in
-    two halves; one launch each) against attention_forward_packed_plain and
-    attention_forward_plain, output and row statistics, the packed kernel
-    at PACK_DS x FWD_PACK_NS and at PACK_BIG, the long kernel at PACK_DS x
-    LONG_NS (and at LONG_BIG: check_long_big): the same bits on two runs,
-    the same output with and without statistics, one launch a call; at
-    FWD_PACK_TIMED and LONG_TIMED also the time of the kernel with
-    statistics (the call training makes), of the wide forward it replaces
-    there, of SDPA's forward, of the packed plain version, and the bound.
-    Returns the records at FWD_PACK_RECORD and LONG_RECORD."""
+    (FLASH_ATTN_FWD_PACKED: bf16 lists of at most 128 docs and fp32 lists of
+    at most 64 (3xTF32 tensor-core products), S once a tile;
+    FLASH_ATTN_FWD_LONG: bf16 lists of 129..256 docs, S once a 256-key tile
+    in two halves; one launch each) against attention_forward_packed_plain
+    and attention_forward_plain, output and row statistics, the packed
+    kernel at PACK_DS x FWD_PACK_NS and at PACK_BIG (fp32: PACK_DS x PACK_NS
+    and PACK_BIG), the long kernel at PACK_DS x LONG_NS (and at LONG_BIG:
+    check_long_big): the same bits on two runs, the same output with and
+    without statistics, one launch a call; at FWD_PACK_TIMED (fp32: its
+    shapes of at most 64 docs) and LONG_TIMED also the time of the kernel
+    with statistics (the call training makes), of the wide forward it
+    replaces there, of SDPA's forward (fp32: with TF32 off), of the packed
+    plain version, and the bound. Returns the records at FWD_PACK_RECORD
+    (bf16, and fp32 under "flash_attn_fwd_packed_fp32") and LONG_RECORD."""
     import torch
     import torch.nn.functional as Fn
+
+    # fp32 products of the plain versions and of SDPA in fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_FWD, FLASH_ATTN_FWD_LONG,
                                                    FLASH_ATTN_FWD_PACKED,
                                                    attention_forward_packed_plain,
                                                    attention_forward_plain)
 
-    def run(kernel, B, H, N, d, all_padded):
+    def run(kernel, dtype, B, H, N, d, all_padded):
         """The kernel against both plain versions; returns (inputs, errors)."""
-        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, torch.bfloat16)
+        q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
         start = kernel.launches
         got, again = kernel(q, k, v, mask, stats=True), kernel(q, k, v, mask, stats=True)
         bare = kernel(q, k, v, mask)
@@ -1040,39 +1082,43 @@ def check_packed_fwd(card):
         if not all(bool(torch.isfinite(t.float()).all()) for t in got):
             raise AssertionError(f"{kernel.name} {shape}: non-finite output or statistics")
         errs = {}
+        name = str(dtype).split(".")[1]
         for which, (ref, ref_max, ref_sum) in plains.items():
             out_err = (rel_err(got[0], ref) if which == "packed_plain"
                        else float((got[0].float() - ref.float()).abs().max()))
-            tol = FWD_PLAIN_TOL["bfloat16"] if which == "packed_plain" else ATTN_TOL["bfloat16"]
+            tol = FWD_PLAIN_TOL[name] if which == "packed_plain" else ATTN_TOL[name]
             e = {"out": out_err,
                  "row_max": float(((got[1] - ref_max).abs() / (1.0 + ref_max.abs())).max()),
                  "row_sum": float(((got[2] - ref_sum).abs() / ref_sum).max())}
             if not e["out"] <= tol or not max(e["row_max"], e["row_sum"]) <= STATS_TOL:
-                raise AssertionError(f"{kernel.name} {shape} against {which}: {e} (out tol "
-                                     f"{tol}, statistics {STATS_TOL})")
+                raise AssertionError(f"{kernel.name} {name} {shape} against {which}: {e} (out "
+                                     f"tol {tol}, statistics {STATS_TOL})")
             errs.update({f"{which}_{key}": x for key, x in e.items()})
         return (q, k, v, mask), errs
 
     records = {}
-    for kernel, ns, big, timed, record in (
-            (FLASH_ATTN_FWD_PACKED, FWD_PACK_NS, [(*PACK_BIG, True)], FWD_PACK_TIMED,
-             FWD_PACK_RECORD),
-            (FLASH_ATTN_FWD_LONG, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+    for kernel, dtype, ns, big, timed, record in (
+            (FLASH_ATTN_FWD_PACKED, torch.bfloat16, FWD_PACK_NS, [(*PACK_BIG, True)],
+             FWD_PACK_TIMED, FWD_PACK_RECORD),
+            (FLASH_ATTN_FWD_PACKED, torch.float32, PACK_NS, [(*PACK_BIG, True)],
+             [s for s in FWD_PACK_TIMED if s[2] <= 64], FWD_PACK_RECORD),
+            (FLASH_ATTN_FWD_LONG, torch.bfloat16, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+        fp32 = dtype == torch.float32
+        tag = kernel.name + ("_fp32" if fp32 else "")
         worst = {}
         shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in ns] + big
         for shape in shapes:
-            _, errs = run(kernel, *shape)
+            _, errs = run(kernel, dtype, *shape)
             for key, e in errs.items():
                 worst[key] = max(worst.get(key, 0.0), e)
-        print(f"attn fwd {kernel.name}: {len(shapes)} shapes agree with both plain versions, "
+        print(f"attn fwd {tag}: {len(shapes)} shapes agree with both plain versions, "
               f"each the same bits on two runs; worst error (out: relative to the packed plain "
               f"version, absolute to attention_forward_plain) {json.dumps(worst)}  [{card}]",
               flush=True)
 
         for (B, H, N, d) in timed:
-            (q, k, v, mask), errs = run(kernel, B, H, N, d, False)
-            bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :].expand(
-                B, H, N, N)
+            (q, k, v, mask), errs = run(kernel, dtype, B, H, N, d, False)
+            bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :].expand(B, H, N, N)
             times = {"kernel": cuda_time_ms(lambda: kernel(q, k, v, mask, stats=True), 50),
                      "wide": cuda_time_ms(lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True), 20),
                      "library": cuda_time_ms(
@@ -1080,15 +1126,16 @@ def check_packed_fwd(card):
                      "plain": cuda_time_ms(lambda: attention_forward_packed_plain(q, k, v, mask),
                                            5)}
             # q, k, v read and o written once; the mask; the row statistics written
-            bnd = bound(4.0 * B * H * N * N * d, BF16_PEAK,
-                        4 * B * H * N * d * 2 + B * N + 2 * B * H * N * 4)
-            rec = {"shape": [B, H, N, d], "ms": times,
+            flops = 4.0 * B * H * N * N * d
+            bnd = bound(TF32_PRODUCTS * flops if fp32 else flops, TF32_PEAK if fp32 else BF16_PEAK,
+                        4 * B * H * N * d * q.element_size() + B * N + 2 * B * H * N * 4)
+            rec = {"shape": [B, H, N, d], "dtype": str(dtype).split(".")[1], "ms": times,
                    "wide_over_kernel": times["wide"] / times["kernel"],
                    "library_over_kernel": times["library"] / times["kernel"], "errors": errs, **bnd}
             print(f"attn_fwd_{kernel.name.split('_')[-1]} " + json.dumps(rec) + f"  [{card}]",
                   flush=True)
             if (B, H, N, d) == record:
-                records[kernel.name] = {
+                records[tag] = {
                     "max_abs_err": float((kernel(q, k, v, mask).float()
                                           - attention_forward_plain(q, k, v, mask)[0].float())
                                          .abs().max()),
@@ -1897,9 +1944,11 @@ def wide_launches(N: int, d: int, dtype: str = "bfloat16") -> dict:
     """Launches a step of the listsf (6 layers) at head dim d > 128 with
     lists of N docs in `dtype`, by the routes: the forward's (in bf16 the
     packed forward up to FWD_PACK_MAX_N docs, the long forward up to
-    LONG_MAX_N, else the wide kernel) and the backward's (in bf16 the packed
-    backward up to PACK_MAX_N docs, the list backward up to LIST_MAX_N, the
-    long backward up to LONG_MAX_N, else the wide pair)."""
+    LONG_MAX_N, in fp32 the packed forward up to F32_PACK_MAX_N, else the
+    wide kernel) and the backward's (in bf16 the packed backward up to
+    PACK_MAX_N docs, the list backward up to LIST_MAX_N, the long backward
+    up to LONG_MAX_N, in fp32 the packed backward up to F32_PACK_MAX_N, else
+    the wide pair)."""
     import torch
 
     from ptranking_tpu_torch.ops.attention import bwd_route, fwd_route
@@ -1922,18 +1971,20 @@ def wide_phase(card: str, work_dir: str) -> dict:
     HTTP (16 ragged lists of 5..139 docs) and score_file; (b) one step's
     gradients through the kernels against dense attention and the dense loss,
     in the YAHOO_GRAD_CHECK bucket, fp32 held, bf16 printed (Yahoo!'s also at
-    YAHOO_PACKED_CHECK docs, through the packed kernels); (c) timed steps of
-    YAHOO_DOCS docs in each of Yahoo!'s YAHOO_BUCKETS (the one-head model:
-    the 128-doc bucket), with exact launch counts (wide_launches: in bf16 no
-    Yahoo! bucket reaches a wide kernel); (d) save, restore, one more step
-    on both. Returns the launch counts of (c) for the first model, summed
-    over its buckets, and those of its fp32 gradient check (b): the wide
-    kernels' path."""
+    YAHOO_PACKED_CHECK docs, through the packed kernels, fp32's through the
+    3xTF32 ones); (c) timed steps of YAHOO_DOCS docs in each of Yahoo!'s
+    YAHOO_BUCKETS (the one-head model: the 128-doc bucket), with exact launch
+    counts (wide_launches: in bf16 no Yahoo! bucket reaches a wide kernel);
+    (d) save, restore, one more step on both; (e) for the first model, timed
+    fp32 steps in YAHOO_F32_BUCKETS (yahoo_f32_steps). Returns the launch
+    counts of (c) for the first model, summed over its buckets, those of its
+    fp32 gradient check (b) in the YAHOO_GRAD_CHECK bucket (the fp32 wide
+    kernels' path), and those of (e)."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
 
-    counts, fp32_counts, first = {}, {}, True
+    counts, fp32_counts, f32_step_counts, first = {}, {}, {}, True
     for name, F, n_heads, lane_align, data_id in WIDE_MODELS:
         cfg = ScorerConfig.default_listsf(F, compute_dtype="bfloat16", flash_attn=True,
                                           lane_align=lane_align, n_heads=n_heads)
@@ -1956,15 +2007,17 @@ def wide_phase(card: str, work_dir: str) -> dict:
             fp32_counts = wide_launches(N, d, "float32")
         print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
 
-        if name == "yahoo":  # the same in a bucket of the packed backward: the mean list's
+        if name == "yahoo":  # the same in a bucket of the packed kernels: the mean list's
             N = YAHOO_PACKED_CHECK
             batch = train_batch(YAHOO_DOCS // N, N, ragged=True, seed=1, num_features=F)
             x, labels, mask = (torch.from_numpy(a).cuda()
                                for a in (batch.features, batch.labels, batch.mask))
-            rec = grads_vs_dense(flagship_ranker(dropout=0.0, **ranker_kw), x, labels, mask,
-                                 f"{tag} gradient check at {N} docs", wide_launches(N, d))
-            print(f"{tag}_grad_{N}docs " + json.dumps({"bfloat16": rec}) + f"  [{card}]",
-                  flush=True)
+            rec = {dtype: grads_vs_dense(flagship_ranker(dropout=0.0, compute_dtype=dtype,
+                                                         **ranker_kw),
+                                         x, labels, mask, f"{tag} gradient check at {N} docs",
+                                         wide_launches(N, d, dtype))
+                   for dtype in ("float32", "bfloat16")}
+            print(f"{tag}_grad_{N}docs " + json.dumps(rec) + f"  [{card}]", flush=True)
 
         ranker = flagship_ranker(**ranker_kw)
         # Yahoo!'s buckets, short lists first; the one-head MSLR-WEB30K model
@@ -1977,12 +2030,34 @@ def wide_phase(card: str, work_dir: str) -> dict:
                   flush=True)
             if first:
                 counts = {k: counts.get(k, 0) + n for k, n in steps_rec["launches"].items()}
-        first = False
-
         rec = resume_check(ranker, [batch], os.path.join(work_dir, f"{tag}.trained.pt"),
                            f"{tag} resume")
         print(f"{tag}_resume " + json.dumps(rec) + f"  [{card}]", flush=True)
-    return counts, fp32_counts
+        if first:
+            f32_step_counts = yahoo_f32_steps(card)
+        first = False
+    return counts, fp32_counts, f32_step_counts
+
+
+def yahoo_f32_steps(card: str) -> dict:
+    """Timed LambdaRank steps of the Yahoo! listsf at d = 350 in fp32 (WIDE_MODELS'
+    first model, compute_dtype float32), YAHOO_DOCS docs a step in each of
+    YAHOO_F32_BUCKETS, with exact launch counts (wide_launches in fp32: the
+    fp32 packed kernels up to F32_PACK_MAX_N docs, the wide kernels above).
+    Returns the launch counts summed over the buckets."""
+    name, F, n_heads, lane_align, _ = WIDE_MODELS[0]
+    ranker = flagship_ranker(compute_dtype="float32", num_features=F, lane_align=lane_align,
+                             n_heads=n_heads)
+    d = ranker.scorer_cfg.width // n_heads
+    counts = {}
+    for N in YAHOO_F32_BUCKETS:
+        batch = train_batch(YAHOO_DOCS // N, N, ragged=False, seed=2, num_features=F)
+        rec = timed_steps(ranker, batch, YAHOO_STEPS, f"{name}_d{d} fp32 timed steps at {N} docs",
+                          wide_launches(N, d, "float32"))
+        print(f"{name}_d{d}_fp32_steps " + json.dumps({"head_dim": d, "dtype": "float32", **rec})
+              + f"  [{card}]", flush=True)
+        counts = {k: counts.get(k, 0) + n for k, n in rec["launches"].items()}
+    return counts
 
 
 def main() -> int:
@@ -2041,12 +2116,14 @@ def main() -> int:
     launches["sinkstep"] = wassrank_phase(card, work_dir)["sinkstep"]
 
     phase("wide")
-    wide, wide_fp32 = wide_phase(card, work_dir)
+    wide, wide_fp32, f32_steps = wide_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",
                  "flash_attn_bwd_list", "flash_attn_bwd_long"):
         launches[name] = wide[name]
+    for name in ("flash_attn_fwd_packed", "flash_attn_bwd_packed"):
+        launches[name + "_fp32"] = f32_steps[name]
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
@@ -2094,6 +2171,14 @@ def main() -> int:
                                 "ptranking_tpu/ops/attention.py:172"),
         "flash_attn_bwd_long": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                 "ptranking_tpu/ops/attention.py:172"),
+        # the fp32 forward and backward of lists of at most F32_PACK_MAX_N
+        # docs at d > 128 (3xTF32; the packed wrappers, which count either
+        # dtype): records at FWD_PACK_RECORD and PACK_RECORD in fp32,
+        # launches from phase 7's timed fp32 steps of the d = 350 model
+        "flash_attn_fwd_packed_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                                       "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_bwd_packed_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                       "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

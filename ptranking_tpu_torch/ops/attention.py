@@ -11,7 +11,8 @@ dropout (the JAX package applies none on its flash path either):
     kernels for CUDA tensors: `csrc/flash_attn_fwd.cu` forward, and when a
     gradient is needed, `csrc/flash_attn_bwd.cu` backward (dq, and dk with dv)
     from the forward's row statistics, as a `torch.autograd.Function`: bf16
-    inputs on the tensor cores, fp32 inputs on the fp32 CUDA cores. CPU
+    inputs on the tensor cores, fp32 inputs on the fp32 CUDA cores, save the
+    fp32 packed kernels (3xTF32 on the tensor cores). CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
@@ -33,7 +34,9 @@ dv of 64 // N lists a block, one launch), for lists of at most LIST_MAX_N
 docs the list kernel (the same on a 128-row tile, one list a block), for
 lists of at most LONG_MAX_N docs the long kernel (one list of up to 256
 docs a block, in two halves of its keys), and the wide dk/dv and dq kernels
-otherwise (`bwd_route`).
+otherwise (`bwd_route`). In fp32 at head dims above 128, lists of at most
+F32_PACK_MAX_N docs take the packed forward and the packed backward on
+3xTF32 tensor-core products, and longer lists the wide kernels.
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -308,18 +311,26 @@ FWD_PACK_MAX_N = 128
 PACK_MAX_N = 64
 LIST_MAX_N = 128
 LONG_MAX_N = 256
+# The fp32 routes at d > 128, set the same way: the packed forward and the
+# packed backward on 3xTF32 tensor-core products (csrc/flash_attn_{fwd,bwd}.cu:
+# flash_{fwd,bwd}_packed_tf32_kernel, 64 // N lists a 64-row tile) up to
+# F32_PACK_MAX_N docs, in place of the fp32 wide forward and wide pair.
+F32_PACK_MAX_N = 64
 
 
 def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     """The forward's kernel for inputs of `dtype` with N docs a list and head
     dim d: for bf16 and d > 128, "packed" (FlashAttnFwdPacked) at
     N <= FWD_PACK_MAX_N and "long" (FlashAttnFwdLong) at N <= LONG_MAX_N;
-    else "flash" (FlashAttnFwd)."""
+    for fp32 and d > 128, "packed" at N <= F32_PACK_MAX_N; else "flash"
+    (FlashAttnFwd)."""
     if dtype == torch.bfloat16 and d > _NARROW_D:
         if N <= FWD_PACK_MAX_N:
             return "packed"
         if N <= LONG_MAX_N:
             return "long"
+    if dtype == torch.float32 and d > _NARROW_D and N <= F32_PACK_MAX_N:
+        return "packed"
     return "flash"
 
 
@@ -327,8 +338,8 @@ def bwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     """The backward's kernels for inputs of `dtype` with N docs a list and
     head dim d: for bf16 and d > 128, "packed" (FlashAttnBwdPacked) at
     N <= PACK_MAX_N, "list" (FlashAttnBwdList) at N <= LIST_MAX_N and "long"
-    (FlashAttnBwdLong) at N <= LONG_MAX_N; else "pair" (FlashAttnBwdDkdv and
-    FlashAttnBwdDq)."""
+    (FlashAttnBwdLong) at N <= LONG_MAX_N; for fp32 and d > 128, "packed" at
+    N <= F32_PACK_MAX_N; else "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
     if dtype == torch.bfloat16 and d > _NARROW_D:
         if N <= PACK_MAX_N:
             return "packed"
@@ -336,6 +347,8 @@ def bwd_route(dtype: torch.dtype, N: int, d: int) -> str:
             return "list"
         if N <= LONG_MAX_N:
             return "long"
+    if dtype == torch.float32 and d > _NARROW_D and N <= F32_PACK_MAX_N:
+        return "packed"
     return "pair"
 
 
@@ -365,10 +378,12 @@ def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int
 
 
 # the kernels that take whole lists into a block, by wrapper: the longest
-# list each takes
+# list each takes; and the wrappers whose kernels also take fp32 lists, of
+# at most _ROWS docs (the 3xTF32 kernels' 64-row tile)
 _PACKED_MAX_N = {"flash_attn_fwd_packed": _LIST_ROWS, "flash_attn_bwd_packed": _ROWS,
                  "flash_attn_bwd_list": _LIST_ROWS, "flash_attn_fwd_long": _LONG_ROWS,
                  "flash_attn_bwd_long": _LONG_ROWS}
+_F32_PACKED = ("flash_attn_fwd_packed", "flash_attn_bwd_packed")
 
 
 def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
@@ -416,8 +431,12 @@ def _check_qkv(q, k, v, mask, *more, packed=""):
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
         raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if packed and q.dtype != torch.bfloat16:
-        raise ValueError(f"{packed} takes bfloat16 inputs; got {q.dtype}")
+    if packed and q.dtype == torch.float32:
+        if packed not in _F32_PACKED:
+            raise ValueError(f"{packed} takes bfloat16 inputs; got {q.dtype}")
+        if N > _ROWS:
+            raise ValueError(f"shape {(B, H, N, d)}: {packed} takes float32 lists of at most "
+                             f"{_ROWS} docs")
     check_grid(B, H, N, d, packed)
     tensors = (q, k, v, mask, *more)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
@@ -474,10 +493,11 @@ class FlashAttnFwd:
 
 
 class FlashAttnFwdPacked(FlashAttnFwd):
-    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s packed kernel (bf16, lists
-    of at most 128 docs, any d: S once a tile of 64 // N lists, or of one
-    list above 64 docs), FlashAttnFwd's call and statistics, with its own
-    launch count (one a call)."""
+    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s packed kernels (bf16,
+    lists of at most 128 docs, any d: S once a tile of 64 // N lists, or of
+    one list above 64 docs; fp32, lists of at most 64 docs: the same on
+    3xTF32 tensor-core products), FlashAttnFwd's call and statistics, with
+    its own launch count (one a call, either dtype)."""
 
     name = packed = "flash_attn_fwd_packed"
 
@@ -537,9 +557,10 @@ class FlashAttnBwdDq:
 
 
 class FlashAttnBwdPacked:
-    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s packed kernel (bf16, lists
-    of at most 64 docs, any d): dq, dk and dv in one launch, with its launch
-    count. `dsum` is D = rowsum(dO * O), [B, H, N] fp32."""
+    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s packed kernels (bf16 or
+    fp32 on 3xTF32 tensor-core products, lists of at most 64 docs, any d):
+    dq, dk and dv in one launch, with its launch count (either dtype).
+    `dsum` is D = rowsum(dO * O), [B, H, N] fp32."""
 
     name = "flash_attn_bwd_packed"
 

@@ -105,7 +105,11 @@
 // digits) and the fp32 path is the exact one that gradient checks and
 // checkpoint-resume checks rest on. Products run from transposed fp32 tiles in
 // shared memory with 4x8 register blocks; 128 threads as 16 row groups of 4
-// rows x 8 lanes.
+// rows x 8 lanes. The exception: fp32 lists of at most 64 docs at d > 128
+// take flash_bwd_packed_tf32_kernel (entry flash_attn_bwd_packed, dtype 0;
+// the route at N <= F32_PACK_MAX_N), the packed kernel's three steps with
+// every product in 3xTF32 on the tensor cores, which keeps about fp32's
+// accuracy (the section "fp32, lists of at most 64 docs" below).
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -1973,6 +1977,232 @@ flash_bwd_long_dq_sum_kernel(const float* __restrict__ part, bf16* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// fp32, lists of at most 64 docs: the packed kernel on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// The fp32 wide pair computes S and dP on the CUDA cores once for each
+// 64-column output chunk of dk/dv and again for each of dq (12 times at
+// d = 350), on 64-row tiles that hold one list of N docs: 10.56 + 6.10 ms at
+// (2048, 2, 16, 350) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Here
+// the bf16 packed kernel's three steps in fp32, 64 / N lists a 64-row tile,
+// dq, dk and dv of the tile in one block of 4 warps, every product on the
+// tensor cores in 3xTF32 (mma_common.cuh: about fp32's accuracy):
+//   1. S = Q K^T and dP = dO V^T (a warp's 16 query rows by the 64 keys,
+//      fp32) once a tile, over d in TF32_W-column chunks of Q, K, dO and V
+//      double-buffered through shared memory;
+//   2. P and dS on the fragments with p_ds_packed's rules (a key of another
+//      list: P = dS = 0; a masked key of the row's own list: logit -1e9,
+//      dS = 0) and the fp32 kernels' expf; P and dS stored as fp32 [64][68]
+//      tiles, since dk and dv contract over the query rows, which span the
+//      warps; dS of the warp's own rows also stays in registers;
+//   3. for each TF32_W-column output chunk, its Q, dO and K columns re-read
+//      into the same double buffer (mostly L2 hits: the block read them in
+//      step 1; keeping all of d would need 3 * 64 * d * 4 bytes, 269 KB at
+//      d = 350), then dv = P^T dO and dk = scale * dS^T Q (A fragments of P^T
+//      and dS^T read from the tiles) and dq = scale * dS K (dS's C fragment as
+//      the A fragment, mma_1688_tf32's renumbered k slots).
+// Five products a tile, as attention_backward_packed_plain takes them, each
+// three TF32 products, each operand split into hi and lo at its fragment load
+// (PERF.md has the times of a split staged once in shared memory and of
+// 64-column chunks, one block an SM where 32 give two: both lost).
+// What bounds it: bytes. Q, K, V and dO are read once from device memory
+// (step 3's re-reads mostly from L2) and dq, dk, dv written once. On an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 0.92 ms at (2048, 2, 16, 350),
+// and at 32 and 64 docs, against a byte bound of 0.19 ms, the wide pair's
+// 16.6 and SDPA's fp32 backward 0.70; 0.68 ms at d = 384 (16-byte copies)
+// against SDPA's 2.40. Its worst error at chip_smoke.py's fp32 gates: 8.0e-6
+// relative (the gate: 1e-5), where the two plain versions differ by 3e-6.
+
+constexpr int TF32_W = 32;  // columns of the fp32 packed kernel's d-chunks and output chunks
+
+// the P and dS tiles ([64][68]), two stages of four chunk tiles ([64][w + 4])
+// and the key info
+__host__ __device__ constexpr size_t packed_tf32_smem_bytes(int w) {
+    return (size_t(2) * PACK_ROWS * (PACK_ROWS + 4) + size_t(2) * 4 * PACK_ROWS * (w + 4))
+               * sizeof(float)
+           + PACK_ROWS * sizeof(int);
+}
+
+template <int W>
+__global__ void __launch_bounds__(PACK_NT, 2)
+flash_bwd_packed_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                             const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                             float* __restrict__ dq, float* __restrict__ dk,
+                             float* __restrict__ dv, int lists, int H, int N, int d, float scale,
+                             int copy, int how) {
+    constexpr int LD = W + 4;              // row stride of the chunk tiles (floats)
+    constexpr int LDP = PACK_ROWS + 4;     // of the P and dS tiles
+    constexpr int TS = PACK_ROWS * LD;     // a chunk tile: a tensor's share of a stage
+    constexpr int PT = PACK_ROWS * LDP;    // the P tile
+    constexpr int STAGE = 4 * TS;
+    extern __shared__ uint4 smem_mma[];
+    float* Ps = reinterpret_cast<float*>(smem_mma);  // [64 query rows][LDP]
+    float* dSs = Ps + PT;
+    float* Cs = dSs + PT;                            // [2][STAGE]: Q, K, dO, V chunk tiles
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = PACK_ROWS / N;
+    const int l0 = blockIdx.x * per_tile;  // the tile's first (b, h) list
+    const int nrows = min(per_tile, lists - l0) * N;
+    const size_t row0 = size_t(l0) * N;
+    const size_t base = row0 * d;
+    const int chunks = (d + W - 1) / W;
+    const int stages = 2 * chunks;
+
+    // stage st < chunks: step 1's d-chunk st of Q, K, dO and V; st >= chunks:
+    // step 3's output chunk st - chunks of Q, K and dO, in the same places
+    auto prefetch = [&](int st) {
+        float* cs = Cs + (st & 1) * STAGE;
+        const int c0 = (st < chunks ? st : st - chunks) * W;
+        load_chunk_f32<PACK_NT, W, PACK_ROWS>(cs, q + base, nrows, d, c0, copy);
+        load_chunk_f32<PACK_NT, W, PACK_ROWS>(cs + TS, k + base, nrows, d, c0, copy);
+        load_chunk_f32<PACK_NT, W, PACK_ROWS>(cs + 2 * TS, dout + base, nrows, d, c0, copy);
+        if (st < chunks)
+            load_chunk_f32<PACK_NT, W, PACK_ROWS>(cs + 3 * TS, v + base, nrows, d, c0, copy);
+        cp_async_commit();
+    };
+    auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+    };
+
+    prefetch(0);
+    if (tid < PACK_ROWS) {
+        int info = -1;
+        if (tid < nrows) {
+            const int list = tid / N, key = tid - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[tid] = info;
+    }
+    int seg[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+    float m[2], inv[2], D[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const bool in = r < nrows;  // a row past them: zero q and dO rows, P = dS = 0
+        seg[h] = in ? r / N : -2;
+        m[h] = in ? row_max[row0 + r] : 0.f;
+        inv[h] = in ? 1.f / row_sum[row0 + r] : 0.f;  // l >= 1
+        D[h] = in ? dsum[row0 + r] : 0.f;
+    }
+
+    // step 1
+    float s[PACK_ROWS / 8][4], dp[PACK_ROWS / 8][4];
+#pragma unroll
+    for (int j = 0; j < PACK_ROWS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+        next(c);
+        const float* cs = Cs + (c & 1) * STAGE;
+#pragma unroll
+        for (int kk = 0; kk < W; kk += 8) {
+            uint32_t ahi[4], alo[4], bhi[2], blo[2];
+            frag_a_tf32<LD>(ahi, alo, cs, warp * 16, kk, lane);  // Q
+#pragma unroll
+            for (int j = 0; j < PACK_ROWS / 8; ++j) {
+                frag_b_nk_tf32<LD>(bhi, blo, cs + TS, 8 * j, kk, lane);  // K
+                mma_3xtf32(s[j], ahi, alo, bhi, blo);
+            }
+            frag_a_tf32<LD>(ahi, alo, cs + 2 * TS, warp * 16, kk, lane);  // dO
+#pragma unroll
+            for (int j = 0; j < PACK_ROWS / 8; ++j) {
+                frag_b_nk_tf32<LD>(bhi, blo, cs + 3 * TS, 8 * j, kk, lane);  // V
+                mma_3xtf32(dp[j], ahi, alo, bhi, blo);
+            }
+        }
+        __syncthreads();  // no warp reads stage c's buffers any more
+    }
+
+    // step 2 (stage `chunks`, step 3's first, is in flight): P in place of S
+    // and dS in place of dP, both also into their tiles
+#pragma unroll
+    for (int j = 0; j < PACK_ROWS / 8; ++j) {
+        const int2 f = *reinterpret_cast<const int2*>(kinfo + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int info = (e & 1) ? f.y : f.x, h = e >> 1;
+            const bool same = (info >> 2) == seg[h];
+            const bool real = same && (info & 3) == KEY_REAL;
+            const float x = real ? s[j][e] * scale : MASKED_LOGIT;
+            const float p = same ? expf(x - m[h]) * inv[h] : 0.f;
+            dp[j][e] = real ? p * (dp[j][e] - D[h]) : 0.f;
+            s[j][e] = p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int at = (warp * 16 + g + 8 * h) * LDP + 8 * j + 2 * t4;
+            *reinterpret_cast<float2*>(Ps + at) = make_float2(s[j][2 * h], s[j][2 * h + 1]);
+            *reinterpret_cast<float2*>(dSs + at) = make_float2(dp[j][2 * h], dp[j][2 * h + 1]);
+        }
+    }
+    __syncthreads();
+
+    // step 3
+    const bool pairs = how & STORE_PAIRS;
+    for (int oc = 0; oc < chunks; ++oc) {
+        const int st = chunks + oc;
+        next(st);
+        const float* cs = Cs + (st & 1) * STAGE;
+        float acc_q[W / 8][4], acc_k[W / 8][4], acc_v[W / 8][4];
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc_q[n][e] = acc_k[n][e] = acc_v[n][e] = 0.f;
+        // over the query rows (dk, dv) or the keys (dq) 8j .. 8j + 7
+#pragma unroll
+        for (int j = 0; j < PACK_ROWS / 8; ++j) {
+            uint32_t ahi[4], alo[4], bhi[2], blo[2];
+            frag_a_trans_tf32<LDP>(ahi, alo, Ps, warp * 16, 8 * j, lane);
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {  // dv += P^T dO
+                frag_b_kn_tf32<LD>(bhi, blo, cs + 2 * TS, 8 * j, 8 * n, lane);
+                mma_3xtf32(acc_v[n], ahi, alo, bhi, blo);
+            }
+            frag_a_trans_tf32<LDP>(ahi, alo, dSs, warp * 16, 8 * j, lane);
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {  // dk += dS^T Q
+                frag_b_kn_tf32<LD>(bhi, blo, cs, 8 * j, 8 * n, lane);
+                mma_3xtf32(acc_k[n], ahi, alo, bhi, blo);
+            }
+            c_as_a_tf32(ahi, alo, dp[j]);
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {  // dq += dS K
+                frag_b_kn_tf32<LD>(bhi, blo, cs + TS, 8 * j, 8 * n, lane);
+                mma_3xtf32(acc_q[n], ahi, alo, bhi, blo);
+            }
+        }
+        const int c0 = oc * W;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;  // a query row and a key
+            if (r >= nrows) continue;
+            const size_t at = base + size_t(r) * d;
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {
+                const int col = c0 + 8 * n + 2 * t4;
+                store_pair_f32(dq + at, col, acc_q[n][2 * h] * scale, acc_q[n][2 * h + 1] * scale,
+                               d, pairs);
+                store_pair_f32(dk + at, col, acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale,
+                               d, pairs);
+                store_pair_f32(dv + at, col, acc_v[n][2 * h], acc_v[n][2 * h + 1], d, pairs);
+            }
+        }
+        __syncthreads();  // no warp reads stage st's buffers any more
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -2178,6 +2408,27 @@ cudaError_t launch_bwd_packed(const Args& a, void* dq, void* dk, void* dv) {
     return launch_packed_as<PACK_ROWS, CW, false, false>(a, dq, dk, dv);
 }
 
+// one block per tile of 64 / N lists
+cudaError_t launch_bwd_packed_tf32(const Args& a, void* dq, void* dk, void* dv) {
+    const auto kernel = flash_bwd_packed_tf32_kernel<TF32_W>;
+    const size_t bytes = packed_tf32_smem_bytes(TF32_W);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int lists = a.B * a.H, per_tile = PACK_ROWS / a.N;
+    const int copy = chunk_copy_f32(a.d, std::min(std::min(alignment(a.q), alignment(a.k)),
+                                                  std::min(alignment(a.v), alignment(a.dout))));
+    const bool pairs = a.d % 2 == 0 && aligned(dq, 8) && aligned(dk, 8) && aligned(dv, 8);
+    kernel<<<unsigned((lists + per_tile - 1) / per_tile), PACK_NT, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), lists, a.H,
+        a.N, a.d, 1.0f / sqrtf(float(a.d)), copy, pairs ? STORE_PAIRS : 0);
+    return cudaGetLastError();
+}
+
 // One block per tile of LONG_ROWS / N lists (LONG_SUM 1, 2: two, one a half,
 // then the partials' sum: two launches)
 template <int SUM>
@@ -2308,17 +2559,18 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
     });
 }
 
-// dq, dk and dv of bf16 lists of at most 64 docs (any d) in one launch of
-// the packed kernel; B*H lists below 2^31.
+// dq, dk and dv of bf16 or fp32 (3xTF32) lists of at most 64 docs (any d)
+// in one launch of the packed kernel; B*H lists below 2^31.
 int flash_attn_bwd_packed(const void* q, const void* k, const void* v, const void* dout,
                           const void* row_max, const void* row_sum, const void* dsum,
                           const void* mask, void* dq, void* dk, void* dv, int B, int H, int N,
                           int d, int dtype, void* stream) {
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
-    if (B < 1 || H < 1 || N < 1 || N > PACK_ROWS || d < 1 || dtype != 1
+    if (B < 1 || H < 1 || N < 1 || N > PACK_ROWS || d < 1 || (dtype != 0 && dtype != 1)
         || (long long)B * H >= (1LL << 31))
         return int(cudaErrorInvalidValue);
+    if (dtype == 0) return int(launch_bwd_packed_tf32(a, dq, dk, dv));
     return int(launch_bwd_packed<PACK_CW>(a, dq, dk, dv));
 }
 

@@ -103,7 +103,12 @@
 // backward's fp32 kernels (TF32 keeps about 3 digits, and the fp32 path is
 // the exact one that gradient and resume checks rest on): register-blocked
 // 4x8 tiles per thread over transposed fp32 tiles in shared memory, 128
-// threads as 16 row groups of 4 rows x 8 lanes, the same padding rules.
+// threads as 16 row groups of 4 rows x 8 lanes, the same padding rules. The
+// exception: fp32 lists of at most 64 docs at d > 128 take
+// flash_fwd_packed_tf32_kernel (entry flash_attn_fwd_packed, dtype 0; the
+// route at N <= F32_PACK_MAX_N), the packed kernel's design with its two
+// products in 3xTF32 on the tensor cores, which keeps about fp32's accuracy
+// (the section "fp32, lists of at most 64 docs" below).
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -1386,6 +1391,237 @@ cudaError_t launch_long(const void* q, const void* k, const void* v, const void*
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32, lists of at most 64 docs: the packed kernel on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// The fp32 wide kernel recomputes S on the CUDA cores for each of its
+// 64-column output chunks (6 at d = 350), on 64-row tiles that hold one list
+// of N docs (at 16 docs, 15/16 of each S tile is padding): 3.28 ms at
+// (2048, 2, 16, 350) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Here
+// the bf16 packed kernel's design in fp32: 64 / N consecutive (b, h) lists in
+// one 64-key tile, a block of 4 warps owning the tile's 64 query rows:
+//   1. S = Q K^T (a warp's 16 rows by the 64 keys, fp32) computed once, over
+//      d in TF32_W-column chunks of Q and K double-buffered through shared
+//      memory, on the tensor cores in 3xTF32 (mma_common.cuh): about fp32's
+//      accuracy, where TF32 alone keeps 3 digits;
+//   2. the softmax on the fragment with softmax_packed's rules (a key of
+//      another list left out, a masked key of the row's own list at -1e9),
+//      in natural-log units with expf, as the fp32 kernels compute it;
+//   3. for each TF32_W-column output chunk of V, O = P V in 3xTF32 with P in
+//      registers: its C fragment is the A fragment of the product once the
+//      k slots are renumbered (mma_1688_tf32), so P never reaches shared
+//      memory; O / l and the row statistics stored in fp32.
+// Each operand is split into hi and lo at its fragment load (PERF.md has the
+// times of a split staged once in shared memory, which lost).
+// What bounds it: bytes. Q, K and V are read once and O written once; the
+// products, those on the zeros of other lists included, are 3 x 4 * 64 * 64
+// * d operations a tile in TF32, below the tensor cores' ridge. On an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md): 0.24 ms with statistics at (2048, 2,
+// 16, 350), and at 32 and 64 docs, against a byte bound of 0.110 ms, the
+// wide kernel's 3.28 and SDPA's fp32 0.39; 0.21 ms at d = 384. Its worst
+// errors at chip_smoke.py's fp32 gates: 1.4e-6 of the output's scale,
+// 3.2e-6 in the statistics.
+
+constexpr int TF32_W = 32;  // columns of the fp32 packed kernel's d-chunks and output chunks
+
+// two stages (step 1's Q and K chunks, or step 3's V chunk) and the key info
+__host__ __device__ constexpr size_t packed_tf32_smem_bytes(int w) {
+    return size_t(2) * 2 * PACK_KEYS * (w + 4) * sizeof(float) + PACK_KEYS * sizeof(int);
+}
+
+template <int W>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_fwd_packed_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                             float* __restrict__ o, float* __restrict__ row_max,
+                             float* __restrict__ row_sum, int lists, int H, int N, int d,
+                             float scale, int copy, int how) {
+    constexpr int LD = W + 4;              // row stride of the chunk tiles (floats)
+    constexpr int TS = PACK_KEYS * LD;     // a chunk tile: a tensor's share of a stage
+    constexpr int STAGE = 2 * TS;
+    extern __shared__ uint4 smem_mma[];
+    float* Cs = reinterpret_cast<float*>(smem_mma);       // [2][STAGE]
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);  // [PACK_KEYS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = PACK_KEYS / N;
+    const int l0 = blockIdx.x * per_tile;              // the tile's first (b, h) list
+    const int nkeys = min(per_tile, lists - l0) * N;   // the tile's rows: query rows and keys
+    const size_t row0 = size_t(l0) * N;
+    const float* qb = q + row0 * d;
+    const float* kb = k + row0 * d;
+    const float* vb = v + row0 * d;
+    const int chunks = (d + W - 1) / W;
+    const int stages = 2 * chunks;
+
+    // stage st < chunks: step 1's d-chunk st of Q and K; st >= chunks: step
+    // 3's output chunk st - chunks of V
+    auto prefetch = [&](int st) {
+        float* cs = Cs + (st & 1) * STAGE;
+        if (st < chunks) {
+            load_chunk_f32<MMA_NT, W, PACK_KEYS>(cs, qb, nkeys, d, st * W, copy);
+            load_chunk_f32<MMA_NT, W, PACK_KEYS>(cs + TS, kb, nkeys, d, st * W, copy);
+        } else {
+            load_chunk_f32<MMA_NT, W, PACK_KEYS>(cs, vb, nkeys, d, (st - chunks) * W, copy);
+        }
+        cp_async_commit();
+    };
+    auto next = [&](int st) {  // start stage st + 1's copies; wait for stage st's
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+    };
+
+    prefetch(0);
+    for (int j = tid; j < PACK_KEYS; j += MMA_NT) {
+        int info = -1;
+        if (j < nkeys) {
+            const int list = j / N, key = j - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[j] = info;
+    }
+    int seg[2];  // of the thread's two query rows (g and g + 8 of the warp's 16): its list
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        seg[h] = r < nkeys ? r / N : -2;
+    }
+
+    // step 1
+    float s[PACK_KEYS / 8][4];
+#pragma unroll
+    for (int j = 0; j < PACK_KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+        next(c);
+        const float* qs = Cs + (c & 1) * STAGE;
+#pragma unroll
+        for (int kk = 0; kk < W; kk += 8) {
+            uint32_t ahi[4], alo[4];
+            frag_a_tf32<LD>(ahi, alo, qs, warp * 16, kk, lane);
+#pragma unroll
+            for (int j = 0; j < PACK_KEYS / 8; ++j) {
+                uint32_t bhi[2], blo[2];
+                frag_b_nk_tf32<LD>(bhi, blo, qs + TS, 8 * j, kk, lane);
+                mma_3xtf32(s[j], ahi, alo, bhi, blo);
+            }
+        }
+        __syncthreads();  // no warp reads stage c's buffers any more
+    }
+
+    // step 2 (stage `chunks`, step 3's first, is in flight): the max over the
+    // row's own keys, p = exp(x - m) in place of S, and the thread's share of l
+    float m[2], l[2], inv[2];
+    {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < PACK_KEYS / 8; ++j) {
+            const int2 f2 = *reinterpret_cast<const int2*>(kinfo + 8 * j + 2 * t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int f = (e & 1) ? f2.y : f2.x, h = e >> 1;
+                const float x = (f >> 2) != seg[h] ? -INFINITY
+                                : (f & 3) == KEY_REAL ? s[j][e] * scale : MASKED_LOGIT;
+                s[j][e] = x;
+                mx[h] = fmaxf(mx[h], x);
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            m[h] = fmaxf(M_INIT, mx[h]);  // M_INIT on a row past the tile's: every p is 0
+            l[h] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < PACK_KEYS / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = expf(s[j][e] - m[e >> 1]);  // 0 on another list's key
+                s[j][e] = p;
+                l[e >> 1] += p;
+            }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);  // the quad's four shares
+            l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+            inv[h] = 1.f / l[h];  // l >= 1 on a row of the tile: its max contributes exp(0)
+        }
+    }
+
+    // step 3
+    const bool pairs = how & STORE_PAIRS;
+    for (int oc = 0; oc < chunks; ++oc) {
+        const int st = chunks + oc;
+        next(st);
+        const float* vs = Cs + (st & 1) * STAGE;
+        float acc[W / 8][4];
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < PACK_KEYS / 8; ++j) {  // O += P V over the keys 8j .. 8j + 7
+            uint32_t ahi[4], alo[4];
+            c_as_a_tf32(ahi, alo, s[j]);
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {
+                uint32_t bhi[2], blo[2];
+                frag_b_kn_tf32<LD>(bhi, blo, vs, 8 * j, 8 * n, lane);
+                mma_3xtf32(acc[n], ahi, alo, bhi, blo);
+            }
+        }
+        const int c0 = oc * W;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nkeys) continue;
+            float* orow = o + (row0 + r) * d;
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n)
+                store_pair_f32(orow, c0 + 8 * n + 2 * t4, acc[n][2 * h] * inv[h],
+                               acc[n][2 * h + 1] * inv[h], d, pairs);
+        }
+        __syncthreads();  // no warp reads stage st's buffer any more
+    }
+    if (row_max != nullptr && t4 == 0) {  // the quad holds the same m and l
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nkeys) continue;
+            row_max[row0 + r] = m[h];
+            row_sum[row0 + r] = l[h];
+        }
+    }
+}
+
+// one block per tile of 64 / N lists
+cudaError_t launch_packed_tf32(const void* q, const void* k, const void* v, const void* mask,
+                               void* o, float* row_max, float* row_sum, int B, int H, int N,
+                               int d, cudaStream_t stream) {
+    const auto kernel = flash_fwd_packed_tf32_kernel<TF32_W>;
+    const size_t bytes = packed_tf32_smem_bytes(TF32_W);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int copy = chunk_copy_f32(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 8) ? STORE_PAIRS : 0;
+    const dim3 grid(unsigned(packed_blocks((long long)B * H, N)));
+    kernel<<<grid, MMA_NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(o), row_max, row_sum, B * H, H,
+        N, d, 1.0f / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
 // d <= 128: the kernels above, on the head dim padded to a multiple of 16:
 // KC steps of 16 (the fp32 kernel counts 8-column blocks, NC = 2 * KC)
 int launch_narrow(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -1446,19 +1682,20 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask
     return 0;
 }
 
-// The packed kernel: bf16 lists of at most 128 docs (any d), the same
-// arguments as flash_attn_fwd; one launch, whose grid (packed_blocks) must
-// fit grid.x.
+// The packed kernels: bf16 lists of at most 128 docs, or fp32 lists of at
+// most 64 (3xTF32), any d, the same arguments as flash_attn_fwd; one launch,
+// whose grid (packed_blocks) must fit grid.x.
 int flash_attn_fwd_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
                           void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
                           void* stream) {
-    if (B < 1 || H < 1 || N < 1 || N > LIST_KEYS || d < 1 || dtype != 1
-        || ((row_max == nullptr) != (row_sum == nullptr))
+    if (B < 1 || H < 1 || N < 1 || N > (dtype == 0 ? PACK_KEYS : LIST_KEYS) || d < 1
+        || (dtype != 0 && dtype != 1) || ((row_max == nullptr) != (row_sum == nullptr))
         || packed_blocks((long long)B * H, N) >= (1LL << 31))
         return int(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* rm = static_cast<float*>(row_max);
     float* rs = static_cast<float*>(row_sum);
+    if (dtype == 0) return int(launch_packed_tf32(q, k, v, mask, o, rm, rs, B, H, N, d, st));
     return int(N <= PACK_KEYS ? launch_packed<PACK_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st)
                               : launch_packed<LIST_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
 }

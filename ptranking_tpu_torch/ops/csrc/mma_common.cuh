@@ -3,7 +3,9 @@
 // fragments read by ldmatrix, bf16 tiles in shared memory with rows padded
 // to LDS = 16*KC + 8 elements (KC = ceil(d/16) 16-deep steps: every row
 // starts 16-byte aligned, as ldmatrix needs, and 8 consecutive rows fall into
-// 8 different 16-byte bank groups), and the 8-byte cp.async tile copies.
+// 8 different 16-byte bank groups), and the 8-byte cp.async tile copies;
+// then the fp32 packed kernels' 3xTF32 products on mma.sync.m16n8k8, their
+// fragments and their fp32 chunk copies (the section at the end).
 // cuda_build.library_path hashes this header into each including library's
 // name, so an edit rebuilds them.
 
@@ -325,6 +327,185 @@ __device__ __forceinline__ void store_pair(bf16* row, int col, float x, float y,
 
 inline bool aligned(const void* p, uintptr_t bytes) {
     return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores: 3xTF32 (the fp32 packed kernels)
+// ---------------------------------------------------------------------------
+//
+// TF32 keeps 10 mantissa bits, about 3 decimal digits. Split x = hi + lo with
+// hi = x rounded to TF32 and lo = (x - hi) rounded to TF32 (x - hi is exact in
+// fp32): hi + lo is x to about 2^-22 |x|. A product a b is then taken as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, three mma.sync.m16n8k8 accumulating in
+// fp32; the a_lo b_lo term (about 2^-22 of it) is left out. fp32 tiles in
+// shared memory have rows of W + 4 floats (W a multiple of 32): 4 mod 32
+// banks, so a fragment read as [row g][column t] (rows of A or of B stored
+// as [n][k]) or as [k 2t, 2t + 1][column g] (B stored as [k][n]) meets 32
+// distinct banks.
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+}
+
+template <int K>
+__device__ __forceinline__ void split_tf32(const float (&x)[K], uint32_t (&hi)[K],
+                                           uint32_t (&lo)[K]) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c (16 x 8, fp32) += a (16 x 8, tf32, row-major) * b (8 x 8, tf32,
+// column-major). With g = lane / 4, t = lane % 4: c as in mma_16816; a[0] =
+// (row g, k t), a[1] = (row g+8, k t), a[2] = (row g, k t+4), a[3] = (row g+8,
+// k t+4); b0 = (k t, column g), b1 = (k t+4, column g). The C and A layouts
+// differ (C holds columns 2t, 2t+1), so a product whose A is a C fragment
+// (P, dS) numbers its k slots t -> 2t and t+4 -> 2t+1: its A takes the C
+// fragment as {c[0], c[2], c[1], c[3]} and its B reads the rows 2t, 2t+1.
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, from split fragments. The three products go into a
+// fresh fragment, which is then added to c in fp32 (round to nearest): the
+// tensor cores align an mma's addends to the largest and cut the bits below,
+// so accumulating a long contraction in c itself drifts by about 2^-23 |c|
+// an mma, toward zero (on an NVIDIA H100 that missed chip_smoke.py's 1e-5
+// fp32 gates by up to 1.5x, PERF.md); this way each cut is relative to one
+// 8-deep step's sum.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_1688_tf32(t, alo, bhi[0], bhi[1]);
+    mma_1688_tf32(t, ahi, blo[0], blo[1]);
+    mma_1688_tf32(t, ahi, bhi[0], bhi[1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// A (16 rows from row0, k = k0 .. k0 + 7) of a row-major fp32 [rows][LD] tile
+template <int LD>
+__device__ __forceinline__ void frag_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile,
+                                            int row0, int k0, int lane) {
+    const float* p = tile + (row0 + (lane >> 2)) * LD + k0 + (lane & 3);
+    split_tf32(p[0], hi[0], lo[0]);
+    split_tf32(p[8 * LD], hi[1], lo[1]);
+    split_tf32(p[4], hi[2], lo[2]);
+    split_tf32(p[8 * LD + 4], hi[3], lo[3]);
+}
+
+// A of T^T (16 rows = columns row0 .. row0 + 15 of T; k = T's rows k0 + 2t
+// and k0 + 2t + 1 in slots t and t+4) of an fp32 [*][LD] tile T
+template <int LD>
+__device__ __forceinline__ void frag_a_trans_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                  const float* tile, int row0, int k0, int lane) {
+    const float* p = tile + (k0 + 2 * (lane & 3)) * LD + row0 + (lane >> 2);
+    split_tf32(p[0], hi[0], lo[0]);
+    split_tf32(p[8], hi[1], lo[1]);
+    split_tf32(p[LD], hi[2], lo[2]);
+    split_tf32(p[LD + 8], hi[3], lo[3]);
+}
+
+// B (8 columns n0 .. n0 + 7, k = k0 .. k0 + 7) of a tile holding B as [n][k]
+template <int LD>
+__device__ __forceinline__ void frag_b_nk_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                               const float* tile, int n0, int k0, int lane) {
+    const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
+    split_tf32(p[0], hi[0], lo[0]);
+    split_tf32(p[4], hi[1], lo[1]);
+}
+
+// B (columns n0 .. n0 + 7; k = rows k0 + 2t and k0 + 2t + 1 in slots t and
+// t+4) of a tile holding B as [k][n]
+template <int LD>
+__device__ __forceinline__ void frag_b_kn_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                               const float* tile, int k0, int n0, int lane) {
+    const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+    split_tf32(p[0], hi[0], lo[0]);
+    split_tf32(p[LD], hi[1], lo[1]);
+}
+
+// The C fragment of P or dS (rows g, g+8; columns 2t, 2t+1 of an 8-column
+// tile) as the A fragment of a product over those columns, k slots t -> 2t
+// and t+4 -> 2t+1 (mma_1688_tf32), split
+__device__ __forceinline__ void c_as_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                            const float (&c)[4]) {
+    const float a[4] = {c[0], c[2], c[1], c[3]};
+    split_tf32(a, hi, lo);
+}
+
+// The widest copy (floats a cp.async moves: 4, 2 or 1) of a [*, d] fp32
+// tensor's rows, given the alignment (bytes, up to 16) that all its tensors
+// share: 16 bytes when d is a multiple of 4, 8 when d is even, else 4.
+inline int chunk_copy_f32(int d, int align) {
+    if (d % 4 == 0 && align >= 16) return 4;
+    if (d % 2 == 0 && align >= 8) return 2;
+    return 1;
+}
+
+// load_chunk_f32's copies of E floats
+template <int NT, int W, int ROWS, int E>
+__device__ __forceinline__ void load_chunk_f32_async(float* dst, const float* __restrict__ src,
+                                                     int nrows, int d, int c0) {
+    constexpr int LD = W + 4;
+    constexpr int UNITS = W / E;  // copies a row
+    constexpr int COPIES = (ROWS * UNITS + NT - 1) / NT;
+    const uint32_t base = smem_addr(dst);
+#pragma unroll 4
+    for (int i = 0; i < COPIES; ++i) {
+        const int u = threadIdx.x + NT * i;
+        const int r = u / UNITS, cu = u % UNITS;
+        const int col = c0 + E * cu;
+        const bool in = r < nrows && col < d;
+        const float* from = in ? src + size_t(r) * d + col : src;
+        const uint32_t at = base + 4 * (r * LD + E * cu);
+        if (u < ROWS * UNITS) {
+            if (E == 4)
+                cp_async_16(at, from, in ? 16 : 0);
+            else if (E == 2)
+                cp_async_8(at, from, in ? 8 : 0);
+            else
+                cp_async_4(at, from, in ? 4 : 0);
+        }
+    }
+}
+
+// Columns c0 .. c0 + W - 1 of rows r < nrows of the row-major [*, d] fp32
+// tensor at src into the shared [ROWS][W + 4] tile at dst, zero where the row
+// is >= nrows or the column >= d, by cp.async of `copy` floats
+// (chunk_copy_f32); the caller commits and waits.
+template <int NT, int W, int ROWS>
+__device__ __forceinline__ void load_chunk_f32(float* dst, const float* __restrict__ src,
+                                               int nrows, int d, int c0, int copy) {
+    if (copy == 4)
+        load_chunk_f32_async<NT, W, ROWS, 4>(dst, src, nrows, d, c0);
+    else if (copy == 2)
+        load_chunk_f32_async<NT, W, ROWS, 2>(dst, src, nrows, d, c0);
+    else
+        load_chunk_f32_async<NT, W, ROWS, 1>(dst, src, nrows, d, c0);
+}
+
+// (x, y) at columns col, col + 1 of an fp32 output row of d columns
+__device__ __forceinline__ void store_pair_f32(float* row, int col, float x, float y, int d,
+                                               bool pairs) {
+    if (pairs) {  // d even and the row 8-byte aligned: col + 1 < d whenever col < d
+        if (col < d) *reinterpret_cast<float2*>(row + col) = make_float2(x, y);
+    } else {
+        if (col < d) row[col] = x;
+        if (col + 1 < d) row[col + 1] = y;
+    }
 }
 
 }  // namespace

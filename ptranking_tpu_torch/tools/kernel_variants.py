@@ -1,6 +1,6 @@
 """Time design variants of the hand-written kernels on one CUDA card.
 
-    python3 -m ptranking_tpu_torch.tools.kernel_variants [library[:variant,...] ...]
+    python3 -m ptranking_tpu_torch.tools.kernel_variants [--parent DIR] [library[:variant,...] ...]
 
 For each library named (by default all of those in VARIANTS: the bf16
 flash-attention backward and forward, the Sinkhorn half-step and the pairwise
@@ -22,7 +22,9 @@ LONG_COPY_SHAPES; the forward with row statistics at those shapes and at the
 one-list serving shape (1, 2, 1536, 68), the packed forward at the
 WIDE_SHAPES of at most 128 docs (at 128 docs its tile of one list and all of
 its 128 keys) and at PACK_COPY_SHAPES, and the long forward at the
-WIDE_SHAPES of 256 docs and at LONG_COPY_SHAPES; the half-step over rows and over columns at 32 x 1408 x
+WIDE_SHAPES of 256 docs and at LONG_COPY_SHAPES; the fp32 packed forward
+and backward (3xTF32) at the WIDE_SHAPES of at most 64 docs in fp32; the
+half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
 at 32 x 1408. It prints one JSON line per
 variant: registers and spill bytes of the kernels in question, the two times
@@ -30,6 +32,12 @@ of each case in ms (CUDA events, the median of three blocks of calls), and
 whether the outputs equal the shipped kernels' bit for bit, with the largest
 difference (a design variant may round otherwise; a variant with a phase cut
 out cannot agree, it shows what the phase costs).
+
+`--parent DIR` adds, for the two attention libraries, the variant "parent":
+the sources of the checkout at DIR (for example a parent commit unpacked by
+`git archive`), run on the bf16 cases alone (its packed entries may refuse
+fp32), so that "same_bits_as_shipped" says whether this tree's bf16 kernels
+give the parent's bits.
 """
 
 from __future__ import annotations
@@ -105,6 +113,10 @@ _PACK_STAGED = "constexpr bool PACK_STAGED = false;"
 _PACK_CW = "constexpr int PACK_CW = 4;"
 _LIST_HALVES = "constexpr bool LIST_HALVES = false;"
 _LONG_SUM = "constexpr int LONG_SUM = 0;"
+# the fp32 packed kernels (both libraries): 64-column d-chunks and output
+# chunks instead of 32 (the backward: one block an SM instead of two)
+_TF32_W = "constexpr int TF32_W = 32;"
+_TF32_VARIANTS = {"tf32_w64": [(_TF32_W, _TF32_W.replace("= 32", "= 64"))]}
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -169,6 +181,7 @@ BWD_VARIANTS = {
     "long_sum_split": [(_LONG_SUM, _LONG_SUM.replace("0", "1"))],
     "long_sum_atomic": [(_LONG_SUM, _LONG_SUM.replace("0", "2"))],
     "long_rows_experiment": LONG_ROWS_EXPERIMENT,
+    **_TF32_VARIANTS,
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -201,6 +214,11 @@ FWD_VARIANTS = {
     # one pass with an online rescale between the halves
     "long_two_pass": [("constexpr bool LONG_TWO_PASS = false;",
                        "constexpr bool LONG_TWO_PASS = true;")],
+    **_TF32_VARIANTS,
+    # the fp32 packed kernel's registers cut for three blocks an SM instead
+    # of two (168 a thread: it spills)
+    "tf32_blocks3": [("__launch_bounds__(MMA_NT, 2)\nflash_fwd_packed_tf32_kernel",
+                      "__launch_bounds__(MMA_NT, 3)\nflash_fwd_packed_tf32_kernel")],
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -243,9 +261,11 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_dkdv_wgmma_kernel", r"flash_bwd_dq_wgmma_kernel",
                                 r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel",
                                 r"flash_bwd_packed_mma_kernel", r"flash_bwd_long_mma_kernel",
-                                r"flash_bwd_long_rows_mma_kernel"],
+                                r"flash_bwd_long_rows_mma_kernel",
+                                r"flash_bwd_packed_tf32_kernel"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
-                                r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel"],
+                                r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel",
+                                r"flash_fwd_packed_tf32_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
              "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -337,22 +357,21 @@ def _entry(dll, name, argtypes):
 
 
 @functools.lru_cache(maxsize=None)
-def _attention_inputs(B, H, N, d, count):
-    """`count` bf16 [B, H, N, d] tensors and a ragged mask (list 0 full), from
-    seed 0: one set a shape, which every variant's cases read."""
+def _attention_inputs(B, H, N, d, count, dtype=torch.bfloat16):
+    """`count` [B, H, N, d] tensors of `dtype` and a ragged mask (list 0
+    full), from seed 0: one set a shape, which every variant's cases read."""
     g = torch.Generator().manual_seed(0)
-    tensors = [torch.randn(B, H, N, d, generator=g).to("cuda", torch.bfloat16)
-               for _ in range(count)]
+    tensors = [torch.randn(B, H, N, d, generator=g).to("cuda", dtype) for _ in range(count)]
     lengths = torch.randint(N // 4, N + 1, (B,), generator=g)
     lengths[0] = N
     return tensors, (torch.arange(N)[None, :] < lengths[:, None]).cuda()
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_inputs(B, H, N, d):
+def _bwd_inputs(B, H, N, d, dtype=torch.bfloat16):
     """The backward's inputs at one shape: q, k, v, dout, the mask, and the
     shipped forward's output, row statistics and row sums of dout * out."""
-    (q, k, v, dout), mask = _attention_inputs(B, H, N, d, 4)
+    (q, k, v, dout), mask = _attention_inputs(B, H, N, d, 4, dtype)
     out, row_max, row_sum = attention.FLASH_ATTN_FWD(q, k, v, mask, stats=True)
     dsum = torch.sum(dout.float() * out.float(), dim=-1)
     return q, k, v, dout, mask, out, row_max, row_sum, dsum
@@ -415,6 +434,14 @@ def bwd_cases(dll, variant):
         args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
                 + [B, H, N, d, 1, stream])
         cases.append((f"packed {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
+    if variant != "parent":  # the fp32 packed kernel (3xTF32)
+        for B, H, N, d in [s for s in BWD_SHAPES if s[2] <= 64]:
+            keep = _bwd_inputs(B, H, N, d, torch.float32)
+            q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+            outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+            args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
+                    + [B, H, N, d, 0, stream])
+            cases.append((f"packed fp32 {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
     listk = _entry(dll, "flash_attn_bwd_list", [_P] * 11 + [_I] * 5 + [_P])
     for B, H, N, d in [s for s in BWD_SHAPES if 64 < s[2] <= 128] + LIST_COPY_SHAPES:
         keep = _bwd_inputs(B, H, N, d)
@@ -429,23 +456,30 @@ def bwd_cases(dll, variant):
 def fwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the forward with row statistics at
     FWD_SHAPES, of the packed forward at the WIDE_SHAPES (of at most 128
-    docs) and PACK_COPY_SHAPES, and of the long forward at the WIDE_SHAPES
-    of 256 docs and LONG_COPY_SHAPES."""
+    docs) and PACK_COPY_SHAPES, of the long forward at the WIDE_SHAPES of
+    256 docs and LONG_COPY_SHAPES, and (but for "parent") of the fp32 packed
+    forward at the WIDE_SHAPES of at most 64 docs."""
     stream = torch.cuda.current_stream().cuda_stream
     cases = []
-    for entry, shapes in (("flash_attn_fwd", FWD_SHAPES),
-                          ("flash_attn_fwd_packed",
-                           [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES),
-                          ("flash_attn_fwd_long",
-                           [s for s in WIDE_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES)):
+    fp32 = [] if variant == "parent" else [
+        ("flash_attn_fwd_packed", torch.float32, [s for s in WIDE_SHAPES if s[2] <= 64])]
+    for entry, dtype, shapes in (
+            ("flash_attn_fwd", torch.bfloat16, FWD_SHAPES),
+            ("flash_attn_fwd_packed", torch.bfloat16,
+             [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES),
+            ("flash_attn_fwd_long", torch.bfloat16,
+             [s for s in WIDE_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES), *fp32):
         fn = _entry(dll, entry, [_P] * 7 + [_I] * 5 + [_P])
         tag = {"flash_attn_fwd": "", "flash_attn_fwd_packed": "packed ",
                "flash_attn_fwd_long": "long "}[entry]
+        if dtype == torch.float32:
+            tag += "fp32 "
         for B, H, N, d in shapes:
-            (q, k, v), mask = _attention_inputs(B, H, N, d, 3)
+            (q, k, v), mask = _attention_inputs(B, H, N, d, 3, dtype)
             outs = (torch.empty_like(q), torch.empty(B, H, N, device="cuda"),
                     torch.empty(B, H, N, device="cuda"))
-            args = [t.data_ptr() for t in (q, k, v, mask, *outs)] + [B, H, N, d, 1, stream]
+            args = ([t.data_ptr() for t in (q, k, v, mask, *outs)]
+                    + [B, H, N, d, 1 if dtype == torch.bfloat16 else 0, stream])
             cases.append((tag + str([B, H, N, d]), lambda fn=fn, args=args: fn(*args), outs,
                           (q, k, v, mask)))
     return cases
@@ -512,7 +546,16 @@ CASES = {"flash_attn_bwd": bwd_cases, "flash_attn_fwd": fwd_cases, "sinkstep": s
 
 
 def main(argv=None) -> int:
-    args = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    args = list(sys.argv[1:] if argv is None else argv)
+    if args[:1] == ["--parent"]:
+        if len(args) < 2:
+            print("kernel_variants: --parent needs a directory", file=sys.stderr)
+            return 2
+        parent = Path(args[1]).resolve() / "ptranking_tpu_torch" / "ops" / "csrc"
+        for lib in ("flash_attn_fwd", "flash_attn_bwd"):
+            VARIANTS[lib]["parent"] = parent / f"{lib}.cu"
+        args = args[2:]
+    args = args or list(VARIANTS)
     libs = [a.split(":", 1)[0] for a in args]
     only = {a.split(":", 1)[0]: a.split(":", 1)[1].split(",") for a in args if ":" in a}
     unknown = [lib for lib in libs if lib not in VARIANTS]

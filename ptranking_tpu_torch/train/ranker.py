@@ -155,17 +155,19 @@ class AdhocRanker:
     def train_epoch(self, batches: Iterable[RankingBatch], epoch_k: int = 1) -> Tuple[float, bool]:
         """One epoch; returns (mean loss per real query, stop_training).
 
-        Sets the epoch's StepLR learning rate, takes one step per batch, and
-        every `stop_check_freq` epochs first checks the epoch's first batch
-        for NaN or all-zero scores, returning (nan, True) if it fails. The
+        Sets the epoch's StepLR learning rate and takes one step per batch.
+        Every `stop_check_freq` epochs (a check epoch) it first checks each
+        batch, before that batch's step, for NaN or all-zero scores, and
+        returns (nan, True) at the first that fails, as the JAX package's
+        check epochs do; a check waits for the device. In other epochs the
         host waits for the device once, at the end."""
         if self.params is None:
             raise RuntimeError("init() or load() the ranker first")
         set_lr(self._optimizer, epoch_lr(self.opt_cfg, epoch_k))
         check = epoch_k % self.stop_check_freq == 0
         losses, counts = [], []
-        for i, batch in enumerate(batches):
-            if check and i == 0 and self.stop_training(batch):
+        for batch in batches:
+            if check and self.stop_training(batch):
                 return float("nan"), True
             x = _to_device(batch.features, self.device)
             labels = _to_device(batch.labels, self.device, torch.float32)

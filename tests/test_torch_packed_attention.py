@@ -157,22 +157,25 @@ def test_packed_plain_leaves_other_lists_keys_out():
     (torch.bfloat16, 257, 350, "pair"),
     (torch.bfloat16, 16, 128, "pair"), (torch.bfloat16, 16, 68, "pair"),
     (torch.bfloat16, 128, 128, "pair"),
-    (torch.float32, 16, 350, "pair"), (torch.float32, 64, 136, "pair"),
-    (torch.float32, 128, 350, "pair")])
+    (torch.float32, 16, 350, "packed"), (torch.float32, 64, 136, "packed"),
+    (torch.float32, tattn.F32_PACK_MAX_N, 384, "packed"), (torch.float32, 65, 350, "pair"),
+    (torch.float32, 16, 128, "pair"), (torch.float32, 128, 350, "pair")])
 def test_bwd_route_by_shape(dtype, N, d, route):
     """At bf16 and d > 128 the packed kernel takes N <= PACK_MAX_N (64), the
     list kernel PACK_MAX_N < N <= LIST_MAX_N (128), the long kernel
-    LIST_MAX_N < N <= LONG_MAX_N (256); everything else keeps the dk/dv and
-    dq pair."""
+    LIST_MAX_N < N <= LONG_MAX_N (256); at fp32 and d > 128 the packed
+    kernel (3xTF32) takes N <= F32_PACK_MAX_N (64); everything else keeps
+    the dk/dv and dq pair."""
     assert 1 <= tattn.PACK_MAX_N <= 64 and tattn.PACK_MAX_N <= tattn.LIST_MAX_N <= 128
-    assert tattn.LIST_MAX_N <= tattn.LONG_MAX_N <= 256
+    assert tattn.LIST_MAX_N <= tattn.LONG_MAX_N <= 256 and 1 <= tattn.F32_PACK_MAX_N <= 64
     assert tattn.bwd_route(dtype, N, d) == route
 
 
 @pytest.mark.parametrize("dtype, shape, route", [
     (torch.bfloat16, (2, 2, 16, 136), "packed"), (torch.bfloat16, (2, 2, 65, 136), "list"),
     (torch.bfloat16, (2, 2, 129, 136), "long"), (torch.bfloat16, (2, 2, 257, 136), "pair"),
-    (torch.bfloat16, (2, 2, 16, 128), "pair"), (torch.float32, (2, 2, 16, 136), "pair")])
+    (torch.bfloat16, (2, 2, 16, 128), "pair"), (torch.float32, (2, 2, 16, 136), "packed"),
+    (torch.float32, (2, 2, 65, 350), "pair")])
 def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, route):
     """_FlashAttention.backward calls the packed, the list or the long
     wrapper alone, or the dk/dv and dq wrappers, as bwd_route says (the wrappers stubbed:
@@ -241,13 +244,17 @@ def test_packed_grid_contract():
     assert f"constexpr int LIST_ROWS = {tattn._LIST_ROWS};" in source
 
 
-def _refuses(kern, longest):
-    """kern refuses fp32 inputs, lists above `longest` docs and CPU tensors,
-    each before anything is launched."""
+def _refuses(kern, longest, f32_longest=0):
+    """kern refuses lists above `longest` docs and CPU tensors, and fp32
+    inputs (f32_longest = 0) or fp32 lists above `f32_longest` docs, each
+    before anything is launched."""
     stats = lambda B, N: torch.zeros(B, 2, N)
-    for shape, dtype, match in (((2, 2, 16, 136), torch.float32, "bfloat16"),
-                                ((2, 2, longest + 1, 136), torch.bfloat16,
-                                 f"at most {longest} docs"),
+    f32 = (((2, 2, 16, 136), torch.float32, "CUDA tensors"),
+           ((2, 2, f32_longest + 1, 136), torch.float32,
+            f"float32 lists of at most {f32_longest} docs")) if f32_longest else (
+        ((2, 2, 16, 136), torch.float32, "bfloat16"),)
+    for shape, dtype, match in (*f32, ((2, 2, longest + 1, 136), torch.bfloat16,
+                                       f"at most {longest} docs"),
                                 ((2, 2, 16, 350), torch.bfloat16, "CUDA tensors")):
         t = torch.zeros(shape, dtype=dtype)
         mask = torch.ones(shape[0], shape[2], dtype=torch.bool)
@@ -258,11 +265,13 @@ def _refuses(kern, longest):
 
 
 def test_packed_wrapper_refuses_what_it_cannot_run():
-    """The wrapper refuses fp32 inputs, lists above 64 docs and CPU tensors,
-    each before anything is launched."""
-    _refuses(tattn.FlashAttnBwdPacked(), 64)
+    """The wrapper refuses lists above 64 docs (bf16 or fp32) and CPU
+    tensors, each before anything is launched; fp32 lists of at most 64 docs
+    pass to the device check."""
+    _refuses(tattn.FlashAttnBwdPacked(), 64, f32_longest=64)
 
 
 def test_list_wrapper_refuses_what_it_cannot_run():
-    """The list kernel's wrapper likewise, with lists above 128 docs."""
+    """The list kernel's wrapper likewise, with lists above 128 docs, and
+    fp32 inputs refused."""
     _refuses(tattn.FlashAttnBwdList(), 128)

@@ -126,13 +126,17 @@ def test_packed_forward_plain_refuses_long_lists():
     (torch.bfloat16, 65, 136, "packed"), (torch.bfloat16, 129, 350, "long"),
     (torch.bfloat16, 256, 384, "long"), (torch.bfloat16, 200, 136, "long"),
     (torch.bfloat16, 257, 350, "flash"), (torch.bfloat16, 16, 128, "flash"),
-    (torch.bfloat16, 32, 68, "flash"), (torch.float32, 16, 350, "flash"),
+    (torch.bfloat16, 32, 68, "flash"), (torch.float32, 16, 350, "packed"),
+    (torch.float32, 1, 129, "packed"), (torch.float32, tattn.F32_PACK_MAX_N, 384, "packed"),
+    (torch.float32, 65, 350, "flash"), (torch.float32, 16, 128, "flash"),
     (torch.float32, 128, 136, "flash")])
 def test_fwd_route_by_shape(dtype, N, d, route):
     """The packed forward takes bf16, d > 128 and N <= FWD_PACK_MAX_N (128),
-    the long forward FWD_PACK_MAX_N < N <= LONG_MAX_N (256); everything else
-    keeps FlashAttnFwd (the wide kernel at d > 128)."""
+    and fp32, d > 128 and N <= F32_PACK_MAX_N (64: the 3xTF32 kernel); the
+    long forward bf16 at FWD_PACK_MAX_N < N <= LONG_MAX_N (256); everything
+    else keeps FlashAttnFwd (the wide kernel at d > 128)."""
     assert 64 <= tattn.FWD_PACK_MAX_N <= 128 and tattn.FWD_PACK_MAX_N <= tattn.LONG_MAX_N <= 256
+    assert 1 <= tattn.F32_PACK_MAX_N <= 64
     assert tattn.fwd_route(dtype, N, d) == route
 
 
@@ -148,7 +152,8 @@ class _OnCuda(torch.Tensor):
 @pytest.mark.parametrize("dtype, shape, route", [
     (torch.bfloat16, (2, 2, 16, 350), "packed"), (torch.bfloat16, (2, 2, 128, 136), "packed"),
     (torch.bfloat16, (2, 2, 129, 136), "long"), (torch.bfloat16, (2, 2, 257, 136), "flash"),
-    (torch.bfloat16, (2, 2, 16, 128), "flash"), (torch.float32, (2, 2, 16, 350), "flash")])
+    (torch.bfloat16, (2, 2, 16, 128), "flash"), (torch.float32, (2, 2, 16, 350), "packed"),
+    (torch.float32, (2, 2, 65, 350), "flash")])
 def test_flash_forward_calls_the_routed_kernel(monkeypatch, dtype, shape, route):
     """_FlashAttention.forward (with row statistics, which it saves for the
     backward) and flash_attention's no-grad path (without) call the packed
@@ -207,10 +212,13 @@ def test_packed_forward_grid_contract():
 
 
 def test_packed_forward_wrapper_refuses_what_it_cannot_run():
-    """The wrapper refuses fp32 inputs, lists above 128 docs and CPU tensors,
-    each before anything is launched."""
+    """The wrapper refuses bf16 lists above 128 docs, fp32 lists above 64 and
+    CPU tensors, each before anything is launched; fp32 lists of at most 64
+    docs pass to the device check."""
     kern = tattn.FlashAttnFwdPacked()
-    for shape, dtype, match in (((2, 2, 16, 136), torch.float32, "bfloat16"),
+    for shape, dtype, match in (((2, 2, 16, 136), torch.float32, "CUDA tensors"),
+                                ((2, 2, 65, 136), torch.float32,
+                                 "float32 lists of at most 64 docs"),
                                 ((2, 2, 129, 136), torch.bfloat16, "at most 128 docs"),
                                 ((2, 2, 16, 350), torch.bfloat16, "CUDA tensors")):
         t = torch.zeros(shape, dtype=dtype)

@@ -235,6 +235,21 @@ def test_train_epoch_stops_on_poisoned_params():
     assert np.isnan(loss) and stop
 
 
+def test_check_epoch_guards_every_batch_as_jax_does():
+    """A check epoch guards each batch before its step: the first batch (a
+    NaN label) passes its guard and its step poisons the params, so the
+    second batch's guard stops the epoch, in the port as in the JAX
+    package."""
+    poisoned = _batch()
+    poisoned.labels[0, 0] = np.nan
+    batches = [poisoned, _batch(seed=1)]
+    jr = JaxRanker("LambdaRank", _listsf(dropout=0.0),
+                   opt_cfg=JaxOptimizerConfig(opt="Adam", lr=LR)).init()
+    jax_loss, jax_stop = jr.train_epoch(batches, epoch_k=10)
+    loss, stop = _port_ranker().train_epoch(batches, epoch_k=10)
+    assert (np.isnan(loss), stop) == (np.isnan(jax_loss), jax_stop) == (True, True)
+
+
 def test_pt_checkpoint_resumes_to_the_same_next_step(tmp_path):
     """Params, Adam's state and the dropout generator's state go into the
     .pt; a restored ranker takes the same next step, bit for bit."""
