@@ -26,8 +26,9 @@ Phases, in order; any failure exits non-zero:
      plain forwards and their row statistics, the same bits twice, timed
      beside the wide forward they replace and SDPA; the fp32 packed forward
      and backward (lists of at most 64 docs at head dims above 128, 3xTF32
-     tensor-core products) likewise, timed beside the fp32 wide kernels and
-     SDPA in fp32 (TF32 off); the bf16
+     tensor-core products) and the fp32 list and long backward (lists of
+     65..256 docs, one a block, 3xTF32) likewise, timed beside the fp32 wide
+     kernels and SDPA in fp32 (TF32 off); the bf16
      forward and backward run on the tensor cores; no instantiation of an
      attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
@@ -63,10 +64,12 @@ Phases, in order; any failure exits non-zero:
      packed forward up to FWD_PACK_MAX_N docs, the long forward up to
      LONG_MAX_N, the wide forward above; the packed backward up to
      PACK_MAX_N docs, the list backward up to LIST_MAX_N, the long backward
-     up to LONG_MAX_N, the wide pair above), save, restore and step; then
-     the Yahoo! model at d = 350 in fp32, timed in the buckets of 16 to 128
-     docs (the fp32 packed kernels up to F32_PACK_MAX_N docs, the wide
-     kernels above).
+     up to LONG_MAX_N, the wide pair above), save, restore and step; the
+     one-head model's fp32 gradients also at 512 docs (the fp32 wide pair);
+     then the Yahoo! model at d = 350 in fp32, timed in the buckets of 16 to
+     256 docs (the fp32 packed kernels up to F32_PACK_MAX_N docs, the wide
+     forward above; the fp32 list backward up to F32_LIST_MAX_N docs, the
+     long backward up to F32_LONG_MAX_N).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -168,7 +171,8 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the 384 the variant tables time) x list lengths around the tile (one list a
 # tile at 33, 63 and 64 docs, 64 at 1, N dividing 64 or not), at
 # PACK_LISTS = (B, H): B*H = 10 lists leave a partial last tile wherever
-# 64 // N > 1 does not divide 10; the last b fully padded, the others ragged;
+# 64 // N > 1 does not divide 10; the second b a one-doc list, the last
+# fully padded, the others ragged;
 # then B*H = 65538 lists (PACK_BIG). The fp32 packed backward (3xTF32) is
 # held the same way at the same shapes, in both plain versions' fp32, to
 # BWD_TOL's fp32 1e-5 with the same floor.
@@ -183,8 +187,13 @@ PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350),
 PACK_RECORD = (2048, 2, 16, 350)
 # the list backward (bf16 lists of 65..128 docs, one a 128-row tile), the
 # same way: PACK_DS x lengths around its tile (65, 100, 127, 128 docs, the
-# last b fully padded) at PACK_LISTS; timed in Yahoo!'s 128-doc bucket
+# second b a one-doc list, the last fully padded) at PACK_LISTS; timed in
+# Yahoo!'s 128-doc bucket. Its fp32 instantiation (3xTF32, keys in slices
+# of 64) likewise, to BWD_TOL's fp32 1e-5 with the same floor, and at
+# F32_LIST_BIG (B*H = 65538 lists, held against the plain versions on its
+# first and last b, by check_big)
 LIST_NS = (65, 100, 127, 128)
+F32_LIST_BIG = (32769, 2, 65, 136)
 LIST_TIMED = [(256, 2, 128, 350), (256, 2, 128, 384)]
 LIST_RECORD = (256, 2, 128, 350)
 # the long backward and forward (bf16 lists of 129..256 docs, one a 256-row
@@ -192,7 +201,8 @@ LIST_RECORD = (256, 2, 128, 350)
 # around its halves and tile (129: one key in the second half; 200; 255;
 # 256) at PACK_LISTS, the last b fully padded; B*H = 65538 lists of 129 docs
 # (LONG_BIG: held against the plain versions on its first and last b, by
-# check_long_big); timed in Yahoo!'s 256-doc bucket
+# check_big); timed in Yahoo!'s 256-doc bucket; the fp32 long backward
+# (3xTF32) likewise, as the fp32 list backward
 LONG_NS = (129, 200, 255, 256)
 LONG_BIG = (32769, 2, 129, 136)
 LONG_TIMED = [(128, 2, 256, 350), (128, 2, 256, 384)]
@@ -225,7 +235,8 @@ PACK_FLOOR = 0.1
 # tile of one list), the packed backward three (64 rows with inputs kept
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
 # list kernel's 128 rows), the long forward and backward one each, the
-# fp32 packed forward and backward (3xTF32) one each.
+# fp32 packed forward and backward (3xTF32) one each, the fp32 list and
+# long backward two (128 and 256 rows).
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
@@ -241,7 +252,8 @@ BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel
                                     "flash_bwd_dq_wide_kernel": 1,
                                     "flash_bwd_packed_mma_kernel": 3,
                                     "flash_bwd_long_mma_kernel": 1,
-                                    "flash_bwd_packed_tf32_kernel": 1}}
+                                    "flash_bwd_packed_tf32_kernel": 1,
+                                    "flash_bwd_list_tf32_kernel": 2}}
 
 # the fused pairwise loss: (B, N, lengths or None for full lists, weighted, sigma)
 PAIR_SHAPES = [(32, 1408, None, True, 1.0), (3, 1, (1, 1, 0), True, 1.0),
@@ -354,8 +366,14 @@ YAHOO_GRAD_CHECK = 128
 YAHOO_PACKED_CHECK = 32
 # the timed fp32 Yahoo! steps (compute_dtype's default, with flash
 # attention), at d = 350: through the fp32 packed forward and backward
-# (3xTF32) up to F32_PACK_MAX_N docs, through the wide kernels at 128
-YAHOO_F32_BUCKETS = (16, 32, 64, 128)
+# (3xTF32) up to F32_PACK_MAX_N docs; at 128 and 256 through the wide
+# forward and the fp32 list and long backward (3xTF32)
+YAHOO_F32_BUCKETS = (16, 32, 64, 128, 256)
+# the one-head model (d = 136, MSLR-WEB30K's features, whose long lists
+# fill the default buckets up to 1536 docs, data/dataset.py) also takes its
+# fp32 gradient check in a bucket past F32_LONG_MAX_N: the path of the fp32
+# wide dk/dv and dq kernels
+WIDE_PAIR_CHECK = 512
 YAHOO_SERVE_LENGTHS = [int(round(5 * (139 / 5) ** (i / 15))) for i in range(16)]
 # the listsfs of phase 7, each with a head dim above 128: (name, features,
 # heads, lane_align, LETOR data id): Yahoo!'s at d = 350 (its launch counts
@@ -658,8 +676,9 @@ def check_attention_bwd(card):
     """Phase 3: the backward kernels (through flash_attention's autograd, so
     the packed kernel where bwd_route takes it) against autograd through the
     plain blockwise attention and against attention_backward_plain at every
-    shape and dtype, and the times of the dk/dv and dq kernels (the wide
-    pair at every wide shape, routed or not);
+    shape and dtype, and the dk/dv and dq kernels themselves (the wide pair
+    at every wide shape, routed or not) against attention_backward_plain,
+    with their times; the records' errors are those of the pair itself;
     returns the records for the dk/dv kernel, the dq kernel and the forward
     with row statistics (the call training makes) at RECORD_SHAPE in bf16
     (by the wrappers' names) and at WIDE_RECORD_SHAPE in WIDE_RECORD_DTYPE
@@ -718,6 +737,12 @@ def check_attention_bwd(card):
             fwd = lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True)
             dkdv = lambda: FLASH_ATTN_BWD_DKDV(q, k, v, dout, row_max, row_sum, dsum, mask)
             dq = lambda: FLASH_ATTN_BWD_DQ(q, k, v, dout, row_max, row_sum, dsum, mask)
+            # the dk/dv and dq kernels themselves, routed at this shape or
+            # not (at d > 128 the wide pair), against attention_backward_plain
+            pair_errs = check_bwd_close(
+                (dq(), *dkdv()),
+                attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask), mask,
+                (B, H, N, d), dtype, "attention_backward_plain (the dk/dv and dq kernels)")
             leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
             plain_out = plain_fn(*leaves, mask)
 
@@ -751,6 +776,7 @@ def check_attention_bwd(card):
                    "max_abs_err": {g: e[0] for g, e in errs.items()},
                    "rel_err": {g: e[1] for g, e in errs.items()},
                    "rel_err_vs_plain_backward": {g: e[1] for g, e in errs_explicit.items()},
+                   "pair_rel_err_vs_plain_backward": {g: e[1] for g, e in pair_errs.items()},
                    "ms": times,
                    "bound_ms": {
                        "fwd_stats": bound(4.0 * B * H * N * N * d, peak,
@@ -767,10 +793,10 @@ def check_attention_bwd(card):
                 records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
                                                    **rec["bound_ms"]["fwd_stats"]}
                 records["flash_attn_bwd_dkdv" + tag] = {
-                    "max_abs_err": max(errs["dk"][0], errs["dv"][0]), "ms": times["dkdv"],
-                    **common, **rec["bound_ms"]["dkdv"]}
+                    "max_abs_err": max(pair_errs["dk"][0], pair_errs["dv"][0]),
+                    "ms": times["dkdv"], **common, **rec["bound_ms"]["dkdv"]}
                 records["flash_attn_bwd_dq" + tag] = {
-                    "max_abs_err": errs["dq"][0], "ms": times["dq"], **common,
+                    "max_abs_err": pair_errs["dq"][0], "ms": times["dq"], **common,
                     **rec["bound_ms"]["dq"]}
     print(f"attn bwd worst relative error over every shape: {json.dumps(worst)}", flush=True)
     return records
@@ -916,20 +942,22 @@ def check_grid_limits(card):
 def check_packed(card):
     """Phase 3: the backward kernels that take whole lists into a block
     (FLASH_ATTN_BWD_PACKED: bf16 and fp32 lists of at most 64 docs, several
-    a 64-row tile, fp32 on 3xTF32 tensor-core products; FLASH_ATTN_BWD_LIST:
-    bf16 lists of 65..128 docs, one a 128-row tile; FLASH_ATTN_BWD_LONG:
-    lists of 129..256 docs, one a 256-row tile; each dq, dk, dv in one
-    launch) against attention_backward_packed_plain and
-    attention_backward_plain on the forward kernel's output and row
-    statistics: the packed kernel at PACK_DS x PACK_NS and at PACK_BIG in
-    both dtypes, the list kernel at PACK_DS x LIST_NS, the long kernel at
-    PACK_DS x LONG_NS (and at LONG_BIG: check_long_big), and each where it is
+    a 64-row tile; FLASH_ATTN_BWD_LIST: bf16 and fp32 lists of 65..128 docs,
+    one a 128-row tile; FLASH_ATTN_BWD_LONG: bf16 and fp32 lists of
+    129..256 docs, one a 256-row tile; fp32 on 3xTF32 tensor-core products;
+    each dq, dk, dv in one launch) against attention_backward_packed_plain
+    and attention_backward_plain on the forward kernel's output and row
+    statistics: the packed kernel at PACK_DS x PACK_NS and at PACK_BIG, the
+    list kernel at PACK_DS x LIST_NS, the long kernel at PACK_DS x LONG_NS
+    (each with a one-doc and a fully padded list; the list and long
+    kernels' shapes past 65535 lists: check_big), each in both dtypes and where it is
     timed, each the same bits on two runs and one launch a call; where timed
     (PACK_TIMED, LIST_TIMED, LONG_TIMED) also the time of the kernel, of the
     wide dk/dv and dq pair it replaces there, of SDPA's backward alone (fp32:
     with TF32 off, so that it computes in fp32), of the plain version, and
     the bound. Returns the records at PACK_RECORD (bf16, and fp32 under
-    "flash_attn_bwd_packed_fp32"), LIST_RECORD and LONG_RECORD."""
+    "flash_attn_bwd_packed_fp32"), LIST_RECORD and LONG_RECORD (fp32 under
+    "flash_attn_bwd_list_fp32" and "flash_attn_bwd_long_fp32")."""
     import torch
     import torch.nn.functional as Fn
 
@@ -946,6 +974,8 @@ def check_packed(card):
     def run(kernel, dtype, B, H, N, d, all_padded):
         """The kernel against both plain versions; returns (inputs, errors)."""
         q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
+        if all_padded:
+            mask[1, 1:] = False  # beside the padded list, one with one real document
         g = torch.Generator(device="cpu").manual_seed(1)
         dout = torch.randn(B, H, N, d, generator=g).to("cuda", dtype)
         out, row_max, row_sum = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
@@ -985,7 +1015,9 @@ def check_packed(card):
             (FLASH_ATTN_BWD_PACKED, torch.float32, PACK_NS, [(*PACK_BIG, True)], PACK_TIMED,
              PACK_RECORD),
             (FLASH_ATTN_BWD_LIST, torch.bfloat16, LIST_NS, [], LIST_TIMED, LIST_RECORD),
-            (FLASH_ATTN_BWD_LONG, torch.bfloat16, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+            (FLASH_ATTN_BWD_LONG, torch.bfloat16, LONG_NS, [], LONG_TIMED, LONG_RECORD),
+            (FLASH_ATTN_BWD_LIST, torch.float32, LIST_NS, [], LIST_TIMED, LIST_RECORD),
+            (FLASH_ATTN_BWD_LONG, torch.float32, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
         fp32 = dtype == torch.float32
         tag = kernel.name + ("_fp32" if fp32 else "")
         worst = {}
@@ -1045,7 +1077,7 @@ def check_packed_fwd(card):
     and attention_forward_plain, output and row statistics, the packed
     kernel at PACK_DS x FWD_PACK_NS and at PACK_BIG (fp32: PACK_DS x PACK_NS
     and PACK_BIG), the long kernel at PACK_DS x LONG_NS (and at LONG_BIG:
-    check_long_big): the same bits on two runs, the same output with and
+    check_big): the same bits on two runs, the same output with and
     without statistics, one launch a call; at FWD_PACK_TIMED (fp32: its
     shapes of at most 64 docs) and LONG_TIMED also the time of the kernel
     with statistics (the call training makes), of the wide forward it
@@ -1144,69 +1176,89 @@ def check_packed_fwd(card):
     return records
 
 
-def check_long_big(card):
-    """Phase 3: the long forward and backward at LONG_BIG, B*H past 65535
-    lists (bf16, the last b fully padded, inputs drawn on the card): each
+def check_big(card):
+    """Phase 3: the kernels that take whole lists into a block at B*H past
+    65535 lists (inputs drawn on the card, the last b fully padded): the bf16
+    long forward and backward at LONG_BIG, and the fp32 list backward at
+    F32_LIST_BIG and long backward at LONG_BIG (on the routed fp32 forward's
+    output and statistics, the second to last b a one-doc list). Each kernel
     the same bits on two runs and one launch a call, and on the first and
     the last two b (the last blocks of the grid) against both plain versions
     of those lists alone (a list's outputs depend on that list alone), under
     the gates of check_packed_fwd and check_packed."""
     import torch
 
-    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_LONG, FLASH_ATTN_FWD_LONG,
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_LIST, FLASH_ATTN_BWD_LONG,
+                                                   FLASH_ATTN_FWD, FLASH_ATTN_FWD_LONG,
                                                    attention_backward_packed_plain,
                                                    attention_backward_plain,
                                                    attention_forward_packed_plain,
                                                    attention_forward_plain)
 
-    B, H, N, d = LONG_BIG
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, dout = (torch.randn(B, H, N, d, device="cuda", generator=g).to(torch.bfloat16)
-                     for _ in range(4))
-    lengths = torch.randint(N // 4, N + 1, (B,), device="cuda", generator=g)
-    lengths[0], lengths[-1] = N, 0
-    mask = torch.arange(N, device="cuda")[None, :] < lengths[:, None]
-    start = (FLASH_ATTN_FWD_LONG.launches, FLASH_ATTN_BWD_LONG.launches)
-    fwd = [FLASH_ATTN_FWD_LONG(q, k, v, mask, stats=True) for _ in range(2)]
-    out, row_max, row_sum = fwd[0]
-    dsum = torch.sum(dout.float() * out.float(), dim=-1)
-    args = (q, k, v, dout, row_max, row_sum, dsum, mask)
-    bwd = [FLASH_ATTN_BWD_LONG(*args) for _ in range(2)]
-    torch.cuda.synchronize()
-    launched = (FLASH_ATTN_FWD_LONG.launches - start[0], FLASH_ATTN_BWD_LONG.launches - start[1])
-    same = [torch.equal(a, b) for a, b in zip((*fwd[0], *bwd[0]), (*fwd[1], *bwd[1]))]
-    if launched != (2, 2) or not all(same):
-        raise AssertionError(f"long kernels at {LONG_BIG}: {launched} launches for 2 calls each, "
-                             f"the same bits twice: {same}")
-    rec = {"shape": list(LONG_BIG)}
-    for name, part in (("first", slice(0, 1)), ("last", slice(B - 2, B))):
-        sub = [t[part] for t in (q, k, v, dout, mask)]
-        sq, sk, sv, sdo, sm = sub
-        ref_plain = attention_forward_packed_plain(sq, sk, sv, sm)
-        ref = attention_forward_plain(sq, sk, sv, sm)
-        got = [t[part] for t in fwd[0]]
-        e = {"out_vs_packed_plain": rel_err(got[0], ref_plain[0]),
-             "out_vs_plain": float((got[0].float() - ref[0].float()).abs().max()),
-             "row_max": max(float(((got[1] - r[1]).abs() / (1.0 + r[1].abs())).max())
-                            for r in (ref_plain, ref)),
-             "row_sum": max(float(((got[2] - r[2]).abs() / r[2]).max()) for r in (ref_plain, ref))}
-        if (not e["out_vs_packed_plain"] <= FWD_PLAIN_TOL["bfloat16"]
-                or not e["out_vs_plain"] <= ATTN_TOL["bfloat16"]
-                or not max(e["row_max"], e["row_sum"]) <= STATS_TOL):
-            raise AssertionError(f"{FLASH_ATTN_FWD_LONG.name} {LONG_BIG}, {name} b: {e}")
-        plain_args = (sq, sk, sv, sdo, got[0], got[1], got[2], sm)
-        for which, ref_b in (("packed_plain", attention_backward_packed_plain(*plain_args)),
-                             ("plain", attention_backward_plain(*plain_args))):
-            floor = PACK_FLOOR * float(ref_b[2].float().abs().max())
-            for gname, a, b in zip(("dq", "dk", "dv"), (t[part] for t in bwd[0]), ref_b):
-                rel = float((a.float() - b.float()).abs().max()) / max(
-                    float(b.float().abs().max()), floor)
-                if not bool(torch.isfinite(a.float()).all()) or not rel <= BWD_TOL["bfloat16"]:
-                    raise AssertionError(f"{FLASH_ATTN_BWD_LONG.name} {LONG_BIG}, {name} b, "
-                                         f"against {which}: {gname} relative error {rel}")
-                e[f"{which}_{gname}"] = rel
-        rec[name] = e
-    print("long_big " + json.dumps(rec) + f"  [{card}]", flush=True)
+    def case(dtype, shape, fwd_kernel, bwd_kernel):
+        B, H, N, d = shape
+        name = str(dtype).split(".")[1]
+        held_fwd = dtype == torch.bfloat16  # the fp32 forward here: the wide kernel, held apart
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, dout = (torch.randn(B, H, N, d, device="cuda", generator=g).to(dtype)
+                         for _ in range(4))
+        lengths = torch.randint(N // 4, N + 1, (B,), device="cuda", generator=g)
+        lengths[0], lengths[-1] = N, 0
+        if not held_fwd:
+            lengths[-2] = 1
+        mask = torch.arange(N, device="cuda")[None, :] < lengths[:, None]
+        start = (fwd_kernel.launches, bwd_kernel.launches)
+        fwd = [fwd_kernel(q, k, v, mask, stats=True) for _ in range(2 if held_fwd else 1)]
+        out, row_max, row_sum = fwd[0]
+        dsum = torch.sum(dout.float() * out.float(), dim=-1)
+        args = (q, k, v, dout, row_max, row_sum, dsum, mask)
+        bwd = [bwd_kernel(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        launched = (fwd_kernel.launches - start[0], bwd_kernel.launches - start[1])
+        same = [torch.equal(a, b) for a, b in zip(bwd[0], bwd[1])]
+        if held_fwd:
+            same += [torch.equal(a, b) for a, b in zip(fwd[0], fwd[1])]
+        if launched != (len(fwd), 2) or not all(same):
+            raise AssertionError(f"{fwd_kernel.name}, {bwd_kernel.name} {name} at {shape}: "
+                                 f"{launched} launches for {len(fwd)} and 2 calls, the same bits "
+                                 f"twice: {same}")
+        rec = {"shape": list(shape), "dtype": name, "backward": bwd_kernel.name}
+        for which_b, part in (("first", slice(0, 1)), ("last", slice(B - 2, B))):
+            sq, sk, sv, sdo, sm = (t[part] for t in (q, k, v, dout, mask))
+            got = [t[part] for t in fwd[0]]
+            e = {}
+            if held_fwd:
+                ref_plain = attention_forward_packed_plain(sq, sk, sv, sm)
+                ref = attention_forward_plain(sq, sk, sv, sm)
+                e = {"out_vs_packed_plain": rel_err(got[0], ref_plain[0]),
+                     "out_vs_plain": float((got[0].float() - ref[0].float()).abs().max()),
+                     "row_max": max(float(((got[1] - r[1]).abs() / (1.0 + r[1].abs())).max())
+                                    for r in (ref_plain, ref)),
+                     "row_sum": max(float(((got[2] - r[2]).abs() / r[2]).max())
+                                    for r in (ref_plain, ref))}
+                if (not e["out_vs_packed_plain"] <= FWD_PLAIN_TOL[name]
+                        or not e["out_vs_plain"] <= ATTN_TOL[name]
+                        or not max(e["row_max"], e["row_sum"]) <= STATS_TOL):
+                    raise AssertionError(f"{fwd_kernel.name} {shape}, {which_b} b: {e}")
+            plain_args = (sq, sk, sv, sdo, got[0], got[1], got[2], sm)
+            for which, ref_b in (("packed_plain", attention_backward_packed_plain(*plain_args)),
+                                 ("plain", attention_backward_plain(*plain_args))):
+                floor = PACK_FLOOR * float(ref_b[2].float().abs().max())
+                for gname, a, b in zip(("dq", "dk", "dv"), (t[part] for t in bwd[0]), ref_b):
+                    rel = float((a.float() - b.float()).abs().max()) / max(
+                        float(b.float().abs().max()), floor)
+                    if not bool(torch.isfinite(a.float()).all()) or not rel <= BWD_TOL[name]:
+                        raise AssertionError(f"{bwd_kernel.name} {name} {shape}, {which_b} b, "
+                                             f"against {which}: {gname} relative error {rel}")
+                    e[f"{which}_{gname}"] = rel
+            rec[which_b] = e
+        print("big " + json.dumps(rec) + f"  [{card}]", flush=True)
+
+    for args in ((torch.bfloat16, LONG_BIG, FLASH_ATTN_FWD_LONG, FLASH_ATTN_BWD_LONG),
+                 (torch.float32, F32_LIST_BIG, FLASH_ATTN_FWD, FLASH_ATTN_BWD_LIST),
+                 (torch.float32, LONG_BIG, FLASH_ATTN_FWD, FLASH_ATTN_BWD_LONG)):
+        case(*args)
+        torch.cuda.empty_cache()  # the case's tensors are gone: tens of GB at fp32
 
 
 def sink_case(B, N, lengths, seed=0, dense=False, extreme=None):
@@ -1945,10 +1997,10 @@ def wide_launches(N: int, d: int, dtype: str = "bfloat16") -> dict:
     lists of N docs in `dtype`, by the routes: the forward's (in bf16 the
     packed forward up to FWD_PACK_MAX_N docs, the long forward up to
     LONG_MAX_N, in fp32 the packed forward up to F32_PACK_MAX_N, else the
-    wide kernel) and the backward's (in bf16 the packed backward up to
-    PACK_MAX_N docs, the list backward up to LIST_MAX_N, the long backward
-    up to LONG_MAX_N, in fp32 the packed backward up to F32_PACK_MAX_N, else
-    the wide pair)."""
+    wide kernel) and the backward's (the packed backward up to PACK_MAX_N
+    docs, the list backward up to LIST_MAX_N, the long backward up to
+    LONG_MAX_N, in fp32 up to F32_PACK_MAX_N, F32_LIST_MAX_N and
+    F32_LONG_MAX_N, else the wide pair)."""
     import torch
 
     from ptranking_tpu_torch.ops.attention import bwd_route, fwd_route
@@ -1976,10 +2028,13 @@ def wide_phase(card: str, work_dir: str) -> dict:
     YAHOO_BUCKETS (the one-head model: the 128-doc bucket), with exact launch
     counts (wide_launches: in bf16 no Yahoo! bucket reaches a wide kernel);
     (d) save, restore, one more step on both; (e) for the first model, timed
-    fp32 steps in YAHOO_F32_BUCKETS (yahoo_f32_steps). Returns the launch
-    counts of (c) for the first model, summed over its buckets, those of its
-    fp32 gradient check (b) in the YAHOO_GRAD_CHECK bucket (the fp32 wide
-    kernels' path), and those of (e)."""
+    fp32 steps in YAHOO_F32_BUCKETS (yahoo_f32_steps). The one-head model
+    also takes its fp32 gradient check (b) at WIDE_PAIR_CHECK docs. Returns
+    the launch counts of (c) for the first model, summed over its buckets,
+    those of the fp32 gradient checks of the first model in the
+    YAHOO_GRAD_CHECK bucket (the fp32 wide forward's path) and of the
+    one-head model at WIDE_PAIR_CHECK docs (the fp32 wide pair's), summed,
+    and those of (e)."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
@@ -2006,6 +2061,20 @@ def wide_phase(card: str, work_dir: str) -> dict:
         if first:  # grads_vs_dense held the counts to wide_launches
             fp32_counts = wide_launches(N, d, "float32")
         print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
+
+        if name == "mslr_1head":  # fp32 past F32_LONG_MAX_N docs: the wide pair
+            N = WIDE_PAIR_CHECK
+            batch = train_batch(YAHOO_DOCS // N, N, ragged=True, seed=1, num_features=F)
+            x, labels, mask = (torch.from_numpy(a).cuda()
+                               for a in (batch.features, batch.labels, batch.mask))
+            rec = grads_vs_dense(flagship_ranker(dropout=0.0, compute_dtype="float32",
+                                                 **ranker_kw),
+                                 x, labels, mask, f"{tag} fp32 gradient check at {N} docs",
+                                 wide_launches(N, d, "float32"))
+            fp32_counts = {key: fp32_counts.get(key, 0) + n
+                           for key, n in wide_launches(N, d, "float32").items()}
+            print(f"{tag}_grad_{N}docs " + json.dumps({"float32": rec}) + f"  [{card}]",
+                  flush=True)
 
         if name == "yahoo":  # the same in a bucket of the packed kernels: the mean list's
             N = YAHOO_PACKED_CHECK
@@ -2043,8 +2112,9 @@ def yahoo_f32_steps(card: str) -> dict:
     """Timed LambdaRank steps of the Yahoo! listsf at d = 350 in fp32 (WIDE_MODELS'
     first model, compute_dtype float32), YAHOO_DOCS docs a step in each of
     YAHOO_F32_BUCKETS, with exact launch counts (wide_launches in fp32: the
-    fp32 packed kernels up to F32_PACK_MAX_N docs, the wide kernels above).
-    Returns the launch counts summed over the buckets."""
+    fp32 packed kernels up to F32_PACK_MAX_N docs, the wide forward above;
+    the fp32 list backward up to F32_LIST_MAX_N docs, the long backward up
+    to F32_LONG_MAX_N). Returns the launch counts summed over the buckets."""
     name, F, n_heads, lane_align, _ = WIDE_MODELS[0]
     ranker = flagship_ranker(compute_dtype="float32", num_features=F, lane_align=lane_align,
                              n_heads=n_heads)
@@ -2101,7 +2171,7 @@ def main() -> int:
     check_grid_limits(card)
     records.update(check_packed(card))
     records.update(check_packed_fwd(card))
-    check_long_big(card)
+    check_big(card)
     records.update(check_sinkstep(card))
 
     phase("serve")
@@ -2122,7 +2192,8 @@ def main() -> int:
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",
                  "flash_attn_bwd_list", "flash_attn_bwd_long"):
         launches[name] = wide[name]
-    for name in ("flash_attn_fwd_packed", "flash_attn_bwd_packed"):
+    for name in ("flash_attn_fwd_packed", "flash_attn_bwd_packed", "flash_attn_bwd_list",
+                 "flash_attn_bwd_long"):
         launches[name + "_fp32"] = f32_steps[name]
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
@@ -2144,7 +2215,9 @@ def main() -> int:
         # the same wrappers at d > 128 (the Yahoo! LTR listsf's d = 350): the
         # wide kernels, record in the 256-doc bucket (WIDE_RECORD_SHAPE) in
         # fp32 (WIDE_RECORD_DTYPE), launches from phase 7's fp32 gradient
-        # check of that model: in bf16 no Yahoo! bucket reaches them
+        # checks of that model at 128 docs (the forward) and of the one-head
+        # model at WIDE_PAIR_CHECK docs (the forward and the pair): in bf16 no
+        # Yahoo! bucket reaches them, in fp32 no Yahoo! bucket the pair
         "flash_attn_fwd_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                 "ptranking_tpu/ops/attention.py:129"),
         "flash_attn_bwd_dkdv_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
@@ -2179,6 +2252,15 @@ def main() -> int:
                                        "ptranking_tpu/ops/attention.py:172"),
         "flash_attn_bwd_packed_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                        "ptranking_tpu/ops/attention.py:172"),
+        # the fp32 backward of lists of 65 .. F32_LIST_MAX_N and of
+        # F32_LIST_MAX_N + 1 .. F32_LONG_MAX_N docs at d > 128 (3xTF32; the
+        # list and long wrappers, which count either dtype): records at
+        # LIST_RECORD and LONG_RECORD in fp32, launches from phase 7's timed
+        # fp32 steps at 128 and 256 docs
+        "flash_attn_bwd_list_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                     "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_bwd_long_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                     "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

@@ -12,7 +12,8 @@ dropout (the JAX package applies none on its flash path either):
     gradient is needed, `csrc/flash_attn_bwd.cu` backward (dq, and dk with dv)
     from the forward's row statistics, as a `torch.autograd.Function`: bf16
     inputs on the tensor cores, fp32 inputs on the fp32 CUDA cores, save the
-    fp32 packed kernels (3xTF32 on the tensor cores). CPU
+    fp32 kernels that take whole lists into a block (3xTF32 on the tensor
+    cores). CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
@@ -36,7 +37,11 @@ lists of at most LONG_MAX_N docs the long kernel (one list of up to 256
 docs a block, in two halves of its keys), and the wide dk/dv and dq kernels
 otherwise (`bwd_route`). In fp32 at head dims above 128, lists of at most
 F32_PACK_MAX_N docs take the packed forward and the packed backward on
-3xTF32 tensor-core products, and longer lists the wide kernels.
+3xTF32 tensor-core products, and longer lists the wide forward; their
+backward takes, for lists of at most F32_LIST_MAX_N docs, the list kernel's
+fp32 instantiation and for lists of at most F32_LONG_MAX_N docs the long
+kernel's (one list a block of 8 warps, its keys in slices of 64, 3xTF32),
+and the wide dk/dv and dq kernels above.
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -314,8 +319,13 @@ LONG_MAX_N = 256
 # The fp32 routes at d > 128, set the same way: the packed forward and the
 # packed backward on 3xTF32 tensor-core products (csrc/flash_attn_{fwd,bwd}.cu:
 # flash_{fwd,bwd}_packed_tf32_kernel, 64 // N lists a 64-row tile) up to
-# F32_PACK_MAX_N docs, in place of the fp32 wide forward and wide pair.
+# F32_PACK_MAX_N docs, in place of the fp32 wide forward and wide pair; the
+# fp32 list and long backward (flash_bwd_list_tf32_kernel on a 128-row and a
+# 256-row tile of one list, its keys in slices of 64) up to F32_LIST_MAX_N
+# and F32_LONG_MAX_N docs, in place of the wide pair.
 F32_PACK_MAX_N = 64
+F32_LIST_MAX_N = 128
+F32_LONG_MAX_N = 256
 
 
 def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:
@@ -339,16 +349,14 @@ def bwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     head dim d: for bf16 and d > 128, "packed" (FlashAttnBwdPacked) at
     N <= PACK_MAX_N, "list" (FlashAttnBwdList) at N <= LIST_MAX_N and "long"
     (FlashAttnBwdLong) at N <= LONG_MAX_N; for fp32 and d > 128, "packed" at
-    N <= F32_PACK_MAX_N; else "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
-    if dtype == torch.bfloat16 and d > _NARROW_D:
-        if N <= PACK_MAX_N:
-            return "packed"
-        if N <= LIST_MAX_N:
-            return "list"
-        if N <= LONG_MAX_N:
-            return "long"
-    if dtype == torch.float32 and d > _NARROW_D and N <= F32_PACK_MAX_N:
-        return "packed"
+    N <= F32_PACK_MAX_N, "list" at N <= F32_LIST_MAX_N and "long" at
+    N <= F32_LONG_MAX_N; else "pair" (FlashAttnBwdDkdv and FlashAttnBwdDq)."""
+    limits = {torch.bfloat16: (PACK_MAX_N, LIST_MAX_N, LONG_MAX_N),
+              torch.float32: (F32_PACK_MAX_N, F32_LIST_MAX_N, F32_LONG_MAX_N)}
+    if dtype in limits and d > _NARROW_D:
+        for route, max_n in zip(("packed", "list", "long"), limits[dtype]):
+            if N <= max_n:
+                return route
     return "pair"
 
 
@@ -378,12 +386,14 @@ def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int
 
 
 # the kernels that take whole lists into a block, by wrapper: the longest
-# list each takes; and the wrappers whose kernels also take fp32 lists, of
-# at most _ROWS docs (the 3xTF32 kernels' 64-row tile)
+# list each takes; and of the wrappers whose kernels also take fp32 lists
+# (3xTF32), the longest fp32 list: the packed kernels' 64-row tile, the list
+# and long backward's 128 and 256 rows
 _PACKED_MAX_N = {"flash_attn_fwd_packed": _LIST_ROWS, "flash_attn_bwd_packed": _ROWS,
                  "flash_attn_bwd_list": _LIST_ROWS, "flash_attn_fwd_long": _LONG_ROWS,
                  "flash_attn_bwd_long": _LONG_ROWS}
-_F32_PACKED = ("flash_attn_fwd_packed", "flash_attn_bwd_packed")
+_F32_PACKED = {"flash_attn_fwd_packed": _ROWS, "flash_attn_bwd_packed": _ROWS,
+               "flash_attn_bwd_list": _LIST_ROWS, "flash_attn_bwd_long": _LONG_ROWS}
 
 
 def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
@@ -434,9 +444,9 @@ def _check_qkv(q, k, v, mask, *more, packed=""):
     if packed and q.dtype == torch.float32:
         if packed not in _F32_PACKED:
             raise ValueError(f"{packed} takes bfloat16 inputs; got {q.dtype}")
-        if N > _ROWS:
+        if N > _F32_PACKED[packed]:
             raise ValueError(f"shape {(B, H, N, d)}: {packed} takes float32 lists of at most "
-                             f"{_ROWS} docs")
+                             f"{_F32_PACKED[packed]} docs")
     check_grid(B, H, N, d, packed)
     tensors = (q, k, v, mask, *more)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
@@ -576,35 +586,44 @@ class FlashAttnBwdPacked:
             _BWD_LIB.call(
                 self.name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 row_max.data_ptr(), row_sum.data_ptr(), dsum.data_ptr(), mask.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(t.data_ptr() for t in scratch),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in scratch),
                 B, H, N, d, _DTYPES[q.dtype], _stream(q.device))
         self.launches += kernel_launches(B, H, N, d, packed=True)
         return dq, dk, dv
 
     def _scratch(self, q) -> tuple:
-        """Device scratch the kernel takes after its outputs: none."""
+        """Device scratch the kernel takes after its outputs (None: a null
+        pointer in its place): none."""
         return ()
 
 
 class FlashAttnBwdList(FlashAttnBwdPacked):
-    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s list kernel (bf16, lists
-    of at most 128 docs, any d; the packed kernel on a 128-row tile, one list
-    of 65 .. 128 docs a block): FlashAttnBwdPacked's call, with its own
-    launch count."""
+    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s list kernels (lists of at
+    most 128 docs, any d, one list of 65 .. 128 docs a block; bf16: the
+    packed kernel on a 128-row tile; fp32: flash_bwd_list_tf32_kernel on
+    3xTF32 tensor-core products, its keys in slices of 64):
+    FlashAttnBwdPacked's call, with its own launch count (one a call, either
+    dtype)."""
 
     name = "flash_attn_bwd_list"
 
 
 class FlashAttnBwdLong(FlashAttnBwdPacked):
-    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s long kernel (bf16, lists
-    of at most 256 docs, any d; one list of 129 .. 256 docs a block, its
-    keys in two halves of 128): FlashAttnBwdPacked's call, with its own
-    launch count, and the fp32 [B*H*N, d] scratch in which the kernel keeps
-    the first half's share of dq until the second half adds its own."""
+    """ctypes wrapper of `csrc/flash_attn_bwd.cu`'s long kernels (lists of at
+    most 256 docs, any d, one list of 129 .. 256 docs a block; bf16: its keys
+    in two halves of 128; fp32: flash_bwd_list_tf32_kernel on a 256-row tile,
+    its keys in slices of 64, 3xTF32): FlashAttnBwdPacked's call, with its
+    own launch count (one a call, either dtype), and in bf16 the fp32
+    [B*H*N, d] scratch in which the kernel keeps the first half's share of dq
+    until the second half adds its own (fp32 sums dq in dq itself: no
+    scratch)."""
 
     name = "flash_attn_bwd_long"
 
     def _scratch(self, q) -> tuple:
+        if q.dtype == torch.float32:
+            return (None,)
         B, H, N, d = q.shape
         return (torch.empty((B * H * N, d), dtype=torch.float32, device=q.device),)
 

@@ -105,11 +105,15 @@
 // digits) and the fp32 path is the exact one that gradient checks and
 // checkpoint-resume checks rest on. Products run from transposed fp32 tiles in
 // shared memory with 4x8 register blocks; 128 threads as 16 row groups of 4
-// rows x 8 lanes. The exception: fp32 lists of at most 64 docs at d > 128
+// rows x 8 lanes. The exceptions: fp32 lists of at most 64 docs at d > 128
 // take flash_bwd_packed_tf32_kernel (entry flash_attn_bwd_packed, dtype 0;
 // the route at N <= F32_PACK_MAX_N), the packed kernel's three steps with
 // every product in 3xTF32 on the tensor cores, which keeps about fp32's
-// accuracy (the section "fp32, lists of at most 64 docs" below).
+// accuracy (the section "fp32, lists of at most 64 docs" below); fp32 lists
+// of 65 .. 256 docs take flash_bwd_list_tf32_kernel, the same steps for one
+// list a block of 8 warps in slices of 64 keys (entries flash_attn_bwd_list
+// and flash_attn_bwd_long, dtype 0; the routes at N <= F32_LIST_MAX_N and
+// N <= F32_LONG_MAX_N: the section "fp32, lists of 65 .. 256 docs").
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -2014,6 +2018,7 @@ flash_bwd_long_dq_sum_kernel(const float* __restrict__ part, bf16* __restrict__ 
 // relative (the gate: 1e-5), where the two plain versions differ by 3e-6.
 
 constexpr int TF32_W = 32;  // columns of the fp32 packed kernel's d-chunks and output chunks
+constexpr int TF32_KEYS = 64;  // keys of S and dP the fp32 kernels' warps hold: 16 rows by 64
 
 // the P and dS tiles ([64][68]), two stages of four chunk tiles ([64][w + 4])
 // and the key info
@@ -2021,6 +2026,67 @@ __host__ __device__ constexpr size_t packed_tf32_smem_bytes(int w) {
     return (size_t(2) * PACK_ROWS * (PACK_ROWS + 4) + size_t(2) * 4 * PACK_ROWS * (w + 4))
                * sizeof(float)
            + PACK_ROWS * sizeof(int);
+}
+
+// The fp32 kernels' step 1 on one W-column chunk: s += Q K^T and dp += dO V^T
+// of the warp's 16 query rows (from row0 of the [*][W + 4] Q and dO tiles) by
+// the TF32_KEYS keys of the K and V tiles, in 3xTF32, the operands split as
+// INT_ROUND says (mma_common.cuh)
+template <int W, bool INT_ROUND>
+__device__ __forceinline__ void s_dp_tf32(float (&s)[TF32_KEYS / 8][4],
+                                          float (&dp)[TF32_KEYS / 8][4], const float* Qt,
+                                          const float* Kt, const float* dOt, const float* Vt,
+                                          int row0, int lane) {
+    constexpr int LD = W + 4;
+#pragma unroll
+    for (int kk = 0; kk < W; kk += 8) {
+        uint32_t ahi[4], alo[4], bhi[2], blo[2];
+        frag_a_tf32<LD, INT_ROUND>(ahi, alo, Qt, row0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < TF32_KEYS / 8; ++j) {
+            frag_b_nk_tf32<LD, INT_ROUND>(bhi, blo, Kt, 8 * j, kk, lane);
+            mma_3xtf32(s[j], ahi, alo, bhi, blo);
+        }
+        frag_a_tf32<LD, INT_ROUND>(ahi, alo, dOt, row0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < TF32_KEYS / 8; ++j) {
+            frag_b_nk_tf32<LD, INT_ROUND>(bhi, blo, Vt, 8 * j, kk, lane);
+            mma_3xtf32(dp[j], ahi, alo, bhi, blo);
+        }
+    }
+}
+
+// The fp32 kernels' step 2: P in place of S and dS in place of dP on the
+// warp's fragments (p_ds_packed's rules, with expf), both also into the
+// [*][LDP] P and dS tiles at the warp's rows (from row0). ki points at the key
+// info of the thread's first key; seg, m, inv, D are those of its two rows.
+template <int LDP>
+__device__ __forceinline__ void p_ds_tf32(float (&s)[TF32_KEYS / 8][4],
+                                          float (&dp)[TF32_KEYS / 8][4], const int* ki,
+                                          const int (&seg)[2], const float (&m)[2],
+                                          const float (&inv)[2], const float (&D)[2], float scale,
+                                          float* Ps, float* dSs, int row0, int lane) {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int j = 0; j < TF32_KEYS / 8; ++j) {
+        const int2 f = *reinterpret_cast<const int2*>(ki + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int info = (e & 1) ? f.y : f.x, h = e >> 1;
+            const bool same = (info >> 2) == seg[h];
+            const bool real = same && (info & 3) == KEY_REAL;
+            const float x = real ? s[j][e] * scale : MASKED_LOGIT;
+            const float p = same ? expf(x - m[h]) * inv[h] : 0.f;
+            dp[j][e] = real ? p * (dp[j][e] - D[h]) : 0.f;
+            s[j][e] = p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int at = (row0 + g + 8 * h) * LDP + 8 * j + 2 * t4;
+            *reinterpret_cast<float2*>(Ps + at) = make_float2(s[j][2 * h], s[j][2 * h + 1]);
+            *reinterpret_cast<float2*>(dSs + at) = make_float2(dp[j][2 * h], dp[j][2 * h + 1]);
+        }
+    }
 }
 
 template <int W>
@@ -2032,6 +2098,7 @@ flash_bwd_packed_tf32_kernel(const float* __restrict__ q, const float* __restric
                              float* __restrict__ dq, float* __restrict__ dk,
                              float* __restrict__ dv, int lists, int H, int N, int d, float scale,
                              int copy, int how) {
+    static_assert(PACK_ROWS == TF32_KEYS, "a warp holds S and dP of all the tile's keys");
     constexpr int LD = W + 4;              // row stride of the chunk tiles (floats)
     constexpr int LDP = PACK_ROWS + 4;     // of the P and dS tiles
     constexpr int TS = PACK_ROWS * LD;     // a chunk tile: a tensor's share of a stage
@@ -2105,47 +2172,12 @@ flash_bwd_packed_tf32_kernel(const float* __restrict__ q, const float* __restric
     for (int c = 0; c < chunks; ++c) {
         next(c);
         const float* cs = Cs + (c & 1) * STAGE;
-#pragma unroll
-        for (int kk = 0; kk < W; kk += 8) {
-            uint32_t ahi[4], alo[4], bhi[2], blo[2];
-            frag_a_tf32<LD>(ahi, alo, cs, warp * 16, kk, lane);  // Q
-#pragma unroll
-            for (int j = 0; j < PACK_ROWS / 8; ++j) {
-                frag_b_nk_tf32<LD>(bhi, blo, cs + TS, 8 * j, kk, lane);  // K
-                mma_3xtf32(s[j], ahi, alo, bhi, blo);
-            }
-            frag_a_tf32<LD>(ahi, alo, cs + 2 * TS, warp * 16, kk, lane);  // dO
-#pragma unroll
-            for (int j = 0; j < PACK_ROWS / 8; ++j) {
-                frag_b_nk_tf32<LD>(bhi, blo, cs + 3 * TS, 8 * j, kk, lane);  // V
-                mma_3xtf32(dp[j], ahi, alo, bhi, blo);
-            }
-        }
+        s_dp_tf32<W, false>(s, dp, cs, cs + TS, cs + 2 * TS, cs + 3 * TS, warp * 16, lane);
         __syncthreads();  // no warp reads stage c's buffers any more
     }
 
-    // step 2 (stage `chunks`, step 3's first, is in flight): P in place of S
-    // and dS in place of dP, both also into their tiles
-#pragma unroll
-    for (int j = 0; j < PACK_ROWS / 8; ++j) {
-        const int2 f = *reinterpret_cast<const int2*>(kinfo + 8 * j + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int info = (e & 1) ? f.y : f.x, h = e >> 1;
-            const bool same = (info >> 2) == seg[h];
-            const bool real = same && (info & 3) == KEY_REAL;
-            const float x = real ? s[j][e] * scale : MASKED_LOGIT;
-            const float p = same ? expf(x - m[h]) * inv[h] : 0.f;
-            dp[j][e] = real ? p * (dp[j][e] - D[h]) : 0.f;
-            s[j][e] = p;
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int at = (warp * 16 + g + 8 * h) * LDP + 8 * j + 2 * t4;
-            *reinterpret_cast<float2*>(Ps + at) = make_float2(s[j][2 * h], s[j][2 * h + 1]);
-            *reinterpret_cast<float2*>(dSs + at) = make_float2(dp[j][2 * h], dp[j][2 * h + 1]);
-        }
-    }
+    // step 2 (stage `chunks`, step 3's first, is in flight)
+    p_ds_tf32<LDP>(s, dp, kinfo + 2 * t4, seg, m, inv, D, scale, Ps, dSs, warp * 16, lane);
     __syncthreads();
 
     // step 3
@@ -2199,6 +2231,287 @@ flash_bwd_packed_tf32_kernel(const float* __restrict__ q, const float* __restric
             }
         }
         __syncthreads();  // no warp reads stage st's buffers any more
+    }
+}
+
+// ---------------------------------------------------------------------------
+// fp32, lists of 65 .. 256 docs: the list and long kernels on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// At 65 .. 256 docs the fp32 wide pair computes S and dP on the CUDA cores
+// once for each 64-column output chunk of dk/dv (6 at d = 350) and again for
+// each of dq, in two launches: 8.51 + 3.88 ms at (256, 2, 128, 350) and
+// 16.21 + 7.70 at (128, 2, 256, 350) on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md), where SDPA's fp32 backward takes 1.06 and 1.58. The fp32
+// packed kernel's tile does not stretch to these lists: S and dP of a warp's
+// 16 rows by 256 keys would be 256 fp32 registers a thread, and P and dS of
+// 256 x 256 as fp32 tiles 270,336 bytes (a block may have 232,448). Here one
+// block of 8 warps owns one list of up to ROWS docs (ROWS / N lists at
+// N <= ROWS / 2; ROWS = LIST_ROWS for the list entry, LONG_ROWS for the long
+// one) and takes its keys in slices of 64 and its query rows in passes of
+// 128; for each slice, for each pass, the fp32 packed kernel's three steps,
+// every product in 3xTF32, each operand split into hi and lo at its fragment
+// load by integer rounding of its bits (F32_INT_ROUND: the same bits as the
+// packed kernel's cvt.rna.tf32.f32, in less time and fewer registers):
+//   1. S = Q K^T and dP = dO V^T of the pass's rows by the slice's keys (a
+//      warp's 16 rows by 64 keys, 32 + 32 fp32 registers a thread: s_dp_tf32)
+//      over d in F32_W-column chunks of Q, dO (the pass's rows) and K, V (the
+//      slice's keys), double-buffered by cp.async;
+//   2. P and dS on the fragments (p_ds_tf32), stored as fp32 [128][68] tiles,
+//      since dk and dv contract over the query rows, which span the warps;
+//   3. for each F32_W-column output chunk, its Q, dO and K columns re-read
+//      into the same buffers right after step 1 read them (mostly L2 hits),
+//      then dv = P^T dO and dk = scale * dS^T Q of the slice's keys over the
+//      pass's rows and dq = scale * dS K of the pass's rows over the slice's
+//      keys (dS's C fragment, read back from the tile as step 2 stored it,
+//      as the A fragment). dq: a warp its own 16 rows. dk, dv: warps 0-3
+//      dv, 4-7 dk, each 16 keys by every column of the chunk, so that one A
+//      fragment of P^T or dS^T feeds F32_W / 8 products (each warp both on
+//      half the columns took 1..5% longer, one stage 5..10.5%: PERF.md).
+// dq sums over the slices and dk, dv over the passes in the outputs
+// themselves: the first slice (pass) writes its partial sum, each later one
+// loads it back as the start of its own sums and stores it again, the last
+// one times the scale. Each thread reads back exactly the values it
+// wrote, in a fixed order, so no scratch, barrier or atomic is needed, the
+// same inputs give the same bits, and fp32 leaves no rounding of its own.
+// Shared memory: the P and dS tiles (69,632 bytes), two stages of Q and dO
+// of 128 rows and K and V of 64 keys (55,296 bytes a stage at F32_W = 32)
+// and the key info: 181,248 bytes at ROWS = 256, one block an SM.
+// What bounds it: the products (10 * N^2 * d operations a list, each three
+// TF32 products, and each operand's split) with 8 warps an SM to hide their
+// latency, and the re-reads of Q and dO for each slice, twice (step 1 and
+// step 3), and of the partial sums, which the 7-tensor byte bound leaves
+// out. On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 1.20 ms at (256, 2,
+// 128, 350) and 2.45 at (128, 2, 256, 350), against the pair's 12.32 and
+// 23.86 and SDPA's 1.06 and 1.58; at d = 384 1.05 and 2.19 against SDPA's
+// 1.33 and 2.39.
+
+constexpr int F32_SLICE = TF32_KEYS;  // keys of a slice
+constexpr int F32_PASS = 128;         // query rows of a pass: a warp for each 16
+constexpr int F32_NT = 2 * F32_PASS;  // threads
+// columns of the d-chunks and output chunks (tools/kernel_variants.py times 16)
+constexpr int F32_W = 32;
+// whether the operands' hi/lo split rounds by integer arithmetic (the same
+// bits as cvt.rna.tf32.f32: mma_common.cuh's to_tf32_int; the fp32 packed
+// kernels keep the cvt: with the integer rounding the packed backward
+// spilled, PERF.md)
+constexpr bool F32_INT_ROUND = true;
+
+// the P and dS tiles ([128][68]), the two stages (Q, dO chunk tiles of 128
+// rows, K, V of 64, rows of w + 4 floats) and the key info of `rows` keys
+__host__ __device__ constexpr size_t list_tf32_smem_bytes(int rows, int w) {
+    return (size_t(2) * F32_PASS * (F32_SLICE + 4)
+            + size_t(2) * (2 * F32_PASS + 2 * F32_SLICE) * (w + 4))
+               * sizeof(float)
+           + rows * sizeof(int);
+}
+
+// (x, y) at columns col, col + 1 of an fp32 row of d columns (zeros past d)
+__device__ __forceinline__ float2 load_pair_f32(const float* row, int col, int d, bool pairs) {
+    if (pairs) return col < d ? *reinterpret_cast<const float2*>(row + col) : make_float2(0.f, 0.f);
+    return make_float2(col < d ? row[col] : 0.f, col + 1 < d ? row[col + 1] : 0.f);
+}
+
+template <int ROWS, int W>
+__global__ void __launch_bounds__(F32_NT, 1)
+flash_bwd_list_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                           const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                           float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                           int lists, int H, int N, int d, float scale, int copy, int how) {
+    static_assert(W % 16 == 0, "chunks of 16-column steps");
+    constexpr int LD = W + 4;                // row stride of the chunk tiles (floats)
+    constexpr int LDP = F32_SLICE + 4;       // of the P and dS tiles
+    constexpr int QT = F32_PASS * LD;        // a Q or dO chunk tile
+    constexpr int KT = F32_SLICE * LD;       // a K or V chunk tile
+    constexpr int STAGE = 2 * QT + 2 * KT;
+    extern __shared__ uint4 smem_mma[];
+    float* Ps = reinterpret_cast<float*>(smem_mma);  // [F32_PASS query rows][LDP]: the slice's keys
+    float* dSs = Ps + F32_PASS * LDP;
+    float* Cs = dSs + F32_PASS * LDP;                // [2][STAGE]: Q, dO, K, V chunk tiles
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);  // [ROWS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = ROWS / N;
+    const int l0 = blockIdx.x * per_tile;  // the tile's first (b, h) list
+    const int nrows = min(per_tile, lists - l0) * N;
+    const size_t row0 = size_t(l0) * N;
+    const size_t base = row0 * d;
+    const int chunks = (d + W - 1) / W;
+    const int slices = (nrows + F32_SLICE - 1) / F32_SLICE;
+    const int passes = (nrows + F32_PASS - 1) / F32_PASS;
+    const int per_sp = 2 * chunks;  // stages of a slice's pass: step 1's d-chunks, step 3's
+    const int stages = slices * passes * per_sp;
+
+    // stage st: of pass sp % passes of slice sp / passes (sp = st / per_sp),
+    // at u = st % per_sp: u < chunks step 1's d-chunk u of Q, dO, K and V,
+    // else step 3's output chunk u - chunks of Q, dO and K
+    auto prefetch = [&](int st) {
+        float* cs = Cs + (st & 1) * STAGE;
+        const int sp = st / per_sp, u = st - sp * per_sp;
+        const int slice = sp / passes, pass = sp - slice * passes;
+        const int c0 = (u < chunks ? u : u - chunks) * W;
+        const size_t qb = base + size_t(pass) * F32_PASS * d;
+        const size_t kb = base + size_t(slice) * F32_SLICE * d;
+        const int qrows = min(nrows - pass * F32_PASS, F32_PASS);
+        const int krows = min(nrows - slice * F32_SLICE, F32_SLICE);
+        load_chunk_f32<F32_NT, W, F32_PASS>(cs, q + qb, qrows, d, c0, copy);
+        load_chunk_f32<F32_NT, W, F32_PASS>(cs + QT, dout + qb, qrows, d, c0, copy);
+        load_chunk_f32<F32_NT, W, F32_SLICE>(cs + 2 * QT, k + kb, krows, d, c0, copy);
+        if (u < chunks)
+            load_chunk_f32<F32_NT, W, F32_SLICE>(cs + 2 * QT + KT, v + kb, krows, d, c0, copy);
+        cp_async_commit();
+    };
+    // stage st's buffers, landed, with stage st + 1's copies in flight
+    auto next = [&](int st) -> const float* {
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+        return Cs + (st & 1) * STAGE;
+    };
+
+    prefetch(0);
+    for (int i = tid; i < ROWS; i += F32_NT) {
+        int info = -1;
+        if (i < nrows) {
+            const int list = i / N, key = i - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[i] = info;
+    }
+    const bool pairs = how & STORE_PAIRS;
+    // step 3's dk and dv: whether the warp's output is dk (A: dS^T, B: Q) or
+    // dv (A: P^T, B: dO), and its keys in a slice
+    const bool is_dk = warp >= 4;
+    float* const kv = is_dk ? dk : dv;
+    const int key_off = (warp & 3) * 16;
+
+    int st = 0;
+    for (int slice = 0; slice < slices; ++slice) {
+        for (int pass = 0; pass < passes; ++pass) {
+            int seg[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+            float m[2], inv[2], D[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = pass * F32_PASS + warp * 16 + g + 8 * h;
+                const bool in = r < nrows;  // a row past them: zero q and dO rows, P = dS = 0
+                seg[h] = in ? r / N : -2;
+                m[h] = in ? row_max[row0 + r] : 0.f;
+                inv[h] = in ? 1.f / row_sum[row0 + r] : 0.f;  // l >= 1
+                D[h] = in ? dsum[row0 + r] : 0.f;
+            }
+
+            // step 1
+            float s[F32_SLICE / 8][4], dp[F32_SLICE / 8][4];
+#pragma unroll
+            for (int j = 0; j < F32_SLICE / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            for (int c = 0; c < chunks; ++c, ++st) {
+                const float* cs = next(st);
+                s_dp_tf32<W, F32_INT_ROUND>(s, dp, cs, cs + 2 * QT, cs + QT, cs + 2 * QT + KT,
+                                            warp * 16, lane);
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+
+            // step 2 (step 3's first stage is in flight; its barrier orders
+            // these tile stores before step 3's reads)
+            p_ds_tf32<LDP>(s, dp, kinfo + slice * F32_SLICE + 2 * t4, seg, m, inv, D, scale, Ps,
+                           dSs, warp * 16, lane);
+
+            // step 3
+            const bool more_q = slice > 0, last_q = slice + 1 == slices;
+            const bool more_kv = pass > 0, last_kv = pass + 1 == passes;
+            const int qr = pass * F32_PASS + warp * 16;  // the warp's query rows
+            const int kr = slice * F32_SLICE + key_off;  // its keys
+            for (int oc = 0; oc < chunks; ++oc, ++st) {
+                const float* cs = next(st);
+                const int c0 = oc * W;
+                // the sums start from the partial sums this thread stored
+                // before (zero in the first slice or pass): loaded after the
+                // products instead, their latency showed (PERF.md)
+                float acc_q[W / 8][4], acc_kv[W / 8][4];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = qr + g + 8 * h, key = kr + g + 8 * h;
+#pragma unroll
+                    for (int n = 0; n < W / 8; ++n) {
+                        const float2 p = more_q && r < nrows
+                                             ? load_pair_f32(dq + base + size_t(r) * d,
+                                                             c0 + 8 * n + 2 * t4, d, pairs)
+                                             : make_float2(0.f, 0.f);
+                        acc_q[n][2 * h] = p.x;
+                        acc_q[n][2 * h + 1] = p.y;
+                    }
+#pragma unroll
+                    for (int n = 0; n < W / 8; ++n) {
+                        const float2 p = more_kv && key < nrows
+                                             ? load_pair_f32(kv + base + size_t(key) * d,
+                                                             c0 + 8 * n + 2 * t4, d, pairs)
+                                             : make_float2(0.f, 0.f);
+                        acc_kv[n][2 * h] = p.x;
+                        acc_kv[n][2 * h + 1] = p.y;
+                    }
+                }
+                // dv += P^T dO, dk += dS^T Q over the pass's rows 8j .. 8j + 7
+#pragma unroll 4
+                for (int j = 0; j < F32_PASS / 8; ++j) {
+                    uint32_t ahi[4], alo[4], bhi[2], blo[2];
+                    frag_a_trans_tf32<LDP, F32_INT_ROUND>(ahi, alo, is_dk ? dSs : Ps, key_off,
+                                                          8 * j, lane);
+                    const float* bt = is_dk ? cs : cs + QT;
+#pragma unroll
+                    for (int n = 0; n < W / 8; ++n) {
+                        frag_b_kn_tf32<LD, F32_INT_ROUND>(bhi, blo, bt, 8 * j, 8 * n, lane);
+                        mma_3xtf32(acc_kv[n], ahi, alo, bhi, blo);
+                    }
+                }
+                // dq += dS K over the slice's keys 8j .. 8j + 7: dS's C
+                // fragment read back from the tile as step 2 stored it
+#pragma unroll
+                for (int j = 0; j < F32_SLICE / 8; ++j) {
+                    uint32_t ahi[4], alo[4], bhi[2], blo[2];
+                    const float* at = dSs + (warp * 16 + g) * LDP + 8 * j + 2 * t4;
+                    const float2 row_g = *reinterpret_cast<const float2*>(at);
+                    const float2 row_g8 = *reinterpret_cast<const float2*>(at + 8 * LDP);
+                    const float ds[4] = {row_g.x, row_g.y, row_g8.x, row_g8.y};
+                    c_as_a_tf32<F32_INT_ROUND>(ahi, alo, ds);
+#pragma unroll
+                    for (int n = 0; n < W / 8; ++n) {
+                        frag_b_kn_tf32<LD, F32_INT_ROUND>(bhi, blo, cs + 2 * QT, 8 * j, 8 * n,
+                                                          lane);
+                        mma_3xtf32(acc_q[n], ahi, alo, bhi, blo);
+                    }
+                }
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = qr + g + 8 * h, key = kr + g + 8 * h;
+                    if (r < nrows) {
+                        float* row = dq + base + size_t(r) * d;
+                        const float mul = last_q ? scale : 1.f;
+#pragma unroll
+                        for (int n = 0; n < W / 8; ++n)
+                            store_pair_f32(row, c0 + 8 * n + 2 * t4, acc_q[n][2 * h] * mul,
+                                           acc_q[n][2 * h + 1] * mul, d, pairs);
+                    }
+                    if (key < nrows) {
+                        float* row = kv + base + size_t(key) * d;
+                        const float mul = last_kv && is_dk ? scale : 1.f;
+#pragma unroll
+                        for (int n = 0; n < W / 8; ++n)
+                            store_pair_f32(row, c0 + 8 * n + 2 * t4, acc_kv[n][2 * h] * mul,
+                                           acc_kv[n][2 * h + 1] * mul, d, pairs);
+                    }
+                }
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+        }
     }
 }
 
@@ -2408,18 +2721,19 @@ cudaError_t launch_bwd_packed(const Args& a, void* dq, void* dk, void* dv) {
     return launch_packed_as<PACK_ROWS, CW, false, false>(a, dq, dk, dv);
 }
 
-// one block per tile of 64 / N lists
-cudaError_t launch_bwd_packed_tf32(const Args& a, void* dq, void* dk, void* dv) {
-    const auto kernel = flash_bwd_packed_tf32_kernel<TF32_W>;
-    const size_t bytes = packed_tf32_smem_bytes(TF32_W);
+// The fp32 kernels of whole lists (3xTF32): one block of `threads` per tile
+// of `rows` / N lists, the chunks' copies as wide as every input allows
+template <typename Kernel>
+cudaError_t launch_tf32(Kernel kernel, size_t bytes, int rows, int threads, const Args& a,
+                        void* dq, void* dk, void* dv) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            int(bytes));
     if (err != cudaSuccess) return err;
-    const int lists = a.B * a.H, per_tile = PACK_ROWS / a.N;
+    const int lists = a.B * a.H, per_tile = rows / a.N;
     const int copy = chunk_copy_f32(a.d, std::min(std::min(alignment(a.q), alignment(a.k)),
                                                   std::min(alignment(a.v), alignment(a.dout))));
     const bool pairs = a.d % 2 == 0 && aligned(dq, 8) && aligned(dk, 8) && aligned(dv, 8);
-    kernel<<<unsigned((lists + per_tile - 1) / per_tile), PACK_NT, bytes, a.stream>>>(
+    kernel<<<unsigned((lists + per_tile - 1) / per_tile), threads, bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
@@ -2427,6 +2741,20 @@ cudaError_t launch_bwd_packed_tf32(const Args& a, void* dq, void* dk, void* dv) 
         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), lists, a.H,
         a.N, a.d, 1.0f / sqrtf(float(a.d)), copy, pairs ? STORE_PAIRS : 0);
     return cudaGetLastError();
+}
+
+// the fp32 packed kernel: tiles of 64 / N lists
+cudaError_t launch_bwd_packed_tf32(const Args& a, void* dq, void* dk, void* dv) {
+    return launch_tf32(flash_bwd_packed_tf32_kernel<TF32_W>, packed_tf32_smem_bytes(TF32_W),
+                       PACK_ROWS, PACK_NT, a, dq, dk, dv);
+}
+
+// the fp32 list (ROWS = LIST_ROWS) and long (LONG_ROWS) kernels: tiles of
+// ROWS / N lists
+template <int ROWS>
+cudaError_t launch_bwd_list_tf32(const Args& a, void* dq, void* dk, void* dv) {
+    return launch_tf32(flash_bwd_list_tf32_kernel<ROWS, F32_W>, list_tf32_smem_bytes(ROWS, F32_W),
+                       ROWS, F32_NT, a, dq, dk, dv);
 }
 
 // One block per tile of LONG_ROWS / N lists (LONG_SUM 1, 2: two, one a half,
@@ -2574,34 +2902,37 @@ int flash_attn_bwd_packed(const void* q, const void* k, const void* v, const voi
     return int(launch_bwd_packed<PACK_CW>(a, dq, dk, dv));
 }
 
-// dq, dk and dv of bf16 lists of at most 128 docs (any d; the route takes it
-// at 65 .. 128) in one launch of the list kernel, 128 / N lists a block;
-// B*H lists below 2^31.
+// dq, dk and dv of bf16 or fp32 (3xTF32) lists of at most 128 docs (any d;
+// the route takes it at 65 .. 128) in one launch of the list kernel, 128 / N
+// lists a block; B*H lists below 2^31.
 int flash_attn_bwd_list(const void* q, const void* k, const void* v, const void* dout,
                         const void* row_max, const void* row_sum, const void* dsum,
                         const void* mask, void* dq, void* dk, void* dv, int B, int H, int N,
                         int d, int dtype, void* stream) {
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
-    if (B < 1 || H < 1 || N < 1 || N > LIST_ROWS || d < 1 || dtype != 1
+    if (B < 1 || H < 1 || N < 1 || N > LIST_ROWS || d < 1 || (dtype != 0 && dtype != 1)
         || (long long)B * H >= (1LL << 31))
         return int(cudaErrorInvalidValue);
+    if (dtype == 0) return int(launch_bwd_list_tf32<LIST_ROWS>(a, dq, dk, dv));
     return int(launch_packed_as<LIST_ROWS, LIST_CW, false, false>(a, dq, dk, dv));
 }
 
-// dq, dk and dv of bf16 lists of at most 256 docs (any d; the route takes it
-// at 129 .. 256) in one launch of the long kernel, 256 / N lists a block;
-// dq_part is fp32 scratch of B*H*N*d values (2*B*H*N*d with LONG_SUM = 1),
-// written and read by the kernel alone; B*H lists below 2^31.
+// dq, dk and dv of bf16 or fp32 (3xTF32) lists of at most 256 docs (any d;
+// the route takes it at 129 .. 256) in one launch of the long kernel, 256 / N
+// lists a block; bf16: dq_part is fp32 scratch of B*H*N*d values (2*B*H*N*d
+// with LONG_SUM = 1), written and read by the kernel alone; fp32 reads none
+// (its kernel sums dq in dq itself) and may pass null; B*H lists below 2^31.
 int flash_attn_bwd_long(const void* q, const void* k, const void* v, const void* dout,
                         const void* row_max, const void* row_sum, const void* dsum,
                         const void* mask, void* dq, void* dk, void* dv, void* dq_part, int B,
                         int H, int N, int d, int dtype, void* stream) {
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
-    if (B < 1 || H < 1 || N < 1 || N > LONG_ROWS || d < 1 || dtype != 1
+    if (B < 1 || H < 1 || N < 1 || N > LONG_ROWS || d < 1 || (dtype != 0 && dtype != 1)
         || (long long)B * H * (LONG_SUM == 0 ? 1 : 2) >= (1LL << 31))
         return int(cudaErrorInvalidValue);
+    if (dtype == 0) return int(launch_bwd_list_tf32<LONG_ROWS>(a, dq, dk, dv));
     return int(launch_bwd_long<LONG_SUM>(a, dq, dk, dv, static_cast<float*>(dq_part)));
 }
 

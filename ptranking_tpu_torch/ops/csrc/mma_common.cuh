@@ -341,7 +341,8 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 // shared memory have rows of W + 4 floats (W a multiple of 32): 4 mod 32
 // banks, so a fragment read as [row g][column t] (rows of A or of B stored
 // as [n][k]) or as [k 2t, 2t + 1][column g] (B stored as [k][n]) meets 32
-// distinct banks.
+// distinct banks. The split rounds by cvt.rna.tf32.f32, or with INT_ROUND
+// by integer arithmetic on the bits (to_tf32_int: the same bits).
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
     uint32_t r;
@@ -349,16 +350,25 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
     return r;
 }
 
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
+// zero): half the weight of the 13 dropped bits added to the bit pattern,
+// then the 13 bits cleared; the same bits as the cvt for every finite x whose
+// rounding does not overflow. Two integer instructions: in the fp32 list and
+// long backward 15..21% less time than the cvt, which also made them spill
+// (PERF.md).
+__device__ __forceinline__ uint32_t to_tf32_int(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-template <int K>
-__device__ __forceinline__ void split_tf32(const float (&x)[K], uint32_t (&hi)[K],
-                                           uint32_t (&lo)[K]) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) split_tf32(x[i], hi[i], lo[i]);
+template <bool INT_ROUND = false>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    if (INT_ROUND) {
+        hi = to_tf32_int(x);
+        lo = to_tf32_int(x - __uint_as_float(hi));
+    } else {
+        hi = to_tf32(x);
+        lo = to_tf32(x - __uint_as_float(hi));
+    }
 }
 
 // c (16 x 8, fp32) += a (16 x 8, tf32, row-major) * b (8 x 8, tf32,
@@ -396,54 +406,56 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[
 }
 
 // A (16 rows from row0, k = k0 .. k0 + 7) of a row-major fp32 [rows][LD] tile
-template <int LD>
+template <int LD, bool INT_ROUND = false>
 __device__ __forceinline__ void frag_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile,
                                             int row0, int k0, int lane) {
     const float* p = tile + (row0 + (lane >> 2)) * LD + k0 + (lane & 3);
-    split_tf32(p[0], hi[0], lo[0]);
-    split_tf32(p[8 * LD], hi[1], lo[1]);
-    split_tf32(p[4], hi[2], lo[2]);
-    split_tf32(p[8 * LD + 4], hi[3], lo[3]);
+    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
+    split_tf32<INT_ROUND>(p[8 * LD], hi[1], lo[1]);
+    split_tf32<INT_ROUND>(p[4], hi[2], lo[2]);
+    split_tf32<INT_ROUND>(p[8 * LD + 4], hi[3], lo[3]);
 }
 
 // A of T^T (16 rows = columns row0 .. row0 + 15 of T; k = T's rows k0 + 2t
 // and k0 + 2t + 1 in slots t and t+4) of an fp32 [*][LD] tile T
-template <int LD>
+template <int LD, bool INT_ROUND = false>
 __device__ __forceinline__ void frag_a_trans_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                                   const float* tile, int row0, int k0, int lane) {
     const float* p = tile + (k0 + 2 * (lane & 3)) * LD + row0 + (lane >> 2);
-    split_tf32(p[0], hi[0], lo[0]);
-    split_tf32(p[8], hi[1], lo[1]);
-    split_tf32(p[LD], hi[2], lo[2]);
-    split_tf32(p[LD + 8], hi[3], lo[3]);
+    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
+    split_tf32<INT_ROUND>(p[8], hi[1], lo[1]);
+    split_tf32<INT_ROUND>(p[LD], hi[2], lo[2]);
+    split_tf32<INT_ROUND>(p[LD + 8], hi[3], lo[3]);
 }
 
 // B (8 columns n0 .. n0 + 7, k = k0 .. k0 + 7) of a tile holding B as [n][k]
-template <int LD>
+template <int LD, bool INT_ROUND = false>
 __device__ __forceinline__ void frag_b_nk_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                                const float* tile, int n0, int k0, int lane) {
     const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
-    split_tf32(p[0], hi[0], lo[0]);
-    split_tf32(p[4], hi[1], lo[1]);
+    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
+    split_tf32<INT_ROUND>(p[4], hi[1], lo[1]);
 }
 
 // B (columns n0 .. n0 + 7; k = rows k0 + 2t and k0 + 2t + 1 in slots t and
 // t+4) of a tile holding B as [k][n]
-template <int LD>
+template <int LD, bool INT_ROUND = false>
 __device__ __forceinline__ void frag_b_kn_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                                const float* tile, int k0, int n0, int lane) {
     const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-    split_tf32(p[0], hi[0], lo[0]);
-    split_tf32(p[LD], hi[1], lo[1]);
+    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
+    split_tf32<INT_ROUND>(p[LD], hi[1], lo[1]);
 }
 
 // The C fragment of P or dS (rows g, g+8; columns 2t, 2t+1 of an 8-column
 // tile) as the A fragment of a product over those columns, k slots t -> 2t
 // and t+4 -> 2t+1 (mma_1688_tf32), split
+template <bool INT_ROUND = false>
 __device__ __forceinline__ void c_as_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                             const float (&c)[4]) {
     const float a[4] = {c[0], c[2], c[1], c[3]};
-    split_tf32(a, hi, lo);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32<INT_ROUND>(a[i], hi[i], lo[i]);
 }
 
 // The widest copy (floats a cp.async moves: 4, 2 or 1) of a [*, d] fp32

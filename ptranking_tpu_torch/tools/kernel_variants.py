@@ -23,7 +23,9 @@ one-list serving shape (1, 2, 1536, 68), the packed forward at the
 WIDE_SHAPES of at most 128 docs (at 128 docs its tile of one list and all of
 its 128 keys) and at PACK_COPY_SHAPES, and the long forward at the
 WIDE_SHAPES of 256 docs and at LONG_COPY_SHAPES; the fp32 packed forward
-and backward (3xTF32) at the WIDE_SHAPES of at most 64 docs in fp32; the
+and backward (3xTF32) at the WIDE_SHAPES of at most 64 docs in fp32, the
+fp32 list and long backward (3xTF32) at those of 128 and 256 docs in fp32
+(for "parent", the parent's route there: its fp32 wide dk/dv and dq pair); the
 half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
 at 32 x 1408. It prints one JSON line per
@@ -33,11 +35,15 @@ whether the outputs equal the shipped kernels' bit for bit, with the largest
 difference (a design variant may round otherwise; a variant with a phase cut
 out cannot agree, it shows what the phase costs).
 
-`--parent DIR` adds, for the two attention libraries, the variant "parent":
+`--parent DIR` adds, for the two attention libraries, the variant "parent"
+(named among the variants where `library:v1,...` names them):
 the sources of the checkout at DIR (for example a parent commit unpacked by
-`git archive`), run on the bf16 cases alone (its packed entries may refuse
-fp32), so that "same_bits_as_shipped" says whether this tree's bf16 kernels
-give the parent's bits.
+`git archive`), run on the same cases (the backward's fp32 list and long
+cases through its wide pair; the forward's fp32 packed cases not: a
+checkout from before the fp32 packed kernels refuses them), so that
+"max_abs_diff_vs_shipped" says, case by case, whether this tree's kernels
+give the parent's bits, and the fp32 list and long cases time the parent's
+route beside the new kernels.
 """
 
 from __future__ import annotations
@@ -117,6 +123,14 @@ _LONG_SUM = "constexpr int LONG_SUM = 0;"
 # chunks instead of 32 (the backward: one block an SM instead of two)
 _TF32_W = "constexpr int TF32_W = 32;"
 _TF32_VARIANTS = {"tf32_w64": [(_TF32_W, _TF32_W.replace("= 32", "= 64"))]}
+# the fp32 list and long backward: 16-column d-chunks and output chunks
+# instead of 32; the hi/lo split rounded by cvt.rna.tf32.f32 instead of
+# integer arithmetic; then, to show what they cost, every slice and pass
+# reading the list's first rows (the same instructions, cache-hot data), and
+# no partial sums of dq, dk and dv loaded back (each slice's and pass's own
+# sum stored alone)
+_F32_W = "constexpr int F32_W = 32;"
+_F32_INT_ROUND = "constexpr bool F32_INT_ROUND = true;"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -182,6 +196,14 @@ BWD_VARIANTS = {
     "long_sum_atomic": [(_LONG_SUM, _LONG_SUM.replace("0", "2"))],
     "long_rows_experiment": LONG_ROWS_EXPERIMENT,
     **_TF32_VARIANTS,
+    "f32_w16": [(_F32_W, _F32_W.replace("= 32", "= 16"))],
+    "f32_hot_copies": [("const size_t qb = base + size_t(pass) * F32_PASS * d;",
+                        "const size_t qb = base;"),
+                       ("const size_t kb = base + size_t(slice) * F32_SLICE * d;",
+                        "const size_t kb = base;")],
+    "f32_cvt_round": [(_F32_INT_ROUND, _F32_INT_ROUND.replace("true", "false"))],
+    "f32_cut_partials": [("const float2 p = more_q && r < nrows", "const float2 p = false"),
+                         ("const float2 p = more_kv && key < nrows", "const float2 p = false")],
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -262,7 +284,7 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel",
                                 r"flash_bwd_packed_mma_kernel", r"flash_bwd_long_mma_kernel",
                                 r"flash_bwd_long_rows_mma_kernel",
-                                r"flash_bwd_packed_tf32_kernel"],
+                                r"flash_bwd_packed_tf32_kernel", r"flash_bwd_list_tf32_kernel"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
                                 r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel",
                                 r"flash_fwd_packed_tf32_kernel"],
@@ -402,7 +424,8 @@ def bwd_cases(dll, variant):
     the list kernel at those of 128 docs and LIST_COPY_SHAPES, and of the
     long kernel at those of 256 docs and LONG_COPY_SHAPES (the ownership
     experiment: those alone), on the shipped forward's output and row
-    statistics."""
+    statistics; then the fp32 list and long kernels (for "parent": its wide
+    pair) at the BWD_SHAPES of 128 and 256 docs in fp32."""
     if variant == "long_rows_experiment":
         return long_cases(dll, "flash_attn_bwd_long_rows")
     stream = torch.cuda.current_stream().cuda_stream
@@ -434,14 +457,13 @@ def bwd_cases(dll, variant):
         args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
                 + [B, H, N, d, 1, stream])
         cases.append((f"packed {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
-    if variant != "parent":  # the fp32 packed kernel (3xTF32)
-        for B, H, N, d in [s for s in BWD_SHAPES if s[2] <= 64]:
-            keep = _bwd_inputs(B, H, N, d, torch.float32)
-            q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
-            outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-            args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
-                    + [B, H, N, d, 0, stream])
-            cases.append((f"packed fp32 {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
+    for B, H, N, d in [s for s in BWD_SHAPES if s[2] <= 64]:  # the fp32 packed kernel (3xTF32)
+        keep = _bwd_inputs(B, H, N, d, torch.float32)
+        q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
+                + [B, H, N, d, 0, stream])
+        cases.append((f"packed fp32 {[B, H, N, d]}", lambda a=args: packed(*a), outs, keep))
     listk = _entry(dll, "flash_attn_bwd_list", [_P] * 11 + [_I] * 5 + [_P])
     for B, H, N, d in [s for s in BWD_SHAPES if 64 < s[2] <= 128] + LIST_COPY_SHAPES:
         keep = _bwd_inputs(B, H, N, d)
@@ -450,7 +472,25 @@ def bwd_cases(dll, variant):
         args = ([t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask, *outs)]
                 + [B, H, N, d, 1, stream])
         cases.append((f"list {[B, H, N, d]}", lambda a=args: listk(*a), outs, keep))
-    return cases + long_cases(dll, "flash_attn_bwd_long")
+    cases += long_cases(dll, "flash_attn_bwd_long")
+    longk = _entry(dll, "flash_attn_bwd_long", [_P] * 12 + [_I] * 5 + [_P])
+    for B, H, N, d in [s for s in BWD_SHAPES if 64 < s[2] <= 256]:
+        keep = _bwd_inputs(B, H, N, d, torch.float32)
+        q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        common = [t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask)]
+        dq, dk, dv = (t.data_ptr() for t in outs)
+        tail = [B, H, N, d, 0, stream]
+        tag = "list" if N <= 128 else "long"
+        if variant == "parent":  # the parent's fp32 route at these lengths: the wide pair
+            run = lambda c=common, o=(dq, dk, dv), t=tail: dkdv(*c, o[1], o[2], *t) or dq_fn(
+                *c, o[0], *t)
+        elif tag == "list":
+            run = lambda c=common, o=(dq, dk, dv), t=tail: listk(*c, *o, *t)
+        else:
+            run = lambda c=common, o=(dq, dk, dv), t=tail: longk(*c, *o, None, *t)
+        cases.append((f"{tag} fp32 {[B, H, N, d]}", run, outs, keep))
+    return cases
 
 
 def fwd_cases(dll, variant):

@@ -17,6 +17,8 @@ lane_align (384). B*H = 10 lists hold a full list, a ragged one, a fully
 padded one, a full one and a one-doc one. The kernels themselves run only on
 the card (chip_smoke.py)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -205,12 +207,40 @@ def test_long_grid_contract():
     assert "constexpr int LONG_KEYS = 4 * OWN;" in fwd and "constexpr int LONG_HALF = 2 * OWN;" in fwd
 
 
+def test_f32_list_long_contract():
+    """The fp32 list and long backward: the routes' limits lie within the
+    tiles of the kernel the list and long entries launch on fp32 (dtype 0),
+    and the wrappers take fp32 lists up to those tiles; the kernel's slices
+    and passes are the warps' 16 rows by 64 keys, and its shared memory at
+    its widest tile fits the H100's 232,448 bytes a block."""
+    assert tattn.F32_PACK_MAX_N <= tattn._ROWS < tattn.F32_LIST_MAX_N <= tattn._LIST_ROWS
+    assert tattn._LIST_ROWS < tattn.F32_LONG_MAX_N <= tattn._LONG_ROWS
+    assert tattn._F32_PACKED["flash_attn_bwd_list"] == tattn._LIST_ROWS
+    assert tattn._F32_PACKED["flash_attn_bwd_long"] == tattn._LONG_ROWS
+    assert "flash_attn_fwd_long" not in tattn._F32_PACKED
+    bwd = (tattn.cuda_build.CSRC / "flash_attn_bwd.cu").read_text()
+    assert "if (dtype == 0) return int(launch_bwd_list_tf32<LIST_ROWS>(a, dq, dk, dv));" in bwd
+    assert "if (dtype == 0) return int(launch_bwd_list_tf32<LONG_ROWS>(a, dq, dk, dv));" in bwd
+    assert "constexpr int TF32_KEYS = 64;" in bwd and "constexpr int F32_SLICE = TF32_KEYS;" in bwd
+    assert "constexpr int F32_PASS = 128;" in bwd
+    w = int(re.search(r"constexpr int F32_W = (\d+);", bwd).group(1))
+    # the P and dS tiles, the two stages (Q, dO of a pass, K, V of a slice), the key info
+    smem = (2 * 128 * (64 + 4) + 2 * (2 * 128 + 2 * 64) * (w + 4)) * 4 + tattn._LONG_ROWS * 4
+    assert smem <= 232448
+
+
 @pytest.mark.parametrize("kern", [tattn.FlashAttnFwdLong, tattn.FlashAttnBwdLong])
 def test_long_wrappers_refuse_what_they_cannot_run(kern):
-    """Each long wrapper refuses fp32 inputs, lists above 256 docs and CPU
-    tensors, each before anything is launched."""
+    """Each long wrapper refuses lists above 256 docs and CPU tensors, each
+    before anything is launched; the forward refuses fp32 inputs, the
+    backward fp32 lists above 256 docs (fp32 lists of at most 256 pass to
+    the device check)."""
     kern = kern()
-    for shape, dtype, match in (((2, 2, 200, 136), torch.float32, "bfloat16"),
+    f32 = ((((2, 2, 200, 136), torch.float32, "bfloat16"),)
+           if isinstance(kern, tattn.FlashAttnFwdLong) else
+           (((2, 2, 257, 136), torch.float32, "float32 lists of at most 256 docs"),
+            ((2, 2, 200, 136), torch.float32, "CUDA tensors")))
+    for shape, dtype, match in (*f32,
                                 ((2, 2, 257, 136), torch.bfloat16, "at most 256 docs"),
                                 ((2, 2, 200, 350), torch.bfloat16, "CUDA tensors")):
         t = torch.zeros(shape, dtype=dtype)

@@ -158,16 +158,22 @@ def test_packed_plain_leaves_other_lists_keys_out():
     (torch.bfloat16, 16, 128, "pair"), (torch.bfloat16, 16, 68, "pair"),
     (torch.bfloat16, 128, 128, "pair"),
     (torch.float32, 16, 350, "packed"), (torch.float32, 64, 136, "packed"),
-    (torch.float32, tattn.F32_PACK_MAX_N, 384, "packed"), (torch.float32, 65, 350, "pair"),
-    (torch.float32, 16, 128, "pair"), (torch.float32, 128, 350, "pair")])
+    (torch.float32, tattn.F32_PACK_MAX_N, 384, "packed"), (torch.float32, 65, 350, "list"),
+    (torch.float32, 16, 128, "pair"), (torch.float32, 128, 350, "list"),
+    (torch.float32, 129, 350, "long"), (torch.float32, 256, 384, "long"),
+    (torch.float32, 257, 350, "pair")])
 def test_bwd_route_by_shape(dtype, N, d, route):
     """At bf16 and d > 128 the packed kernel takes N <= PACK_MAX_N (64), the
     list kernel PACK_MAX_N < N <= LIST_MAX_N (128), the long kernel
     LIST_MAX_N < N <= LONG_MAX_N (256); at fp32 and d > 128 the packed
-    kernel (3xTF32) takes N <= F32_PACK_MAX_N (64); everything else keeps
+    kernel (3xTF32) takes N <= F32_PACK_MAX_N (64), the list kernel's fp32
+    instantiation F32_PACK_MAX_N < N <= F32_LIST_MAX_N (128), the long
+    one's F32_LIST_MAX_N < N <= F32_LONG_MAX_N (256); everything else keeps
     the dk/dv and dq pair."""
     assert 1 <= tattn.PACK_MAX_N <= 64 and tattn.PACK_MAX_N <= tattn.LIST_MAX_N <= 128
     assert tattn.LIST_MAX_N <= tattn.LONG_MAX_N <= 256 and 1 <= tattn.F32_PACK_MAX_N <= 64
+    assert tattn.F32_PACK_MAX_N <= tattn.F32_LIST_MAX_N <= 128
+    assert tattn.F32_LIST_MAX_N <= tattn.F32_LONG_MAX_N <= 256
     assert tattn.bwd_route(dtype, N, d) == route
 
 
@@ -175,7 +181,8 @@ def test_bwd_route_by_shape(dtype, N, d, route):
     (torch.bfloat16, (2, 2, 16, 136), "packed"), (torch.bfloat16, (2, 2, 65, 136), "list"),
     (torch.bfloat16, (2, 2, 129, 136), "long"), (torch.bfloat16, (2, 2, 257, 136), "pair"),
     (torch.bfloat16, (2, 2, 16, 128), "pair"), (torch.float32, (2, 2, 16, 136), "packed"),
-    (torch.float32, (2, 2, 65, 350), "pair")])
+    (torch.float32, (2, 2, 65, 350), "list"), (torch.float32, (2, 2, 129, 350), "long"),
+    (torch.float32, (2, 2, 257, 350), "pair")])
 def test_flash_backward_calls_the_routed_kernels(monkeypatch, dtype, shape, route):
     """_FlashAttention.backward calls the packed, the list or the long
     wrapper alone, or the dk/dv and dq wrappers, as bwd_route says (the wrappers stubbed:
@@ -272,6 +279,6 @@ def test_packed_wrapper_refuses_what_it_cannot_run():
 
 
 def test_list_wrapper_refuses_what_it_cannot_run():
-    """The list kernel's wrapper likewise, with lists above 128 docs, and
-    fp32 inputs refused."""
-    _refuses(tattn.FlashAttnBwdList(), 128)
+    """The list kernel's wrapper likewise, with lists above 128 docs in
+    either dtype; fp32 lists of at most 128 docs pass to the device check."""
+    _refuses(tattn.FlashAttnBwdList(), 128, f32_longest=128)
