@@ -26,9 +26,11 @@ Phases, in order; any failure exits non-zero:
      plain forwards and their row statistics, the same bits twice, timed
      beside the wide forward they replace and SDPA; the fp32 packed forward
      and backward (lists of at most 64 docs at head dims above 128, 3xTF32
-     tensor-core products) and the fp32 list and long backward (lists of
-     65..256 docs, one a block, 3xTF32) likewise, timed beside the fp32 wide
-     kernels and SDPA in fp32 (TF32 off); the bf16
+     tensor-core products), the fp32 list and long backward (lists of
+     65..256 docs, one a block, 3xTF32) and the fp32 list forward (lists of
+     65..256 docs, one a 128- or 256-row tile, S once in slices of 64 keys,
+     3xTF32) likewise, timed beside the fp32 wide kernels and SDPA in fp32
+     (TF32 off); the bf16
      forward and backward run on the tensor cores; no instantiation of an
      attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
@@ -67,9 +69,11 @@ Phases, in order; any failure exits non-zero:
      up to LONG_MAX_N, the wide pair above), save, restore and step; the
      one-head model's fp32 gradients also at 512 docs (the fp32 wide pair);
      then the Yahoo! model at d = 350 in fp32, timed in the buckets of 16 to
-     256 docs (the fp32 packed kernels up to F32_PACK_MAX_N docs, the wide
-     forward above; the fp32 list backward up to F32_LIST_MAX_N docs, the
-     long backward up to F32_LONG_MAX_N).
+     256 docs (the fp32 packed forward and backward up to F32_PACK_MAX_N
+     docs; the fp32 list forward up to F32_FWD_LIST_MAX_N and
+     F32_FWD_LONG_MAX_N docs, through the packed and the long forward's
+     wrappers; the fp32 list backward up to F32_LIST_MAX_N docs, the long
+     backward up to F32_LONG_MAX_N).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -216,7 +220,11 @@ LONG_RECORD = (128, 2, 256, 350)
 # timed in Yahoo!'s buckets of 16 to 128 docs beside the wide forward and SDPA;
 # the fp32 packed forward (3xTF32, lists of at most 64 docs) likewise at
 # PACK_DS x PACK_NS and PACK_BIG, to FWD_PLAIN_TOL, ATTN_TOL and STATS_TOL's
-# fp32 gates, timed in the buckets of 16 to 64 docs
+# fp32 gates, timed in the buckets of 16 to 64 docs; the fp32 list forward
+# (3xTF32, one list of 65..256 docs a 128- or 256-row tile, through the
+# packed and the long entries) likewise at PACK_DS x LIST_NS and x LONG_NS,
+# timed at LIST_TIMED and LONG_TIMED, and at F32_LIST_BIG and LONG_BIG
+# (check_big); each of these cases also holds a one-doc list
 FWD_PACK_NS = (1, 5, 16, 20, 33, 63, 64, 65, 100, 127, 128)
 FWD_PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 2, 128, 350),
                   (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384)]
@@ -236,14 +244,16 @@ PACK_FLOOR = 0.1
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
 # list kernel's 128 rows), the long forward and backward one each, the
 # fp32 packed forward and backward (3xTF32) one each, the fp32 list and
-# long backward two (128 and 256 rows).
+# long backward two (128 and 256 rows), the fp32 list forward two (128 and
+# 256 rows).
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
                                     "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1,
                                     "flash_fwd_packed_mma_kernel": 2,
                                     "flash_fwd_long_mma_kernel": 1,
-                                    "flash_fwd_packed_tf32_kernel": 1},
+                                    "flash_fwd_packed_tf32_kernel": 1,
+                                    "flash_fwd_list_tf32_kernel": 2},
                  "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
                                     "flash_bwd_dkdv_kernel": 8, "flash_bwd_dq_kernel": 8,
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
@@ -366,7 +376,7 @@ YAHOO_GRAD_CHECK = 128
 YAHOO_PACKED_CHECK = 32
 # the timed fp32 Yahoo! steps (compute_dtype's default, with flash
 # attention), at d = 350: through the fp32 packed forward and backward
-# (3xTF32) up to F32_PACK_MAX_N docs; at 128 and 256 through the wide
+# (3xTF32) up to F32_PACK_MAX_N docs; at 128 and 256 through the fp32 list
 # forward and the fp32 list and long backward (3xTF32)
 YAHOO_F32_BUCKETS = (16, 32, 64, 128, 256)
 # the one-head model (d = 136, MSLR-WEB30K's features, whose long lists
@@ -1071,19 +1081,26 @@ def check_packed(card):
 def check_packed_fwd(card):
     """Phase 3: the forward kernels that take whole lists into a block
     (FLASH_ATTN_FWD_PACKED: bf16 lists of at most 128 docs and fp32 lists of
-    at most 64 (3xTF32 tensor-core products), S once a tile;
+    at most 64 (3xTF32 tensor-core products), S once a tile, and fp32 lists
+    of 65..128 docs on the fp32 list kernel's 128-row tile;
     FLASH_ATTN_FWD_LONG: bf16 lists of 129..256 docs, S once a 256-key tile
-    in two halves; one launch each) against attention_forward_packed_plain
-    and attention_forward_plain, output and row statistics, the packed
+    in two halves, and fp32 ones on the fp32 list kernel's 256-row tile (S
+    once in slices of 64 keys, 3xTF32); one launch each) against
+    attention_forward_packed_plain and attention_forward_plain, output and
+    row statistics, with a one-doc and a fully padded list: the packed
     kernel at PACK_DS x FWD_PACK_NS and at PACK_BIG (fp32: PACK_DS x PACK_NS
     and PACK_BIG), the long kernel at PACK_DS x LONG_NS (and at LONG_BIG:
-    check_big): the same bits on two runs, the same output with and
-    without statistics, one launch a call; at FWD_PACK_TIMED (fp32: its
-    shapes of at most 64 docs) and LONG_TIMED also the time of the kernel
-    with statistics (the call training makes), of the wide forward it
-    replaces there, of SDPA's forward (fp32: with TF32 off), of the packed
-    plain version, and the bound. Returns the records at FWD_PACK_RECORD
-    (bf16, and fp32 under "flash_attn_fwd_packed_fp32") and LONG_RECORD."""
+    check_big), the fp32 list kernel at PACK_DS x LIST_NS and x LONG_NS (and
+    at F32_LIST_BIG and LONG_BIG: check_big): the same bits on two runs,
+    the same output with and without statistics, one launch a call; at
+    FWD_PACK_TIMED (fp32: its shapes of at most 64 docs), LONG_TIMED and,
+    for the fp32 list kernel, LIST_TIMED and LONG_TIMED also the time of
+    the kernel with statistics (the call training makes), of the wide
+    forward it replaces there, of SDPA's forward (fp32: with TF32 off), of
+    the packed plain version, and the bound. Returns the records at
+    FWD_PACK_RECORD (bf16, and fp32 under "flash_attn_fwd_packed_fp32"),
+    LONG_RECORD, and at LIST_RECORD and LONG_RECORD for the fp32 list
+    kernel ("flash_attn_fwd_list_fp32", "flash_attn_fwd_long_fp32")."""
     import torch
     import torch.nn.functional as Fn
 
@@ -1099,6 +1116,8 @@ def check_packed_fwd(card):
     def run(kernel, dtype, B, H, N, d, all_padded):
         """The kernel against both plain versions; returns (inputs, errors)."""
         q, k, v, mask = attention_inputs(B, H, N, d, all_padded, dtype)
+        if all_padded:
+            mask[1, 1:] = False  # beside the padded list, one with one real document
         start = kernel.launches
         got, again = kernel(q, k, v, mask, stats=True), kernel(q, k, v, mask, stats=True)
         bare = kernel(q, k, v, mask)
@@ -1129,14 +1148,18 @@ def check_packed_fwd(card):
         return (q, k, v, mask), errs
 
     records = {}
-    for kernel, dtype, ns, big, timed, record in (
-            (FLASH_ATTN_FWD_PACKED, torch.bfloat16, FWD_PACK_NS, [(*PACK_BIG, True)],
-             FWD_PACK_TIMED, FWD_PACK_RECORD),
-            (FLASH_ATTN_FWD_PACKED, torch.float32, PACK_NS, [(*PACK_BIG, True)],
-             [s for s in FWD_PACK_TIMED if s[2] <= 64], FWD_PACK_RECORD),
-            (FLASH_ATTN_FWD_LONG, torch.bfloat16, LONG_NS, [], LONG_TIMED, LONG_RECORD)):
+    for tag, kernel, dtype, ns, big, timed, record in (
+            ("flash_attn_fwd_packed", FLASH_ATTN_FWD_PACKED, torch.bfloat16, FWD_PACK_NS,
+             [(*PACK_BIG, True)], FWD_PACK_TIMED, FWD_PACK_RECORD),
+            ("flash_attn_fwd_packed_fp32", FLASH_ATTN_FWD_PACKED, torch.float32, PACK_NS,
+             [(*PACK_BIG, True)], [s for s in FWD_PACK_TIMED if s[2] <= 64], FWD_PACK_RECORD),
+            ("flash_attn_fwd_long", FLASH_ATTN_FWD_LONG, torch.bfloat16, LONG_NS, [], LONG_TIMED,
+             LONG_RECORD),
+            ("flash_attn_fwd_list_fp32", FLASH_ATTN_FWD_PACKED, torch.float32, LIST_NS, [],
+             LIST_TIMED, LIST_RECORD),
+            ("flash_attn_fwd_long_fp32", FLASH_ATTN_FWD_LONG, torch.float32, LONG_NS, [],
+             LONG_TIMED, LONG_RECORD)):
         fp32 = dtype == torch.float32
-        tag = kernel.name + ("_fp32" if fp32 else "")
         worst = {}
         shapes = [(*PACK_LISTS, N, d, True) for d in PACK_DS for N in ns] + big
         for shape in shapes:
@@ -1164,7 +1187,7 @@ def check_packed_fwd(card):
             rec = {"shape": [B, H, N, d], "dtype": str(dtype).split(".")[1], "ms": times,
                    "wide_over_kernel": times["wide"] / times["kernel"],
                    "library_over_kernel": times["library"] / times["kernel"], "errors": errs, **bnd}
-            print(f"attn_fwd_{kernel.name.split('_')[-1]} " + json.dumps(rec) + f"  [{card}]",
+            print(f"attn_{tag[len('flash_attn_'):]} " + json.dumps(rec) + f"  [{card}]",
                   flush=True)
             if (B, H, N, d) == record:
                 records[tag] = {
@@ -1179,17 +1202,18 @@ def check_packed_fwd(card):
 def check_big(card):
     """Phase 3: the kernels that take whole lists into a block at B*H past
     65535 lists (inputs drawn on the card, the last b fully padded): the bf16
-    long forward and backward at LONG_BIG, and the fp32 list backward at
-    F32_LIST_BIG and long backward at LONG_BIG (on the routed fp32 forward's
-    output and statistics, the second to last b a one-doc list). Each kernel
-    the same bits on two runs and one launch a call, and on the first and
-    the last two b (the last blocks of the grid) against both plain versions
-    of those lists alone (a list's outputs depend on that list alone), under
-    the gates of check_packed_fwd and check_packed."""
+    long forward and backward at LONG_BIG, and the fp32 list forward and
+    backward at F32_LIST_BIG (the packed and the list entries) and at
+    LONG_BIG (the long entries; in fp32 the second to last b a one-doc
+    list). Each kernel the same bits on two runs and one launch a call, and
+    on the first and the last two b (the last blocks of the grid) against
+    both plain versions of those lists alone (a list's outputs depend on
+    that list alone), under the gates of check_packed_fwd and
+    check_packed."""
     import torch
 
     from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_LIST, FLASH_ATTN_BWD_LONG,
-                                                   FLASH_ATTN_FWD, FLASH_ATTN_FWD_LONG,
+                                                   FLASH_ATTN_FWD_LONG, FLASH_ATTN_FWD_PACKED,
                                                    attention_backward_packed_plain,
                                                    attention_backward_plain,
                                                    attention_forward_packed_plain,
@@ -1198,48 +1222,47 @@ def check_big(card):
     def case(dtype, shape, fwd_kernel, bwd_kernel):
         B, H, N, d = shape
         name = str(dtype).split(".")[1]
-        held_fwd = dtype == torch.bfloat16  # the fp32 forward here: the wide kernel, held apart
         g = torch.Generator(device="cuda").manual_seed(0)
         q, k, v, dout = (torch.randn(B, H, N, d, device="cuda", generator=g).to(dtype)
                          for _ in range(4))
         lengths = torch.randint(N // 4, N + 1, (B,), device="cuda", generator=g)
         lengths[0], lengths[-1] = N, 0
-        if not held_fwd:
+        if dtype == torch.float32:
             lengths[-2] = 1
         mask = torch.arange(N, device="cuda")[None, :] < lengths[:, None]
         start = (fwd_kernel.launches, bwd_kernel.launches)
-        fwd = [fwd_kernel(q, k, v, mask, stats=True) for _ in range(2 if held_fwd else 1)]
-        out, row_max, row_sum = fwd[0]
+        fwd = fwd_kernel(q, k, v, mask, stats=True)
+        again = fwd_kernel(q, k, v, mask, stats=True)
+        same = [torch.equal(a, b) for a, b in zip(fwd, again)]
+        del again  # tens of GB at fp32
+        out, row_max, row_sum = fwd
         dsum = torch.sum(dout.float() * out.float(), dim=-1)
         args = (q, k, v, dout, row_max, row_sum, dsum, mask)
         bwd = [bwd_kernel(*args) for _ in range(2)]
         torch.cuda.synchronize()
         launched = (fwd_kernel.launches - start[0], bwd_kernel.launches - start[1])
-        same = [torch.equal(a, b) for a, b in zip(bwd[0], bwd[1])]
-        if held_fwd:
-            same += [torch.equal(a, b) for a, b in zip(fwd[0], fwd[1])]
-        if launched != (len(fwd), 2) or not all(same):
+        same += [torch.equal(a, b) for a, b in zip(bwd[0], bwd[1])]
+        if launched != (2, 2) or not all(same):
             raise AssertionError(f"{fwd_kernel.name}, {bwd_kernel.name} {name} at {shape}: "
-                                 f"{launched} launches for {len(fwd)} and 2 calls, the same bits "
+                                 f"{launched} launches for 2 and 2 calls, the same bits "
                                  f"twice: {same}")
-        rec = {"shape": list(shape), "dtype": name, "backward": bwd_kernel.name}
+        rec = {"shape": list(shape), "dtype": name, "forward": fwd_kernel.name,
+               "backward": bwd_kernel.name}
         for which_b, part in (("first", slice(0, 1)), ("last", slice(B - 2, B))):
             sq, sk, sv, sdo, sm = (t[part] for t in (q, k, v, dout, mask))
-            got = [t[part] for t in fwd[0]]
-            e = {}
-            if held_fwd:
-                ref_plain = attention_forward_packed_plain(sq, sk, sv, sm)
-                ref = attention_forward_plain(sq, sk, sv, sm)
-                e = {"out_vs_packed_plain": rel_err(got[0], ref_plain[0]),
-                     "out_vs_plain": float((got[0].float() - ref[0].float()).abs().max()),
-                     "row_max": max(float(((got[1] - r[1]).abs() / (1.0 + r[1].abs())).max())
-                                    for r in (ref_plain, ref)),
-                     "row_sum": max(float(((got[2] - r[2]).abs() / r[2]).max())
-                                    for r in (ref_plain, ref))}
-                if (not e["out_vs_packed_plain"] <= FWD_PLAIN_TOL[name]
-                        or not e["out_vs_plain"] <= ATTN_TOL[name]
-                        or not max(e["row_max"], e["row_sum"]) <= STATS_TOL):
-                    raise AssertionError(f"{fwd_kernel.name} {shape}, {which_b} b: {e}")
+            got = [t[part] for t in fwd]
+            ref_plain = attention_forward_packed_plain(sq, sk, sv, sm)
+            ref = attention_forward_plain(sq, sk, sv, sm)
+            e = {"out_vs_packed_plain": rel_err(got[0], ref_plain[0]),
+                 "out_vs_plain": float((got[0].float() - ref[0].float()).abs().max()),
+                 "row_max": max(float(((got[1] - r[1]).abs() / (1.0 + r[1].abs())).max())
+                                for r in (ref_plain, ref)),
+                 "row_sum": max(float(((got[2] - r[2]).abs() / r[2]).max())
+                                for r in (ref_plain, ref))}
+            if (not e["out_vs_packed_plain"] <= FWD_PLAIN_TOL[name]
+                    or not e["out_vs_plain"] <= ATTN_TOL[name]
+                    or not max(e["row_max"], e["row_sum"]) <= STATS_TOL):
+                raise AssertionError(f"{fwd_kernel.name} {shape}, {which_b} b: {e}")
             plain_args = (sq, sk, sv, sdo, got[0], got[1], got[2], sm)
             for which, ref_b in (("packed_plain", attention_backward_packed_plain(*plain_args)),
                                  ("plain", attention_backward_plain(*plain_args))):
@@ -1255,8 +1278,8 @@ def check_big(card):
         print("big " + json.dumps(rec) + f"  [{card}]", flush=True)
 
     for args in ((torch.bfloat16, LONG_BIG, FLASH_ATTN_FWD_LONG, FLASH_ATTN_BWD_LONG),
-                 (torch.float32, F32_LIST_BIG, FLASH_ATTN_FWD, FLASH_ATTN_BWD_LIST),
-                 (torch.float32, LONG_BIG, FLASH_ATTN_FWD, FLASH_ATTN_BWD_LONG)):
+                 (torch.float32, F32_LIST_BIG, FLASH_ATTN_FWD_PACKED, FLASH_ATTN_BWD_LIST),
+                 (torch.float32, LONG_BIG, FLASH_ATTN_FWD_LONG, FLASH_ATTN_BWD_LONG)):
         case(*args)
         torch.cuda.empty_cache()  # the case's tensors are gone: tens of GB at fp32
 
@@ -1996,8 +2019,9 @@ def wide_launches(N: int, d: int, dtype: str = "bfloat16") -> dict:
     """Launches a step of the listsf (6 layers) at head dim d > 128 with
     lists of N docs in `dtype`, by the routes: the forward's (in bf16 the
     packed forward up to FWD_PACK_MAX_N docs, the long forward up to
-    LONG_MAX_N, in fp32 the packed forward up to F32_PACK_MAX_N, else the
-    wide kernel) and the backward's (the packed backward up to PACK_MAX_N
+    LONG_MAX_N, in fp32 the packed forward's wrapper up to
+    F32_FWD_LIST_MAX_N and the long forward's up to F32_FWD_LONG_MAX_N, else
+    the wide kernel) and the backward's (the packed backward up to PACK_MAX_N
     docs, the list backward up to LIST_MAX_N, the long backward up to
     LONG_MAX_N, in fp32 up to F32_PACK_MAX_N, F32_LIST_MAX_N and
     F32_LONG_MAX_N, else the wide pair)."""
@@ -2032,9 +2056,9 @@ def wide_phase(card: str, work_dir: str) -> dict:
     also takes its fp32 gradient check (b) at WIDE_PAIR_CHECK docs. Returns
     the launch counts of (c) for the first model, summed over its buckets,
     those of the fp32 gradient checks of the first model in the
-    YAHOO_GRAD_CHECK bucket (the fp32 wide forward's path) and of the
-    one-head model at WIDE_PAIR_CHECK docs (the fp32 wide pair's), summed,
-    and those of (e)."""
+    YAHOO_GRAD_CHECK bucket and of the one-head model at WIDE_PAIR_CHECK
+    docs (the fp32 wide forward's and wide pair's path), summed, and those
+    of (e), by bucket."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
@@ -2112,9 +2136,10 @@ def yahoo_f32_steps(card: str) -> dict:
     """Timed LambdaRank steps of the Yahoo! listsf at d = 350 in fp32 (WIDE_MODELS'
     first model, compute_dtype float32), YAHOO_DOCS docs a step in each of
     YAHOO_F32_BUCKETS, with exact launch counts (wide_launches in fp32: the
-    fp32 packed kernels up to F32_PACK_MAX_N docs, the wide forward above;
-    the fp32 list backward up to F32_LIST_MAX_N docs, the long backward up
-    to F32_LONG_MAX_N). Returns the launch counts summed over the buckets."""
+    fp32 packed kernels up to F32_PACK_MAX_N docs; the fp32 list forward up
+    to F32_FWD_LIST_MAX_N and F32_FWD_LONG_MAX_N docs; the fp32 list
+    backward up to F32_LIST_MAX_N docs, the long backward up to
+    F32_LONG_MAX_N). Returns the launch counts by bucket: {N: counts}."""
     name, F, n_heads, lane_align, _ = WIDE_MODELS[0]
     ranker = flagship_ranker(compute_dtype="float32", num_features=F, lane_align=lane_align,
                              n_heads=n_heads)
@@ -2126,7 +2151,7 @@ def yahoo_f32_steps(card: str) -> dict:
                           wide_launches(N, d, "float32"))
         print(f"{name}_d{d}_fp32_steps " + json.dumps({"head_dim": d, "dtype": "float32", **rec})
               + f"  [{card}]", flush=True)
-        counts = {k: counts.get(k, 0) + n for k, n in rec["launches"].items()}
+        counts[N] = rec["launches"]
     return counts
 
 
@@ -2192,9 +2217,17 @@ def main() -> int:
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",
                  "flash_attn_bwd_list", "flash_attn_bwd_long"):
         launches[name] = wide[name]
-    for name in ("flash_attn_fwd_packed", "flash_attn_bwd_packed", "flash_attn_bwd_list",
-                 "flash_attn_bwd_long"):
-        launches[name + "_fp32"] = f32_steps[name]
+    from ptranking_tpu_torch.ops.attention import F32_PACK_MAX_N
+
+    f32 = {}  # the fp32 steps' launches by kernel
+    for N, counts in f32_steps.items():
+        for name, n in counts.items():
+            if name == "flash_attn_fwd_packed" and N > F32_PACK_MAX_N:
+                name = "flash_attn_fwd_list"  # the fp32 list kernel, through the packed wrapper
+            f32[name] = f32.get(name, 0) + n
+    for name in ("flash_attn_fwd_packed", "flash_attn_fwd_list", "flash_attn_fwd_long",
+                 "flash_attn_bwd_packed", "flash_attn_bwd_list", "flash_attn_bwd_long"):
+        launches[name + "_fp32"] = f32.get(name, 0)
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
@@ -2215,9 +2248,8 @@ def main() -> int:
         # the same wrappers at d > 128 (the Yahoo! LTR listsf's d = 350): the
         # wide kernels, record in the 256-doc bucket (WIDE_RECORD_SHAPE) in
         # fp32 (WIDE_RECORD_DTYPE), launches from phase 7's fp32 gradient
-        # checks of that model at 128 docs (the forward) and of the one-head
-        # model at WIDE_PAIR_CHECK docs (the forward and the pair): in bf16 no
-        # Yahoo! bucket reaches them, in fp32 no Yahoo! bucket the pair
+        # check of the one-head model at WIDE_PAIR_CHECK docs (the forward
+        # and the pair): no Yahoo! bucket reaches them
         "flash_attn_fwd_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                 "ptranking_tpu/ops/attention.py:129"),
         "flash_attn_bwd_dkdv_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
@@ -2260,6 +2292,15 @@ def main() -> int:
         "flash_attn_bwd_list_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                      "ptranking_tpu/ops/attention.py:172"),
         "flash_attn_bwd_long_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                     "ptranking_tpu/ops/attention.py:172"),
+        # the fp32 forward of lists of F32_PACK_MAX_N + 1 .. F32_FWD_LIST_MAX_N
+        # and of F32_FWD_LIST_MAX_N + 1 .. F32_FWD_LONG_MAX_N docs at d > 128
+        # (flash_fwd_list_tf32_kernel, 3xTF32; the packed and the long
+        # forward's wrappers): records at LIST_RECORD and LONG_RECORD in
+        # fp32, launches from phase 7's timed fp32 steps at 128 and 256 docs
+        "flash_attn_fwd_list_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                                     "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_fwd_long_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                      "ptranking_tpu/ops/attention.py:172"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -35,13 +35,17 @@ dv of 64 // N lists a block, one launch), for lists of at most LIST_MAX_N
 docs the list kernel (the same on a 128-row tile, one list a block), for
 lists of at most LONG_MAX_N docs the long kernel (one list of up to 256
 docs a block, in two halves of its keys), and the wide dk/dv and dq kernels
-otherwise (`bwd_route`). In fp32 at head dims above 128, lists of at most
-F32_PACK_MAX_N docs take the packed forward and the packed backward on
-3xTF32 tensor-core products, and longer lists the wide forward; their
-backward takes, for lists of at most F32_LIST_MAX_N docs, the list kernel's
-fp32 instantiation and for lists of at most F32_LONG_MAX_N docs the long
-kernel's (one list a block of 8 warps, its keys in slices of 64, 3xTF32),
-and the wide dk/dv and dq kernels above.
+otherwise (`bwd_route`). In fp32 at head dims above 128 the forward takes,
+for lists of at most F32_FWD_LIST_MAX_N docs, the packed forward's wrapper
+(its fp32 packed kernel on 3xTF32 tensor-core products up to 64 docs, the
+fp32 list kernel, one list a 128-row tile, above) and for lists of at most
+F32_FWD_LONG_MAX_N docs the long forward's (the fp32 list kernel on a
+256-row tile; S once in slices of 64 keys, 3xTF32), and the wide forward
+above; the backward takes, for lists of at most F32_PACK_MAX_N docs, the
+packed backward on 3xTF32, for lists of at most F32_LIST_MAX_N docs the
+list kernel's fp32 instantiation and for lists of at most F32_LONG_MAX_N
+docs the long kernel's (one list a block of 8 warps, its keys in slices of
+64, 3xTF32), and the wide dk/dv and dq kernels above.
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -203,12 +207,13 @@ def _packing(mask: torch.Tensor, H: int, N: int, rows: int):
 def attention_forward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    mask: torch.Tensor):
     """attention_forward_plain's (out, row_max, row_sum) for lists of N <= 256
-    docs, in the tiles of the packed forward kernel (64 // N lists a 64-row
+    docs, in the tiles of the packed forward kernels (64 // N lists a 64-row
     tile up to 64 docs, one list a 128-row tile up to 128) and of the long
-    forward kernel (one list a 256-row tile above): `_packing`. All of a
-    row's keys lie in its tile; the softmax takes them in halves of at most
-    128 keys (one up to 128 docs, two above), online from m = -1e30, l = 0,
-    O = 0:
+    forward kernels (one list a 256-row tile above): `_packing`. All of a
+    row's keys lie in its tile; in bf16 the softmax takes them in halves of
+    at most 128 keys (one up to 128 docs, two above), in fp32 all at once
+    (the fp32 kernels take one max over the row's keys), online from
+    m = -1e30, l = 0, O = 0:
 
         x = q k^T * scale (a masked key of the row's list: the constant -1e9;
         a key of another list: left out, p = 0), m' = max(m, max x over the
@@ -219,8 +224,8 @@ def attention_forward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     O / l. Up to 64 docs that is attention_forward_plain's one 64-key tile;
     above, attention_forward_plain rescales between 64-key tiles, so its p
     is rounded against each tile's running max, the kernels' against each
-    half's (up to 128 docs: the row's). A list with no real key gets
-    m = -1e9, l = N and the mean of v."""
+    half's (up to 128 docs, and in fp32: the row's). A list with no real key
+    gets m = -1e9, l = N and the mean of v."""
     B, H, N, d = q.shape
     rows = _tile_rows(N)
     pack, unpack, same, real = _packing(mask, H, N, rows)
@@ -231,14 +236,14 @@ def attention_forward_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     m = torch.full(x.shape[:-1], -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     out = torch.zeros_like(qf)
-    for s in range(0, rows, _LONG_HALF):
-        xs = x[..., s:s + _LONG_HALF]
+    part = rows if q.dtype == torch.float32 else _LONG_HALF
+    for s in range(0, rows, part):
+        xs = x[..., s:s + part]
         m_new = torch.maximum(m, xs.amax(dim=-1))  # -1e30 on an empty row: every p is 0
         alpha = torch.exp(m - m_new)
         p = torch.exp(xs - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        out = out * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
-                                                    vf[:, s:s + _LONG_HALF])
+        out = out * alpha[..., None] + torch.matmul(p.to(v.dtype).float(), vf[:, s:s + part])
         m = m_new
     out = out * (1.0 / l)[..., None]
     stats = (unpack(t[..., None], torch.float32)[..., 0] for t in (m, l))
@@ -301,6 +306,10 @@ _ROWS, _NARROW_D, _WIDE_COLUMNS = 64, 128, 64
 # halves (LONG_HALF)
 _LIST_ROWS = 128
 _LONG_ROWS, _LONG_HALF = 256, 128
+# query rows a block of the fp32 list forward owns on the 256-row tile
+# (F32_LONG_OWN in csrc/flash_attn_fwd.cu; on the 128-row tile 64, as the
+# bf16 forward's blocks)
+_F32_LONG_OWN = 128
 _MAX_X, _MAX_Y = 2 ** 31 - 1, 65535  # blocks on grid.x and on grid.y
 
 # Routes of the bf16 kernels at d > 128, each the widest bucket at which the
@@ -322,25 +331,34 @@ LONG_MAX_N = 256
 # F32_PACK_MAX_N docs, in place of the fp32 wide forward and wide pair; the
 # fp32 list and long backward (flash_bwd_list_tf32_kernel on a 128-row and a
 # 256-row tile of one list, its keys in slices of 64) up to F32_LIST_MAX_N
-# and F32_LONG_MAX_N docs, in place of the wide pair.
+# and F32_LONG_MAX_N docs, in place of the wide pair; the fp32 list forward
+# (flash_fwd_list_tf32_kernel on a 128-row and a 256-row tile of one list,
+# through the packed and the long forward's wrappers) up to
+# F32_FWD_LIST_MAX_N and F32_FWD_LONG_MAX_N docs, in place of the wide
+# forward: at 128 and 256 docs and d = 350 / 384, 0.32 / 0.32 and 0.69 /
+# 0.64 ms against the wide forward's 2.02 / 2.04 and 3.89 / 3.90 on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's check_packed_fwd,
+# PERF.md).
 F32_PACK_MAX_N = 64
 F32_LIST_MAX_N = 128
 F32_LONG_MAX_N = 256
+F32_FWD_LIST_MAX_N = 128
+F32_FWD_LONG_MAX_N = 256
 
 
 def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:
     """The forward's kernel for inputs of `dtype` with N docs a list and head
     dim d: for bf16 and d > 128, "packed" (FlashAttnFwdPacked) at
     N <= FWD_PACK_MAX_N and "long" (FlashAttnFwdLong) at N <= LONG_MAX_N;
-    for fp32 and d > 128, "packed" at N <= F32_PACK_MAX_N; else "flash"
-    (FlashAttnFwd)."""
-    if dtype == torch.bfloat16 and d > _NARROW_D:
-        if N <= FWD_PACK_MAX_N:
-            return "packed"
-        if N <= LONG_MAX_N:
-            return "long"
-    if dtype == torch.float32 and d > _NARROW_D and N <= F32_PACK_MAX_N:
-        return "packed"
+    for fp32 and d > 128, "packed" at N <= F32_FWD_LIST_MAX_N (the fp32
+    packed kernel up to 64 docs, the fp32 list kernel above) and "long" at
+    N <= F32_FWD_LONG_MAX_N; else "flash" (FlashAttnFwd)."""
+    limits = {torch.bfloat16: (FWD_PACK_MAX_N, LONG_MAX_N),
+              torch.float32: (F32_FWD_LIST_MAX_N, F32_FWD_LONG_MAX_N)}
+    if dtype in limits and d > _NARROW_D:
+        for route, max_n in zip(("packed", "long"), limits[dtype]):
+            if N <= max_n:
+                return route
     return "flash"
 
 
@@ -367,13 +385,15 @@ def packed_blocks(B: int, H: int, N: int, rows: int = _ROWS) -> int:
     return -(-B * H // (rows // N))
 
 
-def fwd_packed_blocks(B: int, H: int, N: int) -> int:
+def fwd_packed_blocks(B: int, H: int, N: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Blocks of the packed or long forward's grid (grid.x): its key tile
     holds 64 // N lists up to 64 docs, one list of up to 128 up to 128 docs,
     one of up to 256 (the long kernel) above, and a block owns 64 of the
-    tile's query rows."""
+    tile's query rows; in fp32 on the 256-row tile (the fp32 list kernel)
+    128."""
     rows = _tile_rows(N)
-    return packed_blocks(B, H, N, rows) * (rows // _ROWS)
+    own = _F32_LONG_OWN if dtype == torch.float32 and rows == _LONG_ROWS else _ROWS
+    return packed_blocks(B, H, N, rows) * (rows // own)
 
 
 def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int:
@@ -386,17 +406,15 @@ def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int
 
 
 # the kernels that take whole lists into a block, by wrapper: the longest
-# list each takes; and of the wrappers whose kernels also take fp32 lists
-# (3xTF32), the longest fp32 list: the packed kernels' 64-row tile, the list
-# and long backward's 128 and 256 rows
+# list each takes, in either dtype (fp32 on 3xTF32: above 64 docs the
+# packed forward's wrapper launches the fp32 list kernel)
 _PACKED_MAX_N = {"flash_attn_fwd_packed": _LIST_ROWS, "flash_attn_bwd_packed": _ROWS,
                  "flash_attn_bwd_list": _LIST_ROWS, "flash_attn_fwd_long": _LONG_ROWS,
                  "flash_attn_bwd_long": _LONG_ROWS}
-_F32_PACKED = {"flash_attn_fwd_packed": _ROWS, "flash_attn_bwd_packed": _ROWS,
-               "flash_attn_bwd_list": _LIST_ROWS, "flash_attn_bwd_long": _LONG_ROWS}
 
 
-def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
+def check_grid(B: int, H: int, N: int, d: int, packed: str = "",
+               dtype: torch.dtype = torch.bfloat16) -> None:
     """The shapes the kernels take: any positive B, H, N and d whose launches
     fit the grid. For d <= 128, H up to 65535 (grid.y); for d > 128, the
     64-row tiles x B*H x the output chunks (64 columns at the finest) up to
@@ -404,7 +422,8 @@ def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
     (`packed`, its wrapper's name: "flash_attn_fwd_packed",
     "flash_attn_bwd_packed", "flash_attn_bwd_list", "flash_attn_fwd_long",
     "flash_attn_bwd_long"): N up to 64 (the packed backward), 128 or 256
-    (the long kernels), B*H up to 2^31 - 1 lists, and its tiles on grid.x.
+    (the long kernels), B*H up to 2^31 - 1 lists, and its tiles on grid.x
+    (the forward's blocks for inputs of `dtype`: fwd_packed_blocks).
     Raises otherwise."""
     if min(B, H, N, d) < 1:
         raise ValueError(f"unsupported shape {(B, H, N, d)}")
@@ -413,9 +432,10 @@ def check_grid(B: int, H: int, N: int, d: int, packed: str = "") -> None:
         if N > max_n or B * H > _MAX_X:
             raise ValueError(f"shape {(B, H, N, d)}: {packed} takes lists of at most "
                              f"{max_n} docs, at most {_MAX_X} of them")
-        if packed.startswith("flash_attn_fwd") and fwd_packed_blocks(B, H, N) > _MAX_X:
-            raise ValueError(f"shape {(B, H, N, d)} needs {fwd_packed_blocks(B, H, N)} blocks "
-                             f"of {packed} on grid.x, past the card's {_MAX_X}")
+        blocks = fwd_packed_blocks(B, H, N, dtype) if packed.startswith("flash_attn_fwd") else 0
+        if blocks > _MAX_X:
+            raise ValueError(f"shape {(B, H, N, d)} needs {blocks} blocks of {packed} on "
+                             f"grid.x, past the card's {_MAX_X}")
         return
     if d <= _NARROW_D and H > _MAX_Y:
         raise ValueError(f"shape {(B, H, N, d)} needs {H} blocks on grid.y, past the "
@@ -441,13 +461,7 @@ def _check_qkv(q, k, v, mask, *more, packed=""):
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
         raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if packed and q.dtype == torch.float32:
-        if packed not in _F32_PACKED:
-            raise ValueError(f"{packed} takes bfloat16 inputs; got {q.dtype}")
-        if N > _F32_PACKED[packed]:
-            raise ValueError(f"shape {(B, H, N, d)}: {packed} takes float32 lists of at most "
-                             f"{_F32_PACKED[packed]} docs")
-    check_grid(B, H, N, d, packed)
+    check_grid(B, H, N, d, packed, q.dtype)
     tensors = (q, k, v, mask, *more)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError("q, k, v and mask must be CUDA tensors on one device")
@@ -503,20 +517,22 @@ class FlashAttnFwd:
 
 
 class FlashAttnFwdPacked(FlashAttnFwd):
-    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s packed kernels (bf16,
-    lists of at most 128 docs, any d: S once a tile of 64 // N lists, or of
-    one list above 64 docs; fp32, lists of at most 64 docs: the same on
-    3xTF32 tensor-core products), FlashAttnFwd's call and statistics, with
-    its own launch count (one a call, either dtype)."""
+    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s packed kernels (lists of
+    at most 128 docs, any d; bf16: S once a tile of 64 // N lists, or of one
+    list above 64 docs; fp32: the same on 3xTF32 tensor-core products up to
+    64 docs, the fp32 list kernel, one list a 128-row tile, S once in slices
+    of 64 keys, above), FlashAttnFwd's call and statistics, with its own
+    launch count (one a call, either dtype)."""
 
     name = packed = "flash_attn_fwd_packed"
 
 
 class FlashAttnFwdLong(FlashAttnFwd):
-    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s long kernel (bf16, lists
-    of at most 256 docs, any d: S once a 256-key tile of one list of 129 ..
-    256 docs, in two halves of 128 keys), FlashAttnFwd's call and
-    statistics, with its own launch count (one a call)."""
+    """ctypes wrapper of `csrc/flash_attn_fwd.cu`'s long kernels (lists of at
+    most 256 docs, any d, S once a 256-key tile of one list of 129 .. 256
+    docs; bf16: in two halves of 128 keys; fp32: the fp32 list kernel on a
+    256-row tile, in slices of 64 keys, 3xTF32), FlashAttnFwd's call and
+    statistics, with its own launch count (one a call, either dtype)."""
 
     name = packed = "flash_attn_fwd_long"
 

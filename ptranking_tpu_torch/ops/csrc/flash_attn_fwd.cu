@@ -108,7 +108,12 @@
 // flash_fwd_packed_tf32_kernel (entry flash_attn_fwd_packed, dtype 0; the
 // route at N <= F32_PACK_MAX_N), the packed kernel's design with its two
 // products in 3xTF32 on the tensor cores, which keeps about fp32's accuracy
-// (the section "fp32, lists of at most 64 docs" below).
+// (the section "fp32, lists of at most 64 docs" below); fp32 lists of 65 ..
+// 256 docs at d > 128 take flash_fwd_list_tf32_kernel (entries
+// flash_attn_fwd_packed up to 128 docs and flash_attn_fwd_long, dtype 0; the
+// routes at N <= F32_FWD_LIST_MAX_N and N <= F32_FWD_LONG_MAX_N), one list a
+// 128- or 256-row tile, S once in 64-key slices, 3xTF32 (the section "fp32,
+// lists of 65 .. 256 docs").
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -1622,6 +1627,312 @@ cudaError_t launch_packed_tf32(const void* q, const void* k, const void* v, cons
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32, lists of 65 .. 256 docs: the list and long kernels on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// At 65 .. 256 docs the fp32 wide kernel recomputes S on the CUDA cores for
+// each of its 64-column output chunks (6 at d = 350): 2.06 ms at (256, 2,
+// 128, 350) and 3.98 at (128, 2, 256, 350) on an NVIDIA H100 80GB HBM3 at
+// 700 W, where SDPA's fp32 forward takes 0.58 and 0.91 (PERF.md). The fp32
+// packed kernel's tile does not stretch to these lists: S of a warp's 16 rows
+// by 128 or 256 keys would be 64 or 128 fp32 registers a thread beside the
+// 3xTF32 fragments (that kernel holds 249 with 64 keys). Here a tile holds
+// ROWS / N consecutive (b, h) lists (one list of 65 .. ROWS docs; ROWS = 128
+// for the packed entry, 256 for the long one), a block of 2 * OWN threads
+// owns OWN of its query rows (16 a warp; ROWS / OWN blocks a tile; OWN =
+// f32_own(ROWS): 64 of the 128-row tile, 128 of the 256-row one) and all
+// of its keys, and S is computed once:
+//   1. for each slice of F32_SLICE keys, S of the warp's 16 rows by the
+//      slice (32 fp32 registers a thread) over d in F32_W-column chunks of Q
+//      and of the slice's K, double-buffered by cp.async (load_rows_f32: a
+//      thread's copies at constant strides), every product in
+//      3xTF32 (mma_3xtf32), each operand split into hi and lo at its fragment
+//      load by integer rounding of its bits (F32_INT_ROUND: the same bits as
+//      cvt.rna.tf32.f32, as in flash_attn_bwd.cu's fp32 list kernel). The
+//      slice's logits, with softmax_packed's rules (a key of another list
+//      left out, a masked key of the row's own list at -1e9), go to shared
+//      memory, and the thread's running max over them stays in registers;
+//   2. the row's max m over all its keys (one max: no rescale), then
+//      p = exp(x - m) in place and the row's sum l, in natural-log units
+//      with expf, as the fp32 kernels compute them;
+//   3. for each F32_W-column output chunk of V (all the tile's keys), O = P V
+//      in 3xTF32, O / l stored in fp32; row_max and row_sum as the other fp32
+//      kernels write them.
+// A thread stores the logits and p of its own C fragments (rows g, g + 8;
+// columns 2t, 2t + 1 of each 8-key tile) as one float4 a tile, at
+// [tile][thread], and reads back exactly what it wrote: C fragment is A
+// fragment (mma_1688_tf32's renumbered k slots), so step 3 reads P's A
+// fragments with one conflict-free 16-byte load and no barrier is needed
+// between the steps; shared memory holds what registers cannot (ROWS / 8
+// float4 a thread). Shared memory: that store (OWN * ROWS floats), two
+// stages (the Q chunk and the slice's K chunk, or all ROWS keys of a V
+// chunk) and the key info: 70,144 bytes at ROWS = 128 (two blocks of 4
+// warps an SM, by registers), 205,824 at 256 (one block of 8 warps). No
+// atomics: the same inputs give the same bits.
+// What bounds it: the bytes at 128 docs, the products at 256 (4 * N^2 * d
+// operations a list, each three TF32 products; q, k, v read and o written
+// once, K and V read by each of a tile's blocks, the second time mostly
+// from L2), and before either the instructions that feed the tensor cores:
+// two loads and five integer or fp32 operations to split each operand
+// value, four fp32 additions a 3xTF32 product, the cp.async copies (4 bytes
+// wide at d = 350), with 8 warps an SM to hide their latency. On an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md): 0.32 ms at (256, 2, 128, 350) and 0.69
+// at (128, 2, 256, 350), against the wide kernel's 2.02 and 3.89 and SDPA's
+// fp32 0.58 and 0.91; at d = 384 0.32 and 0.64 (SDPA 0.34 and 0.64).
+// Splitting each K chunk once in shared memory for all warps, 16-column
+// chunks and the cvt split all took longer (PERF.md).
+
+// query rows a block owns, a warp for each 16: of the 128-row tile, of the
+// 256-row tile (tools/kernel_variants.py times each the other way: 128 rows
+// of 8 warps took 5..10% longer at 128 docs, 64 of 4 warps 15..24% longer
+// at 256 docs, PERF.md)
+constexpr int F32_LIST_OWN = 64;
+constexpr int F32_LONG_OWN = 128;
+constexpr int F32_SLICE = 64;  // keys of S a warp holds at a time: 16 rows by 64
+// columns of the d-chunks and output chunks (tools/kernel_variants.py times 16)
+constexpr int F32_W = 32;
+// whether the operands' hi/lo split rounds by integer arithmetic (the same
+// bits as cvt.rna.tf32.f32: mma_common.cuh's to_tf32_int)
+constexpr bool F32_INT_ROUND = true;
+
+// query rows a block of the `rows`-row tile owns
+__host__ __device__ constexpr int f32_own(int rows) {
+    return rows > LIST_KEYS ? F32_LONG_OWN : F32_LIST_OWN;
+}
+// a stage: step 1's Q chunk and the slice's K chunk, or step 3's V chunk of `rows` keys
+__host__ __device__ constexpr size_t list_tf32_stage_floats(int rows, int w) {
+    return size_t(f32_own(rows) + F32_SLICE) * (w + 4) > size_t(rows) * (w + 4)
+               ? size_t(f32_own(rows) + F32_SLICE) * (w + 4) : size_t(rows) * (w + 4);
+}
+// the threads' logits and p (own * rows floats), two stages and the key info
+__host__ __device__ constexpr size_t list_tf32_smem_bytes(int rows, int w) {
+    return (size_t(f32_own(rows)) * rows + 2 * list_tf32_stage_floats(rows, w)) * sizeof(float)
+           + rows * sizeof(int);
+}
+
+template <int ROWS, int W>
+__global__ void __launch_bounds__(2 * f32_own(ROWS), 1)
+flash_fwd_list_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                           float* __restrict__ o, float* __restrict__ row_max,
+                           float* __restrict__ row_sum, int lists, int H, int N, int d,
+                           float scale, int copy, int how) {
+    constexpr int OWN = f32_own(ROWS);   // query rows a block owns
+    constexpr int NT = 2 * OWN;          // threads
+    static_assert(ROWS % OWN == 0 && ROWS % F32_SLICE == 0, "whole blocks and slices a tile");
+    static_assert(W % 8 == 0, "chunks of 8-deep steps");
+    constexpr int LD = W + 4;                // row stride of the chunk tiles (floats)
+    constexpr int QT = OWN * LD;             // a Q chunk tile; the slice's K chunk follows it
+    constexpr int STAGE = int(list_tf32_stage_floats(ROWS, W));
+    constexpr int QBLOCKS = ROWS / OWN;      // blocks of a tile
+    constexpr int STILES = F32_SLICE / 8;    // 8-key tiles of a slice
+    extern __shared__ uint4 smem_mma[];
+    float4* Xs = reinterpret_cast<float4*>(smem_mma);       // [ROWS / 8][NT]: x, then p
+    float* Cs = reinterpret_cast<float*>(Xs + (ROWS / 8) * NT);  // [2][STAGE]
+    int* kinfo = reinterpret_cast<int*>(Cs + 2 * STAGE);    // [ROWS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int per_tile = ROWS / N;
+    const int tile = blockIdx.x / QBLOCKS;
+    const int l0 = tile * per_tile;                          // the tile's first (b, h) list
+    const int nkeys = min(per_tile, lists - l0) * N;         // the tile's rows
+    const int qoff = (blockIdx.x - tile * QBLOCKS) * OWN;  // the block's first query row in it
+    const int nq = min(OWN, nkeys - qoff);
+    if (nq <= 0) return;  // a query block past a short tile's rows
+    const size_t row0 = size_t(l0) * N;
+    const float* qb = q + (row0 + qoff) * d;
+    const float* kb = k + row0 * d;
+    const float* vb = v + row0 * d;
+    const int chunks = (d + W - 1) / W;
+    const int slices = (nkeys + F32_SLICE - 1) / F32_SLICE;
+    const int s_stages = slices * chunks;
+    const int stages = s_stages + chunks;
+
+    // stage st < s_stages: step 1's d-chunk st % chunks of Q and of the
+    // slice st / chunks of K; st >= s_stages: step 3's output chunk
+    // st - s_stages of V
+    auto prefetch = [&](int st) {
+        float* cs = Cs + (st & 1) * STAGE;
+        if (st < s_stages) {
+            const int slice = st / chunks, c0 = (st - slice * chunks) * W;
+            load_rows_f32<NT, W, OWN>(cs, qb, nq, d, c0, copy);
+            load_rows_f32<NT, W, F32_SLICE>(cs + QT, kb + size_t(slice) * F32_SLICE * d,
+                                            min(nkeys - slice * F32_SLICE, F32_SLICE), d, c0, copy);
+        } else {
+            load_rows_f32<NT, W, ROWS>(cs, vb, nkeys, d, (st - s_stages) * W, copy);
+        }
+        cp_async_commit();
+    };
+    // stage st's buffers, landed, with stage st + 1's copies in flight
+    auto next = [&](int st) -> const float* {
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+        return Cs + (st & 1) * STAGE;
+    };
+
+    prefetch(0);
+    for (int j = tid; j < ROWS; j += NT) {
+        int info = -1;
+        if (j < nkeys) {
+            const int list = j / N, key = j - list * N;
+            info = list << 2 | key_flag(mask + size_t((l0 + list) / H) * N, key, N);
+        }
+        kinfo[j] = info;
+    }
+    int seg[2];  // of the thread's two query rows (g and g + 8 of the warp's 16): its list
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        seg[h] = r < nq ? (qoff + r) / N : -2;
+    }
+
+    // step 1
+    float mx[2] = {-INFINITY, -INFINITY};
+    int st = 0;
+    for (int slice = 0; slice < slices; ++slice) {
+        float s[STILES][4];
+#pragma unroll
+        for (int j = 0; j < STILES; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int c = 0; c < chunks; ++c, ++st) {
+            const float* cs = next(st);
+#pragma unroll
+            for (int kk = 0; kk < W; kk += 8) {
+                uint32_t ahi[4], alo[4];
+                frag_a_tf32<LD, F32_INT_ROUND>(ahi, alo, cs, warp * 16, kk, lane);
+#pragma unroll
+                for (int j = 0; j < STILES; ++j) {
+                    uint32_t bhi[2], blo[2];
+                    frag_b_nk_tf32<LD, F32_INT_ROUND>(bhi, blo, cs + QT, 8 * j, kk, lane);
+                    mma_3xtf32(s[j], ahi, alo, bhi, blo);
+                }
+            }
+            __syncthreads();  // no warp reads stage st's buffers any more
+        }
+        // the slice's logits (a key of another list: -inf, p = 0) into the
+        // thread's own slots, and their running max
+        const int* ki = kinfo + slice * F32_SLICE + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < STILES; ++j) {
+            const int2 f2 = *reinterpret_cast<const int2*>(ki + 8 * j);
+            float x[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int f = (e & 1) ? f2.y : f2.x, h = e >> 1;
+                x[e] = (f >> 2) != seg[h] ? -INFINITY
+                       : (f & 3) == KEY_REAL ? s[j][e] * scale : MASKED_LOGIT;
+                mx[h] = fmaxf(mx[h], x[e]);
+            }
+            Xs[(slice * STILES + j) * NT + tid] = make_float4(x[0], x[1], x[2], x[3]);
+        }
+    }
+
+    // step 2 (stage s_stages, step 3's first, is in flight): the row's max,
+    // p = exp(x - m) in place of x, and the thread's share of l
+    const int ktiles = slices * STILES;  // the 8-key tiles that hold keys
+    float m[2], l[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        m[h] = fmaxf(M_INIT, mx[h]);  // M_INIT on a row past the tile's: every p is 0
+    }
+    for (int j = 0; j < ktiles; ++j) {
+        float4 x = Xs[j * NT + tid];
+        x.x = expf(x.x - m[0]);  // 0 on another list's key
+        x.y = expf(x.y - m[0]);
+        x.z = expf(x.z - m[1]);
+        x.w = expf(x.w - m[1]);
+        l[0] += x.x + x.y;
+        l[1] += x.z + x.w;
+        Xs[j * NT + tid] = x;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);  // the quad's four shares
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        inv[h] = 1.f / l[h];  // l >= 1 on a row of the tile: its max contributes exp(0)
+    }
+
+    // step 3
+    const bool pairs = how & STORE_PAIRS;
+    for (int oc = 0; oc < chunks; ++oc, ++st) {
+        const float* vs = next(st);
+        float acc[W / 8][4];
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 2
+        for (int j = 0; j < ktiles; ++j) {  // O += P V over the keys 8j .. 8j + 7
+            const float4 p = Xs[j * NT + tid];
+            const float c[4] = {p.x, p.y, p.z, p.w};
+            uint32_t ahi[4], alo[4];
+            c_as_a_tf32<F32_INT_ROUND>(ahi, alo, c);
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {
+                uint32_t bhi[2], blo[2];
+                frag_b_kn_tf32<LD, F32_INT_ROUND>(bhi, blo, vs, 8 * j, 8 * n, lane);
+                mma_3xtf32(acc[n], ahi, alo, bhi, blo);
+            }
+        }
+        const int c0 = oc * W;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nq) continue;
+            float* orow = o + (row0 + qoff + r) * d;
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n)
+                store_pair_f32(orow, c0 + 8 * n + 2 * t4, acc[n][2 * h] * inv[h],
+                               acc[n][2 * h + 1] * inv[h], d, pairs);
+        }
+        __syncthreads();  // no warp reads stage st's buffer any more
+    }
+    if (row_max != nullptr && t4 == 0) {  // the quad holds the same m and l
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= nq) continue;
+            row_max[row0 + qoff + r] = m[h];
+            row_sum[row0 + qoff + r] = l[h];
+        }
+    }
+}
+
+// blocks of the fp32 list or long kernel's grid for B*H lists of N <= rows
+// docs: rows / f32_own(rows) a tile of rows / N lists
+inline long long list_tf32_blocks(long long lists, int N, int rows) {
+    return (lists + rows / N - 1) / (rows / N) * (rows / f32_own(rows));
+}
+
+template <int ROWS>
+cudaError_t launch_list_tf32(const void* q, const void* k, const void* v, const void* mask,
+                             void* o, float* row_max, float* row_sum, int B, int H, int N, int d,
+                             cudaStream_t stream) {
+    const auto kernel = flash_fwd_list_tf32_kernel<ROWS, F32_W>;
+    const size_t bytes = list_tf32_smem_bytes(ROWS, F32_W);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int copy = chunk_copy_f32(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 8) ? STORE_PAIRS : 0;
+    const dim3 grid(unsigned(list_tf32_blocks((long long)B * H, N, ROWS)));
+    kernel<<<grid, 2 * f32_own(ROWS), bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(o), row_max, row_sum, B * H, H,
+        N, d, 1.0f / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
 // d <= 128: the kernels above, on the head dim padded to a multiple of 16:
 // KC steps of 16 (the fp32 kernel counts 8-column blocks, NC = 2 * KC)
 int launch_narrow(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -1682,37 +1993,48 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask
     return 0;
 }
 
-// The packed kernels: bf16 lists of at most 128 docs, or fp32 lists of at
-// most 64 (3xTF32), any d, the same arguments as flash_attn_fwd; one launch,
-// whose grid (packed_blocks) must fit grid.x.
+// The packed kernels: lists of at most 128 docs, any d, the same arguments
+// as flash_attn_fwd: bf16 on the packed kernel; fp32 (3xTF32) of at most 64
+// docs on the fp32 packed kernel, of 65 .. 128 on the fp32 list kernel's
+// 128-row tile. One launch, whose grid (packed_blocks, list_tf32_blocks)
+// must fit grid.x.
 int flash_attn_fwd_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
                           void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
                           void* stream) {
-    if (B < 1 || H < 1 || N < 1 || N > (dtype == 0 ? PACK_KEYS : LIST_KEYS) || d < 1
-        || (dtype != 0 && dtype != 1) || ((row_max == nullptr) != (row_sum == nullptr))
-        || packed_blocks((long long)B * H, N) >= (1LL << 31))
+    const bool f32_list = dtype == 0 && N > PACK_KEYS;
+    if (B < 1 || H < 1 || N < 1 || N > LIST_KEYS || d < 1 || (dtype != 0 && dtype != 1)
+        || ((row_max == nullptr) != (row_sum == nullptr))
+        || (f32_list ? list_tf32_blocks((long long)B * H, N, LIST_KEYS)
+                     : packed_blocks((long long)B * H, N)) >= (1LL << 31))
         return int(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* rm = static_cast<float*>(row_max);
     float* rs = static_cast<float*>(row_sum);
+    if (f32_list)
+        return int(launch_list_tf32<LIST_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
     if (dtype == 0) return int(launch_packed_tf32(q, k, v, mask, o, rm, rs, B, H, N, d, st));
     return int(N <= PACK_KEYS ? launch_packed<PACK_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st)
                               : launch_packed<LIST_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
 }
 
-// The long kernel: bf16 lists of at most 256 docs (any d; the route takes
-// it at 129 .. 256), the same arguments as flash_attn_fwd; one launch, whose
-// grid (long_blocks) must fit grid.x.
+// The long kernels: lists of at most 256 docs (any d; the routes take them
+// at 129 .. 256), the same arguments as flash_attn_fwd: bf16 on the long
+// kernel, fp32 (3xTF32) on the fp32 list kernel's 256-row tile. One launch,
+// whose grid (long_blocks, list_tf32_blocks) must fit grid.x.
 int flash_attn_fwd_long(const void* q, const void* k, const void* v, const void* mask, void* o,
                         void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
                         void* stream) {
-    if (B < 1 || H < 1 || N < 1 || N > LONG_KEYS || d < 1 || dtype != 1
+    if (B < 1 || H < 1 || N < 1 || N > LONG_KEYS || d < 1 || (dtype != 0 && dtype != 1)
         || ((row_max == nullptr) != (row_sum == nullptr))
-        || long_blocks((long long)B * H, N) >= (1LL << 31))
+        || (dtype == 0 ? list_tf32_blocks((long long)B * H, N, LONG_KEYS)
+                       : long_blocks((long long)B * H, N)) >= (1LL << 31))
         return int(cudaErrorInvalidValue);
-    return int(launch_long(q, k, v, mask, o, static_cast<float*>(row_max),
-                           static_cast<float*>(row_sum), B, H, N, d,
-                           static_cast<cudaStream_t>(stream)));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* rm = static_cast<float*>(row_max);
+    float* rs = static_cast<float*>(row_sum);
+    if (dtype == 0)
+        return int(launch_list_tf32<LONG_KEYS>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
+    return int(launch_long(q, k, v, mask, o, rm, rs, B, H, N, d, st));
 }
 
 const char* flash_attn_fwd_error_string(int err) {

@@ -509,6 +509,53 @@ __device__ __forceinline__ void load_chunk_f32(float* dst, const float* __restri
         load_chunk_f32_async<NT, W, ROWS, 1>(dst, src, nrows, d, c0);
 }
 
+// load_chunk_f32's copies of E floats for a block whose NT threads cover
+// whole rows of copies (NT a multiple of W / E): a thread copies one fixed
+// E-float unit of every (NT / (W / E))-th row, so its source and shared
+// addresses advance by constants, where load_chunk_f32 recomputes each copy's
+// row, column and address from its index (at d = 350, 4-byte copies, that
+// was about half of the fp32 list forward's instructions: PERF.md)
+template <int NT, int W, int ROWS, int E>
+__device__ __forceinline__ void load_rows_f32_async(float* dst, const float* __restrict__ src,
+                                                    int nrows, int d, int c0) {
+    constexpr int LD = W + 4;
+    constexpr int UNITS = W / E;         // copies a row
+    static_assert(NT % UNITS == 0, "the threads cover whole rows");
+    constexpr int STEP = NT / UNITS;     // rows between a thread's copies
+    constexpr int COPIES = (ROWS + STEP - 1) / STEP;
+    const int r0 = threadIdx.x / UNITS, cu = threadIdx.x % UNITS;
+    const int col = c0 + E * cu;
+    const float* from = src + size_t(r0) * d + col;
+    const size_t step = size_t(STEP) * d;
+    const uint32_t at = smem_addr(dst) + 4 * (r0 * LD + E * cu);
+#pragma unroll 4
+    for (int i = 0; i < COPIES; ++i, from += step) {
+        const int r = r0 + STEP * i;
+        if (ROWS % STEP != 0 && r >= ROWS) break;
+        const bool in = r < nrows && col < d;
+        const float* p = in ? from : src;
+        const uint32_t a = at + 4 * STEP * LD * i;
+        if (E == 4)
+            cp_async_16(a, p, in ? 16 : 0);
+        else if (E == 2)
+            cp_async_8(a, p, in ? 8 : 0);
+        else
+            cp_async_4(a, p, in ? 4 : 0);
+    }
+}
+
+// load_chunk_f32 by load_rows_f32_async: the same tile, the same zeros
+template <int NT, int W, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src,
+                                              int nrows, int d, int c0, int copy) {
+    if (copy == 4)
+        load_rows_f32_async<NT, W, ROWS, 4>(dst, src, nrows, d, c0);
+    else if (copy == 2)
+        load_rows_f32_async<NT, W, ROWS, 2>(dst, src, nrows, d, c0);
+    else
+        load_rows_f32_async<NT, W, ROWS, 1>(dst, src, nrows, d, c0);
+}
+
 // (x, y) at columns col, col + 1 of an fp32 output row of d columns
 __device__ __forceinline__ void store_pair_f32(float* row, int col, float x, float y, int d,
                                                bool pairs) {

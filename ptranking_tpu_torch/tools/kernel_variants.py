@@ -25,7 +25,10 @@ its 128 keys) and at PACK_COPY_SHAPES, and the long forward at the
 WIDE_SHAPES of 256 docs and at LONG_COPY_SHAPES; the fp32 packed forward
 and backward (3xTF32) at the WIDE_SHAPES of at most 64 docs in fp32, the
 fp32 list and long backward (3xTF32) at those of 128 and 256 docs in fp32
-(for "parent", the parent's route there: its fp32 wide dk/dv and dq pair); the
+(for "parent", the parent's route there: its fp32 wide dk/dv and dq pair),
+the fp32 list forward (3xTF32, through the packed and the long entries) at
+those of 128 and 256 docs and at LIST_COPY_SHAPES and LONG_COPY_SHAPES in
+fp32 (for "parent", the parent's route there: its fp32 wide forward); the
 half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
 at 32 x 1408. It prints one JSON line per
@@ -39,8 +42,9 @@ out cannot agree, it shows what the phase costs).
 (named among the variants where `library:v1,...` names them):
 the sources of the checkout at DIR (for example a parent commit unpacked by
 `git archive`), run on the same cases (the backward's fp32 list and long
-cases through its wide pair; the forward's fp32 packed cases not: a
-checkout from before the fp32 packed kernels refuses them), so that
+cases through its wide pair, the forward's through its wide forward; the
+forward's fp32 packed cases not: a checkout from before the fp32 packed
+kernels refuses them), so that
 "max_abs_diff_vs_shipped" says, case by case, whether this tree's kernels
 give the parent's bits, and the fp32 list and long cases time the parent's
 route beside the new kernels.
@@ -131,6 +135,7 @@ _TF32_VARIANTS = {"tf32_w64": [(_TF32_W, _TF32_W.replace("= 32", "= 64"))]}
 # sum stored alone)
 _F32_W = "constexpr int F32_W = 32;"
 _F32_INT_ROUND = "constexpr bool F32_INT_ROUND = true;"
+_F32_FWD_BOUNDS = "__launch_bounds__(2 * f32_own(ROWS), 1)\nflash_fwd_list_tf32_kernel"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -241,6 +246,24 @@ FWD_VARIANTS = {
     # of two (168 a thread: it spills)
     "tf32_blocks3": [("__launch_bounds__(MMA_NT, 2)\nflash_fwd_packed_tf32_kernel",
                       "__launch_bounds__(MMA_NT, 3)\nflash_fwd_packed_tf32_kernel")],
+    # the fp32 list forward: 16-column d-chunks and output chunks instead of
+    # 32; on the 128-row tile the registers cut for three blocks of 4 warps
+    # an SM instead of two (their shared memory fits three); 128 query rows
+    # a block of 8 warps on the 128-row tile instead of 64 of 4, and 64 of 4
+    # on the 256-row tile instead of 128 of 8; the hi/lo split rounded by
+    # cvt.rna.tf32.f32 instead of integer arithmetic; the chunk copies of
+    # load_chunk_f32, which computes each copy's row and column from its
+    # index, instead of load_rows_f32's constant strides; step 3's products
+    # over the keys unrolled by 4 instead of 2
+    "f32_w16": [(_F32_W, _F32_W.replace("= 32", "= 16"))],
+    "f32_list_blocks3": [(_F32_FWD_BOUNDS,
+                          _F32_FWD_BOUNDS.replace("), 1)", "), ROWS > LIST_KEYS ? 1 : 3)"))],
+    "f32_list_own128": [("constexpr int F32_LIST_OWN = 64;", "constexpr int F32_LIST_OWN = 128;")],
+    "f32_long_own64": [("constexpr int F32_LONG_OWN = 128;", "constexpr int F32_LONG_OWN = 64;")],
+    "f32_cvt_round": [(_F32_INT_ROUND, _F32_INT_ROUND.replace("true", "false"))],
+    "f32_index_copies": [("load_rows_f32<NT", "load_chunk_f32<NT")],
+    "f32_pv_unroll4": [("#pragma unroll 2\n        for (int j = 0; j < ktiles; ++j) {",
+                        "#pragma unroll 4\n        for (int j = 0; j < ktiles; ++j) {")],
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -287,7 +310,7 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_packed_tf32_kernel", r"flash_bwd_list_tf32_kernel"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
                                 r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel",
-                                r"flash_fwd_packed_tf32_kernel"],
+                                r"flash_fwd_packed_tf32_kernel", r"flash_fwd_list_tf32_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
              "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -497,23 +520,28 @@ def fwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the forward with row statistics at
     FWD_SHAPES, of the packed forward at the WIDE_SHAPES (of at most 128
     docs) and PACK_COPY_SHAPES, of the long forward at the WIDE_SHAPES of
-    256 docs and LONG_COPY_SHAPES, and (but for "parent") of the fp32 packed
-    forward at the WIDE_SHAPES of at most 64 docs."""
+    256 docs and LONG_COPY_SHAPES, (but for "parent") of the fp32 packed
+    forward at the WIDE_SHAPES of at most 64 docs, and of the fp32 list
+    forward at the WIDE_SHAPES of 128 and 256 docs and LIST_COPY_SHAPES and
+    LONG_COPY_SHAPES (for "parent": its wide forward, the parent's route
+    there)."""
     stream = torch.cuda.current_stream().cuda_stream
     cases = []
-    fp32 = [] if variant == "parent" else [
-        ("flash_attn_fwd_packed", torch.float32, [s for s in WIDE_SHAPES if s[2] <= 64])]
-    for entry, dtype, shapes in (
-            ("flash_attn_fwd", torch.bfloat16, FWD_SHAPES),
-            ("flash_attn_fwd_packed", torch.bfloat16,
+    parent = variant == "parent"
+    f32 = torch.float32
+    fp32 = [] if parent else [
+        ("packed fp32 ", "flash_attn_fwd_packed", f32, [s for s in WIDE_SHAPES if s[2] <= 64])]
+    fp32 += [("list fp32 ", "flash_attn_fwd" if parent else "flash_attn_fwd_packed", f32,
+              [s for s in WIDE_SHAPES if 64 < s[2] <= 128] + LIST_COPY_SHAPES),
+             ("list fp32 ", "flash_attn_fwd" if parent else "flash_attn_fwd_long", f32,
+              [s for s in WIDE_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES)]
+    for tag, entry, dtype, shapes in (
+            ("", "flash_attn_fwd", torch.bfloat16, FWD_SHAPES),
+            ("packed ", "flash_attn_fwd_packed", torch.bfloat16,
              [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES),
-            ("flash_attn_fwd_long", torch.bfloat16,
+            ("long ", "flash_attn_fwd_long", torch.bfloat16,
              [s for s in WIDE_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES), *fp32):
         fn = _entry(dll, entry, [_P] * 7 + [_I] * 5 + [_P])
-        tag = {"flash_attn_fwd": "", "flash_attn_fwd_packed": "packed ",
-               "flash_attn_fwd_long": "long "}[entry]
-        if dtype == torch.float32:
-            tag += "fp32 "
         for B, H, N, d in shapes:
             (q, k, v), mask = _attention_inputs(B, H, N, d, 3, dtype)
             outs = (torch.empty_like(q), torch.empty(B, H, N, device="cuda"),

@@ -1,0 +1,58 @@
+"""Time two checkouts' fp32 Yahoo! LTR listsf training steps on one CUDA card.
+
+    python3 -m ptranking_tpu_torch.tools.yahoo_steps PARENT_DIR [CHANGE_DIR]
+
+Runs `chip_smoke.yahoo_f32_steps` (LambdaRank steps of the Yahoo! LTR listsf
+at d = 350 in fp32, in each bucket of 16 to 256 docs, with exact launch
+counts and profiled card time) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
+PARENT_DIR in turn (CHANGE_DIR defaults to this checkout; PARENT_DIR is for
+example a parent commit unpacked by `git archive`), each in a fresh Python
+process that puts its checkout first on `sys.path` and builds that
+checkout's kernels first, so that neither side's libraries, allocator or
+caches reach the other's timings. Each step line a process prints comes out
+with its turn and side in front ("P1", "C1", "C2", "P2"); a process that
+fails stops the run with its exit code.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+# what each fresh process runs, with the checkout's directory as argv[1]
+_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from ptranking_tpu_torch.ops import cuda_build
+cuda_build.build(cuda_build.all_kernels())
+chip_smoke.yahoo_f32_steps(chip_smoke.card_line())
+"""
+
+
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    if not 1 <= len(args) <= 2:
+        print(__doc__.strip().splitlines()[2], file=sys.stderr)
+        return 2
+    parent = Path(args[0]).resolve()
+    change = Path(args[1]).resolve() if len(args) == 2 else Path(__file__).resolve().parents[2]
+    for turn, side, root in (("P1", "parent", parent), ("C1", "change", change),
+                             ("C2", "change", change), ("P2", "parent", parent)):
+        if not (root / "chip_smoke.py").exists():
+            print(f"yahoo_steps: no chip_smoke.py in {root}", file=sys.stderr)
+            return 2
+        proc = subprocess.run([sys.executable, "-c", _CHILD, str(root)], cwd=root,
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            if "_steps " in line or line.startswith("NVIDIA"):
+                print(f"{turn} {side} {line}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

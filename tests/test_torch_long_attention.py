@@ -1,5 +1,5 @@
 """The long attention kernels: lists of 129 .. 256 docs at head dims above 128
-in bf16.
+in bf16, and the fp32 list kernels' contracts (3xTF32).
 
 csrc/flash_attn_fwd.cu's flash_fwd_long_mma_kernel and csrc/flash_attn_bwd.cu's
 flash_bwd_long_mma_kernel take one list of 129 .. 256 docs a 256-row tile and
@@ -215,9 +215,8 @@ def test_f32_list_long_contract():
     its widest tile fits the H100's 232,448 bytes a block."""
     assert tattn.F32_PACK_MAX_N <= tattn._ROWS < tattn.F32_LIST_MAX_N <= tattn._LIST_ROWS
     assert tattn._LIST_ROWS < tattn.F32_LONG_MAX_N <= tattn._LONG_ROWS
-    assert tattn._F32_PACKED["flash_attn_bwd_list"] == tattn._LIST_ROWS
-    assert tattn._F32_PACKED["flash_attn_bwd_long"] == tattn._LONG_ROWS
-    assert "flash_attn_fwd_long" not in tattn._F32_PACKED
+    assert tattn._PACKED_MAX_N["flash_attn_bwd_list"] == tattn._LIST_ROWS
+    assert tattn._PACKED_MAX_N["flash_attn_bwd_long"] == tattn._LONG_ROWS
     bwd = (tattn.cuda_build.CSRC / "flash_attn_bwd.cu").read_text()
     assert "if (dtype == 0) return int(launch_bwd_list_tf32<LIST_ROWS>(a, dq, dk, dv));" in bwd
     assert "if (dtype == 0) return int(launch_bwd_list_tf32<LONG_ROWS>(a, dq, dk, dv));" in bwd
@@ -229,17 +228,55 @@ def test_f32_list_long_contract():
     assert smem <= 232448
 
 
+@pytest.mark.parametrize("entry, rows, own", [("flash_attn_fwd_packed", 128, "F32_LIST_OWN"),
+                                              ("flash_attn_fwd_long", 256, "F32_LONG_OWN")])
+def test_f32_fwd_list_long_contract(entry, rows, own):
+    """The fp32 list forward (flash_fwd_list_tf32_kernel) behind the packed
+    entry above 64 docs (a 128-row tile) and the long entry (a 256-row
+    tile): the fp32 routes' limits lie within its tiles; a block owns 64
+    query rows of the 128-row tile and 128 of the 256-row one, two blocks a
+    list of 65 .. 256 docs, so fwd_packed_blocks in fp32 gives the C
+    launcher's grid and check_grid takes B*H up to 2^31 - 1 lists while
+    those blocks fit grid.x; its slices are the warps' 16 rows by 64 keys,
+    and its shared memory at each tile fits the H100's 232,448 bytes a
+    block."""
+    f32 = torch.float32
+    assert tattn.F32_PACK_MAX_N <= tattn._ROWS < tattn.F32_FWD_LIST_MAX_N <= tattn._LIST_ROWS
+    assert tattn._LIST_ROWS < tattn.F32_FWD_LONG_MAX_N <= tattn._LONG_ROWS
+    assert tattn._PACKED_MAX_N[entry] == rows
+    fwd = (tattn.cuda_build.CSRC / "flash_attn_fwd.cu").read_text()
+    rows_a_block = int(re.search(rf"constexpr int {own} = (\d+);", fwd).group(1))
+    assert rows_a_block == (tattn._F32_LONG_OWN if rows == tattn._LONG_ROWS else tattn._ROWS)
+    per_list = rows // rows_a_block
+    assert per_list == 2
+    N = rows // 2 + 1  # one list a tile
+    assert tattn.fwd_packed_blocks(256, 2, N, f32) == 512 * per_list
+    assert tattn.fwd_packed_blocks(5, 2, rows, f32) == 10 * per_list
+    assert tattn.fwd_packed_blocks(2048, 2, 16, f32) == 1024  # the fp32 packed kernel's tile
+    lists = (2 ** 31 - 1) // per_list
+    tattn.check_grid(lists, 1, N, 350, packed=entry, dtype=f32)
+    with pytest.raises(ValueError, match=f"blocks of {entry} on grid.x"):
+        tattn.check_grid(lists + 1, 1, N, 350, packed=entry, dtype=f32)
+    keys = {128: "LIST_KEYS", 256: "LONG_KEYS"}[rows]
+    assert f"return int(launch_list_tf32<{keys}>(q, k, v, mask, o, rm, rs, B, H, N, d, st));" in fwd
+    assert "return rows > LIST_KEYS ? F32_LONG_OWN : F32_LIST_OWN;" in fwd
+    assert "constexpr int F32_SLICE = 64;" in fwd
+    assert "return (lists + rows / N - 1) / (rows / N) * (rows / f32_own(rows));" in fwd
+    w = int(re.search(r"constexpr int F32_W = (\d+);", fwd).group(1))
+    slice_ = 64
+    # the threads' logits and p, two stages (Q and a slice of K, or V of every key), the key info
+    smem = (rows_a_block * rows + 2 * max((rows_a_block + slice_) * (w + 4), rows * (w + 4))) * 4
+    assert smem + rows * 4 <= 232448
+
+
 @pytest.mark.parametrize("kern", [tattn.FlashAttnFwdLong, tattn.FlashAttnBwdLong])
 def test_long_wrappers_refuse_what_they_cannot_run(kern):
     """Each long wrapper refuses lists above 256 docs and CPU tensors, each
-    before anything is launched; the forward refuses fp32 inputs, the
-    backward fp32 lists above 256 docs (fp32 lists of at most 256 pass to
-    the device check)."""
+    before anything is launched, and fp32 lists above 256 docs (fp32 lists
+    of at most 256 pass to the device check: the fp32 list kernels)."""
     kern = kern()
-    f32 = ((((2, 2, 200, 136), torch.float32, "bfloat16"),)
-           if isinstance(kern, tattn.FlashAttnFwdLong) else
-           (((2, 2, 257, 136), torch.float32, "float32 lists of at most 256 docs"),
-            ((2, 2, 200, 136), torch.float32, "CUDA tensors")))
+    f32 = (((2, 2, 257, 136), torch.float32, "at most 256 docs"),
+           ((2, 2, 200, 136), torch.float32, "CUDA tensors"))
     for shape, dtype, match in (*f32,
                                 ((2, 2, 257, 136), torch.bfloat16, "at most 256 docs"),
                                 ((2, 2, 200, 350), torch.bfloat16, "CUDA tensors")):

@@ -251,17 +251,15 @@ def test_packed_grid_contract():
     assert f"constexpr int LIST_ROWS = {tattn._LIST_ROWS};" in source
 
 
-def _refuses(kern, longest, f32_longest=0):
-    """kern refuses lists above `longest` docs and CPU tensors, and fp32
-    inputs (f32_longest = 0) or fp32 lists above `f32_longest` docs, each
-    before anything is launched."""
+def _refuses(kern, longest):
+    """kern refuses lists above `longest` docs in either dtype and CPU
+    tensors, each before anything is launched."""
     stats = lambda B, N: torch.zeros(B, 2, N)
-    f32 = (((2, 2, 16, 136), torch.float32, "CUDA tensors"),
-           ((2, 2, f32_longest + 1, 136), torch.float32,
-            f"float32 lists of at most {f32_longest} docs")) if f32_longest else (
-        ((2, 2, 16, 136), torch.float32, "bfloat16"),)
-    for shape, dtype, match in (*f32, ((2, 2, longest + 1, 136), torch.bfloat16,
-                                       f"at most {longest} docs"),
+    for shape, dtype, match in (((2, 2, 16, 136), torch.float32, "CUDA tensors"),
+                                ((2, 2, longest + 1, 136), torch.float32,
+                                 f"at most {longest} docs"),
+                                ((2, 2, longest + 1, 136), torch.bfloat16,
+                                 f"at most {longest} docs"),
                                 ((2, 2, 16, 350), torch.bfloat16, "CUDA tensors")):
         t = torch.zeros(shape, dtype=dtype)
         mask = torch.ones(shape[0], shape[2], dtype=torch.bool)
@@ -275,10 +273,10 @@ def test_packed_wrapper_refuses_what_it_cannot_run():
     """The wrapper refuses lists above 64 docs (bf16 or fp32) and CPU
     tensors, each before anything is launched; fp32 lists of at most 64 docs
     pass to the device check."""
-    _refuses(tattn.FlashAttnBwdPacked(), 64, f32_longest=64)
+    _refuses(tattn.FlashAttnBwdPacked(), 64)
 
 
 def test_list_wrapper_refuses_what_it_cannot_run():
     """The list kernel's wrapper likewise, with lists above 128 docs in
     either dtype; fp32 lists of at most 128 docs pass to the device check."""
-    _refuses(tattn.FlashAttnBwdList(), 128, f32_longest=128)
+    _refuses(tattn.FlashAttnBwdList(), 128)

@@ -1,5 +1,5 @@
 """The packed attention forward: short lists (N <= 128 docs) at head dims
-above 128 in bf16.
+above 128 in bf16, and in fp32 (3xTF32; above 64 docs the fp32 list kernel).
 
 csrc/flash_attn_fwd.cu's flash_fwd_packed_mma_kernel puts 64 // N
 consecutive (b, h) lists in one 64-key tile (N <= 64), or one list of 65 ..
@@ -128,15 +128,24 @@ def test_packed_forward_plain_refuses_long_lists():
     (torch.bfloat16, 257, 350, "flash"), (torch.bfloat16, 16, 128, "flash"),
     (torch.bfloat16, 32, 68, "flash"), (torch.float32, 16, 350, "packed"),
     (torch.float32, 1, 129, "packed"), (torch.float32, tattn.F32_PACK_MAX_N, 384, "packed"),
-    (torch.float32, 65, 350, "flash"), (torch.float32, 16, 128, "flash"),
-    (torch.float32, 128, 136, "flash")])
+    (torch.float32, 65, 350, "packed"), (torch.float32, 16, 128, "flash"),
+    (torch.float32, 128, 136, "packed"),
+    *((torch.float32, N, d, route) for N, route in ((65, "packed"), (128, "packed"),
+                                                    (129, "long"), (256, "long"))
+      for d in (136, 350, 384)),
+    (torch.float32, 257, 350, "flash"), (torch.float32, 257, 384, "flash"),
+    (torch.float32, 200, 128, "flash"), (torch.float32, 65, 68, "flash")])
 def test_fwd_route_by_shape(dtype, N, d, route):
     """The packed forward takes bf16, d > 128 and N <= FWD_PACK_MAX_N (128),
-    and fp32, d > 128 and N <= F32_PACK_MAX_N (64: the 3xTF32 kernel); the
-    long forward bf16 at FWD_PACK_MAX_N < N <= LONG_MAX_N (256); everything
-    else keeps FlashAttnFwd (the wide kernel at d > 128)."""
+    and fp32, d > 128 and N <= F32_FWD_LIST_MAX_N (128: the fp32 packed
+    kernel up to 64 docs, the fp32 list kernel above); the long forward bf16
+    at FWD_PACK_MAX_N < N <= LONG_MAX_N (256) and fp32 at F32_FWD_LIST_MAX_N
+    < N <= F32_FWD_LONG_MAX_N (256: the fp32 list kernel's 256-row tile);
+    everything else keeps FlashAttnFwd (the wide kernel at d > 128)."""
     assert 64 <= tattn.FWD_PACK_MAX_N <= 128 and tattn.FWD_PACK_MAX_N <= tattn.LONG_MAX_N <= 256
     assert 1 <= tattn.F32_PACK_MAX_N <= 64
+    assert tattn.F32_PACK_MAX_N < tattn.F32_FWD_LIST_MAX_N <= 128
+    assert tattn.F32_FWD_LIST_MAX_N <= tattn.F32_FWD_LONG_MAX_N <= 256
     assert tattn.fwd_route(dtype, N, d) == route
 
 
@@ -153,7 +162,9 @@ class _OnCuda(torch.Tensor):
     (torch.bfloat16, (2, 2, 16, 350), "packed"), (torch.bfloat16, (2, 2, 128, 136), "packed"),
     (torch.bfloat16, (2, 2, 129, 136), "long"), (torch.bfloat16, (2, 2, 257, 136), "flash"),
     (torch.bfloat16, (2, 2, 16, 128), "flash"), (torch.float32, (2, 2, 16, 350), "packed"),
-    (torch.float32, (2, 2, 65, 350), "flash")])
+    (torch.float32, (2, 2, 65, 350), "packed"), (torch.float32, (2, 2, 128, 384), "packed"),
+    (torch.float32, (2, 2, 129, 136), "long"), (torch.float32, (2, 2, 256, 350), "long"),
+    (torch.float32, (2, 2, 257, 136), "flash")])
 def test_flash_forward_calls_the_routed_kernel(monkeypatch, dtype, shape, route):
     """_FlashAttention.forward (with row statistics, which it saves for the
     backward) and flash_attention's no-grad path (without) call the packed
@@ -212,13 +223,13 @@ def test_packed_forward_grid_contract():
 
 
 def test_packed_forward_wrapper_refuses_what_it_cannot_run():
-    """The wrapper refuses bf16 lists above 128 docs, fp32 lists above 64 and
-    CPU tensors, each before anything is launched; fp32 lists of at most 64
-    docs pass to the device check."""
+    """The wrapper refuses bf16 lists above 128 docs, fp32 lists above 128
+    and CPU tensors, each before anything is launched; fp32 lists of at most
+    128 docs (the fp32 list kernel above 64) pass to the device check."""
     kern = tattn.FlashAttnFwdPacked()
     for shape, dtype, match in (((2, 2, 16, 136), torch.float32, "CUDA tensors"),
-                                ((2, 2, 65, 136), torch.float32,
-                                 "float32 lists of at most 64 docs"),
+                                ((2, 2, 65, 136), torch.float32, "CUDA tensors"),
+                                ((2, 2, 129, 136), torch.float32, "at most 128 docs"),
                                 ((2, 2, 129, 136), torch.bfloat16, "at most 128 docs"),
                                 ((2, 2, 16, 350), torch.bfloat16, "CUDA tensors")):
         t = torch.zeros(shape, dtype=dtype)
