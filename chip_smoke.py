@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero:
      and fp32, against the plain blockwise attention and against the explicit
      plain forward with its row statistics), its backward (dk/dv and dq
      kernels, against autograd through the plain blockwise attention and
-     against the explicit plain backward), at head dims up to 128 and, through
-     the wide kernels, above; the packed backward of bf16 lists of at most 64
+     against the explicit plain backward), at head dims up to 128 (fp32: the
+     backward on 3xTF32 tensor-core products) and, through the wide kernels,
+     above; the packed backward of bf16 lists of at most 64
      docs at head dims above 128 (dq, dk, dv of several lists a block, one
      launch) and the list backward (the same on a 128-row tile of one list
      of 65..128 docs) against both explicit plain backwards, the same bits
@@ -47,7 +48,8 @@ Phases, in order; any failure exits non-zero:
      (model_paras use_pallas=True), Adagrad at lr 1e-3: (a) one step's
      gradients through the kernels against dense attention and the dense
      loss; (b) timed steps at 32 lists of 1408 docs, with exact launch counts
-     per step; (c) one train_epoch over ragged lists; (d) save, restore into a
+     per step, in bf16 and in fp32 (the fp32 backward on 3xTF32); (c) one
+     train_epoch over ragged lists; (d) save, restore into a
      second ranker, and one more step on both;
   6. wassrank: the same model trained with WassRank (SinkhornOT, 20
      iterations, lam 0.1, the `eg` cost), every Sinkhorn half-step through
@@ -92,7 +94,9 @@ import time
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 FP32_PEAK = 67e12    # fp32 FLOP/s outside the tensor cores, H100 SXM data sheet
 TF32_PEAK = 495e12   # dense TF32 tensor-core FLOP/s, H100 SXM data sheet
-# the fp32 packed kernels take each fp32 product as three TF32 products (3xTF32)
+# the fp32 kernels on the tensor cores (the backward at d <= 128; the packed,
+# list and long kernels at d > 128) take each fp32 product as three TF32
+# products (3xTF32)
 TF32_PRODUCTS = 3
 HBM_BYTES_S = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16  # transcendental results per clock per SM, compute capability 9.0
@@ -238,7 +242,8 @@ FWD_PACK_RECORD = (2048, 2, 16, 350)
 PACK_FLOOR = 0.1
 # the attention kernels of each library and how many instantiations each
 # has: the kernels of d <= 128 one per head-dim step of 16 (KC = 1 .. 8;
-# the fp32 ones by 8-column blocks, 2 .. 16), the wide kernels (d > 128)
+# the fp32 forward by 8-column blocks, 2 .. 16; the fp32 backward on
+# 3xTF32 one per step of 8, NC = 1 .. 16), the wide kernels (d > 128)
 # one, the packed forward two (a 64-key tile of 64 // N lists, a 128-key
 # tile of one list), the packed backward three (64 rows with inputs kept
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
@@ -255,7 +260,7 @@ BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel
                                     "flash_fwd_packed_tf32_kernel": 1,
                                     "flash_fwd_list_tf32_kernel": 2},
                  "flash_attn_bwd": {"flash_bwd_dkdv_mma_kernel": 8, "flash_bwd_dq_mma_kernel": 8,
-                                    "flash_bwd_dkdv_kernel": 8, "flash_bwd_dq_kernel": 8,
+                                    "flash_bwd_dkdv_tf32_kernel": 16, "flash_bwd_dq_tf32_kernel": 16,
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
                                     "flash_bwd_dq_wide_mma_kernel": 1,
                                     "flash_bwd_dkdv_wide_kernel": 1,
@@ -692,7 +697,10 @@ def check_attention_bwd(card):
     returns the records for the dk/dv kernel, the dq kernel and the forward
     with row statistics (the call training makes) at RECORD_SHAPE in bf16
     (by the wrappers' names) and at WIDE_RECORD_SHAPE in WIDE_RECORD_DTYPE
-    (the same names with "_wide")."""
+    (the same names with "_wide"), and for the dk/dv and dq kernels at
+    RECORD_SHAPE in fp32 (3xTF32; the names with "_fp32"). The bound of the
+    fp32 backward at d <= 128 counts TF32_PRODUCTS TF32 products a product
+    at TF32_PEAK."""
     import torch
     import torch.nn.functional as Fn
 
@@ -780,6 +788,9 @@ def check_attention_bwd(card):
             times["dkdv_plus_dq"] = times["dkdv"] + times["dq"]
             name = str(dtype).split(".")[1]
             peak = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+            # the fp32 backward at d <= 128 runs on 3xTF32 tensor-core products
+            tf32 = dtype == torch.float32 and d <= 128
+            bwd_peak, bwd_products = (TF32_PEAK, TF32_PRODUCTS) if tf32 else (peak, 1)
             val = B * H * N * d * q.element_size()
             stats_bytes = B * H * N * 4
             rec = {"shape": [B, H, N, d], "dtype": name,
@@ -791,17 +802,18 @@ def check_attention_bwd(card):
                    "bound_ms": {
                        "fwd_stats": bound(4.0 * B * H * N * N * d, peak,
                                           4 * val + B * N + 2 * stats_bytes),
-                       "dkdv": bound(8.0 * B * H * N * N * d, peak,
+                       "dkdv": bound(bwd_products * 8.0 * B * H * N * N * d, bwd_peak,
                                      6 * val + 3 * stats_bytes + B * N),
-                       "dq": bound(6.0 * B * H * N * N * d, peak,
+                       "dq": bound(bwd_products * 6.0 * B * H * N * N * d, bwd_peak,
                                    5 * val + 3 * stats_bytes + B * N)}}
             print("attn_bwd " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if ((B, H, N, d), name) in ((RECORD_SHAPE, "bfloat16"),
-                                        (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE)):
-                tag = "" if (B, H, N, d) == RECORD_SHAPE else "_wide"
+            tag = {(RECORD_SHAPE, "bfloat16"): "", (RECORD_SHAPE, "float32"): "_fp32",
+                   (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE): "_wide"}.get(((B, H, N, d), name))
+            if tag is not None:
                 common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
-                records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
-                                                   **rec["bound_ms"]["fwd_stats"]}
+                if tag != "_fp32":  # the fp32 record is the backward's alone
+                    records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
+                                                       **rec["bound_ms"]["fwd_stats"]}
                 records["flash_attn_bwd_dkdv" + tag] = {
                     "max_abs_err": max(pair_errs["dk"][0], pair_errs["dv"][0]),
                     "ms": times["dkdv"], **common, **rec["bound_ms"]["dkdv"]}
@@ -1820,9 +1832,9 @@ def resume_check(ranker, batches, path: str, what: str) -> dict:
     return {"max_abs_param_diff": diff, "loss": loss_a}
 
 
-def train_phase(card: str, work_dir: str) -> dict:
+def train_phase(card: str, work_dir: str):
     """Phase 5: the flagship ranker's training on the card. Returns the
-    launch counts of the train_epoch run (c)."""
+    launch counts of the train_epoch run (c) and of the fp32 timed steps."""
     import torch
 
     from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
@@ -1849,6 +1861,13 @@ def train_phase(card: str, work_dir: str) -> dict:
     steps_rec = timed_steps(flagship_ranker(), train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2),
                             TRAIN_STEPS, "timed steps")
     print("train_steps " + json.dumps(steps_rec) + f"  [{card}]", flush=True)
+    # the same at compute_dtype float32, the JAX package's default: the fp32
+    # forward, and the fp32 backward on 3xTF32 (tools/yahoo_steps.py
+    # --flagship times a parent checkout's beside it)
+    f32_rec = timed_steps(flagship_ranker(compute_dtype="float32"),
+                          train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2), TRAIN_STEPS,
+                          "fp32 timed steps")
+    print("train_fp32_steps " + json.dumps(f32_rec) + f"  [{card}]", flush=True)
 
     # (c) one train_epoch over ragged lists at the server's 100 docs per
     # batch, the same batches EPOCH_PASSES times over
@@ -1886,7 +1905,7 @@ def train_phase(card: str, work_dir: str) -> dict:
     # (d) resume: save, restore into a second ranker, one more step on both
     rec = resume_check(ranker, batches, os.path.join(work_dir, "trained.pt"), "resume")
     print("train_resume " + json.dumps(rec) + f"  [{card}]", flush=True)
-    return epoch_counts
+    return epoch_counts, f32_rec["launches"]
 
 
 def wassrank_phase(card: str, work_dir: str) -> dict:
@@ -2205,7 +2224,9 @@ def main() -> int:
     serve_phase(card, work_dir)
 
     phase("train")
-    launches = train_phase(card, work_dir)
+    launches, f32_flagship = train_phase(card, work_dir)
+    for name in ("flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
+        launches[name + "_fp32"] = f32_flagship[name]
 
     phase("wassrank")
     launches["sinkstep"] = wassrank_phase(card, work_dir)["sinkstep"]
@@ -2239,6 +2260,12 @@ def main() -> int:
                                 "ptranking_tpu/ops/attention.py:172"),
         "flash_attn_bwd_dq": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                               "ptranking_tpu/ops/attention.py:172"),
+        # the same wrappers in fp32 at d <= 128 (3xTF32): records at
+        # RECORD_SHAPE in fp32, launches from phase 5's fp32 timed steps
+        "flash_attn_bwd_dkdv_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                     "ptranking_tpu/ops/attention.py:172"),
+        "flash_attn_bwd_dq_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                                   "ptranking_tpu/ops/attention.py:172"),
         "pairwise_lambda_fwd": ("ptranking_tpu_torch/ops/csrc/pairwise_lambda.cu",
                                 "ptranking_tpu/ops/pallas/pairwise.py:60"),
         "pairwise_lambda_bwd": ("ptranking_tpu_torch/ops/csrc/pairwise_lambda.cu",

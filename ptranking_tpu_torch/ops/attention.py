@@ -11,9 +11,11 @@ dropout (the JAX package applies none on its flash path either):
     kernels for CUDA tensors: `csrc/flash_attn_fwd.cu` forward, and when a
     gradient is needed, `csrc/flash_attn_bwd.cu` backward (dq, and dk with dv)
     from the forward's row statistics, as a `torch.autograd.Function`: bf16
-    inputs on the tensor cores, fp32 inputs on the fp32 CUDA cores, save the
-    fp32 kernels that take whole lists into a block (3xTF32 on the tensor
-    cores). CPU
+    inputs on the tensor cores; fp32 inputs on the tensor cores too, each
+    product as three TF32 products (3xTF32, about fp32's accuracy), in the
+    backward at head dims up to 128 and in the kernels that take whole lists
+    into a block, and on the fp32 CUDA cores elsewhere (the forward at head
+    dims up to 128, the wide kernels above). CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
@@ -344,6 +346,13 @@ F32_LIST_MAX_N = 128
 F32_LONG_MAX_N = 256
 F32_FWD_LIST_MAX_N = 128
 F32_FWD_LONG_MAX_N = 256
+# The fp32 backward at d <= 128 needs no limit: the dk/dv and dq wrappers
+# launch the 3xTF32 kernels (csrc/flash_attn_bwd.cu's
+# flash_bwd_{dkdv,dq}_tf32_kernel) at every N, in place of a CUDA-core pair
+# they beat at every timed shape: 2.60 against 9.17 ms at (32, 2, 1408, 68),
+# 0.37 against 0.86 at (1, 2, 1536, 68) and 0.18 against 0.70 at
+# (1024, 2, 32, 68) on an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/kernel_variants.py --parent, PERF.md).
 
 
 def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:
@@ -539,7 +548,8 @@ class FlashAttnFwdLong(FlashAttnFwd):
 
 class FlashAttnBwdDkdv:
     """ctypes wrapper of the dk, dv kernels of `csrc/flash_attn_bwd.cu` (bf16:
-    tensor cores; fp32: CUDA cores), with its launch count. `dsum` is
+    tensor cores; fp32: 3xTF32 on the tensor cores at head dims up to 128,
+    the CUDA cores above), with its launch count. `dsum` is
     D = rowsum(dO * O), [B, H, N] fp32."""
 
     name = "flash_attn_bwd_dkdv"
@@ -562,7 +572,8 @@ class FlashAttnBwdDkdv:
 
 class FlashAttnBwdDq:
     """ctypes wrapper of the dq kernels of `csrc/flash_attn_bwd.cu` (bf16:
-    tensor cores; fp32: CUDA cores), with its launch count."""
+    tensor cores; fp32: 3xTF32 on the tensor cores at head dims up to 128,
+    the CUDA cores above), with its launch count."""
 
     name = "flash_attn_bwd_dq"
 

@@ -28,8 +28,8 @@
 //     64-query tiles and accumulates its keys' dk and dv in registers;
 //   * the dq kernels: one block per (b*h, 64-query tile); it loops over the
 //     64-key tiles and accumulates its rows' dq in registers.
-// The head dim is padded inside the kernels to a multiple of 16 (the pad
-// columns are zero in shared memory).
+// The head dim is padded inside the kernels to a multiple of 16 (bf16) or of
+// 8 (fp32; the pad columns are zero in shared memory).
 //
 // What bounds it: 8*B*H*N^2*d operations (dkdv: P recomputed, dP, dv, dk)
 // plus 6*B*H*N^2*d (dq: P, dP, dq) over about 7*B*H*N*d values moved, far
@@ -100,13 +100,14 @@
 // bwd_route); the kernels of d <= 128, the fp32 ones and the wide pair at
 // longer lists keep their route.
 //
-// fp32 inputs: flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, on the fp32 CUDA
-// cores by design. The tensor cores have no fp32 product (TF32 keeps about 3
-// digits) and the fp32 path is the exact one that gradient checks and
-// checkpoint-resume checks rest on. Products run from transposed fp32 tiles in
-// shared memory with 4x8 register blocks; 128 threads as 16 row groups of 4
-// rows x 8 lanes. The exceptions: fp32 lists of at most 64 docs at d > 128
-// take flash_bwd_packed_tf32_kernel (entry flash_attn_bwd_packed, dtype 0;
+// fp32 inputs: flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel, the
+// bf16 pair's layout with every product in 3xTF32 on the tensor cores (each
+// operand split into two TF32 halves, three TF32 products a product, summed
+// in fp32: about fp32's accuracy, which the gradient checks and the
+// checkpoint-resume checks rest on), the head dim padded to a multiple of 8
+// (the section "fp32, head dims up to 128" below). At d > 128 the fp32 wide
+// kernels keep the fp32 CUDA cores, save fp32 lists of at most 64 docs,
+// which take flash_bwd_packed_tf32_kernel (entry flash_attn_bwd_packed, dtype 0;
 // the route at N <= F32_PACK_MAX_N), the packed kernel's three steps with
 // every product in 3xTF32 on the tensor cores, which keeps about fp32's
 // accuracy (the section "fp32, lists of at most 64 docs" below); fp32 lists
@@ -124,9 +125,9 @@
 
 namespace {
 
-constexpr int BM = 64;       // fp32 kernels: query rows per tile
-constexpr int BN = 64;       // fp32 kernels: keys per tile
-constexpr int NT = 128;      // fp32 kernels: threads
+constexpr int BM = 64;       // fp32 wide kernels: query rows per tile
+constexpr int BN = 64;       // fp32 wide kernels: keys per tile
+constexpr int NT = 128;      // fp32 wide kernels: threads
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -441,18 +442,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32 on the CUDA cores: the wide kernels' register blocks
 // ---------------------------------------------------------------------------
 
 constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
-
-// rows r < nrows of a [rows, d] tile at src into dst[c * LDT + r] (c < d), zeros past nrows
-__device__ __forceinline__ void load_transposed(float* dst, const float* src, int nrows, int d) {
-    for (int i = threadIdx.x; i < BM * d; i += NT) {
-        const int r = i / d, c = i - r * d;
-        dst[c * LDT + r] = (r < nrows) ? src[size_t(r) * d + c] : 0.f;
-    }
-}
 
 // the 4 x 8 block a[c][ty*4 + i] * b[c][col_j] summed over c < d, added to acc
 __device__ __forceinline__ void product_4x8(float (&acc)[4][8], const float* a, const float* b,
@@ -472,236 +465,6 @@ __device__ __forceinline__ void product_4x8(float (&acc)[4][8], const float* a, 
 }
 
 __device__ __forceinline__ int column(int tx, int j) { return j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4); }
-
-__host__ __device__ constexpr size_t dkdv_smem_floats(int d, int dp) {
-    // Kt, Vt [d][LDT]; Qt, dOt [dp][LDT]; Pq, dSq [BM][LDT]; row m, 1/l, D [BM]; key flags [BN]
-    return size_t(2) * d * LDT + size_t(2) * dp * LDT + size_t(2) * BM * LDT + 3 * BM + BN;
-}
-
-template <int NC>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                      const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
-                      float* __restrict__ dk, float* __restrict__ dv, int H, int N, int d,
-                      float scale) {
-    constexpr int DP = 8 * NC;
-    extern __shared__ float4 smem4[];
-    float* Kt = reinterpret_cast<float*>(smem4);
-    float* Vt = Kt + d * LDT;
-    float* Qt = Vt + d * LDT;
-    float* dOt = Qt + DP * LDT;
-    float* Pq = dOt + DP * LDT;   // Pq[query * LDT + key]: P transposed, float4 over 4 keys
-    float* dSq = Pq + BM * LDT;
-    float* qm = dSq + BM * LDT;
-    float* qinv = qm + BM;
-    float* qD = qinv + BM;
-    int* kflag = reinterpret_cast<int*>(qD + BM);
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 3;  // keys ty*4 .. ty*4+3 of the key tile
-    const int tx = tid & 7;   // query columns column(tx, j); output columns tx + 8*cc
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int k0 = blockIdx.x * BN;
-    const size_t base = size_t(bh) * N * d;
-    const size_t stat = size_t(bh) * N;
-    const int krows = min(BN, N - k0);
-
-    load_transposed(Kt, k + base + size_t(k0) * d, krows, d);
-    load_transposed(Vt, v + base + size_t(k0) * d, krows, d);
-    for (int i = tid; i < (DP - d) * LDT; i += NT) {  // pad rows of Qt, dOt stay zero
-        Qt[d * LDT + i] = 0.f;
-        dOt[d * LDT + i] = 0.f;
-    }
-    if (tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
-
-    float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-    for (int q0 = 0; q0 < N; q0 += BM) {
-        const int qrows = min(BM, N - q0);
-        __syncthreads();  // the previous query tile is no longer read
-        load_transposed(Qt, q + base + size_t(q0) * d, qrows, d);
-        load_transposed(dOt, dout + base + size_t(q0) * d, qrows, d);
-        if (tid < BM) {
-            const bool in = tid < qrows;
-            qm[tid] = in ? row_max[stat + q0 + tid] : 0.f;
-            qinv[tid] = in ? 1.f / row_sum[stat + q0 + tid] : 0.f;  // l >= 1
-            qD[tid] = in ? dsum[stat + q0 + tid] : 0.f;
-        }
-        __syncthreads();
-
-        float s[4][8], dp[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-        product_4x8(s, Kt, Qt, d, ty, tx);   // s[i][j] = k_key . q_query
-        product_4x8(dp, Vt, dOt, d, ty, tx); // dp[i][j] = v_key . dO_query
-
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = column(tx, j);
-            const bool qin = col < qrows;
-            float p4[4], ds4[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int flag = kflag[ty * 4 + i];
-                const float x = flag == KEY_REAL ? s[i][j] * scale : MASKED_LOGIT;
-                const float p = (qin && flag != KEY_OUT) ? expf(x - qm[col]) * qinv[col] : 0.f;
-                p4[i] = p;
-                ds4[i] = (qin && flag == KEY_REAL) ? p * (dp[i][j] - qD[col]) : 0.f;
-            }
-            *reinterpret_cast<float4*>(&Pq[col * LDT + ty * 4]) = make_float4(p4[0], p4[1], p4[2], p4[3]);
-            *reinterpret_cast<float4*>(&dSq[col * LDT + ty * 4]) = make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
-        }
-        __syncthreads();
-
-        for (int r = 0; r < qrows; ++r) {
-            const float4 p = *reinterpret_cast<const float4*>(&Pq[r * LDT + ty * 4]);
-            const float4 ds = *reinterpret_cast<const float4*>(&dSq[r * LDT + ty * 4]);
-            const float pv[4] = {p.x, p.y, p.z, p.w};
-            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) {
-                const float qv = Qt[(tx + 8 * cc) * LDT + r];
-                const float dov = dOt[(tx + 8 * cc) * LDT + r];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    acc_v[i][cc] = fmaf(pv[i], dov, acc_v[i][cc]);
-                    acc_k[i][cc] = fmaf(dsv[i], qv, acc_k[i][cc]);
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= krows) continue;
-        float* dkrow = dk + base + size_t(k0 + r) * d;
-        float* dvrow = dv + base + size_t(k0 + r) * d;
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-            const int col = tx + 8 * cc;
-            if (col < d) {
-                dkrow[col] = acc_k[i][cc] * scale;
-                dvrow[col] = acc_v[i][cc];
-            }
-        }
-    }
-}
-
-__host__ __device__ constexpr size_t dq_smem_floats(int d, int dp) {
-    // Qt, dOt, Vt [d][LDT]; Kt [dp][LDT]; dSk [BN][LDT]; key flags [BN]
-    return size_t(3) * d * LDT + size_t(dp) * LDT + size_t(BN) * LDT + BN;
-}
-
-template <int NC>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                    const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
-                    float* __restrict__ dq, int H, int N, int d, float scale) {
-    constexpr int DP = 8 * NC;
-    extern __shared__ float4 smem4[];
-    float* Qt = reinterpret_cast<float*>(smem4);
-    float* dOt = Qt + d * LDT;
-    float* Vt = dOt + d * LDT;
-    float* Kt = Vt + d * LDT;
-    float* dSk = Kt + DP * LDT;  // dSk[key * LDT + query]: float4 over 4 query rows
-    int* kflag = reinterpret_cast<int*>(dSk + BN * LDT);
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 3;  // query rows ty*4 .. ty*4+3
-    const int tx = tid & 7;   // key columns column(tx, j); output columns tx + 8*cc
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int q0 = blockIdx.x * BM;
-    const size_t base = size_t(bh) * N * d;
-    const size_t stat = size_t(bh) * N;
-    const int qrows = min(BM, N - q0);
-
-    load_transposed(Qt, q + base + size_t(q0) * d, qrows, d);
-    load_transposed(dOt, dout + base + size_t(q0) * d, qrows, d);
-    for (int i = tid; i < (DP - d) * LDT; i += NT) Kt[d * LDT + i] = 0.f;
-    float m_i[4], inv_i[4], D_i[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const bool in = r < qrows;
-        m_i[i] = in ? row_max[stat + q0 + r] : 0.f;
-        inv_i[i] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;
-        D_i[i] = in ? dsum[stat + q0 + r] : 0.f;
-    }
-
-    float acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-    for (int k0 = 0; k0 < N; k0 += BN) {
-        const int krows = min(BN, N - k0);
-        __syncthreads();  // the previous key tile is no longer read
-        load_transposed(Kt, k + base + size_t(k0) * d, krows, d);
-        load_transposed(Vt, v + base + size_t(k0) * d, krows, d);
-        if (tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
-        __syncthreads();
-
-        float s[4][8], dp[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-        product_4x8(s, Qt, Kt, d, ty, tx);
-        product_4x8(dp, dOt, Vt, d, ty, tx);
-
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = column(tx, j);
-            const bool real = kflag[col] == KEY_REAL;  // masked and out-of-range keys: dS = 0
-            float ds4[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const bool in = ty * 4 + i < qrows;
-                const float p = expf(s[i][j] * scale - m_i[i]) * inv_i[i];
-                ds4[i] = (in && real) ? p * (dp[i][j] - D_i[i]) : 0.f;
-            }
-            *reinterpret_cast<float4*>(&dSk[col * LDT + ty * 4]) = make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
-        }
-        __syncthreads();
-
-        for (int c = 0; c < krows; ++c) {
-            const float4 ds = *reinterpret_cast<const float4*>(&dSk[c * LDT + ty * 4]);
-            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) {
-                const float kv = Kt[(tx + 8 * cc) * LDT + c];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(dsv[i], kv, acc[i][cc]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= qrows) continue;
-        float* dqrow = dq + base + size_t(q0 + r) * d;
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-            const int col = tx + 8 * cc;
-            if (col < d) dqrow[col] = acc[i][cc] * scale;
-        }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // d > 128: the wide kernels
@@ -729,9 +492,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // At lists of 16 to 64 docs a block fills N of its 64 rows and each of the 9
 // output-chunk blocks of d = 350 re-reads the inputs: 5.53 ms for the pair
 // at 16 docs against SDPA's 0.89..1.06. The bf16 backward there runs the
-// packed kernel below instead, and at 65 .. 128 docs the list kernel; the
-// pair stays the bf16 route above LIST_MAX_N docs and the fp32 one
-// everywhere.
+// packed kernel below instead, at 65 .. 128 docs the list kernel and at
+// 129 .. 256 the long kernel, and fp32 their 3xTF32 counterparts; the pair
+// stays the route above LONG_MAX_N docs (bf16) and F32_LONG_MAX_N (fp32).
 
 constexpr int DCH = 64;     // columns of a d-chunk of the S and dP products
 // 16-column steps of the bf16 kernels' output chunks: 128 columns for dq; 64
@@ -987,9 +750,11 @@ flash_bwd_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 }
 
 // fp32 dk, dv of a block's 64 keys and 64-column output chunk, on the CUDA
-// cores: flash_bwd_dkdv_kernel's tiles and arithmetic, with the products
-// S^T and dP^T accumulated over d-chunks and the chunk's Q and dO columns
-// staged (in the same buffers) for the second products.
+// cores: 128 threads as 16 row groups of 4 keys x 8 lanes, products from
+// transposed tiles in shared memory with 4x8 register blocks (product_4x8),
+// S^T and dP^T accumulated over d-chunks, P^T and dS^T through shared
+// memory, and the chunk's Q and dO columns staged (in the same buffers) for
+// the second products.
 __host__ __device__ constexpr size_t dkdv_wide_smem_floats() {
     // Kt, Vt, Qt, dOt d-chunks [DCH][LDT]; Pq, dSq [BM][LDT]; m, 1/l, D [BM]; key flags [BN]
     return size_t(4) * DCH * LDT + size_t(2) * BM * LDT + 3 * BM + BN;
@@ -1128,9 +893,10 @@ flash_bwd_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict_
     }
 }
 
-// fp32 dq of a block's 64 query rows and 64-column output chunk:
-// flash_bwd_dq_kernel's arithmetic, S and dP accumulated over d-chunks, the
-// chunk's K columns staged (in Kt's buffer) for dq += dS K.
+// fp32 dq of a block's 64 query rows and 64-column output chunk, on the CUDA
+// cores as the dk/dv kernel above: S and dP accumulated over d-chunks, dS
+// through shared memory, the chunk's K columns staged (in Kt's buffer) for
+// dq += dS K.
 __host__ __device__ constexpr size_t dq_wide_smem_floats() {
     // Qt, dOt, Kt, Vt d-chunks [DCH][LDT]; dSk [BN][LDT]; key flags [BN]
     return size_t(4) * DCH * LDT + size_t(BN) * LDT + BN;
@@ -2516,6 +2282,435 @@ flash_bwd_list_tf32_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
+// fp32, head dims up to 128: the dk/dv and dq kernels on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// The bf16 pair's layout (flash_bwd_{dkdv,dq}_mma_kernel) in fp32, every
+// product in 3xTF32 on the tensor cores (mma_common.cuh: about fp32's
+// accuracy). Each operand is split into hi and lo at its fragment load as
+// CUTLASS's fast fp32 products split it (F32N_SPLIT: hi rounded by its bits,
+// lo = x - hi cut to TF32 by the tensor cores), and the three TF32 products
+// of F32N_GROUP k-steps are summed in a fresh fragment before it is added to
+// S, dP or the outputs in fp32. They replace a CUDA-core pair (4x8 register
+// blocks on transposed tiles copied synchronously, P and dS through shared
+// memory, dk, dv and dq summed one row at a time): 6.46 + 2.68 ms at
+// (32, 2, 1408, 68) on an NVIDIA H100 80GB HBM3 at 700 W, 2.1x SDPA's fp32
+// backward (PERF.md).
+//   * flash_bwd_dkdv_tf32_kernel: a block of F32N_WARPS warps owns
+//     F32N_OWN keys, K and V resident in shared memory, and loops over the
+//     query rows in tiles of F32N_TILE, Q and dO double-buffered by cp.async
+//     and the next tile's row statistics prefetched into registers. A warp
+//     computes S^T = K Q^T and dP^T = V dO^T of its 16 keys by the tile's
+//     rows (s_dp_narrow), P^T and dS^T on those fragments (p_ds_keys_tf32:
+//     a key's flag per fragment row; m, 1/l and D per column), and takes
+//     them as the A fragments (c_as_a_tf32: m16n8k8.tf32's C fragment is its
+//     own A fragment) of dv += P^T dO and dk += dS^T Q, B read from the same
+//     Q and dO tiles (product_c_tf32).
+//   * flash_bwd_dq_tf32_kernel: the same untransposed. A warp owns 16 query
+//     rows (Q and dO resident; m, 1/l, D in registers) and the block loops
+//     over the keys in tiles of F32N_TILE (K, V and the keys' flags
+//     double-buffered): S = Q K^T, dP = dO V^T, dS (ds_rows_tf32), dq += dS K.
+// P and dS never touch shared memory. The head dim is padded to a multiple
+// of 8, TF32's k-step (NC = 1 .. 16 steps; 68 -> 72): tiles of rows of
+// 8 * NC + 4 floats, 4 times an odd number, so a fragment's reads meet 32
+// distinct banks, with zero pad columns. The tiles are copied whole by
+// 16-byte cp.async where d % 4 == 0 (load_tile_f32: at d = 68 a row is 272
+// bytes), else by narrower copies (chunk_copy_f32). All sums are fp32 and
+// there are no atomics: the same inputs give the same bits.
+// What bounds it: the products, 8 * B*H*N^2*d operations (dk/dv) and
+// 6 * B*H*N^2*d (dq), each taken as three TF32 products (bounds of 0.418
+// and 0.314 ms at (32, 2, 1408, 68)), and the instructions that feed them:
+// each operand's loads and split, for every warp that reads it, and the
+// fp32 additions of the partial sums; the bytes, about 7 * B*H*N*d * 4, are
+// far below. On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 1.43 + 1.17 ms
+// at (32, 2, 1408, 68), against SDPA's fp32 backward 4.40; summing each
+// k-step's products in a fresh fragment took 2.19 + 1.69, lo rounded to
+// TF32 1.52 + 1.31, 8 warps a block 1.57 + 1.16, 64-row tiles (spilling)
+// 2.29 + 1.40 (tools/kernel_variants.py's f32n_* variants).
+
+// F32N: the fp32 kernels of d <= 128 (narrow)
+constexpr int F32N_WARPS = 4;              // warps a block
+constexpr int F32N_NT = 32 * F32N_WARPS;   // threads a block
+constexpr int F32N_OWN = 16 * F32N_WARPS;  // rows a block owns: keys (dk/dv) or query rows (dq)
+constexpr int F32N_TILE = 32;              // rows of the tiles it loops over: queries or keys
+// blocks an SM the registers are cut for: two blocks of 4 warps fit the
+// shared memory at d = 68 (left to itself, ptxas cut some instantiations to
+// three blocks' 168 registers and spilled)
+constexpr int F32N_BLOCKS = 8 / F32N_WARPS;
+// how the operands are split (mma_common.cuh: hi rounded to TF32, lo = x - hi
+// cut to TF32 by the tensor cores, three instructions a value)
+constexpr int F32N_SPLIT = SPLIT_INT_CUT;
+// k-steps (8-deep) whose 3xTF32 products a fresh fragment sums before it is
+// added to S, dP or the outputs in fp32 (1: every k-step, as mma_3xtf32)
+constexpr int F32N_GROUP = 4;
+
+// rows of the loop's tile whose S and dP (S^T and dP^T) a warp holds at a
+// time: the whole tile, or half of it where the accumulators (dk and dv:
+// 8 * nc registers a thread; dq: 4 * nc) leave no room for more (the whole
+// tile spilled at 255 registers: dk/dv at nc = 11 and 13, dq at 15 and 16)
+__host__ __device__ constexpr int dkdv_sub(int nc) { return nc > 10 ? F32N_TILE / 2 : F32N_TILE; }
+__host__ __device__ constexpr int dq_sub(int nc) { return nc > 14 ? F32N_TILE / 2 : F32N_TILE; }
+
+// two resident [F32N_OWN][8 * nc + 4] fp32 tiles, two stages of two
+// [F32N_TILE][8 * nc + 4] tiles, and two stages of 3 * F32N_TILE 4-byte
+// values (row statistics or key flags)
+__host__ __device__ constexpr size_t narrow_tf32_smem_bytes(int nc) {
+    return (size_t(2) * F32N_OWN + size_t(4) * F32N_TILE) * (8 * nc + 4) * sizeof(float)
+           + size_t(6) * F32N_TILE * 4;
+}
+
+// The dk/dv kernel's arithmetic on S^T and dP^T (fragment rows: the thread's
+// two keys, with their flags; 8-column tiles j: query rows): P^T in place of
+// S^T and dS^T in place of dP^T. A masked key's logit is -1e9 and its
+// dS = 0; a key past N has P = dS = 0. st points at the statistics
+// [m, 1/l, D][F32N_TILE] of the thread's first column (2 * (lane % 4) past
+// the tile's first query row).
+template <int NJ>
+__device__ __forceinline__ void p_ds_keys_tf32(float (&s)[NJ][4], float (&dp)[NJ][4],
+                                               const float* st, const int (&flag)[2],
+                                               float scale) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(st + 8 * j);
+        const float2 inv2 = *reinterpret_cast<const float2*>(st + F32N_TILE + 8 * j);
+        const float2 D2 = *reinterpret_cast<const float2*>(st + 2 * F32N_TILE + 8 * j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const bool real = flag[h] == KEY_REAL, in = flag[h] != KEY_OUT;
+            const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;
+            const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;
+            // a query row past N has 1/l = 0 here and zero q, dO rows: P = dS = 0
+            const float p0 = in ? expf(x0 - m2.x) * inv2.x : 0.f;
+            const float p1 = in ? expf(x1 - m2.y) * inv2.y : 0.f;
+            dp[j][2 * h] = real ? p0 * (dp[j][2 * h] - D2.x) : 0.f;
+            dp[j][2 * h + 1] = real ? p1 * (dp[j][2 * h + 1] - D2.y) : 0.f;
+            s[j][2 * h] = p0;
+            s[j][2 * h + 1] = p1;
+        }
+    }
+}
+
+// The dq kernel's arithmetic on S and dP (fragment rows: the thread's two
+// query rows, with m, 1/l, D; 8-column tiles j: keys): dS in place of dP.
+// kf points at the flag of the thread's first key. A masked key and a key
+// past N have dS = 0; a query row past N has 1/l = 0, so dS = 0.
+template <int NJ>
+__device__ __forceinline__ void ds_rows_tf32(const float (&s)[NJ][4], float (&dp)[NJ][4],
+                                             const int* kf, const float (&m)[2],
+                                             const float (&inv)[2], const float (&D)[2],
+                                             float scale) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+        const int2 f2 = *reinterpret_cast<const int2*>(kf + 8 * j);
+        const bool real0 = f2.x == KEY_REAL, real1 = f2.y == KEY_REAL;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float p0 = expf(s[j][2 * h] * scale - m[h]) * inv[h];
+            const float p1 = expf(s[j][2 * h + 1] * scale - m[h]) * inv[h];
+            dp[j][2 * h] = real0 ? p0 * (dp[j][2 * h] - D[h]) : 0.f;
+            dp[j][2 * h + 1] = real1 ? p1 * (dp[j][2 * h + 1] - D[h]) : 0.f;
+        }
+    }
+}
+
+// s += A B^T and dp += A2 B2^T in 3xTF32 over the DP columns: A and A2 the
+// warp's 16 rows (from row0) of the [*][DP + 4] tiles At and A2t, B and B2
+// the rows 0 .. 8*NJ - 1 of Bt and B2t; each F32N_GROUP k-steps summed in
+// fresh fragments, then added
+template <int DP, int NJ>
+__device__ __forceinline__ void s_dp_narrow(float (&s)[NJ][4], float (&dp)[NJ][4],
+                                            const float* At, const float* Bt, const float* A2t,
+                                            const float* B2t, int row0, int lane) {
+    constexpr int LD = DP + 4, KS = DP / 8;
+#pragma unroll
+    for (int g = 0; g < KS; g += F32N_GROUP) {
+        float ts[NJ][4], tdp[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ts[j][e] = tdp[j][e] = 0.f;
+#pragma unroll
+        for (int ks = g; ks < (g + F32N_GROUP < KS ? g + F32N_GROUP : KS); ++ks) {
+            uint32_t ahi[4], alo[4], bhi[2], blo[2];
+            frag_a_tf32<LD, F32N_SPLIT>(ahi, alo, At, row0, 8 * ks, lane);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                frag_b_nk_tf32<LD, F32N_SPLIT>(bhi, blo, Bt, 8 * j, 8 * ks, lane);
+                mma_3xtf32_into(ts[j], ahi, alo, bhi, blo);
+            }
+            frag_a_tf32<LD, F32N_SPLIT>(ahi, alo, A2t, row0, 8 * ks, lane);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                frag_b_nk_tf32<LD, F32N_SPLIT>(bhi, blo, B2t, 8 * j, 8 * ks, lane);
+                mma_3xtf32_into(tdp[j], ahi, alo, bhi, blo);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] += ts[j][e];
+                dp[j][e] += tdp[j][e];
+            }
+    }
+}
+
+// acc[n] (16 x 8: output columns 8n .. 8n + 7) += A B in 3xTF32, where A is
+// the 16 x 8*NJ matrix whose C fragments are c[j] (its k = the tile's rows
+// 8j .. 8j + 7: c_as_a_tf32, all split first) and B the rows 0 .. 8*NJ - 1
+// of the [*][LD] tile, which holds B as [k][n] (frag_b_kn_tf32); each
+// F32N_GROUP k-steps summed in a fresh fragment, then added
+template <int LD, int NJ, int NN>
+__device__ __forceinline__ void product_c_tf32(float (&acc)[NN][4], const float (&c)[NJ][4],
+                                               const float* tile, int lane) {
+    uint32_t ahi[NJ][4], alo[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) c_as_a_tf32<F32N_SPLIT>(ahi[j], alo[j], c[j]);
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int g = 0; g < NJ; g += F32N_GROUP) {
+            float tc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int j = g; j < (g + F32N_GROUP < NJ ? g + F32N_GROUP : NJ); ++j) {
+                uint32_t bhi[2], blo[2];
+                frag_b_kn_tf32<LD, F32N_SPLIT>(bhi, blo, tile, 8 * j, 8 * n, lane);
+                mma_3xtf32_into(tc, ahi[j], alo[j], bhi, blo);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += tc[e];
+        }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(F32N_NT, F32N_BLOCKS)
+flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                           const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                           float* __restrict__ dk, float* __restrict__ dv, int H, int N, int d,
+                           float scale, int copy, int how) {
+    constexpr int LD = 8 * NC + 4;
+    constexpr int TS = F32N_TILE * LD;  // a Q or dO tile
+    constexpr int SUB = dkdv_sub(NC);   // query rows of S^T and dP^T held at a time
+    constexpr int NJ = SUB / 8;         // their 8-column tiles
+    extern __shared__ uint4 smem_mma[];
+    float* Ks = reinterpret_cast<float*>(smem_mma);  // the block's keys, resident
+    float* Vs = Ks + F32N_OWN * LD;
+    float* Qs = Vs + F32N_OWN * LD;                  // two buffers each
+    float* dOs = Qs + 2 * TS;
+    float* stats = dOs + 2 * TS;                     // [2][m, 1/l, D][F32N_TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int k0 = blockIdx.x * F32N_OWN;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int krows = min(F32N_OWN, N - k0);
+    const uint32_t magic = copy_magic(d);
+
+    zero_pad_columns<F32N_NT, LD>(Ks, 2 * F32N_OWN + 4 * F32N_TILE, d);
+    load_tile_f32<F32N_NT, LD, F32N_OWN>(Ks, k + base + size_t(k0) * d, krows, d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_OWN>(Vs, v + base + size_t(k0) * d, krows, d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_TILE>(Qs, q + base, min(F32N_TILE, N), d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_TILE>(dOs, dout + base, min(F32N_TILE, N), d, copy, magic);
+    cp_async_commit();
+    if (tid < F32N_TILE) {
+        const bool in = tid < N;
+        stats[tid] = in ? row_max[stat + tid] : 0.f;
+        stats[F32N_TILE + tid] = in ? 1.f / row_sum[stat + tid] : 0.f;  // l >= 1
+        stats[2 * F32N_TILE + tid] = in ? dsum[stat + tid] : 0.f;
+    }
+    int flag[2];  // of the thread's two keys: rows g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        flag[h] = key_flag(mask + size_t(b) * N, k0 + warp * 16 + g + 8 * h, N);
+
+    float acc_k[NC][4], acc_v[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int tiles = (N + F32N_TILE - 1) / F32N_TILE;
+    for (int t = 0; t < tiles; ++t) {
+        const int buf = t & 1;
+        const bool more = t + 1 < tiles;
+        // the next query tile: copies in flight, its statistics in registers
+        float next_m = 0.f, next_l = 1.f, next_D = 0.f;
+        bool next_in = false;
+        if (more) {
+            const int q1 = (t + 1) * F32N_TILE;
+            const int nrows = min(F32N_TILE, N - q1);
+            load_tile_f32<F32N_NT, LD, F32N_TILE>(Qs + (buf ^ 1) * TS, q + base + size_t(q1) * d,
+                                                  nrows, d, copy, magic);
+            load_tile_f32<F32N_NT, LD, F32N_TILE>(dOs + (buf ^ 1) * TS,
+                                                  dout + base + size_t(q1) * d, nrows, d, copy,
+                                                  magic);
+            cp_async_commit();
+            next_in = tid < F32N_TILE && q1 + tid < N;
+            if (next_in) {
+                next_m = row_max[stat + q1 + tid];
+                next_l = row_sum[stat + q1 + tid];
+                next_D = dsum[stat + q1 + tid];
+            }
+        }
+
+#pragma unroll 1
+        for (int sub = 0; sub < F32N_TILE; sub += SUB) {
+            const float* Qt = Qs + buf * TS + sub * LD;
+            const float* dOt = dOs + buf * TS + sub * LD;
+            // S^T and dP^T: the warp's 16 keys by SUB query rows of the tile
+            float s[NJ][4], dp[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            s_dp_narrow<8 * NC, NJ>(s, dp, Ks, Qt, Vs, dOt, warp * 16, lane);
+            p_ds_keys_tf32<NJ>(s, dp, stats + buf * 3 * F32N_TILE + sub + 2 * t4, flag, scale);
+            product_c_tf32<LD, NJ, NC>(acc_v, s, dOt, lane);  // dv += P^T dO
+            product_c_tf32<LD, NJ, NC>(acc_k, dp, Qt, lane);  // dk += dS^T Q
+        }
+
+        if (more && tid < F32N_TILE) {
+            float* nx = stats + (buf ^ 1) * 3 * F32N_TILE;
+            nx[tid] = next_m;
+            nx[F32N_TILE + tid] = next_in ? 1.f / next_l : 0.f;
+            nx[2 * F32N_TILE + tid] = next_D;
+        }
+        cp_async_wait_all();
+        __syncthreads();  // tile t+1 has landed, and no warp reads tile t any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= krows) continue;
+        float* dkrow = dk + base + size_t(k0 + r) * d;
+        float* dvrow = dv + base + size_t(k0 + r) * d;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+            const int col = 8 * n + 2 * t4;
+            store_pair_f32(dkrow, col, acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale, d,
+                           pairs);
+            store_pair_f32(dvrow, col, acc_v[n][2 * h], acc_v[n][2 * h + 1], d, pairs);
+        }
+    }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(F32N_NT, F32N_BLOCKS)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                         const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                         float* __restrict__ dq, int H, int N, int d, float scale, int copy,
+                         int how) {
+    constexpr int LD = 8 * NC + 4;
+    constexpr int TS = F32N_TILE * LD;  // a K or V tile
+    constexpr int SUB = dq_sub(NC);     // keys of S and dP held at a time
+    constexpr int NJ = SUB / 8;         // their 8-column tiles
+    extern __shared__ uint4 smem_mma[];
+    float* Qs = reinterpret_cast<float*>(smem_mma);  // the block's query rows, resident
+    float* dOs = Qs + F32N_OWN * LD;
+    float* Ks = dOs + F32N_OWN * LD;                 // two buffers each
+    float* Vs = Ks + 2 * TS;
+    int* kflag = reinterpret_cast<int*>(Vs + 2 * TS);  // [2][F32N_TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int q0 = blockIdx.x * F32N_OWN;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int qrows = min(F32N_OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const uint32_t magic = copy_magic(d);
+
+    zero_pad_columns<F32N_NT, LD>(Qs, 2 * F32N_OWN + 4 * F32N_TILE, d);
+    load_tile_f32<F32N_NT, LD, F32N_OWN>(Qs, q + base + size_t(q0) * d, qrows, d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_OWN>(dOs, dout + base + size_t(q0) * d, qrows, d, copy,
+                                         magic);
+    load_tile_f32<F32N_NT, LD, F32N_TILE>(Ks, k + base, min(F32N_TILE, N), d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_TILE>(Vs, v + base, min(F32N_TILE, N), d, copy, magic);
+    cp_async_commit();
+    if (tid < F32N_TILE) kflag[tid] = key_flag(mask_row, tid, N);
+    float m[2], inv[2], D[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const bool in = r < qrows;  // a row past N: zero q and dO rows, 1/l = 0, so dS = 0
+        m[h] = in ? row_max[stat + q0 + r] : 0.f;
+        inv[h] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;  // l >= 1
+        D[h] = in ? dsum[stat + q0 + r] : 0.f;
+    }
+
+    float acc[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int tiles = (N + F32N_TILE - 1) / F32N_TILE;
+    for (int t = 0; t < tiles; ++t) {
+        const int buf = t & 1;
+        const bool more = t + 1 < tiles;
+        int next_flag = KEY_OUT;
+        if (more) {  // the next key tile: copies in flight, its flags in a register
+            const int k1 = (t + 1) * F32N_TILE;
+            const int nrows = min(F32N_TILE, N - k1);
+            load_tile_f32<F32N_NT, LD, F32N_TILE>(Ks + (buf ^ 1) * TS, k + base + size_t(k1) * d,
+                                                  nrows, d, copy, magic);
+            load_tile_f32<F32N_NT, LD, F32N_TILE>(Vs + (buf ^ 1) * TS, v + base + size_t(k1) * d,
+                                                  nrows, d, copy, magic);
+            cp_async_commit();
+            if (tid < F32N_TILE) next_flag = key_flag(mask_row, k1 + tid, N);
+        }
+
+#pragma unroll 1
+        for (int sub = 0; sub < F32N_TILE; sub += SUB) {
+            const float* Kt = Ks + buf * TS + sub * LD;
+            const float* Vt = Vs + buf * TS + sub * LD;
+            // S and dP: the warp's 16 query rows by SUB keys of the tile
+            float s[NJ][4], dp[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            s_dp_narrow<8 * NC, NJ>(s, dp, Qs, Kt, dOs, Vt, warp * 16, lane);
+            ds_rows_tf32<NJ>(s, dp, kflag + buf * F32N_TILE + sub + 2 * t4, m, inv, D, scale);
+            product_c_tf32<LD, NJ, NC>(acc, dp, Kt, lane);  // dq += dS K
+        }
+
+        if (more && tid < F32N_TILE) kflag[(buf ^ 1) * F32N_TILE + tid] = next_flag;
+        cp_async_wait_all();
+        __syncthreads();  // tile t+1 has landed, and no warp reads tile t any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= qrows) continue;
+        float* dqrow = dq + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+            store_pair_f32(dqrow, 8 * n + 2 * t4, acc[n][2 * h] * scale,
+                           acc[n][2 * h + 1] * scale, d, pairs);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -2571,36 +2766,48 @@ cudaError_t launch_dq_mma(const Args& a, void* dq) {
     return cudaGetLastError();
 }
 
+// the widest copy of the fp32 inputs' rows (chunk_copy_f32: 4, 2 or 1 floats)
+int f32_copy(const Args& a) {
+    return chunk_copy_f32(a.d, std::min(std::min(alignment(a.q), alignment(a.k)),
+                                        std::min(alignment(a.v), alignment(a.dout))));
+}
+
+// 8-byte stores of two floats need even rows on an 8-byte-aligned tensor
+int store_mode_f32(const Args& a, const void* out) {
+    return (a.d % 2 == 0 && aligned(out, 8)) ? STORE_PAIRS : 0;
+}
+
 template <int NC>
-cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
-    const size_t bytes = dkdv_smem_floats(a.d, 8 * NC) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<NC>,
+cudaError_t launch_dkdv_tf32(const Args& a, void* dk, void* dv) {
+    const size_t bytes = narrow_tf32_smem_bytes(NC);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_tf32_kernel<NC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.N + BN - 1) / BN, a.B * a.H);
-    flash_bwd_dkdv_kernel<NC><<<grid, NT, bytes, a.stream>>>(
+    const dim3 grid((a.N + F32N_OWN - 1) / F32N_OWN, a.B * a.H);
+    flash_bwd_dkdv_tf32_kernel<NC><<<grid, F32N_NT, bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
         static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
         static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.N, a.d,
-        1.0f / sqrtf(float(a.d)));
+        1.0f / sqrtf(float(a.d)), f32_copy(a), store_mode_f32(a, dk) & store_mode_f32(a, dv));
     return cudaGetLastError();
 }
 
 template <int NC>
-cudaError_t launch_dq(const Args& a, void* dq) {
-    const size_t bytes = dq_smem_floats(a.d, 8 * NC) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<NC>,
+cudaError_t launch_dq_tf32(const Args& a, void* dq) {
+    const size_t bytes = narrow_tf32_smem_bytes(NC);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<NC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.N + BM - 1) / BM, a.B * a.H);
-    flash_bwd_dq_kernel<NC><<<grid, NT, bytes, a.stream>>>(
+    const dim3 grid((a.N + F32N_OWN - 1) / F32N_OWN, a.B * a.H);
+    flash_bwd_dq_tf32_kernel<NC><<<grid, F32N_NT, bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
         static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
-        static_cast<float*>(dq), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)));
+        static_cast<float*>(dq), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)), f32_copy(a),
+        store_mode_f32(a, dq));
     return cudaGetLastError();
 }
 
@@ -2730,16 +2937,14 @@ cudaError_t launch_tf32(Kernel kernel, size_t bytes, int rows, int threads, cons
                                            int(bytes));
     if (err != cudaSuccess) return err;
     const int lists = a.B * a.H, per_tile = rows / a.N;
-    const int copy = chunk_copy_f32(a.d, std::min(std::min(alignment(a.q), alignment(a.k)),
-                                                  std::min(alignment(a.v), alignment(a.dout))));
-    const bool pairs = a.d % 2 == 0 && aligned(dq, 8) && aligned(dk, 8) && aligned(dv, 8);
     kernel<<<unsigned((lists + per_tile - 1) / per_tile), threads, bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
         static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), lists, a.H,
-        a.N, a.d, 1.0f / sqrtf(float(a.d)), copy, pairs ? STORE_PAIRS : 0);
+        a.N, a.d, 1.0f / sqrtf(float(a.d)), f32_copy(a),
+        store_mode_f32(a, dq) & store_mode_f32(a, dk) & store_mode_f32(a, dv));
     return cudaGetLastError();
 }
 
@@ -2803,36 +3008,62 @@ bool valid(const Args& a, int dtype) {
 
 }  // namespace
 
-// Dispatch for d <= 128 on the head dim padded to a multiple of 16 (KC = 1 ..
-// 8 steps of 16; the fp32 kernels count 8-column blocks, NC = 2*KC) and on the
-// dtype.
-#define FLASH_BWD_CASE(KC, MMA, F32) \
-    case KC: return int(dtype == 1 ? MMA<KC> ARGS : F32<2 * KC> ARGS);
-#define FLASH_BWD_DISPATCH(MMA, F32)  \
-    switch ((a.d + 15) / 16) {        \
-        FLASH_BWD_CASE(1, MMA, F32)   \
-        FLASH_BWD_CASE(2, MMA, F32)   \
-        FLASH_BWD_CASE(3, MMA, F32)   \
-        FLASH_BWD_CASE(4, MMA, F32)   \
-        FLASH_BWD_CASE(5, MMA, F32)   \
-        FLASH_BWD_CASE(6, MMA, F32)   \
-        FLASH_BWD_CASE(7, MMA, F32)   \
-        FLASH_BWD_CASE(8, MMA, F32)   \
-    }                                 \
-    return int(cudaErrorInvalidValue);
+// Dispatch for d <= 128: bf16 on the head dim padded to a multiple of 16
+// (KC = 1 .. 8 steps of 16), fp32 on the head dim padded to a multiple of 8
+// (NC = 1 .. 16 steps of 8, TF32's k-step).
+#define FLASH_BWD_BF16_DISPATCH(LAUNCH)      \
+    switch ((a.d + 15) / 16) {               \
+        case 1: return int(LAUNCH<1> ARGS);  \
+        case 2: return int(LAUNCH<2> ARGS);  \
+        case 3: return int(LAUNCH<3> ARGS);  \
+        case 4: return int(LAUNCH<4> ARGS);  \
+        case 5: return int(LAUNCH<5> ARGS);  \
+        case 6: return int(LAUNCH<6> ARGS);  \
+        case 7: return int(LAUNCH<7> ARGS);  \
+        case 8: return int(LAUNCH<8> ARGS);  \
+    }
+#define FLASH_BWD_F32_DISPATCH(LAUNCH)         \
+    switch ((a.d + 7) / 8) {                   \
+        case 1: return int(LAUNCH<1> ARGS);    \
+        case 2: return int(LAUNCH<2> ARGS);    \
+        case 3: return int(LAUNCH<3> ARGS);    \
+        case 4: return int(LAUNCH<4> ARGS);    \
+        case 5: return int(LAUNCH<5> ARGS);    \
+        case 6: return int(LAUNCH<6> ARGS);    \
+        case 7: return int(LAUNCH<7> ARGS);    \
+        case 8: return int(LAUNCH<8> ARGS);    \
+        case 9: return int(LAUNCH<9> ARGS);    \
+        case 10: return int(LAUNCH<10> ARGS);  \
+        case 11: return int(LAUNCH<11> ARGS);  \
+        case 12: return int(LAUNCH<12> ARGS);  \
+        case 13: return int(LAUNCH<13> ARGS);  \
+        case 14: return int(LAUNCH<14> ARGS);  \
+        case 15: return int(LAUNCH<15> ARGS);  \
+        case 16: return int(LAUNCH<16> ARGS);  \
+    }
 
 namespace {
 
 int narrow_dkdv(const Args& a, int dtype, void* dk, void* dv) {
 #define ARGS (a, dk, dv)
-    FLASH_BWD_DISPATCH(launch_dkdv_mma, launch_dkdv)
+    if (dtype == 1) {
+        FLASH_BWD_BF16_DISPATCH(launch_dkdv_mma)
+    } else {
+        FLASH_BWD_F32_DISPATCH(launch_dkdv_tf32)
+    }
 #undef ARGS
+    return int(cudaErrorInvalidValue);
 }
 
 int narrow_dq(const Args& a, int dtype, void* dq) {
 #define ARGS (a, dq)
-    FLASH_BWD_DISPATCH(launch_dq_mma, launch_dq)
+    if (dtype == 1) {
+        FLASH_BWD_BF16_DISPATCH(launch_dq_mma)
+    } else {
+        FLASH_BWD_F32_DISPATCH(launch_dq_tf32)
+    }
 #undef ARGS
+    return int(cudaErrorInvalidValue);
 }
 
 // d <= 128 in launches of at most narrow_lists(H) lists (mma_common.cuh):

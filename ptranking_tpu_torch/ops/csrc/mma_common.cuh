@@ -4,8 +4,8 @@
 // to LDS = 16*KC + 8 elements (KC = ceil(d/16) 16-deep steps: every row
 // starts 16-byte aligned, as ldmatrix needs, and 8 consecutive rows fall into
 // 8 different 16-byte bank groups), and the 8-byte cp.async tile copies;
-// then the fp32 packed kernels' 3xTF32 products on mma.sync.m16n8k8, their
-// fragments and their fp32 chunk copies (the section at the end).
+// then the fp32 kernels' 3xTF32 products on mma.sync.m16n8k8, their
+// fragments and their fp32 tile and chunk copies (the section at the end).
 // cuda_build.library_path hashes this header into each including library's
 // name, so an edit rebuilds them.
 
@@ -330,7 +330,7 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 on the tensor cores: 3xTF32 (the fp32 packed kernels)
+// fp32 on the tensor cores: 3xTF32 (the fp32 kernels)
 // ---------------------------------------------------------------------------
 //
 // TF32 keeps 10 mantissa bits, about 3 decimal digits. Split x = hi + lo with
@@ -341,8 +341,10 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 // shared memory have rows of W + 4 floats (W a multiple of 32): 4 mod 32
 // banks, so a fragment read as [row g][column t] (rows of A or of B stored
 // as [n][k]) or as [k 2t, 2t + 1][column g] (B stored as [k][n]) meets 32
-// distinct banks. The split rounds by cvt.rna.tf32.f32, or with INT_ROUND
-// by integer arithmetic on the bits (to_tf32_int: the same bits).
+// distinct banks. The split (a kernel's SPLIT template argument) rounds by
+// cvt.rna.tf32.f32 (SPLIT_CVT), or by integer arithmetic on the bits
+// (SPLIT_INT, to_tf32_int: the same bits), or rounds hi so and leaves lo as
+// x - hi for the tensor cores to cut (SPLIT_INT_CUT, split_tf32).
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
     uint32_t r;
@@ -360,11 +362,23 @@ __device__ __forceinline__ uint32_t to_tf32_int(float x) {
     return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-template <bool INT_ROUND = false>
+enum : int { SPLIT_CVT = 0, SPLIT_INT = 1, SPLIT_INT_CUT = 2 };
+
+// x = hi + lo as SPLIT says. SPLIT_INT_CUT is the split of CUTLASS's fast
+// fp32 products (OpMultiplyAddFastF32): an mma's TF32 operand is read from
+// the top 19 bits of its register and the rest is cut, so hi is x's bits
+// plus half a TF32 ulp (x rounded to nearest once cut), lo = x - hi rounded,
+// exact in fp32, and the tensor cores cut lo to TF32: three instructions
+// where SPLIT_INT takes five, and hi + lo is x to about 2^-21 |x| instead
+// of 2^-22.
+template <int SPLIT = SPLIT_CVT>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    if (INT_ROUND) {
+    if (SPLIT == SPLIT_INT) {
         hi = to_tf32_int(x);
         lo = to_tf32_int(x - __uint_as_float(hi));
+    } else if (SPLIT == SPLIT_INT_CUT) {
+        hi = __float_as_uint(x) + 0x1000u;
+        lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
     } else {
         hi = to_tf32(x);
         lo = to_tf32(x - __uint_as_float(hi));
@@ -387,6 +401,17 @@ __device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// t += a b in 3xTF32 by the three products accumulated in t itself: for a
+// fresh t that sums a few k-steps before its owner adds it to a longer sum
+// in fp32 (mma_3xtf32 takes one k-step a fresh fragment)
+__device__ __forceinline__ void mma_3xtf32_into(float (&t)[4], const uint32_t (&ahi)[4],
+                                                const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                                const uint32_t (&blo)[2]) {
+    mma_1688_tf32(t, alo, bhi[0], bhi[1]);
+    mma_1688_tf32(t, ahi, blo[0], blo[1]);
+    mma_1688_tf32(t, ahi, bhi[0], bhi[1]);
+}
+
 // c += a b in 3xTF32, from split fragments. The three products go into a
 // fresh fragment, which is then added to c in fp32 (round to nearest): the
 // tensor cores align an mma's addends to the largest and cut the bits below,
@@ -398,64 +423,62 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[
                                            const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
                                            const uint32_t (&blo)[2]) {
     float t[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_1688_tf32(t, alo, bhi[0], bhi[1]);
-    mma_1688_tf32(t, ahi, blo[0], blo[1]);
-    mma_1688_tf32(t, ahi, bhi[0], bhi[1]);
+    mma_3xtf32_into(t, ahi, alo, bhi, blo);
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[e] += t[e];
 }
 
 // A (16 rows from row0, k = k0 .. k0 + 7) of a row-major fp32 [rows][LD] tile
-template <int LD, bool INT_ROUND = false>
+template <int LD, int SPLIT = SPLIT_CVT>
 __device__ __forceinline__ void frag_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile,
                                             int row0, int k0, int lane) {
     const float* p = tile + (row0 + (lane >> 2)) * LD + k0 + (lane & 3);
-    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
-    split_tf32<INT_ROUND>(p[8 * LD], hi[1], lo[1]);
-    split_tf32<INT_ROUND>(p[4], hi[2], lo[2]);
-    split_tf32<INT_ROUND>(p[8 * LD + 4], hi[3], lo[3]);
+    split_tf32<SPLIT>(p[0], hi[0], lo[0]);
+    split_tf32<SPLIT>(p[8 * LD], hi[1], lo[1]);
+    split_tf32<SPLIT>(p[4], hi[2], lo[2]);
+    split_tf32<SPLIT>(p[8 * LD + 4], hi[3], lo[3]);
 }
 
 // A of T^T (16 rows = columns row0 .. row0 + 15 of T; k = T's rows k0 + 2t
 // and k0 + 2t + 1 in slots t and t+4) of an fp32 [*][LD] tile T
-template <int LD, bool INT_ROUND = false>
+template <int LD, int SPLIT = SPLIT_CVT>
 __device__ __forceinline__ void frag_a_trans_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                                   const float* tile, int row0, int k0, int lane) {
     const float* p = tile + (k0 + 2 * (lane & 3)) * LD + row0 + (lane >> 2);
-    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
-    split_tf32<INT_ROUND>(p[8], hi[1], lo[1]);
-    split_tf32<INT_ROUND>(p[LD], hi[2], lo[2]);
-    split_tf32<INT_ROUND>(p[LD + 8], hi[3], lo[3]);
+    split_tf32<SPLIT>(p[0], hi[0], lo[0]);
+    split_tf32<SPLIT>(p[8], hi[1], lo[1]);
+    split_tf32<SPLIT>(p[LD], hi[2], lo[2]);
+    split_tf32<SPLIT>(p[LD + 8], hi[3], lo[3]);
 }
 
 // B (8 columns n0 .. n0 + 7, k = k0 .. k0 + 7) of a tile holding B as [n][k]
-template <int LD, bool INT_ROUND = false>
+template <int LD, int SPLIT = SPLIT_CVT>
 __device__ __forceinline__ void frag_b_nk_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                                const float* tile, int n0, int k0, int lane) {
     const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
-    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
-    split_tf32<INT_ROUND>(p[4], hi[1], lo[1]);
+    split_tf32<SPLIT>(p[0], hi[0], lo[0]);
+    split_tf32<SPLIT>(p[4], hi[1], lo[1]);
 }
 
 // B (columns n0 .. n0 + 7; k = rows k0 + 2t and k0 + 2t + 1 in slots t and
 // t+4) of a tile holding B as [k][n]
-template <int LD, bool INT_ROUND = false>
+template <int LD, int SPLIT = SPLIT_CVT>
 __device__ __forceinline__ void frag_b_kn_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                                const float* tile, int k0, int n0, int lane) {
     const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-    split_tf32<INT_ROUND>(p[0], hi[0], lo[0]);
-    split_tf32<INT_ROUND>(p[LD], hi[1], lo[1]);
+    split_tf32<SPLIT>(p[0], hi[0], lo[0]);
+    split_tf32<SPLIT>(p[LD], hi[1], lo[1]);
 }
 
 // The C fragment of P or dS (rows g, g+8; columns 2t, 2t+1 of an 8-column
 // tile) as the A fragment of a product over those columns, k slots t -> 2t
 // and t+4 -> 2t+1 (mma_1688_tf32), split
-template <bool INT_ROUND = false>
+template <int SPLIT = SPLIT_CVT>
 __device__ __forceinline__ void c_as_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                             const float (&c)[4]) {
     const float a[4] = {c[0], c[2], c[1], c[3]};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32<INT_ROUND>(a[i], hi[i], lo[i]);
+    for (int i = 0; i < 4; ++i) split_tf32<SPLIT>(a[i], hi[i], lo[i]);
 }
 
 // The widest copy (floats a cp.async moves: 4, 2 or 1) of a [*, d] fp32
@@ -554,6 +577,46 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* __restric
         load_rows_f32_async<NT, W, ROWS, 2>(dst, src, nrows, d, c0);
     else
         load_rows_f32_async<NT, W, ROWS, 1>(dst, src, nrows, d, c0);
+}
+
+// Rows r < nrows of the contiguous [nrows, d] fp32 tile at src into the
+// shared [ROWS][LD] tile at dst, zeros in the rows past nrows, by the block's
+// NT threads (the caller commits and waits). With copy == 4 (chunk_copy_f32:
+// d % 4 == 0 on 16-byte-aligned tensors) 16-byte cp.async of the tile's
+// 4-float chunks as load_tile takes its 8-byte ones: chunk L = tid + NT * i
+// lies in row L / (d/4) = (2L * magic) >> 32 with magic = copy_magic(d), so
+// a thread's source addresses advance by a constant and its copies issue
+// back to back; the columns d .. LD - 1 are not written (the caller zeroes
+// them once: zero_pad_columns). Otherwise load_chunk_f32's copies of `copy`
+// floats over the columns 0 .. LD - 5, zeros past d.
+template <int NT, int LD, int ROWS>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src,
+                                              int nrows, int d, int copy, uint32_t magic) {
+    if (copy == 4) {
+        constexpr int COPIES = (ROWS * ((LD - 4) / 4) + NT - 1) / NT;  // a thread's, at most
+        const int total = ROWS * (d >> 2);
+        const uint32_t at = smem_addr(dst) + 16 * threadIdx.x;  // before the row padding
+        const uint32_t pad = 4 * (LD - d);                      // bytes of padding a row
+        const float* from = src + 4 * threadIdx.x;
+#pragma unroll
+        for (int i = 0; i < COPIES; ++i) {
+            const uint32_t chunk = threadIdx.x + NT * i;
+            const int r = __umulhi(2u * chunk, magic);
+            const bool in = r < nrows;
+            if (chunk < uint32_t(total))
+                cp_async_16(at + 16 * NT * i + r * pad, in ? from + 4 * NT * i : src, in ? 16 : 0);
+        }
+    } else {
+        load_chunk_f32<NT, LD - 4, ROWS>(dst, src, nrows, d, 0, copy);
+    }
+}
+
+// columns d .. LD-1 of `rows` shared fp32 rows: written once, no copy of
+// load_tile_f32's 16-byte path touches them
+template <int NT, int LD>
+__device__ __forceinline__ void zero_pad_columns(float* tiles, int rows, int d) {
+    for (int r = threadIdx.x; r < rows; r += NT)
+        for (int c = d; c < LD; ++c) tiles[r * LD + c] = 0.f;
 }
 
 // (x, y) at columns col, col + 1 of an fp32 output row of d columns

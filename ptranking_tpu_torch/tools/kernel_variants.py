@@ -13,7 +13,8 @@ all with nvcc started together. Then it times each variant's kernels, once in
 the listed order and once in reverse: the backward's dk/dv and dq at the
 training shape (32, 2, 1408, 68) bf16 and at the Yahoo! LTR listsf's
 WIDE_SHAPES (the wide kernels: d = 350 and 384 in the buckets of 16 to 256
-docs), the packed backward (dq, dk, dv in one launch) at the WIDE_SHAPES of
+docs), and in fp32 (3xTF32) at F32_PAIR_SHAPES (for "parent": the parent's
+fp32 dk/dv and dq kernels there), the packed backward (dq, dk, dv in one launch) at the WIDE_SHAPES of
 at most 64 docs and at PACK_COPY_SHAPES, the list backward (the same on a
 128-row tile of one list) at the WIDE_SHAPES of 128 docs and at
 LIST_COPY_SHAPES, and the long backward (one list of 129..256 docs a block,
@@ -82,6 +83,9 @@ LIST_COPY_SHAPES = [(256, 2, 128, 352)]
 LONG_COPY_SHAPES = [(128, 2, 256, 352)]
 FWD_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68), *WIDE_SHAPES]
 BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
+# the fp32 dk/dv and dq kernels at d <= 128: the flagship's training batch
+# and one list of the serving path's top bucket
+F32_PAIR_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68)]
 SINK_SHAPE = (32, 1408)
 PAIR_SHAPE = (32, 1408)
 EXPERIMENT = cuda_build.CSRC / "experiments" / "flash_attn_bwd_wgmma.cu"
@@ -136,6 +140,11 @@ _TF32_VARIANTS = {"tf32_w64": [(_TF32_W, _TF32_W.replace("= 32", "= 64"))]}
 _F32_W = "constexpr int F32_W = 32;"
 _F32_INT_ROUND = "constexpr bool F32_INT_ROUND = true;"
 _F32_FWD_BOUNDS = "__launch_bounds__(2 * f32_own(ROWS), 1)\nflash_fwd_list_tf32_kernel"
+_F32N_WARPS = "constexpr int F32N_WARPS = 4;"
+_F32N_TILE = "constexpr int F32N_TILE = 32;"
+_F32N_SPLIT = "constexpr int F32N_SPLIT = SPLIT_INT_CUT;"
+_F32N_GROUP = "constexpr int F32N_GROUP = 4;"
+_F32N_BLOCKS = "constexpr int F32N_BLOCKS = 8 / F32N_WARPS;"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -209,6 +218,20 @@ BWD_VARIANTS = {
     "f32_cvt_round": [(_F32_INT_ROUND, _F32_INT_ROUND.replace("true", "false"))],
     "f32_cut_partials": [("const float2 p = more_q && r < nrows", "const float2 p = false"),
                          ("const float2 p = more_kv && key < nrows", "const float2 p = false")],
+    # the fp32 dk/dv and dq kernels at d <= 128: 8 warps a block (128 keys or
+    # query rows, one block an SM at d = 68) instead of 4 (two blocks an SM);
+    # query-row and key tiles of 64 rows (one block of 4 warps an SM at
+    # d = 68) or of 16 instead of 32; the operands' lo rounded to TF32 too
+    # (five instructions a value instead of three); each k-step's products
+    # summed in a fresh fragment (mma_3xtf32) instead of four k-steps', or
+    # eight k-steps'; the registers cut for one block an SM instead of two
+    "f32n_warps8": [(_F32N_WARPS, _F32N_WARPS.replace("= 4", "= 8"))],
+    "f32n_tile64": [(_F32N_TILE, _F32N_TILE.replace("= 32", "= 64"))],
+    "f32n_tile16": [(_F32N_TILE, _F32N_TILE.replace("= 32", "= 16"))],
+    "f32n_split_int": [(_F32N_SPLIT, _F32N_SPLIT.replace("SPLIT_INT_CUT", "SPLIT_INT"))],
+    "f32n_group1": [(_F32N_GROUP, _F32N_GROUP.replace("= 4", "= 1"))],
+    "f32n_group8": [(_F32N_GROUP, _F32N_GROUP.replace("= 4", "= 8"))],
+    "f32n_blocks1": [(_F32N_BLOCKS, _F32N_BLOCKS.replace("8 / F32N_WARPS", "1"))],
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -307,7 +330,8 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_dkdv_wide_mma_kernel", r"flash_bwd_dq_wide_mma_kernel",
                                 r"flash_bwd_packed_mma_kernel", r"flash_bwd_long_mma_kernel",
                                 r"flash_bwd_long_rows_mma_kernel",
-                                r"flash_bwd_packed_tf32_kernel", r"flash_bwd_list_tf32_kernel"],
+                                r"flash_bwd_packed_tf32_kernel", r"flash_bwd_list_tf32_kernel",
+                                r"flash_bwd_dkdv_tf32_kernelILi9E", r"flash_bwd_dq_tf32_kernelILi9E"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
                                 r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel",
                                 r"flash_fwd_packed_tf32_kernel", r"flash_fwd_list_tf32_kernel"],
@@ -442,7 +466,8 @@ def long_cases(dll, entry):
 
 def bwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the backward's two kernels at
-    BWD_SHAPES (the warpgroup experiment: ATTN_SHAPE only), of the packed
+    BWD_SHAPES and in fp32 at F32_PAIR_SHAPES (the warpgroup experiment:
+    ATTN_SHAPE in bf16 only), of the packed
     kernel at the BWD_SHAPES of at most 64 docs and at PACK_COPY_SHAPES, of
     the list kernel at those of 128 docs and LIST_COPY_SHAPES, and of the
     long kernel at those of 256 docs and LONG_COPY_SHAPES (the ownership
@@ -458,17 +483,21 @@ def bwd_cases(dll, variant):
     dq_fn = _entry(dll, "flash_attn_bwd_dq" + ("_wgmma" if wgmma else ""),
                    [_P] * 9 + [_I] * (4 if wgmma else 5) + [_P])
     cases = []
-    for B, H, N, d in [ATTN_SHAPE] if wgmma else BWD_SHAPES:
-        keep = _bwd_inputs(B, H, N, d)
+    f32 = [] if wgmma else [(s, torch.float32) for s in F32_PAIR_SHAPES]
+    for (B, H, N, d), dtype in [(s, torch.bfloat16) for s in
+                                ([ATTN_SHAPE] if wgmma else BWD_SHAPES)] + f32:
+        keep = _bwd_inputs(B, H, N, d, dtype)
         q, k, v, dout, mask, out, row_max, row_sum, dsum = keep
         common = [t.data_ptr() for t in (q, k, v, dout, row_max, row_sum, dsum, mask)]
-        tail = [B, H, N, d, stream] if wgmma else [B, H, N, d, 1, stream]
+        code = 0 if dtype == torch.float32 else 1
+        tail = [B, H, N, d, stream] if wgmma else [B, H, N, d, code, stream]
         dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+        tag = " fp32" if code == 0 else ""
         cases += [
-            (f"dkdv {[B, H, N, d]}",
+            (f"dkdv{tag} {[B, H, N, d]}",
              lambda c=common, t=tail, o=(dk, dv): dkdv(*c, o[0].data_ptr(), o[1].data_ptr(), *t),
              (dk, dv), keep),
-            (f"dq {[B, H, N, d]}", lambda c=common, t=tail, o=dq: dq_fn(*c, o.data_ptr(), *t),
+            (f"dq{tag} {[B, H, N, d]}", lambda c=common, t=tail, o=dq: dq_fn(*c, o.data_ptr(), *t),
              (dq,), keep)]
     if wgmma:
         return cases

@@ -1,10 +1,14 @@
-"""Time two checkouts' fp32 Yahoo! LTR listsf training steps on one CUDA card.
+"""Time two checkouts' fp32 training steps on one CUDA card.
 
-    python3 -m ptranking_tpu_torch.tools.yahoo_steps PARENT_DIR [CHANGE_DIR]
+    python3 -m ptranking_tpu_torch.tools.yahoo_steps [--flagship] PARENT_DIR [CHANGE_DIR]
 
 Runs `chip_smoke.yahoo_f32_steps` (LambdaRank steps of the Yahoo! LTR listsf
 at d = 350 in fp32, in each bucket of 16 to 256 docs, with exact launch
-counts and profiled card time) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
+counts and profiled card time) or, with --flagship, the flagship's fp32
+steps (the F=136 DASALC listsf at d = 68, 32 lists of 1408 docs,
+LambdaRank through the fused loss, Adagrad: `chip_smoke.timed_steps` of
+`flagship_ranker(compute_dtype="float32")`, which chip_smoke.py has had
+since the training slice) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
 PARENT_DIR in turn (CHANGE_DIR defaults to this checkout; PARENT_DIR is for
 example a parent commit unpacked by `git archive`), each in a fresh Python
 process that puts its checkout first on `sys.path` and builds that
@@ -29,10 +33,27 @@ from ptranking_tpu_torch.ops import cuda_build
 cuda_build.build(cuda_build.all_kernels())
 chip_smoke.yahoo_f32_steps(chip_smoke.card_line())
 """
+# with --flagship
+_FLAGSHIP_CHILD = """
+import json
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from ptranking_tpu_torch.ops import cuda_build
+cuda_build.build(cuda_build.all_kernels())
+card = cs.card_line()
+rec = cs.timed_steps(cs.flagship_ranker(compute_dtype="float32"),
+                     cs.train_batch(cs.TRAIN_B, cs.TRAIN_N, ragged=False, seed=2),
+                     cs.TRAIN_STEPS, "fp32 flagship timed steps")
+print("flagship_fp32_steps " + json.dumps(rec) + f"  [{card}]", flush=True)
+"""
 
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
+    child = _CHILD
+    if args[:1] == ["--flagship"]:
+        child, args = _FLAGSHIP_CHILD, args[1:]
     if not 1 <= len(args) <= 2:
         print(__doc__.strip().splitlines()[2], file=sys.stderr)
         return 2
@@ -43,7 +64,7 @@ def main(argv=None) -> int:
         if not (root / "chip_smoke.py").exists():
             print(f"yahoo_steps: no chip_smoke.py in {root}", file=sys.stderr)
             return 2
-        proc = subprocess.run([sys.executable, "-c", _CHILD, str(root)], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", child, str(root)], cwd=root,
                               capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if "_steps " in line or line.startswith("NVIDIA"):
