@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero:
      plain forward with its row statistics), its backward (dk/dv and dq
      kernels, against autograd through the plain blockwise attention and
      against the explicit plain backward), at head dims up to 128 (fp32: the
-     backward on 3xTF32 tensor-core products) and, through the wide kernels,
-     above; the packed backward of bf16 lists of at most 64
+     forward and backward on 3xTF32 tensor-core products; the fp32 forward
+     also at every d of 1..128, the same bits twice) and, through the wide
+     kernels, above; the packed backward of bf16 lists of at most 64
      docs at head dims above 128 (dq, dk, dv of several lists a block, one
      launch) and the list backward (the same on a 128-row tile of one list
      of 65..128 docs) against both explicit plain backwards, the same bits
@@ -48,7 +49,8 @@ Phases, in order; any failure exits non-zero:
      (model_paras use_pallas=True), Adagrad at lr 1e-3: (a) one step's
      gradients through the kernels against dense attention and the dense
      loss; (b) timed steps at 32 lists of 1408 docs, with exact launch counts
-     per step, in bf16 and in fp32 (the fp32 backward on 3xTF32); (c) one
+     per step, in bf16 and in fp32 (the fp32 forward and backward on
+     3xTF32); (c) one
      train_epoch over ragged lists; (d) save, restore into a
      second ranker, and one more step on both;
   6. wassrank: the same model trained with WassRank (SinkhornOT, 20
@@ -138,6 +140,11 @@ EDGE_SHAPES = [(2, 3, 1, 1, False), (2, 2, 65, 8, True), (1, 3, 100, 24, False),
                (1, 2, 100, 384, False), (2, 1, 70, 520, True)]
 # B*H = 65538 (b, h) pairs: past grid.y's 65535, so two launches of whole lists
 GRID_SHAPE = (32769, 2, 16, 8)
+# the fp32 forward at d <= 128 (3xTF32, the head dim padded to a multiple of
+# 8) at every d of 1..128, correctness only: (B, H, N) of a full, a ragged
+# and an all-padded list, N two 64-key tiles (the last ragged) and two
+# 64-row query blocks
+NARROW_EVERY_D = (3, 2, 77)
 # max |kernel - plain| over real query rows. fp32: both sides accumulate in
 # fp32, differing only in summation order and exp rounding. bf16: the plain
 # version rounds p to bf16 before p.v (as the JAX package does) and the
@@ -241,9 +248,8 @@ FWD_PACK_RECORD = (2048, 2, 16, 350)
 # cancel to rounding noise, so they are held at a tenth of dv's scale.
 PACK_FLOOR = 0.1
 # the attention kernels of each library and how many instantiations each
-# has: the kernels of d <= 128 one per head-dim step of 16 (KC = 1 .. 8;
-# the fp32 forward by 8-column blocks, 2 .. 16; the fp32 backward on
-# 3xTF32 one per step of 8, NC = 1 .. 16), the wide kernels (d > 128)
+# has: the bf16 kernels of d <= 128 one per head-dim step of 16 (KC = 1 ..
+# 8), the fp32 ones (3xTF32) one per step of 8 (NC = 1 .. 16), the wide kernels (d > 128)
 # one, the packed forward two (a 64-key tile of 64 // N lists, a 128-key
 # tile of one list), the packed backward three (64 rows with inputs kept
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
@@ -253,7 +259,7 @@ PACK_FLOOR = 0.1
 # 256 rows).
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
-BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_kernel": 8,
+BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_tf32_kernel": 16,
                                     "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1,
                                     "flash_fwd_packed_mma_kernel": 2,
                                     "flash_fwd_long_mma_kernel": 1,
@@ -529,6 +535,17 @@ def sfu_ops_per_s() -> float:
     return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
+def fwd_ops(flops: float, dtype, d: int):
+    """(operations, peak) of the flash forward's bound: bf16 on the tensor
+    cores; fp32 at d <= 128 as TF32_PRODUCTS TF32 products a product
+    (3xTF32), on the CUDA cores above (the wide kernel)."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return flops, BF16_PEAK
+    return (TF32_PRODUCTS * flops, TF32_PEAK) if d <= 128 else (flops, FP32_PEAK)
+
+
 def bound(flops: float, peak: float, nbytes: float) -> dict:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -595,8 +612,11 @@ def check_plain_forward(q, k, v, mask, worst) -> float:
 
 def check_attention(card: str):
     """Phase 3: the flash kernel against its plain versions at every shape and
-    dtype; returns the records at RECORD_SHAPE (bf16) and WIDE_RECORD_SHAPE
-    (WIDE_RECORD_DTYPE), by shape."""
+    dtype, and the fp32 forward of d <= 128 (3xTF32) at every d of 1..128
+    (NARROW_EVERY_D), the same bits twice; returns the records at
+    RECORD_SHAPE (bf16 and fp32) and WIDE_RECORD_SHAPE (WIDE_RECORD_DTYPE),
+    by (shape, dtype name). The bound of the fp32 forward at d <= 128 counts
+    TF32_PRODUCTS TF32 products a product at TF32_PEAK."""
     import torch
     import torch.nn.functional as Fn
 
@@ -614,6 +634,19 @@ def check_attention(card: str):
             check_close(out, ref, mask, (B, H, N, d), dtype)
             check_plain_forward(q, k, v, mask, worst)
     print(f"attn edge shapes: {len(EDGE_SHAPES)} x 2 dtypes agree", flush=True)
+    B, H, N = NARROW_EVERY_D
+    for d in range(1, 129):
+        q, k, v, mask = attention_inputs(B, H, N, d, True, torch.float32)
+        out = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        again = FLASH_ATTN_FWD(q, k, v, mask, stats=True)
+        ref = blockwise_attention(q, k, v, mask, block_size=min(128, N))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"flash_attn_fwd float32 {(B, H, N, d)}: not the same bits twice")
+        check_close(out[0], ref, mask, (B, H, N, d), torch.float32)
+        check_plain_forward(q, k, v, mask, worst)
+    print(f"attn fp32 forward at every d of 1..128 at {NARROW_EVERY_D}: agrees, the same bits "
+          f"twice", flush=True)
     records = {}
     for (B, H, N, d, all_padded) in ATTN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -633,17 +666,14 @@ def check_attention(card: str):
             library_ms = cuda_time_ms(library, iters)
             flops = 4.0 * B * H * N * N * d
             nbytes = 4.0 * B * H * N * d * q.element_size() + B * N
-            t_ops = flops / (BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK) * 1e3
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
             rec = {"shape": [B, H, N, d], "dtype": name, "max_abs_err": err,
                    "rel_err_vs_plain_forward": err_plain,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                   **bound(*fwd_ops(flops, dtype, d), nbytes)}
             print("attn " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if ((B, H, N, d), name) in ((RECORD_SHAPE, "bfloat16"),
+            if ((B, H, N, d), name) in ((RECORD_SHAPE, "bfloat16"), (RECORD_SHAPE, "float32"),
                                         (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE)):
-                records[(B, H, N, d)] = rec
+                records[((B, H, N, d), name)] = rec
     print(f"attn worst error against attention_forward_plain over every shape: "
           f"{json.dumps(worst)}", flush=True)
     return records
@@ -800,7 +830,7 @@ def check_attention_bwd(card):
                    "pair_rel_err_vs_plain_backward": {g: e[1] for g, e in pair_errs.items()},
                    "ms": times,
                    "bound_ms": {
-                       "fwd_stats": bound(4.0 * B * H * N * N * d, peak,
+                       "fwd_stats": bound(*fwd_ops(4.0 * B * H * N * N * d, dtype, d),
                                           4 * val + B * N + 2 * stats_bytes),
                        "dkdv": bound(bwd_products * 8.0 * B * H * N * N * d, bwd_peak,
                                      6 * val + 3 * stats_bytes + B * N),
@@ -811,9 +841,8 @@ def check_attention_bwd(card):
                    (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE): "_wide"}.get(((B, H, N, d), name))
             if tag is not None:
                 common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
-                if tag != "_fp32":  # the fp32 record is the backward's alone
-                    records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
-                                                       **rec["bound_ms"]["fwd_stats"]}
+                records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
+                                                   **rec["bound_ms"]["fwd_stats"]}
                 records["flash_attn_bwd_dkdv" + tag] = {
                     "max_abs_err": max(pair_errs["dk"][0], pair_errs["dv"][0]),
                     "ms": times["dkdv"], **common, **rec["bound_ms"]["dkdv"]}
@@ -2208,9 +2237,11 @@ def main() -> int:
     phase("kernels")
     flash = check_attention(card)
     records = check_attention_bwd(card)
-    for shape, name in ((RECORD_SHAPE, "flash_attn_fwd"), (WIDE_RECORD_SHAPE, "flash_attn_fwd_wide")):
-        records[name].update({k: flash[shape][k] for k in ("max_abs_err", "plain_ms",
-                                                           "library_ms")})
+    for key, name in (((RECORD_SHAPE, "bfloat16"), "flash_attn_fwd"),
+                      ((RECORD_SHAPE, "float32"), "flash_attn_fwd_fp32"),
+                      ((WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE), "flash_attn_fwd_wide")):
+        records[name].update({k: flash[key][k] for k in ("max_abs_err", "plain_ms",
+                                                         "library_ms")})
     records.update(check_pairwise(card))
     check_grid_limits(card)
     records.update(check_packed(card))
@@ -2225,7 +2256,7 @@ def main() -> int:
 
     phase("train")
     launches, f32_flagship = train_phase(card, work_dir)
-    for name in ("flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_fp32"] = f32_flagship[name]
 
     phase("wassrank")
@@ -2262,6 +2293,8 @@ def main() -> int:
                               "ptranking_tpu/ops/attention.py:172"),
         # the same wrappers in fp32 at d <= 128 (3xTF32): records at
         # RECORD_SHAPE in fp32, launches from phase 5's fp32 timed steps
+        "flash_attn_fwd_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                                "ptranking_tpu/ops/attention.py:129"),
         "flash_attn_bwd_dkdv_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                      "ptranking_tpu/ops/attention.py:172"),
         "flash_attn_bwd_dq_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",

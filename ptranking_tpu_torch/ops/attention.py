@@ -13,9 +13,9 @@ dropout (the JAX package applies none on its flash path either):
     from the forward's row statistics, as a `torch.autograd.Function`: bf16
     inputs on the tensor cores; fp32 inputs on the tensor cores too, each
     product as three TF32 products (3xTF32, about fp32's accuracy), in the
-    backward at head dims up to 128 and in the kernels that take whole lists
-    into a block, and on the fp32 CUDA cores elsewhere (the forward at head
-    dims up to 128, the wide kernels above). CPU
+    forward and backward at head dims up to 128 and in the kernels that take
+    whole lists into a block, and on the fp32 CUDA cores in the wide kernels
+    above. CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
@@ -64,7 +64,9 @@ import torch
 from ptranking_tpu_torch.ops import cuda_build
 
 _NEG = -1e9
-# keys a tile of the forward kernels (TILE and BN in csrc/flash_attn_fwd.cu)
+# keys a tile of the forward kernels (TILE and BN in csrc/flash_attn_fwd.cu; the
+# fp32 kernel of d <= 128 takes 32, F32N_TILE, which moves only the rescales'
+# rounding)
 _FWD_TILE = 64
 
 
@@ -352,7 +354,10 @@ F32_FWD_LONG_MAX_N = 256
 # they beat at every timed shape: 2.60 against 9.17 ms at (32, 2, 1408, 68),
 # 0.37 against 0.86 at (1, 2, 1536, 68) and 0.18 against 0.70 at
 # (1024, 2, 32, 68) on an NVIDIA H100 80GB HBM3 at 700 W
-# (tools/kernel_variants.py --parent, PERF.md).
+# (tools/kernel_variants.py --parent, PERF.md). Nor does the fp32 forward
+# there (csrc/flash_attn_fwd.cu's flash_fwd_tf32_kernel, 3xTF32): 0.89
+# against the CUDA-core kernel's 1.54 ms, 0.115 against 0.25 and 0.051
+# against 0.12 at the same shapes.
 
 
 def fwd_route(dtype: torch.dtype, N: int, d: int) -> str:

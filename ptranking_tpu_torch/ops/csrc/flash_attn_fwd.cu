@@ -99,21 +99,24 @@
 // to the second at N <= LONG_MAX_N, in place of the wide kernel
 // (ops/attention.py's fwd_route).
 //
-// fp32 inputs: flash_fwd_kernel, on the fp32 CUDA cores by design, as the
-// backward's fp32 kernels (TF32 keeps about 3 digits, and the fp32 path is
-// the exact one that gradient and resume checks rest on): register-blocked
-// 4x8 tiles per thread over transposed fp32 tiles in shared memory, 128
-// threads as 16 row groups of 4 rows x 8 lanes, the same padding rules. The
-// exception: fp32 lists of at most 64 docs at d > 128 take
-// flash_fwd_packed_tf32_kernel (entry flash_attn_fwd_packed, dtype 0; the
+// fp32 inputs at d <= 128: flash_fwd_tf32_kernel, the bf16 kernel's layout
+// with both products in TF32 parts on the tensor cores (each fp32 product as
+// three TF32 products, P V as four: about fp32's accuracy, where TF32 alone
+// keeps 3 digits; the section "fp32, head dims up to 128" below), the head
+// dim padded to a multiple of 8. At (32, 2, 1408, 68) with statistics it
+// takes 0.884..0.889 ms on an NVIDIA H100 80GB HBM3 at 700 W, against a
+// bound of 0.209 (three TF32 products a product at 495 TFLOP/s), the
+// CUDA-core kernel it replaced at 1.543 and SDPA's fp32 forward at 1.572
+// (tools/kernel_variants.py; PERF.md keeps the runs). fp32 lists of at most
+// 64 docs at d > 128 take flash_fwd_packed_tf32_kernel (entry flash_attn_fwd_packed, dtype 0; the
 // route at N <= F32_PACK_MAX_N), the packed kernel's design with its two
-// products in 3xTF32 on the tensor cores, which keeps about fp32's accuracy
-// (the section "fp32, lists of at most 64 docs" below); fp32 lists of 65 ..
-// 256 docs at d > 128 take flash_fwd_list_tf32_kernel (entries
-// flash_attn_fwd_packed up to 128 docs and flash_attn_fwd_long, dtype 0; the
-// routes at N <= F32_FWD_LIST_MAX_N and N <= F32_FWD_LONG_MAX_N), one list a
-// 128- or 256-row tile, S once in 64-key slices, 3xTF32 (the section "fp32,
-// lists of 65 .. 256 docs").
+// products in 3xTF32 on the tensor cores (the section "fp32, lists of at
+// most 64 docs" below); fp32 lists of 65 .. 256 docs at d > 128 take
+// flash_fwd_list_tf32_kernel (entries flash_attn_fwd_packed up to 128 docs
+// and flash_attn_fwd_long, dtype 0; the routes at N <= F32_FWD_LIST_MAX_N
+// and N <= F32_FWD_LONG_MAX_N), one list a 128- or 256-row tile, S once in
+// 64-key slices, 3xTF32 (the section "fp32, lists of 65 .. 256 docs"); the
+// fp32 wide kernel, on the CUDA cores, the rest of d > 128.
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -124,212 +127,7 @@
 
 namespace {
 
-constexpr int BM = 64;       // fp32 kernel: query rows per block
-constexpr int BN = 64;       // fp32 kernel: keys per tile
-constexpr int NT = 128;      // fp32 kernel: 16 row groups (4 rows each) x 8 column lanes
-constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
 constexpr float M_INIT = -1e30f;  // below any logit, -1e9 included; finite, so m_old - m_new never is NaN
-
-// ---------------------------------------------------------------------------
-// fp32: CUDA cores
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max8(float x) {  // over the 8 column lanes of a row group
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-    return x;
-}
-
-__device__ __forceinline__ float warp_sum8(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
-    x += __shfl_xor_sync(0xffffffffu, x, 4);
-    return x;
-}
-
-// Shared memory, in floats: Qt and Kt [d][LDT] (transposed tiles), Vs [BN][DP],
-// Pt [BN][LDT] (probabilities, transposed), then BN int key flags.
-__host__ __device__ constexpr size_t smem_floats(int d, int dp) {
-    return size_t(2) * d * LDT + size_t(BN) * dp + size_t(BN) * LDT + BN;
-}
-
-// NC: output columns per thread; the padded head dim is DP = 8 * NC.
-template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ o,
-                 float* __restrict__ row_max, float* __restrict__ row_sum, int H, int N, int d,
-                 float scale) {
-    constexpr int DP = 8 * NC;
-    extern __shared__ float4 smem4[];
-    float* Qt = reinterpret_cast<float*>(smem4);
-    float* Kt = Qt + d * LDT;
-    float* Vs = Kt + d * LDT;
-    float* Pt = Vs + BN * DP;
-    int* kflag = reinterpret_cast<int*>(Pt + BN * LDT);
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 3;  // rows ty*4 .. ty*4+3 of the query tile
-    const int tx = tid & 7;   // logit columns tx*4+j and 32+tx*4+j; output columns tx+8*c
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int q0 = blockIdx.x * BM;
-    const size_t base = size_t(bh) * N * d;
-    const T* qb = q + base;
-    const T* kb = k + base;
-    const T* vb = v + base;
-    const uint8_t* mb = mask + size_t(b) * N;
-
-    // The q tile is BM contiguous rows of d values: a linear, coalesced read.
-    const int qrows = min(BM, N - q0);
-    for (int i = tid; i < BM * d; i += NT) {
-        const int r = i / d, c = i - r * d;
-        Qt[c * LDT + r] = (r < qrows) ? to_f32(qb[size_t(q0 + r) * d + c]) : 0.f;
-    }
-    // Columns d..DP-1 of Vs are read by the p.v product but never loaded.
-    for (int i = tid; i < BN * (DP - d); i += NT) {
-        const int r = i / (DP - d), c = d + (i - r * (DP - d));
-        Vs[r * DP + c] = 0.f;
-    }
-
-    float acc[4][NC];
-    float m_run[4], l_run[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m_run[i] = M_INIT;
-        l_run[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < N; k0 += BN) {
-        const int krows = min(BN, N - k0);
-        __syncthreads();  // the previous tile's Kt, Vs and Pt are no longer read
-        for (int i = tid; i < BN * d; i += NT) {
-            const int r = i / d, c = i - r * d;
-            const bool in = r < krows;
-            const size_t off = size_t(k0 + r) * d + c;
-            Kt[c * LDT + r] = in ? to_f32(kb[off]) : 0.f;
-            Vs[r * DP + c] = in ? to_f32(vb[off]) : 0.f;
-        }
-        if (tid < BN) kflag[tid] = tid >= krows ? KEY_OUT : (mb[k0 + tid] ? KEY_REAL : KEY_MASKED);
-        __syncthreads();
-
-        float s[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < d; ++c) {
-            const float4 a = *reinterpret_cast<const float4*>(&Qt[c * LDT + ty * 4]);
-            const float4 b0 = *reinterpret_cast<const float4*>(&Kt[c * LDT + tx * 4]);
-            const float4 b1 = *reinterpret_cast<const float4*>(&Kt[c * LDT + 32 + tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        }
-
-        // Scale and mask, then the online softmax update for each of the 4 rows.
-        float tmax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = (j < 4) ? tx * 4 + j : 32 + tx * 4 + (j - 4);
-            const int flag = kflag[col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float x = flag == KEY_REAL ? s[i][j] * scale
-                                : (flag == KEY_MASKED ? MASKED_LOGIT : -INFINITY);
-                s[i][j] = x;
-                tmax[i] = fmaxf(tmax[i], x);
-            }
-        }
-        float m_new[4], rsum[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            // column 0 of every tile is a key < N, so the row max is finite
-            m_new[i] = fmaxf(m_run[i], warp_max8(tmax[i]));
-            rsum[i] = 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float p = expf(s[i][j] - m_new[i]);  // exp(-inf) = 0 past N
-                s[i][j] = p;
-                rsum[i] += p;
-            }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float alpha = expf(m_run[i] - m_new[i]);
-            l_run[i] = l_run[i] * alpha + warp_sum8(rsum[i]);
-            m_run[i] = m_new[i];
-#pragma unroll
-            for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = (j < 4) ? tx * 4 + j : 32 + tx * 4 + (j - 4);
-            *reinterpret_cast<float4*>(&Pt[col * LDT + ty * 4]) =
-                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-        }
-        __syncthreads();
-
-        for (int c = 0; c < krows; ++c) {
-            const float4 p = *reinterpret_cast<const float4*>(&Pt[c * LDT + ty * 4]);
-            const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) {
-                const float vv = Vs[c * DP + tx + 8 * cc];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= qrows) continue;
-        const float inv = 1.f / l_run[i];  // l_run >= 1: the row max contributes exp(0)
-        if (row_max != nullptr && tx == 0) {  // the 8 lanes of a row group hold the same m, l
-            row_max[size_t(bh) * N + q0 + r] = m_run[i];
-            row_sum[size_t(bh) * N + q0 + r] = l_run[i];
-        }
-        T* orow = o + base + size_t(q0 + r) * d;
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-            const int col = tx + 8 * cc;
-            if (col < d) orow[col] = from_f32<T>(acc[i][cc] * inv);
-        }
-    }
-}
-
-template <typename T, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   float* row_max, float* row_sum, int B, int H, int N, int d,
-                   cudaStream_t stream) {
-    const size_t bytes = smem_floats(d, 8 * NC) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NC>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((N + BM - 1) / BM, B * H);
-    const float scale = 1.0f / sqrtf(float(d));
-    flash_fwd_kernel<T, NC><<<grid, NT, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const uint8_t*>(mask), static_cast<T*>(o), row_max, row_sum, H, N, d, scale);
-    return cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -538,6 +336,349 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 }
 
 // ---------------------------------------------------------------------------
+// fp32, head dims up to 128: 3xTF32
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_tf32_kernel: the bf16 forward's layout (flash_fwd_mma_kernel) in
+// fp32, both products on the tensor cores in TF32 parts (mma_common.cuh's
+// 3xTF32: about fp32's accuracy), the dq kernel of flash_attn_bwd.cu's fp32
+// pair (flash_bwd_dq_tf32_kernel) with the dP product dropped and an online
+// softmax and O += P V added. A block of F32N_WARPS warps owns F32N_OWN query
+// rows, 16 a warp, and loops over the keys in tiles of F32N_TILE, K, V and
+// the keys' flags double-buffered (cp.async; the next tile's flags
+// prefetched into a register):
+//   * S = Q K^T: each operand split into hi and lo at its fragment load as
+//     CUTLASS's fast fp32 products split it (F32N_SPLIT), the warp's Q split
+//     once into registers up to NC = F32N_QREG_NC (8 * NC of them a
+//     thread), re-split from shared memory each tile above; the three TF32
+//     products of F32N_GROUP k-steps summed in a fresh
+//     fragment, then added to S in fp32;
+//   * the online softmax on S's C fragment, in fp32 and natural-log units
+//     with expf, as the other fp32 kernels compute it: a masked key's logit
+//     is -1e9, a key past N is left out (p = 0); the running max from -1e30,
+//     the row's tile max by two shuffles in its quad, O and the thread's
+//     share of l rescaled by exp(m_old - m_new), l summed from the fp32 p;
+//   * O += P V: P's C fragment is its own A fragment (c_as_a_tf32: k slots
+//     renumbered), split in registers, so P never reaches shared memory; V is
+//     the B operand in k-major order, split in three parts whose sum is
+//     exact (frag_b_kn_tf32x3), four TF32 products a product: a list of one
+//     real document gets its v exactly, as in fp32, so the backward's
+//     dP - D cancels to 0 there as it does in the plain version (V in two
+//     parts gives v to 2^-22, and the fp32 backward's gate at one doc a
+//     list fails); O is 4 * NC fp32 accumulators a thread,
+//     summed by the same fresh-fragment groups;
+//   * O / l stored in fp32, and row_max, row_sum as the other fp32 kernels
+//     write them, when their pointers are set.
+// The head dim is padded to a multiple of 8, TF32's k-step (NC = 1 .. 16;
+// 68 -> 72): tiles of rows of 8 * NC + 4 floats, whose fragment reads meet
+// 32 distinct banks, with zero pad columns. The tiles are copied whole by
+// 16-byte cp.async where d % 4 == 0 (load_tile_f32), else by narrower
+// copies (chunk_copy_f32). No atomics: the same inputs give the same bits.
+// What bounds it: the products, 4 * B*H*N^2*d operations, each taken as
+// three TF32 products (0.209 ms at (32, 2, 1408, 68) at 495 TFLOP/s; P V
+// takes a fourth), and the instructions that feed them: each operand's
+// loads and split, the fp32 additions of the partial sums, the
+// exponentials; the bytes, 4 * B*H*N*d * 4, are far below. It replaces a
+// CUDA-core kernel (4x8 register blocks over transposed tiles copied
+// synchronously, P through shared memory). On an NVIDIA H100 80GB HBM3 at
+// 700 W (tools/kernel_variants.py, PERF.md): 0.884..0.889 ms at
+// (32, 2, 1408, 68) with statistics (that kernel 1.543, SDPA's fp32 forward
+// 1.572), 0.115 at (1, 2, 1536, 68), 0.051 at (1024, 2, 32, 68). P V takes
+// 0.33 of it (0.558 without), its fourth product 0.10, the exponentials
+// 0.06; Q re-split each tile took 6% longer, 64-key tiles 19% (spilling),
+// three blocks an SM 3%.
+
+// F32N: the fp32 forward of d <= 128 (narrow)
+constexpr int F32N_WARPS = 4;              // warps a block
+constexpr int F32N_NT = 32 * F32N_WARPS;   // threads a block
+constexpr int F32N_OWN = 16 * F32N_WARPS;  // query rows a block owns, 16 a warp
+constexpr int F32N_TILE = 32;              // keys a tile
+// blocks an SM the registers are cut for (three blocks' 168 registers
+// spilled at NC = 10, 11 and took 3% longer at d = 68, PERF.md)
+constexpr int F32N_BLOCKS = 2;
+// how the operands are split (mma_common.cuh: hi rounded to TF32, lo = x - hi
+// cut to TF32 by the tensor cores, three instructions a value)
+constexpr int F32N_SPLIT = SPLIT_INT_CUT;
+// k-steps (8-deep) whose 3xTF32 products a fresh fragment sums before it is
+// added to S or O in fp32
+constexpr int F32N_GROUP = 4;
+// the widest NC whose warp keeps Q's split in registers (8 * NC a thread);
+// above, each key tile re-splits Q from shared memory
+constexpr int F32N_QREG_NC = 9;
+
+// the resident [F32N_OWN][8 * nc + 4] Q tile, two stages of K and V tiles of
+// [F32N_TILE][8 * nc + 4] floats, and two stages of F32N_TILE key flags
+__host__ __device__ constexpr size_t narrow_tf32_smem_bytes(int nc) {
+    return (size_t(F32N_OWN) + size_t(4) * F32N_TILE) * (8 * nc + 4) * sizeof(float)
+           + size_t(2) * F32N_TILE * sizeof(int);
+}
+
+// x = hi + lo + lo2 exactly, as the tensor cores read three TF32 operands
+// (the top 19 bits of each register): hi is x cut to TF32, lo = x - hi cut
+// likewise, lo2 what that cut leaves (at most two significant bits). Both
+// differences are exact in fp32, and the three parts keep x's exponent, so
+// a product by an exact 1 sums back to x itself.
+__device__ __forceinline__ void split_tf32x3(float x, uint32_t& hi, uint32_t& lo, uint32_t& lo2) {
+    hi = __float_as_uint(x);
+    const float r = x - __uint_as_float(hi & 0xffffe000u);
+    lo = __float_as_uint(r);
+    lo2 = __float_as_uint(r - __uint_as_float(lo & 0xffffe000u));
+}
+
+// frag_b_kn_tf32's B fragment of V (columns n0 .. n0 + 7; k = rows k0 + 2t
+// and k0 + 2t + 1 in slots t and t+4) in three parts (split_tf32x3)
+template <int LD>
+__device__ __forceinline__ void frag_b_kn_tf32x3(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                                 uint32_t (&lo2)[2], const float* tile, int k0,
+                                                 int n0, int lane) {
+    const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+    split_tf32x3(p[0], hi[0], lo[0], lo2[0]);
+    split_tf32x3(p[LD], hi[1], lo[1], lo2[1]);
+}
+
+// The online softmax on S's fragment (rows: the thread's two query rows g and
+// g + 8 of the warp's 16; 8-key tiles j; kf points at the flag of the
+// thread's first key): the logits (a masked key: -1e9; a key past N: -inf),
+// the running max m[h], the O accumulators and this thread's share l[h] of
+// the running sum rescaled by exp(m_old - m_new), and p = exp(x - m) in place
+// of S, l summed from the fp32 p. The tile's first key is < N, so m is finite.
+template <int NJ, int NC>
+__device__ __forceinline__ void online_softmax_f32(float (&s)[NJ][4], const int* kf, float (&m)[2],
+                                                   float (&l)[2], float (&acc)[NC][4],
+                                                   float scale) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+        const int2 f2 = *reinterpret_cast<const int2*>(kf + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int f = (e & 1) ? f2.y : f2.x;
+            const float x = f == KEY_REAL ? s[j][e] * scale
+                            : (f == KEY_MASKED ? MASKED_LOGIT : -INFINITY);
+            s[j][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float p = expf(s[j][e] - m[e >> 1]);  // 0 past N
+            s[j][e] = p;
+            l[e >> 1] += p;
+        }
+}
+
+// acc[n] (16 x 8: output columns 8n .. 8n + 7) += P V, where P is the
+// 16 x 8*NJ matrix whose C fragments are p[j] (its k = the tile's keys
+// 8j .. 8j + 7: c_as_a_tf32, all split first) and V the rows 0 .. 8*NJ - 1 of
+// the [*][LD] tile in three parts (frag_b_kn_tf32x3): P_lo V_hi + P_hi V_lo2
+// + P_hi V_lo + P_hi V_hi, four TF32 products, so that a row whose p is 1 on
+// one key and 0 on the others (a list of one real document) gets that key's
+// v exactly, as in fp32; each F32N_GROUP k-steps summed in a fresh fragment,
+// then added
+template <int LD, int NJ, int NC>
+__device__ __forceinline__ void product_pv_tf32(float (&acc)[NC][4], const float (&p)[NJ][4],
+                                                const float* tile, int lane) {
+    uint32_t ahi[NJ][4], alo[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) c_as_a_tf32<F32N_SPLIT>(ahi[j], alo[j], p[j]);
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int g = 0; g < NJ; g += F32N_GROUP) {
+            float tc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int j = g; j < (g + F32N_GROUP < NJ ? g + F32N_GROUP : NJ); ++j) {
+                uint32_t bhi[2], blo[2], blo2[2];
+                frag_b_kn_tf32x3<LD>(bhi, blo, blo2, tile, 8 * j, 8 * n, lane);
+                mma_1688_tf32(tc, alo[j], bhi[0], bhi[1]);
+                mma_1688_tf32(tc, ahi[j], blo2[0], blo2[1]);
+                mma_1688_tf32(tc, ahi[j], blo[0], blo[1]);
+                mma_1688_tf32(tc, ahi[j], bhi[0], bhi[1]);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += tc[e];
+        }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(F32N_NT, F32N_BLOCKS)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                      float* __restrict__ o, float* __restrict__ row_max,
+                      float* __restrict__ row_sum, int H, int N, int d, float scale, int copy,
+                      int how) {
+    constexpr int LD = 8 * NC + 4;
+    constexpr int TS = F32N_TILE * LD;  // a K or V tile
+    constexpr int NJ = F32N_TILE / 8;   // 8-key tiles of S
+    constexpr bool QREG = NC <= F32N_QREG_NC;
+    constexpr int QN = QREG ? NC : 1;
+    extern __shared__ uint4 smem_mma[];
+    float* Qs = reinterpret_cast<float*>(smem_mma);  // the block's query rows
+    float* Ks = Qs + F32N_OWN * LD;                  // two buffers each
+    float* Vs = Ks + 2 * TS;
+    int* kflag = reinterpret_cast<int*>(Vs + 2 * TS);  // [2][F32N_TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int q0 = blockIdx.x * F32N_OWN;
+    const size_t base = size_t(bh) * N * d;
+    const int qrows = min(F32N_OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const uint32_t magic = copy_magic(d);
+
+    zero_pad_columns<F32N_NT, LD>(Qs, F32N_OWN + 4 * F32N_TILE, d);
+    load_tile_f32<F32N_NT, LD, F32N_OWN>(Qs, q + base + size_t(q0) * d, qrows, d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_TILE>(Ks, k + base, min(F32N_TILE, N), d, copy, magic);
+    load_tile_f32<F32N_NT, LD, F32N_TILE>(Vs, v + base, min(F32N_TILE, N), d, copy, magic);
+    cp_async_commit();
+    if (tid < F32N_TILE) kflag[tid] = key_flag(mask_row, tid, N);
+
+    float acc[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    // of the thread's two query rows: the running max and the thread's share
+    // of the running sum
+    float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};
+
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t qhi[QN][4], qlo[QN][4];  // the warp's Q rows, split once (QREG)
+    if constexpr (QREG) {
+#pragma unroll
+        for (int ks = 0; ks < NC; ++ks)
+            frag_a_tf32<LD, F32N_SPLIT>(qhi[ks], qlo[ks], Qs, warp * 16, 8 * ks, lane);
+    }
+
+    const int tiles = (N + F32N_TILE - 1) / F32N_TILE;
+    for (int t = 0; t < tiles; ++t) {
+        const int buf = t & 1;
+        const bool more = t + 1 < tiles;
+        int next_flag = KEY_OUT;
+        if (more) {  // the next key tile: copies in flight, its flags in a register
+            const int k1 = (t + 1) * F32N_TILE;
+            const int nrows = min(F32N_TILE, N - k1);
+            load_tile_f32<F32N_NT, LD, F32N_TILE>(Ks + (buf ^ 1) * TS, k + base + size_t(k1) * d,
+                                                  nrows, d, copy, magic);
+            load_tile_f32<F32N_NT, LD, F32N_TILE>(Vs + (buf ^ 1) * TS, v + base + size_t(k1) * d,
+                                                  nrows, d, copy, magic);
+            cp_async_commit();
+            if (tid < F32N_TILE) next_flag = key_flag(mask_row, k1 + tid, N);
+        }
+        const float* Kt = Ks + buf * TS;
+        const float* Vt = Vs + buf * TS;
+
+        // S = Q K^T: the warp's 16 query rows by the tile's keys
+        float s[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int g0 = 0; g0 < NC; g0 += F32N_GROUP) {
+            float ts[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) ts[j][e] = 0.f;
+#pragma unroll
+            for (int ks = g0; ks < (g0 + F32N_GROUP < NC ? g0 + F32N_GROUP : NC); ++ks) {
+                uint32_t ahi[4], alo[4], bhi[2], blo[2];
+                if constexpr (QREG) {
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        ahi[i] = qhi[ks][i];
+                        alo[i] = qlo[ks][i];
+                    }
+                } else {
+                    frag_a_tf32<LD, F32N_SPLIT>(ahi, alo, Qs, warp * 16, 8 * ks, lane);
+                }
+#pragma unroll
+                for (int j = 0; j < NJ; ++j) {
+                    frag_b_nk_tf32<LD, F32N_SPLIT>(bhi, blo, Kt, 8 * j, 8 * ks, lane);
+                    mma_3xtf32_into(ts[j], ahi, alo, bhi, blo);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] += ts[j][e];
+        }
+
+        online_softmax_f32<NJ, NC>(s, kflag + buf * F32N_TILE + 2 * t4, m, l, acc, scale);
+        product_pv_tf32<LD, NJ, NC>(acc, s, Vt, lane);  // O += P V
+
+        if (more && tid < F32N_TILE) kflag[(buf ^ 1) * F32N_TILE + tid] = next_flag;
+        cp_async_wait_all();
+        __syncthreads();  // tile t+1 has landed, and no warp reads tile t any more
+    }
+
+    const bool pairs = how & STORE_PAIRS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float sum = l[h];  // the quad's four shares
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int r = warp * 16 + g + 8 * h;
+        if (r >= qrows) continue;
+        const float inv = 1.f / sum;  // sum >= 1: the row max contributes exp(0)
+        float* orow = o + base + size_t(q0 + r) * d;
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+            store_pair_f32(orow, 8 * n + 2 * t4, acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv, d,
+                           pairs);
+        if (row_max != nullptr && t4 == 0) {  // the quad holds the same m and sum
+            const size_t at = size_t(bh) * N + q0 + r;
+            row_max[at] = m[h];
+            row_sum[at] = sum;
+        }
+    }
+}
+
+template <int NC>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        float* row_max, float* row_sum, int B, int H, int N, int d,
+                        cudaStream_t stream) {
+    const auto kernel = flash_fwd_tf32_kernel<NC>;
+    const size_t bytes = narrow_tf32_smem_bytes(NC);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    // 16-byte copies need d % 4 == 0 on 16-byte-aligned tensors (chunk_copy_f32);
+    // 8-byte stores of two floats need even rows on an 8-byte-aligned output
+    const int copy = chunk_copy_f32(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 8) ? STORE_PAIRS : 0;
+    const dim3 grid((N + F32N_OWN - 1) / F32N_OWN, B * H);
+    kernel<<<grid, F32N_NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(o), row_max, row_sum, H, N, d,
+        1.0f / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // d > 128: the wide kernels
 // ---------------------------------------------------------------------------
 //
@@ -545,7 +686,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 // the warp's Q in registers, KC fragments, and both keep d-wide tiles in
 // shared memory), so their resources grow with d: at d = 384 the bf16 one
 // would need 251,392 bytes of shared memory (the H100 allows 232,448) and the
-// fp32 one 324,864. The wide kernels split the OUTPUT's head dim over the
+// fp32 one 497,152. The wide kernels split the OUTPUT's head dim over the
 // grid instead: a block owns 64 query rows and one chunk of output columns,
 // and streams the contraction of S = Q K^T over d in 64-column chunks staged
 // in shared memory, so nothing of theirs grows with d. Every chunk-block of a
@@ -565,6 +706,10 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 // 0.23 ms at d = 384 (16-byte copies); 64-column output chunks (twice the
 // re-reads) take 0.94 / 0.39 ms.
 
+constexpr int BM = 64;       // fp32 wide kernel: query rows per block
+constexpr int BN = 64;       // fp32 wide kernel: keys per tile
+constexpr int NT = 128;      // fp32 wide kernel: 16 row groups (4 rows each) x 8 column lanes
+constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
 constexpr int DCH = 64;  // columns of a d-chunk of the S product
 constexpr int WIDE_CW = 8;  // 16-column steps of the bf16 kernel's output chunk: 128 columns
 constexpr int WIDE_NC = 8;  // output columns a thread of the fp32 kernel: a 64-column chunk
@@ -573,6 +718,20 @@ constexpr int WIDE_NC = 8;  // output columns a thread of the fp32 kernel: a 64-
 // output chunk's columns), Pt [BN][LDT], then BN int key flags.
 __host__ __device__ constexpr size_t wide_smem_floats(int nc) {
     return size_t(2) * DCH * LDT + size_t(BN) * 8 * nc + size_t(BN) * LDT + BN;
+}
+
+__device__ __forceinline__ float warp_max8(float x) {  // over the 8 column lanes of a row group
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+    return x;
+}
+
+__device__ __forceinline__ float warp_sum8(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    x += __shfl_xor_sync(0xffffffffu, x, 4);
+    return x;
 }
 
 template <int NC>
@@ -651,7 +810,7 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
 
-        // Scale and mask, then the online softmax update: flash_fwd_kernel's steps.
+        // Scale and mask, then the online softmax update for each of the 4 rows.
         float tmax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -1933,26 +2092,44 @@ cudaError_t launch_list_tf32(const void* q, const void* k, const void* v, const 
     return cudaGetLastError();
 }
 
-// d <= 128: the kernels above, on the head dim padded to a multiple of 16:
-// KC steps of 16 (the fp32 kernel counts 8-column blocks, NC = 2 * KC)
+// d <= 128: bf16 on the head dim padded to a multiple of 16 (KC steps of
+// 16), fp32 on the head dim padded to a multiple of 8 (NC steps of 8)
 int launch_narrow(const void* q, const void* k, const void* v, const void* mask, void* o,
                   float* rm, float* rs, int B, int H, int N, int d, int dtype,
                   cudaStream_t st) {
-#define FLASH_CASE(KC)                                                                     \
-    case KC:                                                                               \
-        return int(dtype == 1 ? launch_mma<KC>(q, k, v, mask, o, rm, rs, B, H, N, d, st)   \
-                              : launch<float, 2 * KC>(q, k, v, mask, o, rm, rs, B, H, N, d, st));
-    switch ((d + 15) / 16) {
-        FLASH_CASE(1)
-        FLASH_CASE(2)
-        FLASH_CASE(3)
-        FLASH_CASE(4)
-        FLASH_CASE(5)
-        FLASH_CASE(6)
-        FLASH_CASE(7)
-        FLASH_CASE(8)
+#define ARGS (q, k, v, mask, o, rm, rs, B, H, N, d, st)
+    if (dtype == 1) {
+        switch ((d + 15) / 16) {
+            case 1: return int(launch_mma<1> ARGS);
+            case 2: return int(launch_mma<2> ARGS);
+            case 3: return int(launch_mma<3> ARGS);
+            case 4: return int(launch_mma<4> ARGS);
+            case 5: return int(launch_mma<5> ARGS);
+            case 6: return int(launch_mma<6> ARGS);
+            case 7: return int(launch_mma<7> ARGS);
+            case 8: return int(launch_mma<8> ARGS);
+        }
+    } else {
+        switch ((d + 7) / 8) {
+            case 1: return int(launch_tf32<1> ARGS);
+            case 2: return int(launch_tf32<2> ARGS);
+            case 3: return int(launch_tf32<3> ARGS);
+            case 4: return int(launch_tf32<4> ARGS);
+            case 5: return int(launch_tf32<5> ARGS);
+            case 6: return int(launch_tf32<6> ARGS);
+            case 7: return int(launch_tf32<7> ARGS);
+            case 8: return int(launch_tf32<8> ARGS);
+            case 9: return int(launch_tf32<9> ARGS);
+            case 10: return int(launch_tf32<10> ARGS);
+            case 11: return int(launch_tf32<11> ARGS);
+            case 12: return int(launch_tf32<12> ARGS);
+            case 13: return int(launch_tf32<13> ARGS);
+            case 14: return int(launch_tf32<14> ARGS);
+            case 15: return int(launch_tf32<15> ARGS);
+            case 16: return int(launch_tf32<16> ARGS);
+        }
     }
-#undef FLASH_CASE
+#undef ARGS
     return int(cudaErrorInvalidValue);
 }
 
@@ -1960,8 +2137,9 @@ int launch_narrow(const void* q, const void* k, const void* v, const void* mask,
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). dtype: 0 = fp32 (CUDA cores), 1 = bf16
-// (tensor cores). row_max and row_sum are both null (no statistics) or both
+// Returns a cudaError_t (0 on success). dtype: 0 = fp32 (3xTF32 on the tensor
+// cores at d <= 128, the CUDA cores in the wide kernel), 1 = bf16 (tensor
+// cores). row_max and row_sum are both null (no statistics) or both
 // [B, H, N] fp32. d <= 128 runs the kernels above, in launches of at most
 // narrow_lists(H) lists (mma_common.cuh), d > 128 the wide ones; every shape
 // is taken whose grids fit (grid_fits).

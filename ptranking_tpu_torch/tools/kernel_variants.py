@@ -20,7 +20,8 @@ at most 64 docs and at PACK_COPY_SHAPES, the list backward (the same on a
 LIST_COPY_SHAPES, and the long backward (one list of 129..256 docs a block,
 its keys in two halves) at the WIDE_SHAPES of 256 docs and at
 LONG_COPY_SHAPES; the forward with row statistics at those shapes and at the
-one-list serving shape (1, 2, 1536, 68), the packed forward at the
+one-list serving shape (1, 2, 1536, 68), and in fp32 (3xTF32) at
+F32_FWD_SHAPES (for "parent": the parent's fp32 forward there), the packed forward at the
 WIDE_SHAPES of at most 128 docs (at 128 docs its tile of one list and all of
 its 128 keys) and at PACK_COPY_SHAPES, and the long forward at the
 WIDE_SHAPES of 256 docs and at LONG_COPY_SHAPES; the fp32 packed forward
@@ -86,6 +87,8 @@ BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
 # the fp32 dk/dv and dq kernels at d <= 128: the flagship's training batch
 # and one list of the serving path's top bucket
 F32_PAIR_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68)]
+# the fp32 forward at d <= 128: those and short lists (1024 of 32 docs)
+F32_FWD_SHAPES = [*F32_PAIR_SHAPES, (1024, 2, 32, 68)]
 SINK_SHAPE = (32, 1408)
 PAIR_SHAPE = (32, 1408)
 EXPERIMENT = cuda_build.CSRC / "experiments" / "flash_attn_bwd_wgmma.cu"
@@ -145,6 +148,9 @@ _F32N_TILE = "constexpr int F32N_TILE = 32;"
 _F32N_SPLIT = "constexpr int F32N_SPLIT = SPLIT_INT_CUT;"
 _F32N_GROUP = "constexpr int F32N_GROUP = 4;"
 _F32N_BLOCKS = "constexpr int F32N_BLOCKS = 8 / F32N_WARPS;"
+_F32N_QREG = "constexpr int F32N_QREG_NC = 9;"
+_F32N_FWD_TILE = "constexpr int F32N_TILE = 32;              // keys a tile"
+_F32N_FWD_BLOCKS = "constexpr int F32N_BLOCKS = 2;\n// how the operands are split"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
     ("const float x1 = real ? s[j][2 * h + 1] * scale : MASKED_LOGIT;",
@@ -287,6 +293,21 @@ FWD_VARIANTS = {
     "f32_index_copies": [("load_rows_f32<NT", "load_chunk_f32<NT")],
     "f32_pv_unroll4": [("#pragma unroll 2\n        for (int j = 0; j < ktiles; ++j) {",
                         "#pragma unroll 4\n        for (int j = 0; j < ktiles; ++j) {")],
+    # the fp32 forward at d <= 128: Q re-split from shared memory each key
+    # tile instead of split once into registers (NC <= 9); 64-key tiles
+    # instead of 32; eight k-steps' products summed in a fresh fragment
+    # instead of four; the registers cut for three blocks an SM instead of
+    # two; then, to show what they cost, P V without its fourth product (V in
+    # two parts), no exponentials (p = x - m) and no P V product
+    "f32n_qsmem": [(_F32N_QREG, _F32N_QREG.replace("= 9", "= 0"))],
+    "f32n_tile64": [(_F32N_FWD_TILE, _F32N_FWD_TILE.replace("= 32", "= 64"))],
+    "f32n_group8": [(_F32N_GROUP, _F32N_GROUP.replace("= 4", "= 8"))],
+    "f32n_blocks3": [(_F32N_FWD_BLOCKS, _F32N_FWD_BLOCKS.replace("= 2", "= 3"))],
+    "f32n_cut_lo2": [("                mma_1688_tf32(tc, ahi[j], blo2[0], blo2[1]);\n", "")],
+    "f32n_cut_exp": [("const float p = expf(s[j][e] - m[e >> 1]);  // 0 past N",
+                      "const float p = s[j][e] - m[e >> 1];")],
+    "f32n_cut_pv": [("product_pv_tf32<LD, NJ, NC>(acc, s, Vt, lane);  // O += P V",
+                     "acc[0][0] += s[0][0] * s[NJ - 1][3];")],
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -332,7 +353,8 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_long_rows_mma_kernel",
                                 r"flash_bwd_packed_tf32_kernel", r"flash_bwd_list_tf32_kernel",
                                 r"flash_bwd_dkdv_tf32_kernelILi9E", r"flash_bwd_dq_tf32_kernelILi9E"],
-             "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_wide_mma_kernel",
+             "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_tf32_kernelILi9E",
+                                r"flash_fwd_wide_mma_kernel",
                                 r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel",
                                 r"flash_fwd_packed_tf32_kernel", r"flash_fwd_list_tf32_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
@@ -547,7 +569,8 @@ def bwd_cases(dll, variant):
 
 def fwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the forward with row statistics at
-    FWD_SHAPES, of the packed forward at the WIDE_SHAPES (of at most 128
+    FWD_SHAPES and in fp32 at F32_FWD_SHAPES (for "parent": the parent's fp32
+    forward there), of the packed forward at the WIDE_SHAPES (of at most 128
     docs) and PACK_COPY_SHAPES, of the long forward at the WIDE_SHAPES of
     256 docs and LONG_COPY_SHAPES, (but for "parent") of the fp32 packed
     forward at the WIDE_SHAPES of at most 64 docs, and of the fp32 list
@@ -566,6 +589,7 @@ def fwd_cases(dll, variant):
               [s for s in WIDE_SHAPES if 128 < s[2] <= 256] + LONG_COPY_SHAPES)]
     for tag, entry, dtype, shapes in (
             ("", "flash_attn_fwd", torch.bfloat16, FWD_SHAPES),
+            ("fp32 ", "flash_attn_fwd", f32, F32_FWD_SHAPES),
             ("packed ", "flash_attn_fwd_packed", torch.bfloat16,
              [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES),
             ("long ", "flash_attn_fwd_long", torch.bfloat16,

@@ -111,8 +111,9 @@ class AdhocRanker:
         self.device = resolve_device(device)
         self.model_id = model_id
         self.scorer_cfg = scorer_cfg
-        # the loss itself is looked up at the first step: serving needs none
-        self.model_paras = {**DEFAULT_PARAS.get(model_id, {}), **(model_paras or {})}
+        # an id the registry lacks raises KeyError here, as in the reference
+        self.loss_fn = get_loss(model_id)
+        self.model_paras = {**DEFAULT_PARAS[model_id], **(model_paras or {})}
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.label_type = label_type
         self.seed = seed
@@ -141,13 +142,13 @@ class AdhocRanker:
               mask: torch.Tensor) -> torch.Tensor:
         """One optimizer step on one batch already on the device; returns the
         batch's loss as a device tensor (no host sync)."""
-        loss_fn = get_loss(self.model_id)
         self._optimizer.zero_grad(set_to_none=True)
         scores = apply_scorer(self.params, self.scorer_cfg, features, mask,
                               training=True, gen=self._gen)
         # a stochastic loss draws from the same generator, after the scorer's dropout
         kw = {"gen": self._gen} if self.model_id in STOCHASTIC else {}
-        loss = loss_fn(scores, labels, mask, label_type=self.label_type, **self.model_paras, **kw)
+        loss = self.loss_fn(scores, labels, mask, label_type=self.label_type,
+                            **self.model_paras, **kw)
         loss.backward()
         self._optimizer.step()
         return loss.detach()

@@ -322,3 +322,10 @@ def test_fwd_sink_variant_substitutions_match_the_kernel_sources(lib):
     assert built[(lib, "shipped")] == text
     for name in tool.VARIANTS[lib]:
         assert name == "shipped" or built[(lib, name)] != text, name
+    if lib == "flash_attn_fwd":  # the fp32 forward's switches at d <= 128, one constant each
+        for name, constant in (("f32n_qsmem", "F32N_QREG_NC"), ("f32n_tile64", "F32N_TILE"),
+                               ("f32n_group8", "F32N_GROUP"), ("f32n_blocks3", "F32N_BLOCKS")):
+            changed = [line for line in built[(lib, name)].splitlines()
+                       if line not in text.splitlines()]
+            assert changed == [line for line in changed if f"constexpr int {constant} = " in line]
+            assert len(changed) == 1, name

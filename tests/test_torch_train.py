@@ -453,3 +453,12 @@ def test_wassrank_pt_checkpoint_resumes_to_the_same_next_step(tmp_path):
     after = again.evaluate([batch])
     for m in before:
         np.testing.assert_array_equal(before[m], after[m])
+
+
+def test_unknown_model_id_raises_at_construction_as_jax_does():
+    """An id the loss registry lacks raises KeyError when the ranker is
+    built, in the port as in the JAX package, before any init or step."""
+    with pytest.raises(KeyError):
+        JaxRanker("TwinRank", _listsf())
+    with pytest.raises(KeyError):
+        AdhocRanker("TwinRank", _port_cfg(_listsf()), device="cpu")
