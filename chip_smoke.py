@@ -77,7 +77,23 @@ Phases, in order; any failure exits non-zero:
      docs; the fp32 list forward up to F32_FWD_LIST_MAX_N and
      F32_FWD_LONG_MAX_N docs, through the packed and the long forward's
      wrappers; the fp32 list backward up to F32_LIST_MAX_N docs, the long
-     backward up to F32_LONG_MAX_N).
+     backward up to F32_LONG_MAX_N);
+  8. resident: the flagship ranker on device-resident data: (a) 1,024
+     synthetic lists of 20..1408 docs at F=136 uploaded once (bf16
+     features), two epochs at 32 x 1408 docs a batch trained from the
+     resident buckets (each batch gathered on the card from an index chunk)
+     and, from the same seed, streamed from the host: the same losses and
+     params, exact launch counts; epoch time, lists/s, idle share and the
+     host->device copies and bytes of one profiled epoch each way, and the
+     same at the CLI's 100 docs a batch; (b) `python -m
+     ptranking_tpu_torch.ltr` (its main) on LETOR files at F=136, 2 folds
+     x 2 epochs, validation on: finite CV metrics in the run's log, the
+     launches the batches predict, and a run stopped after fold 1's first
+     epoch and resumed gives the same metrics, bit for bit; (c) the bf16
+     linear_apply (bf16 x bf16 products with fp32 accumulation, the dtype
+     overload of torch.mm) against its fp32 plain version at the
+     flagship's and Yahoo!'s layer shapes: the output within one bf16 ulp,
+     dx and dw within the bf16 backward gate.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -109,8 +125,11 @@ SFU_PER_CLOCK_PER_SM = 16  # transcendental results per clock per SM, compute ca
 # bucket, and the smallest bucket whose remainder rows are all padding; and
 # the Yahoo! LTR listsf's training batches (32,768 docs in each of the
 # buckets of 16 to 256 docs, 2 heads of 350, or of 384 under lane_align: the
-# wide kernels, whatever the route; phase 7 says why these buckets)
+# wide kernels, whatever the route; phase 7 says why these buckets); and
+# 32,768 docs in the 32-doc bucket at d = 68 (the flagship's width with
+# short lists)
 ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68, True),
+               (1024, 2, 32, 68, False),
                (2048, 2, 16, 350, False), (1024, 2, 32, 350, False), (512, 2, 64, 350, False),
                (256, 2, 128, 350, False), (128, 2, 256, 350, False),
                (2048, 2, 16, 384, False), (1024, 2, 32, 384, False), (512, 2, 64, 384, False),
@@ -2203,6 +2222,406 @@ def yahoo_f32_steps(card: str) -> dict:
     return counts
 
 
+# phase 8, the resident data path at the flagship's width: RES_QUERIES
+# synthetic lists of 20..1408 docs at F=136 (seed 3) in the default buckets,
+# RES_BATCH_DOCS docs a batch (32 lists of 1408 docs: the flagship step);
+# then the same timing at the CLI's default 100-doc batches on the first
+# RES_ROUGH_QUERIES of those lists (one list a step in the buckets of 128
+# docs and up, so about as many steps as lists; not profiled: the
+# profiler's processing of some 250 steps took minutes)
+RES_QUERIES, RES_SEED = 1024, 3
+RES_BATCH_DOCS = TRAIN_B * TRAIN_N
+RES_EPOCHS = (1, 2)
+RES_ROUGH_DOCS, RES_ROUGH_QUERIES = 100, 128
+# resident against streamed: the same kernels on the same batches, so the
+# losses and params should keep their bits; held to this relative bound
+RES_TOL = 1e-6
+# the k-fold entry point: LETOR files of KF_QUERIES synthetic lists of
+# 20..KF_MAX_DOCS docs at F=136 a split (the generic LETOR_K id, whose JSON
+# declares its width and 2 folds), 2 epochs, KF_BATCH_DOCS docs a training
+# batch, the flagship scorer under LambdaRank through the fused loss
+KF_QUERIES, KF_MAX_DOCS, KF_BATCH_DOCS, KF_EPOCHS = 64, 160, 4096, 2
+# the bf16 linear_apply gate: the layer shapes (rows, d_in, d_out) of the
+# flagship (32 x 1408 docs at F=136: QKV, attention output, the FFNs) and of
+# the Yahoo! listsf (32,768 docs at F=700)
+LINEAR_SHAPES = [(45056, 136, 408), (45056, 136, 136), (45056, 136, 128), (45056, 128, 256),
+                 (45056, 256, 512), (45056, 512, 136), (45056, 512, 1),
+                 (32768, 700, 2100), (32768, 700, 700), (32768, 700, 128), (32768, 512, 700)]
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def profile_copies(fn, trace_path=None):
+    """One call of `fn` under torch.profiler: {device busy ms, wall ms, idle
+    share, host->device copies (the profiler's `Memcpy HtoD` events) and,
+    with `trace_path`, their bytes from the exported trace}; None where the
+    profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, copies = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        busy += e.self_device_time_total / 1e3
+        if "Memcpy HtoD" in e.key:
+            copies += e.count
+    rec = {"wall_ms": wall, "device_busy_ms": busy or None,
+           "device_idle_share": 1.0 - busy / wall if busy else None,
+           "memcpy_htod": copies if busy else None, "memcpy_htod_bytes": None}
+    if trace_path and busy:
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+        rec["memcpy_htod_bytes"] = sum(int(e.get("args", {}).get("bytes", 0)) for e in htod)
+        os.remove(trace_path)
+    return rec
+
+
+def params_diff(a, b) -> dict:
+    """Whether two rankers' params have the same bits, and the worst
+    max |a - b| / max |b| over the tensors."""
+    import torch
+
+    from ptranking_tpu_torch.models.scorers import tree_leaves
+
+    pairs = list(zip(tree_leaves(a.params), tree_leaves(b.params)))
+    worst = max(float((x.detach() - y.detach()).abs().max())
+                / max(float(y.detach().abs().max()), 1e-30) for x, y in pairs)
+    return {"same_bits": all(torch.equal(x, y) for x, y in pairs), "worst_rel": worst}
+
+
+def resident_vs_streamed(card: str, work_dir: str) -> dict:
+    """Phase 8 (a): the flagship ranker (bf16, dropout 0) trained two epochs
+    on the device-resident data (bf16 features) and, from the same seed, two
+    epochs streamed from the host: the same losses and params (the same bits,
+    or within RES_TOL relative), exact launch counts; then a third epoch each
+    way on the host's clock and a fourth under the profiler (idle share,
+    host->device copies and bytes); the same timing on the host's clock at
+    RES_ROUGH_DOCS docs a batch, with the index copies counted on the host.
+    Returns the launch counts of the resident epochs."""
+    import torch
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+    from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, packed_nbytes
+
+    queries = make_synthetic_queries(RES_QUERIES, num_features=NUM_FEATURES, max_label=4,
+                                     min_docs=20, max_docs=TRAIN_N, seed=RES_SEED)
+    index_copies = []
+    to_device = DeviceResidentDataset.index_to_device
+
+    def counted(self, idx):
+        index_copies.append(idx.nbytes)
+        return to_device(self, idx)
+
+    DeviceResidentDataset.index_to_device = counted
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        for batch_docs, qs in ((RES_BATCH_DOCS, queries),
+                               (RES_ROUGH_DOCS, queries[:RES_ROUGH_QUERIES])):
+            ds = BucketedDataset(qs, batch_docs=batch_docs, num_features=NUM_FEATURES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = DeviceResidentDataset(ds, dtype="bfloat16", device="cuda")
+            torch.cuda.synchronize()
+            rec = {"batch_docs": batch_docs, "queries": len(qs),
+                   "docs": int(sum(len(q[2]) for q in qs)), "buckets": list(ds.buckets),
+                   "batches_an_epoch": len(ds), "upload_s": time.perf_counter() - t0,
+                   "packed_nbytes_bf16": packed_nbytes(ds, "bfloat16"),
+                   "packed_nbytes_fp32": packed_nbytes(ds)}
+            resident, streamed = flagship_ranker(dropout=0.0), flagship_ranker(dropout=0.0)
+            epochs = RES_EPOCHS if batch_docs == RES_BATCH_DOCS else ()
+            if epochs:
+                reset_counts()
+                losses = [resident.train_epoch_resident(res, e) for e in epochs]
+                torch.cuda.synchronize()
+                out = read_counts()
+                check_counts(out, len(ds) * len(epochs), "resident epochs")
+                reset_counts()
+                want = [streamed.train_epoch(ds.batches(shuffle=True, epoch=e), e) for e in epochs]
+                check_counts(read_counts(), len(ds) * len(epochs), "streamed epochs")
+                diff = params_diff(resident, streamed)
+                rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(losses, want))
+                rec.update(losses_resident=losses, losses_streamed=want, loss_worst_rel=rel,
+                           params=diff, launches=out)
+                if (any(stop for _, stop in losses + want) or not rel <= RES_TOL
+                        or not diff["worst_rel"] <= RES_TOL):
+                    raise AssertionError(f"resident against streamed: {rec}")
+            nxt = max(epochs, default=0) + 1
+            for name, fn in (("resident", lambda e: resident.train_epoch_resident(res, e)),
+                             ("streamed", lambda e: streamed.train_epoch(
+                                 ds.batches(shuffle=True, epoch=e), e))):
+                torch.cuda.synchronize()
+                del index_copies[:]
+                t0 = time.perf_counter()
+                loss, stop = fn(nxt)
+                torch.cuda.synchronize()
+                epoch_s = time.perf_counter() - t0
+                if stop or not math.isfinite(loss):
+                    raise AssertionError(f"{name} epoch {nxt}: loss {loss}, stop {stop}")
+                rec[name] = {"epoch_s": epoch_s, "lists_per_s": len(qs) / epoch_s,
+                             "index_copies": len(index_copies),
+                             "index_bytes": sum(index_copies)}
+                if batch_docs == RES_BATCH_DOCS:
+                    rec[name]["profiled_epoch"] = profile_copies(
+                        lambda: fn(nxt + 1), os.path.join(work_dir, f"{name}_epoch.json"))
+            if batch_docs == RES_BATCH_DOCS:
+                prof = rec["resident"]["profiled_epoch"]
+                if prof["memcpy_htod"] is not None and prof["memcpy_htod"] > len(ds):
+                    raise AssertionError(f"resident epoch: {prof['memcpy_htod']} host->device "
+                                         f"copies for {len(ds)} batches")
+            rec["phase_s"] = time.perf_counter() - t_phase
+            print("resident_epochs " + json.dumps(rec) + f"  [{card}]", flush=True)
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        DeviceResidentDataset.index_to_device = to_device
+    return out
+
+
+def write_kfold_config(root: str, dir_output: str, dir_data: str) -> str:
+    """Data_Eval_ScoringFunction.json and LambdaRankParameter.json for the
+    k-fold run: LETOR_K files at F=136 and 2 folds, 2 epochs with validation
+    and resume, the flagship scorer (bf16, flash attention) under Adagrad at
+    lr 1e-3, LambdaRank through the fused loss. Returns the directory."""
+    os.makedirs(root, exist_ok=True)
+    cfg = {
+        "DataSetting": {"data_id": "LETOR_K", "dir_data": dir_data, "num_features": NUM_FEATURES,
+                        "fold_num": 2, "has_comment": True, "max_rele_level": 4,
+                        "min_docs": [10], "min_rele": [1], "binary_rele": [False],
+                        "unknown_as_zero": [False], "tr_batch_size": [KF_BATCH_DOCS]},
+        "EvalSetting": {"dir_output": dir_output, "epochs": KF_EPOCHS, "do_validation": True,
+                        "vali_k": 5, "cutoffs": list(EVAL_KS), "loss_guided": False,
+                        "do_log": True, "log_step": 1, "do_summary": False, "resume": True,
+                        "mask": {"mask_label": False, "mask_type": ["rand_mask_all"],
+                                 "mask_ratio": [0.2]}},
+        "SFParameter": {"sf_id": "listsf", "opt": ["Adagrad"], "lr": [1e-3],
+                        "listsf": {"BN": [False], "bn_type": ["BN2"], "bn_affine": [False],
+                                   "apply_tl_af": [False], "AF": ["R"], "TL_AF": ["GE"],
+                                   "ff_dims": [128, 256, 512], "encoder_type": ["DASALC"],
+                                   "encoder_layers": [6], "n_heads": [2],
+                                   "compute_dtype": ["bfloat16"], "flash_attn": [True]}},
+    }
+    with open(os.path.join(root, "Data_Eval_ScoringFunction.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(root, "LambdaRankParameter.json"), "w") as f:
+        json.dump({"LambdaRank": {"sigma": [1.0], "use_pallas": [True]}}, f)
+    return root
+
+
+def kfold_phase(card: str, work_dir: str) -> dict:
+    """Phase 8 (b): `python -m ptranking_tpu_torch.ltr -model LambdaRank
+    -dir_json DIR` (its main) on the card: 2 folds x 2 epochs, the training
+    data resident, validation on. The CV metrics are finite, the run's log
+    file holds them, and the kernel launches are what the batches predict
+    (6 forward launches a trained or evaluated batch, 6 dk/dv and 6 dq, 1 + 2
+    pairwise a trained one). Then a run stopped after fold 1's first epoch
+    and started again (resume) gives the same CV metrics, bit for bit.
+    Returns the launch counts of the first run."""
+    import shutil
+
+    import numpy as np
+
+    from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.data.dataset import make_synthetic_queries
+    from ptranking_tpu_torch.data.letor import write_letor_file
+    from ptranking_tpu_torch.train.ranker import AdhocRanker
+
+    root = os.path.join(work_dir, "kfold")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    for fold in (1, 2):
+        for i, split in enumerate(("train", "vali", "test")):
+            qs = make_synthetic_queries(KF_QUERIES, num_features=NUM_FEATURES, max_label=4,
+                                        min_docs=20, max_docs=KF_MAX_DOCS, seed=10 * fold + i)
+            write_letor_file(qs, os.path.join(data, f"Fold{fold}", f"{split}.txt"))
+    batches = {"train": 0, "eval": 0}
+    step, eval_sums = AdhocRanker._step, AdhocRanker._eval_sums
+
+    def counted_step(self, *a):
+        batches["train"] += 1
+        return step(self, *a)
+
+    def counted_eval(self, *a):
+        batches["eval"] += 1
+        return eval_sums(self, *a)
+
+    def run(name):
+        cfg = write_kfold_config(os.path.join(root, name + "_json"),
+                                 os.path.join(root, name), data)
+        t0 = time.perf_counter()
+        perf = ltr.main(["-model", "LambdaRank", "-dir_json", cfg])
+        return perf, time.perf_counter() - t0
+
+    AdhocRanker._step, AdhocRanker._eval_sums = counted_step, counted_eval
+    try:
+        reset_counts()
+        full, full_s = run("full")
+        counts = read_counts()
+    finally:
+        AdhocRanker._step, AdhocRanker._eval_sums = step, eval_sums
+    n_train, n_eval = batches["train"], batches["eval"]
+    want = {**{k: 0 for k in counts}, "flash_attn_fwd": 6 * (n_train + n_eval),
+            "flash_attn_bwd_dkdv": 6 * n_train, "flash_attn_bwd_dq": 6 * n_train,
+            "pairwise_lambda_fwd": n_train, "pairwise_lambda_bwd": 2 * n_train}
+    if counts != want or not n_train:
+        raise AssertionError(f"k-fold run: launches {counts}, expected {want}")
+    metrics = {m: np.asarray(full[m]).tolist() for m in ("nDCG", "nERR", "AP", "P")}
+    if not all(math.isfinite(v) for vs in metrics.values() for v in vs):
+        raise AssertionError(f"k-fold run: CV metrics {metrics}")
+    logs = [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(root, "full"))
+            for f in fs if f.startswith("log_")]
+    ckpts = [f for _, _, fs in os.walk(os.path.join(root, "full")) for f in fs
+             if f.startswith("net_params_epoch_")]
+    with open(logs[0]) as f:
+        logged = f.read() if len(logs) == 1 else ""
+    if "2-fold CV" not in logged or len(ckpts) != 2:
+        raise AssertionError(f"k-fold run: log files {logs}, checkpoints {ckpts}")
+
+    real = AdhocRanker.train_epoch_resident
+    calls = []
+
+    def stop_after_one(self, res, epoch_k, shuffle=True):
+        calls.append(epoch_k)
+        if len(calls) == 2:
+            raise _Interrupted
+        return real(self, res, epoch_k, shuffle)
+
+    AdhocRanker.train_epoch_resident = stop_after_one
+    try:
+        run("cut")
+        raise AssertionError("k-fold run: the interruption did not happen")
+    except _Interrupted:
+        pass
+    finally:
+        AdhocRanker.train_epoch_resident = real
+    resumed, resumed_s = run("cut")
+    same = all(np.array_equal(np.asarray(full[m]), np.asarray(resumed[m]))
+               for m in ("nDCG", "nERR", "AP", "P"))
+    rec = {"folds": 2, "epochs": KF_EPOCHS, "queries_a_split": KF_QUERIES,
+           "train_batches": n_train, "eval_batches": n_eval, "run_s": full_s,
+           "resumed_run_s": resumed_s, "cv": metrics, "launches": counts,
+           "resume_same_bits": same}
+    print("kfold " + json.dumps(rec) + f"  [{card}]", flush=True)
+    if not same:
+        raise AssertionError(f"k-fold resume: {resumed} against {full}")
+    return counts
+
+
+def bf16_ulp_excess(got, want, terms, k: int) -> float:
+    """max(|got - want| - tol) over the elements, tol = one bf16 ulp at the
+    larger of the two plus twice the bound on an fp32 sum of k terms
+    (k * 2^-24 * sum |terms|): both round one fp32 sum to bf16, summed in
+    other orders. At most 0 passes."""
+    import torch
+
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * 2.0 ** -7
+    return float(((got - want).abs() - ulp - 2 * k * 2.0 ** -24 * terms).max())
+
+
+def linear_gate(card: str) -> dict:
+    """Phase 8 (c): the bf16 linear_apply on the card (bf16 x bf16 products
+    with fp32 accumulation, `_Bf16Linear`) against its plain version (fp32
+    products of upcast operands) at LINEAR_SHAPES: the output within one
+    bf16 ulp (bf16_ulp_excess), dx and dw within BWD_TOL's bf16 gate
+    (relative norm); the route's three products go through the dtype
+    overload (counted), with no fallback; both timed, forward and backward.
+    Beside them, timed and compared, not used: one bf16 `torch.addmm` with
+    a bf16 result (the bias in cuBLAS's epilogue, its reduction under
+    `allow_bf16_reduced_precision_reduction`)."""
+    import torch
+
+    from ptranking_tpu_torch.models.scorers import nn
+
+    calls = []
+    mm_f32 = nn._mm_f32
+
+    def counted(a, b):
+        calls.append(a.shape)
+        return mm_f32(a, b)
+
+    recs, worst = [], {"out_ulp_excess": -math.inf, "dx_rel": 0.0, "dw_rel": 0.0}
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for rows, d_in, d_out in LINEAR_SHAPES:
+        x = torch.randn(rows, d_in, generator=g).to("cuda", torch.bfloat16)
+        w = (torch.randn(d_in, d_out, generator=g) / math.sqrt(d_in)).to("cuda", torch.bfloat16)
+        b = torch.randn(d_out, generator=g).to("cuda", torch.bfloat16)
+        dy = torch.randn(rows, d_out, generator=g).to("cuda", torch.bfloat16)
+
+        def run(route, x=x, w=w, b=b, dy=dy):
+            xs, ws, bs = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+            if route:
+                y = nn.linear_apply({"w": ws, "b": bs}, xs)
+            else:
+                y = (torch.matmul(xs.float(), ws.float()) + bs.float()).to(torch.bfloat16)
+            y.backward(dy)
+            return y.detach(), xs.grad, ws.grad
+
+        nn._mm_f32 = counted
+        try:
+            del calls[:]
+            y, dx, dw = run(True)
+            torch.cuda.synchronize()
+        finally:
+            nn._mm_f32 = mm_f32
+        if len(calls) != 3:
+            raise AssertionError(f"linear {rows}x{d_in}x{d_out}: {len(calls)} dtype-overload "
+                                 "products, expected 3 (forward, dx, dw)")
+        yp, dxp, dwp = run(False)
+        ex = bf16_ulp_excess(y, yp, x.float().abs() @ w.float().abs(), d_in)
+        rel = lambda a, r: float((a.float() - r.float()).norm() / r.float().norm())
+        rec = {"shape": [rows, d_in, d_out], "out_ulp_excess": ex,
+               "out_elements_differing": int((y != yp).sum()),
+               "dx_rel": rel(dx, dxp), "dw_rel": rel(dw, dwp),
+               "dx_ulp_excess": bf16_ulp_excess(dx, dxp, dy.float().abs() @ w.float().abs().t(),
+                                                d_out),
+               "ms_fwd": cuda_time_ms(lambda: nn.linear_apply({"w": w, "b": b}, x), 20),
+               "plain_ms_fwd": cuda_time_ms(
+                   lambda: (torch.matmul(x.float(), w.float()) + b.float()).to(torch.bfloat16),
+                   20),
+               "ms_fwd_bwd": cuda_time_ms(lambda: run(True), 10),
+               "plain_ms_fwd_bwd": cuda_time_ms(lambda: run(False), 10),
+               "bf16_result_addmm_ms": cuda_time_ms(lambda: torch.addmm(b, x, w), 20),
+               "bf16_result_addmm_elements_differing": int((torch.addmm(b, x, w) != y).sum())}
+        recs.append(rec)
+        for key in worst:
+            worst[key] = max(worst[key], rec[key])
+    print("linear_bf16 " + json.dumps({"cases": recs, "worst": worst}) + f"  [{card}]",
+          flush=True)
+    if not (worst["out_ulp_excess"] <= 0.0 and worst["dx_rel"] <= BWD_TOL["bfloat16"]
+            and worst["dw_rel"] <= BWD_TOL["bfloat16"]):
+        raise AssertionError(f"bf16 linear_apply against its plain version: {worst} (output "
+                             f"within one bf16 ulp, dx and dw {BWD_TOL['bfloat16']} relative)")
+    return worst
+
+
+def resident_phase(card: str, work_dir: str) -> dict:
+    """Phase 8: (a) resident_vs_streamed, (b) kfold_phase, (c) linear_gate.
+    Returns the launch counts of (a) and (b)."""
+    t0 = time.perf_counter()
+    resident = resident_vs_streamed(card, work_dir)
+    t1 = time.perf_counter()
+    kfold = kfold_phase(card, work_dir)
+    t2 = time.perf_counter()
+    linear_gate(card)
+    print(f"resident_phase_s {{\"resident\": {t1 - t0:.1f}, \"kfold\": {t2 - t1:.1f}, "
+          f"\"linear\": {time.perf_counter() - t2:.1f}}}", flush=True)
+    return {"resident": resident, "kfold": kfold}
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -2264,6 +2683,9 @@ def main() -> int:
 
     phase("wide")
     wide, wide_fp32, f32_steps = wide_phase(card, work_dir)
+
+    phase("resident")
+    resident_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",

@@ -158,6 +158,55 @@ class BucketedDataset:
         return total
 
 
+
+# --- label masking (semi-supervised simulation) ------------------------------
+
+
+def random_mask_all_labels(queries: Sequence[Query], mask_ratio: float,
+                           mask_value: float = 0.0, seed: int = 137,
+                           presort: bool = True) -> List[Query]:
+    """Set the label of a random `mask_ratio` of each query's docs to
+    `mask_value` (all of them kept when none relevant would be left), then
+    resort; the JAX package's numpy draws."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for qid, f, l in queries:
+        n = len(l)
+        n_mask = int(n * mask_ratio)
+        l2 = l.copy()
+        if n_mask > 0:
+            inds = rng.choice(n, size=n_mask, replace=False)
+            l2[inds] = mask_value
+        if (l2 > 0).sum() < 1:  # keep at least one relevant doc
+            l2 = l.copy()
+        if presort:
+            order = np_shuffle_ties_argsort(l2, rng=rng)
+            f, l2 = f[order], l2[order]
+        out.append((qid, f, l2))
+    return out
+
+
+def random_mask_rele_labels(queries: Sequence[Query], mask_ratio: float,
+                            mask_value: float = 0.0, seed: int = 137,
+                            presort: bool = True) -> List[Query]:
+    """Set a random `mask_ratio` of each query's relevant labels to
+    `mask_value` (none when that would leave no relevant doc), then resort;
+    the JAX package's numpy draws."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for qid, f, l in queries:
+        rele = np.flatnonzero(l > 0)
+        n_mask = int(len(rele) * mask_ratio)
+        l2 = l.copy()
+        if 0 < n_mask < len(rele):
+            inds = rng.choice(rele, size=n_mask, replace=False)
+            l2[inds] = mask_value
+        if presort:
+            order = np_shuffle_ties_argsort(l2, rng=rng)
+            f, l2 = f[order], l2[order]
+        out.append((qid, f, l2))
+    return out
+
 def make_synthetic_queries(
     num_queries: int = 64,
     num_features: int = 46,

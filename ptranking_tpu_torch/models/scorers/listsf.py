@@ -7,11 +7,11 @@ documents get no weight, and QKV is one fused [F, 3F] projection split q|k|v
 and then into heads.
 
 Training form, as in the JAX package: attention-probability dropout on the
-dense path only (the flash path has none), AllRank's residual and
-position-wise FFN dropouts, and `remat` (each layer recomputed in the
-backward pass, through torch.utils.checkpoint). Dropout masks come from an
-explicit torch.Generator; a rematerialised layer replays its own masks (see
-`_remat_layer`).
+dense and the blockwise (attn_block_size) paths (the flash path has none),
+AllRank's residual and position-wise FFN dropouts, and `remat` (each layer
+recomputed in the backward pass, through torch.utils.checkpoint). Dropout
+masks come from an explicit torch.Generator; a rematerialised layer replays
+its own masks (see `_remat_layer`).
 """
 
 from __future__ import annotations
@@ -48,8 +48,9 @@ def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
                drop_rate: float = 0.1, training: bool = False,
                gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Masked multi-head self-attention over the document axis.
-    x: [B, N, F]; mask: [B, N]. In training, the dense path drops attention
-    probabilities; the flash path drops none (as in the JAX package)."""
+    x: [B, N, F]; mask: [B, N]. In training, the dense and blockwise paths
+    drop attention probabilities; the flash path drops none (as in the JAX
+    package)."""
     B, N, F = x.shape
     d_head = F // n_heads
     qkv = linear_apply(p["qkv"], x)  # [B, N, 3F]
@@ -62,11 +63,10 @@ def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
     if flash:
         out = flash_attention(q, k, v, mask)
     elif attn_block_size is not None and N > attn_block_size:
-        if training and drop_rate > 0.0 and gen is not None:
-            raise NotImplementedError(
-                "attention dropout inside blockwise_attention (attn_block_size) is not "
-                "ported yet; train with flash_attn=True, dropout=0 or no attn_block_size")
-        out = blockwise_attention(q, k, v, mask, block_size=attn_block_size)
+        # attention dropout inside the blocks, the dense form exactly
+        out = blockwise_attention(q, k, v, mask, block_size=attn_block_size,
+                                  drop_rate=drop_rate if training else 0.0,
+                                  gen=gen if training else None)
     else:
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits / torch.sqrt(torch.tensor(float(d_head)))

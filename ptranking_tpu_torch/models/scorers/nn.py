@@ -6,7 +6,9 @@ package's layout (`w` is [d_in, d_out] for `x @ w`), so a JAX parameter tree
 carries over leaf for leaf. The reference choices kept here:
 
   * a linear layer accumulates in fp32 (bias added in fp32) and returns in
-    the activation dtype — bf16 operands are exact in fp32, as on the MXU;
+    the activation dtype: on CUDA in bf16 a bf16 x bf16 product with fp32
+    accumulation, elsewhere an fp32 product of upcast operands (exact for
+    bf16 values);
   * BN statistics are fp32 over real documents only, and padded rows come out 0;
   * LayerNorm divides by the UNBIASED std plus eps (not `nn.LayerNorm`);
   * "GE" is the tanh form of GELU (jax.nn.gelu's default);
@@ -63,7 +65,53 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int,
     return {"w": w.to(device), "b": torch.zeros(d_out, device=device)}
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 accumulation and an fp32 result for bf16 operands on
+    CUDA: `aten::mm.dtype`, which this build of torch has only for CUDA. Its
+    result type is fp32, so cuBLAS accumulates and reduces (split-K included)
+    in fp32: `allow_bf16_reduced_precision_reduction` concerns bf16 results
+    only and is left as it is. No fallback: a torch without the overload
+    raises here."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """y = bf16(x @ w + b) for bf16 x, w, b on CUDA: the product on the bf16
+    tensor cores with fp32 accumulation, the bias added in fp32, one rounding
+    to bf16, as the JAX package's `jnp.dot(x, w, preferred_element_type=f32)
+    + b` (models/scorers/nn.py:93). The dtype overload has no autograd, so
+    the backward is written out as JAX's transpose computes it: dx and dw as
+    bf16 x bf16 products with fp32 accumulation, each rounded once to bf16,
+    db the fp32 sum of dy in b's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b):
+        ctx.save_for_backward(x2, w)
+        ctx.b_dtype = b.dtype
+        return _mm_f32(x2, w).add_(b).to(x2.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        dx = _mm_f32(dy, w.t()).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(x2.t(), dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        db = dy.float().sum(0).to(ctx.b_dtype) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def _takes_bf16_gemm(x: torch.Tensor, p: Params) -> bool:
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and p["w"].dtype == torch.bfloat16 and p["b"].dtype == torch.bfloat16)
+
+
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w + b, accumulated in fp32 with the bias added in fp32, returned in
+    x's dtype. bf16 on CUDA: bf16 x bf16 products with fp32 accumulation
+    (`_Bf16Linear`); elsewhere the plain version: both operands upcast to
+    fp32 (a product of two bf16 values is exact in fp32), an fp32 product."""
+    if _takes_bf16_gemm(x, p):
+        y = _Bf16Linear.apply(x.reshape(-1, x.shape[-1]), p["w"], p["b"])
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     y = torch.matmul(x.float(), p["w"].float()) + p["b"].float()
     return y.to(x.dtype)
 

@@ -1,7 +1,8 @@
 """Masked attention for the listwise scorer's MHSA: flash kernels and their plain version.
 
-Counterpart of ptranking_tpu/ops/attention.py, without attention-probability
-dropout (the JAX package applies none on its flash path either):
+Counterpart of ptranking_tpu/ops/attention.py. Attention-probability dropout
+is applied only in `blockwise_attention` (the scorer's attn_block_size path),
+as in the JAX package, whose flash path applies none either:
 
   * `blockwise_attention` — the online-softmax loop over key blocks, in plain
     torch. It is the plain version of the kernels: what `flash_attention` runs
@@ -71,10 +72,18 @@ _FWD_TILE = 64
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        mask: torch.Tensor, block_size: int = 512) -> torch.Tensor:
+                        mask: torch.Tensor, block_size: int = 512, drop_rate: float = 0.0,
+                        gen: "torch.Generator | None" = None) -> torch.Tensor:
     """Online-softmax attention over key blocks of `block_size`: fp32 logits
     and accumulators, the block's probabilities rounded to v's dtype before
-    the p.v product (as the JAX package does), output in q's dtype."""
+    the p.v product (as the JAX package does), output in q's dtype.
+
+    With drop_rate > 0 and a generator `gen` (on q's device), attention
+    dropout as the JAX package applies it inside the blocks: each block
+    draws its keep-mask [B, H, N, block] from `gen` in turn and drops the
+    numerator's terms only (kept ones scaled by 1/(1 - drop_rate)); the
+    denominator sums the undropped terms, so the result is dense dropout of
+    the softmax probabilities followed by p.v."""
     B, H, N, d = q.shape
     block = min(block_size, N)
     rem = (-N) % block
@@ -93,7 +102,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mb[:, None, None, :], logits, _NEG)
         m = logits.amax(dim=-1)
         p = torch.exp(logits - m[..., None])
-        part_num = torch.matmul(p.to(v.dtype).float(), vb.float())
+        p_num = p
+        if drop_rate > 0.0 and gen is not None:
+            keep = 1.0 - drop_rate
+            keep_mask = torch.rand(p.shape, generator=gen, device=p.device) < keep
+            p_num = torch.where(keep_mask, p / keep, 0.0)
+        part_num = torch.matmul(p_num.to(v.dtype).float(), vb.float())
         new_mx = torch.maximum(mx, m)
         alpha = torch.exp(mx - new_mx)
         beta = torch.exp(m - new_mx)

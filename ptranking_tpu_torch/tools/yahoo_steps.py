@@ -1,6 +1,6 @@
-"""Time two checkouts' fp32 training steps on one CUDA card.
+"""Time two checkouts' training steps on one CUDA card.
 
-    python3 -m ptranking_tpu_torch.tools.yahoo_steps [--flagship] PARENT_DIR [CHANGE_DIR]
+    python3 -m ptranking_tpu_torch.tools.yahoo_steps [--flagship | --bf16] PARENT_DIR [CHANGE_DIR]
 
 Runs `chip_smoke.yahoo_f32_steps` (LambdaRank steps of the Yahoo! LTR listsf
 at d = 350 in fp32, in each bucket of 16 to 256 docs, with exact launch
@@ -8,7 +8,10 @@ counts and profiled card time) or, with --flagship, the flagship's fp32
 steps (the F=136 DASALC listsf at d = 68, 32 lists of 1408 docs,
 LambdaRank through the fused loss, Adagrad: `chip_smoke.timed_steps` of
 `flagship_ranker(compute_dtype="float32")`, which chip_smoke.py has had
-since the training slice) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
+since the training slice) or, with --bf16, the bf16 flagship step (the same
+model at its default bf16, `flagship_ranker()`) and the bf16 Yahoo! step at
+d = 350 in each bucket of 16 to 256 docs (`WIDE_MODELS[0]`, `timed_steps`
+with `wide_launches`) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
 PARENT_DIR in turn (CHANGE_DIR defaults to this checkout; PARENT_DIR is for
 example a parent commit unpacked by `git archive`), each in a fresh Python
 process that puts its checkout first on `sys.path` and builds that
@@ -48,12 +51,38 @@ rec = cs.timed_steps(cs.flagship_ranker(compute_dtype="float32"),
 print("flagship_fp32_steps " + json.dumps(rec) + f"  [{card}]", flush=True)
 """
 
+# with --bf16
+_BF16_CHILD = """
+import json
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from ptranking_tpu_torch.ops import cuda_build
+cuda_build.build(cuda_build.all_kernels())
+card = cs.card_line()
+rec = cs.timed_steps(cs.flagship_ranker(), cs.train_batch(cs.TRAIN_B, cs.TRAIN_N, ragged=False,
+                                                          seed=2),
+                     cs.TRAIN_STEPS, "bf16 flagship timed steps")
+print("flagship_bf16_steps " + json.dumps(rec) + f"  [{card}]", flush=True)
+name, F, n_heads, lane_align, _ = cs.WIDE_MODELS[0]
+ranker = cs.flagship_ranker(num_features=F, lane_align=lane_align, n_heads=n_heads)
+d = ranker.scorer_cfg.width // n_heads
+for N in cs.YAHOO_BUCKETS:
+    batch = cs.train_batch(cs.YAHOO_DOCS // N, N, ragged=False, seed=2, num_features=F)
+    rec = cs.timed_steps(ranker, batch, cs.YAHOO_STEPS, f"{name}_d{d} bf16 timed steps at {N} docs",
+                         cs.wide_launches(N, d))
+    print(f"{name}_d{d}_bf16_steps " + json.dumps({"head_dim": d, **rec}) + f"  [{card}]",
+          flush=True)
+"""
+
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     child = _CHILD
     if args[:1] == ["--flagship"]:
         child, args = _FLAGSHIP_CHILD, args[1:]
+    elif args[:1] == ["--bf16"]:
+        child, args = _BF16_CHILD, args[1:]
     if not 1 <= len(args) <= 2:
         print(__doc__.strip().splitlines()[2], file=sys.stderr)
         return 2

@@ -4,9 +4,12 @@ Counterpart of ptranking_tpu/train/ranker.py. A ranker holds a scorer config,
 its fp32 params on one device, the optimizer and one torch.Generator for
 dropout and the stochastic losses' draws, all seeded from `seed`.
 `train_epoch` runs one optimizer step per batch, eagerly (the JAX package's
-scan of K steps per dispatch has no counterpart yet); `predict` scores a
-padded batch; `evaluate` gives dataset-level nDCG, nERR, AP and P at each k,
-one batch at a time, with one host fetch at the end.
+scan of K steps per dispatch has no counterpart yet); `train_epoch_resident`
+does the same over a DeviceResidentDataset, each batch gathered on the
+device from an index chunk of `scan_steps` batches, one small index copy a
+chunk; `predict` scores a padded batch; `evaluate` gives dataset-level nDCG,
+nERR, AP and P at each k, one batch at a time, with one host fetch at the
+end.
 
 Checkpoints:
   * the port's own `.pt` (torch.save of plain dicts, configs as dicts, params
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ptranking_tpu_torch import LTR_SEED, resolve_device
+from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, take_features
 from ptranking_tpu_torch.losses import DEFAULT_PARAS, REQUIRES_LISTSF, STOCHASTIC, get_loss
 from ptranking_tpu_torch.metrics.adhoc import evaluate_all_at_ks
 from ptranking_tpu_torch.models.convert import JaxNamedTuple, opt_state_from_jax, params_from_jax
@@ -41,6 +45,8 @@ from ptranking_tpu_torch.types import LabelType, RankingBatch
 
 CHECKPOINT_FORMAT = "ptranking_tpu_torch/1"
 METRICS = ("nDCG", "nERR", "AP", "P")
+# index rows a chunk of the resident evaluation (the JAX package's EVAL_CHUNK)
+EVAL_CHUNK = 64
 
 
 class _JaxCheckpointUnpickler(pickle.Unpickler):
@@ -73,12 +79,7 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
         d = torch.load(path, map_location="cpu", weights_only=True)
         if d.get("format") != CHECKPOINT_FORMAT:
             raise ValueError(f"{path}: not a {CHECKPOINT_FORMAT} checkpoint")
-        cfg = dict(d["scorer_cfg"], ff_dims=tuple(d["scorer_cfg"]["ff_dims"]))
-        return {"model_id": d["model_id"], "scorer_cfg": ScorerConfig(**cfg),
-                "model_paras": d["model_paras"], "opt_cfg": OptimizerConfig(**d["opt_cfg"]),
-                "label_type": LabelType[d["label_type"]], "params": d["params"],
-                "optimizer": d.get("optimizer"), "generator": d.get("generator"),
-                "format": "torch"}
+        return torch_checkpoint(d)
     with open(path, "rb") as f:
         d = _JaxCheckpointUnpickler(f).load()
     if not isinstance(d, dict) or "scorer_cfg" not in d:
@@ -88,6 +89,17 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
             "opt_cfg": d.get("opt_cfg") or OptimizerConfig(),
             "label_type": d.get("label_type", LabelType.MultiLabel),
             "params": d["params"], "opt_state": d.get("opt_state"), "format": "jax"}
+
+
+def torch_checkpoint(d: Dict[str, Any]) -> Dict[str, Any]:
+    """`read_checkpoint`'s dict from the dict that `AdhocRanker.checkpoint`
+    returns (as `torch.load` gives it back)."""
+    cfg = dict(d["scorer_cfg"], ff_dims=tuple(d["scorer_cfg"]["ff_dims"]))
+    return {"model_id": d["model_id"], "scorer_cfg": ScorerConfig(**cfg),
+            "model_paras": d["model_paras"], "opt_cfg": OptimizerConfig(**d["opt_cfg"]),
+            "label_type": LabelType[d["label_type"]], "params": d["params"],
+            "optimizer": d.get("optimizer"), "generator": d.get("generator"),
+            "format": "torch"}
 
 
 def _to_device(a, device, dtype=None) -> torch.Tensor:
@@ -105,10 +117,13 @@ class AdhocRanker:
                  model_paras: Optional[Dict[str, Any]] = None,
                  opt_cfg: Optional[OptimizerConfig] = None,
                  label_type: LabelType = LabelType.MultiLabel,
-                 seed: int = LTR_SEED, device="cuda"):
+                 seed: int = LTR_SEED, scan_steps: int = 32, device="cuda"):
         if model_id in REQUIRES_LISTSF and not scorer_cfg.sf_id.startswith("listsf"):
             scorer_cfg = ScorerConfig.default_listsf(scorer_cfg.num_features)
         self.device = resolve_device(device)
+        # batches an index chunk of train_epoch_resident (one index copy a
+        # chunk); it changes no value
+        self.scan_steps = max(int(scan_steps), 1)
         self.model_id = model_id
         self.scorer_cfg = scorer_cfg
         # an id the registry lacks raises KeyError here, as in the reference
@@ -182,11 +197,47 @@ class AdhocRanker:
                                            torch.stack(counts).sum().float()]).cpu())
         return total / max(num_queries, 1.0), False
 
+    def train_epoch_resident(self, res: DeviceResidentDataset, epoch_k: int = 1,
+                             shuffle: bool = True) -> Tuple[float, bool]:
+        """One epoch over a DeviceResidentDataset; returns (loss summed over the
+        epoch / res.num_queries, stop_training).
+
+        Sets the epoch's learning rate, then walks the epoch's index chunks
+        of `scan_steps` batches: one host->device copy of a chunk's [k, B]
+        index array, each batch gathered on the device from the bucket
+        arrays and stepped on its own. A check epoch first guards the first
+        batch of its first chunk (NaN or all-zero scores give (nan, True)),
+        as the JAX package does; the host waits for the device once, at the
+        end, and a non-finite total gives (nan, True)."""
+        if self.params is None:
+            raise RuntimeError("init() or load() the ranker first")
+        set_lr(self._optimizer, epoch_lr(self.opt_cfg, epoch_k))
+        checked = epoch_k % self.stop_check_freq != 0
+        losses = []
+        for bucket, idx_k, _ in res.epoch_index_chunks(shuffle, epoch_k, self.scan_steps):
+            feats, labels, mask = res.bucket_arrays(bucket)
+            idx_k = res.index_to_device(idx_k)
+            if not checked:
+                if self._scores_fail(take_features(feats, idx_k[0]),
+                                     mask.index_select(0, idx_k[0])):
+                    return float("nan"), True
+                checked = True
+            for idx in idx_k:
+                losses.append(self._step(take_features(feats, idx), labels.index_select(0, idx),
+                                         mask.index_select(0, idx)))
+        total = float(torch.stack(losses).sum()) if losses else 0.0
+        if not np.isfinite(total):
+            return float("nan"), True
+        return total / max(res.num_queries, 1), False
+
     def stop_training(self, batch: RankingBatch) -> bool:
         """NaN/all-zero prediction guard on one batch: True = training has failed."""
-        scores = self.predict(batch)
-        mask = _to_device(batch.mask, self.device, torch.bool)
-        masked = torch.where(mask, scores, 0.0)
+        return self._scores_fail(_to_device(batch.features, self.device),
+                                 _to_device(batch.mask, self.device, torch.bool))
+
+    @torch.inference_mode()
+    def _scores_fail(self, x: torch.Tensor, mask: torch.Tensor) -> bool:
+        masked = torch.where(mask, apply_scorer(self.params, self.scorer_cfg, x, mask), 0.0)
         return not bool(torch.isfinite(masked).all()) or not bool(torch.any(masked != 0.0))
 
     @torch.inference_mode()
@@ -208,24 +259,47 @@ class AdhocRanker:
         with `.batches()`. Batches are evaluated one at a time and never
         merged (BN uses batch statistics at eval); each leaves a packed
         [4 * len(ks) + 1] sum on the device, the real-query count in the last
-        slot, and the host fetches their total once, at the end."""
+        slot, and the host fetches their total once, at the end. A
+        DeviceResidentDataset is evaluated from its index chunks
+        (`_evaluate_resident`)."""
         if self.params is None:
             raise RuntimeError("init() or load() the ranker first")
         ks = tuple(ks)
-        K = len(ks)
+        if isinstance(batches, DeviceResidentDataset):
+            return self._evaluate_resident(batches, ks)
         if hasattr(batches, "batches"):
             batches = batches.batches()
+        return self._reduce_packed_rows(
+            [self._eval_sums(_to_device(b.features, self.device),
+                             _to_device(b.labels, self.device, torch.float32),
+                             _to_device(b.mask, self.device, torch.bool), ks)
+             for b in batches], len(ks))
+
+    def _evaluate_resident(self, res: DeviceResidentDataset, ks) -> Dict[str, np.ndarray]:
+        """`evaluate` over a DeviceResidentDataset: index chunks of EVAL_CHUNK
+        batches, one index copy a chunk, each batch gathered on the device
+        and scored on its own."""
         packed_rows = []
-        for batch in batches:
-            labels = _to_device(batch.labels, self.device, torch.float32)
-            mask = _to_device(batch.mask, self.device, torch.bool)
-            scores = apply_scorer(self.params, self.scorer_cfg,
-                                  _to_device(batch.features, self.device), mask)
-            out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
-            # all-padded remainder rows add zero metric and must not count
-            count = torch.sum(torch.any(mask, dim=-1)).to(torch.float32)
-            packed_rows.append(torch.cat([torch.sum(out[m], dim=0) for m in METRICS]
-                                         + [count[None]]))
+        for bucket, idx_k, _ in res.epoch_index_chunks(False, 0, EVAL_CHUNK):
+            feats, labels, mask = res.bucket_arrays(bucket)
+            for idx in res.index_to_device(idx_k):
+                packed_rows.append(self._eval_sums(take_features(feats, idx),
+                                                   labels.index_select(0, idx),
+                                                   mask.index_select(0, idx), ks))
+        return self._reduce_packed_rows(packed_rows, len(ks))
+
+    def _eval_sums(self, x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                   ks) -> torch.Tensor:
+        """One batch's packed [4 * len(ks) + 1] metric sums, on the device."""
+        scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+        out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
+        # all-padded remainder rows add zero metric and must not count
+        count = torch.sum(torch.any(mask, dim=-1)).to(torch.float32)
+        return torch.cat([torch.sum(out[m], dim=0) for m in METRICS] + [count[None]])
+
+    @staticmethod
+    def _reduce_packed_rows(packed_rows, K: int) -> Dict[str, np.ndarray]:
+        """Metric means from packed rows: their sum fetched once."""
         if not packed_rows:
             return {m: np.zeros(K) for m in METRICS}
         total = torch.stack(packed_rows).sum(0).cpu().numpy()

@@ -76,3 +76,25 @@ def test_cuda_request_without_cuda_raises(entry, tmp_path, monkeypatch):
             score_file(ckpt, str(tmp_path / "in.txt"), str(tmp_path / "out.txt"))
         else:
             ScoringService(ckpt)
+
+
+@pytest.mark.parametrize("entry", ["evaluator", "resident", "maybe_resident", "ltr_main"])
+def test_experiment_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
+    """The experiment surface and the resident data default to CUDA and
+    raise without it."""
+    from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+    from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, maybe_device_resident
+    from ptranking_tpu_torch.eval import LTREvaluator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = BucketedDataset(make_synthetic_queries(3, num_features=4), batch_docs=32)
+    with pytest.raises(RuntimeError, match="device='cpu' explicitly"):
+        if entry == "evaluator":
+            LTREvaluator()
+        elif entry == "resident":
+            DeviceResidentDataset(ds)
+        elif entry == "maybe_resident":
+            maybe_device_resident(ds)
+        else:
+            ltr.main(["-model", "RankMSE", "-dir_output", str(tmp_path)])
