@@ -93,7 +93,24 @@ Phases, in order; any failure exits non-zero:
      linear_apply (bf16 x bf16 products with fp32 accumulation, the dtype
      overload of torch.mm) against its fp32 plain version at the
      flagship's and Yahoo!'s layer shapes: the output within one bf16 ulp,
-     dx and dw within the bf16 backward gate.
+     dx and dw within the bf16 backward gate;
+  9. serving_rest: (a) the flagship checkpoint of phase 4 served with
+     `-quantize int8` over HTTP and through score_file (int8 weights,
+     per-token activation scales, `torch._int_mm`): the card's scores
+     against the CPU plain int8 path at the served-score gate, their
+     distance from the bf16 served scores, 6 forward launches a batch, every
+     linear an `aten::_int_mm` and no floating-point product in a profiled
+     batch, ms a batch int8 beside bf16; (b) the same checkpoint exported
+     (`ptranking_tpu_torch.export`, plain and int8, for cuda) and served
+     over HTTP and through score_file: the checkpoint's scores within the
+     gate, the forward kernel's launches during the replay, export time and
+     size; (c) the native GBDT at MSLR-WEB30K's width (F = 136, 64 bins,
+     depth 8) on about 2.26 M docs: two fits from the same binned data grow
+     the same trees, s a tree (host objective, card growth), the idle share
+     of a profiled tree, a dyadic tree equal to the CPU plain path's, and
+     `ltr.main -model LightGBMLambdaMART` end to end; (d) the native LETOR
+     parser: equal to the Python parser, used by load_letor_file, its rows/s
+     and `data.stats`.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -2622,6 +2639,502 @@ def resident_phase(card: str, work_dir: str) -> dict:
     return {"resident": resident, "kfold": kfold}
 
 
+# --- phase 9: int8 serving, exported artifacts, the native GBDT, the native parser ---
+
+# int8 serving and the artifacts serve the flagship's served request of phase
+# 4 (SERVE_LENGTHS) and its LETOR file; the artifacts hold the buckets of
+# both. The int8 scores on the card are held against the CPU plain int8 path
+# on the same params at the served-score gate (SCORE_TOL): the int32 products
+# are exact on both, the attention and bf16 roundings are not the same bits
+# (flash kernel against blockwise on the CPU)
+# the native GBDT at MSLR-WEB30K's width: F = 136, 64 bins, depth 8, on
+# GBDT_DOCS docs in GBDT_QUERIES ragged lists (three fifths of MSLR-WEB30K's
+# 3,771,125 docs in 31,531 queries: one fold's training split), list lengths
+# drawn from a gamma of mean 120 clipped to 1..1251 (MSLR's longest list);
+# the bins drawn on the card from a seed (the host binning is timed on
+# GBDT_BIN_TIMED features of the same size)
+GBDT_QUERIES, GBDT_MEAN_DOCS, GBDT_MAX_DOCS = 18_900, 120, 1251
+GBDT_BINS, GBDT_DEPTH = 64, 8
+GBDT_TREES = 2           # trees a fit; the fit runs twice (the host objective: ~20 s a tree)
+GBDT_BIN_TIMED = 4       # features binned on the host to time the binning
+GBDT_CPU_DOCS = 131_072  # docs of the dyadic tree held against the CPU plain path
+# the native parser: an MSLR-format file of PARSE_ROWS rows at F = 136, native
+# against Python; PARSE_COPIES copies of it (qids renamed) time the native rows/s
+PARSE_ROWS, PARSE_COPIES = 20_000, 5
+
+
+def _serve_payload(lengths, F):
+    import numpy as np
+
+    from ptranking_tpu_torch import LTR_SEED
+
+    rng = np.random.RandomState(LTR_SEED)
+    docs = [rng.randn(n, F).astype(np.float32) for n in lengths]
+    return {"queries": [{"qid": f"q{i}", "docs": d.tolist()} for i, d in enumerate(docs)]}
+
+
+def _served(service, body: bytes, repeats: int = SERVE_REPEATS):
+    """The answer of one POST /score of `body` to `service` over HTTP on a
+    local port, the forward wrappers' launches during it, and the seconds of
+    `repeats` more."""
+    import threading
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_FWD, FLASH_ATTN_FWD_LONG,
+                                                   FLASH_ATTN_FWD_PACKED)
+    from ptranking_tpu_torch.serve import make_server
+
+    forwards = (FLASH_ATTN_FWD, FLASH_ATTN_FWD_PACKED, FLASH_ATTN_FWD_LONG)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/score"
+    try:
+        for k in forwards:
+            k.launches = 0
+        answer = post_json(url, body)
+        launches = sum(k.launches for k in forwards)
+        secs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            post_json(url, body)
+            secs.append(time.perf_counter() - t0)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return answer, launches, secs
+
+
+def _score_err(got: dict, want: dict) -> float:
+    if set(got) != set(want):
+        raise AssertionError(f"served {len(got)} docs, expected {len(want)}")
+    return max(abs(got[k] - want[k]) for k in got)
+
+
+def _op_counts(fn) -> dict:
+    """{op name: calls} of the host ops of one call of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()}
+
+
+def _count_linears(params) -> int:
+    """Linear layers ({"w_q", ...} dicts) of a quantized params tree."""
+    if isinstance(params, dict):
+        return int("w_q" in params) + sum(_count_linears(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(_count_linears(v) for v in params)
+    return 0
+
+
+def int_mm_accepts(device: str) -> dict:
+    """Which (rows, inner, output) shapes this torch's `torch._int_mm` takes
+    on the card, each exact against an fp64 product where it takes it (the
+    shapes that int8_matmul pads to its conditions)."""
+    import torch
+
+    out = {}
+    for M, K, N in ((16, 8, 8), (17, 8, 8), (17, 12, 8), (17, 8, 12), (17, 8, 1),
+                    (100, 136, 408), (100, 700, 2100), (100, 512, 1)):
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=device)
+        b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=device)
+        try:
+            exact = torch.equal(torch._int_mm(a, b).double(), a.double() @ b.double())
+            out[f"{M}x{K}x{N}"] = "exact" if exact else "inexact"
+        except RuntimeError:
+            out[f"{M}x{K}x{N}"] = "refused"
+    return out
+
+
+def int8_serving(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 9 (a): the flagship checkpoint of phase 4 served with `-quantize
+    int8` over HTTP and through score_file: the card's scores against the CPU
+    plain int8 path on the same params (SCORE_TOL), their distance from the
+    unquantized served scores, 6 forward launches a batch, `aten::_int_mm`
+    for every linear of a batch and no floating-point product in a profile
+    of one batch, ms a served request and a batch, int8 beside bf16."""
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset
+    from ptranking_tpu_torch.score import score_file
+    from ptranking_tpu_torch.serve import ScoringService
+
+    ckpt = os.path.join(work_dir, "flagship.pt")
+    payload = _serve_payload(SERVE_LENGTHS, NUM_FEATURES)
+    body = json.dumps(payload).encode()
+    services = {q: ScoringService(ckpt, quantize=q, device=device) for q in ("none", "int8")}
+    nbatches = len(BucketedDataset(
+        [(str(i), np.asarray(q["docs"], np.float32), np.zeros(len(q["docs"]), np.float32))
+         for i, q in enumerate(payload["queries"])], batch_docs=100, num_features=NUM_FEATURES))
+    answers, launches, http_s = {}, {}, {}
+    for q, svc in services.items():
+        answers[q], launches[q], http_s[q] = _served(svc, body)
+    if launches["int8"] != 6 * nbatches:
+        raise AssertionError(f"int8 serving: {launches['int8']} forward launches for "
+                             f"{nbatches} batches; expected 6 a batch")
+    got = scores_by_docid(answers["int8"]["results"])
+    cpu = ScoringService(ckpt, quantize="int8", device="cpu")
+    want = scores_by_docid(cpu.score(payload)["results"])
+    err_cpu = _score_err(got, want)
+    if not err_cpu <= SCORE_TOL:
+        raise AssertionError(f"int8 scores on the card differ from the CPU plain int8 path "
+                             f"by {err_cpu} (tol {SCORE_TOL})")
+    full = scores_by_docid(answers["none"]["results"])
+    err_full = _score_err(got, full)
+    keys = sorted(got)
+    corr = float(np.corrcoef([got[k] for k in keys], [full[k] for k in keys])[0, 1])
+
+    # one batch of the request's largest bucket, profiled: every linear an
+    # int8 product, no floating-point product
+    ds = BucketedDataset([(str(i), np.asarray(q["docs"], np.float32),
+                           np.zeros(len(q["docs"]), np.float32))
+                          for i, q in enumerate(payload["queries"])], batch_docs=100,
+                         num_features=NUM_FEATURES)
+    batch = list(ds.batches())[-1]
+    ranker8 = services["int8"].ranker
+    linears = _count_linears(ranker8.params)  # the flagship: head 4, encoder 6 x 2, tail 4
+    ops = _op_counts(lambda: ranker8.predict(batch))
+    float_products = {k: v for k, v in ops.items()
+                      if k in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")}
+    if ops.get("aten::_int_mm", 0) != linears or float_products:
+        raise AssertionError(f"int8 batch: aten::_int_mm {ops.get('aten::_int_mm', 0)} times "
+                             f"(expected {linears}), floating-point products "
+                             f"{float_products}")
+    batch_ms = {}
+    x = torch.from_numpy(batch.features).to(device)
+    m = torch.from_numpy(batch.mask).to(device)
+    from ptranking_tpu_torch.models import apply_scorer
+
+    for q, svc in services.items():
+        r = svc.ranker
+        with torch.inference_mode():
+            batch_ms[q] = cuda_time_ms(lambda: apply_scorer(r.params, r.scorer_cfg, x, m), 20)
+    # score_file -quantize int8 on phase 4's LETOR file
+    reset_counts()
+    run_path = os.path.join(work_dir, "flagship_int8.run")
+    rows = score_file(ckpt, os.path.join(work_dir, "flagship.txt"), run_path,
+                      data_id="MSLRWEB30K", quantize="int8", device=device)
+    file_launches = read_counts()["flash_attn_fwd"]
+    with open(run_path) as f:
+        if not all(math.isfinite(float(line.split()[4])) for line in f):
+            raise AssertionError("score_file -quantize int8: non-finite scores")
+    if file_launches <= 0:
+        raise AssertionError("score_file -quantize int8 launched no forward kernel")
+    med = {q: sorted(s)[len(s) // 2] for q, s in http_s.items()}
+    rec = {"batches": nbatches, "launches": launches["int8"],
+           "max_abs_err_vs_cpu_int8": err_cpu, "max_abs_diff_vs_bf16": err_full,
+           "corr_vs_bf16": corr, "int_mm_per_batch": ops.get("aten::_int_mm", 0),
+           "http_s_int8": http_s["int8"], "http_s_bf16": http_s["none"],
+           "ms_per_served_batch_int8": med["int8"] * 1e3 / nbatches,
+           "ms_per_served_batch_bf16": med["none"] * 1e3 / nbatches,
+           "scorer_ms_batch_int8": batch_ms["int8"], "scorer_ms_batch_bf16": batch_ms["none"],
+           "batch_shape": list(batch.features.shape), "score_file_rows": rows,
+           "score_file_launches": file_launches, "int_mm": int_mm_accepts(device)}
+    print("int8_serving " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return {"flash_attn_fwd": launches["int8"] + file_launches}
+
+
+def artifact_serving(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 9 (b): the flagship checkpoint exported for `cuda`, plain and
+    int8, with the buckets of phase 4's request and LETOR file; each artifact
+    served over HTTP and through score_file. Its scores against the
+    checkpoint's own served scores (plain) or int8 served scores (int8) at
+    the bf16 serving gate (SCORE_TOL), the forward kernel's launches during
+    the replay (6 a batch), the export time and the artifact's size."""
+    import numpy as np
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset
+    from ptranking_tpu_torch.export import export_scorer
+    from ptranking_tpu_torch.score import score_file
+    from ptranking_tpu_torch.serve import ScoringService
+
+    ckpt = os.path.join(work_dir, "flagship.pt")
+    payload = _serve_payload(SERVE_LENGTHS, NUM_FEATURES)
+    body = json.dumps(payload).encode()
+    sizes = [len(q["docs"]) for q in payload["queries"]]
+    ds = BucketedDataset([(str(i), np.zeros((n, 1), np.float32), np.zeros(n, np.float32))
+                          for i, n in enumerate(sizes)], batch_docs=100)
+    buckets = ds.buckets  # they hold phase 4's LETOR file (20..400 docs) too
+    launches, rec = 0, {}
+    for q in ("none", "int8"):
+        art = os.path.join(work_dir, f"flagship_{q}.pttx")
+        t0 = time.perf_counter()
+        blob = export_scorer(ckpt, art, batch_docs=100, buckets=buckets, platforms=[device],
+                             quantize=q, device=device)
+        export_s = time.perf_counter() - t0
+        answer, n, http_s = _served(ScoringService(art, device=device), body)
+        if n != 6 * len(ds):
+            raise AssertionError(f"artifact ({q}): {n} forward launches during its replay for "
+                                 f"{len(ds)} batches; expected 6 a batch")
+        want, _, _ = _served(ScoringService(ckpt, quantize=q, device=device), body, repeats=0)
+        err = _score_err(scores_by_docid(answer["results"]), scores_by_docid(want["results"]))
+        if not err <= SCORE_TOL:
+            raise AssertionError(f"artifact ({q}) scores differ from its checkpoint's by {err} "
+                                 f"(tol {SCORE_TOL})")
+        reset_counts()
+        rows = score_file(art, os.path.join(work_dir, "flagship.txt"),
+                          os.path.join(work_dir, f"flagship_{q}_artifact.run"),
+                          data_id="MSLRWEB30K", device=device)
+        file_launches = read_counts()["flash_attn_fwd"]
+        if file_launches <= 0:
+            raise AssertionError(f"score_file of the artifact ({q}) launched no forward kernel")
+        launches += n + file_launches
+        rec[q] = {"entries": len(blob["entries"]), "export_s": export_s,
+                  "bytes": os.path.getsize(art), "launches": n,
+                  "max_abs_err_vs_checkpoint": err, "bit_equal": err == 0.0,
+                  "http_s": http_s, "score_file_rows": rows,
+                  "score_file_launches": file_launches}
+    print("artifact_serving " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return {"flash_attn_fwd": launches}
+
+
+def _same_tree(a, b):
+    """None when two trees (split_feat, split_bin, leaf_value) are the same
+    bits, else the first difference. Empty leaves are 0/0: NaN on both, but
+    the CPU's and CUDA's NaN differ in their bits, so NaN equals NaN."""
+    import numpy as np
+
+    for name, x, y in zip(("split_feat", "split_bin", "leaf_value"), a, b):
+        if x.shape != y.shape:
+            return f"{name} shapes {x.shape} {y.shape}"
+        if x.dtype == np.float32:
+            nan = np.isnan(x)
+            if not np.array_equal(nan, np.isnan(y)):
+                return f"{name}: NaN at other leaves"
+            x, y = x[~nan].view(np.int32), y[~nan].view(np.int32)
+        bad = np.flatnonzero(x != y)
+        if bad.size:
+            return f"{name}[{bad[0]}]: {x[bad[0]]} against {y[bad[0]]} ({bad.size} differ)"
+    return None
+
+
+def gbdt_data(device: str):
+    """Synthetic MSLR-shaped binned data: (bins [n, F] int32 on `device`,
+    target [n] float64, group [Q] int64). List lengths from a gamma of mean
+    GBDT_MEAN_DOCS clipped to 1..GBDT_MAX_DOCS; bins uniform in
+    0..GBDT_BINS-1 drawn on the device; labels 0..4 from a linear teacher over
+    12 of the features plus noise, cut at global quantiles (MSLR-like: about
+    half the docs 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(7)
+    group = np.clip(np.round(rng.gamma(2.0, GBDT_MEAN_DOCS / 2.0, GBDT_QUERIES)), 1,
+                    GBDT_MAX_DOCS).astype(np.int64)
+    n = int(group.sum())
+    gen = torch.Generator(device=device).manual_seed(7)
+    bins = torch.randint(0, GBDT_BINS, (n, NUM_FEATURES), dtype=torch.int32, device=device,
+                         generator=gen)
+    w = torch.linspace(1.0, 2.0, 12, device=device)
+    s = bins[:, :12].float() @ w / GBDT_BINS + 0.5 * torch.randn(n, device=device, generator=gen)
+    cuts = torch.quantile(s[torch.randperm(n, device=device, generator=gen)[:1 << 20]],
+                          torch.tensor([0.5, 0.8, 0.95, 0.99], device=device))
+    target = torch.bucketize(s, cuts).double().cpu().numpy()
+    return bins, target, group
+
+
+def gbdt_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 9 (c): the native GBDT on the card at MSLR-WEB30K's width (F =
+    136, 64 bins, depth 8) on about 2.26 M docs: a fit of GBDT_TREES trees
+    twice from the same binned data (the same trees, bit for bit), s a tree
+    split into the host objective and the card's growth and prediction, the
+    idle share of one profiled grow_tree, one tree grown from dyadic grad
+    and hess (exact sums) held against the CPU plain path on GBDT_CPU_DOCS
+    docs, the host binning's s a feature, and `ltr.main -model
+    LightGBMLambdaMART -data SyntheticMQ -debug` end to end on the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.tree import gbdt
+
+    t0 = time.perf_counter()
+    bins, target, group = gbdt_data(device)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    n = bins.shape[0]
+    cfg = gbdt.GBDTConfig(num_trees=GBDT_TREES, max_depth=GBDT_DEPTH, num_bins=GBDT_BINS)
+    fits, timings = [], []
+    for _ in range(2):
+        tm = {}
+        fits.append(gbdt.GBDTRanker(cfg, device=device).boost(bins, target, group, timings=tm))
+        timings.append(tm)
+    same = len(fits[0].trees) == len(fits[1].trees) == GBDT_TREES and all(
+        _same_tree(ta, tb) is None for ta, tb in zip(fits[0].trees, fits[1].trees))
+    if not same:
+        raise AssertionError("two fits from the same data grew different trees")
+    leaves = fits[0].trees[-1][2]
+    if not np.isfinite(leaves[np.isfinite(leaves)]).all() or not np.isfinite(leaves).any():
+        raise AssertionError("the fit's leaves are not finite")
+
+    # one grow_tree profiled: its idle share on the card
+    g = torch.from_numpy(np.random.RandomState(1).randn(n).astype(np.float32)).to(device)
+    h = torch.rand(n, device=device) + 0.01
+    grow = lambda: gbdt.grow_tree(bins, g, h, GBDT_DEPTH, GBDT_BINS, 0.0, 1e-3)
+    grow()
+    busy_ms, _, wall_ms = profile_ms(grow, kernel="index")
+
+    # the deepest level's histograms (128 nodes) as the tree builds them
+    # (blocks of 8 features, int64 scatter-adds) and as a plain loop of one
+    # fp32 index_add_ a feature, whose atomics add in no fixed order
+    local = torch.randint(0, 1 << (GBDT_DEPTH - 1), (n,), device=device)
+    FB = gbdt.FEATURE_BLOCK
+    F = NUM_FEATURES // FB * FB  # 136: all of them
+    blocks = bins[:, :F].t().reshape(F // FB, FB, n)
+    src = torch.stack([gbdt.to_fixed(g, 30), gbdt.to_fixed(h, 30)], -1).repeat(FB, 1)
+    ghf = torch.stack([g, h], -1)
+    nodes = 1 << (GBDT_DEPTH - 1)
+
+    def per_feature():
+        for f in range(F):
+            torch.zeros(nodes * GBDT_BINS, 2, device=device).index_add_(
+                0, local * GBDT_BINS + bins[:, f].long(), ghf)
+
+    hist_ms = {"blocked_int64": cuda_time_ms(
+        lambda: gbdt.level_histograms(blocks, local, src, nodes, GBDT_BINS), 3, warmup=1),
+        "per_feature_fp32": cuda_time_ms(per_feature, 3, warmup=1)}
+    del blocks, src
+
+    # dyadic grad and hess: exact sums in any order, so the card's tree is
+    # the CPU plain path's, bit for bit
+    rng = np.random.RandomState(3)
+    k = GBDT_CPU_DOCS
+    gd = torch.from_numpy(rng.randint(-64, 65, k).astype(np.float32) / 64.0)
+    hd = torch.from_numpy(rng.randint(1, 65, k).astype(np.float32) / 128.0)
+    sub = bins[:k]
+    on_card = gbdt.grow_tree(sub, gd.to(device), hd.to(device), GBDT_DEPTH, GBDT_BINS, 0.0, 1e-3)
+    t1 = time.perf_counter()
+    on_cpu = gbdt.grow_tree(sub.cpu(), gd, hd, GBDT_DEPTH, GBDT_BINS, 0.0, 1e-3)
+    cpu_s = time.perf_counter() - t1
+    diff = _same_tree([t.cpu().numpy() for t in on_card], [t.numpy() for t in on_cpu])
+    if diff is not None:
+        raise AssertionError(f"the dyadic tree on the card differs from the CPU plain "
+                             f"path's: {diff}")
+    del bins, sub, g, h
+    torch.cuda.empty_cache()
+
+    # the host binning at this size, on a few features
+    data = np.random.RandomState(5).randn(n, GBDT_BIN_TIMED)
+    t1 = time.perf_counter()
+    edges = gbdt.quantile_bin_edges(data, GBDT_BINS)
+    t2 = time.perf_counter()
+    gbdt.bin_features(data, edges)
+    t3 = time.perf_counter()
+
+    out = os.path.join(work_dir, "tree")
+    shutil.rmtree(out, ignore_errors=True)
+    t4 = time.perf_counter()
+    cv = ltr.main(["-model", "LightGBMLambdaMART", "-data", "SyntheticMQ", "-debug",
+                   "-dir_output", out, "-device", device])
+    ltr_s = time.perf_counter() - t4
+    if not np.all(np.isfinite(cv["nDCG"])) or not 0.0 < float(cv["nDCG"][2]) <= 1.0:
+        raise AssertionError(f"tree k-fold run: CV nDCG {cv['nDCG']}")
+    rec = {"docs": n, "queries": len(group), "features": NUM_FEATURES, "bins": GBDT_BINS,
+           "depth": GBDT_DEPTH, "trees_per_fit": GBDT_TREES, "same_trees_twice": same,
+           "bins_gb": n * NUM_FEATURES * 4 / 1e9, "data_s": data_s,
+           "objective_s": [tm["objective"] for tm in timings],
+           "grow_s": [tm["grow"] for tm in timings],
+           "level7_histogram_ms": hist_ms,
+           "profiled_grow_ms": wall_ms, "profiled_grow_busy_ms": busy_ms,
+           "grow_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+           "dyadic_cpu_equal_docs": k, "dyadic_cpu_grow_s": cpu_s,
+           "host_quantile_s_per_feature": (t2 - t1) / GBDT_BIN_TIMED,
+           "host_bin_s_per_feature": (t3 - t2) / GBDT_BIN_TIMED,
+           "ltr_tree_s": ltr_s, "ltr_tree_cv_ndcg": [float(v) for v in cv["nDCG"]]}
+    print("gbdt " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return rec
+
+
+def parser_phase(card: str, work_dir: str) -> dict:
+    """Phase 9 (d): the native LETOR parser on the card's machine: an
+    MSLR-format file of PARSE_ROWS rows parsed natively and in Python to the
+    same arrays, load_letor_file through the native path, the native rows/s
+    on PARSE_COPIES copies of the file, and `data.stats` on it."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ptranking_tpu_torch.data import letor, native_parser, stats
+    from ptranking_tpu_torch.data.dataset import make_synthetic_queries
+    from ptranking_tpu_torch.utils import native_build
+
+    root = os.path.join(work_dir, "parser")
+    os.makedirs(root, exist_ok=True)
+    queries = make_synthetic_queries(PARSE_ROWS // 120, num_features=NUM_FEATURES, max_label=4,
+                                     min_docs=1, max_docs=239, seed=9)
+    # MSLR's files carry no '#docid' comments
+    small = letor.write_letor_file(queries, os.path.join(root, "small.txt"), with_comment=False)
+    with open(small) as f:
+        rows = sum(1 for _ in f)
+    if not native_parser.native_parser_available():
+        raise AssertionError("the native parser did not build on this machine")
+    got = native_parser.parse_letor_file_native(small)
+    with open(small, encoding="iso-8859-1") as f:
+        want = letor.parse_letor_lines(f)
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and got[2] == want[2]):
+        raise AssertionError("native and Python parses differ")
+    python_calls = []
+    parse_lines = letor.parse_letor_lines
+    letor.parse_letor_lines = lambda *a, **k: python_calls.append(1) or parse_lines(*a, **k)
+    try:
+        loaded = letor.load_letor_file(small, data_id="MSLRWEB30K", presort=False)
+    finally:
+        letor.parse_letor_lines = parse_lines
+    if python_calls or sum(len(q[2]) for q in loaded) != rows:
+        raise AssertionError("load_letor_file did not parse natively")
+    with open(small) as f:
+        text = f.read()
+    big = os.path.join(root, "big.txt")
+    with open(big, "w") as f:
+        for c in range(PARSE_COPIES):
+            f.write(text.replace("qid:", f"qid:c{c}_"))
+    t0 = time.perf_counter()
+    parsed = native_parser.parse_letor_file_native(big)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(small, encoding="iso-8859-1") as f:
+        letor.parse_letor_lines(f)
+    python_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        st = stats.main(["-data", "MSLRWEB30K", "-file", big, "-min_rele", "0"])
+    print(buf.getvalue(), end="", flush=True)
+    rec = {"rows": rows, "native_equals_python": True, "big_rows": int(parsed[0].shape[0]),
+           "big_mb": os.path.getsize(big) / 1e6, "native_s": native_s,
+           "native_rows_per_s": parsed[0].shape[0] / native_s,
+           "python_rows_per_s": rows / python_s, "stats_queries": st["num_queries"],
+           "lib": os.path.relpath(native_parser.LIB_PATH, native_build.REPO_ROOT)}
+    print("parser " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return rec
+
+
+def serving_rest_phase(card: str, work_dir: str) -> dict:
+    """Phase 9: (a) int8_serving, (b) artifact_serving, (c) gbdt_phase, (d)
+    parser_phase. Returns the forward kernel's launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    launches = int8_serving(card, work_dir)["flash_attn_fwd"]
+    t1 = time.perf_counter()
+    launches += artifact_serving(card, work_dir)["flash_attn_fwd"]
+    t2 = time.perf_counter()
+    gbdt_phase(card, work_dir)
+    t3 = time.perf_counter()
+    parser_phase(card, work_dir)
+    print(f"serving_rest_phase_s {{\"int8\": {t1 - t0:.1f}, \"artifacts\": {t2 - t1:.1f}, "
+          f"\"gbdt\": {t3 - t2:.1f}, \"parser\": {time.perf_counter() - t3:.1f}}}", flush=True)
+    return {"flash_attn_fwd": launches}
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -2686,6 +3199,11 @@ def main() -> int:
 
     phase("resident")
     resident_phase(card, work_dir)
+
+    phase("serving_rest")
+    rest = serving_rest_phase(card, work_dir)
+    print(f"flash_attn_fwd launches in int8 and artifact serving: "
+          f"{rest['flash_attn_fwd']}  [{card}]", flush=True)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",

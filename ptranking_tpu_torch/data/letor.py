@@ -1,8 +1,10 @@
 """LETOR/LibSVM text parsing and per-query assembly (numpy).
 
-The port's own copy of ptranking_tpu/data/letor.py with the pure-Python
-parser; the ctypes wrapper over native/letor_parser.cpp is a later slice.
-Queries come out as (qid, [n, F] features, [n] labels) in first-appearance
+The port's own copy of ptranking_tpu/data/letor.py. `load_letor_file`
+parses through the ctypes wrapper of native/letor_parser.cpp
+(data/native_parser.py) and falls back to the pure-Python
+`parse_letor_lines`, the oracle, where no C++ compiler exists. Queries come
+out as (qid, [n, F] features, [n] labels) in first-appearance
 order, and a parsed file is cached beside it as a packed `.npz` keyed by the
 load settings (the same file name and format as the JAX package's cache).
 """
@@ -24,6 +26,7 @@ from ptranking_tpu_torch.data.meta import (
     get_scaler_setting,
     scale_features,
 )
+from ptranking_tpu_torch.data.native_parser import parse_letor_file_native
 
 Query = Tuple[str, np.ndarray, np.ndarray]  # (qid, [n, F] features, [n] labels)
 
@@ -168,8 +171,10 @@ def load_letor_file(
     cache = _cache_path(path, data_id, {**kwargs, "has_comment": has_comment})
     if os.path.exists(cache):
         return _load_packed(cache)
-    with open(path, encoding="iso-8859-1") as f:
-        parsed = parse_letor_lines(f, has_comment=has_comment, one_indexed=one_indexed)
+    parsed = parse_letor_file_native(path, one_indexed=one_indexed, has_comment=has_comment)
+    if parsed is None:
+        with open(path, encoding="iso-8859-1") as f:
+            parsed = parse_letor_lines(f, has_comment=has_comment, one_indexed=one_indexed)
     mat, labels, qids = parsed[0], parsed[1], parsed[2]
     queries = group_and_clip(mat, labels, qids, data_id=data_id, **kwargs)
     _save_packed(cache, queries)

@@ -4,8 +4,12 @@ The port's counterpart of ptranking_tpu/ltr.py, with the same flags and one
 more, `-device` (default `cuda`; `cpu` is for tests). An adhoc model id runs
 the port's LTREvaluator: k-fold cross-validation with validation, the best
 checkpoint of each fold, the stop guard and resume, the training data
-device-resident. The tree, diversification and adversarial model ids and
-the multi-device flags are refused until their branches are ported.
+device-resident. A tree model id (LightGBMLambdaMART, TPUGBDTLambdaMART)
+runs the tree branch's TreeLTREvaluator on the same device, as the JAX
+package dispatches it (with -dir_json, -grid, or a point run); where
+LightGBM is absent, LightGBMLambdaMART falls back to the native GBDT. The
+diversification and adversarial model ids and the multi-device flags are
+refused until their branches are ported.
 """
 
 from __future__ import annotations
@@ -15,14 +19,14 @@ import sys
 
 from ptranking_tpu_torch.eval import LTR_ADHOC_MODELS, LTREvaluator
 from ptranking_tpu_torch.eval.settings import PARALLEL_KEYS
+from ptranking_tpu_torch.tree import LTR_TREE_MODELS, TreeLTREvaluator
 
 # the model ids of the branches the port does not have yet, and the ROADMAP
 # queue A item that ports each
-LTR_TREE_MODELS = ["LightGBMLambdaMART", "TPUGBDTLambdaMART"]
 LTR_DIV_MODELS = ["DALETOR", "DivProbRanker"]
 LTR_ADVERSARIAL_MODELS = ["IRGAN_Point", "IRGAN_Pair", "IRGAN_List",
                           "IRFGAN_Point", "IRFGAN_Pair", "IRFGAN_List"]
-BRANCHES = ((LTR_TREE_MODELS, "tree", 5), (LTR_DIV_MODELS, "diversification", 6),
+BRANCHES = ((LTR_DIV_MODELS, "diversification", 6),
             (LTR_ADVERSARIAL_MODELS, "adversarial", 7))
 ALL_MODELS = list(LTR_ADHOC_MODELS) + LTR_ADVERSARIAL_MODELS + LTR_TREE_MODELS + LTR_DIV_MODELS
 
@@ -95,6 +99,18 @@ def main(argv=None):
         raise NotImplementedError(
             f"{['-' + k for k in parallel]} need the multi-device layer, which the port "
             "does not have yet (ROADMAP queue A item 8)")
+    if args.model in LTR_TREE_MODELS:
+        evaluator = TreeLTREvaluator(device=args.device, cuda=args.cuda)
+        if args.dir_json:
+            return evaluator.run(debug=args.debug, model_id=args.model,
+                                 config_with_json=True, dir_json=args.dir_json)
+        if args.grid:
+            return evaluator.grid_run(debug=args.debug, model_id=args.model,
+                                      data_id=args.data_id or "SyntheticMQ",
+                                      dir_data=args.dir_data, dir_output=args.dir_output)
+        return evaluator.point_run(model_id=args.model, data_id=args.data_id or "SyntheticMQ",
+                                   dir_data=args.dir_data, dir_output=args.dir_output,
+                                   debug=args.debug)
     if args.seed is not None:
         overrides["seed"] = args.seed
     evaluator = LTREvaluator(device=args.device, cuda=args.cuda, mesh_overrides=overrides)

@@ -104,11 +104,64 @@ def _takes_bf16_gemm(x: torch.Tensor, p: Params) -> bool:
             and p["w"].dtype == torch.bfloat16 and p["b"].dtype == torch.bfloat16)
 
 
+# torch._int_mm's shape conditions on CUDA: the inner and output dims a
+# multiple of 8, more than 16 rows (INT8_MIN_ROWS); smaller operands are
+# zero-padded, which leaves the int32 sums exact
+INT8_DIM_MULTIPLE = 8
+INT8_MIN_ROWS = 17
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 @ [K, N] int8 -> [M, N] int32, exact. CUDA: `torch._int_mm`
+    (cuBLASLt's int8 tensor-core GEMM; the JAX package leaves this product to
+    XLA, outside any Pallas kernel), the operands zero-padded to its shape
+    conditions and the result sliced back; no other route on the card, so a
+    torch that refuses the product raises. CPU: the plain version, an int32
+    product."""
+    if x_q.device.type != "cuda":
+        return torch.matmul(x_q.to(torch.int32), w_q.to(torch.int32))
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    Mp = max(M, INT8_MIN_ROWS)
+    Kp, Np = _round_up(K, INT8_DIM_MULTIPLE), _round_up(N, INT8_DIM_MULTIPLE)
+    if (Mp, Kp) != (M, K):
+        x_q = torch.nn.functional.pad(x_q, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N):
+        w_q = torch.nn.functional.pad(w_q, (0, Np - N, 0, Kp - K))
+    acc = torch._int_mm(x_q.contiguous(), w_q.contiguous())
+    return acc[:M, :N] if (Mp, Np) != (M, N) else acc
+
+
+def _int8_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The int8 serving path (models/quantize.py), as the JAX package's
+    linear_apply computes it: a per-token scale a_s = max(max|x| / 127,
+    1e-12) in fp32, x_q = clip(round(x / a_s), -127, 127) as int8 (round half
+    to even in both frameworks), the int8 product accumulated in int32, then
+    acc * (a_s * w_s) + b in fp32, returned in x's dtype. The divisions are
+    by tensors on x's device: CUDA divides by a host scalar as a product with
+    its reciprocal, which can differ in the last bit."""
+    d_in = x.shape[-1]
+    x2 = x.reshape(-1, d_in)
+    a_s = torch.amax(torch.abs(x2), dim=-1, keepdim=True).to(torch.float32)
+    a_s = torch.clamp(a_s / torch.full((), 127.0, device=x.device), min=1e-12)
+    x_q = torch.clamp(torch.round(x2.to(torch.float32) / a_s), -127, 127).to(torch.int8)
+    acc = int8_matmul(x_q, p["w_q"])
+    y = acc.to(torch.float32) * (a_s * p["w_s"].to(torch.float32)) + p["b"].to(torch.float32)
+    return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+
+
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ w + b, accumulated in fp32 with the bias added in fp32, returned in
     x's dtype. bf16 on CUDA: bf16 x bf16 products with fp32 accumulation
     (`_Bf16Linear`); elsewhere the plain version: both operands upcast to
-    fp32 (a product of two bf16 values is exact in fp32), an fp32 product."""
+    fp32 (a product of two bf16 values is exact in fp32), an fp32 product.
+    Quantized params ({"w_q", "w_s", "b"}) take the int8 path (`_int8_linear`)."""
+    if "w_q" in p:
+        return _int8_linear(p, x)
     if _takes_bf16_gemm(x, p):
         y = _Bf16Linear.apply(x.reshape(-1, x.shape[-1]), p["w"], p["b"])
         return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -722,6 +722,23 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+@torch.library.custom_op("ptranking_tpu_torch::flash_attn_fwd", mutates_args=())
+def flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """The no-grad forward on CUDA tensors as a registered op, so that
+    `torch.export` can trace it (it cannot trace a ctypes call on
+    `data_ptr()`) and an exported scorer replays it (export.py). Its body is
+    the forward's wrapper by fwd_route, which counts its launches; on other
+    tensors the wrapper raises."""
+    return _forward_kernel(q)(q.contiguous(), k.contiguous(), v.contiguous(),
+                              mask.contiguous())
+
+
+@flash_attn_fwd_op.register_fake
+def _flash_attn_fwd_fake(q, k, v, mask):
+    return torch.empty_like(q)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Masked non-causal attention, `sm_scale = 1/sqrt(d)`, no dropout.
@@ -735,8 +752,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return _FlashAttention.apply(q, k, v, mask)
-        return _forward_kernel(q)(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  mask.contiguous())
+        return flash_attn_fwd_op(q, k, v, mask)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
     return blockwise_attention(q, k, v, mask, block_size=min(128, max(q.shape[2], 1)))

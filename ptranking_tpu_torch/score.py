@@ -4,9 +4,11 @@
         -data MQ2008_Super [-runid myrun] [-device cuda]
 
 Reads a LETOR/LibSVM file, restores the ranker from a self-describing
-checkpoint (the port's `.pt` or the JAX package's `.pkl`), scores every query
-in padded buckets and writes a TREC run file (qid Q0 docid rank score runid).
-The same flags as `python -m ptranking_tpu.score`, plus `-device`.
+checkpoint (the port's `.pt` or the JAX package's `.pkl`; `-quantize int8`
+serves its int8-quantized copy) or loads an artifact of
+`python -m ptranking_tpu_torch.export`, scores every query in padded buckets
+and writes a TREC run file (qid Q0 docid rank score runid). The same flags
+as `python -m ptranking_tpu.score`, plus `-device`.
 """
 
 from __future__ import annotations
@@ -18,14 +20,15 @@ import numpy as np
 from ptranking_tpu_torch.data.dataset import BucketedDataset
 from ptranking_tpu_torch.data.letor import YAHOO_LTR, load_letor_file, parse_letor_lines
 from ptranking_tpu_torch.data.meta import get_data_meta
+from ptranking_tpu_torch.export import ExportedScorer, artifact_kind
 from ptranking_tpu_torch.train.ranker import AdhocRanker
-
-ARTIFACT_MAGIC = b"PTRX"  # header of the JAX package's exported .ptx scorers
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("ptranking_tpu_torch.score")
-    p.add_argument("-ckpt", required=True, help="self-describing checkpoint (.pt or .pkl)")
+    p.add_argument("-ckpt", required=True,
+                   help="self-describing checkpoint (.pt or .pkl) or an artifact of "
+                        "ptranking_tpu_torch.export")
     p.add_argument("-in", dest="in_path", required=True, help="LETOR/LibSVM file")
     p.add_argument("-out", dest="out_path", required=True, help="TREC run file to write")
     p.add_argument("-data", dest="data_id", default="GLTR_LETOR")
@@ -34,26 +37,34 @@ def build_parser() -> argparse.ArgumentParser:
     # serving mirrors the ~100-doc eval batches training validated
     p.add_argument("-batch_docs", type=int, default=100)
     p.add_argument("-quantize", default="none", choices=("none", "int8"),
-                   help="int8 weights (not ported yet: raises)")
+                   help="int8: per-channel int8 weights and per-token activation scales, "
+                        "int8 products on the card (checkpoints only)")
     p.add_argument("-device", default="cuda", help="torch device (cpu for tests)")
     return p
 
 
-def load_ranker(ckpt: str, quantize: str = "none", device="cuda") -> AdhocRanker:
-    """Shared serving loader (score_file and ptranking_tpu_torch.serve)."""
-    with open(ckpt, "rb") as f:
-        if f.read(len(ARTIFACT_MAGIC)) == ARTIFACT_MAGIC:
-            raise NotImplementedError(
-                f"{ckpt} is an exported .ptx artifact; serving artifacts is not "
-                "ported yet (ROADMAP.md queue A, item 'export.py'): serve the "
-                "checkpoint instead")
-    if quantize == "int8":
-        raise NotImplementedError(
-            "-quantize int8 is not ported yet (ROADMAP.md queue A, item "
-            "'models/quantize.py')")
-    if quantize != "none":
+def load_ranker(ckpt: str, quantize: str = "none", device="cuda"):
+    """Shared serving loader (score_file and ptranking_tpu_torch.serve): an
+    artifact of ptranking_tpu_torch.export serves as it is (ExportedScorer),
+    otherwise a self-describing checkpoint of either package, int8-quantized
+    on request (models/quantize.py). The JAX package's StableHLO .ptx is
+    refused: export the checkpoint with the port."""
+    kind = artifact_kind(ckpt)
+    if kind == "jax":
+        raise ValueError(
+            f"{ckpt} is the JAX package's exported .ptx (StableHLO), which the port "
+            "cannot run: export the checkpoint with `python -m ptranking_tpu_torch.export`")
+    if kind == "torch":
+        if quantize != "none":
+            raise ValueError(
+                "-quantize applies when serving a checkpoint; an artifact is already "
+                "lowered: pass -quantize to ptranking_tpu_torch.export instead to bake "
+                "int8 weights in")
+        return ExportedScorer(ckpt, device=device)
+    if quantize not in ("none", "int8"):
         raise ValueError(f"unknown -quantize {quantize!r}")
-    return AdhocRanker.from_checkpoint(ckpt, device=device)
+    ranker = AdhocRanker.from_checkpoint(ckpt, device=device)
+    return ranker.quantized() if quantize == "int8" else ranker
 
 
 def score_file(ckpt: str, in_path: str, out_path: str, data_id: str = "GLTR_LETOR",

@@ -1,6 +1,8 @@
-"""HTTP scoring server over a self-describing checkpoint, stdlib only.
+"""HTTP scoring server over a self-describing checkpoint or an exported
+artifact, stdlib only.
 
-    python -m ptranking_tpu_torch.serve -ckpt model.pt -port 8080 [-device cuda]
+    python -m ptranking_tpu_torch.serve -ckpt model.pt -port 8080 [-quantize int8] [-device cuda]
+    python -m ptranking_tpu_torch.serve -ckpt model.pttx -port 8080
 
 The wire contract of `python -m ptranking_tpu.serve`:
   GET  /healthz            -> {"ok": true, "model_id": ..., "num_features": N}
@@ -31,15 +33,26 @@ from ptranking_tpu_torch.score import load_ranker
 
 
 class ScoringService:
-    """Checkpoint -> callable scoring core (shared by HTTP and tests; no
-    sockets involved)."""
+    """Checkpoint or artifact -> callable scoring core (shared by HTTP and
+    tests; no sockets involved)."""
 
     def __init__(self, ckpt: str, quantize: str = "none",
                  batch_docs: Optional[int] = None, device="cuda"):
         self.ranker = load_ranker(ckpt, quantize, device)
-        self.num_features = int(self.ranker.scorer_cfg.num_features)
+        self.num_features = int(getattr(self.ranker, "num_features", 0)
+                                or self.ranker.scorer_cfg.num_features)
         self.model_id = self.ranker.model_id
-        self.batch_docs = int(batch_docs or 100)
+        # an artifact has entries for the batch_docs it was exported with and
+        # for its bucket widths alone: default to, and hold to, those
+        artifact_bd = getattr(self.ranker, "batch_docs", None)
+        if batch_docs is None:
+            self.batch_docs = int(artifact_bd or 100)
+        else:
+            if artifact_bd is not None and int(batch_docs) != int(artifact_bd):
+                raise ValueError(f"artifact was exported with batch_docs={artifact_bd}; "
+                                 f"serve with that value (got {batch_docs})")
+            self.batch_docs = int(batch_docs)
+        self.buckets = getattr(self.ranker, "buckets", None)
         self._lock = threading.Lock()
 
     def info(self) -> dict:
@@ -69,7 +82,8 @@ class ScoringService:
         # indices into `parsed`
         ds = BucketedDataset([(str(k), f, np.zeros(len(f), np.float32))
                               for k, (_, f, _) in enumerate(parsed)],
-                             batch_docs=self.batch_docs, num_features=self.num_features)
+                             batch_docs=self.batch_docs, num_features=self.num_features,
+                             buckets=self.buckets)
         results = [None] * len(parsed)
         with self._lock:
             for batch in ds.batches():
@@ -134,11 +148,13 @@ def make_server(service: ScoringService, host: str = "127.0.0.1",
 
 def main(argv: Optional[list] = None):
     p = argparse.ArgumentParser("python -m ptranking_tpu_torch.serve")
-    p.add_argument("-ckpt", required=True, help="self-describing checkpoint (.pt or .pkl)")
+    p.add_argument("-ckpt", required=True,
+                   help="self-describing checkpoint (.pt or .pkl) or an artifact of "
+                        "ptranking_tpu_torch.export")
     p.add_argument("-host", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-batch_docs", type=int, default=None,
-                   help="docs per padded batch (default 100)")
+                   help="docs per padded batch (default: an artifact's own, else 100)")
     p.add_argument("-quantize", default="none", choices=("none", "int8"))
     p.add_argument("-device", default="cuda", help="torch device (cpu for tests)")
     args = p.parse_args(argv)

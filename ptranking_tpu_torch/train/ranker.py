@@ -24,6 +24,7 @@ Checkpoints:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import pickle
@@ -38,6 +39,7 @@ from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, take_fe
 from ptranking_tpu_torch.losses import DEFAULT_PARAS, REQUIRES_LISTSF, STOCHASTIC, get_loss
 from ptranking_tpu_torch.metrics.adhoc import evaluate_all_at_ks
 from ptranking_tpu_torch.models.convert import JaxNamedTuple, opt_state_from_jax, params_from_jax
+from ptranking_tpu_torch.models.quantize import is_quantized, quantize_scorer_params
 from ptranking_tpu_torch.models.scorers import (ScorerConfig, apply_scorer, init_scorer,
                                                 map_params, tree_leaves)
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig, epoch_lr, make_optimizer, set_lr
@@ -177,8 +179,7 @@ class AdhocRanker:
         returns (nan, True) at the first that fails, as the JAX package's
         check epochs do; a check waits for the device. In other epochs the
         host waits for the device once, at the end."""
-        if self.params is None:
-            raise RuntimeError("init() or load() the ranker first")
+        self._check_trainable()
         set_lr(self._optimizer, epoch_lr(self.opt_cfg, epoch_k))
         check = epoch_k % self.stop_check_freq == 0
         losses, counts = [], []
@@ -209,8 +210,7 @@ class AdhocRanker:
         batch of its first chunk (NaN or all-zero scores give (nan, True)),
         as the JAX package does; the host waits for the device once, at the
         end, and a non-finite total gives (nan, True)."""
-        if self.params is None:
-            raise RuntimeError("init() or load() the ranker first")
+        self._check_trainable()
         set_lr(self._optimizer, epoch_lr(self.opt_cfg, epoch_k))
         checked = epoch_k % self.stop_check_freq != 0
         losses = []
@@ -229,6 +229,29 @@ class AdhocRanker:
         if not np.isfinite(total):
             return float("nan"), True
         return total / max(res.num_queries, 1), False
+
+    def _check_trainable(self):
+        if self.params is None:
+            raise RuntimeError("init() or load() the ranker first")
+        if is_quantized(self.params):
+            raise RuntimeError(
+                "this ranker holds int8-quantized inference params "
+                "(AdhocRanker.quantized()); rounding has no gradient: train the "
+                "original ranker instead")
+
+    def quantized(self) -> "AdhocRanker":
+        """An inference-only copy with per-channel int8 weights
+        (models/quantize.py): every linear layer runs an int8 x int8 -> int32
+        product (`torch._int_mm` on the card). predict and evaluate work
+        unchanged; training the copy raises (rounding has no gradient), and
+        its optimizer state is dropped to make that plain."""
+        if self.params is None:
+            raise RuntimeError("init() or load() the ranker first")
+        r = copy.copy(self)
+        # its own copy of the norms' params too: the original may train on
+        r.params = quantize_scorer_params(map_params(lambda t: t.detach().clone(), self.params))
+        r._optimizer = None
+        return r
 
     def stop_training(self, batch: RankingBatch) -> bool:
         """NaN/all-zero prediction guard on one batch: True = training has failed."""
@@ -357,10 +380,7 @@ class AdhocRanker:
         if ckpt["model_id"] != self.model_id:
             raise ValueError(f"checkpoint is for {ckpt['model_id']!r}, "
                              f"this ranker is {self.model_id!r}")
-        if ckpt["format"] == "jax":
-            self.params = params_from_jax(ckpt["params"], self.scorer_cfg, self.device)
-        else:
-            self.params = map_params(lambda t: t.to(self.device), ckpt["params"])
+        self.params = self._checkpoint_params(ckpt)
         self._start_training_state()
         opt_state = ckpt.get("optimizer")
         if ckpt.get("opt_state") is not None:
@@ -377,8 +397,32 @@ class AdhocRanker:
             self._gen.set_state(gen["state"])
         return self
 
+    def _checkpoint_params(self, ckpt: Dict[str, Any]):
+        """The params of a `read_checkpoint` dict on the ranker's device."""
+        if ckpt["format"] == "jax":
+            return params_from_jax(ckpt["params"], self.scorer_cfg, self.device)
+        return map_params(lambda t: t.to(self.device), ckpt["params"])
+
     def load(self, path: str) -> "AdhocRanker":
         return self.restore(read_checkpoint(path))
+
+    def load_params_only(self, path: str) -> "AdhocRanker":
+        """The scorer weights alone from a checkpoint of either package (the
+        port's `.pt` or the JAX package's `.pkl`); the optimizer state and
+        the generator stay as they are. The weights are copied into the
+        ranker's own tensors, which its optimizer holds."""
+        new = self._checkpoint_params(read_checkpoint(path))
+        if self.params is None:
+            self.params = new
+            self._start_training_state()
+            return self
+        dst, src = tree_leaves(self.params), tree_leaves(new)
+        if len(dst) != len(src) or any(a.shape != b.shape for a, b in zip(dst, src)):
+            raise ValueError(f"{path}: its params do not fit this ranker's scorer")
+        with torch.no_grad():
+            for a, b in zip(dst, src):
+                a.copy_(b)
+        return self
 
     @classmethod
     def from_checkpoint(cls, path: str, device="cuda") -> "AdhocRanker":

@@ -232,7 +232,8 @@ def test_cli_runs_on_the_cpu_and_writes_its_results(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-model", "LightGBMLambdaMART"], "item 5"), (["-model", "TPUGBDTLambdaMART"], "item 5"),
+    (["-model", "LightGBMLambdaMART", "-mesh", "data=4"], "item 8"),
+    (["-model", "RankMSE", "-shard_docs"], "item 8"),
     (["-model", "DALETOR"], "item 6"), (["-model", "DivProbRanker"], "item 6"),
     (["-model", "IRGAN_Point"], "item 7"), (["-model", "IRFGAN_List"], "item 7"),
     (["-model", "RankMSE", "-mesh", "data=4"], "item 8"),

@@ -73,12 +73,15 @@ def test_pt_checkpoint_round_trip_and_cli(files):
 
 
 def test_later_slices_raise_not_implemented(files):
+    """What raised before the serving slice's rest was ported: -quantize int8
+    now serves an inference-only int8 copy, and the JAX package's .ptx is
+    refused with a pointer to the port's own export."""
     pkl, _, d = files
-    with pytest.raises(NotImplementedError, match="quantize"):
-        load_ranker(pkl, quantize="int8", device="cpu")
+    q = load_ranker(pkl, quantize="int8", device="cpu")
+    assert "w_q" in q.params["tail_ffnns"]["layers"][0]["linear"] and q._optimizer is None
     art = d / "scorer.ptx"
     art.write_bytes(b"PTRX" + b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="export"):
+    with pytest.raises(ValueError, match="ptranking_tpu_torch.export"):
         load_ranker(str(art), device="cpu")
 
 
