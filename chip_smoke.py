@@ -110,7 +110,25 @@ Phases, in order; any failure exits non-zero:
      of a profiled tree, a dyadic tree equal to the CPU plain path's, and
      `ltr.main -model LightGBMLambdaMART` end to end; (d) the native LETOR
      parser: equal to the Python parser, used by load_letor_file, its rows/s
-     and `data.stats`.
+     and `data.stats`;
+ 10. diversification, at the JAX package's widths for the branch (D = 100,
+     the pointsf 5 x 100, the listsf AttnDIN 6 layers x 6 heads on 300, fp32,
+     8 queries a batch): (a) the pointsf, listsf, listsf_co, pointsf at K = 5
+     and as a cluster of 5, card against CPU on the same params (mus, vars,
+     cocos, the three sort modes); (b) one step's gradients of every
+     DIV_LOSSES key (opt_ideal=False for SuperSoft and LambdaPairCLS), card
+     against CPU; (c) DALETOR (listsf) and DivProbRanker (SuperSoft-aNDCG,
+     pointsf) trained two epochs from device-resident buckets and streamed
+     from the host, 1,024 SyntheticDiv queries of 10..250 docs presorted on
+     the card: the same losses and params bit for bit, queries/s each way,
+     the idle share and host->device copies of DALETOR's profiled resident
+     epoch; (d) aNDCG,
+     ERR-IA, nERR-IA on the card against the CPU on the same scores, ndeval
+     built by the port's builder on the trained ranker's run and qrels, and
+     its alpha-nDCG against the card's; (e) `ltr.main -model DALETOR -sf_id
+     listsf` and `-model DivProbRanker` on SyntheticDiv -debug, finite CV
+     metrics, a run file a fold, -reproduce the same bits. No kernel of
+     ops/csrc launches in it (the JAX branch reaches no pl.pallas_call).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -2655,7 +2673,7 @@ def resident_phase(card: str, work_dir: str) -> dict:
 # GBDT_BIN_TIMED features of the same size)
 GBDT_QUERIES, GBDT_MEAN_DOCS, GBDT_MAX_DOCS = 18_900, 120, 1251
 GBDT_BINS, GBDT_DEPTH = 64, 8
-GBDT_TREES = 2           # trees a fit; the fit runs twice (the host objective: ~20 s a tree)
+GBDT_TREES = 1           # trees a fit; the fit runs twice (the host objective: ~25 s a tree)
 GBDT_BIN_TIMED = 4       # features binned on the host to time the binning
 GBDT_CPU_DOCS = 131_072  # docs of the dyadic tree held against the CPU plain path
 # the native parser: an MSLR-format file of PARSE_ROWS rows at F = 136, native
@@ -3135,6 +3153,509 @@ def serving_rest_phase(card: str, work_dir: str) -> dict:
     return {"flash_attn_fwd": launches}
 
 
+# --- phase 10: the diversification branch ------------------------------------
+
+# At the JAX package's own widths for this branch (its DivSFSetting defaults,
+# diversification/settings.py): D = 100 (TREC Web Track's representation
+# width), the pointsf 5 layers of 100 (GE, BN, affine), the listsf AttnDIN 6
+# encoder layers x 6 heads on the 300-wide [q, d, q*d] then ff_dims (256,
+# 128, 64) (ReLU, BN, affine); fp32, batches of 8 queries. The branch reaches
+# no pl.pallas_call in the JAX package (its listsf takes the dense attention,
+# its losses and metrics are plain XLA), so it runs plain torch on the card
+# and launches none of ops/csrc's kernels.
+DIV_D, DIV_BATCH = 100, 8
+# the check batch of (a) and (b): 7 lists of 10..250 docs and an all-padded
+# row in the 256-doc bucket
+DIV_CHECK_DOCS = (10, 250)
+# card against CPU in fp32 on the same params: mus, vars, cocos and the
+# predictions (masked), max |card - cpu| over the CPU's largest entry; one
+# step's gradients, each tensor's ||card - cpu|| over its ||cpu|| (rel_errs'
+# measure), floored at DIV_GRAD_FLOOR of the largest (the biases a batch norm
+# follows have a gradient of rounding size only)
+DIV_TOL, DIV_GRAD_FLOOR = 1e-4, 1e-2
+# (c): DIV_RES_QUERIES synthetic queries of 10..250 docs (every bucket of
+# 16..256 docs), presorted on the card, two epochs resident and two streamed
+DIV_RES_QUERIES, DIV_RES_SEED = 1024, 5
+DIV_EPOCHS = (1, 2)
+# queries whose card presort is held against the numpy greedy ideal ranking
+DIV_PRESORT_CHECK = 32
+# (d): the on-card metrics against the CPU's on the same scores; ndeval's
+# alpha-nDCG@5/10/20 against the on-card metric
+DIV_KS = (1, 3, 5, 10, 20)
+DIV_METRIC_TOL, DIV_NDEVAL_TOL = 1e-6, 1e-5
+DIV_NDEVAL_TOPICS = 16
+# (b): each DIV_LOSSES key at full width (key, scorer, loss paras)
+DIV_LOSS_CHECKS = [
+    ("DALETOR", "listsf", {}),
+    ("SuperSoft-aNDCG", "pointsf", {}),
+    ("SuperSoft-aNDCG", "pointsf", {"opt_ideal": False}),
+    ("SuperSoft-nERR-IA", "pointsf_K5", {}),
+    ("SuperSoft-nERR-IA", "pointsf_K5", {"opt_ideal": False}),
+    ("PairCLS", "listsf_co", {"opt_id": "PairCLS"}),
+    ("LambdaPairCLS", "pointsf", {"opt_id": "LambdaPairCLS"}),
+    ("LambdaPairCLS", "listsf_co", {"opt_id": "LambdaPairCLS", "opt_ideal": False}),
+    ("Portfolio", "pointsf_cluster5", {}),
+]
+
+
+def div_configs() -> dict:
+    """The scorers of (a) and (b) at full width, dropout 0: the settings'
+    pointsf and listsf, the listsf's co variant, the pointsf at K = 5 and as
+    a cluster of 5."""
+    import dataclasses
+
+    from ptranking_tpu_torch.diversification import DivSFSetting
+
+    point = DivSFSetting(sf_id="pointsf").default_setting(DIV_D)["scorer"]
+    lst = DivSFSetting(sf_id="listsf").default_setting(DIV_D)["scorer"]
+    r = dataclasses.replace
+    return {"pointsf": r(point, dropout=0.0), "listsf": r(lst, dropout=0.0),
+            "listsf_co": r(lst, sf_id="listsf_co", dropout=0.0),
+            "pointsf_K5": r(point, K=5, dropout=0.0),
+            "pointsf_cluster5": r(point, K=5, cluster=True, dropout=0.0)}
+
+
+def div_check_batch(seed: int):
+    from ptranking_tpu_torch.diversification import DivBucketedDataset, make_synthetic_div_queries
+
+    qs = make_synthetic_div_queries(DIV_BATCH - 1, num_features=DIV_D, min_docs=DIV_CHECK_DOCS[0],
+                                    max_docs=DIV_CHECK_DOCS[1], seed=seed)
+    return next(iter(DivBucketedDataset(qs, batch_queries=DIV_BATCH, doc_buckets=(256,))
+                     .batches()))
+
+
+def div_rel(got, want, mask=None) -> float:
+    """max |got - want| / max |want| over the real entries (mask [B, N]; a
+    [B, N, N] tensor takes the pair mask)."""
+    import torch
+
+    if mask is not None:
+        m = mask if got.dim() == 2 else mask[:, :, None] & mask[:, None, :]
+        got, want = torch.where(m, got, 0.0), torch.where(m, want, 0.0)
+    return rel_err(got, want)
+
+
+def div_scorers(card: str, device: str = "cuda") -> dict:
+    """Phase 10 (a): each scorer of div_configs on the card against the same
+    params on the CPU (fp32): mus, vars and cocos, and div_predict under
+    ExpRele, RERAR and RiskAware for the pointsf and the listsf_co, within
+    DIV_TOL; the ms of a forward on the card."""
+    import dataclasses
+
+    import torch
+
+    from ptranking_tpu_torch import LTR_SEED
+    from ptranking_tpu_torch.diversification import div_forward, div_predict, init_div_scorer
+    from ptranking_tpu_torch.diversification.scorers import SORT_ID
+    from ptranking_tpu_torch.models.scorers import map_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = div_check_batch(seed=1)
+    cpu = [torch.from_numpy(a) for a in (b.q_repr, b.doc_reprs, b.doc_mask)]
+    dev = [t.to(device) for t in cpu]
+    rec = {}
+    for name, cfg in div_configs().items():
+        params = init_div_scorer(cfg, seed=LTR_SEED, device="cpu")
+        dparams = map_params(lambda t: t.to(device), params)
+        with torch.no_grad():
+            got = div_forward(dparams, cfg, *dev)
+            want = div_forward(params, cfg, *cpu)
+            errs = {k: div_rel(g.cpu(), w, cpu[2]) for k, g, w in
+                    zip(("mus", "vars", "cocos"), got, want) if w is not None}
+            if (got[2] is None) != (name != "listsf_co"):
+                raise AssertionError(f"div scorer {name}: cocos {got[2] is not None}")
+            if name in ("pointsf", "listsf_co"):
+                for sort_id in SORT_ID:
+                    c = dataclasses.replace(cfg, sort_id=sort_id)
+                    errs[sort_id] = div_rel(div_predict(dparams, c, *dev).cpu(),
+                                            div_predict(params, c, *cpu), cpu[2])
+            errs["forward_ms"] = (cuda_time_ms(lambda: div_forward(dparams, cfg, *dev), 10)
+                                  if device == "cuda" else None)
+        rec[name] = errs
+    print("div_scorers " + json.dumps(rec) + f"  [{card}]", flush=True)
+    bad = {n: {k: v for k, v in e.items() if k != "forward_ms" and not v <= DIV_TOL}
+           for n, e in rec.items()}
+    if any(bad.values()):
+        raise AssertionError(f"div scorers, card against CPU over {DIV_TOL}: {bad}")
+    return rec
+
+
+def div_losses(card: str, device: str = "cuda") -> dict:
+    """Phase 10 (b): one step's loss and gradients of every DIV_LOSSES key
+    (DIV_LOSS_CHECKS: opt_ideal=False for SuperSoft and LambdaPairCLS) at
+    full width on the card against the CPU, same params and batch: the loss
+    and each gradient tensor within DIV_TOL relative (in norm, floored at
+    DIV_GRAD_FLOOR of the largest tensor's norm); the worst element's
+    relative error is recorded beside it."""
+    import torch
+
+    from ptranking_tpu_torch import LTR_SEED
+    from ptranking_tpu_torch.diversification import DIV_LOSSES, div_forward, init_div_scorer
+    from ptranking_tpu_torch.models.scorers import map_params, tree_leaves
+
+    b = div_check_batch(seed=2)
+    configs = div_configs()
+    rec = {}
+    for key, sf, kw in DIV_LOSS_CHECKS:
+        cfg = configs[sf]
+        params = init_div_scorer(cfg, seed=LTR_SEED, device="cpu")
+
+        def step(dev):
+            p = map_params(lambda t: t.detach().to(dev).requires_grad_(True), params)
+            q, d, rm, dm = (torch.from_numpy(a).to(dev)
+                            for a in (b.q_repr, b.doc_reprs, b.rele_mat, b.doc_mask))
+            mus, vars_, cocos = div_forward(p, cfg, q, d, dm, training=True)
+            if key == "DALETOR":
+                loss = DIV_LOSSES[key](mus, rm, dm, **kw)
+            else:
+                loss = DIV_LOSSES[key](mus, vars_, rm, dm, cocos=cocos, **kw)
+            return float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))]
+
+        got_loss, got = step(device)
+        want_loss, want = step("cpu")
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"div loss {key} on {sf}: non-finite gradient")
+        names = leaf_names(params)
+        norms = [float(w.norm()) for w in want]
+        floor = DIV_GRAD_FLOOR * max(norms)
+        rel = {n: float((g - w).norm()) / max(nw, floor)
+               for n, g, w, nw in zip(names, got, want, norms)}
+        top = max(float(w.abs().max()) for w in want)
+        elem = {n: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-3 * top)
+                for n, g, w in zip(names, got, want)}
+        worst, worst_elem = max(rel, key=rel.get), max(elem, key=elem.get)
+        rec[f"{key}/{sf}" + ("/resort" if kw.get("opt_ideal") is False else "")] = {
+            "loss": got_loss, "loss_rel": abs(got_loss - want_loss) / max(abs(want_loss), 1e-30),
+            "grad_rel": rel[worst], "grad_rel_tensor": worst,
+            "grad_elem_rel": elem[worst_elem], "grad_elem_rel_tensor": worst_elem}
+    print("div_losses " + json.dumps(rec) + f"  [{card}]", flush=True)
+    bad = {k: v for k, v in rec.items()
+           if not (v["loss_rel"] <= DIV_TOL and v["grad_rel"] <= DIV_TOL)}
+    if bad or len({k for k, _, _ in DIV_LOSS_CHECKS}) != len(DIV_LOSSES):
+        raise AssertionError(f"div losses, card against CPU over {DIV_TOL}: {bad}")
+    return rec
+
+
+def div_queries(n: int, seed: int, device: str = "cuda"):
+    """n SyntheticDiv queries of 10..250 docs at D = 100 (the JAX package's
+    generator), presorted into their greedy ideal order on the card, all in
+    one batched metrics/srd.py::greedy_ideal_ranking (padded to 250 docs and
+    8 subtopics; the generator's numpy presort takes minutes for 1,024
+    lists of up to 250 docs); the first DIV_PRESORT_CHECK orders are held
+    against the numpy greedy ranking."""
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch.diversification import DivQuery, make_synthetic_div_queries
+    from ptranking_tpu_torch.metrics.srd import greedy_ideal_ranking, np_greedy_ideal_ranking
+
+    qs = make_synthetic_div_queries(n, num_features=DIV_D, min_docs=10, max_docs=250,
+                                    seed=seed, presort=False)
+    S = max(q.rele_mat.shape[0] for q in qs)
+    N = max(q.rele_mat.shape[1] for q in qs)
+    rele = np.zeros((n, S, N), np.float32)
+    mask = np.zeros((n, N), bool)
+    for i, q in enumerate(qs):
+        rele[i, :q.rele_mat.shape[0], :q.rele_mat.shape[1]] = q.rele_mat
+        mask[i, :q.rele_mat.shape[1]] = True
+    orders = greedy_ideal_ranking(torch.from_numpy(rele).to(device),
+                                  torch.from_numpy(mask).to(device)).cpu().numpy()
+    orders = [o[:q.rele_mat.shape[1]] for o, q in zip(orders, qs)]  # pads come last
+    for q, o in list(zip(qs, orders))[:DIV_PRESORT_CHECK]:
+        if not np.array_equal(o, np_greedy_ideal_ranking(q.rele_mat)):
+            raise AssertionError(f"div presort of {q.qid}: the card's greedy ideal ranking "
+                                 "differs from numpy's")
+    return [DivQuery(q.qid, q.q_repr, q.doc_reprs[o], q.rele_mat[:, o],
+                     tuple(np.asarray(q.docnos)[o])) for q, o in zip(qs, orders)]
+
+
+def profile_device(fn) -> dict:
+    """One call of `fn` under torch.profiler with the CUDA activity alone
+    (kernels and copies; the host's operator events, which made a profiled
+    epoch of 130 listsf steps take minutes to process, are not recorded):
+    {wall ms, device busy ms, device idle share, host->device copies, the
+    profiler's processing s}; None values where it recorded no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    busy, copies = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += e.self_device_time_total / 1e3
+        if "Memcpy HtoD" in e.key:
+            copies += e.count
+    return {"wall_ms": wall, "device_busy_ms": busy or None,
+            "device_idle_share": 1.0 - busy / wall if busy else None,
+            "memcpy_htod": copies if busy else None,
+            "processing_s": time.perf_counter() - t1}
+
+
+def div_training(card: str, work_dir: str, queries, device: str = "cuda"):
+    """Phase 10 (c): DALETOR (listsf) and DivProbRanker (SuperSoft-aNDCG,
+    pointsf), at the settings' optimizers and dropout, each trained
+    DIV_EPOCHS from the device-resident buckets and, from the same seed,
+    streamed from the host: the same losses and params, bit for bit. Then
+    an epoch each way on the host's clock (queries/s), and DALETOR's
+    resident one under the profiler (profile_device): idle share, and
+    host->device copies, no more than its index chunks (their count and
+    bytes taken on the host). Returns (the trained DALETOR ranker, the
+    resident and the host dataset)."""
+    import torch
+
+    from ptranking_tpu_torch import LTR_SEED
+    from ptranking_tpu_torch.data.device_cache import DivDeviceResidentDataset, div_packed_nbytes
+    from ptranking_tpu_torch.diversification import (DIV_DEFAULT_PARAS, DivBucketedDataset,
+                                                     DivRanker, DivSFSetting)
+
+    ds = DivBucketedDataset(queries, batch_queries=DIV_BATCH)
+    t0 = time.perf_counter()
+    res = DivDeviceResidentDataset(ds, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    data = {"queries": len(queries), "docs": int(sum(q.doc_reprs.shape[0] for q in queries)),
+            "buckets": list(ds.doc_buckets), "batches_an_epoch": len(ds),
+            "packed_nbytes": div_packed_nbytes(ds), "upload_s": time.perf_counter() - t0}
+    print("div_data " + json.dumps(data) + f"  [{card}]", flush=True)
+    out = None
+    for model_id, sf_id, paras in (("DALETOR", "listsf", {}),
+                                   ("DivProbRanker", "pointsf",
+                                    {"opt_id": "SuperSoft", "metric": "aNDCG"})):
+        sf = DivSFSetting(sf_id=sf_id).default_setting(DIV_D)
+        mp = dict(DIV_DEFAULT_PARAS[model_id], **paras)
+
+        def make():
+            return DivRanker(model_id, sf["scorer"], model_paras=mp, opt_cfg=sf["optimizer"],
+                             seed=LTR_SEED, device=device).init()
+
+        resident, streamed = make(), make()
+        t0 = time.perf_counter()
+        got = [resident.train_epoch_resident(res, e) for e in DIV_EPOCHS]
+        want = [streamed.train_epoch(ds.batches(shuffle=True, epoch=e), e) for e in DIV_EPOCHS]
+        diff = params_diff(resident, streamed)
+        rec = {"model": f"{model_id}/{sf_id}", "losses_resident": got, "losses_streamed": want,
+               "params": diff, "two_epochs_each_way_s": time.perf_counter() - t0}
+        if got != want or not diff["same_bits"] or any(stop for _, stop in got):
+            raise AssertionError(f"div resident against streamed: {rec}")
+        nxt = max(DIV_EPOCHS) + 1
+        for name, fn in (("resident", lambda e: resident.train_epoch_resident(res, e)),
+                         ("streamed", lambda e: streamed.train_epoch(
+                             ds.batches(shuffle=True, epoch=e), e))):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, stop = fn(nxt)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            if stop or not math.isfinite(loss):
+                raise AssertionError(f"div {name} epoch {nxt}: loss {loss}, stop {stop}")
+            rec[name] = {"epoch_s": epoch_s, "queries_per_s": len(queries) / epoch_s}
+        if model_id == "DALETOR":
+            # one resident epoch profiled (the listsf's: the profiler takes
+            # about 35 s to process its 130 steps): its host->device copies
+            # must be no more than its index chunks, counted (and their
+            # bytes summed) on the host
+            copied = []
+            res.index_to_device = lambda idx: (copied.append(idx.nbytes)
+                                               or type(res).index_to_device(res, idx))
+            try:
+                prof = profile_device(lambda: resident.train_epoch_resident(res, nxt + 1))
+            finally:
+                del res.index_to_device
+            prof.update(index_chunks=len(copied), index_bytes=sum(copied))
+            rec["resident"]["profiled_epoch"] = prof
+            if prof["memcpy_htod"] is not None and prof["memcpy_htod"] > len(copied):
+                raise AssertionError(f"div resident epoch: {prof['memcpy_htod']} host->device "
+                                     f"copies for {len(copied)} index chunks")
+            out = resident
+        print("div_epochs " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return out, res, ds
+
+
+def div_ndeval_cases():
+    """DIV_NDEVAL_TOPICS rankings of 24 docs whose ideal order takes
+    ndeval's tie-break (the larger docno wins; docnos d000..d023), as in
+    tests/test_ndeval.py: [(rele [S, 24] of 2..4 subtopics, system order,
+    ideal order)]."""
+    import numpy as np
+
+    def ndeval_greedy(rele, alpha=0.5):
+        S, N = rele.shape
+        gain, remaining, order = np.ones(S), list(range(N)), []
+        while remaining:
+            best, best_s = None, -1.0
+            for d in remaining:
+                s = float(np.sum(gain * rele[:, d]))
+                if best is None or s > best_s or (s == best_s and d > best):
+                    best, best_s = d, s
+            gain *= np.where(rele[:, best] > 0, 1.0 - alpha, 1.0)
+            order.append(best)
+            remaining.remove(best)
+        return np.asarray(order)
+
+    rng = np.random.RandomState(7)
+    cases = []
+    for _ in range(DIV_NDEVAL_TOPICS):
+        S, N = rng.randint(2, 5), 24
+        rele = (rng.rand(S, N) < 0.35).astype(np.float32)
+        rele[rng.randint(S), rng.randint(N)] = 1.0
+        cases.append((rele, rng.permutation(N), ndeval_greedy(rele)))
+    return cases
+
+
+def div_evaluation(card: str, work_dir: str, ranker, res, ds, queries,
+                   device: str = "cuda") -> dict:
+    """Phase 10 (d): aNDCG, ERR-IA and nERR-IA at DIV_KS, per query, on the
+    card against the CPU metrics fed the same scores (DIV_METRIC_TOL), and
+    `evaluate` on the resident data; ndeval built by the port's native
+    builder (a missing compiler or a failed build fails) run on the qrels
+    and the run file of the trained ranker's rankings (a finite amean row);
+    ndeval's alpha-nDCG@5/10/20 against the on-card metric
+    (DIV_NDEVAL_TOL) on div_ndeval_cases."""
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch.diversification import DivLTREvaluator
+    from ptranking_tpu_torch.diversification.ranker import _sorted_rele
+    from ptranking_tpu_torch.metrics.ndeval import ndeval_binary, run_ndeval, write_qrels, write_run
+    from ptranking_tpu_torch.metrics.srd import alpha_ndcg_at_ks, err_ia_at_ks, nerr_ia_at_ks
+
+    def metrics(scores, rm, dm, sm):
+        sys_rele, sys_mask = _sorted_rele(scores, rm, dm)
+        return torch.cat([alpha_ndcg_at_ks(sys_rele, rm, sys_mask, DIV_KS),
+                          err_ia_at_ks(sys_rele, sys_mask, 1.0, DIV_KS, subtopic_mask=sm),
+                          nerr_ia_at_ks(sys_rele, rm, sys_mask, 1.0, DIV_KS, subtopic_mask=sm)],
+                         dim=-1)
+
+    worst, n_rows = 0.0, 0
+    for batch in res.batches():
+        scores = ranker.predict(batch)
+        arrays = (scores, batch.rele_mat, batch.doc_mask, batch.subtopic_mask)
+        got = metrics(*arrays).cpu()
+        want = metrics(*(a.cpu() for a in arrays))
+        worst = max(worst, float((got - want).abs().max()))
+        n_rows += got.shape[0]
+    t0 = time.perf_counter()
+    ev = ranker.evaluate(res, ks=DIV_KS)
+    eval_s = time.perf_counter() - t0
+    rec = {"metric_rows": n_rows, "card_vs_cpu_max_abs": worst, "evaluate_s": eval_s,
+           "evaluate": {m: np.asarray(v).tolist() for m, v in ev.items()}}
+
+    binary = ndeval_binary()
+    if binary is None:
+        raise AssertionError("ndeval: no C++ compiler to build native/ndeval.cpp")
+    nd_dir = os.path.join(work_dir, "div_ndeval")
+    os.makedirs(nd_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    # the evaluator's fold writer: run file, qrels, and ndeval's amean (None
+    # where its advisory run failed)
+    amean, _ = DivLTREvaluator(device=device)._write_fold_run(ranker, ds, queries, nd_dir, 1)
+    if amean is None:
+        raise AssertionError(f"ndeval failed on {nd_dir}'s fold_1 qrels and run")
+    rec["ndeval_binary"] = os.path.relpath(binary, os.path.dirname(os.path.abspath(__file__)))
+    rec["ndeval_s"] = time.perf_counter() - t0
+    rec["ndeval_amean"] = {k: amean[k] for k in ("alpha-nDCG@5", "alpha-nDCG@10",
+                                                  "alpha-nDCG@20", "ERR-IA@20", "nERR-IA@20")}
+    rec["aNDCG@5,10,20 (evaluate)"] = [float(ev["aNDCG"][DIV_KS.index(k)]) for k in (5, 10, 20)]
+
+    cases = div_ndeval_cases()
+    qp, rp = os.path.join(nd_dir, "cases_qrels.txt"), os.path.join(nd_dir, "cases_run.txt")
+    write_qrels(qp, [(t + 1, s + 1, f"d{d:03d}", int(rele[s, d]))
+                     for t, (rele, _, _) in enumerate(cases)
+                     for s in range(rele.shape[0]) for d in range(rele.shape[1])])
+    write_run(rp, [(t + 1, f"d{d:03d}", rank + 1, float(len(order) - rank))
+                   for t, (_, order, _) in enumerate(cases) for rank, d in enumerate(order)])
+    res_nd = run_ndeval(qp, rp)
+    # a batch of the cases, padded to 4 subtopics (an all-zero subtopic adds no gain)
+    pad = lambda m: np.pad(m, ((0, 4 - m.shape[0]), (0, 0)))  # noqa: E731
+    sys_rele = torch.from_numpy(np.stack([pad(r[:, o]) for r, o, _ in cases])).to(device)
+    ideal = torch.from_numpy(np.stack([pad(r[:, i]) for r, _, i in cases])).to(device)
+    mask = torch.ones(sys_rele.shape[0], sys_rele.shape[2], dtype=torch.bool, device=device)
+    card_nd = alpha_ndcg_at_ks(sys_rele, ideal, mask, (5, 10, 20)).cpu().numpy()
+    want_nd = np.asarray([[res_nd[str(t + 1)][f"alpha-nDCG@{k}"] for k in (5, 10, 20)]
+                          for t in range(len(cases))])
+    rec["ndeval_vs_card_max_abs"] = float(np.abs(card_nd - want_nd).max())
+    print("div_evaluation " + json.dumps(rec) + f"  [{card}]", flush=True)
+    if not (worst <= DIV_METRIC_TOL and rec["ndeval_vs_card_max_abs"] <= DIV_NDEVAL_TOL
+            and all(math.isfinite(v) for v in amean.values())
+            and all(math.isfinite(v) for vs in rec["evaluate"].values() for v in vs)):
+        raise AssertionError(f"div evaluation: {rec}")
+    return rec
+
+
+def div_cli(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 10 (e): `python -m ptranking_tpu_torch.ltr -model DALETOR -sf_id
+    listsf -data SyntheticDiv -debug` (its main) and the same with
+    DivProbRanker (pointsf) on the card: finite CV metrics, a run file a
+    fold; then -reproduce from the saved checkpoints gives the same CV
+    metrics, bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from ptranking_tpu_torch import ltr
+
+    rec = {}
+    for model_id, sf_id in (("DALETOR", "listsf"), ("DivProbRanker", "pointsf")):
+        out = os.path.join(work_dir, "div_cli", model_id)
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["-model", model_id, "-sf_id", sf_id, "-data", "SyntheticDiv", "-debug",
+                "-dir_output", out] + (["-device", device] if device != "cuda" else [])
+        t0 = time.perf_counter()
+        perf = ltr.main(argv)
+        t1 = time.perf_counter()
+        again = ltr.main(argv + ["-reproduce"])
+        t2 = time.perf_counter()
+        runs = sorted(f for _, _, fs in os.walk(out) for f in fs if f.endswith("_run.txt"))
+        cv = {m: np.asarray(perf[m]).tolist() for m in ("aNDCG", "ERR-IA", "nERR-IA")}
+        same = all(np.array_equal(np.asarray(perf[m]), np.asarray(again[m])) for m in cv)
+        rec[model_id] = {"sf_id": sf_id, "run_s": t1 - t0, "reproduce_s": t2 - t1, "cv": cv,
+                         "ndeval_cv": {k: np.asarray(v).tolist() for k, v in again.items()
+                                       if k.endswith("(ndeval)")},
+                         "run_files": runs, "reproduce_same_bits": same}
+        if (not all(math.isfinite(v) for vs in cv.values() for v in vs) or not same
+                or runs != ["fold_1_run.txt", "fold_2_run.txt"]):
+            raise AssertionError(f"div CLI {model_id}: {rec[model_id]}")
+    print("div_cli " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return rec
+
+
+def div_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 10: (a) div_scorers, (b) div_losses, (c) div_training, (d)
+    div_evaluation, (e) div_cli; no kernel of ops/csrc launches in it.
+    Prints each sub-phase's seconds."""
+    reset_counts()
+    t = [time.perf_counter()]
+    div_scorers(card, device)
+    t.append(time.perf_counter())
+    div_losses(card, device)
+    t.append(time.perf_counter())
+    queries = div_queries(DIV_RES_QUERIES, DIV_RES_SEED, device)
+    t.append(time.perf_counter())
+    ranker, res, ds = div_training(card, work_dir, queries, device)
+    t.append(time.perf_counter())
+    div_evaluation(card, work_dir, ranker, res, ds, queries, device)
+    t.append(time.perf_counter())
+    div_cli(card, work_dir, device)
+    t.append(time.perf_counter())
+    counts = read_counts()
+    names = ("scorers", "losses", "presort", "training", "evaluation", "cli")
+    print("div_phase_s " + json.dumps({n: round(b - a, 1) for n, a, b in zip(names, t, t[1:])})
+          + f"  [{card}]", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"div phase: kernels launched {counts}; the branch has none")
+    return counts
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -3204,6 +3725,9 @@ def main() -> int:
     rest = serving_rest_phase(card, work_dir)
     print(f"flash_attn_fwd launches in int8 and artifact serving: "
           f"{rest['flash_attn_fwd']}  [{card}]", flush=True)
+
+    phase("diversification")
+    div_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",

@@ -1,7 +1,7 @@
 """Device-resident dataset: upload once, gather every batch on the device.
 
-The port's copy of ptranking_tpu/data/device_cache.py (its lines 1-243; the
-diversification twin waits for that branch). A streamed epoch copies every
+The port's copy of ptranking_tpu/data/device_cache.py, the diversification
+twin (DivDeviceResidentDataset) included. A streamed epoch copies every
 batch host->device; the dataset is the same every epoch and only the batch
 order changes. So each bucket's padded arrays go to the device once, and a
 batch is an `index_select` of its rows there: an epoch copies only the
@@ -80,6 +80,13 @@ def take_features(feats, idx: torch.Tensor) -> torch.Tensor:
     return feats.index_select(0, idx)
 
 
+def _index_to_device(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def padded_host_arrays(ds: BucketedDataset, bucket: int):
     """One bucket's packed host arrays with the all-masked sentinel row
     appended at index Q: the layout the resident paths gather from."""
@@ -141,10 +148,7 @@ class DeviceResidentDataset:
     def index_to_device(self, idx: np.ndarray) -> torch.Tensor:
         """One host->device copy of an int64 index array (pinned and
         asynchronous on CUDA)."""
-        t = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return _index_to_device(idx, self.device)
 
     def _gather(self, bucket: int, idx: torch.Tensor):
         feats, labels, mask, _ = self._dev[bucket]
@@ -220,3 +224,81 @@ def maybe_device_resident(ds: BucketedDataset, budget_bytes: int = DEFAULT_BUDGE
     if packed_nbytes(ds, dtype) <= budget_bytes:
         return DeviceResidentDataset(ds, dtype=dtype, device=device)
     return ds
+
+
+def div_packed_nbytes(ds) -> int:
+    """Device bytes a DivBucketedDataset's packed arrays take."""
+    return sum(sum(a.nbytes for a in arrs) for arrs in ds._packed.values())
+
+
+def maybe_div_device_resident(ds, budget_bytes: int = DEFAULT_BUDGET_BYTES, device="cuda"):
+    """A DivDeviceResidentDataset when the packed arrays fit `budget_bytes`,
+    else `ds` itself (streamed every epoch)."""
+    if div_packed_nbytes(ds) <= budget_bytes:
+        return DivDeviceResidentDataset(ds, device=device)
+    return ds
+
+
+class DivDeviceResidentDataset:
+    """A DivBucketedDataset whose packed (q_repr, doc_reprs, rele_mat,
+    doc_mask, subtopic_mask) buckets live on `device`, each with an
+    all-masked sentinel row at index Q; its batches are gathered there. The
+    same batches, in the same order, as the wrapped dataset for the same
+    (shuffle, epoch)."""
+
+    def __init__(self, ds, device="cuda"):
+        self.ds = ds
+        self.device = resolve_device(device)
+        self.num_queries = ds.num_queries
+        self.batch_queries = ds.batch_queries
+        self._dev = {}
+        for b, arrs in ds._packed.items():
+            self._dev[b] = tuple(
+                torch.from_numpy(np.concatenate([a, np.zeros_like(a[:1])], axis=0)).to(self.device)
+                for a in arrs)
+
+    def query_for(self, batch, row: int):
+        return self.ds.query_for(batch, row)
+
+    def bucket_arrays(self, bucket: int):
+        """(q_repr, doc_reprs, rele_mat, doc_mask, subtopic_mask) on the
+        device for one bucket, the sentinel row included."""
+        return self._dev[bucket]
+
+    def index_to_device(self, idx: np.ndarray) -> torch.Tensor:
+        """One host->device copy of an int64 index array (pinned and
+        asynchronous on CUDA)."""
+        return _index_to_device(idx, self.device)
+
+    def epoch_index_chunks(self, shuffle: bool = False, epoch: int = 0, chunk_size: int = 8):
+        """(bucket, idx [k, B] int64, real queries) chunks covering the batch
+        schedule of batches(shuffle, epoch), k <= chunk_size; a remainder
+        batch is an index row padded with the sentinel."""
+        rng = np.random.RandomState(self.ds.seed + epoch)
+        B = self.batch_queries
+        for b in self._dev:
+            Q = self._dev[b][0].shape[0] - 1
+            idx = rng.permutation(Q) if shuffle else np.arange(Q)
+            rows, real = [], []
+            for lo in range(0, Q, B):
+                sl = idx[lo:lo + B]
+                row = np.full((B,), Q, np.int64)
+                row[:len(sl)] = sl
+                rows.append(row)
+                real.append(len(sl))
+            for lo in range(0, len(rows), chunk_size):
+                yield b, np.stack(rows[lo:lo + chunk_size]), int(sum(real[lo:lo + chunk_size]))
+
+    def batches(self, shuffle: bool = False, epoch: int = 0):
+        """DivBucketedDataset.batches' contract, the arrays gathered on the
+        device; qids stay on the host (-1 for a sentinel row)."""
+        from ptranking_tpu_torch.diversification.data import DivBatch
+
+        for b, idx_k, _ in self.epoch_index_chunks(shuffle, epoch, 1):
+            Q = self._dev[b][0].shape[0] - 1
+            sl = self.index_to_device(idx_k[0])
+            qids = np.where(idx_k[0] < Q, idx_k[0], -1).astype(np.int32)
+            yield DivBatch(*(a.index_select(0, sl) for a in self._dev[b]), qids)
+
+    def __len__(self):
+        return len(self.ds)

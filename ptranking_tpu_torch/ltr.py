@@ -7,9 +7,11 @@ checkpoint of each fold, the stop guard and resume, the training data
 device-resident. A tree model id (LightGBMLambdaMART, TPUGBDTLambdaMART)
 runs the tree branch's TreeLTREvaluator on the same device, as the JAX
 package dispatches it (with -dir_json, -grid, or a point run); where
-LightGBM is absent, LightGBMLambdaMART falls back to the native GBDT. The
-diversification and adversarial model ids and the multi-device flags are
-refused until their branches are ported.
+LightGBM is absent, LightGBMLambdaMART falls back to the native GBDT. A
+diversification model id (DALETOR, DivProbRanker) runs the diversification
+branch's DivLTREvaluator (default data SyntheticDiv; a point run writes a
+TREC run file a fold). The adversarial model ids and the multi-device flags
+are refused until their branches are ported.
 """
 
 from __future__ import annotations
@@ -17,17 +19,17 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ptranking_tpu_torch.diversification import DIV_MODELS as LTR_DIV_MODELS
+from ptranking_tpu_torch.diversification import DivLTREvaluator
 from ptranking_tpu_torch.eval import LTR_ADHOC_MODELS, LTREvaluator
 from ptranking_tpu_torch.eval.settings import PARALLEL_KEYS
 from ptranking_tpu_torch.tree import LTR_TREE_MODELS, TreeLTREvaluator
 
 # the model ids of the branches the port does not have yet, and the ROADMAP
 # queue A item that ports each
-LTR_DIV_MODELS = ["DALETOR", "DivProbRanker"]
 LTR_ADVERSARIAL_MODELS = ["IRGAN_Point", "IRGAN_Pair", "IRGAN_List",
                           "IRFGAN_Point", "IRFGAN_Pair", "IRFGAN_List"]
-BRANCHES = ((LTR_DIV_MODELS, "diversification", 6),
-            (LTR_ADVERSARIAL_MODELS, "adversarial", 7))
+BRANCHES = ((LTR_ADVERSARIAL_MODELS, "adversarial", 7),)
 ALL_MODELS = list(LTR_ADHOC_MODELS) + LTR_ADVERSARIAL_MODELS + LTR_TREE_MODELS + LTR_DIV_MODELS
 
 
@@ -111,6 +113,21 @@ def main(argv=None):
         return evaluator.point_run(model_id=args.model, data_id=args.data_id or "SyntheticMQ",
                                    dir_data=args.dir_data, dir_output=args.dir_output,
                                    debug=args.debug)
+    if args.model in LTR_DIV_MODELS:
+        evaluator = DivLTREvaluator(device=args.device, cuda=args.cuda)
+        if args.dir_json:
+            return evaluator.run(debug=args.debug, model_id=args.model, sf_id=args.sf_id,
+                                 config_with_json=True, dir_json=args.dir_json,
+                                 reproduce=args.reproduce)
+        if args.grid:
+            return evaluator.grid_run(debug=args.debug, model_id=args.model, sf_id=args.sf_id,
+                                      data_id=args.data_id or "SyntheticDiv",
+                                      dir_data=args.dir_data, dir_output=args.dir_output)
+        return evaluator.point_run(model_id=args.model, sf_id=args.sf_id,
+                                   data_id=args.data_id or "SyntheticDiv",
+                                   dir_data=args.dir_data, dir_output=args.dir_output,
+                                   debug=args.debug, epochs=args.epochs, write_run_files=True,
+                                   reproduce=args.reproduce, **overrides)
     if args.seed is not None:
         overrides["seed"] = args.seed
     evaluator = LTREvaluator(device=args.device, cuda=args.cuda, mesh_overrides=overrides)

@@ -45,6 +45,16 @@ def params_from_jax(np_tree, cfg: ScorerConfig, device="cpu") -> Params:
     return _convert(np_tree, init_scorer(cfg, device="meta"), "", device)
 
 
+def div_params_from_jax(np_tree, cfg, device="cpu") -> Params:
+    """JAX diversification scorer params (numpy leaves; pointsf, listsf, the
+    co variants, K > 1, a cluster's members stacked on a leading K axis) ->
+    the port's params, fp32 on `device`, checked against the tree that
+    `init_div_scorer(cfg)` builds."""
+    from ptranking_tpu_torch.diversification.scorers import init_div_scorer
+
+    return _convert(np_tree, init_div_scorer(cfg, device="meta"), "", device)
+
+
 class JaxNamedTuple:
     """Stand-in for a class of optax or jax in a JAX checkpoint. NamedTuples
     unpickle as `cls.__new__(cls, *fields)`, so this keeps the fields in
@@ -69,13 +79,15 @@ _OPTAX_CORES = {
 
 
 def opt_state_from_jax(opt_state: JaxNamedTuple, cfg: ScorerConfig, opt: str,
-                       device="cpu") -> Dict[str, Any]:
+                       device="cpu", ref: Params = None) -> Dict[str, Any]:
     """The JAX package's optax state (inject_hyperparams over the chain
     weight decay -> rule -> scale -> lr) as the port's optimizer state:
     {"lr": the injected learning rate, "state": {param index: state}} with
     params indexed in `tree_leaves` order. Adagrad's sum_of_squares becomes
     "sum", RMS's nu "nu", Adam's count, mu, nu torch.optim.Adam's "step",
-    "exp_avg", "exp_avg_sq"."""
+    "exp_avg", "exp_avg_sq". `ref`, the port's params tree on any device
+    ("meta" will do), defaults to `init_scorer(cfg)`'s: a diversification
+    scorer passes `init_div_scorer(cfg, device="meta")`."""
     _count, hyperparams, _hyper_states, inner = opt_state.args
     cores = [s for s in inner if type(s).__name__ in _OPTAX_CORES]
     if len(cores) != 1:
@@ -86,7 +98,8 @@ def opt_state_from_jax(opt_state: JaxNamedTuple, cfg: ScorerConfig, opt: str,
     if want_opt != opt:
         raise ValueError(f"the checkpoint's optimizer state is {want_opt}'s, not {opt}'s")
     fields = dict(zip(names, core.args))
-    ref = init_scorer(cfg, device="meta")
+    if ref is None:
+        ref = init_scorer(cfg, device="meta")
 
     def leaves(name):
         return tree_leaves(_convert(fields[name], ref, name, device))

@@ -321,15 +321,17 @@ class AdhocRanker:
         return torch.cat([torch.sum(out[m], dim=0) for m in METRICS] + [count[None]])
 
     @staticmethod
-    def _reduce_packed_rows(packed_rows, K: int) -> Dict[str, np.ndarray]:
-        """Metric means from packed rows: their sum fetched once."""
+    def _reduce_packed_rows(packed_rows, K: int, names=METRICS) -> Dict[str, np.ndarray]:
+        """Metric means from packed [len(names) * K + 1] rows (the metrics'
+        sums, then the real-query count): their sum fetched once. The
+        diversification ranker shares it with its own metric names."""
         if not packed_rows:
-            return {m: np.zeros(K) for m in METRICS}
+            return {m: np.zeros(K) for m in names}
         total = torch.stack(packed_rows).sum(0).cpu().numpy()
-        count = float(total[len(METRICS) * K])
+        count = float(total[len(names) * K])
         if count == 0:
-            return {m: np.zeros(K) for m in METRICS}
-        return {m: total[i * K:(i + 1) * K] / count for i, m in enumerate(METRICS)}
+            return {m: np.zeros(K) for m in names}
+        return {m: total[i * K:(i + 1) * K] / count for i, m in enumerate(names)}
 
     def validation(self, batches, k: int = 5, metric: str = "nDCG") -> float:
         """One validation scalar: `metric`@k over the batches."""

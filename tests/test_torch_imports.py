@@ -78,17 +78,25 @@ def test_cuda_request_without_cuda_raises(entry, tmp_path, monkeypatch):
             ScoringService(ckpt)
 
 
-@pytest.mark.parametrize("entry", ["evaluator", "resident", "maybe_resident", "ltr_main"])
+@pytest.mark.parametrize("entry", ["evaluator", "resident", "maybe_resident", "ltr_main",
+                                   "div_ranker", "div_resident", "div_evaluator",
+                                   "div_ltr_main"])
 def test_experiment_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     """The experiment surface and the resident data default to CUDA and
-    raise without it."""
+    raise without it, the diversification branch's included."""
     from ptranking_tpu_torch import ltr
     from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
-    from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, maybe_device_resident
+    from ptranking_tpu_torch.data.device_cache import (DeviceResidentDataset,
+                                                       DivDeviceResidentDataset,
+                                                       maybe_device_resident)
+    from ptranking_tpu_torch.diversification import (DivBucketedDataset, DivLTREvaluator,
+                                                     DivRanker, DivScorerConfig,
+                                                     make_synthetic_div_queries)
     from ptranking_tpu_torch.eval import LTREvaluator
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ds = BucketedDataset(make_synthetic_queries(3, num_features=4), batch_docs=32)
+    div_ds = DivBucketedDataset(make_synthetic_div_queries(3, num_features=4))
     with pytest.raises(RuntimeError, match="device='cpu' explicitly"):
         if entry == "evaluator":
             LTREvaluator()
@@ -96,5 +104,13 @@ def test_experiment_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             DeviceResidentDataset(ds)
         elif entry == "maybe_resident":
             maybe_device_resident(ds)
+        elif entry == "div_ranker":
+            DivRanker("DALETOR", DivScorerConfig(num_features=4))
+        elif entry == "div_resident":
+            DivDeviceResidentDataset(div_ds)
+        elif entry == "div_evaluator":
+            DivLTREvaluator()
+        elif entry == "div_ltr_main":
+            ltr.main(["-model", "DALETOR", "-dir_output", str(tmp_path)])
         else:
             ltr.main(["-model", "RankMSE", "-dir_output", str(tmp_path)])
