@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
@@ -84,8 +84,10 @@ Phases, in order; any failure exits non-zero:
      resident buckets (each batch gathered on the card from an index chunk)
      and, from the same seed, streamed from the host: the same losses and
      params, exact launch counts; epoch time, lists/s, idle share and the
-     host->device copies and bytes of one profiled epoch each way, and the
-     same at the CLI's 100 docs a batch; (b) `python -m
+     host->device copies and bytes of one profiled epoch each way (the
+     resident one's: the index chunks the host copied and nothing else, one
+     of them missed at most, `profile_index_copies`), and
+     the same at the CLI's 100 docs a batch; (b) `python -m
      ptranking_tpu_torch.ltr` (its main) on LETOR files at F=136, 2 folds
      x 2 epochs, validation on: finite CV metrics in the run's log, the
      launches the batches predict, and a run stopped after fold 1's first
@@ -101,8 +103,9 @@ Phases, in order; any failure exits non-zero:
      distance from the bf16 served scores, 6 forward launches a batch, every
      linear an `aten::_int_mm` and no floating-point product in a profiled
      batch, ms a batch int8 beside bf16; (b) the same checkpoint exported
-     (`ptranking_tpu_torch.export`, plain and int8, for cuda) and served
-     over HTTP and through score_file: the checkpoint's scores within the
+     (`ptranking_tpu_torch.export`, plain and int8, for cuda, the buckets of
+     32..512 docs) and served the request's lists of at most 400 docs over
+     HTTP and through score_file: the checkpoint's scores within the
      gate, the forward kernel's launches during the replay, export time and
      size; (c) the native GBDT at MSLR-WEB30K's width (F = 136, 64 bins,
      depth 8) on about 2.26 M docs: two fits from the same binned data grow
@@ -122,13 +125,32 @@ Phases, in order; any failure exits non-zero:
      from the host, 1,024 SyntheticDiv queries of 10..250 docs presorted on
      the card: the same losses and params bit for bit, queries/s each way,
      the idle share and host->device copies of DALETOR's profiled resident
-     epoch; (d) aNDCG,
+     epoch (the index chunks the host copied, one missed at most); (d) aNDCG,
      ERR-IA, nERR-IA on the card against the CPU on the same scores, ndeval
      built by the port's builder on the trained ranker's run and qrels, and
      its alpha-nDCG against the card's; (e) `ltr.main -model DALETOR -sf_id
      listsf` and `-model DivProbRanker` on SyntheticDiv -debug, finite CV
      metrics, a run file a fold, -reproduce the same bits. No kernel of
-     ops/csrc launches in it (the JAX branch reaches no pl.pallas_call).
+     ops/csrc launches in it (the JAX branch reaches no pl.pallas_call);
+ 11. adversarial, the six minimax machines (IRGAN and IRFGAN, point / pair
+     / list) at the JAX package's widths for the branch (the pointsf 5 x
+     100, ReLU, no batch norm; Adam lr 1e-3; S = 5, top_k = 5; F = 136, 512
+     docs a batch): (a) every sampler's empirical frequencies over 2^20
+     draws against its analytic distribution (TV distance within
+     2 * sqrt(K / n)), no pad drawn, all-pad rows drawing, the same seed the
+     same bits, the flattened pair axis of two 1,408-doc lists; (b) each
+     machine's D and G step (IRFGAN_Pair: the joint step) on the card
+     against the exact fp64 step on the CPU from the same params with the
+     same draws: loss, gradients, params; (c) 1,024 synthetic queries of
+     20..250 docs (from `--seed`, default 11) uploaded once, a DG round of
+     every machine resident and streamed, queries/s, a profiled resident
+     IRGAN_Point round (idle share; host->device copies and bytes: the
+     index chunks the host copied and nothing else, one missed at most); (d) `ltr.main -model
+     IRGAN_Point` and `-model IRFGAN_List` on SyntheticMQ -debug, 2 epochs:
+     finite G and D CV nDCG in the run directories JAX names, the epochs
+     each fold ran (a fold whose fresh G scores 0 stops at the G guard after
+     epoch 1; at least one fold of each runs both), `-mesh` refused. No kernel of ops/csrc
+     launches in it (the JAX branch reaches no pl.pallas_call).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -2288,41 +2310,6 @@ class _Interrupted(Exception):
     pass
 
 
-def profile_copies(fn, trace_path=None):
-    """One call of `fn` under torch.profiler: {device busy ms, wall ms, idle
-    share, host->device copies (the profiler's `Memcpy HtoD` events) and,
-    with `trace_path`, their bytes from the exported trace}; None where the
-    profiler recorded no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy, copies = 0.0, 0
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        busy += e.self_device_time_total / 1e3
-        if "Memcpy HtoD" in e.key:
-            copies += e.count
-    rec = {"wall_ms": wall, "device_busy_ms": busy or None,
-           "device_idle_share": 1.0 - busy / wall if busy else None,
-           "memcpy_htod": copies if busy else None, "memcpy_htod_bytes": None}
-    if trace_path and busy:
-        prof.export_chrome_trace(trace_path)
-        with open(trace_path) as f:
-            events = json.load(f)["traceEvents"]
-        htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
-        rec["memcpy_htod_bytes"] = sum(int(e.get("args", {}).get("bytes", 0)) for e in htod)
-        os.remove(trace_path)
-    return rec
-
-
 def params_diff(a, b) -> dict:
     """Whether two rankers' params have the same bits, and the worst
     max |a - b| / max |b| over the tensors."""
@@ -2409,13 +2396,11 @@ def resident_vs_streamed(card: str, work_dir: str) -> dict:
                              "index_copies": len(index_copies),
                              "index_bytes": sum(index_copies)}
                 if batch_docs == RES_BATCH_DOCS:
-                    rec[name]["profiled_epoch"] = profile_copies(
-                        lambda: fn(nxt + 1), os.path.join(work_dir, f"{name}_epoch.json"))
-            if batch_docs == RES_BATCH_DOCS:
-                prof = rec["resident"]["profiled_epoch"]
-                if prof["memcpy_htod"] is not None and prof["memcpy_htod"] > len(ds):
-                    raise AssertionError(f"resident epoch: {prof['memcpy_htod']} host->device "
-                                         f"copies for {len(ds)} batches")
+                    trace = os.path.join(work_dir, f"{name}_epoch.json")
+                    rec[name]["profiled_epoch"] = (
+                        profile_index_copies("resident epoch", lambda: fn(nxt + 1),
+                                             index_copies, trace)
+                        if name == "resident" else profile_device(lambda: fn(nxt + 1), trace))
             rec["phase_s"] = time.perf_counter() - t_phase
             print("resident_epochs " + json.dumps(rec) + f"  [{card}]", flush=True)
             del res
@@ -2661,7 +2646,10 @@ def resident_phase(card: str, work_dir: str) -> dict:
 
 # int8 serving and the artifacts serve the flagship's served request of phase
 # 4 (SERVE_LENGTHS) and its LETOR file; the artifacts hold the buckets of
-# both. The int8 scores on the card are held against the CPU plain int8 path
+# both, the request cut to its lists of at most ARTIFACT_MAX_DOCS docs (11 of
+# 16; the buckets 32..512, which hold the LETOR file's 20..400 docs too): the
+# exports of the 1024- and 1536-doc buckets took the most of the script's
+# time left to cut. The int8 scores on the card are held against the CPU plain int8 path
 # on the same params at the served-score gate (SCORE_TOL): the int32 products
 # are exact on both, the attention and bf16 roundings are not the same bits
 # (flash kernel against blockwise on the CPU)
@@ -2679,6 +2667,7 @@ GBDT_CPU_DOCS = 131_072  # docs of the dyadic tree held against the CPU plain pa
 # the native parser: an MSLR-format file of PARSE_ROWS rows at F = 136, native
 # against Python; PARSE_COPIES copies of it (qids renamed) time the native rows/s
 PARSE_ROWS, PARSE_COPIES = 20_000, 5
+ARTIFACT_MAX_DOCS = 400
 
 
 def _serve_payload(lengths, F):
@@ -2861,7 +2850,8 @@ def int8_serving(card: str, work_dir: str, device: str = "cuda") -> dict:
 
 def artifact_serving(card: str, work_dir: str, device: str = "cuda") -> dict:
     """Phase 9 (b): the flagship checkpoint exported for `cuda`, plain and
-    int8, with the buckets of phase 4's request and LETOR file; each artifact
+    int8, with the buckets of phase 4's request (its lists of at most
+    ARTIFACT_MAX_DOCS docs) and LETOR file; each artifact
     served over HTTP and through score_file. Its scores against the
     checkpoint's own served scores (plain) or int8 served scores (int8) at
     the bf16 serving gate (SCORE_TOL), the forward kernel's launches during
@@ -2874,7 +2864,7 @@ def artifact_serving(card: str, work_dir: str, device: str = "cuda") -> dict:
     from ptranking_tpu_torch.serve import ScoringService
 
     ckpt = os.path.join(work_dir, "flagship.pt")
-    payload = _serve_payload(SERVE_LENGTHS, NUM_FEATURES)
+    payload = _serve_payload([n for n in SERVE_LENGTHS if n <= ARTIFACT_MAX_DOCS], NUM_FEATURES)
     body = json.dumps(payload).encode()
     sizes = [len(q["docs"]) for q in payload["queries"]]
     ds = BucketedDataset([(str(i), np.zeros((n, 1), np.float32), np.zeros(n, np.float32))
@@ -3369,13 +3359,14 @@ def div_queries(n: int, seed: int, device: str = "cuda"):
                      tuple(np.asarray(q.docnos)[o])) for q, o in zip(qs, orders)]
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, trace_path=None) -> dict:
     """One call of `fn` under torch.profiler with the CUDA activity alone
     (kernels and copies; the host's operator events, which made a profiled
     epoch of 130 listsf steps take minutes to process, are not recorded):
-    {wall ms, device busy ms, device idle share, host->device copies, the
-    profiler's processing s}; None values where it recorded no device
-    time."""
+    {wall ms, device busy ms, device idle share, host->device copies, with
+    `trace_path` their bytes (from the exported trace, deleted after), the
+    profiler's processing s}; None values where it recorded no device time.
+    The device events are read from the raw kineto results."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3386,17 +3377,52 @@ def profile_device(fn) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
-    busy, copies = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    busy_ns, copies = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation():
             continue
-        busy += e.self_device_time_total / 1e3
-        if "Memcpy HtoD" in e.key:
-            copies += e.count
-    return {"wall_ms": wall, "device_busy_ms": busy or None,
-            "device_idle_share": 1.0 - busy / wall if busy else None,
-            "memcpy_htod": copies if busy else None,
-            "processing_s": time.perf_counter() - t1}
+        busy_ns += e.duration_ns()
+        copies += "Memcpy HtoD" in e.name()
+    busy = busy_ns / 1e6
+    rec = {"wall_ms": wall, "device_busy_ms": busy or None,
+           "device_idle_share": 1.0 - busy / wall if busy else None,
+           "memcpy_htod": copies if busy else None, "memcpy_htod_bytes": None}
+    if trace_path and busy:
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(trace_path)
+        rec["memcpy_htod_bytes"] = sum(
+            int(e.get("args", {}).get("bytes", 0)) for e in events
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    rec["processing_s"] = time.perf_counter() - t1
+    return rec
+
+
+def profile_index_copies(what: str, fn, copied: list, trace_path=None) -> dict:
+    """profile_device around `fn`, a resident epoch or round whose only
+    host->device copies are its index chunks, which the host counts as it
+    copies them (`copied`: a list the wrapper of `index_to_device` appends
+    each chunk's bytes to; emptied here). The profiler must see the host's
+    copies and nothing else: all of them, or all but one (the profiler
+    missed one index copy of about half the profiled epochs and rounds on
+    the H100 machine; a discarded warm-up step did not stop it); with
+    `trace_path`, their bytes must be the host's, less one chunk's where
+    one was missed. A profile that sees no copy fails."""
+    del copied[:]
+    prof = profile_device(fn, trace_path)
+    prof.update(index_chunks=len(copied), index_bytes=sum(copied))
+    seen, nbytes = prof["memcpy_htod"], prof["memcpy_htod_bytes"]
+    missed = len(copied) - seen if seen else None
+    ok = missed in (0, 1) and (
+        nbytes is None or (missed == 0 and nbytes == sum(copied))
+        or (missed == 1 and sum(copied) - nbytes in copied))
+    prof["missed_copies"] = missed
+    if not ok:
+        raise AssertionError(f"{what}: the profiler saw {seen} host->device copies of "
+                             f"{nbytes} bytes; the host copied {len(copied)} index chunks of "
+                             f"{sum(copied)} bytes ({prof})")
+    return prof
 
 
 def div_training(card: str, work_dir: str, queries, device: str = "cuda"):
@@ -3460,22 +3486,18 @@ def div_training(card: str, work_dir: str, queries, device: str = "cuda"):
                 raise AssertionError(f"div {name} epoch {nxt}: loss {loss}, stop {stop}")
             rec[name] = {"epoch_s": epoch_s, "queries_per_s": len(queries) / epoch_s}
         if model_id == "DALETOR":
-            # one resident epoch profiled (the listsf's: the profiler takes
-            # about 35 s to process its 130 steps): its host->device copies
-            # must be no more than its index chunks, counted (and their
-            # bytes summed) on the host
+            # one resident epoch profiled: its host->device copies must be
+            # its index chunks, as many as the host copied (their bytes are
+            # not read: the trace export of the listsf's 130 steps is slow)
             copied = []
             res.index_to_device = lambda idx: (copied.append(idx.nbytes)
                                                or type(res).index_to_device(res, idx))
             try:
-                prof = profile_device(lambda: resident.train_epoch_resident(res, nxt + 1))
+                rec["resident"]["profiled_epoch"] = profile_index_copies(
+                    "div resident epoch", lambda: resident.train_epoch_resident(res, nxt + 1),
+                    copied)
             finally:
                 del res.index_to_device
-            prof.update(index_chunks=len(copied), index_bytes=sum(copied))
-            rec["resident"]["profiled_epoch"] = prof
-            if prof["memcpy_htod"] is not None and prof["memcpy_htod"] > len(copied):
-                raise AssertionError(f"div resident epoch: {prof['memcpy_htod']} host->device "
-                                     f"copies for {len(copied)} index chunks")
             out = resident
         print("div_epochs " + json.dumps(rec) + f"  [{card}]", flush=True)
     return out, res, ds
@@ -3656,6 +3678,495 @@ def div_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
     return counts
 
 
+# --- phase 11: the adversarial branch (IRGAN and IRFGAN, point / pair / list) ---
+#
+# At the JAX package's widths for the branch (adversarial/settings.py's
+# AdSFSetting and AD_DEFAULT_PARAS): the pointsf 5 layers of 100 (ReLU, no
+# batch norm, dropout 0.1, which the machines' forwards never apply, as in
+# the JAX package), Adam at lr 1e-3, S = 5 samples a query, top_k = 5,
+# IRGAN's temperature 0.5, on MSLR-WEB30K's 136 features, 512 docs a batch.
+# The JAX branch reaches no pl.pallas_call (the pointsf only; its samplers
+# and losses are plain XLA), so it runs plain torch on the card and launches
+# none of ops/csrc's kernels.
+AD_F, AD_BATCH_DOCS = 136, 512
+# (c): AD_QUERIES synthetic queries of 20..250 docs (the buckets of 32..256
+# docs), made from the seed (`--seed`, default AD_SEED), device-resident
+AD_QUERIES, AD_DOCS, AD_SEED = 1024, (20, 250), 11
+# (a): each sampler's draws; its empirical frequencies against its analytic
+# distribution within a total-variation distance of 2 * sqrt(K / n) for K
+# categories of nonzero probability and n draws (E[TV] <= sqrt(K / n) / 2)
+AD_DRAWS = 1 << 20
+# (a): IRFGAN_Pair's flattened pair axis at MSLR-WEB30K's longest list
+AD_PAIR_N = 1408
+# (b): the card (fp32) against the CPU in fp64 (the exact step) from the
+# same params with the same draws: the loss within AD_LOSS_TOL of
+# max(|loss|, 1) (allclose's atol = rtol: IRGAN_List's D loss under
+# repTrick_D is a difference of two PL log-probs of about -8 that comes to
+# about 3e-3); each gradient tensor of the stepped player within
+# AD_PARAM_TOL of max(its norm, 1e-2 of the player's largest) (phase 10's
+# `rel_errs` gate); each player's params after the step within
+# AD_PARAM_TOL relative in norm. The CPU's own fp32 step sits at up to
+# 5e-5 (gradients) and 5e-6 (params) from the fp64 one; a single param
+# tensor up to 7.4e-5 (a bias whose gradient entries are near Adam's eps,
+# which scales each to about +-lr): reported, not gated.
+AD_LOSS_TOL, AD_PARAM_TOL = 1e-5, 1e-4
+# (b): each step's draws by name (the port's machines take them as `draws`)
+AD_STEP_DRAWS = {
+    ("IRGAN_Point", "d"): ("pos_unif", "neg_idx"), ("IRGAN_Point", "g"): ("choose_idx",),
+    ("IRGAN_Pair", "d"): ("pos_unif", "neg_idx"), ("IRGAN_Pair", "g"): ("pos_unif", "neg_idx"),
+    ("IRGAN_List", "d"): ("gen_unif", "std_unif"), ("IRGAN_List", "g"): ("gen_unif",),
+    ("IRFGAN_Point", "d"): ("pos_unif", "neg_idx"), ("IRFGAN_Point", "g"): ("neg_unif",),
+    ("IRFGAN_Pair", "joint"): ("true_idx", "fake_idx"),
+    ("IRFGAN_List", "d"): ("gen_unif", "std_unif"), ("IRFGAN_List", "g"): ("gen_unif",),
+}
+# (d): the run directories `ltr.main -debug -epochs 2` makes, as the JAX
+# package's AdLTREvaluator names them (tests/test_torch_ad_evaluator.py holds
+# the port's names against JAX's)
+AD_CLI_RUNS = {
+    "IRGAN_Point": "IRGAN_Point_SF_R5R_Adam_Lr0.001_SyntheticMQ_MiD_10_MiR_1_TrBat_512_EP_2_V_True"
+                   "/1_1_0.5_DG_5",
+    "IRFGAN_List": "IRFGAN_List_SF_R5R_Adam_Lr0.001_SyntheticMQ_MiD_10_MiR_1_TrBat_512_EP_2_V_True"
+                   "/KL_1_1_DG_S5_top5",
+}
+
+
+def ad_seed() -> int:
+    """`--seed N` on the command line, else AD_SEED."""
+    argv = sys.argv[1:]
+    return int(argv[argv.index("--seed") + 1]) if "--seed" in argv else AD_SEED
+
+
+def ad_sf_para(num_features: int = AD_F) -> dict:
+    from ptranking_tpu_torch.adversarial import AdSFSetting
+
+    return AdSFSetting(sf_id="pointsf").default_setting(num_features)
+
+
+def ad_machine(model_id: str, device: str, seed: int = 137, **paras):
+    from ptranking_tpu_torch.adversarial import AD_DEFAULT_PARAS, AD_MACHINES
+
+    return AD_MACHINES[model_id](sf_para=ad_sf_para(), seed=seed, device=device,
+                                 ad_para_dict=dict(AD_DEFAULT_PARAS[model_id], **paras))
+
+
+def _tv(samples, probs) -> tuple:
+    """(TV distance of the samples' frequencies from `probs` [K], its
+    bound 2 * sqrt(K+ / n)) on the samples' device."""
+    import torch
+
+    probs = probs.double().flatten()
+    emp = torch.bincount(samples.flatten(), minlength=probs.numel()).double() / samples.numel()
+    tv = 0.5 * float((emp - probs).abs().sum())
+    return tv, 2.0 * math.sqrt(int((probs > 0).sum()) / samples.numel())
+
+
+def ad_samplers(card: str, device: str = "cuda") -> dict:
+    """Phase 11 (a): every sampler of adversarial/util.py on the card over
+    AD_DRAWS draws against its analytic distribution (`_tv`); a pad never
+    drawn where a valid entry exists; rows with nothing valid draw without
+    error; the same generator seed gives the same draws twice, bit for
+    bit; the ms of each draw."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch.adversarial import util
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def timed(fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rec, n = {}, AD_DRAWS
+    # with replacement, a 250-doc list, shorter ones and an all-pad row
+    N = AD_DOCS[1]
+    lengths = torch.tensor([N, 37, 1, 0], device=device)
+    logits = 2.0 * torch.randn(4, N, generator=gen(1), device=device)
+    mask = torch.arange(N, device=device)[None] < lengths[:, None]
+    draws, ms = timed(lambda: util.sample_categorical_masked(logits, mask, n, gen=gen(2)))
+    again = util.sample_categorical_masked(logits, mask, n, gen=gen(2))
+    tvs = []
+    for b, k in enumerate(lengths.tolist()):
+        probs = (torch.softmax(logits[b, :k].double(), -1) if k
+                 else torch.full((N,), 1.0 / N, dtype=torch.float64, device=device))
+        probs = torch.nn.functional.pad(probs, (0, N - probs.numel()))
+        tvs.append(_tv(draws[b], probs))
+        if k and int(draws[b].max()) >= k:
+            raise AssertionError(f"ad sampler drew a pad: row {b} of {k} valid")
+    rec["categorical"] = {"tv": [t for t, _ in tvs], "bound": [b for _, b in tvs], "ms": ms,
+                          "same_bits": bool(torch.equal(draws, again))}
+    # without replacement (Gumbel top-k): the first two draws' joint
+    # p_i p_j / (1 - p_i) over 5 valid of 8; pads only after every valid
+    lg = torch.tensor([[1.0, 0.2, -0.5, 0.7, 0.0, 3.0, 3.0, 3.0]], device=device)
+    m8 = torch.arange(8, device=device)[None] < 5
+    got, ms = timed(lambda: util.sample_categorical_masked(lg.expand(n, 8), m8.expand(n, 8), 8,
+                                                           replacement=False, gen=gen(3)))
+    p = torch.softmax(lg[0, :5].double(), -1)
+    joint = torch.zeros(5, 5, dtype=torch.float64, device=device)
+    for i, j in itertools.permutations(range(5), 2):
+        joint[i, j] = p[i] * p[j] / (1.0 - p[i])
+    tv = _tv(got[:, 0] * 5 + got[:, 1], joint)
+    pads_last = bool((got[:, :5] < 5).all() and (got[:, 5:] >= 5).all())
+    rec["gumbel_top_k"] = {"tv": tv[0], "bound": tv[1], "ms": ms, "pads_last": pads_last,
+                           "same_bits": bool(torch.equal(got, util.sample_categorical_masked(
+                               lg.expand(n, 8), m8.expand(n, 8), 8, replacement=False,
+                               gen=gen(3))))}
+    # uniform positions over the leading positives; a count of 0 clips to 0
+    counts = torch.tensor([7, 0], device=device)
+    got, ms = timed(lambda: util.sample_uniform_positions(counts, n, N, gen=gen(4)))
+    tv = _tv(got[0], torch.full((7,), 1 / 7, dtype=torch.float64, device=device))
+    rec["uniform_positions"] = {"tv": tv[0], "bound": tv[1], "ms": ms,
+                                "zero_count_clipped": bool((got[1] == 0).all())}
+    # PL rankings: the top-2 of the Gumbel PL draw against PL(softmax)
+    sc = torch.tensor([[0.9, -0.3, 0.4, 0.1, 7.0]], device=device)
+    m5 = torch.arange(5, device=device)[None] < 4
+    (order, top_p), ms = timed(lambda: util.sample_pl_rankings(sc, m5, n, 2, 0.5, gen=gen(5)))
+    p = torch.softmax(sc[0, :4].double(), -1)
+    joint = torch.zeros(4, 4, dtype=torch.float64, device=device)
+    for i, j in itertools.permutations(range(4), 2):
+        joint[i, j] = p[i] * p[j] / (1.0 - p[i])
+    tv = _tv(order[0, :, 0] * 4 + order[0, :, 1], joint)
+    rec["pl_rankings"] = {"tv": tv[0], "bound": tv[1], "ms": ms,
+                          "no_pad": bool(order.max() < 4),
+                          "probs_finite": bool(torch.isfinite(top_p).all())}
+    # tie-shuffled truth rankings: three tied labels in uniform order
+    lab = torch.tensor([[2.0, 1.0, 1.0, 1.0, 0.0, 5.0]], device=device)
+    m6 = torch.arange(6, device=device)[None] < 5
+    got, ms = timed(lambda: util.shuffled_truth_rankings(lab, m6, n, 5, gen=gen(6)))
+    tv = _tv(got[0, :, 1] - 1, torch.full((3,), 1 / 3, dtype=torch.float64, device=device))
+    rec["truth_rankings"] = {"tv": tv[0], "bound": tv[1], "ms": ms,
+                             "label_order": bool((got[0, :, 0] == 0).all()
+                                                 and (got[0, :, 4] == 4).all())}
+    # discounted true pairs over a 64-doc list of labels 0..4 (4,096 pairs)
+    rng = np.random.RandomState(7)
+    lab64 = torch.from_numpy(np.sort(rng.randint(0, 5, 64))[::-1].astype(np.float32).copy())
+    lab64 = lab64[None].to(device)
+    m64 = torch.arange(64, device=device)[None] < 60
+    (h, t, has), ms = timed(lambda: util.generate_true_pairs(lab64, m64, n, gen=gen(7)))
+    w = util.weighted_clipped_pos_diffs(lab64, m64)[0].double()
+    tv = _tv(h[0] * 64 + t[0], (w / w.sum()).flatten())
+    rec["true_pairs"] = {"tv": tv[0], "bound": tv[1], "ms": ms, "has_pairs": bool(has[0]),
+                         "heads_above_tails": bool((lab64[0, h[0]] > lab64[0, t[0]]).all())}
+    # the two-stage Bernoulli draws (BT and Gaussian), one Bernoulli outcome
+    # a row: n rows of one draw, against the enumeration of every outcome
+    vals = torch.tensor([[1.5, 0.0, -1.0, 9.9]], device=device).expand(n, 4)
+    m4 = (torch.arange(4, device=device)[None] < 3).expand(n, 4)
+    for name, fn, probs in (
+            ("pairs_bt", lambda: util.sample_pairs_bt(vals, m4, 1, gen=gen(8)),
+             torch.sigmoid(vals[0, :, None] - vals[0, None, :])),
+            ("pairs_gaussian", lambda: util.sample_pairs_gaussian(vals, m4, 1, gen=gen(8)),
+             util.gaussian_integral_0_inf(vals[0, :, None] - vals[0, None, :], math.sqrt(2.0)))):
+        (h, t), ms = timed(fn)
+        pm = torch.where(m4[0, :, None] & m4[0, None, :], probs, 0.0).clamp(0, 1)
+        pm = pm.double().cpu().numpy().ravel()
+        live = np.nonzero(pm > 0)[0]
+        want = np.zeros_like(pm)
+        for bits in itertools.product((0, 1), repeat=live.size):
+            b = np.zeros_like(pm)
+            b[live] = bits
+            pr = np.prod(np.where(b[live] > 0, pm[live], 1.0 - pm[live]))
+            want += pr * (b / b.sum() if b.sum() else pm / pm.sum())
+        tv = _tv((h * 4 + t).flatten(), torch.from_numpy(want).to(device))
+        rec[name] = {"tv": tv[0], "bound": tv[1], "ms": ms,
+                     "no_pad": bool(h.max() <= 2 and t.max() <= 2)}
+    # IRFGAN_Pair's fake pairs over the flattened axis of two 1,408-doc
+    # lists (1,982,464 categories a row), one all padded: valid pairs only,
+    # the padded row drawing in range
+    big = torch.randn(2, AD_PAIR_N, generator=gen(9), device=device)
+    mb = torch.arange(AD_PAIR_N, device=device)[None] < torch.tensor([[1000], [0]], device=device)
+    bt = torch.nn.functional.logsigmoid(big[:, :, None] - big[:, None, :])
+    bt = torch.where(mb[:, :, None] & mb[:, None, :], bt, -1e30).reshape(2, -1)
+    got, ms = timed(lambda: util.categorical(bt, 5, gen(10)))
+    rec["flat_pairs_1408"] = {"ms": ms, "valid": bool(((got[0] // AD_PAIR_N) < 1000).all()
+                                                      and ((got[0] % AD_PAIR_N) < 1000).all()),
+                              "in_range": bool((got[1] < AD_PAIR_N ** 2).all())}
+    # rows with nothing valid, each sampler
+    none = torch.zeros(3, 9, dtype=torch.bool, device=device)
+    z = torch.randn(3, 9, generator=gen(11), device=device)
+    ok = [util.sample_categorical_masked(z, none, 50, gen=gen(12)),
+          util.sample_categorical_masked(z, none, 9, replacement=False, gen=gen(12)),
+          *util.sample_points_bernoulli(torch.zeros(3, 9, 9, device=device), 50, gen=gen(12)),
+          *util.generate_true_pairs(torch.zeros(3, 9, device=device), none, 50, gen=gen(12))[:2]]
+    rec["all_pad_rows"] = bool(all(int(t.min()) >= 0 and int(t.max()) < 9 for t in ok))
+    failed = [k for k, v in rec.items() if isinstance(v, dict) and (
+        ("tv" in v and not all(a < b for a, b in zip(np.atleast_1d(v["tv"]),
+                                                     np.atleast_1d(v["bound"]))))
+        or not all(x for x in v.values() if isinstance(x, bool)))]
+    print("ad_samplers " + json.dumps(rec) + f"  [{card}]", flush=True)
+    if failed or not rec["all_pad_rows"]:
+        raise AssertionError(f"ad samplers failed their checks: {failed}")
+    return rec
+
+
+def ad_step_draws(model_id: str, step: str, labels, mask, S: int, gen) -> dict:
+    """The draws of one step (AD_STEP_DRAWS) on the CPU from `gen`: the
+    uniforms, and the indices drawn uniformly over what the step's sampler
+    could draw (valid docs, IRGAN_Pair's D negatives past the positives,
+    valid pairs)."""
+    import torch
+
+    from ptranking_tpu_torch.adversarial import util
+    from ptranking_tpu_torch.adversarial.base import num_pos
+
+    B, N = mask.shape
+    npos = num_pos(labels, mask)
+    neg = mask & (torch.arange(N)[None] >= npos[:, None]) if (model_id, step) == (
+        "IRGAN_Pair", "d") else mask
+    pairs = (mask[:, :, None] & mask[:, None, :]).reshape(B, N * N)
+
+    def uniform_idx(m, k):
+        return util.sample_categorical_masked(torch.zeros(m.shape), m, k, gen=gen)
+
+    make = {"pos_unif": lambda: torch.rand(B, S, generator=gen),
+            "neg_idx": lambda: uniform_idx(neg, S),
+            "choose_idx": lambda: uniform_idx(mask, 5 * S),
+            "gen_unif": lambda: torch.rand(B, S, N, generator=gen),
+            "std_unif": lambda: torch.rand(B, S, N, generator=gen),
+            "neg_unif": lambda: torch.rand(B, N, generator=gen),
+            "true_idx": lambda: uniform_idx(pairs, S),
+            "fake_idx": lambda: uniform_idx(pairs, S)}
+    return {name: make[name]() for name in AD_STEP_DRAWS[(model_id, step)]}
+
+
+def ad_steps(card: str, ds, device: str = "cuda") -> dict:
+    """Phase 11 (b): each machine's D and G step (IRFGAN_Pair: the joint
+    step) on the card in fp32 and on the CPU in fp64, from the same params
+    (a seed's init is the same on both) with the same draws
+    (ad_step_draws), on the first batch of the smallest and of the largest
+    bucket, both steps in turn on the same two machines: the loss, the
+    stepped players' gradients and both players' params after each step
+    within the gates of AD_LOSS_TOL and AD_PARAM_TOL. A second card
+    machine takes the same steps: whether the card gives the same bits
+    twice is reported, not gated."""
+    import torch
+
+    from ptranking_tpu_torch.adversarial import AD_MACHINES
+    from ptranking_tpu_torch.models.scorers import map_params, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    buckets = [min(ds.buckets), max(ds.buckets)]
+    batches = {}
+    for b in ds.batches():
+        n = b.features.shape[1]
+        if n in buckets and n not in batches:
+            batches[n] = [torch.from_numpy(a) for a in (b.features, b.labels, b.mask)]
+
+    def rel(a, b, floor=0.0):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        return float(torch.linalg.norm(a - b)) / max(float(torch.linalg.norm(b)), floor, 1e-30)
+
+    rec, worst = {}, {"loss": 0.0, "grads": 0.0, "params": 0.0, "param_tensor": 0.0}
+    twice = {}
+    for model_id in AD_MACHINES:
+        card_m, cpu_m = ad_machine(model_id, device), ad_machine(model_id, "cpu")
+        again = ad_machine(model_id, device)  # the card's step twice: the same bits?
+        pairs = ((card_m.generator, cpu_m.generator), (card_m.discriminator, cpu_m.discriminator))
+        for pc, ph in pairs:
+            if not all(torch.equal(a.detach().cpu(), b.detach())
+                       for a, b in zip(tree_leaves(pc.params), tree_leaves(ph.params))):
+                raise AssertionError(f"ad steps {model_id}: the card's init differs from the CPU's")
+            ph.params = map_params(lambda t: t.detach().double(), ph.params)
+            ph._start_training_state()
+        gen = torch.Generator().manual_seed(3)
+        for n, (f, l, m) in sorted(batches.items()):
+            for step in ("joint",) if model_id == "IRFGAN_Pair" else ("d", "g"):
+                draws = ad_step_draws(model_id, step, l, m, cpu_m.samples_per_query, gen)
+                out = []
+                for mach, dev, dt in ((card_m, device, torch.float32),
+                                      (cpu_m, "cpu", torch.float64),
+                                      (again, device, torch.float32)):
+                    args = [f.to(dev, dt), l.to(dev, dt), m.to(dev)]
+                    dr = {k: v.to(dev) for k, v in draws.items()}
+                    if step == "joint":
+                        loss = torch.stack(mach._joint_step(*args, dr))
+                    else:
+                        loss = (mach._d_step if step == "d" else mach._g_step)(*args, dr)
+                    out.append(loss.detach().cpu().double())
+                diff = (out[0] - out[1]).abs()
+                twice[f"{model_id}/{step}/{n}"] = bool(torch.equal(out[0], out[2])) and all(
+                    torch.equal(a, b) for pa, pb in ((card_m.generator, again.generator),
+                                                     (card_m.discriminator, again.discriminator))
+                    for a, b in zip(tree_leaves(pa.params), tree_leaves(pb.params)))
+                r = {"loss": out[1].tolist(),
+                     "loss_rel": float((diff / out[1].abs().clamp_min(1e-30)).max()),
+                     "loss_gated": float((diff / out[1].abs().clamp_min(1.0)).max())}
+                stepped = {"d": pairs[1:], "g": pairs[:1], "joint": pairs}[step]
+                r["grads"] = max(
+                    rel(a.grad, b.grad, 1e-2 * max(float(torch.linalg.norm(t.grad))
+                                                   for t in tree_leaves(ph.params)))
+                    for pc, ph in stepped
+                    for a, b in zip(tree_leaves(pc.params), tree_leaves(ph.params)))
+                r["params"] = max(rel(torch.cat([t.detach().cpu().flatten()
+                                                 for t in tree_leaves(pc.params)]),
+                                      torch.cat([t.detach().flatten()
+                                                 for t in tree_leaves(ph.params)]))
+                                  for pc, ph in pairs)
+                r["param_tensor"] = max(rel(a, b) for pc, ph in pairs
+                                        for a, b in zip(tree_leaves(pc.params),
+                                                        tree_leaves(ph.params)))
+                rec[f"{model_id}/{step}/{n}"] = r
+                for k in worst:
+                    worst[k] = max(worst[k], r["loss_gated" if k == "loss" else k])
+                if (r["loss_gated"] > AD_LOSS_TOL or r["grads"] > AD_PARAM_TOL
+                        or r["params"] > AD_PARAM_TOL or not bool(torch.isfinite(out[1]).all())):
+                    raise AssertionError(f"ad step {model_id}/{step} at {n} docs: card against "
+                                         f"CPU {r}")
+    # not gated: a backward through a gather with repeated indices (the
+    # draws with replacement) adds with atomics on the card, in no fixed order
+    print("ad_steps " + json.dumps({"worst": worst, "card_twice_same_bits": twice, "steps": rec})
+          + f"  [{card}]", flush=True)
+    return worst
+
+
+def ad_epochs(card: str, res, ds, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 11 (c): one mini_max_train round (DG, 1-1) of each machine
+    from the device-resident buckets, then one streamed from the host, on
+    the host's clock around synchronised rounds: queries/s (a round is
+    host-bound at 3..6 s, so one a way keeps the phase inside its 90 s; the
+    spread of two runs is two runs of the phase).
+    Then one resident IRGAN_Point round under the profiler (profile_device):
+    idle share, host->device copies and their bytes, which must be the
+    index chunks' (counted, and their bytes summed, on the host)."""
+    import torch
+
+    from ptranking_tpu_torch.adversarial import AD_MACHINES
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    warm = ad_machine("IRGAN_Point", device, seed=1)
+    warm.mini_max_train(list(ds.batches())[:8])  # the card's libraries, once
+    sync()
+    rec = {}
+    for model_id in AD_MACHINES:
+        mach = ad_machine(model_id, device)
+        rec[model_id] = {}
+        for epoch, how in enumerate(("resident", "streamed"), 1):
+            sync()
+            t0 = time.perf_counter()
+            stop = mach.mini_max_train(res if how == "resident" else ds, epoch_k=epoch)
+            sync()
+            secs = time.perf_counter() - t0
+            if stop:
+                raise AssertionError(f"ad {model_id} {how} round {epoch} went non-finite")
+            rec[model_id][how] = {"round_s": secs, "queries_per_s": ds.num_queries / secs}
+    mach = ad_machine("IRGAN_Point", device)
+    copied = []
+    res.index_to_device = lambda idx: (copied.append(idx.nbytes)
+                                       or type(res).index_to_device(res, idx))
+    try:
+        rec["IRGAN_Point"]["resident"]["profiled_round"] = profile_index_copies(
+            "ad resident round", lambda: mach.mini_max_train(res, epoch_k=9), copied,
+            os.path.join(work_dir, "ad_trace.json"))
+    finally:
+        del res.index_to_device
+    print("ad_epochs " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return rec
+
+
+def ad_cli(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 11 (d): `ltr.main -model IRGAN_Point` and `-model IRFGAN_List`
+    on SyntheticMQ -debug (2 folds) for 2 epochs: finite G and D CV nDCG,
+    the run directory named as the JAX package names it (AD_CLI_RUNS), the
+    epochs of minimax training each fold ran, at least one fold of each
+    running both (a fold whose fresh G scores 0 everywhere stops at the G
+    guard after epoch 1, as in the JAX package); and `-mesh` refused for an
+    adversarial id."""
+    import shutil
+
+    import numpy as np
+
+    from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.adversarial.base import AdversarialMachine
+
+    rec = {}
+    dev = ["-device", device] if device != "cuda" else []
+    rounds = {}  # id of each fold's machine -> the epoch_k of its rounds
+    mini_max_train = AdversarialMachine.mini_max_train
+
+    def counted(self, train_data=None, epoch_k=0, shuffle=True):
+        rounds.setdefault(id(self), []).append(epoch_k)
+        return mini_max_train(self, train_data, epoch_k, shuffle)
+
+    AdversarialMachine.mini_max_train = counted
+    try:
+        for model_id, run in AD_CLI_RUNS.items():
+            out = os.path.join(work_dir, "ad_cli", model_id)
+            shutil.rmtree(out, ignore_errors=True)
+            rounds.clear()
+            t0 = time.perf_counter()
+            cv = ltr.main(["-model", model_id, "-data", "SyntheticMQ", "-debug", "-epochs", "2",
+                           "-dir_output", out] + dev)
+            runs = sorted(os.path.relpath(r, out) for r, ds, _ in os.walk(out) if "G" in ds)
+            rec[model_id] = {"run_s": time.perf_counter() - t0, "runs": runs,
+                             "fold_epochs": list(rounds.values()),
+                             **{n: np.asarray(cv[n]).tolist() for n in ("G", "D")}}
+            if (runs != [run] or not all(np.isfinite(cv[n]).all() for n in ("G", "D"))
+                    or len(rounds) != 2 or [1, 2] not in rounds.values()):
+                raise AssertionError(f"ad CLI {model_id}: {rec[model_id]}")
+    finally:
+        AdversarialMachine.mini_max_train = mini_max_train
+    try:
+        ltr.main(["-model", "IRGAN_Point", "-data", "SyntheticMQ", "-debug", "-mesh", "data=2",
+                  "-dir_output", os.path.join(work_dir, "ad_cli", "mesh")] + dev)
+    except NotImplementedError as e:
+        rec["mesh_refused"] = str(e)
+    else:
+        raise AssertionError("ad CLI: -mesh was not refused for IRGAN_Point")
+    print("ad_cli " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return rec
+
+
+def ad_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 11: (a) ad_samplers, (b) ad_steps, (c) ad_epochs over
+    AD_QUERIES synthetic queries uploaded once, (d) ad_cli; no kernel of
+    ops/csrc launches in it. Prints each sub-phase's seconds."""
+    import torch
+
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+    from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, packed_nbytes
+
+    reset_counts()
+    t = [time.perf_counter()]
+    ad_samplers(card, device)
+    t.append(time.perf_counter())
+    seed = ad_seed()
+    qs = make_synthetic_queries(num_queries=AD_QUERIES, num_features=AD_F, min_docs=AD_DOCS[0],
+                                max_docs=AD_DOCS[1], seed=seed)
+    ds = BucketedDataset(qs, batch_docs=AD_BATCH_DOCS, num_features=AD_F)
+    res = DeviceResidentDataset(ds, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    print("ad_data " + json.dumps({
+        "seed": seed, "queries": len(qs), "docs": int(sum(len(q[2]) for q in qs)),
+        "buckets": list(ds.buckets), "batches_a_pass": len(ds),
+        "packed_nbytes": packed_nbytes(ds), "make_and_upload_s": t[-1] - t[-2]})
+        + f"  [{card}]", flush=True)
+    ad_steps(card, ds, device)
+    t.append(time.perf_counter())
+    ad_epochs(card, res, ds, work_dir, device)
+    t.append(time.perf_counter())
+    ad_cli(card, work_dir, device)
+    t.append(time.perf_counter())
+    counts = read_counts()
+    names = ("samplers", "data", "steps", "epochs", "cli")
+    print("ad_phase_s " + json.dumps({n: round(b - a, 1) for n, a, b in zip(names, t, t[1:])})
+          + f"  [{card}]", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"ad phase: kernels launched {counts}; the branch has none")
+    return counts
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -3728,6 +4239,9 @@ def main() -> int:
 
     phase("diversification")
     div_phase(card, work_dir)
+
+    phase("adversarial")
+    ad_phase(card, work_dir)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",

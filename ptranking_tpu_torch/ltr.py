@@ -10,8 +10,10 @@ package dispatches it (with -dir_json, -grid, or a point run); where
 LightGBM is absent, LightGBMLambdaMART falls back to the native GBDT. A
 diversification model id (DALETOR, DivProbRanker) runs the diversification
 branch's DivLTREvaluator (default data SyntheticDiv; a point run writes a
-TREC run file a fold). The adversarial model ids and the multi-device flags
-are refused until their branches are ported.
+TREC run file a fold). An adversarial model id (IRGAN_* / IRFGAN_*) runs
+the adversarial branch's AdLTREvaluator (default data SyntheticMQ), as the
+JAX package dispatches it. The multi-device flags are refused until that
+layer is ported.
 """
 
 from __future__ import annotations
@@ -19,17 +21,13 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ptranking_tpu_torch.adversarial import LTR_ADVERSARIAL_MODELS, AdLTREvaluator
 from ptranking_tpu_torch.diversification import DIV_MODELS as LTR_DIV_MODELS
 from ptranking_tpu_torch.diversification import DivLTREvaluator
 from ptranking_tpu_torch.eval import LTR_ADHOC_MODELS, LTREvaluator
 from ptranking_tpu_torch.eval.settings import PARALLEL_KEYS
 from ptranking_tpu_torch.tree import LTR_TREE_MODELS, TreeLTREvaluator
 
-# the model ids of the branches the port does not have yet, and the ROADMAP
-# queue A item that ports each
-LTR_ADVERSARIAL_MODELS = ["IRGAN_Point", "IRGAN_Pair", "IRGAN_List",
-                          "IRFGAN_Point", "IRFGAN_Pair", "IRFGAN_List"]
-BRANCHES = ((LTR_ADVERSARIAL_MODELS, "adversarial", 7),)
 ALL_MODELS = list(LTR_ADHOC_MODELS) + LTR_ADVERSARIAL_MODELS + LTR_TREE_MODELS + LTR_DIV_MODELS
 
 
@@ -90,17 +88,24 @@ def parse_mesh_overrides(args) -> dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for ids, branch, item in BRANCHES:
-        if args.model in ids:
-            raise NotImplementedError(
-                f"{args.model} belongs to the {branch} branch, which the port does not have "
-                f"yet (ROADMAP queue A item {item})")
     overrides = parse_mesh_overrides(args)
     parallel = [k for k in PARALLEL_KEYS if overrides.get(k)]
     if parallel:
         raise NotImplementedError(
             f"{['-' + k for k in parallel]} need the multi-device layer, which the port "
             "does not have yet (ROADMAP queue A item 8)")
+    if args.model in LTR_ADVERSARIAL_MODELS:
+        evaluator = AdLTREvaluator(device=args.device, cuda=args.cuda, mesh_overrides=overrides)
+        if args.dir_json:
+            return evaluator.run(debug=args.debug, model_id=args.model,
+                                 config_with_json=True, dir_json=args.dir_json)
+        if args.grid:
+            return evaluator.grid_run(debug=args.debug, model_id=args.model,
+                                      data_id=args.data_id or "SyntheticMQ",
+                                      dir_data=args.dir_data, dir_output=args.dir_output)
+        return evaluator.point_run(model_id=args.model, data_id=args.data_id or "SyntheticMQ",
+                                   dir_data=args.dir_data, dir_output=args.dir_output,
+                                   debug=args.debug, epochs=args.epochs)
     if args.model in LTR_TREE_MODELS:
         evaluator = TreeLTREvaluator(device=args.device, cuda=args.cuda)
         if args.dir_json:

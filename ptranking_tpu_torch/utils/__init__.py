@@ -1,1 +1,2 @@
-"""Utilities of the port (the run log)."""
+"""Utilities of the port: the run log, shape chunking, profiling aids and
+the native builds."""

@@ -236,7 +236,8 @@ def test_cli_runs_on_the_cpu_and_writes_its_results(tmp_path):
     (["-model", "RankMSE", "-shard_docs"], "item 8"),
     (["-model", "DALETOR", "-mesh", "data=4"], "item 8"),
     (["-model", "DivProbRanker", "-shard_docs"], "item 8"),
-    (["-model", "IRGAN_Point"], "item 7"), (["-model", "IRFGAN_List"], "item 7"),
+    (["-model", "IRGAN_Point", "-mesh", "data=4"], "item 8"),
+    (["-model", "IRFGAN_List", "-tp"], "item 8"),
     (["-model", "RankMSE", "-mesh", "data=4"], "item 8"),
     (["-model", "RankMSE", "-tp"], "item 8"),
 ])
@@ -254,9 +255,9 @@ def test_evaluator_refuses_parallel_eval_settings():
 
 
 def test_python_m_entry_point_runs():
-    """The module runs as `python -m ptranking_tpu_torch.ltr`: an id of a
-    branch still to be ported exits non-zero, naming its ROADMAP item."""
+    """The module runs as `python -m ptranking_tpu_torch.ltr`: a flag of the
+    layer still to be ported exits non-zero, naming its ROADMAP item."""
     proc = subprocess.run([sys.executable, "-m", "ptranking_tpu_torch.ltr", "-device", "cpu",
-                           "-model", "IRGAN_Point"], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode != 0 and "queue A item 7" in proc.stderr
+                           "-model", "IRGAN_Point", "-mesh", "data=2"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "queue A item 8" in proc.stderr

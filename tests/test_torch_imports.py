@@ -41,6 +41,19 @@ def _imports(path):
             yield node.lineno, node.args[0].value
 
 
+# the modules of the later slices, which the walk must reach
+SLICE_MODULES = ["adversarial/__init__.py", "adversarial/base.py", "adversarial/evaluator.py",
+                 "adversarial/irfgan.py", "adversarial/irgan.py", "adversarial/settings.py",
+                 "adversarial/util.py", "utils/chunking.py", "utils/profiling.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_walk_reaches_the_module(module):
+    path = os.path.join(REPO, "ptranking_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not [mod for _, mod in _imports(path) if _is_forbidden(mod)]
+
+
 def test_forbidden_name_matching():
     assert _is_forbidden("ptranking_tpu") and _is_forbidden("ptranking_tpu.models")
     assert _is_forbidden("jax.numpy") and _is_forbidden("optax")
