@@ -122,7 +122,7 @@ Phases, in order; any failure exits non-zero:
      DIV_LOSSES key (opt_ideal=False for SuperSoft and LambdaPairCLS), card
      against CPU; (c) DALETOR (listsf) and DivProbRanker (SuperSoft-aNDCG,
      pointsf) trained two epochs from device-resident buckets and streamed
-     from the host, 1,024 SyntheticDiv queries of 10..250 docs presorted on
+     from the host, 512 SyntheticDiv queries of 10..250 docs presorted on
      the card: the same losses and params bit for bit, queries/s each way,
      the idle share and host->device copies of DALETOR's profiled resident
      epoch (the index chunks the host copied, one missed at most); (d) aNDCG,
@@ -141,7 +141,7 @@ Phases, in order; any failure exits non-zero:
      same bits, the flattened pair axis of two 1,408-doc lists; (b) each
      machine's D and G step (IRFGAN_Pair: the joint step) on the card
      against the exact fp64 step on the CPU from the same params with the
-     same draws: loss, gradients, params; (c) 1,024 synthetic queries of
+     same draws: loss, gradients, params; (c) 512 synthetic queries of
      20..250 docs (from `--seed`, default 11) uploaded once, a DG round of
      every machine resident and streamed, queries/s, a profiled resident
      IRGAN_Point round (idle share; host->device copies and bytes: the
@@ -149,8 +149,26 @@ Phases, in order; any failure exits non-zero:
      IRGAN_Point` and `-model IRFGAN_List` on SyntheticMQ -debug, 2 epochs:
      finite G and D CV nDCG in the run directories JAX names, the epochs
      each fold ran (a fold whose fresh G scores 0 stops at the G guard after
-     epoch 1; at least one fold of each runs both), `-mesh` refused. No kernel of ops/csrc
-     launches in it (the JAX branch reaches no pl.pallas_call).
+     epoch 1; at least one fold of each runs both), `-mesh data=2` on one
+     card refused (two NCCL ranks need two cards; nothing drops to fewer
+     ranks). No kernel of ops/csrc launches in it (the JAX branch reaches no
+     pl.pallas_call);
+ 12. parallel, data parallelism (ptranking_tpu_torch/parallel/): (a) the
+     flagship (LambdaRank through the fused loss, dropout 0) as a
+     DistributedTrainer in a one-rank NCCL group against the AdhocRanker
+     from the same seed, PAR_STEPS steps at 32 x 1408 docs, and one WassRank
+     step likewise: the same losses and params bit for bit (one rank's
+     all-reduces are copies), and the same kernel launches (the flash
+     forward and backward, the pair kernels, the Sinkhorn half-step),
+     counted on the DP path; (b) `ltr.main -mesh data=1` (a one-rank NCCL
+     group in the process) against the same run without the mesh: the same
+     CV metrics bit for bit; (c) two gloo ranks on the one card, CUDA tensors
+     in the collectives, the flagship in fp32, PAR_GLOO_B lists of 1408
+     docs a rank: the first step's loss, its gradients summed over the ranks
+     and the initial nDCG within the CPU tests' tolerances of the one-device
+     run on the same global batch, both ranks' params the same bits after
+     PAR_GLOO_STEPS steps. (c) shows the reduction path with the kernels on
+     the card, not multi-GPU scaling.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -1741,21 +1759,23 @@ def check_counts(counts: dict, steps: int, what: str, per_step: dict = LAUNCHES_
 
 def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16",
                     model_id: str = "LambdaRank", num_features: int = NUM_FEATURES,
-                    lane_align: bool = False, n_heads: int = 2):
+                    lane_align: bool = False, n_heads: int = 2, mesh=None, device="cuda"):
     """The flagship scorer (or the same DASALC listsf at another width) under
     a loss with its default paras; LambdaRank goes through the fused pairwise
-    kernel."""
+    kernel. With a mesh, the DistributedTrainer of the same config."""
     from ptranking_tpu_torch import LTR_SEED
     from ptranking_tpu_torch.models import ScorerConfig
+    from ptranking_tpu_torch.parallel import DistributedTrainer
     from ptranking_tpu_torch.train import AdhocRanker, OptimizerConfig
 
     cfg = ScorerConfig.default_listsf(num_features, compute_dtype=compute_dtype,
                                       flash_attn=True, dropout=dropout, lane_align=lane_align,
                                       n_heads=n_heads)
-    model_paras = {"use_pallas": True} if model_id == "LambdaRank" else {}
-    return AdhocRanker(model_id, cfg, model_paras=model_paras,
-                       opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED,
-                       device="cuda").init()
+    kw = dict(model_paras={"use_pallas": True} if model_id == "LambdaRank" else {},
+              opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED, device=device)
+    if mesh is not None:
+        return DistributedTrainer(model_id, cfg, mesh, **kw).init()
+    return AdhocRanker(model_id, cfg, **kw).init()
 
 
 def train_batch(B: int, N: int, ragged: bool, seed: int, num_features: int = NUM_FEATURES):
@@ -3165,7 +3185,8 @@ DIV_CHECK_DOCS = (10, 250)
 DIV_TOL, DIV_GRAD_FLOOR = 1e-4, 1e-2
 # (c): DIV_RES_QUERIES synthetic queries of 10..250 docs (every bucket of
 # 16..256 docs), presorted on the card, two epochs resident and two streamed
-DIV_RES_QUERIES, DIV_RES_SEED = 1024, 5
+# (512 since phase 12 came: 1,024 before; the script keeps within its time)
+DIV_RES_QUERIES, DIV_RES_SEED = 512, 5
 DIV_EPOCHS = (1, 2)
 # queries whose card presort is held against the numpy greedy ideal ranking
 DIV_PRESORT_CHECK = 32
@@ -3330,7 +3351,7 @@ def div_queries(n: int, seed: int, device: str = "cuda"):
     """n SyntheticDiv queries of 10..250 docs at D = 100 (the JAX package's
     generator), presorted into their greedy ideal order on the card, all in
     one batched metrics/srd.py::greedy_ideal_ranking (padded to 250 docs and
-    8 subtopics; the generator's numpy presort takes minutes for 1,024
+    8 subtopics; the generator's numpy presort takes minutes for 1,000
     lists of up to 250 docs); the first DIV_PRESORT_CHECK orders are held
     against the numpy greedy ranking."""
     import numpy as np
@@ -3691,7 +3712,8 @@ def div_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
 AD_F, AD_BATCH_DOCS = 136, 512
 # (c): AD_QUERIES synthetic queries of 20..250 docs (the buckets of 32..256
 # docs), made from the seed (`--seed`, default AD_SEED), device-resident
-AD_QUERIES, AD_DOCS, AD_SEED = 1024, (20, 250), 11
+# (512 since phase 12 came: 1,024 before; the script keeps within its time)
+AD_QUERIES, AD_DOCS, AD_SEED = 512, (20, 250), 11
 # (a): each sampler's draws; its empirical frequencies against its analytic
 # distribution within a total-variation distance of 2 * sqrt(K / n) for K
 # categories of nonzero probability and n draws (E[TV] <= sqrt(K / n) / 2)
@@ -4079,14 +4101,16 @@ def ad_cli(card: str, work_dir: str, device: str = "cuda") -> dict:
     the run directory named as the JAX package names it (AD_CLI_RUNS), the
     epochs of minimax training each fold ran, at least one fold of each
     running both (a fold whose fresh G scores 0 everywhere stops at the G
-    guard after epoch 1, as in the JAX package); and `-mesh` refused for an
-    adversarial id."""
+    guard after epoch 1, as in the JAX package); and `-mesh data=2` refused
+    on one card (two NCCL ranks need two cards)."""
     import shutil
 
     import numpy as np
 
     from ptranking_tpu_torch import ltr
     from ptranking_tpu_torch.adversarial.base import AdversarialMachine
+
+    import torch
 
     rec = {}
     dev = ["-device", device] if device != "cuda" else []
@@ -4115,13 +4139,15 @@ def ad_cli(card: str, work_dir: str, device: str = "cuda") -> dict:
                 raise AssertionError(f"ad CLI {model_id}: {rec[model_id]}")
     finally:
         AdversarialMachine.mini_max_train = mini_max_train
-    try:
-        ltr.main(["-model", "IRGAN_Point", "-data", "SyntheticMQ", "-debug", "-mesh", "data=2",
-                  "-dir_output", os.path.join(work_dir, "ad_cli", "mesh")] + dev)
-    except NotImplementedError as e:
-        rec["mesh_refused"] = str(e)
-    else:
-        raise AssertionError("ad CLI: -mesh was not refused for IRGAN_Point")
+    # two NCCL ranks need two cards: refused, never run on fewer ranks
+    if device == "cuda" and torch.cuda.device_count() < 2:
+        try:
+            ltr.main(["-model", "IRGAN_Point", "-data", "SyntheticMQ", "-debug", "-mesh",
+                      "data=2", "-dir_output", os.path.join(work_dir, "ad_cli", "mesh")] + dev)
+        except ValueError as e:
+            rec["mesh_refused"] = str(e)
+        else:
+            raise AssertionError("ad CLI: -mesh data=2 ran on one card")
     print("ad_cli " + json.dumps(rec) + f"  [{card}]", flush=True)
     return rec
 
@@ -4165,6 +4191,207 @@ def ad_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
     if any(counts.values()):
         raise AssertionError(f"ad phase: kernels launched {counts}; the branch has none")
     return counts
+
+
+# --- phase 12: data parallelism ---
+PAR_STEPS = 3           # flagship LambdaRank steps in (a), at TRAIN_B x TRAIN_N
+PAR_WASS_STEPS = 1      # WassRank steps in (a)
+PAR_GLOO_B = 4          # lists of TRAIN_N docs a rank in (c)
+PAR_CLI_BATCH_DOCS = 4000  # (b)'s training batches: one a bucket an epoch
+PAR_GLOO_STEPS = 2
+PAR_TIMEOUT_S = 300     # the gloo group's collectives and the spawn's join
+PAR_LOSS_RTOL, PAR_NDCG_ATOL = 1e-5, 1e-5  # the CPU tests' tolerances (test_torch_parallel_*)
+# (c)'s first step's gradients summed over the two ranks against one
+# device's, per tensor as rel_errs measures them: both runs take the same
+# kernels on the same rows, only the sums over rows are grouped differently.
+# (c) runs the flagship in fp32, as the CPU tests do: in bf16 a GEMM over
+# half the rows may round a row's activations to a neighbouring bf16 value
+# (8 bits), which parts the two runs at the bf16 gate's level, not a
+# reduction's. Later steps' params are not held to one device: Adagrad's
+# first steps (lr times the gradient's sign) turn rounding in a near-zero
+# gradient entry into lr either way, so only the two ranks' bits are held.
+PAR_GRAD_RTOL = 1e-5
+PAR_GLOO_DTYPE = "float32"
+
+
+def _par_steps(ranker, batch, steps: int) -> list:
+    """`steps` optimizer steps on `batch` (ranker._step on the rank's block),
+    the losses fetched at the end."""
+    import torch
+
+    losses = [ranker._step(*ranker._batch_arrays(batch)) for _ in range(steps)]
+    return [float(x) for x in ranker._dp.all_reduce(torch.stack(losses)).cpu()]
+
+
+def _named_params(params) -> dict:
+    """{leaf name: numpy array} of a param tree."""
+    from ptranking_tpu_torch.models.scorers import tree_leaves
+
+    return dict(zip(leaf_names(params), (t.detach().cpu().numpy() for t in tree_leaves(params))))
+
+
+def _par_run(ranker, batch, steps: int) -> dict:
+    """Phase 12 (c) on one ranker: nDCG@ks of its initial params, its first
+    step's loss and (summed) gradients without the update, then `steps`
+    steps: their losses, the params and the launches."""
+    t0 = time.perf_counter()
+    ndcg = ranker.evaluate([batch], ks=(1, 5))["nDCG"].tolist()
+    update, ranker._optimizer.step = ranker._optimizer.step, lambda: None
+    loss = _par_steps(ranker, batch, 1)[0]
+    grads = [p.grad.detach().cpu().clone() for p in ranker._leaves]
+    ranker._optimizer.step = update
+    reset_counts()
+    losses = _par_steps(ranker, batch, steps)
+    return {"ndcg": ndcg, "loss": loss, "grads": grads, "losses": losses,
+            "params": _named_params(ranker.params), "launches": read_counts(),
+            "run_s": time.perf_counter() - t0}
+
+
+def par_gloo_rank(steps: int, rows: int, n_docs: int, num_features: int, device: str):
+    """Phase 12 (c), one rank of the gloo group: `_par_run` of the flagship
+    as a DistributedTrainer on this rank's block of a global batch of
+    2 * rows lists of n_docs docs; also the seconds of the rank's set-up:
+    the batch, the mesh, the ranker."""
+    t = [time.perf_counter()]
+    from ptranking_tpu_torch.parallel import make_mesh
+
+    batch = train_batch(2 * rows, n_docs, ragged=False, seed=5, num_features=num_features)
+    t.append(time.perf_counter())
+    mesh = make_mesh()
+    t.append(time.perf_counter())
+    tr = flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE, num_features=num_features,
+                         mesh=mesh, device=device)
+    t.append(time.perf_counter())
+    return {**_par_run(tr, batch, steps), "setup_s": [round(b - a, 2) for a, b in zip(t, t[1:])]}
+
+
+def write_par_cli_config(root: str, dir_output: str) -> str:
+    """Data_Eval_ScoringFunction.json of phase 12 (b): SyntheticMQ, a
+    pointsf with BN (its statistics an all-reduce under the mesh), training
+    batches of PAR_CLI_BATCH_DOCS docs. Returns the directory."""
+    os.makedirs(root, exist_ok=True)
+    cfg = {"DataSetting": {"data_id": "SyntheticMQ", "dir_data": None, "min_docs": [5],
+                           "min_rele": [1], "binary_rele": [False], "unknown_as_zero": [False],
+                           "tr_batch_size": [PAR_CLI_BATCH_DOCS]},
+           "EvalSetting": {"dir_output": dir_output, "epochs": 2, "do_validation": True,
+                           "vali_k": 5, "vali_metric": "nDCG", "cutoffs": [1, 3, 5, 10],
+                           "loss_guided": False, "do_log": False, "log_step": 1,
+                           "do_summary": False, "mask": {"mask_label": False}},
+           "SFParameter": {"sf_id": "pointsf", "opt": ["Adam"], "lr": [1e-3],
+                           "pointsf": {"BN": [True], "bn_type": ["BN"], "bn_affine": [True],
+                                       "layers": [2], "AF": ["R"], "TL_AF": ["S"],
+                                       "apply_tl_af": [False]}}}
+    with open(os.path.join(root, "Data_Eval_ScoringFunction.json"), "w") as f:
+        json.dump(cfg, f)
+    return root
+
+
+def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
+    """Phase 12: (a) a one-rank NCCL DistributedTrainer against the
+    AdhocRanker, (b) `ltr.main -mesh data=1` against the run without it,
+    (c) two gloo ranks on the one card against one device. Returns the
+    launch counts of (a)'s DP runs (the phase's main path)."""
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.parallel import make_mesh
+    from ptranking_tpu_torch.parallel.launch import one_rank_group, run_ranks
+
+    t = [time.perf_counter()]
+    rec = {}
+    cuda = device == "cuda"
+    batch = train_batch(TRAIN_B, TRAIN_N, ragged=False, seed=2, num_features=NUM_FEATURES)
+    dp_counts = {}
+    sub_s = {}  # (a)'s seconds by part
+    with one_rank_group(device):  # NCCL on the card
+        mesh = make_mesh()
+        sub_s["group_and_mesh"] = time.perf_counter() - t[0]
+        for model_id, steps, per_step in (("LambdaRank", PAR_STEPS, LAUNCHES_PER_STEP),
+                                          ("WassRank", PAR_WASS_STEPS, WASS_LAUNCHES_PER_STEP)):
+            runs = {}
+            for name, m in (("single", None), ("dp", mesh)):
+                t0 = time.perf_counter()
+                ranker = flagship_ranker(dropout=0.0, model_id=model_id,
+                                         num_features=NUM_FEATURES, mesh=m, device=device)
+                t1 = time.perf_counter()
+                reset_counts()
+                losses = _par_steps(ranker, batch, steps)
+                if cuda:
+                    torch.cuda.synchronize()
+                runs[name] = (ranker, losses, read_counts())
+                sub_s[f"{model_id}_{name}"] = [round(t1 - t0, 2),
+                                               round(time.perf_counter() - t1, 2)]
+            (single, l1, c1), (dp, l2, c2) = runs["single"], runs["dp"]
+            p1, p2 = _named_params(single.params), _named_params(dp.params)
+            same = l1 == l2 and all(np.array_equal(p1[k], p2[k]) for k in p1)
+            diff = max(float(np.abs(p1[k] - p2[k]).max()) for k in p1)
+            rec[f"one_rank_{model_id}"] = {"steps": steps, "losses": l2, "same_bits": same,
+                                          "max_abs_param_diff": diff, "launches": c2}
+            if not same:
+                raise AssertionError(f"parallel (a) {model_id}: the one-rank DistributedTrainer "
+                                     f"parts from the AdhocRanker: {rec[f'one_rank_{model_id}']}")
+            if cuda:
+                check_counts(c2, steps, f"parallel (a) {model_id}", per_step)
+                if c1 != c2:
+                    raise AssertionError(f"parallel (a) {model_id}: launches {c2} on the DP "
+                                         f"path, {c1} on one device")
+            for k, n in c2.items():
+                dp_counts[k] = dp_counts.get(k, 0) + n
+            del runs, single, dp
+    rec["one_rank_s"] = sub_s
+    t.append(time.perf_counter())
+
+    # (b) the CLI under -mesh data=1 (a one-rank NCCL group) against the plain
+    # run: RankMSE's debug grid (2 folds x 5 epochs) of write_par_cli_config
+    cli = {}
+    for name, extra in (("plain", []), ("mesh", ["-mesh", "data=1"])):
+        dj = write_par_cli_config(os.path.join(work_dir, "par_cli", name + "_json"),
+                                  os.path.join(work_dir, "par_cli", name))
+        cli[name] = ltr.main(["-model", "RankMSE", "-dir_json", dj, "-debug",
+                              "-device", device] + extra)
+    metrics = [k for k in cli["plain"] if k != "elapsed_s"]
+    same = all(np.array_equal(cli["plain"][k], cli["mesh"][k]) for k in metrics)
+    rec["cli_mesh_data1"] = {"nDCG": np.asarray(cli["mesh"]["nDCG"]).tolist(), "same_bits": same}
+    if not same:
+        raise AssertionError(f"parallel (b): -mesh data=1 gives {cli['mesh']}, the plain run "
+                             f"{cli['plain']}")
+    t.append(time.perf_counter())
+
+    # (c) two gloo ranks on the one card against one device on the global batch
+    out = run_ranks(par_gloo_rank, 2, (PAR_GLOO_STEPS, PAR_GLOO_B, TRAIN_N, NUM_FEATURES, device),
+                    device_type=device, backend="gloo", timeout_s=PAR_TIMEOUT_S,
+                    join_timeout_s=PAR_TIMEOUT_S)
+    r0, r1 = out
+    ref = _par_run(flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE,
+                                   num_features=NUM_FEATURES, device=device),
+                   train_batch(2 * PAR_GLOO_B, TRAIN_N, ragged=False, seed=5,
+                               num_features=NUM_FEATURES), PAR_GLOO_STEPS)
+    names = list(ref["params"])
+    ranks_same = (r0["losses"] == r1["losses"]
+                  and all(np.array_equal(r0["params"][k], r1["params"][k]) for k in names))
+    grad = rel_errs(r0["grads"], ref["grads"], names)
+    loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    ndcg_err = float(np.abs(np.asarray(r0["ndcg"]) - ref["ndcg"]).max())
+    rec["two_gloo_ranks_one_card"] = {
+        "note": "the reduction path with the kernels on the card, not multi-GPU scaling",
+        "rows_a_rank": PAR_GLOO_B, "first_loss_rel_err": loss_err, "first_grads": grad,
+        "ndcg_abs_err": ndcg_err, "steps": PAR_GLOO_STEPS, "losses": r0["losses"],
+        "one_device_losses": ref["losses"], "ranks_same_bits": ranks_same,
+        "max_abs_param_diff_vs_one_device": max(
+            (float(np.abs(r0["params"][k] - ref["params"][k]).max()), k) for k in names),
+        "rank0_launches": r0["launches"],
+        "rank_setup_run_s": [[r["setup_s"], round(r["run_s"], 2)] for r in out],
+        "one_device_run_s": round(ref["run_s"], 2)}
+    print("parallel (c) shows the reduction path with the kernels on the card, not multi-GPU "
+          "scaling: one H100 cannot show scaling", flush=True)
+    if not (ranks_same and loss_err <= PAR_LOSS_RTOL and ndcg_err <= PAR_NDCG_ATOL
+            and grad["worst"][1] <= PAR_GRAD_RTOL):
+        raise AssertionError(f"parallel (c): {rec['two_gloo_ranks_one_card']}")
+    t.append(time.perf_counter())
+    rec["phase_s"] = {n: round(b - a, 1) for n, a, b in zip(("a", "b", "c"), t, t[1:])}
+    print("parallel " + json.dumps(rec) + f"  [{card}]", flush=True)
+    return dp_counts
 
 
 def main() -> int:
@@ -4242,6 +4469,16 @@ def main() -> int:
 
     phase("adversarial")
     ad_phase(card, work_dir)
+
+    phase("parallel")
+    t_par = time.perf_counter()
+    dp_counts = parallel_phase(card, work_dir)
+    print(f"parallel_phase_s {time.perf_counter() - t_par:.1f}", flush=True)
+    idle_dp = [name for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
+                                 "pairwise_lambda_fwd", "pairwise_lambda_bwd", "sinkstep")
+               if dp_counts.get(name, 0) <= 0]
+    if idle_dp:
+        raise AssertionError(f"parallel: kernels never launched on the DP path: {idle_dp}")
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",

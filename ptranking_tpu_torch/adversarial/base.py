@@ -18,8 +18,11 @@ in each pass) or a DeviceResidentDataset (resident: one index copy a chunk
 an epoch, made when the first pass reaches the chunk and shared by the
 later passes; each batch an index_select on the device).
 
-The JAX package's `mesh=` (both players data-parallel) belongs to the
-multi-device layer, which the port does not have yet: a mesh raises.
+With `mesh=` both players are data-parallel, as in the JAX package: each
+rank takes its block of every batch's rows, the samplers draw for the
+global batch, the masked means divide by counts summed over the ranks and
+each update sums the players' gradients over the ranks
+(parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 from ptranking_tpu_torch import resolve_device
 from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset, take_features
 from ptranking_tpu_torch.models.scorers import ScorerConfig, apply_scorer
+from ptranking_tpu_torch.parallel.collectives import global_count
+from ptranking_tpu_torch.parallel.mesh import data_parallel
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 from ptranking_tpu_torch.train.ranker import AdhocRanker, _to_device
 from ptranking_tpu_torch.utils.chunking import iter_shape_chunks
@@ -74,13 +79,16 @@ class AdversarialPlayer(AdhocRanker):
         self._optimizer.zero_grad(set_to_none=True)
         loss = loss_of()
         loss.backward()
+        self._dp.reduce_grads(self._leaves)
         self._optimizer.step()
         return loss.detach()
 
 
 def masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """sum(x over m) / max(count(m), 1)."""
-    return torch.sum(torch.where(m, x, 0.0)) / torch.clamp(torch.sum(m), min=1).float()
+    """sum(x over m) / max(count(m), 1); the count spans every rank's rows
+    under data parallelism."""
+    return (torch.sum(torch.where(m, x, 0.0))
+            / torch.clamp(global_count(torch.sum(m)), min=1).float())
 
 
 def num_pos(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -97,9 +105,11 @@ class _ResidentEpoch:
     chunks, each copied to the device when the first pass reaches it and
     walked again by every later pass."""
 
-    def __init__(self, res: DeviceResidentDataset, epoch_k: int, shuffle: bool, chunk: int):
+    def __init__(self, res: DeviceResidentDataset, epoch_k: int, shuffle: bool, chunk: int,
+                 dp):
         self.res = res
-        self._host = [(bucket, idx_k)
+        # this rank's columns of each chunk under data parallelism
+        self._host = [(bucket, dp.shard_index(idx_k, res.bucket_arrays(bucket)[2].shape[0] - 1))
                       for bucket, idx_k, _ in res.epoch_index_chunks(shuffle, epoch_k, chunk)]
         self._dev = {}
 
@@ -116,10 +126,9 @@ class AdversarialMachine:
 
     def __init__(self, sf_para: Dict[str, Any], ad_para_dict: Dict[str, Any],
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= runs both players data-parallel, in the multi-device layer, which "
-                "the port does not have yet (ROADMAP queue A item 8)")
+        # the players' share of data-parallel work (SINGLE without a mesh);
+        # init_minimax hands it to both players
+        self._dp = data_parallel(mesh)
         self.ad_para_dict = ad_para_dict
         # batches a chunk of the D/G passes: the host checks the loss once a
         # chunk; it changes no value
@@ -137,7 +146,7 @@ class AdversarialMachine:
         DeviceResidentDataset, else the list of its batches (a dataset's
         `batches(shuffle, epoch)`, or the batches as given)."""
         if isinstance(train_data, DeviceResidentDataset):
-            return _ResidentEpoch(train_data, epoch_k, shuffle, self.scan_steps)
+            return _ResidentEpoch(train_data, epoch_k, shuffle, self.scan_steps, self._dp)
         if hasattr(train_data, "batches"):
             train_data = train_data.batches(shuffle=shuffle, epoch=epoch_k)
         return list(train_data)
@@ -150,18 +159,22 @@ class AdversarialMachine:
                 yield [(take_features(feats, idx), labels.index_select(0, idx).float(),
                         mask.index_select(0, idx)) for idx in idx_k]
             return
+        dp = self._dp
         for chunk, _ in iter_shape_chunks(data, self.scan_steps):
-            yield [(_to_device(b.features, self.device, torch.float32),
-                    _to_device(b.labels, self.device, torch.float32),
-                    _to_device(b.mask, self.device, torch.bool)) for b in chunk]
+            yield [(_to_device(dp.shard(b.features), self.device, torch.float32),
+                    _to_device(dp.shard(b.labels), self.device, torch.float32),
+                    _to_device(dp.shard(b.mask), self.device, torch.bool)) for b in chunk]
 
     def _fused_pass(self, step, data) -> bool:
         """One pass of `step` over the batches; returns True when a chunk's
-        loss went non-finite (the pass stops there), the host's only wait
-        of the pass."""
+        loss (summed over the ranks) went non-finite (the pass stops there),
+        the host's only wait of the pass."""
         for chunk in self._chunks(data):
-            loss = torch.stack([step(*batch) for batch in chunk]).sum()
-            if not bool(torch.isfinite(loss)):
+            losses = []
+            for batch in chunk:
+                with self._dp.rows(batch[0].shape[0]):
+                    losses.append(step(*batch))
+            if not bool(torch.isfinite(self._dp.all_reduce(torch.stack(losses).sum()))):
                 return True
         return False
 

@@ -8,7 +8,10 @@ package), per-epoch minimax training with the generator stop guard
 `.pt` checkpoints and summary tapes (:147-165), the final fold test of both
 players (:211-215), and the three-source config stack (grid_run /
 point_run / run, :326-393). On one device (`device="cuda"` unless the
-caller asks for the CPU); the training data is device-resident by default
+caller asks for the CPU), or with a `mesh` eval setting both players
+data-parallel over the process group's ranks, as in the JAX package (only
+rank 0 writes files; `tp`, `shard_docs` and `pp_stages` are not read by
+this branch). The training data is device-resident by default
 (the adhoc evaluator's load_data), each epoch's index chunks copied once and
 walked by the D and the G pass.
 """
@@ -26,6 +29,7 @@ from ptranking_tpu_torch.adversarial.settings import (AdDataSetting, AdEvalSetti
                                                       AdModelSetting, AdSFSetting)
 from ptranking_tpu_torch.eval.evaluator import LTREvaluator
 from ptranking_tpu_torch.eval.tapes import SummaryTape, ValidationTape
+from ptranking_tpu_torch.parallel.collectives import is_writer
 from ptranking_tpu_torch.utils.runlog import run_log
 
 LTR_ADVERSARIAL_MODELS = ["IRGAN_Point", "IRGAN_Pair", "IRGAN_List",
@@ -43,7 +47,8 @@ class AdLTREvaluator(LTREvaluator):
 
     def get_ad_machine(self, model_id: str, sf_para, ad_para_dict, seed: int = 137, mesh=None):
         """(reference get_ad_machine, ltr_adversarial.py:62-78) on the
-        evaluator's device; a mesh raises (ROADMAP queue A item 8)."""
+        evaluator's device; with a mesh (a DeviceMesh or an axis-size dict)
+        both players are data-parallel."""
         return AD_MACHINES[model_id](sf_para=sf_para, ad_para_dict=ad_para_dict, seed=seed,
                                      mesh=mesh, device=self.device)
 
@@ -59,7 +64,8 @@ class AdLTREvaluator(LTREvaluator):
                            self.data_setting.to_data_setting_string(),
                            self.eval_setting.to_eval_setting_string()])
         dir_run = os.path.join(dir_root, prefix, self.model_setting.to_para_string())
-        os.makedirs(dir_run, exist_ok=True)
+        if is_writer():
+            os.makedirs(dir_run, exist_ok=True)
         return dir_run
 
     # ------------------------------------------------------------- training
@@ -124,7 +130,7 @@ class AdLTREvaluator(LTREvaluator):
 
             for name, player, tape in (("G", machine.get_generator(), g_tape),
                                        ("D", machine.get_discriminator(), d_tape)):
-                if do_vali and os.path.exists(tape.get_optimal_path()):
+                if do_vali and player._dp.from_first(os.path.exists, tape.get_optimal_path()):
                     player.load(tape.get_optimal_path())
                 tape.clear_fold_buffer()
                 if do_summary:

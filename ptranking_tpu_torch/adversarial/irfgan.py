@@ -26,6 +26,7 @@ from ptranking_tpu_torch.adversarial.util import (
     weighted_mean,
 )
 from ptranking_tpu_torch.ops import masked_softmax
+from ptranking_tpu_torch.parallel.collectives import global_count
 
 
 def _init_f_div(machine, ad_para_dict):
@@ -38,7 +39,8 @@ def _d_loss(machine, t_true, t_fake, m) -> torch.Tensor:
     (sum conj(act(t_fake)) - sum act(t_true)) / max(count, 1)."""
     act, conj = machine.activation_f, machine.conjugate_f
     return (torch.sum(torch.where(m, conj(act(t_fake)), 0.0))
-            - torch.sum(torch.where(m, act(t_true), 0.0))) / torch.clamp(torch.sum(m), min=1).float()
+            - torch.sum(torch.where(m, act(t_true), 0.0))) / torch.clamp(
+                global_count(torch.sum(m)), min=1).float()
 
 
 class IRFGAN_Point(AdversarialMachine):

@@ -45,23 +45,26 @@ from ptranking_tpu_torch.adversarial.util import (
 )
 from ptranking_tpu_torch.models.scorers import ScorerConfig
 from ptranking_tpu_torch.ops import masked_softmax
+from ptranking_tpu_torch.parallel.collectives import SINGLE
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 
 LAMBDA = 0.5  # IRGAN Eq-22 mixture weight (irgan_point.py:17)
 
 
-def make_players(sf_para, temperature: Optional[float] = None, seed: int = 137, device="cuda"):
+def make_players(sf_para, temperature: Optional[float] = None, seed: int = 137, device="cuda",
+                 dp=SINGLE):
     """G keeps the configured scorer; D forces a sigmoid top layer
-    (irgan_point.py:56-63)."""
+    (irgan_point.py:56-63). Both share the machine's data-parallel `dp`."""
     g_cfg: ScorerConfig = sf_para["scorer"]
     if not g_cfg.apply_tl_af:
         raise ValueError("IRGAN requires apply_tl_af=True (irgan_point.py:57)")
     d_cfg = dataclasses.replace(g_cfg, TL_AF="S")
     opt: OptimizerConfig = sf_para["optimizer"]
     g = AdversarialPlayer(g_cfg, opt_cfg=opt, temperature=temperature, seed=seed,
-                          device=device).init()
-    d = AdversarialPlayer(d_cfg, opt_cfg=opt, seed=seed + 1, device=device).init()
-    return g, d
+                          device=device)
+    d = AdversarialPlayer(d_cfg, opt_cfg=opt, seed=seed + 1, device=device)
+    g._dp = d._dp = dp
+    return g.init(), d.init()
 
 
 def init_minimax(machine: AdversarialMachine, sf_para, ad_para_dict, seed: int,
@@ -75,7 +78,7 @@ def init_minimax(machine: AdversarialMachine, sf_para, ad_para_dict, seed: int,
     machine.ad_training_order = ad_para_dict.get("ad_training_order", "DG")
     machine.samples_per_query = ad_para_dict.get("samples_per_query", 5)
     machine.generator, machine.discriminator = make_players(sf_para, machine.temperature, seed,
-                                                            machine.device)
+                                                            machine.device, machine._dp)
     machine._seed(seed + seed_offset)
 
 

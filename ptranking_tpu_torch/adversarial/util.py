@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ptranking_tpu_torch import PAD_SCORE
 from ptranking_tpu_torch.ops.cumulative import logcumsumexp_reverse
+from ptranking_tpu_torch.parallel.collectives import batch_rand, global_count
 
 _EPS = 1e-20
 
@@ -61,7 +62,7 @@ def _uniform(shape, device, gen: Optional[torch.Generator], unif=None,
     """`unif` as a tensor on `device` when given, else U[0, 1) draws from `gen`."""
     if unif is not None:
         return _injected(unif, device, dtype).reshape(shape)
-    return torch.rand(shape, generator=gen, device=device, dtype=dtype)
+    return batch_rand(shape, gen, device, dtype)
 
 
 def categorical(logits: torch.Tensor, num_samples: int, gen: Optional[torch.Generator] = None,
@@ -199,7 +200,9 @@ def subranking_masks(mask: torch.Tensor, S: int, k: int) -> Tuple[torch.Tensor, 
 
 
 def weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+    """sum(x * w) / max(sum(w), 1); the weights' sum spans every rank's rows
+    under data parallelism."""
+    return torch.sum(x * w) / torch.clamp(global_count(torch.sum(w)), min=1.0)
 
 
 # --- pair sampling (reference ltr_adversarial/util/pair_sampling.py:27-150) ---

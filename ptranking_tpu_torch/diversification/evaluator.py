@@ -10,8 +10,9 @@ rerank mode, reproduce mode with the ndeval oracle's columns, the TREC run
 and qrels writers (real docnos carried end to end), and the three-source
 config stack (grid_run / point_run / run). The ndeval cross-check is
 advisory: a missing toolchain or a failed run prints a line and the run
-goes on. A `mesh` setting is refused until the multi-device layer is
-ported (ROADMAP queue A item 8).
+goes on. With a `mesh` setting the ranker is data-parallel over the process
+group's ranks, as in the JAX package; only rank 0 writes files and runs
+ndeval, and decisions taken on files are rank 0's, handed to every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ptranking_tpu_torch.diversification.settings import (
 )
 from ptranking_tpu_torch.eval.tapes import ValidationTape, get_opt_model
 from ptranking_tpu_torch.metrics.ndeval import ndeval_binary, run_ndeval
+from ptranking_tpu_torch.parallel.collectives import is_writer
 from ptranking_tpu_torch.utils.runlog import run_log
 
 
@@ -139,7 +141,8 @@ class DivLTREvaluator:
                            self.data_setting.to_data_setting_string(),
                            self.eval_setting.to_eval_setting_string()])
         dir_run = os.path.join(dir_root, prefix, self.model_setting.to_para_string())
-        os.makedirs(dir_run, exist_ok=True)
+        if is_writer():
+            os.makedirs(dir_run, exist_ok=True)
         return dir_run
 
     # ------------------------------------------------------------- training
@@ -160,10 +163,6 @@ class DivLTREvaluator:
         model_id = model_para_dict["model_id"]
         if model_id not in DIV_MODELS:
             raise ValueError(f"{model_id!r} not in {DIV_MODELS}")
-        if eval_dict.get("mesh"):
-            raise NotImplementedError(
-                "the eval setting 'mesh' needs the multi-device layer, which the port does "
-                "not have yet (ROADMAP queue A item 8)")
         fold_num = data_dict["fold_num"]
         epochs = eval_dict["epochs"]
         do_vali = eval_dict["do_validation"]
@@ -211,10 +210,11 @@ class DivLTREvaluator:
             else:
                 test_res = test
             ranker = DivRanker(model_id, scorer_cfg, model_paras=paras,
-                               opt_cfg=opt_cfg, seed=137 + fold_k,
+                               opt_cfg=opt_cfg, seed=137 + fold_k, mesh=eval_dict.get("mesh"),
                                device=self.device).init()
             if reproduce:
-                ckpt = get_opt_model(os.path.join(dir_run, f"Fold-{fold_k}"))
+                ckpt = ranker._dp.from_first(get_opt_model,
+                                             os.path.join(dir_run, f"Fold-{fold_k}"))
                 if not ckpt:
                     raise FileNotFoundError(f"no checkpoint for fold {fold_k} under {dir_run}")
                 ranker.load(ckpt)
@@ -245,7 +245,7 @@ class DivLTREvaluator:
                     summary.epoch_summary(epoch_loss, ranker, train, vali, test_res)
             if do_vali:
                 opt_path = tape.get_optimal_path()
-                if os.path.exists(opt_path):
+                if ranker._dp.from_first(os.path.exists, opt_path):
                     ranker.load(opt_path)
                 else:
                     print("  [warn] no validation checkpoint was saved; "
@@ -266,13 +266,17 @@ class DivLTREvaluator:
                         test_qs: Sequence[DivQuery], dir_run: str, fold_k: int,
                         need_per_q: bool = False):
         """fold_run.txt + qrels for the external ndeval oracle, using REAL
-        docnos and DivBatch.qids for row attribution."""
+        docnos and DivBatch.qids for row attribution. Every rank scores the
+        batches; rank 0 writes the files and runs ndeval."""
+        writer = is_writer()
         run_path = os.path.join(dir_run, f"fold_{fold_k}_run.txt")
-        if os.path.exists(run_path):
+        if writer and os.path.exists(run_path):
             os.remove(run_path)
         topic_map = build_topic_map(test_qs)
         for batch in test_ds.batches():
             scores_all = ranker.predict(batch).cpu().numpy()
+            if not writer:
+                continue
             for row in range(batch.doc_reprs.shape[0]):
                 q = test_ds.query_for(batch, row)
                 if q is None:
@@ -284,9 +288,11 @@ class DivLTREvaluator:
                           else [f"doc{j}" for j in order])
                 write_trec_run(run_path, topic_map[str(q.qid)], list(docnos),
                                scores[order].tolist())
-        qrels_path = os.path.join(dir_run, f"fold_{fold_k}_qrels.txt")
-        write_div_qrels(qrels_path, test_qs, topic_map)
-        amean = self._ndeval_cross_check(qrels_path, run_path)
+        amean = None
+        if writer:
+            qrels_path = os.path.join(dir_run, f"fold_{fold_k}_qrels.txt")
+            write_div_qrels(qrels_path, test_qs, topic_map)
+            amean = self._ndeval_cross_check(qrels_path, run_path)
         per_q = (ranker.evaluate_per_query(test_ds.batches(), ks=(1, 3, 5, 10, 20))
                  if need_per_q else None)
         return amean, per_q

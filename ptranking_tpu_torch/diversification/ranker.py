@@ -1,7 +1,10 @@
 """DivRanker: training, prediction, evaluation and checkpoints of the
 diversified ranking models (DALETOR, DivProbRanker).
 
-The port's copy of ptranking_tpu/diversification/ranker.py, on one device.
+The port's copy of ptranking_tpu/diversification/ranker.py, on one device,
+or data-parallel over a mesh (`mesh=`): each rank takes its block of every
+batch's rows and the gradients, loss totals and metric sums are summed over
+the ranks, as in parallel/train.py.
 The JAX package fuses `scan_steps` batches into one dispatch; the port steps
 eagerly, one optimizer step a batch. `train_epoch` takes streamed batches
 (mean loss over the real queries); `train_epoch_resident` walks a
@@ -36,10 +39,11 @@ from ptranking_tpu_torch.diversification.scorers import (DivScorerConfig, div_fo
 from ptranking_tpu_torch.metrics.srd import alpha_ndcg_at_ks, err_ia_at_ks, nerr_ia_at_ks
 from ptranking_tpu_torch.models.convert import div_params_from_jax, opt_state_from_jax
 from ptranking_tpu_torch.models.scorers import map_params, tree_leaves
+from ptranking_tpu_torch.parallel.mesh import data_parallel
 from ptranking_tpu_torch.train.optimizer import (OptimizerConfig, epoch_lr, make_optimizer,
                                                  set_lr)
 from ptranking_tpu_torch.train.ranker import (EVAL_CHUNK, AdhocRanker, _JaxCheckpointUnpickler,
-                                              _to_device)
+                                              _to_device, open_binary)
 
 DIV_MODELS = ["DALETOR", "DivProbRanker"]
 DIV_METRICS = ("aNDCG", "ERR-IA", "nERR-IA")
@@ -56,6 +60,22 @@ def _sorted_rele(scores, rele_mat, dmask):
     return sys_rele, torch.gather(dmask, -1, order)
 
 
+def _read_div_checkpoint(path) -> Dict[str, Any]:
+    """The dict of a `.pt` of this package or a `.pkl` of the JAX package
+    (`path` may be a binary file object)."""
+    if zipfile.is_zipfile(path):
+        with open_binary(path) as f:
+            d = torch.load(f, map_location="cpu", weights_only=True)
+        if d.get("format") != DIV_CHECKPOINT_FORMAT:
+            raise ValueError(f"{path}: not a {DIV_CHECKPOINT_FORMAT} checkpoint")
+        return d
+    with open_binary(path) as f:
+        d = _JaxCheckpointUnpickler(f).load()
+    if not isinstance(d, dict) or "params" not in d or "opt_state" not in d:
+        raise ValueError(f"{path}: not a diversification ranker checkpoint")
+    return d
+
+
 class DivRanker:
     """A diversification scorer config, its params, a loss of DIV_LOSSES and
     an optimizer, on one device."""
@@ -66,10 +86,7 @@ class DivRanker:
                  scan_steps: int = 8, mesh=None, device="cuda"):
         if model_id not in DIV_MODELS:
             raise ValueError(f"{model_id!r} not in {DIV_MODELS}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "DivRanker(mesh=...) needs the multi-device layer, which the port does not "
-                "have yet (ROADMAP queue A item 8)")
+        self._dp = data_parallel(mesh)
         self.device = resolve_device(device)
         # batches an index chunk of train_epoch_resident; it changes no value
         self.scan_steps = max(int(scan_steps), 1)
@@ -98,12 +115,14 @@ class DivRanker:
         """Fresh params, optimizer and dropout generator from the seed."""
         self.params = init_div_scorer(self.scorer_cfg, self.seed, self.device)
         self._start_training_state()
+        self._dp.broadcast(self._leaves)
         return self
 
     def _start_training_state(self):
         leaves = tree_leaves(self.params)
         for t in leaves:
             t.requires_grad_(True)
+        self._leaves = leaves
         self._optimizer = make_optimizer(self.opt_cfg, leaves)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
 
@@ -125,10 +144,22 @@ class DivRanker:
         """One optimizer step on one batch already on the device; returns the
         batch's loss as a device tensor (no host sync)."""
         self._optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(q, d, rm, dm)
-        loss.backward()
+        with self._dp.rows(q.shape[0]):
+            loss = self._loss(q, d, rm, dm)
+            loss.backward()
+        self._dp.reduce_grads(self._leaves)
         self._optimizer.step()
         return loss.detach()
+
+    def _batch_arrays(self, b: DivBatch):
+        """(q_repr, doc_reprs, rele_mat, doc_mask, subtopic_mask) on the
+        device: this rank's block of the batch's rows under data
+        parallelism."""
+        dp, dev = self._dp, self.device
+        return (_to_device(dp.shard(b.q_repr), dev), _to_device(dp.shard(b.doc_reprs), dev),
+                _to_device(dp.shard(b.rele_mat), dev),
+                _to_device(dp.shard(b.doc_mask), dev, torch.bool),
+                _to_device(dp.shard(b.subtopic_mask), dev, torch.bool))
 
     def train_epoch(self, batches: Iterable[DivBatch], epoch_k: int = 1) -> Tuple[float, bool]:
         """One epoch of streamed batches; returns (loss summed over the epoch
@@ -138,15 +169,13 @@ class DivRanker:
         set_lr(self._optimizer, epoch_lr(self.opt_cfg, epoch_k))
         losses, counts = [], []
         for b in batches:
-            dm = _to_device(b.doc_mask, self.device, torch.bool)
-            losses.append(self._step(_to_device(b.q_repr, self.device),
-                                     _to_device(b.doc_reprs, self.device),
-                                     _to_device(b.rele_mat, self.device), dm))
+            q, d, rm, dm, _ = self._batch_arrays(b)
+            losses.append(self._step(q, d, rm, dm))
             counts.append(torch.sum(torch.any(dm, dim=-1)))
         if not losses:
             return 0.0, False
-        total, n = (float(t) for t in torch.stack([torch.stack(losses).sum(),
-                                                   torch.stack(counts).sum().float()]).cpu())
+        total, n = (float(t) for t in self._dp.all_reduce(
+            torch.stack([torch.stack(losses).sum(), torch.stack(counts).sum().float()])).cpu())
         if not np.isfinite(total):
             return float("nan"), True
         return total / max(n, 1.0), False
@@ -162,10 +191,11 @@ class DivRanker:
         losses = []
         for bucket, idx_k, _ in res.epoch_index_chunks(shuffle, epoch_k, self.scan_steps):
             q, d, rm, dm, _sm = res.bucket_arrays(bucket)
+            idx_k = self._dp.shard_index(idx_k, q.shape[0] - 1)
             for idx in res.index_to_device(idx_k):
                 losses.append(self._step(q.index_select(0, idx), d.index_select(0, idx),
                                          rm.index_select(0, idx), dm.index_select(0, idx)))
-        total = float(torch.stack(losses).sum()) if losses else 0.0
+        total = float(self._dp.all_reduce(torch.stack(losses).sum())) if losses else 0.0
         if not np.isfinite(total):
             return float("nan"), True
         return total / max(res.num_queries, 1), False
@@ -177,14 +207,17 @@ class DivRanker:
         """Sorting scores [B, N] (on the ranker's device) of a padded batch of
         numpy arrays or tensors, by the config's sort_id."""
         self._check_ready()
-        return div_predict(self.params, self.scorer_cfg,
-                           _to_device(batch.q_repr, self.device),
-                           _to_device(batch.doc_reprs, self.device),
-                           _to_device(batch.doc_mask, self.device, torch.bool))
+        dp, dev = self._dp, self.device
+        q, d = _to_device(dp.shard(batch.q_repr), dev), _to_device(dp.shard(batch.doc_reprs), dev)
+        dm = _to_device(dp.shard(batch.doc_mask), dev, torch.bool)
+        with dp.rows(q.shape[0]):
+            scores = div_predict(self.params, self.scorer_cfg, q, d, dm)
+        return dp.gather_rows(scores)[:batch.doc_mask.shape[0]]
 
     def _eval_sums(self, q, d, rm, dm, sm, ks) -> torch.Tensor:
         """One batch's packed [3 * len(ks) + 1] metric sums, on the device."""
-        scores = div_predict(self.params, self.scorer_cfg, q, d, dm)
+        with self._dp.rows(q.shape[0]):
+            scores = div_predict(self.params, self.scorer_cfg, q, d, dm)
         sys_rele, sys_mask = _sorted_rele(scores, rm, dm)
         # rm arrives in ideal (presorted) order
         andcg = alpha_ndcg_at_ks(sys_rele, rm, sys_mask, ks)
@@ -207,18 +240,15 @@ class DivRanker:
         if isinstance(batches, DivDeviceResidentDataset):
             for bucket, idx_k, _ in batches.epoch_index_chunks(False, 0, EVAL_CHUNK):
                 arrays = batches.bucket_arrays(bucket)
+                idx_k = self._dp.shard_index(idx_k, arrays[0].shape[0] - 1)
                 for idx in batches.index_to_device(idx_k):
                     rows.append(self._eval_sums(*(a.index_select(0, idx) for a in arrays), ks))
-            return AdhocRanker._reduce_packed_rows(rows, len(ks), names=DIV_METRICS)
+            return AdhocRanker._reduce_packed_rows(rows, len(ks), names=DIV_METRICS, dp=self._dp)
         if hasattr(batches, "batches"):
             batches = batches.batches()
         for b in batches:
-            rows.append(self._eval_sums(
-                _to_device(b.q_repr, self.device), _to_device(b.doc_reprs, self.device),
-                _to_device(b.rele_mat, self.device),
-                _to_device(b.doc_mask, self.device, torch.bool),
-                _to_device(b.subtopic_mask, self.device, torch.bool), ks))
-        return AdhocRanker._reduce_packed_rows(rows, len(ks), names=DIV_METRICS)
+            rows.append(self._eval_sums(*self._batch_arrays(b), ks))
+        return AdhocRanker._reduce_packed_rows(rows, len(ks), names=DIV_METRICS, dp=self._dp)
 
     def validation(self, batches, k: int = 5, metric: str = "aNDCG") -> float:
         return float(self.evaluate(batches, ks=(k,))[metric][0])
@@ -229,12 +259,16 @@ class DivRanker:
         """Per-query aNDCG@ks [num_real_queries, len(ks)]."""
         ks = tuple(ks)
         rows = []
+        dp = self._dp
         for b in batches:
-            dm = _to_device(b.doc_mask, self.device, torch.bool)
-            rm = _to_device(b.rele_mat, self.device)
-            sys_rele, sys_mask = _sorted_rele(self.predict(b), rm, dm)
+            q, d, rm, dm, _ = self._batch_arrays(b)
+            with dp.rows(q.shape[0]):
+                scores = div_predict(self.params, self.scorer_cfg, q, d, dm)
+            sys_rele, sys_mask = _sorted_rele(scores, rm, dm)
             per_q = alpha_ndcg_at_ks(sys_rele, rm, sys_mask, ks)
-            rows.append(per_q[torch.any(dm, dim=-1)].cpu().numpy())
+            # every rank's rows, in order: the padded global batch
+            real = dp.gather_rows(torch.any(dm, dim=-1))
+            rows.append(dp.gather_rows(per_q)[real].cpu().numpy())
         return np.concatenate(rows, axis=0) if rows else np.zeros((0, len(ks)))
 
     # ------------------------------------------------------------------- io
@@ -256,24 +290,21 @@ class DivRanker:
         }
 
     def save(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        torch.save(self.checkpoint(), path)
+        """The checkpoint to `path`; under data parallelism rank 0 writes it
+        and every rank waits for the file."""
+        if self._dp.is_writer:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            torch.save(self.checkpoint(), path)
+        self._dp.barrier()
 
     def load(self, path: str) -> "DivRanker":
         """Params and optimizer state from this package's `.pt` (and its
         generator state, when saved on this device type) or from the JAX
         package's `.pkl` (its PRNG key cannot carry over: dropout restarts
         from the seed). The checkpoint must be of this model id and fit this
-        ranker's scorer config."""
-        if zipfile.is_zipfile(path):
-            d = torch.load(path, map_location="cpu", weights_only=True)
-            if d.get("format") != DIV_CHECKPOINT_FORMAT:
-                raise ValueError(f"{path}: not a {DIV_CHECKPOINT_FORMAT} checkpoint")
-        else:
-            with open(path, "rb") as f:
-                d = _JaxCheckpointUnpickler(f).load()
-            if not isinstance(d, dict) or "params" not in d or "opt_state" not in d:
-                raise ValueError(f"{path}: not a diversification ranker checkpoint")
+        ranker's scorer config. Under data parallelism rank 0 reads the file
+        and hands it to every rank."""
+        d = _read_div_checkpoint(self._dp.fetch(path))
         if d.get("model_id") != self.model_id:
             raise ValueError(f"checkpoint is for {d.get('model_id')!r}, "
                              f"this ranker is {self.model_id!r}")

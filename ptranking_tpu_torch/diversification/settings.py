@@ -23,6 +23,7 @@ import numpy as np
 from ptranking_tpu_torch.diversification.data import get_div_data_meta
 from ptranking_tpu_torch.diversification.scorers import DivScorerConfig
 from ptranking_tpu_torch.eval.settings import _as_list, _first
+from ptranking_tpu_torch.parallel.collectives import is_writer
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 
 DIV_DEFAULT_PARAS: Dict[str, dict] = {
@@ -125,8 +126,7 @@ class DivEvalSetting:
             rerank_model_id=_first(j.get("rerank_model_id")) if rerank else None,
             rerank_model_dir=_first(j.get("rerank_model_dir")) if rerank else None,
         )
-        # the resident-data knobs and `mesh` (parsed; the evaluator refuses
-        # it until the multi-device layer is ported)
+        # the resident-data knobs and `mesh` (the ranker's data parallelism)
         for k in ("mesh", "device_resident", "device_resident_bytes"):
             if k in j:
                 d[k] = j[k] if k == "mesh" else _first(j[k])
@@ -386,7 +386,7 @@ class DivCVTape:
                 cv[f"{m}(ndeval)"] = nd
                 print("  " + ", ".join(f"{m}(ndeval)@{k}:{v:.4f}"
                                        for k, v in zip(self.ndeval_cutoffs, nd)))
-        if self.reproduce and self.dir_run and self.list_per_q_andcg:
+        if self.reproduce and self.dir_run and self.list_per_q_andcg and is_writer():
             import pickle
 
             mat = np.concatenate(self.list_per_q_andcg, axis=0)
@@ -424,6 +424,8 @@ class DivSummaryTape:
     def fold_summary(self, train_data_length: Optional[int] = None):
         import pickle
 
+        if not is_writer():
+            return
         prefix = os.path.join(self.dir_run, f"Fold_{self.fold_k}")
 
         def save(obj, suffix):

@@ -3,7 +3,14 @@
 The port's copy of ptranking_tpu/eval/evaluator.py: load_data /
 load_ranker / setup_output / kfold_cv_eval / kfold_cv_reproduce / grid_run
 / point_run / run, on one device (`device="cuda"` unless the caller asks
-for the CPU). Training data is device-resident by default
+for the CPU), or, with a `mesh` eval setting, data-parallel over the ranks
+of a process group through parallel/train.py::DistributedTrainer (the
+same lifecycle: validation, best checkpoints, stop guard, resume). Under a
+mesh only rank 0 writes the run directory's files, and decisions taken on
+files (a resume state, a best checkpoint) are rank 0's, handed to every
+rank. Without a mesh the multi-device companion keys (`tp`, `shard_docs`,
+`cp_impl`, `pp_stages`, `eval_chunk`) change nothing, as in the JAX
+package. Training data is device-resident by default
 (`maybe_device_resident`, bf16 features for a bf16 scorer) and trained
 through `AdhocRanker.train_epoch_resident`; a dataset over the budget is
 streamed through `prefetch_to_device`. The run directory's name encodes
@@ -29,10 +36,10 @@ from ptranking_tpu_torch.data.device_cache import (DEFAULT_BUDGET_BYTES, DeviceR
 from ptranking_tpu_torch.data.letor import load_letor_file
 from ptranking_tpu_torch.data.meta import ISTELLA_LTR, SYNTHETIC, YAHOO_LTR
 from ptranking_tpu_torch.data.prefetch import prefetch_to_device
-from ptranking_tpu_torch.eval.settings import (PARALLEL_KEYS, DataSetting, EvalSetting,
-                                               ModelSetting, SFSetting)
+from ptranking_tpu_torch.eval.settings import DataSetting, EvalSetting, ModelSetting, SFSetting
 from ptranking_tpu_torch.eval.tapes import (CVTape, OptLossTape, SummaryTape, ValidationTape,
                                             get_opt_model)
+from ptranking_tpu_torch.parallel.collectives import is_writer
 from ptranking_tpu_torch.train.ranker import AdhocRanker, torch_checkpoint
 from ptranking_tpu_torch.utils.runlog import run_log
 
@@ -44,9 +51,16 @@ LTR_ADHOC_MODELS = [
 TRAIN_STATE = "train_state.pt"
 
 
+def _read_state(path: str):
+    """A run's resume state, or None where there is none."""
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 class LTREvaluator:
     """k-fold CV, grid search and reproduce runs of the adhoc rankers on one
-    device."""
+    device or over a mesh."""
 
     def __init__(self, device="cuda", cuda: Optional[int] = None,
                  mesh_overrides: Optional[Dict[str, Any]] = None):
@@ -142,16 +156,25 @@ class LTREvaluator:
     # -------------------------------------------------------------- rankers
 
     def load_ranker(self, sf_para, model_para_dict, label_type, eval_dict=None):
-        """An AdhocRanker on the evaluator's device for the model's paras.
-        The multi-device settings (PARALLEL_KEYS) are refused."""
+        """An AdhocRanker on the evaluator's device for the model's paras;
+        with a `mesh` eval setting, a DistributedTrainer over that mesh (with
+        its companion keys) instead, as the JAX package does."""
         eval_dict = eval_dict or {}
-        parallel = [k for k in PARALLEL_KEYS if eval_dict.get(k)]
-        if parallel:
-            raise NotImplementedError(
-                f"eval settings {parallel} need the multi-device layer, which the port does "
-                "not have yet (ROADMAP queue A item 8)")
         model_id = model_para_dict["model_id"]
         paras = {k: v for k, v in model_para_dict.items() if k != "model_id"}
+        if eval_dict.get("mesh"):
+            from ptranking_tpu_torch.parallel.mesh import mesh_from_dict
+            from ptranking_tpu_torch.parallel.train import DistributedTrainer, refuse_unported
+
+            refuse_unported(eval_dict.get("tp"), eval_dict.get("shard_docs"),
+                            eval_dict.get("pp_stages"))
+            kwargs = {k: eval_dict[k] for k in ("tp", "shard_docs", "cp_impl", "pp_stages",
+                                                "scan_steps", "eval_chunk")
+                      if eval_dict.get(k) is not None}
+            return DistributedTrainer(model_id, sf_para["scorer"],
+                                      mesh_from_dict(eval_dict["mesh"]), model_paras=paras,
+                                      opt_cfg=sf_para["optimizer"], label_type=label_type,
+                                      device=self.device, **kwargs)
         kwargs = {"scan_steps": eval_dict["scan_steps"]} if eval_dict.get("scan_steps") else {}
         return AdhocRanker(model_id, sf_para["scorer"], model_paras=paras,
                            opt_cfg=sf_para["optimizer"], label_type=label_type,
@@ -180,7 +203,8 @@ class LTREvaluator:
         model_str = self.model_setting.to_para_string()
         if model_str:
             dir_run = os.path.join(dir_run, model_str)
-        os.makedirs(dir_run, exist_ok=True)
+        if is_writer():
+            os.makedirs(dir_run, exist_ok=True)
         return dir_run
 
     # ------------------------------------------------------------- training
@@ -232,8 +256,10 @@ class LTREvaluator:
             state_path = os.path.join(dir_run, f"Fold-{fold_k}", TRAIN_STATE)
             save_state = eval_dict.get("save_train_state", False)
             start_epoch = 1
-            if eval_dict.get("resume") and os.path.exists(state_path):
-                st = torch.load(state_path, map_location="cpu", weights_only=True)
+            # under a mesh, rank 0 reads the state and hands it to every rank
+            st = (ranker._dp.from_first(_read_state, state_path)
+                  if eval_dict.get("resume") else None)
+            if st is not None:
                 ranker.restore(torch_checkpoint(st))
                 start_epoch = int(st["epoch"]) + 1
                 if vali_tape is not None:
@@ -248,8 +274,10 @@ class LTREvaluator:
                 if resident:
                     epoch_loss, stop = ranker.train_epoch_resident(train, epoch_k)
                 else:
-                    batches = prefetch_to_device(train.batches(shuffle=True, epoch=epoch_k),
-                                                 device=self.device)
+                    batches = train.batches(shuffle=True, epoch=epoch_k)
+                    if not eval_dict.get("mesh"):
+                        # a mesh trainer copies its block of each batch itself
+                        batches = prefetch_to_device(batches, device=self.device)
                     epoch_loss, stop = ranker.train_epoch(batches, epoch_k=epoch_k)
                 train_s += time.time() - t_ep  # the training window only
                 if stop:
@@ -267,7 +295,7 @@ class LTREvaluator:
                 elif summary_tape:
                     summary_tape.epoch_summary(epoch_loss, ranker=ranker,
                                                train_data=train, test_data=test)
-                if save_state or eval_dict.get("resume"):
+                if (save_state or eval_dict.get("resume")) and is_writer():
                     ck = ranker.checkpoint()
                     ck["epoch"] = epoch_k
                     if vali_tape is not None:
@@ -282,7 +310,7 @@ class LTREvaluator:
 
             if do_vali:
                 opt_path = vali_tape.get_optimal_path()
-                if os.path.exists(opt_path):
+                if ranker._dp.from_first(os.path.exists, opt_path):
                     ranker.load(opt_path)
                 else:
                     # no epoch improved validation (NaN scores from epoch 1):
@@ -313,7 +341,7 @@ class LTREvaluator:
             ranker = self.load_ranker(sf_para, model_para_dict,
                                       data_dict["label_type"], eval_dict)
             ranker.init()
-            ckpt = get_opt_model(os.path.join(dir_run, f"Fold-{fold_k}"))
+            ckpt = ranker._dp.from_first(get_opt_model, os.path.join(dir_run, f"Fold-{fold_k}"))
             if not ckpt:
                 raise FileNotFoundError(f"no checkpoint for fold {fold_k} under {dir_run}")
             ranker.load(ckpt)
@@ -378,6 +406,8 @@ class LTREvaluator:
     def _log_max(self, setting, value):
         """Write the best grid setting beside the run directories."""
         data_dict, eval_dict, sf_para, model_para = setting
+        if not is_writer():
+            return
         dir_output = eval_dict["dir_output"]
         os.makedirs(dir_output, exist_ok=True)
         path = os.path.join(dir_output, f"{data_dict['data_id']}_{sf_para['scorer'].sf_id}_max.txt")

@@ -6,8 +6,9 @@ defaults, the same grids and the same run-directory names, built on the
 port's ScorerConfig and OptimizerConfig. JSON list values are grid axes;
 `default` takes element [0]. The multi-device keys (`mesh`, `tp`,
 `shard_docs`, `cp_impl`, `pp_stages`, `eval_chunk`) are parsed and named in
-the run directory as the JAX package does; the evaluator refuses them
-(PARALLEL_KEYS).
+the run directory as the JAX package does. Only `mesh` changes a run: the
+others are read where it is set, and of those, PARALLEL_KEYS belong to the
+slices of the multi-device layer still to come.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from ptranking_tpu_torch.losses import DEFAULT_PARAS
 from ptranking_tpu_torch.models import ScorerConfig
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 
-# eval settings of the multi-device layer (ROADMAP queue A item 8)
-PARALLEL_KEYS = ("mesh", "tp", "shard_docs", "cp_impl", "pp_stages", "eval_chunk")
+# companion keys of `mesh` that the port refuses under a mesh: tensor and
+# pipeline parallelism (ROADMAP queue A item 8b), context parallelism (8c)
+PARALLEL_KEYS = ("tp", "shard_docs", "pp_stages")
 
 
 def _as_list(v):

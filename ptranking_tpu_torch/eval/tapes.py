@@ -3,7 +3,8 @@
 The port's copy of ptranking_tpu/eval/tapes.py. The best checkpoint of a
 fold is the port's own `.pt` (`AdhocRanker.save`); the summaries and the
 reproduce-mode per-query matrices are pickled numpy arrays in the JAX
-package's file layout.
+package's file layout. In a process group only rank 0 writes them
+(parallel/collectives.py::is_writer).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ptranking_tpu_torch.parallel.collectives import is_writer
+
 
 class ValidationTape:
     """Tracks the best validation metric of a fold and saves its checkpoint
@@ -29,7 +32,8 @@ class ValidationTape:
         self.metric = validation_metric
         self.k = validation_k
         self.dir_fold = os.path.join(dir_run, f"Fold-{fold_k}") + os.sep
-        os.makedirs(self.dir_fold, exist_ok=True)
+        if is_writer():
+            os.makedirs(self.dir_fold, exist_ok=True)
         self.best_value = -np.inf
         self.best_epoch = 0
 
@@ -46,6 +50,8 @@ class ValidationTape:
 
     def clear_fold_buffer(self):
         """Delete all but the optimal checkpoint."""
+        if not is_writer():
+            return
         keep = os.path.basename(self.get_optimal_path())
         for p in glob.glob(os.path.join(self.dir_fold, "net_params_epoch_*.pt")):
             if os.path.basename(p) != keep:
@@ -100,7 +106,7 @@ class CVTape:
         print(f"\n Fold-{fold_k} {self.model_id} on test: {ndcg_str}")
 
     def get_cv_performance(self) -> Dict[str, np.ndarray]:
-        if self.reproduce and self.dir_run:
+        if self.reproduce and self.dir_run and is_writer():
             names = {"P": "p", "AP": "ap", "nERR": "nerr", "nDCG": "ndcg"}
             for m, short in names.items():
                 mat = np.concatenate(self.per_query[m], axis=0)
@@ -150,6 +156,8 @@ class SummaryTape:
             self.list_fold_k_test_track.append(np.asarray(te["nDCG"]))
 
     def fold_summary(self, train_data_length: Optional[int] = None):
+        if not is_writer():
+            return
         prefix = os.path.join(self.dir_run, f"Fold_{self.fold_k}")
         if self.id_str:
             prefix = "_".join([prefix, self.id_str])

@@ -36,6 +36,7 @@ from ptranking_tpu_torch.ops import (
     sort_labels_by_scores,
     triu_pair_mask,
 )
+from ptranking_tpu_torch.parallel.collectives import batch_rand
 from ptranking_tpu_torch.types import LabelType
 
 _GUMBEL_EPS = 1e-20
@@ -47,7 +48,7 @@ def _uniform(scores, gen, noise, who):
         return noise
     if gen is None:
         raise ValueError(f"{who} is stochastic: pass a torch.Generator as gen, or noise")
-    return torch.rand(scores.shape, generator=gen, device=scores.device)
+    return batch_rand(scores.shape, gen, scores.device)
 
 
 def _gumbel(unif):

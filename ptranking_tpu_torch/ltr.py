@@ -12,8 +12,18 @@ diversification model id (DALETOR, DivProbRanker) runs the diversification
 branch's DivLTREvaluator (default data SyntheticDiv; a point run writes a
 TREC run file a fold). An adversarial model id (IRGAN_* / IRFGAN_*) runs
 the adversarial branch's AdLTREvaluator (default data SyntheticMQ), as the
-JAX package dispatches it. The multi-device flags are refused until that
-layer is ported.
+JAX package dispatches it.
+
+`-mesh data=W` runs the adhoc, diversification and adversarial branches
+data-parallel over W ranks (the tree branch ignores the mesh flags, as in
+the JAX package). Under torchrun the process group comes from its
+environment; otherwise this entry point starts the W ranks itself, as the
+JAX CLI creates its W devices: gloo ranks for `-device cpu`, NCCL ranks on
+cards 0..W-1 for CUDA (more ranks than cards raise), and W = 1 a one-rank
+group in this process. Rank 0 writes the run directory and its result is
+returned. `-tp`, `-shard_docs`, `-pp_stages` and a `model` or `seq` axis
+> 1 under a mesh belong to ROADMAP queue A items 8b and 8c and raise;
+without a mesh the companion flags change nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,11 +31,18 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+import torch.distributed as dist
+
 from ptranking_tpu_torch.adversarial import LTR_ADVERSARIAL_MODELS, AdLTREvaluator
+from ptranking_tpu_torch.data.prefetch import initialize_distributed
 from ptranking_tpu_torch.diversification import DIV_MODELS as LTR_DIV_MODELS
 from ptranking_tpu_torch.diversification import DivLTREvaluator
 from ptranking_tpu_torch.eval import LTR_ADHOC_MODELS, LTREvaluator
 from ptranking_tpu_torch.eval.settings import PARALLEL_KEYS
+from ptranking_tpu_torch.parallel.launch import one_rank_group, run_ranks
+from ptranking_tpu_torch.parallel.mesh import check_mesh_dict, mesh_ranks
+from ptranking_tpu_torch.parallel.train import refuse_unported
 from ptranking_tpu_torch.tree import LTR_TREE_MODELS, TreeLTREvaluator
 
 ALL_MODELS = list(LTR_ADHOC_MODELS) + LTR_ADVERSARIAL_MODELS + LTR_TREE_MODELS + LTR_DIV_MODELS
@@ -50,14 +67,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reload fold-optimal checkpoints and re-evaluate")
     p.add_argument("-epochs", type=int, default=None,
                    help="override epoch count (branch evaluators)")
-    # the multi-device layer's flags: parsed, refused until it is ported
+    # the multi-device layer's flags: read where -mesh is set
     p.add_argument("-mesh", type=str, default=None,
-                   help="mesh axis sizes, e.g. 'data=8' or 'data=4,model=2' (not ported yet)")
-    p.add_argument("-tp", action="store_true", help="tensor-parallel scorer (not ported yet)")
+                   help="mesh axis sizes, e.g. 'data=8' (data parallelism over 8 ranks)")
+    p.add_argument("-tp", action="store_true",
+                   help="tensor-parallel scorer under a mesh (not ported yet)")
     p.add_argument("-shard_docs", action="store_true",
-                   help="context-parallel doc axis (not ported yet)")
+                   help="context-parallel doc axis under a mesh (not ported yet)")
     p.add_argument("-cp_impl", type=str, default=None, choices=["ring", "ulysses"])
-    p.add_argument("-pp_stages", type=int, default=None, help="pipeline stages (not ported yet)")
+    p.add_argument("-pp_stages", type=int, default=None,
+                   help="pipeline stages under a mesh (not ported yet)")
     p.add_argument("-scan_steps", type=int, default=None,
                    help="train batches an index chunk of the resident epoch")
     p.add_argument("-seed", type=int, default=None, help="base init+shuffle seed (default 137)")
@@ -86,14 +105,38 @@ def parse_mesh_overrides(args) -> dict:
     return ov
 
 
+def _grouped() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     overrides = parse_mesh_overrides(args)
-    parallel = [k for k in PARALLEL_KEYS if overrides.get(k)]
-    if parallel:
-        raise NotImplementedError(
-            f"{['-' + k for k in parallel]} need the multi-device layer, which the port "
-            "does not have yet (ROADMAP queue A item 8)")
+    mesh = overrides.get("mesh")
+    if mesh and args.model not in LTR_TREE_MODELS and not _grouped():
+        # a launcher's process (not a rank started below): the slices still
+        # to come raise before any rank starts
+        check_mesh_dict(mesh)
+        if args.model in LTR_ADHOC_MODELS:
+            refuse_unported(**{k: overrides.get(k) for k in PARALLEL_KEYS})
+        device_type = torch.device(args.device).type
+        initialize_distributed(device_type=device_type)  # under torchrun, the group from its environment
+        if not _grouped():
+            # no launcher made the ranks: start them here
+            world = mesh_ranks(mesh)
+            if args.cuda is not None and world > 1:
+                raise ValueError(f"-cuda picks one card; -mesh {args.mesh} takes cards "
+                                 f"0..{world - 1}")
+            if world == 1:
+                with one_rank_group(device_type, card=args.cuda):
+                    return _run(args, overrides)
+            return run_ranks(main, world, (argv,), device_type=device_type)[0]
+    return _run(args, overrides)
+
+
+def _run(args, overrides: dict):
+    """The run of one process: the whole run, or one rank's share of it."""
     if args.model in LTR_ADVERSARIAL_MODELS:
         evaluator = AdLTREvaluator(device=args.device, cuda=args.cuda, mesh_overrides=overrides)
         if args.dir_json:
@@ -145,4 +188,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

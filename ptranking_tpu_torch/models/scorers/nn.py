@@ -24,6 +24,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ptranking_tpu_torch.parallel.collectives import batch_rand, global_sum
+
 Params = Dict[str, object]
 
 _BN_EPS = 1e-5
@@ -175,15 +177,20 @@ def masked_batch_norm(p: Params, x: torch.Tensor, mask: torch.Tensor,
 
     per_query=False: statistics across all real docs of the batch (BN);
     per_query=True: statistics per query over its own real docs (BN2).
-    x: [B, N, F]; mask: [B, N] bool.
+    x: [B, N, F]; mask: [B, N] bool. Under data parallelism BN's sums span
+    every rank's rows (parallel/collectives.py::global_sum).
     """
     in_dtype = x.dtype
     x = x.float()
     m = mask[..., None].float()
     dims = (1,) if per_query else (0, 1)
-    count = torch.clamp(m.sum(dim=dims, keepdim=True), min=1.0)
-    mean = (x * m).sum(dim=dims, keepdim=True) / count
-    var = (torch.square(x - mean) * m).sum(dim=dims, keepdim=True) / count
+    total = (lambda t: t) if per_query else global_sum
+    # the count and the sum in one reduction
+    count_sum = total(torch.cat([m.sum(dim=dims, keepdim=True),
+                                 (x * m).sum(dim=dims, keepdim=True)], dim=-1))
+    count = torch.clamp(count_sum[..., :1], min=1.0)
+    mean = count_sum[..., 1:] / count
+    var = total((torch.square(x - mean) * m).sum(dim=dims, keepdim=True)) / count
     y = (x - mean) * torch.rsqrt(var + _BN_EPS)
     if "gamma" in p:
         y = y * p["gamma"].float() + p["beta"].float()
@@ -223,11 +230,12 @@ def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
             training: bool) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability 1 - rate and scale it
     by 1/(1 - rate). The keep-mask comes from `gen`, a generator on x's
-    device; without one, or out of training, x passes unchanged."""
+    device (drawn for the global batch under data parallelism); without
+    one, or out of training, x passes unchanged."""
     if not training or rate <= 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    keep_mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    keep_mask = batch_rand(x.shape, gen, x.device) < keep
     return torch.where(keep_mask, x / keep, 0.0)
 
 

@@ -63,6 +63,7 @@ import ctypes
 import torch
 
 from ptranking_tpu_torch.ops import cuda_build
+from ptranking_tpu_torch.parallel.collectives import batch_rand
 
 _NEG = -1e9
 # keys a tile of the forward kernels (TILE and BN in csrc/flash_attn_fwd.cu; the
@@ -105,7 +106,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p_num = p
         if drop_rate > 0.0 and gen is not None:
             keep = 1.0 - drop_rate
-            keep_mask = torch.rand(p.shape, generator=gen, device=p.device) < keep
+            keep_mask = batch_rand(p.shape, gen, p.device) < keep
             p_num = torch.where(keep_mask, p / keep, 0.0)
         part_num = torch.matmul(p_num.to(v.dtype).float(), vb.float())
         new_mx = torch.maximum(mx, m)

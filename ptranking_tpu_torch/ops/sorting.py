@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from ptranking_tpu_torch import PAD_SCORE
+from ptranking_tpu_torch.parallel.collectives import batch_rand
 
 
 def mask_scores(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -47,7 +48,7 @@ def shuffle_ties_argsort(gen: Optional[torch.Generator], labels: torch.Tensor,
     by the noise, then a stable sort by the label."""
     sign = -1.0 if descending else 1.0
     if noise is None:
-        noise = torch.rand(labels.shape, generator=gen, device=labels.device)
+        noise = batch_rand(labels.shape, gen, labels.device)
     # pads always sort last: the ascending sort needs them at +inf-like keys
     primary = torch.where(mask, sign * labels, -PAD_SCORE)
     by_noise = torch.argsort(noise, dim=-1, stable=True)

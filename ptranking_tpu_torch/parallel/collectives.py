@@ -1,0 +1,271 @@
+"""Data parallelism's explicit reductions, draws and rank bookkeeping.
+
+The JAX package shards a batch's rows over the mesh's batch axes and XLA
+inserts every reduction that spans the batch. Here each rank runs the same
+eager program on its contiguous block of a batch's rows, padded to a
+multiple of the data-parallel degree with all-masked rows, and the
+reductions that span the batch are explicit. Inside `DataParallel.rows(b)`
+(b = this rank's rows):
+
+  * `global_sum(t)` is the sum of t over the ranks, with a gradient: its
+    backward all-reduces the incoming gradient too. Batch norm's count,
+    mean and variance take it, so every rank normalises with the global
+    batch's statistics.
+  * `global_count(t)` is the same sum without a gradient, for the real-doc
+    and real-query counts that a loss divides by (RankMSE, the adversarial
+    machines' masked means): a rank's loss is its share of the global
+    loss, so the ranks' losses and gradients add up to the global ones.
+  * `batch_rand(shape, gen, ...)` draws U[0, 1) for the global batch's rows
+    from the same generator on every rank and returns this rank's block,
+    so dropout and the stochastic losses' noise are the one-rank run's.
+
+Outside that scope all three are the one-device ops. `DataParallel` also
+takes a rank's block of a host batch or of an index chunk, sums gradients
+and metric sums over the ranks, broadcasts state, and reads files (and
+takes decisions on them) on the first rank only; `SINGLE` is its
+one-device stand-in, whose methods leave their inputs as they are.
+`is_writer()` is False on every rank of a process group but rank 0: only
+rank 0 writes run files and checkpoints.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+from typing import Any, Callable, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+class _Rows:
+    """This rank's block of a global batch: rows [start, start + local) of
+    `total`."""
+
+    def __init__(self, total: int, start: int, local: int, group):
+        self.total, self.start, self.local, self.group = total, start, local, group
+
+
+# The scope of `DataParallel.rows`, set and restored by it. Module state on
+# purpose: batch norm, dropout and the losses are plain functions deep in the
+# scorers, and the scope reaches them without a parameter on each.
+_ACTIVE: Optional[_Rows] = None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group's ranks in the forward and, for the gradient, in
+    the backward: rank r's input feeds every rank's output."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def global_sum(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the data-parallel ranks (with a gradient) inside
+    `DataParallel.rows`; t itself outside."""
+    if _ACTIVE is None:
+        return t
+    return _AllReduceSum.apply(t, _ACTIVE.group)
+
+
+def global_count(t: torch.Tensor) -> torch.Tensor:
+    """A count summed over the data-parallel ranks, without a gradient,
+    inside `DataParallel.rows`; t itself outside."""
+    if _ACTIVE is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, group=_ACTIVE.group)
+    return out
+
+
+def batch_rand(shape: Sequence[int], gen: Optional[torch.Generator], device,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """torch.rand(shape) from `gen`. Inside `DataParallel.rows` the leading
+    axis must be the batch's rows: the draw is made for the global batch and
+    this rank's block returned, so every rank's generator advances alike."""
+    if _ACTIVE is None:
+        return torch.rand(tuple(shape), generator=gen, device=device, dtype=dtype)
+    if shape[0] != _ACTIVE.local:
+        raise ValueError(f"a data-parallel draw must lead with the batch's {_ACTIVE.local} "
+                         f"rows, got shape {tuple(shape)}")
+    full = torch.rand((_ACTIVE.total, *shape[1:]), generator=gen, device=device, dtype=dtype)
+    return full[_ACTIVE.start:_ACTIVE.start + _ACTIVE.local]
+
+
+def is_writer() -> bool:
+    """True unless this process is a rank other than 0 of a process group."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _pad_rows(a, rows: int, axis: int, fill):
+    """a padded along `axis` to `rows` entries of `fill` (numpy or torch)."""
+    pad = rows - a.shape[axis]
+    if not pad:
+        return a
+    shape = list(a.shape)
+    shape[axis] = pad
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, torch.full(shape, fill, dtype=a.dtype, device=a.device)], axis)
+    return np.concatenate([a, np.full(shape, fill, dtype=a.dtype)], axis)
+
+
+class _Single:
+    """The one-device stand-in of DataParallel: one rank, nothing to reduce."""
+
+    degree, index, is_writer = 1, 0, True
+
+    def block(self, rows: int) -> slice:
+        return slice(0, rows)
+
+    def shard(self, a, axis: int = 0, fill=0):
+        return a
+
+    def shard_index(self, idx_k: np.ndarray, sentinel: int) -> np.ndarray:
+        return idx_k
+
+    def rows(self, local: int):
+        return contextlib.nullcontext()
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def reduce_grads(self, leaves: Sequence[torch.Tensor]):
+        pass
+
+    def broadcast(self, leaves: Sequence[torch.Tensor]):
+        pass
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def from_first(self, fn: Callable[..., Any], *args) -> Any:
+        return fn(*args)
+
+    def fetch(self, path: str):
+        return path
+
+    def barrier(self):
+        pass
+
+
+SINGLE = _Single()
+
+
+class DataParallel(_Single):
+    """One rank's share of data-parallel work over `group` (the ranks that
+    split a batch's rows; rank i takes the i-th block)."""
+
+    def __init__(self, group=None):
+        self.group = group if group is not None else dist.group.WORLD
+        self.degree = dist.get_world_size(self.group)
+        self.index = dist.get_rank(self.group)
+        self.is_writer = self.index == 0
+        self._src = dist.get_global_rank(self.group, 0)
+
+    def block(self, rows: int) -> slice:
+        """This rank's block of `rows` rows padded to a multiple of the
+        degree."""
+        n = -(-rows // self.degree)  # rows a rank
+        return slice(self.index * n, (self.index + 1) * n)
+
+    def shard(self, a, axis: int = 0, fill=0):
+        """This rank's block along `axis` of `a` (numpy or torch), padded to
+        a multiple of the degree with `fill` (all-masked rows)."""
+        block = self.block(a.shape[axis])
+        a = _pad_rows(a, (block.stop - block.start) * self.degree, axis, fill)
+        index = [slice(None)] * a.ndim
+        index[axis] = block
+        return a[tuple(index)]
+
+    def shard_index(self, idx_k: np.ndarray, sentinel: int) -> np.ndarray:
+        """This rank's columns of an index chunk [k, B], padded with the
+        resident arrays' all-masked sentinel row."""
+        return self.shard(np.asarray(idx_k), axis=-1, fill=sentinel)
+
+    @contextlib.contextmanager
+    def rows(self, local: int) -> Iterator[None]:
+        """Scope of a computation on this rank's `local` rows of the global
+        batch: global_sum, global_count and batch_rand span the ranks."""
+        global _ACTIVE
+        prev = _ACTIVE
+        _ACTIVE = _Rows(local * self.degree, local * self.index, local, self.group)
+        try:
+            yield
+        finally:
+            _ACTIVE = prev
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the ranks, in place (no gradient)."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def _flat(self, tensors: List[torch.Tensor], op: Callable[[torch.Tensor], None]):
+        """op on one flat buffer a dtype, copied back into `tensors`."""
+        by_dtype = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for group in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in group])
+            op(flat)
+            offset = 0
+            for t in group:
+                t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+
+    def reduce_grads(self, leaves: Sequence[torch.Tensor]):
+        """Each leaf's gradient summed over the ranks: the ranks' losses are
+        shares of the global loss."""
+        grads = [p.grad for p in leaves if p.grad is not None]
+        if grads:
+            self._flat(grads, lambda f: dist.all_reduce(f, group=self.group))
+
+    @torch.no_grad()
+    def broadcast(self, leaves: Sequence[torch.Tensor]):
+        """The first rank's values into every rank's tensors."""
+        if leaves:
+            self._flat(list(leaves), lambda f: dist.broadcast(f, src=self._src, group=self.group))
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of rows, in rank order (the padded global batch)."""
+        parts = [torch.empty_like(t) for _ in range(self.degree)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts, 0)
+
+    def from_first(self, fn: Callable[..., Any], *args) -> Any:
+        """fn(*args) run on the first rank alone (a file read), its result
+        (or its exception) handed to every rank."""
+        box = [None]
+        if self.index == 0:
+            try:
+                box[0] = (True, fn(*args))
+            except Exception as exc:  # raised on every rank, not only here
+                box[0] = (False, exc)
+        dist.broadcast_object_list(box, src=self._src, group=self.group)
+        ok, value = box[0]
+        if not ok:
+            raise value
+        return value
+
+    def fetch(self, path: str) -> io.BytesIO:
+        """The file at `path` as the first rank reads it, on every rank (its
+        bytes in a binary file object)."""
+        return io.BytesIO(self.from_first(_read_bytes, path))
+
+    def barrier(self):
+        dist.barrier(group=self.group)
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()

@@ -24,6 +24,7 @@ Checkpoints:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -42,6 +43,7 @@ from ptranking_tpu_torch.models.convert import JaxNamedTuple, opt_state_from_jax
 from ptranking_tpu_torch.models.quantize import is_quantized, quantize_scorer_params
 from ptranking_tpu_torch.models.scorers import (ScorerConfig, apply_scorer, init_scorer,
                                                 map_params, tree_leaves)
+from ptranking_tpu_torch.parallel.collectives import SINGLE
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig, epoch_lr, make_optimizer, set_lr
 from ptranking_tpu_torch.types import LabelType, RankingBatch
 
@@ -71,18 +73,27 @@ class _JaxCheckpointUnpickler(pickle.Unpickler):
             f"{module}.{name} is not allowed in a ranker checkpoint")
 
 
-def read_checkpoint(path: str) -> Dict[str, Any]:
+def open_binary(path):
+    """A binary file object for a path, or the file object itself, rewound."""
+    if hasattr(path, "seek"):
+        path.seek(0)
+        return contextlib.nullcontext(path)
+    return open(path, "rb")
+
+
+def read_checkpoint(path) -> Dict[str, Any]:
     """A checkpoint of either package as one dict: model_id, scorer_cfg
     (ScorerConfig), model_paras, opt_cfg (OptimizerConfig), label_type
     (LabelType), params (numpy or tensor leaves), format ('torch' | 'jax'),
     and the training state when the checkpoint has it: optimizer and
-    generator (torch), opt_state (jax)."""
+    generator (torch), opt_state (jax). `path` may be a binary file object."""
     if zipfile.is_zipfile(path):  # torch.save writes a zip archive
-        d = torch.load(path, map_location="cpu", weights_only=True)
+        with open_binary(path) as f:
+            d = torch.load(f, map_location="cpu", weights_only=True)
         if d.get("format") != CHECKPOINT_FORMAT:
             raise ValueError(f"{path}: not a {CHECKPOINT_FORMAT} checkpoint")
         return torch_checkpoint(d)
-    with open(path, "rb") as f:
+    with open_binary(path) as f:
         d = _JaxCheckpointUnpickler(f).load()
     if not isinstance(d, dict) or "scorer_cfg" not in d:
         raise ValueError(f"{path}: not a self-describing ranker checkpoint")
@@ -111,9 +122,16 @@ def _to_device(a, device, dtype=None) -> torch.Tensor:
 
 class AdhocRanker:
     """A scorer config, its params, a loss from the registry and an optimizer,
-    on one device."""
+    on one device.
+
+    `_dp` is the ranker's share of data-parallel work: SINGLE here, whose
+    methods leave batches, sums and gradients as they are; a
+    DataParallel in parallel/train.py::DistributedTrainer (and in the
+    branches' players under a mesh), where each method takes this rank's
+    block of a batch's rows and sums over the ranks."""
 
     stop_check_freq = 10  # epochs between NaN/all-zero checks
+    _dp = SINGLE
 
     def __init__(self, model_id: str, scorer_cfg: ScorerConfig,
                  model_paras: Optional[Dict[str, Any]] = None,
@@ -126,6 +144,8 @@ class AdhocRanker:
         # batches an index chunk of train_epoch_resident (one index copy a
         # chunk); it changes no value
         self.scan_steps = max(int(scan_steps), 1)
+        # index rows a chunk of the resident evaluation; it changes no value
+        self.eval_chunk = EVAL_CHUNK
         self.model_id = model_id
         self.scorer_cfg = scorer_cfg
         # an id the registry lacks raises KeyError here, as in the reference
@@ -139,9 +159,11 @@ class AdhocRanker:
         self._gen = None
 
     def init(self) -> "AdhocRanker":
-        """Fresh params, optimizer and dropout generator from the seed."""
+        """Fresh params, optimizer and dropout generator from the seed (under
+        data parallelism, rank 0's params on every rank)."""
         self.params = init_scorer(self.scorer_cfg, self.seed, self.device)
         self._start_training_state()
+        self._dp.broadcast(self._leaves)
         return self
 
     def _start_training_state(self):
@@ -150,6 +172,7 @@ class AdhocRanker:
         leaves = tree_leaves(self.params)
         for t in leaves:
             t.requires_grad_(True)
+        self._leaves = leaves
         self._optimizer = make_optimizer(self.opt_cfg, leaves)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
 
@@ -160,15 +183,30 @@ class AdhocRanker:
         """One optimizer step on one batch already on the device; returns the
         batch's loss as a device tensor (no host sync)."""
         self._optimizer.zero_grad(set_to_none=True)
-        scores = apply_scorer(self.params, self.scorer_cfg, features, mask,
-                              training=True, gen=self._gen)
-        # a stochastic loss draws from the same generator, after the scorer's dropout
-        kw = {"gen": self._gen} if self.model_id in STOCHASTIC else {}
-        loss = self.loss_fn(scores, labels, mask, label_type=self.label_type,
-                            **self.model_paras, **kw)
-        loss.backward()
+        with self._dp.rows(features.shape[0]):
+            scores = apply_scorer(self.params, self.scorer_cfg, features, mask,
+                                  training=True, gen=self._gen)
+            # a stochastic loss draws from the same generator, after the scorer's dropout
+            kw = {"gen": self._gen} if self.model_id in STOCHASTIC else {}
+            loss = self.loss_fn(scores, labels, mask, label_type=self.label_type,
+                                **self.model_paras, **kw)
+            loss.backward()
+        self._dp.reduce_grads(self._leaves)
         self._optimizer.step()
         return loss.detach()
+
+    def _features_mask(self, batch: RankingBatch):
+        """(features, mask bool) of a batch on the device: this rank's block
+        of its rows under data parallelism."""
+        dp = self._dp
+        return (_to_device(dp.shard(batch.features), self.device),
+                _to_device(dp.shard(batch.mask), self.device, torch.bool))
+
+    def _batch_arrays(self, batch: RankingBatch):
+        """(features, labels fp32, mask bool) of a batch on the device: this
+        rank's block of its rows under data parallelism."""
+        x, mask = self._features_mask(batch)
+        return x, _to_device(self._dp.shard(batch.labels), self.device, torch.float32), mask
 
     def train_epoch(self, batches: Iterable[RankingBatch], epoch_k: int = 1) -> Tuple[float, bool]:
         """One epoch; returns (mean loss per real query, stop_training).
@@ -184,18 +222,15 @@ class AdhocRanker:
         check = epoch_k % self.stop_check_freq == 0
         losses, counts = [], []
         for batch in batches:
-            if check and self.stop_training(batch):
+            x, labels, mask = self._batch_arrays(batch)
+            if check and self._scores_fail(x, mask):
                 return float("nan"), True
-            x = _to_device(batch.features, self.device)
-            labels = _to_device(batch.labels, self.device, torch.float32)
-            mask = _to_device(batch.mask, self.device, torch.bool)
             losses.append(self._step(x, labels, mask))
             counts.append(torch.sum(torch.any(mask, dim=-1)))
         if not losses:
             return 0.0, False
-        total, num_queries = (float(t) for t in
-                              torch.stack([torch.stack(losses).sum(),
-                                           torch.stack(counts).sum().float()]).cpu())
+        total, num_queries = (float(t) for t in self._dp.all_reduce(
+            torch.stack([torch.stack(losses).sum(), torch.stack(counts).sum().float()])).cpu())
         return total / max(num_queries, 1.0), False
 
     def train_epoch_resident(self, res: DeviceResidentDataset, epoch_k: int = 1,
@@ -216,7 +251,8 @@ class AdhocRanker:
         losses = []
         for bucket, idx_k, _ in res.epoch_index_chunks(shuffle, epoch_k, self.scan_steps):
             feats, labels, mask = res.bucket_arrays(bucket)
-            idx_k = res.index_to_device(idx_k)
+            # this rank's columns of the chunk: one index copy a chunk
+            idx_k = res.index_to_device(self._dp.shard_index(idx_k, mask.shape[0] - 1))
             if not checked:
                 if self._scores_fail(take_features(feats, idx_k[0]),
                                      mask.index_select(0, idx_k[0])):
@@ -225,7 +261,7 @@ class AdhocRanker:
             for idx in idx_k:
                 losses.append(self._step(take_features(feats, idx), labels.index_select(0, idx),
                                          mask.index_select(0, idx)))
-        total = float(torch.stack(losses).sum()) if losses else 0.0
+        total = float(self._dp.all_reduce(torch.stack(losses).sum())) if losses else 0.0
         if not np.isfinite(total):
             return float("nan"), True
         return total / max(res.num_queries, 1), False
@@ -255,13 +291,18 @@ class AdhocRanker:
 
     def stop_training(self, batch: RankingBatch) -> bool:
         """NaN/all-zero prediction guard on one batch: True = training has failed."""
-        return self._scores_fail(_to_device(batch.features, self.device),
-                                 _to_device(batch.mask, self.device, torch.bool))
+        return self._scores_fail(*self._features_mask(batch))
 
     @torch.inference_mode()
     def _scores_fail(self, x: torch.Tensor, mask: torch.Tensor) -> bool:
-        masked = torch.where(mask, apply_scorer(self.params, self.scorer_cfg, x, mask), 0.0)
-        return not bool(torch.isfinite(masked).all()) or not bool(torch.any(masked != 0.0))
+        """True where a score of a real doc is not finite or every one is
+        zero; under data parallelism every rank takes the same decision, on
+        counts summed over the ranks."""
+        with self._dp.rows(x.shape[0]):
+            masked = torch.where(mask, apply_scorer(self.params, self.scorer_cfg, x, mask), 0.0)
+        bad, nonzero = self._dp.all_reduce(torch.stack(
+            [torch.sum(~torch.isfinite(masked)), torch.sum(masked != 0.0)])).tolist()
+        return bad > 0 or nonzero == 0
 
     @torch.inference_mode()
     def predict(self, batch: RankingBatch) -> torch.Tensor:
@@ -269,9 +310,10 @@ class AdhocRanker:
         numpy arrays or tensors."""
         if self.params is None:
             raise RuntimeError("init() or load() the ranker first")
-        x = _to_device(batch.features, self.device)
-        mask = _to_device(batch.mask, self.device, torch.bool)
-        return apply_scorer(self.params, self.scorer_cfg, x, mask)
+        x, mask = self._features_mask(batch)
+        with self._dp.rows(x.shape[0]):
+            scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+        return self._dp.gather_rows(scores)[:batch.mask.shape[0]]
 
     # ------------------------------------------------------------------ eval
 
@@ -293,41 +335,43 @@ class AdhocRanker:
         if hasattr(batches, "batches"):
             batches = batches.batches()
         return self._reduce_packed_rows(
-            [self._eval_sums(_to_device(b.features, self.device),
-                             _to_device(b.labels, self.device, torch.float32),
-                             _to_device(b.mask, self.device, torch.bool), ks)
-             for b in batches], len(ks))
+            [self._eval_sums(*self._batch_arrays(b), ks) for b in batches], len(ks),
+            dp=self._dp)
 
     def _evaluate_resident(self, res: DeviceResidentDataset, ks) -> Dict[str, np.ndarray]:
-        """`evaluate` over a DeviceResidentDataset: index chunks of EVAL_CHUNK
-        batches, one index copy a chunk, each batch gathered on the device
-        and scored on its own."""
+        """`evaluate` over a DeviceResidentDataset: index chunks of
+        `eval_chunk` batches, one index copy a chunk, each batch gathered on
+        the device and scored on its own."""
         packed_rows = []
-        for bucket, idx_k, _ in res.epoch_index_chunks(False, 0, EVAL_CHUNK):
+        for bucket, idx_k, _ in res.epoch_index_chunks(False, 0, self.eval_chunk):
             feats, labels, mask = res.bucket_arrays(bucket)
+            idx_k = self._dp.shard_index(idx_k, mask.shape[0] - 1)
             for idx in res.index_to_device(idx_k):
                 packed_rows.append(self._eval_sums(take_features(feats, idx),
                                                    labels.index_select(0, idx),
                                                    mask.index_select(0, idx), ks))
-        return self._reduce_packed_rows(packed_rows, len(ks))
+        return self._reduce_packed_rows(packed_rows, len(ks), dp=self._dp)
 
     def _eval_sums(self, x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                    ks) -> torch.Tensor:
         """One batch's packed [4 * len(ks) + 1] metric sums, on the device."""
-        scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+        with self._dp.rows(x.shape[0]):
+            scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
         out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
         # all-padded remainder rows add zero metric and must not count
         count = torch.sum(torch.any(mask, dim=-1)).to(torch.float32)
         return torch.cat([torch.sum(out[m], dim=0) for m in METRICS] + [count[None]])
 
     @staticmethod
-    def _reduce_packed_rows(packed_rows, K: int, names=METRICS) -> Dict[str, np.ndarray]:
+    def _reduce_packed_rows(packed_rows, K: int, names=METRICS,
+                            dp=SINGLE) -> Dict[str, np.ndarray]:
         """Metric means from packed [len(names) * K + 1] rows (the metrics'
-        sums, then the real-query count): their sum fetched once. The
-        diversification ranker shares it with its own metric names."""
+        sums, then the real-query count): their sum, summed over the ranks
+        under data parallelism, fetched once. The diversification ranker
+        shares it with its own metric names."""
         if not packed_rows:
             return {m: np.zeros(K) for m in names}
-        total = torch.stack(packed_rows).sum(0).cpu().numpy()
+        total = dp.all_reduce(torch.stack(packed_rows).sum(0)).cpu().numpy()
         count = float(total[len(names) * K])
         if count == 0:
             return {m: np.zeros(K) for m in names}
@@ -343,13 +387,16 @@ class AdhocRanker:
         """Per-query metric matrices [num_queries, len(ks)] for real queries."""
         ks = tuple(ks)
         rows: Dict[str, list] = {m: [] for m in METRICS}
+        dp = self._dp
         for batch in batches:
-            labels = _to_device(batch.labels, self.device, torch.float32)
-            mask = _to_device(batch.mask, self.device, torch.bool)
-            out = evaluate_all_at_ks(self.predict(batch), labels, mask, ks, self.label_type)
-            real = torch.any(mask, dim=-1)
+            x, labels, mask = self._batch_arrays(batch)
+            with dp.rows(x.shape[0]):
+                scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+            out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
+            # every rank's rows, in order: the padded global batch
+            real = dp.gather_rows(torch.any(mask, dim=-1))
             for m in rows:
-                rows[m].append(out[m][real].cpu().numpy())
+                rows[m].append(dp.gather_rows(out[m])[real].cpu().numpy())
         return {m: (np.concatenate(v) if v else np.zeros((0, len(ks)))) for m, v in rows.items()}
 
     # ------------------------------------------------------------------- io
@@ -371,8 +418,12 @@ class AdhocRanker:
         }
 
     def save(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        torch.save(self.checkpoint(), path)
+        """The checkpoint to `path`; under data parallelism rank 0 writes it
+        and every rank waits for the file."""
+        if self._dp.is_writer:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            torch.save(self.checkpoint(), path)
+        self._dp.barrier()
 
     def restore(self, ckpt: Dict[str, Any]) -> "AdhocRanker":
         """Params, and the optimizer and generator state where the checkpoint
@@ -406,14 +457,16 @@ class AdhocRanker:
         return map_params(lambda t: t.to(self.device), ckpt["params"])
 
     def load(self, path: str) -> "AdhocRanker":
-        return self.restore(read_checkpoint(path))
+        """A checkpoint of either package; under data parallelism rank 0
+        reads it and hands it to every rank."""
+        return self.restore(read_checkpoint(self._dp.fetch(path)))
 
     def load_params_only(self, path: str) -> "AdhocRanker":
         """The scorer weights alone from a checkpoint of either package (the
         port's `.pt` or the JAX package's `.pkl`); the optimizer state and
         the generator stay as they are. The weights are copied into the
         ranker's own tensors, which its optimizer holds."""
-        new = self._checkpoint_params(read_checkpoint(path))
+        new = self._checkpoint_params(read_checkpoint(self._dp.fetch(path)))
         if self.params is None:
             self.params = new
             self._start_training_state()

@@ -14,6 +14,8 @@ import os
 import sys
 from typing import Iterator, Optional
 
+from ptranking_tpu_torch.parallel.collectives import is_writer
+
 
 class _Tee:
     """File-like object duplicating writes to a console stream and a file.
@@ -56,8 +58,9 @@ def run_log(dir_run: Optional[str], enabled: bool = True,
             debug: bool = False) -> Iterator[Optional[str]]:
     """Tee stdout to `<dir_run>/log_<YYYY_mm_dd_HH_MM>.txt` while active; no
     capture when disabled or in debug mode. Yields the log's path (None when
-    disabled). Nested use layers another tee and unwinds in order."""
-    if not enabled or debug or not dir_run:
+    disabled). Nested use layers another tee and unwinds in order. In a
+    process group only rank 0 writes the log."""
+    if not enabled or debug or not dir_run or not is_writer():
         yield None
         return
     os.makedirs(dir_run, exist_ok=True)

@@ -4,7 +4,10 @@ six ids, from the built-in grids and from a JSON with 'd_g_epoch' and other
 axes), a 2-fold debug `ltr.main` run of IRGAN_Point on the CPU (finite G
 and D CV nDCG, the players' validation tapes, the run directory JAX's
 evaluator names), a `-dir_json` grid run of IRFGAN_List, and the refusals:
-a mesh, and CUDA where there is none."""
+CUDA where there is none, and the multi-device flags: `-mesh data=2` runs
+both players data-parallel over two gloo ranks, `-tp` and `-shard_docs`
+without a mesh change nothing (as in the JAX package), and a mesh's
+`model` or `seq` axis (ROADMAP queue A items 8b, 8c) raises."""
 
 import dataclasses
 import json
@@ -18,8 +21,17 @@ from ptranking_tpu.adversarial import AdLTREvaluator as JaxAdLTREvaluator
 from ptranking_tpu_torch import ltr
 from ptranking_tpu_torch.adversarial import (AD_MACHINES, LTR_ADVERSARIAL_MODELS,
                                              AdLTREvaluator, AdSFSetting)
+from ptranking_tpu_torch.parallel import launch
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _short_rank_timeouts(monkeypatch):
+    """The ranks that `ltr.main -mesh data=2` starts wait at most 120 s in
+    a collective and 300 s in all: a deadlock fails its test in minutes."""
+    monkeypatch.setattr(launch, "DEFAULT_TIMEOUT_S", 120.0)
+    monkeypatch.setattr(launch, "DEFAULT_JOIN_TIMEOUT_S", 300.0)
 
 
 def _asdict(v):
@@ -147,17 +159,58 @@ def test_cli_json_grid_run_on_the_cpu(tmp_path):
     assert all(len(v) == 1 for v in best.values()), best
 
 
+_PLAIN = {}
+
+
 @pytest.mark.parametrize("argv", [["-mesh", "data=2"], ["-tp"], ["-shard_docs"]])
-def test_cli_refuses_the_multi_device_flags(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ltr.main(["-device", "cpu", "-model", "IRGAN_Point", "-dir_output", str(tmp_path),
-                  *argv])
-    assert not any(os.scandir(tmp_path))
+def test_cli_refuses_the_multi_device_flags(argv, tmp_path, tmp_path_factory):
+    """The multi-device flags on IRGAN_Point's debug CLI run (2 epochs), as
+    the JAX package reads them: `-tp` and `-shard_docs` change nothing (the
+    plain run's CV metrics bit for bit, and its files); `-mesh data=2` runs
+    both players over two gloo ranks (finite G and D CV nDCG in [0, 1]), in
+    the run directory the JAX evaluator names."""
+    run = ["-device", "cpu", "-model", "IRGAN_Point", "-data", "SyntheticMQ", "-debug",
+           "-epochs", "2"]
+    out = tmp_path / "out"
+    cv = ltr.main([*run, "-dir_output", str(out), *argv])
+    files = sorted(os.path.relpath(os.path.join(r, f), out)
+                   for r, _, fs in os.walk(out) for f in fs)
+    if argv[0] == "-mesh":
+        for name in ("G", "D"):
+            assert cv[name].shape == (6,) and np.all((cv[name] >= 0.0) & (cv[name] <= 1.0))
+        jev = JaxAdLTREvaluator(mesh_overrides={"mesh": {"data": 2}})
+        jev.set_settings(True, "IRGAN_Point", "pointsf", "SyntheticMQ", None,
+                         str(tmp_path / "j"), None)
+        data_dict = jev.data_setting.default_setting()
+        eval_dict = jev.eval_setting.default_setting()
+        eval_dict["epochs"] = 2
+        jev.sf_setting.default_setting(data_dict["num_features"])
+        jev.model_setting.default_para_dict()
+        want = os.path.relpath(jev.setup_output(data_dict, eval_dict), tmp_path / "j")
+        assert {f.split(os.sep + "G" + os.sep)[0] for f in files if os.sep + "G" + os.sep in f} \
+            == {want}
+        return
+    if "plain" not in _PLAIN:
+        plain_out = tmp_path_factory.mktemp("plain")
+        _PLAIN["plain"] = (ltr.main([*run, "-dir_output", str(plain_out)]),
+                           sorted(os.path.relpath(os.path.join(r, f), plain_out)
+                                  for r, _, fs in os.walk(plain_out) for f in fs))
+    want_cv, want_files = _PLAIN["plain"]
+    for name in ("G", "D"):
+        np.testing.assert_array_equal(cv[name], want_cv[name])
+    assert files == want_files
 
 
 def test_evaluator_and_machines_refuse_a_mesh(tmp_path):
+    """A mesh's `model` axis (ROADMAP queue A item 8b) raises before any
+    work; a data axis without the process group of its ranks raises too
+    (`ltr.main` or torchrun make the group)."""
+    ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": {"data": 1, "model": 2}})
+    with pytest.raises(NotImplementedError, match="queue A item 8b"):
+        ev.point_run(debug=True, model_id="IRFGAN_List", data_id="SyntheticMQ",
+                     dir_output=str(tmp_path), epochs=1)
     ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": {"data": 2}})
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(RuntimeError, match="process group"):
         ev.point_run(debug=True, model_id="IRFGAN_List", data_id="SyntheticMQ",
                      dir_output=str(tmp_path), epochs=1)
 

@@ -78,7 +78,12 @@ def test_minimax_round_streamed_and_resident(model_id):
 
 def test_machines_refuse_a_mesh_and_need_a_device():
     sf = _sf(AdSFSetting, False)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    # a mesh's `seq` axis is context parallelism, still to come; a data
+    # axis needs the process group of its ranks
+    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+        AD_MACHINES["IRGAN_Point"](sf_para=sf, ad_para_dict={}, mesh={"data": 1, "seq": 2},
+                                   device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
         AD_MACHINES["IRGAN_Point"](sf_para=sf, ad_para_dict={}, mesh={"data": 2}, device="cpu")
     with pytest.raises(ValueError, match="apply_tl_af"):
         AD_MACHINES["IRGAN_Point"](

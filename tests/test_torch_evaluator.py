@@ -3,8 +3,10 @@
 defaults), CVTape, a 2-fold x 2-epoch `kfold_cv_eval` on the debug
 SyntheticMQ data and on small LETOR files from the same initial params,
 an interrupted run resumed to the same bits, `python -m
-ptranking_tpu_torch.ltr` on the CPU, and the ids and flags the port
-refuses."""
+ptranking_tpu_torch.ltr` on the CPU, and the multi-device flags as the JAX
+package reads them: without `-mesh` they change nothing, the tree branch
+ignores them, `-mesh data=W` runs W data-parallel ranks, and only the
+slices still to come (ROADMAP queue A items 8b, 8c) refuse, under a mesh."""
 
 import dataclasses
 import os
@@ -16,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from ptranking_tpu.adversarial import AdLTREvaluator as JaxAdLTREvaluator
 from ptranking_tpu.data import make_synthetic_queries
 from ptranking_tpu.data.letor import write_letor_file
+from ptranking_tpu.diversification import DivLTREvaluator as JaxDivLTREvaluator
 from ptranking_tpu.eval import evaluator as jev
 from ptranking_tpu.eval import tapes as jtapes
 from ptranking_tpu.models import ScorerConfig as JaxScorerConfig
@@ -27,13 +31,24 @@ from ptranking_tpu.types import LabelType as JaxLabelType
 from ptranking_tpu_torch import ltr
 from ptranking_tpu_torch.eval import evaluator as tev
 from ptranking_tpu_torch.eval import tapes as ttapes
+from ptranking_tpu_torch.eval.settings import SFSetting
+from ptranking_tpu_torch.parallel import launch
 from ptranking_tpu_torch.train.ranker import AdhocRanker, read_checkpoint
+from ptranking_tpu_torch.types import LabelType
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
 METRICS = ("nDCG", "nERR", "AP", "P")
+
+
+@pytest.fixture(autouse=True)
+def _short_rank_timeouts(monkeypatch):
+    """The ranks that `ltr.main -mesh data=W` starts wait at most 120 s in
+    a collective and 300 s in all: a deadlock fails its test in minutes."""
+    monkeypatch.setattr(launch, "DEFAULT_TIMEOUT_S", 120.0)
+    monkeypatch.setattr(launch, "DEFAULT_JOIN_TIMEOUT_S", 300.0)
 
 
 def _asdict(v):
@@ -231,33 +246,150 @@ def test_cli_runs_on_the_cpu_and_writes_its_results(tmp_path):
     assert len(ckpts) == 2
 
 
+def _run_dir(root):
+    """The run directory under `root` (relative): the parent of the Fold-1
+    directories, a player's (G/D) directory taken off."""
+    (run,) = {os.path.relpath(r[:-2] if r.endswith((os.sep + "G", os.sep + "D")) else r, root)
+              for r, ds, _ in os.walk(root) if "Fold-1" in ds}
+    return run
+
+
+def _files(root):
+    """Every file under `root`, relative."""
+    return sorted(os.path.relpath(os.path.join(r, f), root) for r, _, fs in os.walk(root)
+                  for f in fs)
+
+
+def _jax_run_dir(model_id, root, overrides):
+    """The run directory the JAX package's evaluator of `model_id` names for
+    the debug CLI defaults with these overrides (relative to `root`)."""
+    if model_id in ("DALETOR", "DivProbRanker"):
+        ev = JaxDivLTREvaluator()
+        ev.set_settings(True, model_id, "pointsf", "SyntheticDiv", None, str(root), None)
+    elif model_id.startswith("IR"):
+        ev = JaxAdLTREvaluator(mesh_overrides=overrides)
+        ev.set_settings(True, model_id, "pointsf", "SyntheticMQ", None, str(root), None)
+    else:
+        ev = jev.LTREvaluator(mesh_overrides=overrides)
+        ev.set_settings(True, model_id, "pointsf", "SyntheticMQ", None, str(root), None)
+    data_dict = ev.data_setting.default_setting()
+    eval_dict = ev.eval_setting.default_setting()
+    if model_id.startswith("IR"):
+        eval_dict["epochs"] = 2  # as point_run(epochs=2) sets it
+    ev.sf_setting.default_setting(data_dict["num_features"])
+    ev.model_setting.default_para_dict()
+    return os.path.relpath(ev.setup_output(data_dict, eval_dict), root)
+
+
+_PLAIN = {}
+
+
+def _plain_run(model_id, extra, tmp_path_factory):
+    """The port's debug CLI run of `model_id` without the multi-device flags
+    (once a module): (CV metrics, run directory)."""
+    if model_id not in _PLAIN:
+        out = tmp_path_factory.mktemp(f"plain_{model_id}")
+        perf = ltr.main(["-device", "cpu", "--debug", "-model", model_id, *extra,
+                         "-dir_output", str(out)])
+        _PLAIN[model_id] = perf, _files(out)
+    return _PLAIN[model_id]
+
+
+def _metrics(perf):
+    return {k: np.asarray(v) for k, v in perf.items() if k != "elapsed_s"}
+
+
 @pytest.mark.parametrize("argv,item", [
     (["-model", "LightGBMLambdaMART", "-mesh", "data=4"], "item 8"),
     (["-model", "RankMSE", "-shard_docs"], "item 8"),
-    (["-model", "DALETOR", "-mesh", "data=4"], "item 8"),
+    (["-model", "DALETOR", "-mesh", "data=2"], "item 8"),
     (["-model", "DivProbRanker", "-shard_docs"], "item 8"),
-    (["-model", "IRGAN_Point", "-mesh", "data=4"], "item 8"),
+    (["-model", "IRGAN_Point", "-mesh", "data=2"], "item 8"),
     (["-model", "IRFGAN_List", "-tp"], "item 8"),
-    (["-model", "RankMSE", "-mesh", "data=4"], "item 8"),
+    (["-model", "RankMSE", "-mesh", "data=2"], "item 8"),
     (["-model", "RankMSE", "-tp"], "item 8"),
 ])
-def test_cli_refuses_the_branches_and_the_mesh(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_refuses_the_branches_and_the_mesh(argv, item, tmp_path, tmp_path_factory):
+    """The flags of ROADMAP queue A `item` as the JAX package reads them, in
+    a debug run (2 epochs for the adversarial ids):
+      * the tree branch ignores the mesh and a companion flag without a mesh
+        changes nothing: the run gives the port's plain run's CV metrics
+        bit for bit and its files, in the run directory the JAX evaluator
+        names (the JAX
+        package runs these on one device too; the plain runs are held
+        against the JAX package's in this file and the branches' files);
+      * `-mesh data=W` runs W data-parallel gloo ranks: finite CV metrics in
+        [0, 1] and the run directory the JAX evaluator names for the mesh,
+        written once (rank 0), one best checkpoint a fold."""
+    model_id = argv[1]
+    extra = ["-epochs", "2"] if model_id.startswith("IR") else []
+    out = tmp_path / "out"
+    perf = ltr.main(["-device", "cpu", "--debug", *argv, *extra, "-dir_output", str(out)])
+    got = _metrics(perf)
+    mesh = "-mesh" in argv and model_id != "LightGBMLambdaMART"
+    if not mesh:
+        want, files = _plain_run(model_id, extra, tmp_path_factory)
+        for k, v in _metrics(want).items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        assert _files(out) == files
+    else:
+        assert got and all(np.all(np.isfinite(v)) & np.all((v >= 0) & (v <= 1))
+                           for v in got.values())
+        best = [f for r, _, fs in os.walk(out) for f in fs if f.startswith("net_params_epoch_")]
+        if model_id.startswith("IR"):  # G and D a fold; the stop guard may end a fold early
+            assert 0 < len(best) <= 4
+        else:
+            assert len(best) == 2
+    if model_id != "LightGBMLambdaMART":
+        ov = ltr.parse_mesh_overrides(ltr.build_parser().parse_args(argv))
+        assert _run_dir(out) == _jax_run_dir(model_id, tmp_path / "jax", ov)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["-model", "RankMSE", "-mesh", "data=2", "-tp"], "item 8b"),
+    (["-model", "RankMSE", "-mesh", "data=2", "-pp_stages", "2"], "item 8b"),
+    (["-model", "RankMSE", "-mesh", "data=1,model=2"], "item 8b"),
+    (["-model", "RankMSE", "-mesh", "data=2", "-shard_docs"], "item 8c"),
+    (["-model", "DALETOR", "-mesh", "data=1,seq=2"], "item 8c"),
+    (["-model", "IRGAN_Point", "-mesh", "model=2"], "item 8b"),
+])
+def test_cli_refuses_the_slices_still_to_come(argv, item, tmp_path):
+    """Tensor and pipeline parallelism (item 8b) and context parallelism
+    (item 8c) under a mesh raise before any rank starts or file is written."""
+    with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         ltr.main(["-device", "cpu", "-dir_output", str(tmp_path), *argv])
     assert not any(os.scandir(tmp_path))
 
 
 def test_evaluator_refuses_parallel_eval_settings():
+    """Without a mesh the companion settings change nothing (an AdhocRanker
+    with the given scan_steps); under a mesh, those of items 8b and 8c
+    raise, naming their item."""
     ev = tev.LTREvaluator(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ev.load_ranker({"scorer": None, "optimizer": None}, {"model_id": "RankMSE"}, None,
-                       {"mesh": {"data": 2}})
+    sf = SFSetting().default_setting(46)
+    r = ev.load_ranker(sf, {"model_id": "RankMSE"}, LabelType.MultiLabel,
+                       {"tp": True, "shard_docs": True, "cp_impl": "ulysses", "pp_stages": 2,
+                        "eval_chunk": 8, "scan_steps": 4})
+    assert type(r) is AdhocRanker and r.scan_steps == 4
+    for key, item in (("tp", "8b"), ("pp_stages", "8b"), ("shard_docs", "8c")):
+        with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
+            ev.load_ranker(sf, {"model_id": "RankMSE"}, None,
+                           {"mesh": {"data": 2}, key: 2 if key == "pp_stages" else True})
+    with pytest.raises(NotImplementedError, match="queue A item 8b"):
+        ev.load_ranker(sf, {"model_id": "RankMSE"}, None, {"mesh": {"data": 1, "model": 2}})
 
 
-def test_python_m_entry_point_runs():
-    """The module runs as `python -m ptranking_tpu_torch.ltr`: a flag of the
-    layer still to be ported exits non-zero, naming its ROADMAP item."""
+def test_python_m_entry_point_runs(tmp_path):
+    """The module runs as `python -m ptranking_tpu_torch.ltr`, and with
+    `-mesh data=2` (no launcher) it starts its two gloo ranks itself: the
+    run's CV line (printed once, by rank 0), in the run directory the JAX
+    evaluator names."""
+    out = tmp_path / "out"
     proc = subprocess.run([sys.executable, "-m", "ptranking_tpu_torch.ltr", "-device", "cpu",
-                           "-model", "IRGAN_Point", "-mesh", "data=2"], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "queue A item 8" in proc.stderr
+                           "-model", "IRGAN_Point", "-mesh", "data=2", "--debug", "-epochs", "2",
+                           "-dir_output", str(out)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("IRGAN_Point 2-fold CV") == 1
+    assert _run_dir(out) == _jax_run_dir("IRGAN_Point", tmp_path / "jax",
+                                         {"mesh": {"data": 2}})

@@ -1,9 +1,12 @@
 """The port stands alone: no file of ptranking_tpu_torch/ and not chip_smoke.py
-imports jax, optax or the JAX package, and asking for CUDA where there is
-none raises instead of running on the CPU."""
+imports jax, optax or the JAX package (nor does the module whose functions
+the data-parallel tests' spawned ranks run), and asking for CUDA where
+there is none raises instead of running on the CPU."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -44,7 +47,12 @@ def _imports(path):
 # the modules of the later slices, which the walk must reach
 SLICE_MODULES = ["adversarial/__init__.py", "adversarial/base.py", "adversarial/evaluator.py",
                  "adversarial/irfgan.py", "adversarial/irgan.py", "adversarial/settings.py",
-                 "adversarial/util.py", "utils/chunking.py", "utils/profiling.py"]
+                 "adversarial/util.py", "utils/chunking.py", "utils/profiling.py",
+                 "parallel/__init__.py", "parallel/collectives.py", "parallel/launch.py",
+                 "parallel/mesh.py", "parallel/train.py", "data/prefetch.py"]
+# the module of the functions that the spawned ranks of
+# tests/test_torch_parallel_*.py run: a rank imports it afresh
+RANKS_MODULE = os.path.join(REPO, "tests", "torch_parallel_ranks.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -52,6 +60,22 @@ def test_walk_reaches_the_module(module):
     path = os.path.join(REPO, "ptranking_tpu_torch", *module.split("/"))
     assert path in _port_files()
     assert not [mod for _, mod in _imports(path) if _is_forbidden(mod)]
+
+
+def test_spawned_ranks_import_nothing_of_jax():
+    """The ranks' module, and the port it imports, load without jax: checked
+    by its imports and by importing it in a fresh interpreter."""
+    assert not [mod for _, mod in _imports(RANKS_MODULE) if _is_forbidden(mod)]
+    code = ("import sys, torch_parallel_ranks, ptranking_tpu_torch.ltr, "
+            "ptranking_tpu_torch.parallel.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+            "'ptranking_tpu')]; assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(RANKS_MODULE),
+                          env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                              filter(None, (REPO, os.environ.get("PYTHONPATH"))))),
+                          capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_forbidden_name_matching():
