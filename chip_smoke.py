@@ -1759,10 +1759,12 @@ def check_counts(counts: dict, steps: int, what: str, per_step: dict = LAUNCHES_
 
 def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16",
                     model_id: str = "LambdaRank", num_features: int = NUM_FEATURES,
-                    lane_align: bool = False, n_heads: int = 2, mesh=None, device="cuda"):
+                    lane_align: bool = False, n_heads: int = 2, mesh=None, device="cuda",
+                    **parallel):
     """The flagship scorer (or the same DASALC listsf at another width) under
     a loss with its default paras; LambdaRank goes through the fused pairwise
-    kernel. With a mesh, the DistributedTrainer of the same config."""
+    kernel. With a mesh, the DistributedTrainer of the same config (with
+    `parallel`'s tp or pp_stages)."""
     from ptranking_tpu_torch import LTR_SEED
     from ptranking_tpu_torch.models import ScorerConfig
     from ptranking_tpu_torch.parallel import DistributedTrainer
@@ -1774,7 +1776,7 @@ def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16",
     kw = dict(model_paras={"use_pallas": True} if model_id == "LambdaRank" else {},
               opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED, device=device)
     if mesh is not None:
-        return DistributedTrainer(model_id, cfg, mesh, **kw).init()
+        return DistributedTrainer(model_id, cfg, mesh, **kw, **parallel).init()
     return AdhocRanker(model_id, cfg, **kw).init()
 
 
@@ -4193,10 +4195,10 @@ def ad_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
     return counts
 
 
-# --- phase 12: data parallelism ---
-PAR_STEPS = 3           # flagship LambdaRank steps in (a), at TRAIN_B x TRAIN_N
+# --- phase 12: data, tensor and pipeline parallelism, expert sharding ---
+PAR_STEPS = 3           # flagship LambdaRank steps in (a) and (a'), at TRAIN_B x TRAIN_N
 PAR_WASS_STEPS = 1      # WassRank steps in (a)
-PAR_GLOO_B = 4          # lists of TRAIN_N docs a rank in (c)
+PAR_GLOO_B = 4          # lists of TRAIN_N docs a data rank in (c); (d), (e) take 2x on each
 PAR_CLI_BATCH_DOCS = 4000  # (b)'s training batches: one a bucket an epoch
 PAR_GLOO_STEPS = 2
 PAR_TIMEOUT_S = 300     # the gloo group's collectives and the spawn's join
@@ -4210,8 +4212,21 @@ PAR_LOSS_RTOL, PAR_NDCG_ATOL = 1e-5, 1e-5  # the CPU tests' tolerances (test_tor
 # reduction's. Later steps' params are not held to one device: Adagrad's
 # first steps (lr times the gradient's sign) turn rounding in a near-zero
 # gradient entry into lr either way, so only the two ranks' bits are held.
+# (d)'s tensor-parallel gradients (joined over `model`) are held to the same
+# bar: the row-parallel layers' partial sums are the only other grouping.
 PAR_GRAD_RTOL = 1e-5
 PAR_GLOO_DTYPE = "float32"
+# (d) in bf16: the row-parallel layers sum fp32 partial products and round
+# once, where one device rounds one fp32 product; that moves bf16 roundings,
+# so the bf16 TP step is reported beside the bf16 one-device step and gated
+# at the bf16 forward's 2e-2 (its first loss) only
+PAR_BF16_FWD_RTOL = 2e-2
+PAR_PP_ATOL = 1e-5      # (e): pipeline scores against one device's, fp32
+PAR_PP_MICROBATCHES = 4  # the PPPlan default (the JAX package's)
+PAR_EP_K, PAR_EP_B, PAR_EP_N = 4, DIV_BATCH, 256  # (f): the cluster and its batch
+PAR_EP_MUS_ATOL = 1e-5
+PAR_EP_VARS_RTOL, PAR_EP_VARS_ATOL = 2e-3, 1e-4  # the JAX package's own bar
+PAR_CKPT = "par_dp.pt"  # (c)'s trained params, which (e) stages
 
 
 def _par_steps(ranker, batch, steps: int) -> list:
@@ -4219,6 +4234,8 @@ def _par_steps(ranker, batch, steps: int) -> list:
     the losses fetched at the end."""
     import torch
 
+    if not steps:
+        return []
     losses = [ranker._step(*ranker._batch_arrays(batch)) for _ in range(steps)]
     return [float(x) for x in ranker._dp.all_reduce(torch.stack(losses)).cpu()]
 
@@ -4230,30 +4247,127 @@ def _named_params(params) -> dict:
     return dict(zip(leaf_names(params), (t.detach().cpu().numpy() for t in tree_leaves(params))))
 
 
+def _full_grads(ranker) -> list:
+    """The gradients of the ranker's leaves, full tensors: a tensor-parallel
+    trainer's shards joined over `model` (a collective)."""
+    from ptranking_tpu_torch.models.scorers import tree_leaves
+
+    grads = [p.grad.detach() for p in ranker._leaves]
+    if ranker._tp is not None:
+        grads = [ranker._tp.join_leaf(g, s) for g, s in zip(grads, tree_leaves(ranker._tp.spec))]
+    return [g.cpu().clone() for g in grads]
+
+
 def _par_run(ranker, batch, steps: int) -> dict:
-    """Phase 12 (c) on one ranker: nDCG@ks of its initial params, its first
-    step's loss and (summed) gradients without the update, then `steps`
-    steps: their losses, the params and the launches."""
+    """Phase 12 (c) and (d) on one ranker: nDCG@ks of its initial params, its
+    first step's loss and (summed, joined) gradients without the update,
+    then `steps` steps: their losses, the (joined) params and the
+    launches."""
     t0 = time.perf_counter()
     ndcg = ranker.evaluate([batch], ks=(1, 5))["nDCG"].tolist()
     update, ranker._optimizer.step = ranker._optimizer.step, lambda: None
     loss = _par_steps(ranker, batch, 1)[0]
-    grads = [p.grad.detach().cpu().clone() for p in ranker._leaves]
+    grads = _full_grads(ranker)
     ranker._optimizer.step = update
     reset_counts()
     losses = _par_steps(ranker, batch, steps)
+    counts = read_counts()
+    full = ranker.full_params() if hasattr(ranker, "full_params") else ranker.params
     return {"ndcg": ndcg, "loss": loss, "grads": grads, "losses": losses,
-            "params": _named_params(ranker.params), "launches": read_counts(),
+            "params": _named_params(full), "launches": counts,
             "run_s": time.perf_counter() - t0}
 
 
-def par_gloo_rank(steps: int, rows: int, n_docs: int, num_features: int, device: str):
-    """Phase 12 (c), one rank of the gloo group: `_par_run` of the flagship
-    as a DistributedTrainer on this rank's block of a global batch of
-    2 * rows lists of n_docs docs; also the seconds of the rank's set-up:
-    the batch, the mesh, the ranker."""
+def _tp_run(mesh, batch, steps: int, dtype: str, num_features: int, device: str) -> dict:
+    """Phase 12 (d) on one rank: `_par_run` of a tp=True flagship trainer on
+    the model mesh, with the q shapes its attention took (the rank's heads)
+    and its set-up seconds."""
+    from ptranking_tpu_torch.models.scorers import listsf
+
+    t0 = time.perf_counter()
+    tr = flagship_ranker(dropout=0.0, compute_dtype=dtype, num_features=num_features,
+                         mesh=mesh, device=device, tp=True)
+    setup = time.perf_counter() - t0
+    shapes, real = set(), listsf.flash_attention
+
+    def recorded(q, k, v, mask):
+        shapes.add(tuple(q.shape))
+        return real(q, k, v, mask)
+
+    listsf.flash_attention = recorded
+    try:
+        run = _par_run(tr, batch, steps)
+    finally:
+        listsf.flash_attention = real
+    return {**run, "q_shapes": sorted(shapes), "setup_s": round(setup, 2)}
+
+
+def _pp_run(mesh, batch, path: str, num_features: int, device: str) -> dict:
+    """Phase 12 (e) on one rank (one stage): a pp_stages=2 flagship trainer
+    from the checkpoint at `path`: predict (with the launches it takes on
+    this stage) and evaluate through the pipeline."""
+    import torch
+
+    t0 = time.perf_counter()
+    tr = flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE, num_features=num_features,
+                         mesh=mesh, device=device, pp_stages=2).load(path)
+    setup = time.perf_counter() - t0
+    reset_counts()
+    scores = tr.predict(batch)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    ndcg = tr.evaluate([batch], ks=(1, 5))["nDCG"].tolist()
+    return {"scores": scores.cpu().numpy(), "ndcg": ndcg, "predict_launches": counts,
+            "setup_s": round(setup, 2), "run_s": round(time.perf_counter() - t0 - setup, 2)}
+
+
+def ep_inputs(device: str):
+    """Phase 12 (f)'s batch: PAR_EP_B queries of PAR_EP_N docs at DIV_D, the
+    first list cut to 10 docs; and the cluster's config."""
+    import torch
+
+    from ptranking_tpu_torch.diversification.scorers import DivScorerConfig
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn(PAR_EP_B, DIV_D, generator=gen)
+    d = torch.randn(PAR_EP_B, PAR_EP_N, DIV_D, generator=gen)
+    m = torch.ones(PAR_EP_B, PAR_EP_N, dtype=torch.bool)
+    m[0, 10:] = False
+    cfg = DivScorerConfig(sf_id="pointsf", num_features=DIV_D, K=PAR_EP_K, cluster=True)
+    return cfg, q.to(device), d.to(device), m.to(device)
+
+
+def _ep_run(mesh, device: str) -> dict:
+    """Phase 12 (f) on one rank: the cluster's div_forward with this rank's
+    experts (expert_param_sharding), their outputs gathered over `model`."""
+    import torch
+
+    from ptranking_tpu_torch import LTR_SEED
+    from ptranking_tpu_torch.diversification.scorers import div_forward, init_div_scorer
+    from ptranking_tpu_torch.parallel import expert_param_sharding, model_parallel
+
+    cfg, q, d, m = ep_inputs(device)
+    full = init_div_scorer(cfg, LTR_SEED, device)
+    ep = model_parallel(mesh, expert_param_sharding(mesh, full))
+    local = ep.shard(full)
+    with torch.inference_mode():
+        mus, vars_, _ = div_forward(local, cfg, q, d, m, ep=ep)
+    return {"mus": mus.cpu().numpy(), "vars": vars_.cpu().numpy(),
+            "experts": int(local["point_sf"]["layers"][0]["linear"]["w"].shape[0])}
+
+
+def par_gloo_rank(steps: int, rows: int, n_docs: int, num_features: int, device: str,
+                  work_dir: str):
+    """Phase 12 (c) to (f), one rank of the gloo group. (c): `_par_run` of
+    the flagship as a DistributedTrainer on this rank's block of a global
+    batch of 2 * rows lists of n_docs docs (its set-up seconds: the batch,
+    the mesh, the ranker), then rank 0 saves its params for (e). Then on a
+    second mesh of the same group, {model: 2}: (d) the flagship with
+    tp=True on the whole batch in fp32 and one bf16 step, (e) pp_stages=2
+    predict and evaluate, (f) the expert-sharded cluster."""
     t = [time.perf_counter()]
-    from ptranking_tpu_torch.parallel import make_mesh
+    from ptranking_tpu_torch.parallel import MeshConfig, make_mesh
 
     batch = train_batch(2 * rows, n_docs, ragged=False, seed=5, num_features=num_features)
     t.append(time.perf_counter())
@@ -4262,7 +4376,19 @@ def par_gloo_rank(steps: int, rows: int, n_docs: int, num_features: int, device:
     tr = flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE, num_features=num_features,
                          mesh=mesh, device=device)
     t.append(time.perf_counter())
-    return {**_par_run(tr, batch, steps), "setup_s": [round(b - a, 2) for a, b in zip(t, t[1:])]}
+    out = {"dp": {**_par_run(tr, batch, steps),
+                  "setup_s": [round(b - a, 2) for a, b in zip(t, t[1:])]}}
+    tr.save(os.path.join(work_dir, PAR_CKPT))
+    t0 = time.perf_counter()
+    model_mesh = make_mesh(MeshConfig(model=2))
+    out["model_mesh_s"] = round(time.perf_counter() - t0, 2)
+    out["tp"] = _tp_run(model_mesh, batch, steps, PAR_GLOO_DTYPE, num_features, device)
+    out["tp_bf16"] = _tp_run(model_mesh, batch, 0, "bfloat16", num_features, device)
+    out["pp"] = _pp_run(model_mesh, batch, os.path.join(work_dir, PAR_CKPT), num_features,
+                        device)
+    t0 = time.perf_counter()
+    out["ep"] = {**_ep_run(model_mesh, device), "run_s": round(time.perf_counter() - t0, 2)}
+    return out
 
 
 def write_par_cli_config(root: str, dir_output: str) -> str:
@@ -4288,15 +4414,20 @@ def write_par_cli_config(root: str, dir_output: str) -> str:
 
 def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
     """Phase 12: (a) a one-rank NCCL DistributedTrainer against the
-    AdhocRanker, (b) `ltr.main -mesh data=1` against the run without it,
-    (c) two gloo ranks on the one card against one device. Returns the
-    launch counts of (a)'s DP runs (the phase's main path)."""
+    AdhocRanker, (a') the same with tp=True and with pp_stages=1 (a model
+    axis of 1), (b) `ltr.main -mesh data=1` against the run without it, and
+    on two gloo ranks on the one card, in one spawn: (c) DP, (d) TP, (e) PP
+    against one device, (f) the expert-sharded cluster. Returns the launch
+    counts of the phase's main paths: (a)'s DP runs, (d)'s TP steps and
+    (e)'s pipeline predict on rank 0."""
     import numpy as np
     import torch
 
     from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.diversification.scorers import div_forward, init_div_scorer
     from ptranking_tpu_torch.parallel import make_mesh
     from ptranking_tpu_torch.parallel.launch import one_rank_group, run_ranks
+    from ptranking_tpu_torch.parallel.pipeline import microbatches
 
     t = [time.perf_counter()]
     rec = {}
@@ -4339,6 +4470,30 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
             for k, n in c2.items():
                 dp_counts[k] = dp_counts.get(k, 0) + n
             del runs, single, dp
+        t.append(time.perf_counter())
+
+        # (a') tp=True and pp_stages=1 on the one-rank mesh (model = 1)
+        # against the AdhocRanker from the same seed: steps, then a predict
+        for name, parallel in (("tp", {"tp": True}), ("pp_stages_1", {"pp_stages": 1})):
+            got = {}
+            for which, m, kw in (("single", None, {}), (name, mesh, parallel)):
+                ranker = flagship_ranker(dropout=0.0, num_features=NUM_FEATURES, mesh=m,
+                                         device=device, **kw)
+                reset_counts()
+                losses = _par_steps(ranker, batch, PAR_STEPS)
+                scores = ranker.predict(batch)
+                if cuda:
+                    torch.cuda.synchronize()
+                got[which] = (losses, _named_params(ranker.params), scores.cpu().numpy(),
+                              read_counts())
+                del ranker
+            (l1, p1, s1, c1), (l2, p2, s2, c2) = got["single"], got[name]
+            same = (l1 == l2 and all(np.array_equal(p1[k], p2[k]) for k in p1)
+                    and np.array_equal(s1, s2))
+            rec[f"one_rank_{name}"] = {"steps": PAR_STEPS, "same_bits": same, "launches": c2}
+            if not (same and c1 == c2):
+                raise AssertionError(f"parallel (a') {name}: same bits {same}, launches {c2} "
+                                     f"against the AdhocRanker's {c1}")
     rec["one_rank_s"] = sub_s
     t.append(time.perf_counter())
 
@@ -4358,16 +4513,25 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
                              f"{cli['plain']}")
     t.append(time.perf_counter())
 
-    # (c) two gloo ranks on the one card against one device on the global batch
-    out = run_ranks(par_gloo_rank, 2, (PAR_GLOO_STEPS, PAR_GLOO_B, TRAIN_N, NUM_FEATURES, device),
+    # (c) to (f): two gloo ranks on the one card, against one device on the
+    # global batch
+    print("parallel (c)-(f) show the reduction, tensor-parallel, pipeline and expert paths "
+          "with the kernels on the card, not multi-GPU scaling: one H100 cannot show "
+          "scaling; gloo carries these CUDA tensors' collectives through host memory itself "
+          "(its CUDA work copies each to the host and back), where NCCL across cards would "
+          "not", flush=True)
+    out = run_ranks(par_gloo_rank, 2,
+                    (PAR_GLOO_STEPS, PAR_GLOO_B, TRAIN_N, NUM_FEATURES, device, work_dir),
                     device_type=device, backend="gloo", timeout_s=PAR_TIMEOUT_S,
                     join_timeout_s=PAR_TIMEOUT_S)
-    r0, r1 = out
+    t.append(time.perf_counter())
+    gbatch = train_batch(2 * PAR_GLOO_B, TRAIN_N, ragged=False, seed=5,
+                         num_features=NUM_FEATURES)
     ref = _par_run(flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE,
                                    num_features=NUM_FEATURES, device=device),
-                   train_batch(2 * PAR_GLOO_B, TRAIN_N, ragged=False, seed=5,
-                               num_features=NUM_FEATURES), PAR_GLOO_STEPS)
+                   gbatch, PAR_GLOO_STEPS)
     names = list(ref["params"])
+    r0, r1 = (r["dp"] for r in out)
     ranks_same = (r0["losses"] == r1["losses"]
                   and all(np.array_equal(r0["params"][k], r1["params"][k]) for k in names))
     grad = rel_errs(r0["grads"], ref["grads"], names)
@@ -4381,17 +4545,92 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
         "max_abs_param_diff_vs_one_device": max(
             (float(np.abs(r0["params"][k] - ref["params"][k]).max()), k) for k in names),
         "rank0_launches": r0["launches"],
-        "rank_setup_run_s": [[r["setup_s"], round(r["run_s"], 2)] for r in out],
+        "rank_setup_run_s": [[r["dp"]["setup_s"], round(r["dp"]["run_s"], 2)] for r in out],
         "one_device_run_s": round(ref["run_s"], 2)}
-    print("parallel (c) shows the reduction path with the kernels on the card, not multi-GPU "
-          "scaling: one H100 cannot show scaling", flush=True)
     if not (ranks_same and loss_err <= PAR_LOSS_RTOL and ndcg_err <= PAR_NDCG_ATOL
             and grad["worst"][1] <= PAR_GRAD_RTOL):
         raise AssertionError(f"parallel (c): {rec['two_gloo_ranks_one_card']}")
+
+    # (d) TP: each rank one head, the same global batch, against one device
+    d0, d1 = (r["tp"] for r in out)
+    d_head = NUM_FEATURES // 2
+    want_q = [(2 * PAR_GLOO_B, 1, TRAIN_N, d_head)]
+    tp_same = (d0["losses"] == d1["losses"]
+               and all(np.array_equal(d0["params"][k], d1["params"][k]) for k in names))
+    tp_grad = rel_errs(d0["grads"], ref["grads"], names)
+    tp_loss_err = abs(d0["loss"] - ref["loss"]) / abs(ref["loss"])
+    tp_ndcg_err = float(np.abs(np.asarray(d0["ndcg"]) - ref["ndcg"]).max())
+    ref16 = _par_run(flagship_ranker(dropout=0.0, compute_dtype="bfloat16",
+                                     num_features=NUM_FEATURES, device=device), gbatch, 0)
+    b16 = out[0]["tp_bf16"]
+    bf16_loss_err = abs(b16["loss"] - ref16["loss"]) / abs(ref16["loss"])
+    rec["tp_two_gloo_ranks"] = {
+        "first_loss_rel_err": tp_loss_err, "first_grads_joined": tp_grad,
+        "ndcg_abs_err": tp_ndcg_err, "losses": d0["losses"], "one_device_losses": ref["losses"],
+        "ranks_same_bits": tp_same, "q_shapes": [r["tp"]["q_shapes"] for r in out],
+        "launches": [r["tp"]["launches"] for r in out], "one_device_launches": ref["launches"],
+        "max_abs_param_diff_vs_one_device": max(
+            (float(np.abs(d0["params"][k] - ref["params"][k]).max()), k) for k in names),
+        "bf16": {"first_loss_rel_err": bf16_loss_err,
+                 "first_grads_joined": rel_errs(b16["grads"], ref16["grads"], names),
+                 "ndcg_abs_err": float(np.abs(np.asarray(b16["ndcg"]) - ref16["ndcg"]).max())},
+        "rank_setup_run_s": [[r["tp"]["setup_s"], round(r["tp"]["run_s"], 2)] for r in out],
+        "model_mesh_s": [r["model_mesh_s"] for r in out]}
+    print(f"parallel (d) TP: rank q shapes {rec['tp_two_gloo_ranks']['q_shapes']} "
+          f"(each rank one head of {d_head})", flush=True)
+    if not (tp_same and tp_loss_err <= PAR_LOSS_RTOL and tp_ndcg_err <= PAR_NDCG_ATOL
+            and tp_grad["worst"][1] <= PAR_GRAD_RTOL and bf16_loss_err <= PAR_BF16_FWD_RTOL
+            and all(r["tp"]["q_shapes"] == want_q for r in out)
+            and (not cuda or all(r["tp"]["launches"] == ref["launches"] for r in out))):
+        raise AssertionError(f"parallel (d): {rec['tp_two_gloo_ranks']}")
+
+    # (e) PP: the checkpoint (c) saved, predicted and evaluated through a
+    # two-stage pipeline against one device
+    single = flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE,
+                             num_features=NUM_FEATURES, device=device)
+    single.load(os.path.join(work_dir, PAR_CKPT))
+    want_scores = single.predict(gbatch).cpu().numpy()
+    want_ndcg = single.evaluate([gbatch], ks=(1, 5))["nDCG"]
+    mask = np.asarray(gbatch.mask)
+    n_mb = microbatches(2 * PAR_GLOO_B, PAR_PP_MICROBATCHES)
+    # a predict through the pipeline: each stage's 3 layers on each microbatch
+    want_pp = {k: 0 for k in ref["launches"]}
+    want_pp["flash_attn_fwd"] = (6 // 2) * n_mb
+    pp_err = max(float(np.abs(r["pp"]["scores"][mask] - want_scores[mask]).max()) for r in out)
+    pp_ndcg_err = max(float(np.abs(np.asarray(r["pp"]["ndcg"]) - want_ndcg).max()) for r in out)
+    rec["pp_two_gloo_ranks"] = {
+        "microbatches": n_mb, "max_abs_score_err": pp_err, "ndcg_abs_err": pp_ndcg_err,
+        "predict_launches_by_stage": [r["pp"]["predict_launches"] for r in out],
+        "expected_flash_attn_fwd_a_stage": want_pp["flash_attn_fwd"],
+        "rank_setup_run_s": [[r["pp"]["setup_s"], r["pp"]["run_s"]] for r in out]}
+    if not (pp_err <= PAR_PP_ATOL and pp_ndcg_err <= PAR_NDCG_ATOL
+            and (not cuda or all(r["pp"]["predict_launches"] == want_pp for r in out))):
+        raise AssertionError(f"parallel (e): {rec['pp_two_gloo_ranks']}")
+
+    # (f) EP: the K-expert cluster, two experts a rank, against one device
+    cfg, q, d, m = ep_inputs(device)
+    from ptranking_tpu_torch import LTR_SEED
+
+    with torch.inference_mode():
+        mus, vars_, _ = div_forward(init_div_scorer(cfg, LTR_SEED, device), cfg, q, d, m)
+    mus, vars_ = mus.cpu().numpy(), vars_.cpu().numpy()
+    mus_err = max(float(np.abs(r["ep"]["mus"] - mus).max()) for r in out)
+    vars_ok = all(np.allclose(r["ep"]["vars"], vars_, rtol=PAR_EP_VARS_RTOL,
+                              atol=PAR_EP_VARS_ATOL) for r in out)
+    rec["ep_two_gloo_ranks"] = {
+        "experts_a_rank": [r["ep"]["experts"] for r in out], "mus_abs_err": mus_err,
+        "vars_max_rel_err": max(float((np.abs(r["ep"]["vars"] - vars_)
+                                       / np.maximum(np.abs(vars_), 1e-30)).max()) for r in out),
+        "vars_within_bar": vars_ok, "run_s": [r["ep"]["run_s"] for r in out]}
+    if not (mus_err <= PAR_EP_MUS_ATOL and vars_ok
+            and all(r["ep"]["experts"] == PAR_EP_K // 2 for r in out)):
+        raise AssertionError(f"parallel (f): {rec['ep_two_gloo_ranks']}")
     t.append(time.perf_counter())
-    rec["phase_s"] = {n: round(b - a, 1) for n, a, b in zip(("a", "b", "c"), t, t[1:])}
+    rec["phase_s"] = {n: round(b - a, 1)
+                      for n, a, b in zip(("a", "a_prime", "b", "c_to_f_ranks", "refs_and_gates"),
+                                         t, t[1:])}
     print("parallel " + json.dumps(rec) + f"  [{card}]", flush=True)
-    return dp_counts
+    return {"dp": dp_counts, "tp": d0["launches"], "pp": out[0]["pp"]["predict_launches"]}
 
 
 def main() -> int:
@@ -4472,13 +4711,18 @@ def main() -> int:
 
     phase("parallel")
     t_par = time.perf_counter()
-    dp_counts = parallel_phase(card, work_dir)
+    par_counts = parallel_phase(card, work_dir)
     print(f"parallel_phase_s {time.perf_counter() - t_par:.1f}", flush=True)
-    idle_dp = [name for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
-                                 "pairwise_lambda_fwd", "pairwise_lambda_bwd", "sinkstep")
-               if dp_counts.get(name, 0) <= 0]
-    if idle_dp:
-        raise AssertionError(f"parallel: kernels never launched on the DP path: {idle_dp}")
+    for path, names in (("dp", ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
+                                "pairwise_lambda_fwd", "pairwise_lambda_bwd", "sinkstep")),
+                        ("tp", ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
+                                "pairwise_lambda_fwd", "pairwise_lambda_bwd")),
+                        ("pp", ("flash_attn_fwd",))):
+        idle_par = [name for name in names if par_counts[path].get(name, 0) <= 0]
+        if idle_par:
+            raise AssertionError(f"parallel: kernels never launched on the {path} path: "
+                                 f"{idle_par}")
+    print("parallel launches by path " + json.dumps(par_counts) + f"  [{card}]", flush=True)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
         launches[name + "_wide"] = wide_fp32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",

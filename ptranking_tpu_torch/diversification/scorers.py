@@ -30,7 +30,7 @@ import torch
 
 from ptranking_tpu_torch import LTR_SEED
 from ptranking_tpu_torch.models.scorers import listsf as _listsf
-from ptranking_tpu_torch.models.scorers import map_params
+from ptranking_tpu_torch.models.scorers import map_params, tree_leaves
 from ptranking_tpu_torch.models.scorers.nn import Params, ffn_apply, ffn_init
 
 SORT_ID = ["ExpRele", "RERAR", "RiskAware"]
@@ -157,21 +157,26 @@ def _variances(std_vars: torch.Tensor, cfg: DivScorerConfig) -> torch.Tensor:
 
 
 def div_forward(params, cfg: DivScorerConfig, q_repr, doc_reprs, mask,
-                training=False, gen: Optional[torch.Generator] = None):
+                training=False, gen: Optional[torch.Generator] = None, ep=None):
     """-> (mus [B, N], vars [B, N], cocos [B, N, N] or None).
 
     training=True with a generator `gen` (on the inputs' device) applies
-    dropout where the JAX package does."""
+    dropout where the JAX package does. `ep`, a ModelParallel share of a
+    cluster (parallel/mesh.py::expert_param_sharding), makes this rank's
+    params its K / M experts: each model rank runs its own, and their
+    outputs are gathered along K (parallel/tensor.py) before the mixture."""
     if cfg.cluster:
         start = gen.get_state() if (training and gen is not None) else None
         raws = []
-        for k in range(cfg.K):
+        for k in range(tree_leaves(params)[0].shape[0]):
             if start is not None:
                 gen.set_state(start)
             member = map_params(lambda t: t[k], params)
             raws.append(_single_raw_forward(member, cfg, q_repr, doc_reprs, mask,
                                             training, gen)[0])
-        comps = torch.stack(raws, dim=-2)  # [B, N, K, 3]
+        comps = torch.stack(raws, dim=-2)  # [B, N, K (this rank's experts), 3]
+        if ep is not None:
+            comps = ep.gather(comps, dim=-2)
         weights, mu_i, std_var_i = comps[..., 0], comps[..., 1], comps[..., 2]
         cocos = None
     else:

@@ -8,12 +8,12 @@ of a process group through parallel/train.py::DistributedTrainer (the
 same lifecycle: validation, best checkpoints, stop guard, resume). Under a
 mesh only rank 0 writes the run directory's files, and decisions taken on
 files (a resume state, a best checkpoint) are rank 0's, handed to every
-rank. Without a mesh the multi-device companion keys (`tp`, `shard_docs`,
-`cp_impl`, `pp_stages`, `eval_chunk`) change nothing, as in the JAX
-package. Training data is device-resident by default
-(`maybe_device_resident`, bf16 features for a bf16 scorer) and trained
-through `AdhocRanker.train_epoch_resident`; a dataset over the budget is
-streamed through `prefetch_to_device`. The run directory's name encodes
+rank; `tp` and `pp_stages` reach the DistributedTrainer. Without a mesh the
+multi-device companion keys (`tp`, `shard_docs`, `cp_impl`, `pp_stages`,
+`eval_chunk`) change nothing, as in the JAX package. Training data is
+device-resident by default (`maybe_device_resident`, bf16 features for a
+bf16 scorer) and trained through `AdhocRanker.train_epoch_resident`; a
+dataset over the budget is streamed through `prefetch_to_device`. The run directory's name encodes
 every setting, as in the JAX package. A run resumes from its
 `Fold-<k>/train_state.pt` (the ranker's checkpoint, the epoch and the
 validation tape's best), the port's own `.pt`.
@@ -166,8 +166,7 @@ class LTREvaluator:
             from ptranking_tpu_torch.parallel.mesh import mesh_from_dict
             from ptranking_tpu_torch.parallel.train import DistributedTrainer, refuse_unported
 
-            refuse_unported(eval_dict.get("tp"), eval_dict.get("shard_docs"),
-                            eval_dict.get("pp_stages"))
+            refuse_unported(eval_dict.get("shard_docs"))
             kwargs = {k: eval_dict[k] for k in ("tp", "shard_docs", "cp_impl", "pp_stages",
                                                 "scan_steps", "eval_chunk")
                       if eval_dict.get(k) is not None}
@@ -295,16 +294,19 @@ class LTREvaluator:
                 elif summary_tape:
                     summary_tape.epoch_summary(epoch_loss, ranker=ranker,
                                                train_data=train, test_data=test)
-                if (save_state or eval_dict.get("resume")) and is_writer():
+                if save_state or eval_dict.get("resume"):
+                    # every rank makes the state (a tensor-parallel trainer
+                    # joins its shards); rank 0 writes it
                     ck = ranker.checkpoint()
                     ck["epoch"] = epoch_k
                     if vali_tape is not None:
                         ck["best_value"] = vali_tape.best_value
                         ck["best_epoch"] = vali_tape.best_epoch
-                    tmp = state_path + ".tmp"
-                    os.makedirs(os.path.dirname(state_path), exist_ok=True)
-                    torch.save(ck, tmp)
-                    os.replace(tmp, state_path)  # atomic: never a torn state
+                    if is_writer():
+                        tmp = state_path + ".tmp"
+                        os.makedirs(os.path.dirname(state_path), exist_ok=True)
+                        torch.save(ck, tmp)
+                        os.replace(tmp, state_path)  # atomic: never a torn state
                 if loss_tape and loss_tape.epoch_cmp_loss(epoch_loss):
                     break
 

@@ -8,7 +8,7 @@ port's ScorerConfig and OptimizerConfig. JSON list values are grid axes;
 `shard_docs`, `cp_impl`, `pp_stages`, `eval_chunk`) are parsed and named in
 the run directory as the JAX package does. Only `mesh` changes a run: the
 others are read where it is set, and of those, PARALLEL_KEYS belong to the
-slices of the multi-device layer still to come.
+slice of the multi-device layer still to come.
 """
 
 from __future__ import annotations
@@ -23,9 +23,9 @@ from ptranking_tpu_torch.losses import DEFAULT_PARAS
 from ptranking_tpu_torch.models import ScorerConfig
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 
-# companion keys of `mesh` that the port refuses under a mesh: tensor and
-# pipeline parallelism (ROADMAP queue A item 8b), context parallelism (8c)
-PARALLEL_KEYS = ("tp", "shard_docs", "pp_stages")
+# companion keys of `mesh` that the port refuses under a mesh: context
+# parallelism (ROADMAP queue A item 8c)
+PARALLEL_KEYS = ("shard_docs",)
 
 
 def _as_list(v):

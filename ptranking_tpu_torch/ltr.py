@@ -14,16 +14,19 @@ TREC run file a fold). An adversarial model id (IRGAN_* / IRFGAN_*) runs
 the adversarial branch's AdLTREvaluator (default data SyntheticMQ), as the
 JAX package dispatches it.
 
-`-mesh data=W` runs the adhoc, diversification and adversarial branches
-data-parallel over W ranks (the tree branch ignores the mesh flags, as in
-the JAX package). Under torchrun the process group comes from its
-environment; otherwise this entry point starts the W ranks itself, as the
-JAX CLI creates its W devices: gloo ranks for `-device cpu`, NCCL ranks on
-cards 0..W-1 for CUDA (more ranks than cards raise), and W = 1 a one-rank
-group in this process. Rank 0 writes the run directory and its result is
-returned. `-tp`, `-shard_docs`, `-pp_stages` and a `model` or `seq` axis
-> 1 under a mesh belong to ROADMAP queue A items 8b and 8c and raise;
-without a mesh the companion flags change nothing, as in the JAX package.
+`-mesh data=D,model=M` runs the adhoc, diversification and adversarial
+branches over D x M ranks (the tree branch ignores the mesh flags, as in
+the JAX package): rows split over `data`; with `-tp` the adhoc scorer's
+weights split over `model`, with `-pp_stages M` its encoder runs as an
+M-stage pipeline over `model` at inference; otherwise, and on the branches,
+the params stay whole on every model rank. Under torchrun the process
+group comes from its environment; otherwise this entry point starts the
+ranks itself, as the JAX CLI creates its devices: gloo ranks for `-device
+cpu`, NCCL ranks on cards 0..D*M-1 for CUDA (more ranks than cards raise),
+and one rank a one-rank group in this process. Rank 0 writes the run
+directory and its result is returned. `-shard_docs` and a `seq` axis > 1
+under a mesh belong to ROADMAP queue A item 8c and raise; without a mesh
+the companion flags change nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -69,14 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override epoch count (branch evaluators)")
     # the multi-device layer's flags: read where -mesh is set
     p.add_argument("-mesh", type=str, default=None,
-                   help="mesh axis sizes, e.g. 'data=8' (data parallelism over 8 ranks)")
+                   help="mesh axis sizes, e.g. 'data=4,model=2' (8 ranks)")
     p.add_argument("-tp", action="store_true",
-                   help="tensor-parallel scorer under a mesh (not ported yet)")
+                   help="tensor-parallel scorer over the mesh's model axis")
     p.add_argument("-shard_docs", action="store_true",
                    help="context-parallel doc axis under a mesh (not ported yet)")
     p.add_argument("-cp_impl", type=str, default=None, choices=["ring", "ulysses"])
     p.add_argument("-pp_stages", type=int, default=None,
-                   help="pipeline stages under a mesh (not ported yet)")
+                   help="pipeline stages of the listsf encoder over the model axis")
     p.add_argument("-scan_steps", type=int, default=None,
                    help="train batches an index chunk of the resident epoch")
     p.add_argument("-seed", type=int, default=None, help="base init+shuffle seed (default 137)")
@@ -115,8 +118,8 @@ def main(argv=None):
     overrides = parse_mesh_overrides(args)
     mesh = overrides.get("mesh")
     if mesh and args.model not in LTR_TREE_MODELS and not _grouped():
-        # a launcher's process (not a rank started below): the slices still
-        # to come raise before any rank starts
+        # a launcher's process (not a rank started below): the slice still
+        # to come raises before any rank starts
         check_mesh_dict(mesh)
         if args.model in LTR_ADHOC_MODELS:
             refuse_unported(**{k: overrides.get(k) for k in PARALLEL_KEYS})

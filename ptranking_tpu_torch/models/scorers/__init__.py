@@ -134,14 +134,22 @@ def tree_leaves(params) -> list:
 
 
 def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch.Tensor,
-                 training: bool = False, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                 training: bool = False, gen: Optional[torch.Generator] = None,
+                 tp=None, pp=None) -> torch.Tensor:
     """Score a padded batch: [B, N, F] -> [B, N] in fp32 (fp64 stays fp64).
     Padded docs score garbage by design — consumers apply `mask`.
 
     training=True with a generator `gen` (on x's device) applies dropout at
     rate cfg.dropout where the JAX package does. The params stay as given
     (fp32 masters in training); the bf16 cast of compute_dtype happens here,
-    so gradients reach the fp32 masters."""
+    so gradients reach the fp32 masters.
+
+    `tp` (parallel/tensor.py::ModelParallel with the params' spec) runs the
+    params as a tensor-parallel rank's shards, as the JAX package's
+    shardings do. `pp` (parallel/pipeline.py::PPPlan) stages the listsf
+    encoder as a GPipe pipeline over the mesh's `model` axis when
+    training=False; the head and tail FFNs run on the whole batch, since
+    their batch norm takes the batch's statistics."""
     out_dtype = torch.promote_types(x.dtype, torch.float32)
     if cfg.compute_dtype == "bfloat16":
         params = map_params(
@@ -152,7 +160,7 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch
         out = ffn_apply(params["point_sf"], x, mask, AF=cfg.AF, TL_AF=cfg.TL_AF,
                         apply_tl_af=cfg.apply_tl_af, BN=cfg.BN,
                         bn_per_query=cfg.bn_per_query, drop_rate=cfg.dropout,
-                        training=training, gen=gen)
+                        training=training, gen=gen, tp=tp and tp.at("point_sf"))
         return out[..., 0].to(out_dtype)
 
     if cfg.sf_id.startswith("listsf"):
@@ -162,13 +170,23 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch
         def head(v):
             return ffn_apply(params["head_ffnns"], v, mask, AF=cfg.AF, TL_AF=cfg.AF,
                              apply_tl_af=True, BN=cfg.BN, bn_per_query=cfg.bn_per_query,
-                             drop_rate=cfg.dropout, training=training, gen=gen)
+                             drop_rate=cfg.dropout, training=training, gen=gen,
+                             tp=tp and tp.at("head_ffnns"))
 
         def encode(v):
+            if pp is not None and not training:
+                from ptranking_tpu_torch.parallel.pipeline import pipeline_encoder_apply
+
+                return pipeline_encoder_apply(params["encoder"], v, mask, cfg.n_heads,
+                                              cfg.encoder_type, pp.mesh,
+                                              num_microbatches=pp.num_microbatches,
+                                              axis_name=pp.axis_name,
+                                              attn_block_size=cfg.attn_block_size,
+                                              flash=cfg.flash_attn)
             return _listsf.encoder_apply(params["encoder"], v, mask, cfg.n_heads,
                                          cfg.encoder_type, cfg.attn_block_size,
                                          cfg.flash_attn, cfg.dropout, training, gen,
-                                         cfg.remat)
+                                         cfg.remat, tp=tp and tp.at("encoder"))
 
         if cfg.encoder_type == "AllRank":
             combined = encode(head(x))
@@ -181,7 +199,7 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch
         out = ffn_apply(params["tail_ffnns"], combined, mask, AF=cfg.AF, TL_AF=cfg.TL_AF,
                         apply_tl_af=cfg.apply_tl_af, BN=cfg.BN,
                         bn_per_query=cfg.bn_per_query, drop_rate=cfg.dropout,
-                        training=training, gen=gen)
+                        training=training, gen=gen, tp=tp and tp.at("tail_ffnns"))
         return out[..., 0].to(out_dtype)
 
     raise NotImplementedError(cfg.sf_id)

@@ -16,6 +16,7 @@ its own masks (see `_remat_layer`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -28,8 +29,11 @@ from ptranking_tpu_torch.models.scorers.nn import (
     dropout,
     layer_norm_apply,
     layer_norm_init,
+    column_split,
     linear_apply,
     linear_init,
+    row_linear,
+    tp_linear,
 )
 from ptranking_tpu_torch.ops.attention import blockwise_attention, flash_attention
 
@@ -46,13 +50,27 @@ def mhsa_init(gen: torch.Generator, hid_dim: int, device="cpu") -> Params:
 def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
                attn_block_size: Optional[int] = None, flash: bool = False,
                drop_rate: float = 0.1, training: bool = False,
-               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+               gen: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
     """Masked multi-head self-attention over the document axis.
     x: [B, N, F]; mask: [B, N]. In training, the dense and blockwise paths
     drop attention probabilities; the flash path drops none (as in the JAX
-    package)."""
+    package).
+
+    Under a ModelParallel share `tp` whose spec splits `qkv` (M = tp.degree
+    ranks, n_heads % M == 0) the rank runs heads [r H/M, (r+1) H/M): p["qkv"]
+    holds q, k and v of those heads (Split(qkv=True)), the attention runs on
+    [B, H/M, N, d], attention dropout draws for all heads and keeps the
+    rank's, and `fc` is row-parallel (its partial sums reduced over `model`
+    before the whole bias)."""
     B, N, F = x.shape
     d_head = F // n_heads
+    split = tp is not None and tp.degree > 1 and tp.spec["qkv"]["w"] is not None
+    h_split = None
+    if split:
+        x = tp.copy(x)
+        h_start, n_heads = tp.block(n_heads)
+        h_split = (n_heads * tp.degree, h_start)
+        F = n_heads * d_head
     qkv = linear_apply(p["qkv"], x)  # [B, N, 3F]
     q, k, v = torch.split(qkv, F, dim=-1)
 
@@ -66,15 +84,18 @@ def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
         # attention dropout inside the blocks, the dense form exactly
         out = blockwise_attention(q, k, v, mask, block_size=attn_block_size,
                                   drop_rate=drop_rate if training else 0.0,
-                                  gen=gen if training else None)
+                                  gen=gen if training else None, heads=h_split)
     else:
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits / torch.sqrt(torch.tensor(float(d_head)))
         logits = torch.where(mask[:, None, None, :], logits, PAD_SCORE)
         attn = torch.softmax(logits, dim=-1).to(x.dtype)  # softmax in fp32
-        attn = dropout(gen, attn, drop_rate, training)
+        attn = dropout(gen, attn, drop_rate, training,
+                       None if h_split is None else (1, *h_split))
         out = torch.matmul(attn.float(), v.float()).to(x.dtype)
     out = out.transpose(1, 2).reshape(B, N, F)
+    if split:
+        return row_linear(p["fc"], out, tp)
     return linear_apply(p["fc"], out)
 
 
@@ -84,10 +105,16 @@ def pff_init(gen: torch.Generator, num_features: int, hid_dim: int, device="cpu"
 
 
 def pff_apply(p: Params, x: torch.Tensor, drop_rate: float = 0.1, training: bool = False,
-              gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Position-wise FFN: linear -> ReLU -> [dropout] -> linear."""
-    h = torch.relu(linear_apply(p["w1"], x))
-    return linear_apply(p["w2"], dropout(gen, h, drop_rate, training))
+              gen: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
+    """Position-wise FFN: linear -> ReLU -> [dropout] -> linear. Under a
+    ModelParallel share `tp`, w1 and w2 run by their Splits (column then
+    row; tp_linear) and dropout keeps the rank's block of a full draw."""
+    if tp is None or not tp.splits_any():
+        h = torch.relu(linear_apply(p["w1"], x))
+        return linear_apply(p["w2"], dropout(gen, h, drop_rate, training))
+    h, split = tp_linear(p["w1"], x, False, tp, tp.spec["w1"]["w"])
+    h = dropout(gen, torch.relu(h), drop_rate, training, column_split(h, tp) if split else None)
+    return tp_linear(p["w2"], h, split, tp, tp.spec["w2"]["w"])[0]
 
 
 def encoder_init(gen: torch.Generator, num_features: int, n_layers: int,
@@ -137,7 +164,8 @@ def _remat_layer(fn: Callable, layer: Params, x: torch.Tensor,
 def encoder_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
                   encoder_type: str, attn_block_size: Optional[int] = None,
                   flash: bool = False, drop_rate: float = 0.1, training: bool = False,
-                  gen: Optional[torch.Generator] = None, remat: bool = False) -> torch.Tensor:
+                  gen: Optional[torch.Generator] = None, remat: bool = False,
+                  tp=None) -> torch.Tensor:
     """Encoder wiring per variant:
 
       AllRank: x + drop(MHSA(LN(x))); x + drop(FC(LN(x))); final LN
@@ -145,16 +173,22 @@ def encoder_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
       AttnDIN: LN(x + MHSA(x))
 
     remat recomputes each layer in the backward pass (when a gradient is
-    being taken) instead of keeping its activations."""
+    being taken) instead of keeping its activations; under a ModelParallel
+    share `tp` (the encoder's spec) the recompute replays the layer's
+    `model` collectives, in the same order on every rank. Each sublayer's
+    output is whole, so the norms and residuals run on whole tensors."""
 
-    def one_layer(layer, x, g):
+    def one_layer(i, layer, x, g):
+        share = None if tp is None else tp.at("layers", i)
+
         def attend(h):
             return mhsa_apply(layer["mhsa"], h, mask, n_heads, attn_block_size, flash,
-                              drop_rate, training, g)
+                              drop_rate, training, g, share and share.at("mhsa"))
 
         if encoder_type == "AllRank":
             x = x + dropout(g, attend(layer_norm_apply(layer["ln1"], x)), drop_rate, training)
-            h = pff_apply(layer["fc"], layer_norm_apply(layer["ln2"], x), drop_rate, training, g)
+            h = pff_apply(layer["fc"], layer_norm_apply(layer["ln2"], x), drop_rate, training, g,
+                          share and share.at("fc"))
             return x + dropout(g, h, drop_rate, training)
         if encoder_type == "DASALC":
             return layer_norm_apply(layer["ln"], attend(x))
@@ -162,11 +196,12 @@ def encoder_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
             return layer_norm_apply(layer["ln"], x + attend(x))
         raise NotImplementedError(encoder_type)
 
-    for layer in p["layers"]:
+    for i, layer in enumerate(p["layers"]):
+        fn = functools.partial(one_layer, i)
         if remat and torch.is_grad_enabled():
-            x = _remat_layer(one_layer, layer, x, gen)
+            x = _remat_layer(fn, layer, x, gen)
         else:
-            x = one_layer(layer, x, gen)
+            x = fn(layer, x, gen)
     if encoder_type == "AllRank" and "final_ln" in p:
         x = layer_norm_apply(p["final_ln"], x)
     return x

@@ -19,7 +19,7 @@ carries over leaf for leaf. The reference choices kept here:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -227,16 +227,78 @@ def layer_norm_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            training: bool) -> torch.Tensor:
+            training: bool, split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability 1 - rate and scale it
     by 1/(1 - rate). The keep-mask comes from `gen`, a generator on x's
-    device (drawn for the global batch under data parallelism); without
-    one, or out of training, x passes unchanged."""
+    device (drawn for the global batch under data parallelism, and at the
+    full width of a dim that `split` says is cut over `model`:
+    collectives.batch_rand); without one, or out of training, x passes
+    unchanged."""
     if not training or rate <= 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    keep_mask = batch_rand(x.shape, gen, x.device) < keep
+    keep_mask = batch_rand(x.shape, gen, x.device, split=split) < keep
     return torch.where(keep_mask, x / keep, 0.0)
+
+
+class _Bf16Partial(torch.autograd.Function):
+    """fp32 x @ w for bf16 x, w on CUDA without the bias: a row-parallel
+    layer's partial product, summed over `model` before the bias is added
+    and the sum rounded once to bf16. The backward is `_Bf16Linear`'s: the
+    incoming fp32 gradient is the bf16 output's, so its bf16 cast is exact."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        dy = dy.to(x2.dtype)
+        dx = _mm_f32(dy, w.t()).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(x2.t(), dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def row_linear(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel layer under a ModelParallel share `tp`: x holds this
+    rank's block of the input features and p["w"] the matching rows; the
+    partial products (fp32) are summed over `model` (`tp.reduce`), then the
+    whole bias is added in fp32 and the sum returned in x's dtype, as
+    `linear_apply` rounds one device's product."""
+    if "w_q" in p:
+        raise NotImplementedError("int8 params are served on one device; a tensor-parallel "
+                                  "share takes fp32 or bf16 params")
+    if _takes_bf16_gemm(x, p):
+        part = _Bf16Partial.apply(x.reshape(-1, x.shape[-1]), p["w"])
+        part = part.reshape(*x.shape[:-1], part.shape[-1])
+    else:
+        part = torch.matmul(x.float(), p["w"].float())
+    return (tp.reduce(part) + p["b"].float()).to(x.dtype)
+
+
+def tp_linear(p: Params, x: torch.Tensor, x_split: bool, tp, spec) -> Tuple[torch.Tensor, bool]:
+    """One linear layer under a ModelParallel share by its spec (the
+    Split of p["w"]): whole (None), column (dim 1: the rank's output
+    columns, x whole) or row (dim 0: the rank's input rows, x split).
+    `x_split` says whether x holds this rank's block of its features;
+    returns (y, whether y does)."""
+    if spec is None or spec.dim == 1:
+        if x_split:
+            x = tp.gather(x)
+        if spec is None:
+            return linear_apply(p, x), False
+        return linear_apply(p, tp.copy(x)), True
+    if not x_split:
+        x = tp.take(x)
+    return row_linear(p, x, tp), False
+
+
+def column_split(x: torch.Tensor, tp) -> Tuple[int, int, int]:
+    """batch_rand's split of a column-split activation x."""
+    start, _ = tp.block(x.shape[-1] * tp.degree)
+    return x.dim() - 1, x.shape[-1] * tp.degree, start
 
 
 def ffn_init(gen: torch.Generator, ff_dims: Sequence[int], BN: bool = True,
@@ -262,21 +324,39 @@ def ffn_init(gen: torch.Generator, ff_dims: Sequence[int], BN: bool = True,
 def ffn_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, AF: str = "R",
               TL_AF: str = "S", apply_tl_af: bool = False, BN: bool = True,
               bn_per_query: bool = False, drop_rate: float = 0.1, training: bool = False,
-              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+              gen: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
     """x: [B, N, d_in] -> [B, N, d_out]. In training, dropout comes before
-    each hidden layer's linear (not before the last one)."""
+    each hidden layer's linear (not before the last one).
+
+    `tp`, a ModelParallel share of the stack (parallel/tensor.py), runs each
+    layer by its Split (`tp_linear`): after a column layer the activation
+    is this rank's block of features; its batch norm normalises them with
+    the rank's slice of gamma and beta (features are independent, so the
+    statistics need no `model` sum), dropout draws the full width and keeps
+    the block, and a softmax activation ("ST") first gathers the width. The
+    last layer is whole, so the output is whole."""
+    if tp is not None and not tp.splits_any():
+        tp = None
     af = get_af(AF)
     layers = p["layers"]
-    for lp in layers[:-1]:
-        x = dropout(gen, x, drop_rate, training)
-        x = linear_apply(lp["linear"], x)
+    split = False  # x holds this rank's block of its features
+    for i, lp in enumerate(layers):
+        last = i == len(layers) - 1
+        if not last:
+            x = dropout(gen, x, drop_rate, training, column_split(x, tp) if split else None)
+        if tp is None:
+            x = linear_apply(lp["linear"], x)
+        else:
+            x, split = tp_linear(lp["linear"], x, split, tp, tp.spec["layers"][i]["linear"]["w"])
+        if last and not apply_tl_af:
+            break
         if BN:
-            x = masked_batch_norm(lp["bn"], x, mask, per_query=bn_per_query)
-        x = af(x)
-    last = layers[-1]
-    x = linear_apply(last["linear"], x)
-    if apply_tl_af:
-        if BN:
-            x = masked_batch_norm(last["bn"], x, mask, per_query=bn_per_query)
-        x = get_af(TL_AF)(x)
+            bn = lp["bn"]
+            if split:
+                bn = {k: tp.take(v) for k, v in bn.items()}
+            x = masked_batch_norm(bn, x, mask, per_query=bn_per_query)
+        act = get_af(TL_AF) if last else af
+        if split and act is _ACTIVATIONS["ST"]:
+            x, split = tp.gather(x), False
+        x = act(x)
     return x

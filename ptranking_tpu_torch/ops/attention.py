@@ -74,7 +74,8 @@ _FWD_TILE = 64
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, block_size: int = 512, drop_rate: float = 0.0,
-                        gen: "torch.Generator | None" = None) -> torch.Tensor:
+                        gen: "torch.Generator | None" = None,
+                        heads: "tuple | None" = None) -> torch.Tensor:
     """Online-softmax attention over key blocks of `block_size`: fp32 logits
     and accumulators, the block's probabilities rounded to v's dtype before
     the p.v product (as the JAX package does), output in q's dtype.
@@ -84,7 +85,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     draws its keep-mask [B, H, N, block] from `gen` in turn and drops the
     numerator's terms only (kept ones scaled by 1/(1 - drop_rate)); the
     denominator sums the undropped terms, so the result is dense dropout of
-    the softmax probabilities followed by p.v."""
+    the softmax probabilities followed by p.v. `heads=(H_full, start)` says
+    q, k, v hold heads [start, start + H) of H_full (a tensor-parallel
+    rank's heads): each block draws for all H_full heads and keeps these."""
     B, H, N, d = q.shape
     block = min(block_size, N)
     rem = (-N) % block
@@ -106,7 +109,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p_num = p
         if drop_rate > 0.0 and gen is not None:
             keep = 1.0 - drop_rate
-            keep_mask = batch_rand(p.shape, gen, p.device) < keep
+            keep_mask = batch_rand(p.shape, gen, p.device,
+                                   split=None if heads is None else (1, *heads)) < keep
             p_num = torch.where(keep_mask, p / keep, 0.0)
         part_num = torch.matmul(p_num.to(v.dtype).float(), vb.float())
         new_mx = torch.maximum(mx, m)

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import io
-from typing import Any, Callable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,17 +90,30 @@ def global_count(t: torch.Tensor) -> torch.Tensor:
 
 
 def batch_rand(shape: Sequence[int], gen: Optional[torch.Generator], device,
-               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               dtype: Optional[torch.dtype] = None,
+               split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """torch.rand(shape) from `gen`. Inside `DataParallel.rows` the leading
     axis must be the batch's rows: the draw is made for the global batch and
-    this rank's block returned, so every rank's generator advances alike."""
+    this rank's block returned, so every rank's generator advances alike.
+    `split=(dim, full, start)` says `shape[dim]` is this rank's block,
+    from `start`, of `full` entries cut over the `model` axis (a column-split
+    activation, the rank's heads): the draw is made at `full` and the block
+    kept, so the draws are the one-device run's."""
+    shape = list(shape)
+    if split is not None:
+        dim, full_n, start = split
+        dim %= len(shape)
+        local_n, shape[dim] = shape[dim], full_n
     if _ACTIVE is None:
-        return torch.rand(tuple(shape), generator=gen, device=device, dtype=dtype)
-    if shape[0] != _ACTIVE.local:
-        raise ValueError(f"a data-parallel draw must lead with the batch's {_ACTIVE.local} "
-                         f"rows, got shape {tuple(shape)}")
-    full = torch.rand((_ACTIVE.total, *shape[1:]), generator=gen, device=device, dtype=dtype)
-    return full[_ACTIVE.start:_ACTIVE.start + _ACTIVE.local]
+        out = torch.rand(tuple(shape), generator=gen, device=device, dtype=dtype)
+    else:
+        if shape[0] != _ACTIVE.local:
+            raise ValueError(f"a data-parallel draw must lead with the batch's "
+                             f"{_ACTIVE.local} rows, got shape {tuple(shape)}")
+        full = torch.rand((_ACTIVE.total, *shape[1:]), generator=gen, device=device,
+                          dtype=dtype)
+        out = full[_ACTIVE.start:_ACTIVE.start + _ACTIVE.local]
+    return out if split is None else out.narrow(dim, start, local_n)
 
 
 def is_writer() -> bool:
@@ -164,14 +177,19 @@ SINGLE = _Single()
 
 class DataParallel(_Single):
     """One rank's share of data-parallel work over `group` (the ranks that
-    split a batch's rows; rank i takes the i-th block)."""
+    split a batch's rows; rank i takes the i-th block). State and files
+    span the world: its first rank writes, reads files for every rank and
+    broadcasts the initial state, so ranks that share a block of rows (the
+    `model` axis) hold the same values and a file is written once."""
 
     def __init__(self, group=None):
         self.group = group if group is not None else dist.group.WORLD
+        self.root = dist.group.WORLD
         self.degree = dist.get_world_size(self.group)
         self.index = dist.get_rank(self.group)
-        self.is_writer = self.index == 0
-        self._src = dist.get_global_rank(self.group, 0)
+        self._root_index = dist.get_rank(self.root)
+        self.is_writer = self._root_index == 0
+        self._src = dist.get_global_rank(self.root, 0)
 
     def block(self, rows: int) -> slice:
         """This rank's block of `rows` rows padded to a multiple of the
@@ -234,7 +252,7 @@ class DataParallel(_Single):
     def broadcast(self, leaves: Sequence[torch.Tensor]):
         """The first rank's values into every rank's tensors."""
         if leaves:
-            self._flat(list(leaves), lambda f: dist.broadcast(f, src=self._src, group=self.group))
+            self._flat(list(leaves), lambda f: dist.broadcast(f, src=self._src, group=self.root))
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's block of rows, in rank order (the padded global batch)."""
@@ -246,12 +264,12 @@ class DataParallel(_Single):
         """fn(*args) run on the first rank alone (a file read), its result
         (or its exception) handed to every rank."""
         box = [None]
-        if self.index == 0:
+        if self._root_index == 0:
             try:
                 box[0] = (True, fn(*args))
             except Exception as exc:  # raised on every rank, not only here
                 box[0] = (False, exc)
-        dist.broadcast_object_list(box, src=self._src, group=self.group)
+        dist.broadcast_object_list(box, src=self._src, group=self.root)
         ok, value = box[0]
         if not ok:
             raise value
@@ -263,7 +281,7 @@ class DataParallel(_Single):
         return io.BytesIO(self.from_first(_read_bytes, path))
 
     def barrier(self):
-        dist.barrier(group=self.group)
+        dist.barrier(group=self.root)
 
 
 def _read_bytes(path: str) -> bytes:

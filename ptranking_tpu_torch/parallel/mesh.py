@@ -1,9 +1,10 @@
-"""The device mesh, built on a torch.distributed process group.
+"""The device mesh, built on a torch.distributed process group, and its
+sharding rules.
 
 The port's counterpart of ptranking_tpu/parallel/mesh.py. Axes:
   data  — data parallel over query groups (the rows of every batch)
-  model — tensor parallel over scorer weights (ROADMAP queue A item 8b)
-  seq   — context parallel over the document axis (item 8c)
+  model — tensor parallel over scorer weights, pipeline stages, experts
+  seq   — context parallel over the document axis (ROADMAP queue A item 8c)
 and, for the hybrid mesh, a leading `dcn` axis over hosts; `dcn x data` is
 one data-parallel group, as the JAX package shards a batch over both.
 
@@ -11,9 +12,12 @@ One process drives one device. A mesh is a `DeviceMesh` over the process
 group, whose size must equal the world size; the group is made first (by
 torchrun, `data/prefetch.py::initialize_distributed` or
 `parallel/launch.py`). Where XLA inserts collectives from shardings, the
-port makes them explicit (parallel/collectives.py): `replicated` broadcasts
-tensors from the mesh's first rank, and `batch_sharding` gives a rank's
-block of a batch's rows. The TP and EP rules wait for item 8b.
+port makes them explicit: `data_parallel` / `batch_sharding` give a rank's
+share of the batch axes (parallel/collectives.py; the ranks that share a
+`data` coordinate see the same rows), `replicated` broadcasts tensors from
+the mesh's first rank, and `scorer_param_sharding` / `expert_param_sharding`
+say which dim of each param leaf is split over `model`, for
+parallel/tensor.py::ModelParallel to cut and to run.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ptranking_tpu_torch.parallel.collectives import DataParallel
 from ptranking_tpu_torch.parallel.collectives import SINGLE as _SINGLE
+from ptranking_tpu_torch.parallel.tensor import ModelParallel, Split
 
 AXES = ("data", "model", "seq")
 HYBRID_AXES = ("dcn",) + AXES
@@ -111,14 +116,11 @@ _MESH_CACHE: dict = {}
 
 
 def check_mesh_dict(mesh_dict: dict) -> None:
-    """The axes this slice runs: unknown axes fail; `model` or `seq` > 1
-    belong to ROADMAP queue A items 8b and 8c."""
+    """The axes the port runs: unknown axes fail; `seq` > 1 belongs to
+    ROADMAP queue A item 8c."""
     unknown = set(mesh_dict) - set(HYBRID_AXES)
     if unknown:
         raise ValueError(f"unknown mesh axes {unknown}")
-    if int(mesh_dict.get("model", 1)) > 1:
-        raise NotImplementedError("a mesh axis `model` > 1 is tensor parallelism, not ported "
-                                  "yet (ROADMAP queue A item 8b)")
     if int(mesh_dict.get("seq", 1)) > 1:
         raise NotImplementedError("a mesh axis `seq` > 1 is context parallelism, not ported "
                                   "yet (ROADMAP queue A item 8c)")
@@ -147,19 +149,65 @@ def mesh_from_dict(mesh_dict: dict, device_type: Optional[str] = None) -> Device
     return _MESH_CACHE[key]
 
 
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    """The size of a mesh's axis; 1 if it has no such axis."""
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
+def axis_group(mesh: DeviceMesh, axis: str):
+    """The process group of this rank's line along `axis`: the ranks that
+    differ from it in that coordinate alone."""
+    return mesh.get_group(axis)
+
+
+# flattened dcn x data groups of hybrid meshes with a `model` axis, by the
+# mesh's rank layout: every rank makes them once, in the same order
+_BATCH_GROUPS: dict = {}
+
+
+def _batch_group(mesh: DeviceMesh):
+    """The data-parallel group of this rank: `data` (with `dcn`, the
+    flattened dcn x data line); None where it is the whole world."""
+    names = mesh.mesh_dim_names
+    if "dcn" not in names:
+        return mesh.get_group("data")
+    if axis_size(mesh, "model") == 1:
+        return None  # dcn x data spans the mesh
+    ranks = mesh.mesh  # [dcn, data, model, seq] of global ranks
+    key = (dist.group.WORLD, tuple(ranks.shape), tuple(ranks.flatten().tolist()))
+    if key not in _BATCH_GROUPS:
+        mine = None
+        for m in range(ranks.shape[2]):
+            for s_ in range(ranks.shape[3]):
+                line = ranks[:, :, m, s_].flatten().tolist()
+                g = dist.new_group(line)
+                if dist.get_rank() in line:
+                    mine = g
+        _BATCH_GROUPS[key] = mine
+    return _BATCH_GROUPS[key]
+
+
 def data_parallel(mesh):
     """The DataParallel share of a mesh's batch axes (SINGLE for no mesh); a
-    mesh dict is built with mesh_from_dict. Its `model` and `seq` axes must
-    be 1 (items 8b and 8c)."""
+    mesh dict is built with mesh_from_dict. Its group is the rank's `data`
+    line (dcn x data on the hybrid mesh): the ranks along `model` share a
+    block of rows; files and the initial state span the whole mesh."""
     if mesh is None:
         return _SINGLE
     if isinstance(mesh, dict):
         mesh = mesh_from_dict(mesh)  # its axes are checked there
     else:
         check_mesh_dict({ax: mesh.size(i) for i, ax in enumerate(mesh.mesh_dim_names)})
-    names = mesh.mesh_dim_names
-    # model = seq = 1: the batch axes span the whole mesh
-    return DataParallel(mesh.get_group("data") if "dcn" not in names else None)
+    return DataParallel(_batch_group(mesh))
+
+
+def model_parallel(mesh, spec=None) -> ModelParallel:
+    """This rank's ModelParallel share of the mesh's `model` axis, with the
+    params' spec (scorer_param_sharding or expert_param_sharding)."""
+    if axis_size(mesh, "model") == 1:
+        return ModelParallel(None, spec)
+    return ModelParallel(axis_group(mesh, "model"), spec)
 
 
 def replicated(mesh: DeviceMesh, leaves):
@@ -178,3 +226,115 @@ def batch_sharding(mesh: DeviceMesh, shard_docs: bool = False):
         raise NotImplementedError("shard_docs shards the doc axis over `seq`, context "
                                   "parallelism, not ported yet (ROADMAP queue A item 8c)")
     return data_parallel(mesh)
+
+
+# --------------------------------------------------------------------- TP
+
+
+def _whole(tree):
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_whole(v) for v in tree]
+    return None
+
+
+def _ffn_layer_split(i: int) -> Split:
+    """Alternate the hidden-dim split across a stack's sharded layers: the
+    even ones split their output features (column parallel), the odd ones
+    their input features (row parallel), so each column-then-row pair sums
+    over `model` once."""
+    return Split(1) if i % 2 == 0 else Split(0)
+
+
+def scorer_param_sharding(mesh, params, n_heads: Optional[int] = None):
+    """The split of every scorer param leaf over the `model` axis: a Split
+    (parallel/tensor.py) or None for a whole leaf, in a tree of the params'
+    shape. The JAX package's rules (its PartitionSpecs):
+
+      * FFN stacks (point_sf, head_ffnns, tail_ffnns): sharded layers
+        alternate column / row, counting sharded layers only; the last
+        layer stays whole, and so does a layer with min(w.shape) < model or
+        a single output; a column layer's bias splits with its output, a
+        row layer's stays whole; batch norm params stay whole;
+      * the encoder: the MHSA's fused qkv is column parallel and its fc row
+        parallel; AllRank's position-wise fc.w1 column and fc.w2 row; layer
+        norms whole;
+      * anything else whole.
+
+    The port's own layout, with the same values: qkv is split by head
+    (Split(qkv=True): a rank holds q, k and v of heads [r H/M, (r+1) H/M)),
+    where JAX's P(None, "model") cuts the fused 3F columns into contiguous
+    blocks and XLA reshards; where n_heads % model != 0 (or n_heads is not
+    given) the MHSA stays whole on every model rank and only the FFNs
+    shard; a layer whose split dim does not divide by `model` stays whole.
+    At model = 1 every leaf is whole."""
+    M = axis_size(mesh, "model")
+    if M == 1:
+        return _whole(params)
+
+    def spec_ffn(ffn):
+        layers = ffn["layers"]
+        out, sharded_i = [], 0
+        for i, layer in enumerate(layers):
+            w = layer["linear"]["w"]
+            split = _ffn_layer_split(sharded_i)
+            if (i == len(layers) - 1 or min(w.shape) < M or w.shape[1] == 1
+                    or w.shape[split.dim] % M):
+                lin = {"w": None, "b": None}
+            else:
+                lin = {"w": split, "b": Split(0) if split.dim == 1 else None}
+                sharded_i += 1
+            spec = {"linear": lin}
+            if "bn" in layer:
+                spec["bn"] = _whole(layer["bn"])
+            out.append(spec)
+        return {"layers": out}
+
+    def spec_encoder(enc):
+        heads = n_heads is not None and n_heads % M == 0
+        out = []
+        for layer in enc["layers"]:
+            spec = _whole(layer)
+            if heads:
+                spec["mhsa"] = {"qkv": {"w": Split(1, qkv=True), "b": Split(0, qkv=True)},
+                                "fc": {"w": Split(0), "b": None}}
+            if "fc" in layer and layer["fc"]["w1"]["w"].shape[1] % M == 0:
+                spec["fc"] = {"w1": {"w": Split(1), "b": Split(0)},
+                              "w2": {"w": Split(0), "b": None}}
+            out.append(spec)
+        enc_spec = _whole(enc)
+        enc_spec["layers"] = out
+        return enc_spec
+
+    spec = {}
+    for name, sub in params.items():
+        if name == "encoder":
+            spec[name] = spec_encoder(sub)
+        elif isinstance(sub, dict) and "layers" in sub:
+            spec[name] = spec_ffn(sub)
+        else:
+            spec[name] = _whole(sub)
+    return spec
+
+
+def expert_param_sharding(mesh, cluster_params):
+    """EP: the cluster of K MDN scorers (diversification/scorers.py
+    init_div_scorer's cluster branch: a leading K axis on every leaf) split
+    over `model`, each model rank holding K / model experts."""
+    M = axis_size(mesh, "model")
+
+    def leaf(t):
+        if t.shape[0] % M:
+            raise ValueError(f"a cluster of {t.shape[0]} experts does not split over "
+                             f"model={M}")
+        return Split(0) if M > 1 else None
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v) for v in tree]
+        return leaf(tree)
+
+    return walk(cluster_params)

@@ -128,10 +128,14 @@ class AdhocRanker:
     methods leave batches, sums and gradients as they are; a
     DataParallel in parallel/train.py::DistributedTrainer (and in the
     branches' players under a mesh), where each method takes this rank's
-    block of a batch's rows and sums over the ranks."""
+    block of a batch's rows and sums over the ranks. `_tp` (a
+    ModelParallel share: the params are its shards) and `_pp` (a PPPlan for
+    inference) are set by the DistributedTrainer under tp and pp_stages."""
 
     stop_check_freq = 10  # epochs between NaN/all-zero checks
     _dp = SINGLE
+    _tp = None
+    _pp = None
 
     def __init__(self, model_id: str, scorer_cfg: ScorerConfig,
                  model_paras: Optional[Dict[str, Any]] = None,
@@ -184,8 +188,7 @@ class AdhocRanker:
         batch's loss as a device tensor (no host sync)."""
         self._optimizer.zero_grad(set_to_none=True)
         with self._dp.rows(features.shape[0]):
-            scores = apply_scorer(self.params, self.scorer_cfg, features, mask,
-                                  training=True, gen=self._gen)
+            scores = self._scores(features, mask, training=True)
             # a stochastic loss draws from the same generator, after the scorer's dropout
             kw = {"gen": self._gen} if self.model_id in STOCHASTIC else {}
             loss = self.loss_fn(scores, labels, mask, label_type=self.label_type,
@@ -194,6 +197,13 @@ class AdhocRanker:
         self._dp.reduce_grads(self._leaves)
         self._optimizer.step()
         return loss.detach()
+
+    def _scores(self, x: torch.Tensor, mask: torch.Tensor, training: bool = False):
+        """apply_scorer on the ranker's params (with its TP share, and in
+        inference its pipeline plan); training draws from its generator."""
+        return apply_scorer(self.params, self.scorer_cfg, x, mask, training=training,
+                            gen=self._gen if training else None, tp=self._tp,
+                            pp=None if training else self._pp)
 
     def _features_mask(self, batch: RankingBatch):
         """(features, mask bool) of a batch on the device: this rank's block
@@ -299,7 +309,7 @@ class AdhocRanker:
         zero; under data parallelism every rank takes the same decision, on
         counts summed over the ranks."""
         with self._dp.rows(x.shape[0]):
-            masked = torch.where(mask, apply_scorer(self.params, self.scorer_cfg, x, mask), 0.0)
+            masked = torch.where(mask, self._scores(x, mask), 0.0)
         bad, nonzero = self._dp.all_reduce(torch.stack(
             [torch.sum(~torch.isfinite(masked)), torch.sum(masked != 0.0)])).tolist()
         return bad > 0 or nonzero == 0
@@ -312,7 +322,7 @@ class AdhocRanker:
             raise RuntimeError("init() or load() the ranker first")
         x, mask = self._features_mask(batch)
         with self._dp.rows(x.shape[0]):
-            scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+            scores = self._scores(x, mask)
         return self._dp.gather_rows(scores)[:batch.mask.shape[0]]
 
     # ------------------------------------------------------------------ eval
@@ -356,7 +366,7 @@ class AdhocRanker:
                    ks) -> torch.Tensor:
         """One batch's packed [4 * len(ks) + 1] metric sums, on the device."""
         with self._dp.rows(x.shape[0]):
-            scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+            scores = self._scores(x, mask)
         out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
         # all-padded remainder rows add zero metric and must not count
         count = torch.sum(torch.any(mask, dim=-1)).to(torch.float32)
@@ -391,7 +401,7 @@ class AdhocRanker:
         for batch in batches:
             x, labels, mask = self._batch_arrays(batch)
             with dp.rows(x.shape[0]):
-                scores = apply_scorer(self.params, self.scorer_cfg, x, mask)
+                scores = self._scores(x, mask)
             out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
             # every rank's rows, in order: the padded global batch
             real = dp.gather_rows(torch.any(mask, dim=-1))
@@ -418,11 +428,13 @@ class AdhocRanker:
         }
 
     def save(self, path: str):
-        """The checkpoint to `path`; under data parallelism rank 0 writes it
-        and every rank waits for the file."""
+        """The checkpoint to `path`; under a mesh every rank makes it (a
+        tensor-parallel trainer joins its shards, a collective), rank 0
+        writes it and every rank waits for the file."""
+        ck = self.checkpoint()
         if self._dp.is_writer:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            torch.save(self.checkpoint(), path)
+            torch.save(ck, path)
         self._dp.barrier()
 
     def restore(self, ckpt: Dict[str, Any]) -> "AdhocRanker":
@@ -444,11 +456,15 @@ class AdhocRanker:
             for group in opt_state["param_groups"]:
                 group["lr"] = jax_state["lr"]
         if opt_state is not None:
-            self._optimizer.load_state_dict(opt_state)
+            self._load_optimizer(opt_state)
         gen = ckpt.get("generator")
         if gen is not None and gen["device"] == self.device.type:
             self._gen.set_state(gen["state"])
         return self
+
+    def _load_optimizer(self, opt_state):
+        """An optimizer state dict (of full params) into the optimizer."""
+        self._optimizer.load_state_dict(opt_state)
 
     def _checkpoint_params(self, ckpt: Dict[str, Any]):
         """The params of a `read_checkpoint` dict on the ranker's device."""

@@ -7,7 +7,7 @@ evaluator names), a `-dir_json` grid run of IRFGAN_List, and the refusals:
 CUDA where there is none, and the multi-device flags: `-mesh data=2` runs
 both players data-parallel over two gloo ranks, `-tp` and `-shard_docs`
 without a mesh change nothing (as in the JAX package), and a mesh's
-`model` or `seq` axis (ROADMAP queue A items 8b, 8c) raises."""
+`seq` axis (ROADMAP queue A item 8c) raises."""
 
 import dataclasses
 import json
@@ -202,17 +202,19 @@ def test_cli_refuses_the_multi_device_flags(argv, tmp_path, tmp_path_factory):
 
 
 def test_evaluator_and_machines_refuse_a_mesh(tmp_path):
-    """A mesh's `model` axis (ROADMAP queue A item 8b) raises before any
-    work; a data axis without the process group of its ranks raises too
-    (`ltr.main` or torchrun make the group)."""
-    ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": {"data": 1, "model": 2}})
-    with pytest.raises(NotImplementedError, match="queue A item 8b"):
+    """A mesh's `seq` axis (ROADMAP queue A item 8c) raises before any
+    work; a data or model axis without the process group of its ranks
+    raises too (`ltr.main` or torchrun make the group; a `model` axis runs
+    there, the players whole on every model rank)."""
+    ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": {"data": 1, "seq": 2}})
+    with pytest.raises(NotImplementedError, match="queue A item 8c"):
         ev.point_run(debug=True, model_id="IRFGAN_List", data_id="SyntheticMQ",
                      dir_output=str(tmp_path), epochs=1)
-    ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": {"data": 2}})
-    with pytest.raises(RuntimeError, match="process group"):
-        ev.point_run(debug=True, model_id="IRFGAN_List", data_id="SyntheticMQ",
-                     dir_output=str(tmp_path), epochs=1)
+    for mesh in ({"data": 2}, {"data": 1, "model": 2}):
+        ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": mesh})
+        with pytest.raises(RuntimeError, match="process group"):
+            ev.point_run(debug=True, model_id="IRFGAN_List", data_id="SyntheticMQ",
+                         dir_output=str(tmp_path), epochs=1)
 
 
 @pytest.mark.parametrize("entry", ["machine", "evaluator", "ltr_main"])

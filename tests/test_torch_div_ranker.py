@@ -207,8 +207,11 @@ def test_pt_checkpoint_round_trip_and_refusals(tmp_path):
     jr.save(str(tmp_path / "j.pkl"))
     with pytest.raises(ValueError, match="expected keys"):
         DivRanker("DALETOR", cfg, device="cpu").load(str(tmp_path / "j.pkl"))
-    # a mesh's `model` axis is tensor parallelism, still to come
-    with pytest.raises(NotImplementedError, match="queue A item 8b"):
+    # a mesh's `seq` axis is context parallelism, still to come; a `model`
+    # axis needs the process group of its ranks
+    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+        DivRanker("DALETOR", cfg, mesh={"data": 1, "seq": 2}, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
         DivRanker("DALETOR", cfg, mesh={"data": 1, "model": 2}, device="cpu")
     with pytest.raises(RuntimeError, match="init"):
         DivRanker("DALETOR", cfg, device="cpu").predict(next(iter(ds.batches())))

@@ -5,8 +5,9 @@ SyntheticMQ data and on small LETOR files from the same initial params,
 an interrupted run resumed to the same bits, `python -m
 ptranking_tpu_torch.ltr` on the CPU, and the multi-device flags as the JAX
 package reads them: without `-mesh` they change nothing, the tree branch
-ignores them, `-mesh data=W` runs W data-parallel ranks, and only the
-slices still to come (ROADMAP queue A items 8b, 8c) refuse, under a mesh."""
+ignores them, `-mesh data=W` runs W data-parallel ranks, a `model` axis
+runs with `-tp`, `-pp_stages` or whole params (ROADMAP queue A item 8b),
+and only the slice still to come (item 8c) refuses, under a mesh."""
 
 import dataclasses
 import os
@@ -260,7 +261,7 @@ def _files(root):
                   for f in fs)
 
 
-def _jax_run_dir(model_id, root, overrides):
+def _jax_run_dir(model_id, root, overrides, sf_id="pointsf"):
     """The run directory the JAX package's evaluator of `model_id` names for
     the debug CLI defaults with these overrides (relative to `root`)."""
     if model_id in ("DALETOR", "DivProbRanker"):
@@ -271,7 +272,7 @@ def _jax_run_dir(model_id, root, overrides):
         ev.set_settings(True, model_id, "pointsf", "SyntheticMQ", None, str(root), None)
     else:
         ev = jev.LTREvaluator(mesh_overrides=overrides)
-        ev.set_settings(True, model_id, "pointsf", "SyntheticMQ", None, str(root), None)
+        ev.set_settings(True, model_id, sf_id, "SyntheticMQ", None, str(root), None)
     data_dict = ev.data_setting.default_setting()
     eval_dict = ev.eval_setting.default_setting()
     if model_id.startswith("IR"):
@@ -285,14 +286,16 @@ _PLAIN = {}
 
 
 def _plain_run(model_id, extra, tmp_path_factory):
-    """The port's debug CLI run of `model_id` without the multi-device flags
-    (once a module): (CV metrics, run directory)."""
-    if model_id not in _PLAIN:
+    """The port's debug CLI run of `model_id` (with the flags `extra`)
+    without the multi-device flags (once a module): (CV metrics, run
+    directory)."""
+    key = (model_id, *extra)
+    if key not in _PLAIN:
         out = tmp_path_factory.mktemp(f"plain_{model_id}")
         perf = ltr.main(["-device", "cpu", "--debug", "-model", model_id, *extra,
                          "-dir_output", str(out)])
-        _PLAIN[model_id] = perf, _files(out)
-    return _PLAIN[model_id]
+        _PLAIN[key] = perf, _files(out)
+    return _PLAIN[key]
 
 
 def _metrics(perf):
@@ -346,37 +349,71 @@ def test_cli_refuses_the_branches_and_the_mesh(argv, item, tmp_path, tmp_path_fa
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-model", "RankMSE", "-mesh", "data=2", "-tp"], "item 8b"),
-    (["-model", "RankMSE", "-mesh", "data=2", "-pp_stages", "2"], "item 8b"),
+    (["-model", "RankMSE", "-mesh", "data=1,model=2", "-tp"], "item 8b"),
+    (["-model", "RankMSE", "-sf_id", "listsf", "-mesh", "model=2", "-pp_stages", "2"],
+     "item 8b"),
     (["-model", "RankMSE", "-mesh", "data=1,model=2"], "item 8b"),
     (["-model", "RankMSE", "-mesh", "data=2", "-shard_docs"], "item 8c"),
     (["-model", "DALETOR", "-mesh", "data=1,seq=2"], "item 8c"),
     (["-model", "IRGAN_Point", "-mesh", "model=2"], "item 8b"),
 ])
-def test_cli_refuses_the_slices_still_to_come(argv, item, tmp_path):
-    """Tensor and pipeline parallelism (item 8b) and context parallelism
-    (item 8c) under a mesh raise before any rank starts or file is written."""
-    with pytest.raises(NotImplementedError, match=f"queue A {item}"):
-        ltr.main(["-device", "cpu", "-dir_output", str(tmp_path), *argv])
-    assert not any(os.scandir(tmp_path))
+def test_cli_refuses_the_slices_still_to_come(argv, item, tmp_path, tmp_path_factory):
+    """Context parallelism (item 8c) under a mesh raises before any rank
+    starts or file is written. The flags of item 8b run: a `model` axis of
+    2 gloo ranks, with the pointsf's weights split (-tp), the listsf's
+    encoder staged at inference (-pp_stages 2), or the params whole (no
+    flag, and the adversarial branch). With `data` = 1 every rank takes the
+    whole batch and draws the one-device dropout masks (full widths under
+    -tp), so the CV metrics are the one-device run's within 1e-5, and the
+    run directory is the one the JAX evaluator names."""
+    if item == "item 8c":
+        with pytest.raises(NotImplementedError, match=f"queue A {item}"):
+            ltr.main(["-device", "cpu", "-dir_output", str(tmp_path), *argv])
+        assert not any(os.scandir(tmp_path))
+        return
+    model_id = argv[1]
+    extra = ["-epochs", "2"] if model_id.startswith("IR") else []
+    sf_id = argv[argv.index("-sf_id") + 1] if "-sf_id" in argv else "pointsf"
+    extra += ["-sf_id", sf_id] if "-sf_id" in argv else []
+    out = tmp_path / "out"
+    got = ltr.main(["-device", "cpu", "--debug", *argv, *extra, "-dir_output", str(out)])
+    want, _ = _plain_run(model_id, extra, tmp_path_factory)
+    for k, v in _metrics(want).items():
+        np.testing.assert_allclose(_metrics(got)[k], v, atol=1e-5, err_msg=k)
+    ov = ltr.parse_mesh_overrides(ltr.build_parser().parse_args(argv))
+    want_dir = _jax_run_dir(model_id, tmp_path / "jax", ov, sf_id)
+    assert _run_dir(out) == want_dir
 
 
 def test_evaluator_refuses_parallel_eval_settings():
     """Without a mesh the companion settings change nothing (an AdhocRanker
-    with the given scan_steps); under a mesh, those of items 8b and 8c
-    raise, naming their item."""
+    with the given scan_steps); under a mesh, `shard_docs` (item 8c) raises,
+    naming its item, and `tp` and `pp_stages` (item 8b) reach the
+    DistributedTrainer (in a one-rank group: a mesh of one rank), which
+    holds JAX's guards: a pipeline of 2 stages needs a `model` axis of 2."""
+    from ptranking_tpu_torch.parallel.launch import one_rank_group
+    from ptranking_tpu_torch.parallel.train import DistributedTrainer
+
     ev = tev.LTREvaluator(device="cpu")
     sf = SFSetting().default_setting(46)
     r = ev.load_ranker(sf, {"model_id": "RankMSE"}, LabelType.MultiLabel,
                        {"tp": True, "shard_docs": True, "cp_impl": "ulysses", "pp_stages": 2,
                         "eval_chunk": 8, "scan_steps": 4})
     assert type(r) is AdhocRanker and r.scan_steps == 4
-    for key, item in (("tp", "8b"), ("pp_stages", "8b"), ("shard_docs", "8c")):
-        with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-            ev.load_ranker(sf, {"model_id": "RankMSE"}, None,
-                           {"mesh": {"data": 2}, key: 2 if key == "pp_stages" else True})
-    with pytest.raises(NotImplementedError, match="queue A item 8b"):
-        ev.load_ranker(sf, {"model_id": "RankMSE"}, None, {"mesh": {"data": 1, "model": 2}})
+    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+        ev.load_ranker(sf, {"model_id": "RankMSE"}, None, {"mesh": {"data": 2},
+                                                           "shard_docs": True})
+    listsf = SFSetting(sf_id="listsf").default_setting(46)
+    with one_rank_group("cpu"):
+        tr = ev.load_ranker(sf, {"model_id": "RankMSE"}, None,
+                            {"mesh": {"data": 1}, "tp": True, "scan_steps": 4})
+        assert type(tr) is DistributedTrainer and tr.tp and tr.scan_steps == 4
+        tr = ev.load_ranker(listsf, {"model_id": "RankMSE"}, None,
+                            {"mesh": {"data": 1}, "pp_stages": 1})
+        assert type(tr) is DistributedTrainer and tr.pp_stages == 1
+        with pytest.raises(ValueError, match="model axis"):
+            ev.load_ranker(listsf, {"model_id": "RankMSE"}, None,
+                           {"mesh": {"data": 1}, "pp_stages": 2})
 
 
 def test_python_m_entry_point_runs(tmp_path):

@@ -214,3 +214,158 @@ def run_machine(mesh, model_id="IRGAN_Point", epochs=2, num_queries=32, batch_qu
         machine.mini_max_train(train_data=list(train.batches(shuffle=True, epoch=e)))
     return {n: p.evaluate(test, ks=(5,))["nDCG"]
             for n, p in (("G", machine.get_generator()), ("D", machine.get_discriminator()))}
+
+
+# --- tensor and pipeline parallelism: one group of 4 ranks, two meshes ---
+
+TP_MESHES = {"d2m2": (2, 2), "d1m4": (1, 4)}
+
+
+def _meshes():
+    from ptranking_tpu_torch.parallel import MeshConfig, make_mesh
+
+    return {name: make_mesh(MeshConfig(data=d, model=m)) for name, (d, m) in TP_MESHES.items()}
+
+
+def _cfg(kw):
+    from ptranking_tpu_torch.models.scorers import ScorerConfig
+
+    return ScorerConfig(**kw)
+
+
+def _split_2d(tr):
+    """The 2-D weights this rank holds a block of (their shapes differ from
+    the full ones)."""
+    from ptranking_tpu_torch.models.scorers import tree_leaves
+
+    full = tree_leaves(tr.full_params())
+    return sum(1 for a, b in zip(tree_leaves(tr.params), full) if a.dim() == 2 and a.shape != b.shape)
+
+
+def tp_cases(cases, ckpts, cli_argv, work, div_cfg):
+    """Each case (name, model id, scorer config kwargs, mesh name, batches
+    file, init checkpoint or None): a tp=True DistributedTrainer on the
+    mesh, `STEPS` steps (train_epoch of one batch, epoch k = step k), then
+    evaluate; its joined params and how many 2-D weights it splits. Then
+    the checkpoints: the single-device `.pt` and `.pkl` (`ckpts`) on a
+    tp=True trainer, a tp=True trainer's save (loaded back by the test on
+    one device, and resumed here), the CLI under -tp, and DALETOR on the
+    {data 1, model 4} mesh (whole params on every model rank)."""
+    import torch.distributed as dist
+
+    from ptranking_tpu_torch import ltr
+
+    from ptranking_tpu_torch.parallel import MeshConfig, batch_sharding, make_hybrid_mesh
+
+    torch.manual_seed(0)
+    meshes = _meshes()
+    out = {"rank": dist.get_rank()}
+    # the batch axes' group of each mesh: its ranks, and this rank's block
+    hybrid = make_hybrid_mesh(MeshConfig(model=2), dcn=2)
+    out["batch_groups"] = {
+        name: (dist.get_process_group_ranks(batch_sharding(m).group), batch_sharding(m).block(8))
+        for name, m in (*meshes.items(), ("dcn2m2", hybrid))}
+    for name, model_id, cfg_kw, mesh_name, batches_path, init in cases:
+        batches = _batches(batches_path)
+        tr = _trainer(model_id, _cfg(cfg_kw), meshes[mesh_name], tp=True).init()
+        if init:
+            tr.load(init)
+        losses = [tr.train_epoch([batches[i % len(batches)]], epoch_k=i + 1)[0]
+                  for i in range(STEPS)]
+        out[name] = {"losses": losses, "metrics": tr.evaluate(batches, ks=KS),
+                     "params": _np(tr.full_params()), "split_2d": _split_2d(tr)}
+
+    # checkpoints of one device on the mesh, and the mesh's on one device
+    sb = _batches(ckpts["batches"])
+    for fmt in ("pt", "pkl"):
+        tr = _trainer("RankNet", _cfg(ckpts["cfg"]), meshes["d2m2"], tp=True).init()
+        out[f"single_{fmt}"] = tr.load(ckpts[fmt]).evaluate(sb, ks=KS)
+    tr = _trainer("RankNet", _cfg(ckpts["cfg"]), meshes["d2m2"], tp=True).init()
+    tr.train_epoch(sb, epoch_k=1)
+    tr.save(os.path.join(work, "tp.pt"))
+    out["tp_scores"] = [tr.predict(b).numpy() for b in sb]
+    back = _trainer("RankNet", _cfg(ckpts["cfg"]), meshes["d2m2"], tp=True, seed=5).init()
+    back.load(os.path.join(work, "tp.pt"))
+    out["resume"] = (tr.train_epoch(sb, epoch_k=2), back.train_epoch(sb, epoch_k=2))
+    out["resume_params"] = (_np(tr.full_params()), _np(back.full_params()))
+
+    out["cli"] = ltr.main(cli_argv)
+    out["daletor_d1m4"] = run_div(meshes["d1m4"], **div_cfg)
+    return out
+
+
+def pp_ep_cases(enc_case, clamp_case, gpipe_case, trainer_case, ep_case):
+    """Pipeline stages and expert sharding on both meshes: the listsf
+    encoder through `pipeline_encoder_apply` (P = the mesh's model axis),
+    the microbatch clamp, `gpipe` against `gpipe_reference`, a
+    DistributedTrainer(pp_stages=2)'s predict and evaluate, its guards, and
+    a cluster's `div_forward` over the experts' shards."""
+    import torch.distributed as dist
+
+    from ptranking_tpu_torch.diversification.scorers import DivScorerConfig, div_forward
+    from ptranking_tpu_torch.models.scorers import ScorerConfig
+    from ptranking_tpu_torch.parallel import (expert_param_sharding, gpipe,
+                                              model_parallel, pipeline_encoder_apply)
+    from ptranking_tpu_torch.parallel.pipeline import gpipe_reference
+
+    meshes = _meshes()
+    out = {"rank": dist.get_rank()}
+    to_t = lambda a: torch.from_numpy(np.asarray(a))
+    tree = lambda t: ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                      else [tree(v) for v in t] if isinstance(t, list) else to_t(t))
+
+    x, mask = to_t(enc_case["x"]), to_t(enc_case["mask"])
+    with torch.inference_mode():
+        for mesh_name, mesh in meshes.items():
+            for enc_type, params in enc_case["params"].items():
+                out[f"enc_{enc_type}_{mesh_name}"] = pipeline_encoder_apply(
+                    tree(params), x, mask, 2, enc_type, mesh, num_microbatches=4).numpy()
+            out[f"flash_{mesh_name}"] = pipeline_encoder_apply(
+                tree(enc_case["params"]["DASALC"]), x, mask, 2, "DASALC", mesh,
+                flash=True).numpy()
+        out["clamp"] = [pipeline_encoder_apply(tree(clamp_case["params"]), to_t(cx),
+                                               to_t(cm), 2, "DASALC", meshes["d2m2"]).numpy()
+                        for cx, cm in clamp_case["inputs"]]
+        W, xs = to_t(gpipe_case["W"]), to_t(gpipe_case["xs"])
+        stage_fn = lambda w, xb, m: torch.tanh(xb @ w)
+        out["gpipe"] = gpipe(stage_fn, W, xs, meshes["d1m4"]).numpy()
+        out["gpipe_reference"] = gpipe_reference(stage_fn, W, xs).numpy()
+
+    # DistributedTrainer(pp_stages=2) on data=2, model=2 from the JAX
+    # ranker's initial checkpoint: predict and evaluate through the pipeline
+    cfg = ScorerConfig(**trainer_case["cfg"])
+    batches = _batches(trainer_case["batches"])
+    tr = _trainer("LambdaRank", cfg, meshes["d2m2"], pp_stages=2).init().load(
+        trainer_case["init"])
+    out["pp_scores"] = tr.predict(batches[0]).numpy()
+    out["pp_metrics"] = tr.evaluate(batches, ks=KS)
+    guards = {}
+    pointsf_cfg = pointsf()
+    for name, kw, c, mesh in (
+            ("tp", {"pp_stages": 2, "tp": True}, cfg, meshes["d2m2"]),
+            ("axis", {"pp_stages": 4}, cfg, meshes["d2m2"]),
+            ("pointsf", {"pp_stages": 2}, pointsf_cfg, meshes["d2m2"]),
+            ("layers", {"pp_stages": 4}, ScorerConfig(**dict(trainer_case["cfg"],
+                                                            encoder_layers=2)),
+             meshes["d1m4"])):
+        try:
+            _trainer("LambdaRank", c, mesh, **kw)
+            guards[name] = None
+        except ValueError as exc:
+            guards[name] = str(exc)
+    out["guards"] = guards
+
+    # EP: the K-expert cluster, each model rank holding K / M experts
+    dcfg = DivScorerConfig(**ep_case["cfg"])
+    from ptranking_tpu_torch.models.convert import div_params_from_jax
+
+    full = div_params_from_jax(ep_case["params"], dcfg)
+    q, d, m = to_t(ep_case["q"]), to_t(ep_case["d"]), to_t(ep_case["m"])
+    with torch.inference_mode():
+        for mesh_name, mesh in meshes.items():
+            ep = model_parallel(mesh, expert_param_sharding(mesh, full))
+            local = ep.shard(full)
+            mus, vars_, _ = div_forward(local, dcfg, q, d, m, ep=ep)
+            out[f"ep_{mesh_name}"] = (mus.numpy(), vars_.numpy(),
+                                      local["point_sf"]["layers"][0]["linear"]["w"].shape[0])
+    return out
