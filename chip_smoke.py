@@ -168,7 +168,18 @@ Phases, in order; any failure exits non-zero:
      and the initial nDCG within the CPU tests' tolerances of the one-device
      run on the same global batch, both ranks' params the same bits after
      PAR_GLOO_STEPS steps. (c) shows the reduction path with the kernels on
-     the card, not multi-GPU scaling.
+     the card, not multi-GPU scaling. (a'), (d), (e), (f): tensor and
+     pipeline parallelism and expert sharding, the same way. Context
+     parallelism (parallel/ring.py, ot.py): (g) a one-rank NCCL
+     DistributedTrainer(shard_docs=True) on {seq: 1} at the flagship's width,
+     PAR_STEPS fp32 LambdaRank steps at 32 x 1408 against the AdhocRanker
+     (first loss, nDCG; first-step gradients under RankNet; bf16 reported),
+     no launch of B1, B2 or B3 on the CP path (the JAX package routes CP past
+     them); (h) in (c)'s spawn, a {seq: 2} mesh of the two gloo ranks: ring
+     and Ulysses attention under RankNet, fp32, PAR_GLOO_B * 2 lists of 1408
+     docs, against one device's dense attention and dense loss, and the CP
+     loss zoo (CP_ZOO) against the port's one-device dense losses on the
+     card.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of jax or ptranking_tpu.
@@ -1760,20 +1771,21 @@ def check_counts(counts: dict, steps: int, what: str, per_step: dict = LAUNCHES_
 def flagship_ranker(dropout: float = 0.1, compute_dtype: str = "bfloat16",
                     model_id: str = "LambdaRank", num_features: int = NUM_FEATURES,
                     lane_align: bool = False, n_heads: int = 2, mesh=None, device="cuda",
-                    **parallel):
+                    kernels: bool = True, **parallel):
     """The flagship scorer (or the same DASALC listsf at another width) under
     a loss with its default paras; LambdaRank goes through the fused pairwise
-    kernel. With a mesh, the DistributedTrainer of the same config (with
-    `parallel`'s tp or pp_stages)."""
+    kernel. With kernels=False, dense attention and the dense loss instead.
+    With a mesh, the DistributedTrainer of the same config (with
+    `parallel`'s tp, pp_stages or shard_docs)."""
     from ptranking_tpu_torch import LTR_SEED
     from ptranking_tpu_torch.models import ScorerConfig
     from ptranking_tpu_torch.parallel import DistributedTrainer
     from ptranking_tpu_torch.train import AdhocRanker, OptimizerConfig
 
     cfg = ScorerConfig.default_listsf(num_features, compute_dtype=compute_dtype,
-                                      flash_attn=True, dropout=dropout, lane_align=lane_align,
+                                      flash_attn=kernels, dropout=dropout, lane_align=lane_align,
                                       n_heads=n_heads)
-    kw = dict(model_paras={"use_pallas": True} if model_id == "LambdaRank" else {},
+    kw = dict(model_paras={"use_pallas": kernels} if model_id == "LambdaRank" else {},
               opt_cfg=OptimizerConfig(opt="Adagrad", lr=1e-3), seed=LTR_SEED, device=device)
     if mesh is not None:
         return DistributedTrainer(model_id, cfg, mesh, **kw, **parallel).init()
@@ -4227,6 +4239,42 @@ PAR_EP_K, PAR_EP_B, PAR_EP_N = 4, DIV_BATCH, 256  # (f): the cluster and its bat
 PAR_EP_MUS_ATOL = 1e-5
 PAR_EP_VARS_RTOL, PAR_EP_VARS_ATOL = 2e-3, 1e-4  # the JAX package's own bar
 PAR_CKPT = "par_dp.pt"  # (c)'s trained params, which (e) stages
+# (g): context parallelism on the one-rank mesh against the AdhocRanker (the
+# flagship's kernels): the first loss and nDCG at PAR_CP_*, the first
+# step's gradients (worst tensor, rel_errs) under LambdaRank and RankNet at
+# GRAD_TOL. The CP path's attention is plain fp32 (sdpa_block), the
+# AdhocRanker's 3xTF32 kernels; at init, at 1408 docs, the flagship's step
+# magnifies such rounding into its gradients (phase 5's GRAD_TOL note): the
+# kernels and the dense path part by 2.9e-3 in the worst tensor, the CP path
+# and the dense path by 3.3e-3 under LambdaRank, the CP path and the kernels
+# by 3.1e-3 under RankNet (PR 23 calls 1 and 2), where a wrong transpose of
+# a collective gives O(1). The attention's own gradients are held tightly
+# in (h) (PAR_CP_ATT_*). bf16 reported beside them
+PAR_CP_LOSS_RTOL, PAR_CP_NDCG_ATOL = 1e-5, 1e-5
+# (h): ring and Ulysses attention alone on the two ranks, at the flagship's
+# attention shape [2 * PAR_GLOO_B, 2, TRAIN_N, 68], against one device's
+# reference attention: outputs atol, q, k, v gradients rtol and atol (the
+# CPU tests' bar, tests/test_torch_ring.py)
+PAR_CP_ATT_ATOL, PAR_CP_ATT_GRAD_RTOL, PAR_CP_ATT_GRAD_ATOL = 1e-5, 1e-4, 1e-5
+# (h): the CP loss zoo on the two gloo ranks against the port's one-device
+# dense losses, PAR_ZOO_B ragged lists of TRAIN_N docs (one all-padded),
+# labels 0..4 (MSLR-WEB30K's levels): values rtol 1e-5; score gradients
+# measured in units of the JAX package's own bar, rtol 1e-4 and atol 1e-6
+# (tests/test_parallel.py:710-713), against the dense loss in fp64 (the
+# exact gradient, to fp32's eyes). Where the dense loss's own fp32 gradient
+# is further than that bar from its fp64 one (WassRank's, whose log-domain
+# potentials reach |C| / lam, 2.2x the bar on the CPU at 4 x 32), the CP
+# gradient may be twice as far as the dense fp32 one: the gate is CP's
+# distance to fp64 <= max(1, 2 x the dense fp32 loss's)
+PAR_ZOO_B = 8
+PAR_ZOO_RTOL, PAR_ZOO_GRAD_RTOL, PAR_ZOO_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+CP_ZOO = [("LambdaRank", {}), ("LambdaLoss", {}), ("ApproxNDCG", {}), ("SoftRank", {}),
+          ("WassRank", {"mode": "SinkhornOT"}), ("WassRank", {"mode": "EntropicOT"}),
+          ("NeuralNDCG", {}), ("RankNet", {})]
+# the kernels the CP path must not launch: B3 (flash off under CP), B1 (the
+# ring losses take the pair space) and B2 (the doc-sharded Sinkhorn is plain)
+CP_IDLE_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
+                   "pairwise_lambda_fwd", "pairwise_lambda_bwd", "sinkstep")
 
 
 def _par_steps(ranker, batch, steps: int) -> list:
@@ -4357,15 +4405,192 @@ def _ep_run(mesh, device: str) -> dict:
             "experts": int(local["point_sf"]["layers"][0]["linear"]["w"].shape[0])}
 
 
+def zoo_inputs(device: str, B: int, N: int):
+    """(h)'s zoo batch: B lists of N docs, ragged (the last all padding),
+    labels in the ideal order (the trainer presorts), scores from a seed."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    lengths = torch.linspace(N, 20, B - 1).round().long().tolist() + [0]
+    mask = torch.arange(N)[None, :] < torch.tensor(lengths)[:, None]
+    labels = torch.sort(torch.randint(0, 5, (B, N), generator=gen).float(), dim=1,
+                        descending=True).values
+    scores = torch.randn(B, N, generator=gen)
+    return (scores.to(device), torch.where(mask, labels, 0.0).to(device), mask.to(device))
+
+
+def cp_zoo_rank(mesh, device: str, B: int, N: int) -> dict:
+    """(h)'s zoo on one rank: each CP_ZOO loss through the DistributedTrainer's
+    CP routing (`_cp_loss`) on the rank's block of the zoo batch's scores:
+    the rank's loss, its block's score gradient and where the block sits."""
+    from ptranking_tpu_torch.models import ScorerConfig
+    from ptranking_tpu_torch.parallel import DistributedTrainer
+
+    scores, labels, mask = zoo_inputs(device, B, N)
+    cfg = ScorerConfig(sf_id="pointsf", num_features=8)
+    out = {}
+    for model_id, paras in CP_ZOO:
+        tr = DistributedTrainer(model_id, cfg, mesh, model_paras=paras, shard_docs=True,
+                                device=device)
+        seq = tr._cp.seq
+        s_l = seq.block(scores, 1).detach().clone().requires_grad_(True)
+        loss = tr._cp_loss(s_l, labels, mask)
+        loss.backward()
+        out[f"{model_id}{sorted(paras.items())}"] = {
+            "loss": float(loss.detach()), "grad": s_l.grad.cpu().numpy(),
+            "docs": [seq.index * s_l.shape[1], (seq.index + 1) * s_l.shape[1]]}
+    return out
+
+
+# (h)'s trainer runs take RankNet, whose pair loss follows the given order:
+# its gradients do not turn on near-tied scores at init, as LambdaRank's do
+# ((g)'s note); the ring losses of the sorted order are the zoo's
+PAR_CP_MODEL = "RankNet"
+
+
+def cp_attention_inputs(device: str, B: int, N: int, d: int):
+    """(h)'s attention check: q, k, v [B, 2, N, d] from a seed, a ragged
+    mask (the last list 20 docs)."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    q, k, v = (torch.randn(B, 2, N, d, generator=gen) for _ in range(3))
+    mask = torch.ones(B, N, dtype=torch.bool)
+    mask[-1, 20:] = False
+    return [t.to(device) for t in (q, k, v, mask)]
+
+
+def cp_attention_rank(mesh, device: str, B: int, N: int, d: int) -> dict:
+    """(h) on one rank: ring and Ulysses attention on the rank's block of
+    the docs, the output and the q, k, v gradients of sum(out^2 over real
+    queries), and where the block sits."""
+    from ptranking_tpu_torch.parallel import cp_plan
+    from ptranking_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+
+    out = {}
+    for impl, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        cp = cp_plan(mesh, impl)
+        q, k, v, mask = cp_attention_inputs(device, B, N, d)
+        q, k, v = (cp.seq.block(t, 2).clone().requires_grad_(True) for t in (q, k, v))
+        m = cp.seq.block(mask, 1, False)
+        o = fn(q, k, v, m, cp)
+        (o.square() * m[:, None, :, None]).sum().backward()
+        out[impl] = {"out": o.detach().cpu().numpy(),
+                     "grads": [t.grad.cpu().numpy() for t in (q, k, v)],
+                     "docs": [cp.seq.index * m.shape[1], (cp.seq.index + 1) * m.shape[1]]}
+    return out
+
+
+def cp_attention_check(out, device: str) -> dict:
+    """(h)'s attention check: the two ranks' blocks joined against one
+    device's reference_attention and autograd through it, at PAR_CP_ATT_*."""
+    import numpy as np
+
+    from ptranking_tpu_torch.parallel.ring import reference_attention
+
+    q, k, v, mask = cp_attention_inputs(device, 2 * PAR_GLOO_B, TRAIN_N, NUM_FEATURES // 2)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    ref = reference_attention(q, k, v, mask)
+    (ref.square() * mask[:, None, :, None]).sum().backward()
+    want = [ref.detach().cpu().numpy()] + [t.grad.cpu().numpy() for t in (q, k, v)]
+    rec = {}
+    for impl in ("ring", "ulysses"):
+        got = [np.zeros_like(w) for w in want]
+        for r in out:
+            d0, d1 = r["att"][impl]["docs"]
+            for full, part in zip(got, [r["att"][impl]["out"]] + r["att"][impl]["grads"]):
+                full[:, :, d0:d1] = part
+        out_err = float(np.abs(got[0] - want[0]).max())
+        over = [float((np.abs(g - w) / (PAR_CP_ATT_GRAD_ATOL + PAR_CP_ATT_GRAD_RTOL * np.abs(w)))
+                      .max()) for g, w in zip(got[1:], want[1:])]
+        rec[impl] = {"out_max_abs_err": out_err, "qkv_grad_err_over_bar": over}
+        if not (out_err <= PAR_CP_ATT_ATOL and max(over) <= 1.0):
+            raise AssertionError(f"parallel (h) {impl} attention: {rec[impl]}")
+    return rec
+
+
+def _cp_run(mesh, batch, steps: int, impl: str, num_features: int, device: str) -> dict:
+    """(h) on one rank: `_par_run` of the flagship (fp32, dropout 0, under
+    PAR_CP_MODEL) as a DistributedTrainer(shard_docs=True, cp_impl=impl) on
+    the seq mesh."""
+    t0 = time.perf_counter()
+    tr = flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE, num_features=num_features,
+                         model_id=PAR_CP_MODEL, mesh=mesh, device=device, shard_docs=True,
+                         cp_impl=impl)
+    setup = time.perf_counter() - t0
+    return {**_par_run(tr, batch, steps), "route": tr._cp.seq.route,
+            "setup_s": round(setup, 2)}
+
+
+def one_rank_cp(mesh, batch, device: str):
+    """Phase 12 (g): the flagship as a one-rank DistributedTrainer(shard_docs=
+    True) on the one-rank mesh ({seq: 1}: the ring of one block, the ring
+    loss over the whole pair space), fp32, against the AdhocRanker with its
+    kernels: the first loss and the initial nDCG at PAR_CP_*, PAR_STEPS
+    LambdaRank steps with no launch of B1, B2 or B3 (the AdhocRanker
+    launches its own), the first step's gradients under LambdaRank and
+    RankNet at GRAD_TOL (beside the AdhocRanker's dense path: dense
+    attention, the dense loss); the same in bf16, reported. Returns
+    (record, the CP path's launch counts)."""
+    import numpy as np
+
+    names = None
+    runs = {}
+    for dtype, model_id, name, m, kw in (
+            (PAR_GLOO_DTYPE, "LambdaRank", "cp", mesh, {"shard_docs": True}),
+            (PAR_GLOO_DTYPE, "LambdaRank", "kernels", None, {}),
+            (PAR_GLOO_DTYPE, "LambdaRank", "dense", None, {"kernels": False}),
+            (PAR_GLOO_DTYPE, "RankNet", "cp", mesh, {"shard_docs": True}),
+            (PAR_GLOO_DTYPE, "RankNet", "kernels", None, {}),
+            ("bfloat16", "LambdaRank", "cp", mesh, {"shard_docs": True}),
+            ("bfloat16", "LambdaRank", "kernels", None, {})):
+        steps = PAR_STEPS if (dtype, model_id) == (PAR_GLOO_DTYPE, "LambdaRank") else 0
+        ranker = flagship_ranker(dropout=0.0, compute_dtype=dtype, num_features=NUM_FEATURES,
+                                 model_id=model_id, mesh=m, device=device, **kw)
+        names = names or leaf_names(ranker.params)
+        runs[name, model_id, dtype] = _par_run(ranker, batch, steps)
+        del ranker
+    cp, ker, dense = (runs[n, "LambdaRank", PAR_GLOO_DTYPE] for n in ("cp", "kernels", "dense"))
+    loss_err = abs(cp["loss"] - ker["loss"]) / abs(ker["loss"])
+    grad = rel_errs(runs["cp", "RankNet", PAR_GLOO_DTYPE]["grads"],
+                    runs["kernels", "RankNet", PAR_GLOO_DTYPE]["grads"], names)
+    lambda_grad = rel_errs(cp["grads"], ker["grads"], names)
+    ndcg_err = float(np.abs(np.asarray(cp["ndcg"]) - ker["ndcg"]).max())
+    b16, k16 = runs["cp", "LambdaRank", "bfloat16"], runs["kernels", "LambdaRank", "bfloat16"]
+    rec = {"steps": PAR_STEPS, "first_loss_rel_err": loss_err, "first_grads_ranknet": grad,
+           "first_grads_lambdarank": lambda_grad,
+           "lambdarank_vs_dense_path": rel_errs(cp["grads"], dense["grads"], names),
+           "kernels_vs_dense_path": rel_errs(ker["grads"], dense["grads"], names),
+           "ndcg_abs_err": ndcg_err, "losses": cp["losses"], "adhoc_losses": ker["losses"],
+           "launches": cp["launches"], "adhoc_launches": ker["launches"],
+           "run_s": {"cp": round(cp["run_s"], 2), "adhoc": round(ker["run_s"], 2),
+                     "dense": round(dense["run_s"], 2)},
+           "bf16": {"first_loss_rel_err": abs(b16["loss"] - k16["loss"]) / abs(k16["loss"]),
+                    "first_grads": rel_errs(b16["grads"], k16["grads"], names),
+                    "ndcg_abs_err": float(np.abs(np.asarray(b16["ndcg"]) - k16["ndcg"]).max())}}
+    cuda = device == "cuda"
+    idle = [k for k in CP_IDLE_KERNELS if cp["launches"].get(k, 0)]
+    if cuda:
+        check_counts(ker["launches"], PAR_STEPS, "parallel (g) the AdhocRanker")
+    if not (loss_err <= PAR_CP_LOSS_RTOL and grad["worst"][1] <= GRAD_TOL
+            and lambda_grad["worst"][1] <= GRAD_TOL and ndcg_err <= PAR_CP_NDCG_ATOL
+            and not idle):
+        raise AssertionError(f"parallel (g): {rec}")
+    return rec, cp["launches"]
+
+
 def par_gloo_rank(steps: int, rows: int, n_docs: int, num_features: int, device: str,
-                  work_dir: str):
-    """Phase 12 (c) to (f), one rank of the gloo group. (c): `_par_run` of
-    the flagship as a DistributedTrainer on this rank's block of a global
-    batch of 2 * rows lists of n_docs docs (its set-up seconds: the batch,
-    the mesh, the ranker), then rank 0 saves its params for (e). Then on a
-    second mesh of the same group, {model: 2}: (d) the flagship with
-    tp=True on the whole batch in fp32 and one bf16 step, (e) pp_stages=2
-    predict and evaluate, (f) the expert-sharded cluster."""
+                  work_dir: str, zoo_rows: int):
+    """Phase 12 (c) to (f) and (h), one rank of the gloo group. (c):
+    `_par_run` of the flagship as a DistributedTrainer on this rank's block
+    of a global batch of 2 * rows lists of n_docs docs (its set-up seconds:
+    the batch, the mesh, the ranker), then rank 0 saves its params for (e).
+    Then on a second mesh of the same group, {model: 2}: (d) the flagship
+    with tp=True on the whole batch in fp32 and one bf16 step, (e)
+    pp_stages=2 predict and evaluate, (f) the expert-sharded cluster; on a
+    third, {seq: 2}: (h) the flagship with shard_docs=True under ring and
+    Ulysses attention on the whole batch (each rank half the docs), and the
+    CP loss zoo."""
     t = [time.perf_counter()]
     from ptranking_tpu_torch.parallel import MeshConfig, make_mesh
 
@@ -4388,6 +4613,16 @@ def par_gloo_rank(steps: int, rows: int, n_docs: int, num_features: int, device:
                         device)
     t0 = time.perf_counter()
     out["ep"] = {**_ep_run(model_mesh, device), "run_s": round(time.perf_counter() - t0, 2)}
+    # (h) context parallelism on a third mesh of the group, {seq: 2}
+    t0 = time.perf_counter()
+    seq_mesh = make_mesh(MeshConfig(seq=2))
+    out["seq_mesh_s"] = round(time.perf_counter() - t0, 2)
+    out["cp"] = {impl: _cp_run(seq_mesh, batch, steps, impl, num_features, device)
+                 for impl in ("ring", "ulysses")}
+    t0 = time.perf_counter()
+    out["zoo"] = cp_zoo_rank(seq_mesh, device, zoo_rows, n_docs)
+    out["att"] = cp_attention_rank(seq_mesh, device, 2 * rows, n_docs, num_features // 2)
+    out["zoo_s"] = round(time.perf_counter() - t0, 2)
     return out
 
 
@@ -4417,9 +4652,11 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
     AdhocRanker, (a') the same with tp=True and with pp_stages=1 (a model
     axis of 1), (b) `ltr.main -mesh data=1` against the run without it, and
     on two gloo ranks on the one card, in one spawn: (c) DP, (d) TP, (e) PP
-    against one device, (f) the expert-sharded cluster. Returns the launch
-    counts of the phase's main paths: (a)'s DP runs, (d)'s TP steps and
-    (e)'s pipeline predict on rank 0."""
+    against one device, (f) the expert-sharded cluster, (h) CP (ring and
+    Ulysses, and the loss zoo); (g) CP on the one-rank mesh against the
+    AdhocRanker. Returns the launch counts of the phase's main paths: (a)'s
+    DP runs, (d)'s TP steps and (e)'s pipeline predict on rank 0, and the
+    CP paths' of (g) and (h) (rank 0)."""
     import numpy as np
     import torch
 
@@ -4494,6 +4731,8 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
             if not (same and c1 == c2):
                 raise AssertionError(f"parallel (a') {name}: same bits {same}, launches {c2} "
                                      f"against the AdhocRanker's {c1}")
+        t.append(time.perf_counter())
+        rec["one_rank_cp"], cp_counts = one_rank_cp(mesh, batch, device)
     rec["one_rank_s"] = sub_s
     t.append(time.perf_counter())
 
@@ -4521,7 +4760,8 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
           "(its CUDA work copies each to the host and back), where NCCL across cards would "
           "not", flush=True)
     out = run_ranks(par_gloo_rank, 2,
-                    (PAR_GLOO_STEPS, PAR_GLOO_B, TRAIN_N, NUM_FEATURES, device, work_dir),
+                    (PAR_GLOO_STEPS, PAR_GLOO_B, TRAIN_N, NUM_FEATURES, device, work_dir,
+                     PAR_ZOO_B),
                     device_type=device, backend="gloo", timeout_s=PAR_TIMEOUT_S,
                     join_timeout_s=PAR_TIMEOUT_S)
     t.append(time.perf_counter())
@@ -4625,12 +4865,100 @@ def parallel_phase(card: str, work_dir: str, device: str = "cuda") -> dict:
     if not (mus_err <= PAR_EP_MUS_ATOL and vars_ok
             and all(r["ep"]["experts"] == PAR_EP_K // 2 for r in out)):
         raise AssertionError(f"parallel (f): {rec['ep_two_gloo_ranks']}")
+
+    # (h) CP on {seq: 2}: ring and Ulysses under PAR_CP_MODEL against one
+    # device's dense path (dense attention and the dense loss: the CP path's
+    # formulas on whole lists), fp32, and the loss zoo against the dense
+    # losses
+    dense = _par_run(flagship_ranker(dropout=0.0, compute_dtype=PAR_GLOO_DTYPE,
+                                     model_id=PAR_CP_MODEL, num_features=NUM_FEATURES,
+                                     device=device, kernels=False),
+                     gbatch, PAR_GLOO_STEPS)
+    cp_rec = {"route": out[0]["cp"]["ring"]["route"],
+              "seq_mesh_s": [r["seq_mesh_s"] for r in out]}
+    for impl in ("ring", "ulysses"):
+        h0, h1 = (r["cp"][impl] for r in out)
+        same = (h0["losses"] == h1["losses"]
+                and all(np.array_equal(h0["params"][k], h1["params"][k]) for k in names))
+        g = rel_errs(h0["grads"], dense["grads"], names)
+        l_err = abs(h0["loss"] - dense["loss"]) / abs(dense["loss"])
+        n_err = float(np.abs(np.asarray(h0["ndcg"]) - dense["ndcg"]).max())
+        cp_rec[impl] = {"first_loss_rel_err": l_err, "first_grads": g, "ndcg_abs_err": n_err,
+                        "losses": h0["losses"], "one_device_losses": dense["losses"],
+                        "ranks_same_bits": same, "launches": [r["cp"][impl]["launches"]
+                                                              for r in out],
+                        "rank_setup_run_s": [[r["cp"][impl]["setup_s"],
+                                              round(r["cp"][impl]["run_s"], 2)] for r in out]}
+        idle = [k for r in out for k in CP_IDLE_KERNELS if r["cp"][impl]["launches"].get(k, 0)]
+        if not (same and l_err <= PAR_LOSS_RTOL and n_err <= PAR_NDCG_ATOL
+                and g["worst"][1] <= GRAD_TOL and not idle):
+            raise AssertionError(f"parallel (h) {impl}: {cp_rec[impl]}")
+    cp_rec["one_device_run_s"] = round(dense["run_s"], 2)
+    cp_rec["attention"] = cp_attention_check(out, device)
+    cp_rec["zoo"] = cp_zoo_check(out, device)
+    cp_rec["zoo_s"] = [r["zoo_s"] for r in out]
+    rec["cp_two_gloo_ranks"] = cp_rec
     t.append(time.perf_counter())
     rec["phase_s"] = {n: round(b - a, 1)
-                      for n, a, b in zip(("a", "a_prime", "b", "c_to_f_ranks", "refs_and_gates"),
-                                         t, t[1:])}
+                      for n, a, b in zip(("a", "a_prime", "g", "b", "c_to_h_ranks",
+                                          "refs_and_gates"), t, t[1:])}
     print("parallel " + json.dumps(rec) + f"  [{card}]", flush=True)
-    return {"dp": dp_counts, "tp": d0["launches"], "pp": out[0]["pp"]["predict_launches"]}
+    return {"dp": dp_counts, "tp": d0["launches"], "pp": out[0]["pp"]["predict_launches"],
+            "cp_one_rank": cp_counts, "cp_ring": out[0]["cp"]["ring"]["launches"],
+            "cp_ulysses": out[0]["cp"]["ulysses"]["launches"]}
+
+
+def cp_zoo_check(out, device: str) -> dict:
+    """(h)'s zoo: the two ranks' losses (each its line's, the same) and
+    their blocks' score gradients joined, against the port's one-device dense
+    loss of each CP_ZOO entry on the whole batch (the card's kernels where
+    the dense loss takes them) and its fp64 evaluation. Returns {loss:
+    errors}; raises past the PAR_ZOO_* gates."""
+    import numpy as np
+    import torch
+
+    from ptranking_tpu_torch.losses import DEFAULT_PARAS, get_loss
+
+    scores, labels, mask = zoo_inputs(device, PAR_ZOO_B, TRAIN_N)
+
+    def dense(model_id, paras, dtype):
+        """The dense loss's value and score gradient in `dtype` (fp64: the
+        plain Sinkhorn half-step; the kernel takes fp32)."""
+        s = scores.detach().to(dtype).clone().requires_grad_(True)
+        kw = {**DEFAULT_PARAS[model_id], **paras}
+        if dtype == torch.float64 and model_id == "WassRank":
+            kw["use_pallas"] = False
+        loss = get_loss(model_id)(s, labels.to(dtype), mask, **kw)
+        loss.backward()
+        return float(loss.detach()), s.grad.double().cpu().numpy()
+
+    def over_bar(a, ref):
+        bar = PAR_ZOO_GRAD_ATOL + PAR_ZOO_GRAD_RTOL * np.abs(ref)
+        return float((np.abs(a - ref) / bar).max())
+
+    rec, bad = {}, []
+    for model_id, paras in CP_ZOO:
+        key = f"{model_id}{sorted(paras.items())}"
+        v32, g32 = dense(model_id, paras, torch.float32)
+        _, g64 = dense(model_id, paras, torch.float64)
+        got_g = np.zeros_like(g32)
+        for r in out:
+            d0, d1 = r["zoo"][key]["docs"]
+            got_g[:, d0:d1] = r["zoo"][key]["grad"]
+        losses = [r["zoo"][key]["loss"] for r in out]
+        v_err = abs(losses[0] - v32) / abs(v32)
+        cp64, d64 = over_bar(got_g, g64), over_bar(g32, g64)
+        rec[key] = {"loss_rel_err": v_err, "grad_max_abs_err_vs_dense": float(
+                        np.abs(got_g - g32).max()),
+                    "grad_over_bar_vs_dense": over_bar(got_g, g32),
+                    "grad_over_bar_vs_fp64": cp64, "dense_fp32_over_bar_vs_fp64": d64,
+                    "ranks_same_loss": losses[0] == losses[1]}
+        if not (v_err <= PAR_ZOO_RTOL and cp64 <= max(1.0, 2.0 * d64) and losses[0] == losses[1]
+                and np.isfinite(got_g).all()):
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"parallel (h) zoo: {bad} past the bar: {rec}")
+    return rec
 
 
 def main() -> int:
@@ -4713,6 +5041,10 @@ def main() -> int:
     t_par = time.perf_counter()
     par_counts = parallel_phase(card, work_dir)
     print(f"parallel_phase_s {time.perf_counter() - t_par:.1f}", flush=True)
+    idle_cp = {path: n for path in ("cp_one_rank", "cp_ring", "cp_ulysses")
+               for name, n in par_counts[path].items() if name in CP_IDLE_KERNELS and n}
+    if idle_cp:
+        raise AssertionError(f"parallel: B1, B2 or B3 launched on the CP path: {idle_cp}")
     for path, names in (("dp", ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
                                 "pairwise_lambda_fwd", "pairwise_lambda_bwd", "sinkstep")),
                         ("tp", ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",

@@ -8,7 +8,8 @@ of a process group through parallel/train.py::DistributedTrainer (the
 same lifecycle: validation, best checkpoints, stop guard, resume). Under a
 mesh only rank 0 writes the run directory's files, and decisions taken on
 files (a resume state, a best checkpoint) are rank 0's, handed to every
-rank; `tp` and `pp_stages` reach the DistributedTrainer. Without a mesh the
+rank; `tp`, `pp_stages`, `shard_docs` and `cp_impl` reach the
+DistributedTrainer. Without a mesh the
 multi-device companion keys (`tp`, `shard_docs`, `cp_impl`, `pp_stages`,
 `eval_chunk`) change nothing, as in the JAX package. Training data is
 device-resident by default (`maybe_device_resident`, bf16 features for a
@@ -164,9 +165,8 @@ class LTREvaluator:
         paras = {k: v for k, v in model_para_dict.items() if k != "model_id"}
         if eval_dict.get("mesh"):
             from ptranking_tpu_torch.parallel.mesh import mesh_from_dict
-            from ptranking_tpu_torch.parallel.train import DistributedTrainer, refuse_unported
+            from ptranking_tpu_torch.parallel.train import DistributedTrainer
 
-            refuse_unported(eval_dict.get("shard_docs"))
             kwargs = {k: eval_dict[k] for k in ("tp", "shard_docs", "cp_impl", "pp_stages",
                                                 "scan_steps", "eval_chunk")
                       if eval_dict.get(k) is not None}

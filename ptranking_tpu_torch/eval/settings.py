@@ -7,8 +7,7 @@ port's ScorerConfig and OptimizerConfig. JSON list values are grid axes;
 `default` takes element [0]. The multi-device keys (`mesh`, `tp`,
 `shard_docs`, `cp_impl`, `pp_stages`, `eval_chunk`) are parsed and named in
 the run directory as the JAX package does. Only `mesh` changes a run: the
-others are read where it is set, and of those, PARALLEL_KEYS belong to the
-slice of the multi-device layer still to come.
+others are read where it is set.
 """
 
 from __future__ import annotations
@@ -22,11 +21,6 @@ from ptranking_tpu_torch.data.meta import get_data_meta, get_scaler_setting
 from ptranking_tpu_torch.losses import DEFAULT_PARAS
 from ptranking_tpu_torch.models import ScorerConfig
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
-
-# companion keys of `mesh` that the port refuses under a mesh: context
-# parallelism (ROADMAP queue A item 8c)
-PARALLEL_KEYS = ("shard_docs",)
-
 
 def _as_list(v):
     """JSON grid axes may arrive as scalars; normalize to a 1-element list

@@ -15,6 +15,7 @@ import torch
 
 from ptranking_tpu_torch.ops import masked_softmax
 from ptranking_tpu_torch.ops.sinkhorn import entropic_ot, sinkhorn_distance
+from ptranking_tpu_torch.parallel.collectives import global_max, global_min
 
 
 def cost_mat_positions(labels, mask, exponent: float = 1.0):
@@ -80,16 +81,17 @@ def std_histogram_gn(labels, mask, gain_base: float = 2.0):
 def pred_histogram(scores, labels, mask, smooth_type: str = "ST", tl_af: str = "S",
                    max_rele_level: Optional[float] = None):
     """Normalise predictions into a histogram. The batch-global max label and
-    min score stay device tensors: no host sync in the step."""
+    min score (over the data-parallel ranks too) stay device tensors: no host
+    sync in the step."""
     if smooth_type == "ST":
         if tl_af in ("S", "ST"):  # sigmoid outputs in [0,1]: rescale to label range
             if max_rele_level is None:
-                max_rele_level = torch.max(torch.where(mask, labels, 0.0))
+                max_rele_level = global_max(torch.max(torch.where(mask, labels, 0.0)))
             scores = scores * max_rele_level
         return masked_softmax(scores, mask)
     elif smooth_type == "NG":
         s = torch.where(mask, scores, 0.0)
-        mini = torch.min(torch.where(mask, scores, float("inf")))
+        mini = global_min(torch.min(torch.where(mask, scores, float("inf"))))
         s = torch.where(mask, torch.where(mini > 0, s, s - mini), 0.0)
         return s / torch.clamp(torch.sum(s, dim=-1, keepdim=True), min=1e-12)
     raise NotImplementedError(smooth_type)

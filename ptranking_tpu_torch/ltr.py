@@ -14,19 +14,22 @@ TREC run file a fold). An adversarial model id (IRGAN_* / IRFGAN_*) runs
 the adversarial branch's AdLTREvaluator (default data SyntheticMQ), as the
 JAX package dispatches it.
 
-`-mesh data=D,model=M` runs the adhoc, diversification and adversarial
-branches over D x M ranks (the tree branch ignores the mesh flags, as in
-the JAX package): rows split over `data`; with `-tp` the adhoc scorer's
-weights split over `model`, with `-pp_stages M` its encoder runs as an
-M-stage pipeline over `model` at inference; otherwise, and on the branches,
-the params stay whole on every model rank. Under torchrun the process
-group comes from its environment; otherwise this entry point starts the
-ranks itself, as the JAX CLI creates its devices: gloo ranks for `-device
-cpu`, NCCL ranks on cards 0..D*M-1 for CUDA (more ranks than cards raise),
-and one rank a one-rank group in this process. Rank 0 writes the run
-directory and its result is returned. `-shard_docs` and a `seq` axis > 1
-under a mesh belong to ROADMAP queue A item 8c and raise; without a mesh
-the companion flags change nothing, as in the JAX package.
+`-mesh data=D,model=M,seq=S` runs the adhoc, diversification and
+adversarial branches over D x M x S ranks (the tree branch ignores the mesh
+flags, as in the JAX package): rows split over `data`; with `-tp` the adhoc
+scorer's weights split over `model`, with `-pp_stages M` its encoder runs
+as an M-stage pipeline over `model` at inference, with `-shard_docs` each
+list's docs split over `seq` (context parallelism; `-cp_impl ulysses` for
+the all-to-all attention, ring by default); otherwise, and on the branches,
+the params stay whole on every model rank and the `seq` ranks repeat their
+rows. Under torchrun the process group comes from its environment;
+otherwise this entry point starts the ranks itself, as the JAX CLI creates
+its devices: gloo ranks for `-device cpu`, NCCL ranks on cards 0..n-1 for
+CUDA (more ranks than cards raise), and one rank a one-rank group in this
+process. Rank 0 writes the run directory and its result is returned.
+Without a mesh the companion flags change nothing, as in the JAX package.
+The kernels' library cache is `build/kernels/` unless the environment says
+otherwise (utils/compile_cache.py).
 """
 
 from __future__ import annotations
@@ -42,11 +45,10 @@ from ptranking_tpu_torch.data.prefetch import initialize_distributed
 from ptranking_tpu_torch.diversification import DIV_MODELS as LTR_DIV_MODELS
 from ptranking_tpu_torch.diversification import DivLTREvaluator
 from ptranking_tpu_torch.eval import LTR_ADHOC_MODELS, LTREvaluator
-from ptranking_tpu_torch.eval.settings import PARALLEL_KEYS
 from ptranking_tpu_torch.parallel.launch import one_rank_group, run_ranks
 from ptranking_tpu_torch.parallel.mesh import check_mesh_dict, mesh_ranks
-from ptranking_tpu_torch.parallel.train import refuse_unported
 from ptranking_tpu_torch.tree import LTR_TREE_MODELS, TreeLTREvaluator
+from ptranking_tpu_torch.utils.compile_cache import enable_persistent_cache
 
 ALL_MODELS = list(LTR_ADHOC_MODELS) + LTR_ADVERSARIAL_MODELS + LTR_TREE_MODELS + LTR_DIV_MODELS
 
@@ -76,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-tp", action="store_true",
                    help="tensor-parallel scorer over the mesh's model axis")
     p.add_argument("-shard_docs", action="store_true",
-                   help="context-parallel doc axis under a mesh (not ported yet)")
-    p.add_argument("-cp_impl", type=str, default=None, choices=["ring", "ulysses"])
+                   help="context parallelism: each list's docs split over the mesh's seq axis")
+    p.add_argument("-cp_impl", type=str, default=None, choices=["ring", "ulysses"],
+                   help="the attention exchange under -shard_docs (default ring)")
     p.add_argument("-pp_stages", type=int, default=None,
                    help="pipeline stages of the listsf encoder over the model axis")
     p.add_argument("-scan_steps", type=int, default=None,
@@ -117,12 +120,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     overrides = parse_mesh_overrides(args)
     mesh = overrides.get("mesh")
+    enable_persistent_cache()
     if mesh and args.model not in LTR_TREE_MODELS and not _grouped():
-        # a launcher's process (not a rank started below): the slice still
-        # to come raises before any rank starts
+        # a launcher's process (not a rank started below): the axes are
+        # checked before any rank starts
         check_mesh_dict(mesh)
-        if args.model in LTR_ADHOC_MODELS:
-            refuse_unported(**{k: overrides.get(k) for k in PARALLEL_KEYS})
         device_type = torch.device(args.device).type
         initialize_distributed(device_type=device_type)  # under torchrun, the group from its environment
         if not _grouped():

@@ -135,7 +135,7 @@ def tree_leaves(params) -> list:
 
 def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch.Tensor,
                  training: bool = False, gen: Optional[torch.Generator] = None,
-                 tp=None, pp=None) -> torch.Tensor:
+                 tp=None, pp=None, cp=None) -> torch.Tensor:
     """Score a padded batch: [B, N, F] -> [B, N] in fp32 (fp64 stays fp64).
     Padded docs score garbage by design — consumers apply `mask`.
 
@@ -149,7 +149,11 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch
     shardings do. `pp` (parallel/pipeline.py::PPPlan) stages the listsf
     encoder as a GPipe pipeline over the mesh's `model` axis when
     training=False; the head and tail FFNs run on the whole batch, since
-    their batch norm takes the batch's statistics."""
+    their batch norm takes the batch's statistics. `cp`
+    (parallel/ring.py::CPPlan) says x and mask are the rank's block of the
+    docs: the listsf's attention runs through the plan's ring or Ulysses
+    exchange over `seq`, without flash. Where both are given, the pipeline
+    takes inference and CP training, as in the JAX package."""
     out_dtype = torch.promote_types(x.dtype, torch.float32)
     if cfg.compute_dtype == "bfloat16":
         params = map_params(
@@ -185,8 +189,8 @@ def apply_scorer(params: Params, cfg: ScorerConfig, x: torch.Tensor, mask: torch
                                               flash=cfg.flash_attn)
             return _listsf.encoder_apply(params["encoder"], v, mask, cfg.n_heads,
                                          cfg.encoder_type, cfg.attn_block_size,
-                                         cfg.flash_attn, cfg.dropout, training, gen,
-                                         cfg.remat, tp=tp and tp.at("encoder"))
+                                         cfg.flash_attn and cp is None, cfg.dropout, training,
+                                         gen, cfg.remat, tp=tp and tp.at("encoder"), cp=cp)
 
         if cfg.encoder_type == "AllRank":
             combined = encode(head(x))

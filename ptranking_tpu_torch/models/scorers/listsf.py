@@ -6,6 +6,11 @@ post-norm residual). Attention logits are masked on the key axis so padded
 documents get no weight, and QKV is one fused [F, 3F] projection split q|k|v
 and then into heads.
 
+Under context parallelism (a parallel/ring.py::CPPlan `cp`) x holds the
+rank's block of each list's docs and the attention runs through the ring or
+Ulysses exchange over the `seq` axis, as in the JAX package; it has no
+attention dropout, flash is off and attn_block_size is ignored.
+
 Training form, as in the JAX package: attention-probability dropout on the
 dense and the blockwise (attn_block_size) paths (the flash path has none),
 AllRank's residual and position-wise FFN dropouts, and `remat` (each layer
@@ -50,11 +55,12 @@ def mhsa_init(gen: torch.Generator, hid_dim: int, device="cpu") -> Params:
 def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
                attn_block_size: Optional[int] = None, flash: bool = False,
                drop_rate: float = 0.1, training: bool = False,
-               gen: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
+               gen: Optional[torch.Generator] = None, tp=None, cp=None) -> torch.Tensor:
     """Masked multi-head self-attention over the document axis.
     x: [B, N, F]; mask: [B, N]. In training, the dense and blockwise paths
     drop attention probabilities; the flash path drops none (as in the JAX
-    package).
+    package). Under a CPPlan `cp`, x and mask are the rank's block of the
+    docs and the attention is parallel/ring.py::cp_attention (no dropout).
 
     Under a ModelParallel share `tp` whose spec splits `qkv` (M = tp.degree
     ranks, n_heads % M == 0) the rank runs heads [r H/M, (r+1) H/M): p["qkv"]
@@ -78,7 +84,11 @@ def mhsa_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
         return t.reshape(B, N, n_heads, d_head).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
-    if flash:
+    if cp is not None:
+        from ptranking_tpu_torch.parallel.ring import cp_attention
+
+        out = cp_attention(q, k, v, mask, cp)
+    elif flash:
         out = flash_attention(q, k, v, mask)
     elif attn_block_size is not None and N > attn_block_size:
         # attention dropout inside the blocks, the dense form exactly
@@ -165,7 +175,7 @@ def encoder_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
                   encoder_type: str, attn_block_size: Optional[int] = None,
                   flash: bool = False, drop_rate: float = 0.1, training: bool = False,
                   gen: Optional[torch.Generator] = None, remat: bool = False,
-                  tp=None) -> torch.Tensor:
+                  tp=None, cp=None) -> torch.Tensor:
     """Encoder wiring per variant:
 
       AllRank: x + drop(MHSA(LN(x))); x + drop(FC(LN(x))); final LN
@@ -175,15 +185,16 @@ def encoder_apply(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int,
     remat recomputes each layer in the backward pass (when a gradient is
     being taken) instead of keeping its activations; under a ModelParallel
     share `tp` (the encoder's spec) the recompute replays the layer's
-    `model` collectives, in the same order on every rank. Each sublayer's
-    output is whole, so the norms and residuals run on whole tensors."""
+    `model` collectives, in the same order on every rank (and under a
+    CPPlan `cp` its `seq` collectives). Each sublayer's output is whole, so
+    the norms and residuals run on whole tensors."""
 
     def one_layer(i, layer, x, g):
         share = None if tp is None else tp.at("layers", i)
 
         def attend(h):
             return mhsa_apply(layer["mhsa"], h, mask, n_heads, attn_block_size, flash,
-                              drop_rate, training, g, share and share.at("mhsa"))
+                              drop_rate, training, g, share and share.at("mhsa"), cp)
 
         if encoder_type == "AllRank":
             x = x + dropout(g, attend(layer_norm_apply(layer["ln1"], x)), drop_rate, training)

@@ -24,7 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ptranking_tpu_torch.parallel.collectives import batch_rand, global_sum
+from ptranking_tpu_torch.parallel.collectives import batch_rand, global_sum, query_sum
 
 Params = Dict[str, object]
 
@@ -178,13 +178,15 @@ def masked_batch_norm(p: Params, x: torch.Tensor, mask: torch.Tensor,
     per_query=False: statistics across all real docs of the batch (BN);
     per_query=True: statistics per query over its own real docs (BN2).
     x: [B, N, F]; mask: [B, N] bool. Under data parallelism BN's sums span
-    every rank's rows (parallel/collectives.py::global_sum).
+    every rank's rows (parallel/collectives.py::global_sum); under context
+    parallelism they span every rank's docs too, and BN2's a query's docs
+    over the `seq` ranks (query_sum).
     """
     in_dtype = x.dtype
     x = x.float()
     m = mask[..., None].float()
     dims = (1,) if per_query else (0, 1)
-    total = (lambda t: t) if per_query else global_sum
+    total = query_sum if per_query else global_sum
     # the count and the sum in one reduction
     count_sum = total(torch.cat([m.sum(dim=dims, keepdim=True),
                                  (x * m).sum(dim=dims, keepdim=True)], dim=-1))

@@ -19,6 +19,11 @@ as in the JAX package, whose flash path applies none either:
     above. CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
+  * `sdpa_block` and `online_combine` — one (query block, key block)
+    partial softmax and the fold of a partial into running accumulators,
+    the block math of parallel/ring.py's context-parallel attention (which
+    the JAX package's blockwise path shares; here `blockwise_attention`
+    keeps its own loop, with its dropout draws).
   * `attention_forward_plain` and `attention_backward_plain` — the forward
     and backward kernels' formulas in plain torch, with the kernels' tiles,
     row statistics and rounding points, and `attention_forward_packed_plain`
@@ -70,6 +75,37 @@ _NEG = -1e9
 # fp32 kernel of d <= 128 takes 32, F32N_TILE, which moves only the rescales'
 # rounding)
 _FWD_TILE = 64
+
+
+def sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kmask: torch.Tensor,
+               scale: float):
+    """One (query block, key block) partial attention: (num, denom, m) with
+
+        num   = sum_j exp(logit_j - m) v_j   [B, H, nq, d]
+        denom = sum_j exp(logit_j - m)       [B, H, nq]
+        m     = max_j logit_j                [B, H, nq]
+
+    q [B, H, nq, d], k and v [B, H, nk, d], kmask [B, nk]. The logits and
+    accumulators are fp32 and a masked key gets logit -1e9; the block's
+    probabilities are rounded to v's dtype before the p v product, as in
+    the JAX package."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.where(kmask[:, None, None, :], logits, _NEG)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    num = torch.matmul(p.to(v.dtype).float(), v.float())
+    return num, p.sum(dim=-1), m
+
+
+def online_combine(num: torch.Tensor, den: torch.Tensor, mx: torch.Tensor,
+                   part_num: torch.Tensor, part_den: torch.Tensor, part_m: torch.Tensor):
+    """Fold one block's partial softmax (sdpa_block) into the running
+    (num, den, mx); mx may start at -inf (no block folded yet)."""
+    new_mx = torch.maximum(mx, part_m)
+    alpha = torch.exp(mx - new_mx)
+    beta = torch.exp(part_m - new_mx)
+    return (num * alpha[..., None] + part_num * beta[..., None], den * alpha + part_den * beta,
+            new_mx)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ptranking_tpu_torch.parallel.collectives import global_count
+
 _NEG = -1e30  # log-domain "minus infinity" that stays NaN-free under arithmetic
 
 
@@ -105,20 +107,22 @@ class _SinkhornDistance(torch.autograd.Function):
                                              use_pallas)
         w = _row_weights(mu, row_mask)
         per_row = _transport_cost(log_u, log_v, cost, lam)
-        ctx.save_for_backward(log_u, mu, w)
+        # the real queries of the whole batch (over the data-parallel ranks)
+        den = torch.clamp(global_count(torch.sum(w)), min=1.0)
+        ctx.save_for_backward(log_u, mu, w, den)
         ctx.lam = lam
-        return torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1.0)
+        return torch.sum(per_row * w) / den
 
     @staticmethod
     def backward(ctx, grad_out):
-        log_u, mu, w = ctx.saved_tensors
+        log_u, mu, w, den = ctx.saved_tensors
         valid = mu > 0
         grad = torch.where(valid, log_u * ctx.lam, 0.0)
         n = torch.clamp(torch.sum(valid, dim=-1, keepdim=True), min=1)
         # double mean-centring over the valid entries
         grad = grad - torch.where(valid, torch.sum(grad, -1, keepdim=True) / n, 0.0)
         grad = grad - torch.where(valid, torch.sum(grad, -1, keepdim=True) / n, 0.0)
-        grad = grad * (w / torch.clamp(torch.sum(w), min=1.0))[:, None]
+        grad = grad * (w / den)[:, None]
         return grad_out * grad, None, None, None, None, None, None
 
 
@@ -156,6 +160,7 @@ def entropic_ot(mu: torch.Tensor, nu: torch.Tensor, cost: torch.Tensor, eps: flo
 
     f, g = torch.zeros_like(mu), torch.zeros_like(nu)
     err = torch.full((), float("inf"), dtype=mu.dtype, device=mu.device)
+    n_rows = global_count(torch.tensor(float(mu.shape[0]), dtype=mu.dtype, device=mu.device))
     for _ in range(max_iters):
         f1 = eps * (log_mu - _lse(m_op(f, g), dim=-1)) + f
         f1 = torch.where(valid_mu, f1, _NEG)
@@ -163,13 +168,13 @@ def entropic_ot(mu: torch.Tensor, nu: torch.Tensor, cost: torch.Tensor, eps: flo
         g1 = torch.where(valid_nu, g1, _NEG)
         # the marginal-error probe only drives the boolean freeze; it carries
         # no gradient (its exp can overflow, and 0 * inf is NaN backward)
-        with torch.no_grad():
+        with torch.no_grad():  # a mean over every row of the batch
             marg = torch.exp(_lse(m_op(f1, g1), dim=-1))
-            err1 = torch.mean(torch.sum(torch.abs(marg - mu), dim=-1))
+            err1 = global_count(torch.sum(torch.abs(marg - mu))) / n_rows
         done = err <= thresh  # freeze once converged
         f, g, err = torch.where(done, f, f1), torch.where(done, g, g1), torch.where(done, err, err1)
     pi = torch.exp(m_op(f, g))
     per_row = torch.sum(pi * cost, dim=(-2, -1))
     w = _row_weights(mu, row_mask)
-    loss = torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1.0)
+    loss = torch.sum(per_row * w) / torch.clamp(global_count(torch.sum(w)), min=1.0)
     return loss, pi

@@ -4,7 +4,7 @@ sharding rules.
 The port's counterpart of ptranking_tpu/parallel/mesh.py. Axes:
   data  — data parallel over query groups (the rows of every batch)
   model — tensor parallel over scorer weights, pipeline stages, experts
-  seq   — context parallel over the document axis (ROADMAP queue A item 8c)
+  seq   — context parallel over the document axis
 and, for the hybrid mesh, a leading `dcn` axis over hosts; `dcn x data` is
 one data-parallel group, as the JAX package shards a batch over both.
 
@@ -14,15 +14,21 @@ torchrun, `data/prefetch.py::initialize_distributed` or
 `parallel/launch.py`). Where XLA inserts collectives from shardings, the
 port makes them explicit: `data_parallel` / `batch_sharding` give a rank's
 share of the batch axes (parallel/collectives.py; the ranks that share a
-`data` coordinate see the same rows), `replicated` broadcasts tensors from
-the mesh's first rank, and `scorer_param_sharding` / `expert_param_sharding`
-say which dim of each param leaf is split over `model`, for
-parallel/tensor.py::ModelParallel to cut and to run.
+`data` coordinate see the same rows) and, with shard_docs, of the `seq`
+axis (its block of each list's docs; parallel/ring.py::SeqParallel, with
+`cp_plan`); `replicated` broadcasts tensors from the mesh's first rank,
+and `scorer_param_sharding` / `expert_param_sharding` say which dim of
+each param leaf is split over `model`, for parallel/tensor.py::ModelParallel
+to cut and to run. Three groups of a rank: its `data` line (dcn x data on
+the hybrid mesh: counts, loss totals, metric sums), its `seq` line, and its
+gradient group, the ranks that share its `model` coordinate (dcn x data x
+seq: the gradients' and, under shard_docs, the batch statistics' sums).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Optional
 
@@ -31,6 +37,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ptranking_tpu_torch.parallel.collectives import DataParallel
 from ptranking_tpu_torch.parallel.collectives import SINGLE as _SINGLE
+from ptranking_tpu_torch.parallel.ring import CPPlan, SeqParallel
 from ptranking_tpu_torch.parallel.tensor import ModelParallel, Split
 
 AXES = ("data", "model", "seq")
@@ -116,14 +123,10 @@ _MESH_CACHE: dict = {}
 
 
 def check_mesh_dict(mesh_dict: dict) -> None:
-    """The axes the port runs: unknown axes fail; `seq` > 1 belongs to
-    ROADMAP queue A item 8c."""
+    """The axes the port runs: unknown axes fail."""
     unknown = set(mesh_dict) - set(HYBRID_AXES)
     if unknown:
         raise ValueError(f"unknown mesh axes {unknown}")
-    if int(mesh_dict.get("seq", 1)) > 1:
-        raise NotImplementedError("a mesh axis `seq` > 1 is context parallelism, not ported "
-                                  "yet (ROADMAP queue A item 8c)")
 
 
 def mesh_ranks(mesh_dict: dict) -> int:
@@ -161,45 +164,87 @@ def axis_group(mesh: DeviceMesh, axis: str):
     return mesh.get_group(axis)
 
 
-# flattened dcn x data groups of hybrid meshes with a `model` axis, by the
-# mesh's rank layout: every rank makes them once, in the same order
-_BATCH_GROUPS: dict = {}
+# flattened groups of several axes (dcn x data, dcn x data x seq), by the
+# axes and the mesh's rank layout: every rank makes them once, in the same
+# order
+_LINE_GROUPS: dict = {}
+
+
+def _line_group(mesh: DeviceMesh, axes):
+    """The group of this rank's line over `axes`: the ranks that differ from
+    it in those coordinates alone."""
+    names = mesh.mesh_dim_names
+    axes = [ax for ax in axes if ax in names]
+    if all(axis_size(mesh, ax) == 1 for ax in names if ax not in axes):
+        return dist.group.WORLD  # the line spans the mesh
+    wide = [ax for ax in axes if axis_size(mesh, ax) > 1]
+    if len(wide) <= 1:
+        return mesh.get_group((wide or axes)[0])
+    ranks = mesh.mesh
+    dims = [names.index(ax) for ax in wide]
+    rest = [i for i in range(len(names)) if i not in dims]
+    key = (dist.group.WORLD, tuple(wide), tuple(ranks.shape), tuple(ranks.flatten().tolist()))
+    if key not in _LINE_GROUPS:
+        lines = ranks.permute(*rest, *dims).reshape(-1, math.prod(ranks.shape[d] for d in dims))
+        mine = None
+        for line in lines.tolist():
+            g = dist.new_group(line)
+            if dist.get_rank() in line:
+                mine = g
+        _LINE_GROUPS[key] = mine
+    return _LINE_GROUPS[key]
 
 
 def _batch_group(mesh: DeviceMesh):
     """The data-parallel group of this rank: `data` (with `dcn`, the
-    flattened dcn x data line); None where it is the whole world."""
-    names = mesh.mesh_dim_names
-    if "dcn" not in names:
+    flattened dcn x data line)."""
+    if "dcn" not in mesh.mesh_dim_names:
         return mesh.get_group("data")
-    if axis_size(mesh, "model") == 1:
-        return None  # dcn x data spans the mesh
-    ranks = mesh.mesh  # [dcn, data, model, seq] of global ranks
-    key = (dist.group.WORLD, tuple(ranks.shape), tuple(ranks.flatten().tolist()))
-    if key not in _BATCH_GROUPS:
-        mine = None
-        for m in range(ranks.shape[2]):
-            for s_ in range(ranks.shape[3]):
-                line = ranks[:, :, m, s_].flatten().tolist()
-                g = dist.new_group(line)
-                if dist.get_rank() in line:
-                    mine = g
-        _BATCH_GROUPS[key] = mine
-    return _BATCH_GROUPS[key]
+    return _line_group(mesh, ("dcn", "data"))
 
 
-def data_parallel(mesh):
+def gradient_group(mesh: DeviceMesh):
+    """The gradient group of this rank: the ranks that share its `model`
+    coordinate (the flattened dcn x data x seq line). Under shard_docs each
+    rank's backward reaches the params through its own rows and docs, and
+    the gradients sum over this group."""
+    return _line_group(mesh, ("dcn", "data", "seq"))
+
+
+def _checked(mesh):
+    if isinstance(mesh, dict):
+        return mesh_from_dict(mesh)  # its axes are checked there
+    check_mesh_dict({ax: mesh.size(i) for i, ax in enumerate(mesh.mesh_dim_names)})
+    return mesh
+
+
+def data_parallel(mesh, shard_docs: bool = False):
     """The DataParallel share of a mesh's batch axes (SINGLE for no mesh); a
     mesh dict is built with mesh_from_dict. Its group is the rank's `data`
     line (dcn x data on the hybrid mesh): the ranks along `model` share a
-    block of rows; files and the initial state span the whole mesh."""
+    block of rows, and so do the ranks along `seq`, unless shard_docs gives
+    each its block of the docs (with the gradient group and the `seq`
+    share); files and the initial state span the whole mesh."""
     if mesh is None:
         return _SINGLE
-    if isinstance(mesh, dict):
-        mesh = mesh_from_dict(mesh)  # its axes are checked there
-    else:
-        check_mesh_dict({ax: mesh.size(i) for i, ax in enumerate(mesh.mesh_dim_names)})
-    return DataParallel(_batch_group(mesh))
+    mesh = _checked(mesh)
+    if not shard_docs:
+        return DataParallel(_batch_group(mesh))
+    return DataParallel(_batch_group(mesh), gradient_group(mesh), seq_parallel(mesh))
+
+
+def seq_parallel(mesh) -> SeqParallel:
+    """This rank's SeqParallel share of the mesh's `seq` axis."""
+    if axis_size(mesh, "seq") == 1:
+        return SeqParallel(None)
+    return SeqParallel(axis_group(mesh, "seq"))
+
+
+def cp_plan(mesh, impl: str = "ring") -> CPPlan:
+    """The CPPlan of a mesh: its `seq` share, the attention exchange, and the
+    batch axes' share for the loss sums that span the batch."""
+    mesh = _checked(mesh)
+    return CPPlan(seq_parallel(mesh), impl, SeqParallel(_batch_group(mesh)))
 
 
 def model_parallel(mesh, spec=None) -> ModelParallel:
@@ -221,11 +266,10 @@ def batch_sharding(mesh: DeviceMesh, shard_docs: bool = False):
     """This rank's share of a batch over the mesh's batch axes (dcn x data):
     its DataParallel, whose `block(rows)` is the rank's contiguous block of
     the rows padded to a multiple of the degree with all-masked rows (the
-    JAX trainer's `_mesh_pad`)."""
-    if shard_docs:
-        raise NotImplementedError("shard_docs shards the doc axis over `seq`, context "
-                                  "parallelism, not ported yet (ROADMAP queue A item 8c)")
-    return data_parallel(mesh)
+    JAX trainer's `_mesh_pad`); with shard_docs also its `seq` share, whose
+    `block(a, 1)` is the rank's block of the docs, padded to a multiple of
+    the `seq` degree with all-masked docs."""
+    return data_parallel(mesh, shard_docs)
 
 
 # --------------------------------------------------------------------- TP

@@ -1,5 +1,5 @@
-"""DistributedTrainer: data-, tensor- and pipeline-parallel training and
-evaluation over a mesh.
+"""DistributedTrainer: data-, tensor-, pipeline- and context-parallel
+training and evaluation over a mesh.
 
 The port's counterpart of ptranking_tpu/parallel/train.py. One process a
 device. Data parallelism (DP): every rank takes the block of each batch's
@@ -26,41 +26,60 @@ k-stage GPipe pipeline over `model` (parallel/pipeline.py); training stays
 data parallel, with whole params on every model rank, as in the JAX
 package.
 
+shard_docs=True (CP): each rank takes its block of every list's docs as
+well (its `seq` coordinate; N padded to a multiple of S with all-masked
+docs, as the JAX trainer's `_mesh_pad`), and the scorer runs on it: the
+listsf's attention through ring or Ulysses attention (`cp_impl`,
+parallel/ring.py), BN's statistics over every rank's docs, dropout drawn
+for the global batch and cut to the block. The O(N^2) losses of
+CP_PAIR_LOSSES run on the blocks through the ring losses and the doc-sharded
+WassRank (parallel/ring.py, parallel/ot.py), with the JAX trainer's routing
+(`_cp_pair_loss`); every other loss runs on the scores gathered along
+`seq`, whole rows alike on every `seq` rank. A rank's loss is its data
+line's; the gradients sum over the gradient group (`data` x `seq`), the
+loss totals, metric sums and counts over the batch axes only. predict,
+evaluate, evaluate_per_query and the stop guard gather the scores along
+`seq` before the metrics. With pp_stages too, inference takes the
+pipeline on whole docs and training CP, as in the JAX package.
+
 Checkpoints hold full tensors, interchangeable with the AdhocRanker's and
 the JAX package's: every rank joins the shards (a collective), then rank 0
 writes; rank 0 reads a checkpoint for every rank, and each keeps its
-shards. `shard_docs` and a `seq` axis > 1 wait for ROADMAP queue A item 8c.
+shards. Params are whole on every `seq` rank.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ptranking_tpu_torch import LTR_SEED
+from ptranking_tpu_torch import EPSILON, LTR_SEED
+from ptranking_tpu_torch.losses import STOCHASTIC
 from ptranking_tpu_torch.models.scorers import (ScorerConfig, init_scorer, map_params,
                                                 tree_leaves)
-from ptranking_tpu_torch.parallel.mesh import (axis_size, data_parallel, mesh_from_dict,
-                                               model_parallel, scorer_param_sharding)
+from ptranking_tpu_torch.parallel.collectives import _pad_rows
+from ptranking_tpu_torch.parallel.mesh import (axis_size, cp_plan, data_parallel,
+                                               mesh_from_dict, model_parallel,
+                                               scorer_param_sharding)
 from ptranking_tpu_torch.parallel.pipeline import PPPlan
 from ptranking_tpu_torch.train.optimizer import OptimizerConfig
 from ptranking_tpu_torch.train.ranker import AdhocRanker
 from ptranking_tpu_torch.types import LabelType, RankingBatch
 
 
-def refuse_unported(shard_docs: bool = False):
-    """The setting of the slice still to come, named by its item."""
-    if shard_docs:
-        raise NotImplementedError("shard_docs (context parallelism over the `seq` axis) is "
-                                  "not ported yet (ROADMAP queue A item 8c)")
-
-
 class DistributedTrainer(AdhocRanker):
     """Mesh-parallel counterpart of AdhocRanker: DP over the batch axes,
     with tp=True the scorer's weights split over `model`, with pp_stages=k
-    the encoder staged over `model` at inference."""
+    the encoder staged over `model` at inference, with shard_docs=True the
+    docs split over `seq`."""
+
+    # the model ids whose [B, N, N] pair space runs through a ring loss or
+    # the doc-sharded Sinkhorn under shard_docs: every O(N^2) loss of the zoo
+    CP_PAIR_LOSSES = ("LambdaRank", "RankNet", "LambdaLoss", "ApproxNDCG", "SoftRank",
+                      "WassRank", "NeuralNDCG")
 
     def __init__(self, model_id: str, scorer_cfg: ScorerConfig, mesh,
                  model_paras: Optional[Dict[str, Any]] = None,
@@ -69,7 +88,6 @@ class DistributedTrainer(AdhocRanker):
                  tp: bool = False, shard_docs: bool = False, cp_impl: str = "ring",
                  pp_stages: int = 0, scan_steps: int = 32, eval_chunk: Optional[int] = None,
                  seed: int = LTR_SEED, device="cuda"):
-        refuse_unported(shard_docs)
         if cp_impl not in ("ring", "ulysses"):
             raise ValueError(f"cp_impl must be 'ring' or 'ulysses', got {cp_impl!r}")
         if isinstance(mesh, dict):
@@ -95,8 +113,10 @@ class DistributedTrainer(AdhocRanker):
         self.tp = bool(tp)
         self.pp_stages = pp_stages
         self.cp_impl = cp_impl
-        self._dp = data_parallel(mesh)
+        self.shard_docs = bool(shard_docs)
+        self._dp = data_parallel(mesh, self.shard_docs)
         self._pp = PPPlan(mesh) if pp_stages else None
+        self._cp = cp_plan(mesh, cp_impl) if self.shard_docs else None
 
     # ------------------------------------------------------------ shards
 
@@ -172,3 +192,100 @@ class DistributedTrainer(AdhocRanker):
         if not np.isfinite(loss):
             return float("nan"), True
         return loss, stop
+
+    # --------------------------------------------------------------- CP
+
+    def _step(self, features: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """AdhocRanker._step; under shard_docs on the rank's block of the
+        docs of its rows (features, labels and mask hold the rows' N docs):
+        returns its data line's loss."""
+        if self._cp is None:
+            return super()._step(features, labels, mask)
+        seq = self._cp.seq
+        x, m = seq.block(features, 1), seq.block(mask, 1, False)
+        self._optimizer.zero_grad(set_to_none=True)
+        with self._dp.rows(x.shape[0], docs=mask.shape[1]):
+            loss = self._cp_loss(self._scores(x, m, training=True, cp=self._cp), labels, mask)
+            loss.backward()
+        self._dp.reduce_grads(self._leaves)
+        self._optimizer.step()
+        return loss.detach()
+
+    def _infer(self, x: torch.Tensor, mask: torch.Tensor, *rest: torch.Tensor):
+        """AdhocRanker._infer; under shard_docs the scorer runs on the
+        rank's block of the docs and the scores are gathered along `seq`
+        (a pipeline, pp_stages, takes whole docs instead)."""
+        if self._cp is None or self._pp is not None:
+            return super()._infer(x, mask, *rest)
+        seq, N = self._cp.seq, mask.shape[1]
+        with self._dp.rows(x.shape[0], docs=N):
+            scores = self._scores(seq.block(x, 1), seq.block(mask, 1, False), cp=self._cp)
+        return (seq.gather(scores, 1)[:, :N], mask, *rest)
+
+    def _cp_loss(self, scores: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+        """The data line's loss from the rank's block of scores [B, n] and the
+        rows' whole labels and mask [B, N]. CP_PAIR_LOSSES route as in the
+        JAX trainer (`_cp_pair_loss`); every other loss runs on the scores
+        gathered along `seq` (its backward: the rank's block), in a scope
+        of rows alone: its draws and counts are those of whole rows."""
+        cp, paras, lt = self._cp, self.model_paras, self.label_type
+        seq, model_id, N = cp.seq, self.model_id, mask.shape[1]
+        if model_id not in self.CP_PAIR_LOSSES:
+            with self._dp.rows(scores.shape[0]):
+                kw = {"gen": self._gen} if model_id in STOCHASTIC else {}
+                return self.loss_fn(seq.gather(scores, 1)[:, :N], labels, mask, label_type=lt,
+                                    **paras, **kw)
+        from ptranking_tpu_torch.losses.listwise import _full_dcg
+        from ptranking_tpu_torch.ops import gain, sort_labels_by_scores
+        from ptranking_tpu_torch.parallel.ot import cp_wass_rank
+        from ptranking_tpu_torch.parallel.ring import (ring_approx_ndcg, ring_lambda_loss,
+                                                       ring_lambdaloss, ring_neural_ndcg,
+                                                       ring_soft_rank)
+
+        l_l, m_l = seq.block(labels, 1), seq.block(mask, 1, False)
+        sigma = float(paras.get("sigma", 1.0))
+        top_k = paras.get("top_k")
+        top_k = None if top_k is None else int(top_k)
+        # the ideal DCG the dense losses divide by, EPSILON floor included
+        idcg = torch.clamp(_full_dcg(labels, mask, lt), min=EPSILON)[..., None]
+        if model_id == "RankNet":  # pairs over the given (presorted) order, unweighted
+            return ring_lambda_loss(scores, l_l, torch.zeros_like(scores), m_l, cp,
+                                    sigma=sigma, weighted=False)
+        if model_id in ("ApproxNDCG", "SoftRank"):  # no sort: the given order
+            n_gains = seq.block(torch.where(mask, gain(torch.where(mask, labels, 0.0), lt)
+                                            / idcg, 0.0), 1)
+            if model_id == "ApproxNDCG":
+                return ring_approx_ndcg(scores, n_gains, m_l, cp,
+                                        alpha=float(paras.get("alpha", 10.0)))
+            return ring_soft_rank(scores, n_gains, m_l, cp, delta=float(paras.get("delta", 2.0)),
+                                  top_k=top_k)
+        if model_id == "WassRank":
+            return cp_wass_rank(
+                scores, l_l, m_l, cp, mode=paras.get("mode", "SinkhornOT"),
+                sh_itr=int(paras.get("sh_itr", 20)), lam=float(paras.get("lam", 0.1)),
+                smooth_type=paras.get("smooth_type", "ST"), cost_type=paras.get("cost_type", "eg"),
+                non_rele_gap=float(paras.get("non_rele_gap", 100.0)),
+                var_penalty=float(paras.get("var_penalty", math.e)),
+                gain_base=float(paras.get("gain_base", 4.0)), tl_af=paras.get("tl_af", "S"))
+        if model_id == "NeuralNDCG":
+            return ring_neural_ndcg(scores, l_l, m_l, cp,
+                                    temperature=float(paras.get("temperature", 1.0)),
+                                    top_k=top_k,
+                                    sinkhorn_iters=int(paras.get("sinkhorn_iters", 10)),
+                                    label_type=lt)
+        # the sorted-order losses: the rows gathered (their gradient summed
+        # back) and sorted whole, then each rank takes its block of the order
+        s_full = seq.gather_sum(scores, 1)
+        n_pad = s_full.shape[1]
+        s_sorted, l_sorted, m_sorted = sort_labels_by_scores(
+            s_full, _pad_rows(labels, n_pad, 1, 0.0), _pad_rows(mask, n_pad, 1, False))
+        n_gains = torch.where(m_sorted, gain(torch.where(m_sorted, l_sorted, 0.0), lt) / idcg,
+                              0.0)
+        blocks = [seq.block(t, 1) for t in (s_sorted, l_sorted, n_gains, m_sorted)]
+        if model_id == "LambdaLoss":
+            return ring_lambdaloss(*blocks, cp, loss_type=paras.get("loss_type", "NDCG_Loss2"),
+                                   k=int(paras.get("k", 5)), sigma=sigma,
+                                   mu=float(paras.get("mu", 5.0)))
+        return ring_lambda_loss(*blocks, cp, sigma=sigma, weighted=True)

@@ -198,12 +198,14 @@ class AdhocRanker:
         self._optimizer.step()
         return loss.detach()
 
-    def _scores(self, x: torch.Tensor, mask: torch.Tensor, training: bool = False):
-        """apply_scorer on the ranker's params (with its TP share, and in
-        inference its pipeline plan); training draws from its generator."""
+    def _scores(self, x: torch.Tensor, mask: torch.Tensor, training: bool = False, cp=None):
+        """apply_scorer on the ranker's params (with its TP share, in
+        inference its pipeline plan, and a context-parallel plan `cp` where
+        x is the rank's block of the docs); training draws from its
+        generator."""
         return apply_scorer(self.params, self.scorer_cfg, x, mask, training=training,
                             gen=self._gen if training else None, tp=self._tp,
-                            pp=None if training else self._pp)
+                            pp=None if training else self._pp, cp=cp)
 
     def _features_mask(self, batch: RankingBatch):
         """(features, mask bool) of a batch on the device: this rank's block
@@ -303,13 +305,20 @@ class AdhocRanker:
         """NaN/all-zero prediction guard on one batch: True = training has failed."""
         return self._scores_fail(*self._features_mask(batch))
 
+    def _infer(self, x: torch.Tensor, mask: torch.Tensor, *rest: torch.Tensor):
+        """(scores, mask, *rest) of an inference pass on a batch already on
+        the device (the rank's rows): the scores and the tensors of the same
+        rows and docs that the metrics read with them."""
+        with self._dp.rows(x.shape[0]):
+            return (self._scores(x, mask), mask, *rest)
+
     @torch.inference_mode()
     def _scores_fail(self, x: torch.Tensor, mask: torch.Tensor) -> bool:
         """True where a score of a real doc is not finite or every one is
         zero; under data parallelism every rank takes the same decision, on
         counts summed over the ranks."""
-        with self._dp.rows(x.shape[0]):
-            masked = torch.where(mask, self._scores(x, mask), 0.0)
+        scores, mask = self._infer(x, mask)
+        masked = torch.where(mask, scores, 0.0)
         bad, nonzero = self._dp.all_reduce(torch.stack(
             [torch.sum(~torch.isfinite(masked)), torch.sum(masked != 0.0)])).tolist()
         return bad > 0 or nonzero == 0
@@ -320,9 +329,7 @@ class AdhocRanker:
         numpy arrays or tensors."""
         if self.params is None:
             raise RuntimeError("init() or load() the ranker first")
-        x, mask = self._features_mask(batch)
-        with self._dp.rows(x.shape[0]):
-            scores = self._scores(x, mask)
+        scores, _ = self._infer(*self._features_mask(batch))
         return self._dp.gather_rows(scores)[:batch.mask.shape[0]]
 
     # ------------------------------------------------------------------ eval
@@ -365,8 +372,7 @@ class AdhocRanker:
     def _eval_sums(self, x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                    ks) -> torch.Tensor:
         """One batch's packed [4 * len(ks) + 1] metric sums, on the device."""
-        with self._dp.rows(x.shape[0]):
-            scores = self._scores(x, mask)
+        scores, mask, labels = self._infer(x, mask, labels)
         out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
         # all-padded remainder rows add zero metric and must not count
         count = torch.sum(torch.any(mask, dim=-1)).to(torch.float32)
@@ -400,8 +406,7 @@ class AdhocRanker:
         dp = self._dp
         for batch in batches:
             x, labels, mask = self._batch_arrays(batch)
-            with dp.rows(x.shape[0]):
-                scores = self._scores(x, mask)
+            scores, mask, labels = self._infer(x, mask, labels)
             out = evaluate_all_at_ks(scores, labels, mask, ks, self.label_type)
             # every rank's rows, in order: the padded global batch
             real = dp.gather_rows(torch.any(mask, dim=-1))

@@ -7,7 +7,7 @@ evaluator names), a `-dir_json` grid run of IRFGAN_List, and the refusals:
 CUDA where there is none, and the multi-device flags: `-mesh data=2` runs
 both players data-parallel over two gloo ranks, `-tp` and `-shard_docs`
 without a mesh change nothing (as in the JAX package), and a mesh's
-`seq` axis (ROADMAP queue A item 8c) raises."""
+`seq` axis (ROADMAP queue A item 8c) runs the one-device results."""
 
 import dataclasses
 import json
@@ -190,26 +190,36 @@ def test_cli_refuses_the_multi_device_flags(argv, tmp_path, tmp_path_factory):
         assert {f.split(os.sep + "G" + os.sep)[0] for f in files if os.sep + "G" + os.sep in f} \
             == {want}
         return
-    if "plain" not in _PLAIN:
-        plain_out = tmp_path_factory.mktemp("plain")
-        _PLAIN["plain"] = (ltr.main([*run, "-dir_output", str(plain_out)]),
-                           sorted(os.path.relpath(os.path.join(r, f), plain_out)
-                                  for r, _, fs in os.walk(plain_out) for f in fs))
-    want_cv, want_files = _PLAIN["plain"]
+    want_cv, want_files = _plain_cli(run, tmp_path_factory)
     for name in ("G", "D"):
         np.testing.assert_array_equal(cv[name], want_cv[name])
     assert files == want_files
 
 
-def test_evaluator_and_machines_refuse_a_mesh(tmp_path):
-    """A mesh's `seq` axis (ROADMAP queue A item 8c) raises before any
-    work; a data or model axis without the process group of its ranks
-    raises too (`ltr.main` or torchrun make the group; a `model` axis runs
-    there, the players whole on every model rank)."""
-    ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": {"data": 1, "seq": 2}})
-    with pytest.raises(NotImplementedError, match="queue A item 8c"):
-        ev.point_run(debug=True, model_id="IRFGAN_List", data_id="SyntheticMQ",
-                     dir_output=str(tmp_path), epochs=1)
+def _plain_cli(run, tmp_path_factory):
+    """(CV results, files) of the CLI run `run` on one device, once a module."""
+    if "plain" not in _PLAIN:
+        plain_out = tmp_path_factory.mktemp("plain")
+        _PLAIN["plain"] = (ltr.main([*run, "-dir_output", str(plain_out)]),
+                           sorted(os.path.relpath(os.path.join(r, f), plain_out)
+                                  for r, _, fs in os.walk(plain_out) for f in fs))
+    return _PLAIN["plain"]
+
+
+def test_evaluator_and_machines_refuse_a_mesh(tmp_path, tmp_path_factory):
+    """A mesh's `seq` axis (ROADMAP queue A item 8c) runs the branch on 2
+    gloo ranks that repeat each other's rows, as the JAX package ignores
+    shard_docs here: IRGAN_Point's debug CLI run (2 epochs) on `-mesh
+    data=1,seq=2` gives the one-device run's G and D CV nDCG within 1e-5. A
+    data or model axis without the process group of its ranks raises
+    (`ltr.main` or torchrun make the group; a `model` axis runs there, the
+    players whole on every model rank)."""
+    run = ["-device", "cpu", "-model", "IRGAN_Point", "-data", "SyntheticMQ", "-debug",
+           "-epochs", "2"]
+    cv = ltr.main([*run, "-dir_output", str(tmp_path / "seq"), "-mesh", "data=1,seq=2"])
+    want_cv, _ = _plain_cli(run, tmp_path_factory)
+    for name in ("G", "D"):
+        np.testing.assert_allclose(cv[name], want_cv[name], atol=1e-5, err_msg=name)
     for mesh in ({"data": 2}, {"data": 1, "model": 2}):
         ev = AdLTREvaluator(device="cpu", mesh_overrides={"mesh": mesh})
         with pytest.raises(RuntimeError, match="process group"):

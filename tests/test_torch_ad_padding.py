@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parallel_ranks
 from ptranking_tpu_torch.adversarial import AD_DEFAULT_PARAS, AD_MACHINES, AdSFSetting
 from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
 from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset
 from ptranking_tpu_torch.models.scorers import tree_leaves
+from ptranking_tpu_torch.parallel.launch import run_ranks
 from test_torch_ad_machines import (F, STEPS, TOL, _assert_leaves_close, _assert_params_close,
                                     _batch, _jax_draws, _jax_step, _leaves_before, _pair,
                                     _port_step, _sf)
@@ -78,9 +80,15 @@ def test_minimax_round_streamed_and_resident(model_id):
 
 def test_machines_refuse_a_mesh_and_need_a_device():
     sf = _sf(AdSFSetting, False)
-    # a mesh's `seq` axis is context parallelism, still to come; a data
-    # axis needs the process group of its ranks
-    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+    # a machine on a mesh's `seq` axis: 2 gloo ranks repeat each other's
+    # rows and give the one-device machine's nDCG@5 within 1e-5
+    (got, _) = run_ranks(torch_parallel_ranks.seq_branches, 2, (None, {"epochs": 1}),
+                         timeout_s=120, join_timeout_s=300)
+    want = torch_parallel_ranks.run_machine(None, epochs=1)
+    for name in ("G", "D"):
+        np.testing.assert_allclose(got["irgan"][name], want[name], atol=1e-5, err_msg=name)
+    # a data axis needs the process group of its ranks
+    with pytest.raises(RuntimeError, match="process group"):
         AD_MACHINES["IRGAN_Point"](sf_para=sf, ad_para_dict={}, mesh={"data": 1, "seq": 2},
                                    device="cpu")
     with pytest.raises(RuntimeError, match="process group"):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parallel_ranks
 from ptranking_tpu.diversification import DivRanker as JaxDivRanker
 from ptranking_tpu.diversification import DivScorerConfig as JaxDivScorerConfig
 from ptranking_tpu.diversification import losses as jlosses
@@ -24,6 +25,7 @@ from ptranking_tpu_torch.diversification import (DivBucketedDataset, DivRanker,
                                                  DivScorerConfig, make_synthetic_div_queries)
 from ptranking_tpu_torch.models.convert import div_params_from_jax
 from ptranking_tpu_torch.models.scorers import tree_leaves
+from ptranking_tpu_torch.parallel.launch import run_ranks
 from ptranking_tpu_torch.train import OptimizerConfig
 
 torch.set_num_threads(1)
@@ -207,9 +209,16 @@ def test_pt_checkpoint_round_trip_and_refusals(tmp_path):
     jr.save(str(tmp_path / "j.pkl"))
     with pytest.raises(ValueError, match="expected keys"):
         DivRanker("DALETOR", cfg, device="cpu").load(str(tmp_path / "j.pkl"))
-    # a mesh's `seq` axis is context parallelism, still to come; a `model`
-    # axis needs the process group of its ranks
-    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+    # on a mesh's `seq` axis 2 gloo ranks repeat each other's rows and give
+    # the one-device DALETOR's losses and aNDCG@5; a mesh needs the process
+    # group of its ranks
+    div = {"epochs": 2, "num_queries": 16, "batch_queries": 8}
+    (got, _) = run_ranks(torch_parallel_ranks.seq_branches, 2, (div, None), timeout_s=120,
+                         join_timeout_s=300)
+    want = torch_parallel_ranks.run_div(None, **div)
+    np.testing.assert_allclose(got["daletor"][0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got["daletor"][1], want[1], atol=1e-5)
+    with pytest.raises(RuntimeError, match="process group"):
         DivRanker("DALETOR", cfg, mesh={"data": 1, "seq": 2}, device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         DivRanker("DALETOR", cfg, mesh={"data": 1, "model": 2}, device="cpu")

@@ -7,7 +7,8 @@ ptranking_tpu_torch.ltr` on the CPU, and the multi-device flags as the JAX
 package reads them: without `-mesh` they change nothing, the tree branch
 ignores them, `-mesh data=W` runs W data-parallel ranks, a `model` axis
 runs with `-tp`, `-pp_stages` or whole params (ROADMAP queue A item 8b),
-and only the slice still to come (item 8c) refuses, under a mesh."""
+and a `seq` axis with `-shard_docs` runs context parallelism (item 8c), or,
+without it and on the branches, repeats each rank's rows."""
 
 import dataclasses
 import os
@@ -353,24 +354,20 @@ def test_cli_refuses_the_branches_and_the_mesh(argv, item, tmp_path, tmp_path_fa
     (["-model", "RankMSE", "-sf_id", "listsf", "-mesh", "model=2", "-pp_stages", "2"],
      "item 8b"),
     (["-model", "RankMSE", "-mesh", "data=1,model=2"], "item 8b"),
-    (["-model", "RankMSE", "-mesh", "data=2", "-shard_docs"], "item 8c"),
+    (["-model", "RankMSE", "-mesh", "data=1,seq=2", "-shard_docs"], "item 8c"),
     (["-model", "DALETOR", "-mesh", "data=1,seq=2"], "item 8c"),
     (["-model", "IRGAN_Point", "-mesh", "model=2"], "item 8b"),
 ])
 def test_cli_refuses_the_slices_still_to_come(argv, item, tmp_path, tmp_path_factory):
-    """Context parallelism (item 8c) under a mesh raises before any rank
-    starts or file is written. The flags of item 8b run: a `model` axis of
-    2 gloo ranks, with the pointsf's weights split (-tp), the listsf's
-    encoder staged at inference (-pp_stages 2), or the params whole (no
-    flag, and the adversarial branch). With `data` = 1 every rank takes the
-    whole batch and draws the one-device dropout masks (full widths under
-    -tp), so the CV metrics are the one-device run's within 1e-5, and the
-    run directory is the one the JAX evaluator names."""
-    if item == "item 8c":
-        with pytest.raises(NotImplementedError, match=f"queue A {item}"):
-            ltr.main(["-device", "cpu", "-dir_output", str(tmp_path), *argv])
-        assert not any(os.scandir(tmp_path))
-        return
+    """The flags of item 8b and 8c run on 2 gloo ranks: a `model` axis, with
+    the pointsf's weights split (-tp), the listsf's encoder staged at
+    inference (-pp_stages 2), or the params whole (no flag, and the
+    adversarial branch); a `seq` axis, with each list's docs split
+    (-shard_docs), or, on the diversification branch, the rows repeated on
+    both ranks. With `data` = 1 every rank takes the whole batch and draws
+    the one-device dropout masks (full widths under -tp, whole lists under
+    -shard_docs), so the CV metrics are the one-device run's within 1e-5,
+    and the run directory is the one the JAX evaluator names."""
     model_id = argv[1]
     extra = ["-epochs", "2"] if model_id.startswith("IR") else []
     sf_id = argv[argv.index("-sf_id") + 1] if "-sf_id" in argv else "pointsf"
@@ -387,10 +384,11 @@ def test_cli_refuses_the_slices_still_to_come(argv, item, tmp_path, tmp_path_fac
 
 def test_evaluator_refuses_parallel_eval_settings():
     """Without a mesh the companion settings change nothing (an AdhocRanker
-    with the given scan_steps); under a mesh, `shard_docs` (item 8c) raises,
-    naming its item, and `tp` and `pp_stages` (item 8b) reach the
-    DistributedTrainer (in a one-rank group: a mesh of one rank), which
-    holds JAX's guards: a pipeline of 2 stages needs a `model` axis of 2."""
+    with the given scan_steps); a mesh needs the process group of its ranks;
+    under a mesh `tp`, `pp_stages` (item 8b), `shard_docs` and `cp_impl`
+    (item 8c) reach the DistributedTrainer (in a one-rank group: a mesh of
+    one rank), which holds JAX's guards: a pipeline of 2 stages needs a
+    `model` axis of 2, and `cp_impl` is ring or ulysses."""
     from ptranking_tpu_torch.parallel.launch import one_rank_group
     from ptranking_tpu_torch.parallel.train import DistributedTrainer
 
@@ -400,7 +398,7 @@ def test_evaluator_refuses_parallel_eval_settings():
                        {"tp": True, "shard_docs": True, "cp_impl": "ulysses", "pp_stages": 2,
                         "eval_chunk": 8, "scan_steps": 4})
     assert type(r) is AdhocRanker and r.scan_steps == 4
-    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+    with pytest.raises(RuntimeError, match="process group"):
         ev.load_ranker(sf, {"model_id": "RankMSE"}, None, {"mesh": {"data": 2},
                                                            "shard_docs": True})
     listsf = SFSetting(sf_id="listsf").default_setting(46)
@@ -411,6 +409,13 @@ def test_evaluator_refuses_parallel_eval_settings():
         tr = ev.load_ranker(listsf, {"model_id": "RankMSE"}, None,
                             {"mesh": {"data": 1}, "pp_stages": 1})
         assert type(tr) is DistributedTrainer and tr.pp_stages == 1
+        tr = ev.load_ranker(listsf, {"model_id": "LambdaRank"}, None,
+                            {"mesh": {"data": 1, "seq": 1}, "shard_docs": True,
+                             "cp_impl": "ulysses"})
+        assert type(tr) is DistributedTrainer and tr.shard_docs and tr.cp_impl == "ulysses"
+        with pytest.raises(ValueError, match="cp_impl"):
+            ev.load_ranker(listsf, {"model_id": "LambdaRank"}, None,
+                           {"mesh": {"data": 1}, "shard_docs": True, "cp_impl": "zigzag"})
         with pytest.raises(ValueError, match="model axis"):
             ev.load_ranker(listsf, {"model_id": "RankMSE"}, None,
                            {"mesh": {"data": 1}, "pp_stages": 2})

@@ -50,7 +50,8 @@ SLICE_MODULES = ["adversarial/__init__.py", "adversarial/base.py", "adversarial/
                  "adversarial/util.py", "utils/chunking.py", "utils/profiling.py",
                  "parallel/__init__.py", "parallel/collectives.py", "parallel/launch.py",
                  "parallel/mesh.py", "parallel/train.py", "parallel/tensor.py",
-                 "parallel/pipeline.py", "data/prefetch.py"]
+                 "parallel/pipeline.py", "data/prefetch.py", "parallel/ring.py",
+                 "parallel/ot.py", "utils/compile_cache.py"]
 # the module of the functions that the spawned ranks of
 # tests/test_torch_parallel_*.py run: a rank imports it afresh
 RANKS_MODULE = os.path.join(REPO, "tests", "torch_parallel_ranks.py")

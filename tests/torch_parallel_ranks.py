@@ -369,3 +369,234 @@ def pp_ep_cases(enc_case, clamp_case, gpipe_case, trainer_case, ep_case):
             out[f"ep_{mesh_name}"] = (mus.numpy(), vars_.numpy(),
                                       local["point_sf"]["layers"][0]["linear"]["w"].shape[0])
     return out
+
+
+# --- context parallelism: one group of 4 ranks, meshes {seq 4} and {data 2, seq 2} ---
+
+CP_MESHES = {"s4": (1, 4), "d2s2": (2, 2)}
+
+
+def _cp_meshes():
+    from ptranking_tpu_torch.parallel import MeshConfig, make_mesh
+
+    return {name: make_mesh(MeshConfig(data=d, seq=s)) for name, (d, s) in CP_MESHES.items()}
+
+
+class _Block:
+    """This rank's (rows, docs) block of a [B, N, ...] array on a CP mesh."""
+
+    def __init__(self, mesh, rows, docs):
+        from ptranking_tpu_torch.parallel import batch_sharding
+
+        dp = batch_sharding(mesh, shard_docs=True)
+        self.dp, self.seq = dp, dp.seq
+        self.rows = dp.block(rows)
+        n = -(-docs // self.seq.degree)
+        self.docs = slice(self.seq.index * n, (self.seq.index + 1) * n)
+        self.where = (self.rows.start, self.rows.stop, self.docs.start, self.docs.stop)
+
+    def __call__(self, a, grad=False):
+        """The block of numpy `a` ([B, N] or [B, H, N, d]: docs on dim 1 or 2)
+        as a tensor (a leaf that takes a gradient with `grad`)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))[self.rows]
+        t = t[:, self.docs] if t.dim() == 2 else t[:, :, self.docs]
+        return t.clone().requires_grad_(grad)
+
+
+def _value_and_grad(fn, leaf):
+    loss = fn(leaf)
+    loss.backward()
+    return float(loss), leaf.grad.numpy().copy()
+
+
+def ring_cases(inputs):
+    """The ring functions on both meshes, each on this rank's block of the
+    test's numpy inputs: attention outputs and q, k, v gradients; the losses'
+    values (the rank's data line's) and score gradients (the rank's block);
+    with where each block sits in the whole arrays."""
+    import torch.distributed as dist
+
+    from ptranking_tpu_torch.losses.listwise import _full_dcg
+    from ptranking_tpu_torch.ops import gain, sort_labels_by_scores
+    from ptranking_tpu_torch.parallel import cp_plan
+    from ptranking_tpu_torch.parallel.collectives import _pad_rows
+    from ptranking_tpu_torch.parallel.ot import cp_wass_rank
+    from ptranking_tpu_torch.parallel.ring import (ring_approx_ndcg, ring_attention,
+                                                   ring_lambda_loss, ring_lambdaloss,
+                                                   ring_neural_ndcg, ring_soft_rank,
+                                                   ulysses_attention)
+
+    out = {"rank": dist.get_rank()}
+    for mesh_name, mesh in _cp_meshes().items():
+        cp = cp_plan(mesh)
+        res = out[mesh_name] = {}
+        att = inputs["attention"]
+        blk = _Block(mesh, *att["mask"].shape)
+        for impl, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            q, k, v = (blk(att[n], grad=True) for n in ("q", "k", "v"))
+            m = blk(att["mask"])
+            o = fn(q, k, v, m, cp)
+            torch.sum(o ** 2 * m[:, None, :, None]).backward()
+            res[impl] = {"out": o.detach().numpy(), "grads": [t.grad.numpy() for t in (q, k, v)],
+                         "where": blk.where}
+
+        lam = inputs["lambda"]
+        blk = _Block(mesh, *lam["mask"].shape)
+        for weighted in (True, False):
+            ls, g, m = blk(lam["labels"]), blk(lam["n_gains"]), blk(lam["mask"])
+            res[f"lambda_{weighted}"] = (*_value_and_grad(
+                lambda s: ring_lambda_loss(s, ls, g, m, cp, weighted=weighted),
+                blk(lam["scores"], grad=True)), blk.where)
+
+        def sorted_blocks(s, labels, mask):
+            """The trainer's sorted order: the rows gathered and sorted
+            whole, the rank's block taken; n_gains over the ideal DCG."""
+            s_full = blk.seq.gather_sum(s, 1)
+            n_pad = s_full.shape[1]
+            s_s, l_s, m_s = sort_labels_by_scores(s_full, _pad_rows(labels, n_pad, 1, 0.0),
+                                                  _pad_rows(mask, n_pad, 1, False))
+            idcg = torch.clamp(_full_dcg(labels, mask), min=1e-8)[..., None]
+            n_gains = torch.where(m_s, gain(torch.where(m_s, l_s, 0.0)) / idcg, 0.0)
+            return [blk.seq.block(t, 1) for t in (s_s, l_s, n_gains, m_s)]
+
+        for name, case in inputs["lambdaloss"].items():
+            blk = _Block(mesh, *case["mask"].shape)
+            rows = blk.rows
+            labels = torch.from_numpy(case["labels"])[rows]
+            mask = torch.from_numpy(case["mask"])[rows]
+            res[name] = (*_value_and_grad(
+                lambda s: ring_lambdaloss(*sorted_blocks(s, labels, mask), cp, **case["kw"]),
+                blk(case["scores"], grad=True)), blk.where)
+
+        lst = inputs["listwise"]
+        blk = _Block(mesh, *lst["mask"].shape)
+        labels = torch.from_numpy(lst["labels"])[blk.rows]
+        mask = torch.from_numpy(lst["mask"])[blk.rows]
+        idcg = torch.clamp(_full_dcg(labels, mask), min=1e-8)[..., None]
+        n_gains = blk.seq.block(torch.where(mask, gain(torch.where(mask, labels, 0.0)) / idcg,
+                                            0.0), 1)
+        m, ls = blk(lst["mask"]), blk(lst["labels"])
+        res["approx_ndcg"] = (*_value_and_grad(
+            lambda s: ring_approx_ndcg(s, n_gains, m, cp), blk(lst["scores"], grad=True)),
+            blk.where)
+        for top_k in (None, 5):
+            res[f"soft_rank_{top_k}"] = (*_value_and_grad(
+                lambda s: ring_soft_rank(s, n_gains, m, cp, delta=2.0, top_k=top_k),
+                blk(lst["scores"], grad=True)), blk.where)
+        for i, kw in enumerate(inputs["neural_kw"]):
+            res[f"neural_{i}"] = (*_value_and_grad(
+                lambda s: ring_neural_ndcg(s, ls, m, cp, **kw), blk(lst["scores"], grad=True)),
+                blk.where)
+        for i, kw in enumerate(inputs["wass_kw"]):
+            res[f"wass_{i}"] = (*_value_and_grad(
+                lambda s: cp_wass_rank(s, ls, m, cp, **kw), blk(lst["scores"], grad=True)),
+                blk.where)
+    return out
+
+
+# --- the context-parallel trainer: one group of 4 ranks, three meshes ---
+
+CP_TRAINER_MESHES = {"d2s2": (2, 1, 2), "s4": (1, 1, 4), "m2s2": (1, 2, 2)}
+CP_STEPS = 4
+
+
+def _cp_trainer_meshes():
+    from ptranking_tpu_torch.parallel import MeshConfig, make_mesh
+
+    return {name: make_mesh(MeshConfig(data=d, model=m, seq=s))
+            for name, (d, m, s) in CP_TRAINER_MESHES.items()}
+
+
+def _cp_steps(tr, batches):
+    """CP_STEPS one-batch epochs (epoch k = step k): the mean losses."""
+    return [tr.train_epoch([batches[i % len(batches)]], epoch_k=i + 1)[0]
+            for i in range(CP_STEPS)]
+
+
+def _saved_shapes(tr, batch):
+    """The shapes of every tensor one training step saves for its backward
+    (torch.autograd.graph.saved_tensors_hooks around the step)."""
+    shapes = []
+
+    def pack(t):
+        shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tr._step(*tr._batch_arrays(batch))
+    return shapes
+
+
+def cp_trainer_cases(cases, work, cli_argv, saved_case):
+    """Each case (name, model id, scorer config kwargs, model paras, mesh
+    name, trainer kwargs, batches file, JAX init checkpoint or None): a
+    DistributedTrainer (shard_docs=True unless the kwargs say otherwise),
+    CP_STEPS steps, evaluate, the params. Then the resident epoch against
+    the streamed one, resume from a checkpoint, the CLI in the group, and
+    the shapes a CP step saves for its backward."""
+    import torch.distributed as dist
+
+    from ptranking_tpu_torch import ltr
+    from ptranking_tpu_torch.data.dataset import BucketedDataset, make_synthetic_queries
+    from ptranking_tpu_torch.data.device_cache import DeviceResidentDataset
+
+    torch.manual_seed(0)
+    meshes = _cp_trainer_meshes()
+    out = {"rank": dist.get_rank()}
+    for name, model_id, cfg_kw, paras, mesh_name, kw, batches_path, init in cases:
+        batches = _batches(batches_path)
+        tr = _trainer(model_id, _cfg(cfg_kw), meshes[mesh_name], model_paras=paras,
+                      **{"shard_docs": True, **kw}).init()
+        if init:
+            tr.load(init)
+        losses = _cp_steps(tr, batches)
+        full = tr.full_params() if kw.get("tp") else tr.params
+        out[name] = {"losses": losses, "metrics": tr.evaluate(batches, ks=KS),
+                     "params": _np(full)}
+
+    # the resident epoch against the streamed one, from the same params
+    qs = make_synthetic_queries(num_queries=40, num_features=F, seed=5, min_docs=4, max_docs=15)
+    ds = BucketedDataset(qs, batch_docs=15 * 7, buckets=(15,), num_features=F, seed=3)
+    mesh = meshes["d2s2"]
+    streamed = _trainer("LambdaRank", pointsf(), mesh, shard_docs=True).init()
+    resident = _trainer("LambdaRank", pointsf(), mesh, shard_docs=True, scan_steps=2).init()
+    res = DeviceResidentDataset(ds, device="cpu")
+    out["streamed"] = [streamed.train_epoch(ds.batches(shuffle=True, epoch=e), e)[0]
+                       for e in (1, 2)]
+    out["resident"] = [resident.train_epoch_resident(res, e)[0] for e in (1, 2)]
+    out["streamed_params"] = _np(streamed.params)
+    out["resident_params"] = _np(resident.params)
+    out["eval_streamed"] = streamed.evaluate(ds, ks=KS)
+    out["eval_resident"] = streamed.evaluate(res, ks=KS)
+    out["per_query"] = streamed.evaluate_per_query(ds.batches(), ks=KS)
+    b0 = next(iter(ds.batches()))
+    out["predict"] = streamed.predict(b0).numpy()
+
+    # resume: rank 0 writes a checkpoint, every rank reads it
+    path = os.path.join(work, "cp.pt")
+    streamed.save(path)
+    back = _trainer("LambdaRank", pointsf(), mesh, shard_docs=True, seed=5).init().load(path)
+    out["resume"] = (streamed.train_step(b0), back.train_step(b0))
+    out["resume_params"] = (_np(streamed.params), _np(back.params))
+
+    out["cli"] = ltr.main(cli_argv)
+
+    # what a CP step on {seq 4} saves for its backward, by loss
+    batch = _batches(saved_case["batches"])[0]
+    out["saved"] = {}
+    for model_id, paras in saved_case["losses"]:
+        tr = _trainer(model_id, _cfg(saved_case["cfg"]), meshes["s4"], shard_docs=True,
+                      model_paras=paras).init()
+        out["saved"][model_id + str(sorted(paras.items()))] = _saved_shapes(tr, batch)
+    return out
+
+
+def seq_branches(div_cfg, ad_cfg):
+    """The two branches on a {seq 2} mesh, whose ranks repeat each other's
+    rows: DALETOR's (losses, aNDCG@5) and an IRGAN_Point machine's {G, D:
+    nDCG@5}."""
+    from ptranking_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(seq=2))
+    return {"daletor": run_div(mesh, **div_cfg) if div_cfg is not None else None,
+            "irgan": run_machine(mesh, **ad_cfg) if ad_cfg is not None else None}
