@@ -32,7 +32,12 @@ Phases, in order; any failure exits non-zero:
      65..256 docs, one a block, 3xTF32) and the fp32 list forward (lists of
      65..256 docs, one a 128- or 256-row tile, S once in slices of 64 keys,
      3xTF32) likewise, timed beside the fp32 wide kernels and SDPA in fp32
-     (TF32 off); the bf16
+     (TF32 off); the fp32 wide forward and dk/dv and dq kernels (3xTF32,
+     every fp32 list past 256 docs at d > 128: a block's 64 rows and all of
+     their output columns, S and dP once a tile) at 257..1536 docs x
+     d = 129..700 with a one-doc and an all-padded list against both plain
+     versions, the same bits twice, and timed beside SDPA at the one-head
+     MSLR-WEB30K listsf's shapes and at d = 350 and 384; the bf16
      forward and backward run on the tensor cores; no instantiation of an
      attention kernel may spill; the fused
      pairwise lambda loss (forward and backward, LambdaRank and RankNet, the
@@ -71,7 +76,9 @@ Phases, in order; any failure exits non-zero:
      LONG_MAX_N, the wide forward above; the packed backward up to
      PACK_MAX_N docs, the list backward up to LIST_MAX_N, the long backward
      up to LONG_MAX_N, the wide pair above), save, restore and step; the
-     one-head model's fp32 gradients also at 512 docs (the fp32 wide pair);
+     one-head model's fp32 gradients also at 512 docs and its fp32 steps
+     timed at 32 lists of 1408 docs with exact launch counts (the fp32 wide
+     forward and dk/dv and dq kernels, 3xTF32);
      then the Yahoo! model at d = 350 in fp32, timed in the buckets of 16 to
      256 docs (the fp32 packed forward and backward up to F32_PACK_MAX_N
      docs; the fp32 list forward up to F32_FWD_LIST_MAX_N and
@@ -220,15 +227,11 @@ ATTN_SHAPES = [(32, 2, 1408, 68, False), (1, 2, 1536, 68, False), (3, 2, 32, 68,
                (256, 2, 128, 350, False), (128, 2, 256, 350, False),
                (2048, 2, 16, 384, False), (1024, 2, 32, 384, False), (512, 2, 64, 384, False),
                (256, 2, 128, 384, False), (128, 2, 256, 384, False)]
-# the shapes whose numbers go into the kernels' JSON record: the training
-# batch of phase 5 (32 lists of 1408 docs) in bf16, whose train_epoch gives
-# the record's launch counts, and for the wide kernels the Yahoo! 256-doc
-# bucket in fp32: in bf16 the packed and long kernels take every Yahoo!
-# bucket, so the wide kernels stay on the path of the fp32 model, whose
-# gradient checks in phase 7 give their launch counts
+# the shape whose numbers go into the kernels' JSON record: the training
+# batch of phase 5 (32 lists of 1408 docs) in bf16 and fp32, whose
+# train_epoch gives the record's launch counts (the fp32 wide kernels':
+# WIDE_F32_RECORD, check_wide_tf32)
 RECORD_SHAPE = (32, 2, 1408, 68)
-WIDE_RECORD_SHAPE = (128, 2, 256, 350)
-WIDE_RECORD_DTYPE = "float32"
 # correctness only, no timing: every padded head width the narrow kernels
 # dispatch on (d rounded up to 16), N of one key and N one past a 64-key
 # tile; then the wide kernels (d > 128) at each d-chunk and output-chunk
@@ -345,6 +348,25 @@ FWD_PACK_NS = (1, 5, 16, 20, 33, 63, 64, 65, 100, 127, 128)
 FWD_PACK_TIMED = [(2048, 2, 16, 350), (1024, 2, 32, 350), (512, 2, 64, 350), (256, 2, 128, 350),
                   (2048, 2, 16, 384), (1024, 2, 32, 384), (512, 2, 64, 384), (256, 2, 128, 384)]
 FWD_PACK_RECORD = (2048, 2, 16, 350)
+# the fp32 wide kernels (3xTF32, every fp32 list past F32_LONG_MAX_N docs at
+# d > 128: csrc/flash_attn_fwd.cu's flash_fwd_wide_tf32_kernel and
+# csrc/flash_attn_bwd.cu's flash_bwd_{dkdv,dq}_wide_tf32_kernel), correctness
+# at WIDE_F32_NS x WIDE_F32_DS: four lists a case (full, one real doc,
+# ragged, all padded), against attention_forward_plain and
+# attention_backward_plain (FWD_PLAIN_TOL, STATS_TOL, BWD_TOL with
+# PACK_FLOOR) and blockwise_attention with its autograd (ATTN_TOL, BWD_TOL),
+# the same bits twice; d = 384 and 700 (Yahoo!'s F under one head) take two
+# output groups of dk/dv (376 columns at most), one of the forward and dq
+# (752). Timed at
+# WIDE_F32_TIMED: the one-head MSLR-WEB30K listsf's buckets of 512 and 1024
+# docs and its long-list point (32 x 1408), one served list of the top
+# bucket, and the Yahoo! widths at 512 docs, beside SDPA in fp32 (TF32 off);
+# the record at WIDE_F32_RECORD (phase 7 trains the one-head model there)
+WIDE_F32_NS = (257, 300, 512, 1408, 1536)
+WIDE_F32_DS = (129, 136, 350, 384, 700)
+WIDE_F32_TIMED = [(64, 1, 512, 136), (32, 1, 1024, 136), (32, 1, 1408, 136), (1, 1, 1536, 136),
+                  (16, 2, 512, 350), (16, 2, 512, 384)]
+WIDE_F32_RECORD = (32, 1, 1408, 136)
 # The packed kernel against attention_backward_packed_plain and
 # attention_backward_plain: BWD_TOL's bf16 2e-2 on max |kernel - plain| per
 # gradient over EVERY list (a fully padded one too: all three compute the
@@ -354,8 +376,9 @@ FWD_PACK_RECORD = (2048, 2, 16, 350)
 PACK_FLOOR = 0.1
 # the attention kernels of each library and how many instantiations each
 # has: the bf16 kernels of d <= 128 one per head-dim step of 16 (KC = 1 ..
-# 8), the fp32 ones (3xTF32) one per step of 8 (NC = 1 .. 16), the wide kernels (d > 128)
-# one, the packed forward two (a 64-key tile of 64 // N lists, a 128-key
+# 8), the fp32 ones (3xTF32) one per step of 8 (NC = 1 .. 16), the bf16 wide kernels
+# (d > 128) one, the fp32 wide forward, dk/dv and dq one each,
+# the packed forward two (a 64-key tile of 64 // N lists, a 128-key
 # tile of one list), the packed backward three (64 rows with inputs kept
 # where they fit, d <= 448, and re-read beyond: check_packed meets both; the
 # list kernel's 128 rows), the long forward and backward one each, the
@@ -365,7 +388,7 @@ PACK_FLOOR = 0.1
 # Every instantiation is one that some shape dispatches to, so no entry of
 # these libraries may spill.
 BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_tf32_kernel": 16,
-                                    "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_kernel": 1,
+                                    "flash_fwd_wide_mma_kernel": 1, "flash_fwd_wide_tf32_kernel": 1,
                                     "flash_fwd_packed_mma_kernel": 2,
                                     "flash_fwd_long_mma_kernel": 1,
                                     "flash_fwd_packed_tf32_kernel": 1,
@@ -374,8 +397,8 @@ BUILD_KERNELS = {"flash_attn_fwd": {"flash_fwd_mma_kernel": 8, "flash_fwd_tf32_k
                                     "flash_bwd_dkdv_tf32_kernel": 16, "flash_bwd_dq_tf32_kernel": 16,
                                     "flash_bwd_dkdv_wide_mma_kernel": 1,
                                     "flash_bwd_dq_wide_mma_kernel": 1,
-                                    "flash_bwd_dkdv_wide_kernel": 1,
-                                    "flash_bwd_dq_wide_kernel": 1,
+                                    "flash_bwd_dkdv_wide_tf32_kernel": 1,
+                                    "flash_bwd_dq_wide_tf32_kernel": 1,
                                     "flash_bwd_packed_mma_kernel": 3,
                                     "flash_bwd_long_mma_kernel": 1,
                                     "flash_bwd_packed_tf32_kernel": 1,
@@ -497,9 +520,11 @@ YAHOO_PACKED_CHECK = 32
 YAHOO_F32_BUCKETS = (16, 32, 64, 128, 256)
 # the one-head model (d = 136, MSLR-WEB30K's features, whose long lists
 # fill the default buckets up to 1536 docs, data/dataset.py) also takes its
-# fp32 gradient check in a bucket past F32_LONG_MAX_N: the path of the fp32
-# wide dk/dv and dq kernels
+# fp32 gradient check in a bucket past F32_LONG_MAX_N, and fp32 timed steps
+# at the flagship's long-list point (WIDE_F32_STEP: lists, docs): the path of
+# the fp32 wide forward and dk/dv and dq kernels (3xTF32)
 WIDE_PAIR_CHECK = 512
+WIDE_F32_STEP = (32, 1408)
 YAHOO_SERVE_LENGTHS = [int(round(5 * (139 / 5) ** (i / 15))) for i in range(16)]
 # the listsfs of phase 7, each with a head dim above 128: (name, features,
 # heads, lane_align, LETOR data id): Yahoo!'s at d = 350 (its launch counts
@@ -642,13 +667,13 @@ def sfu_ops_per_s() -> float:
 
 def fwd_ops(flops: float, dtype, d: int):
     """(operations, peak) of the flash forward's bound: bf16 on the tensor
-    cores; fp32 at d <= 128 as TF32_PRODUCTS TF32 products a product
-    (3xTF32), on the CUDA cores above (the wide kernel)."""
+    cores; fp32 at every d as TF32_PRODUCTS TF32 products a product
+    (3xTF32)."""
     import torch
 
     if dtype == torch.bfloat16:
         return flops, BF16_PEAK
-    return (TF32_PRODUCTS * flops, TF32_PEAK) if d <= 128 else (flops, FP32_PEAK)
+    return TF32_PRODUCTS * flops, TF32_PEAK
 
 
 def bound(flops: float, peak: float, nbytes: float) -> dict:
@@ -719,9 +744,8 @@ def check_attention(card: str):
     """Phase 3: the flash kernel against its plain versions at every shape and
     dtype, and the fp32 forward of d <= 128 (3xTF32) at every d of 1..128
     (NARROW_EVERY_D), the same bits twice; returns the records at
-    RECORD_SHAPE (bf16 and fp32) and WIDE_RECORD_SHAPE (WIDE_RECORD_DTYPE),
-    by (shape, dtype name). The bound of the fp32 forward at d <= 128 counts
-    TF32_PRODUCTS TF32 products a product at TF32_PEAK."""
+    RECORD_SHAPE (bf16 and fp32), by (shape, dtype name). The bound of the
+    fp32 forward counts TF32_PRODUCTS TF32 products a product at TF32_PEAK."""
     import torch
     import torch.nn.functional as Fn
 
@@ -776,8 +800,7 @@ def check_attention(card: str):
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    **bound(*fwd_ops(flops, dtype, d), nbytes)}
             print("attn " + json.dumps(rec) + f"  [{card}]", flush=True)
-            if ((B, H, N, d), name) in ((RECORD_SHAPE, "bfloat16"), (RECORD_SHAPE, "float32"),
-                                        (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE)):
+            if (B, H, N, d) == RECORD_SHAPE:
                 records[((B, H, N, d), name)] = rec
     print(f"attn worst error against attention_forward_plain over every shape: "
           f"{json.dumps(worst)}", flush=True)
@@ -831,11 +854,10 @@ def check_attention_bwd(card):
     with their times; the records' errors are those of the pair itself;
     returns the records for the dk/dv kernel, the dq kernel and the forward
     with row statistics (the call training makes) at RECORD_SHAPE in bf16
-    (by the wrappers' names) and at WIDE_RECORD_SHAPE in WIDE_RECORD_DTYPE
-    (the same names with "_wide"), and for the dk/dv and dq kernels at
+    (by the wrappers' names), and for the dk/dv and dq kernels at
     RECORD_SHAPE in fp32 (3xTF32; the names with "_fp32"). The bound of the
-    fp32 backward at d <= 128 counts TF32_PRODUCTS TF32 products a product
-    at TF32_PEAK."""
+    fp32 backward counts TF32_PRODUCTS TF32 products a product at
+    TF32_PEAK."""
     import torch
     import torch.nn.functional as Fn
 
@@ -922,10 +944,9 @@ def check_attention_bwd(card):
                      "library_bwd": cuda_time_ms(library_bwd, iters)}
             times["dkdv_plus_dq"] = times["dkdv"] + times["dq"]
             name = str(dtype).split(".")[1]
-            peak = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
-            # the fp32 backward at d <= 128 runs on 3xTF32 tensor-core products
-            tf32 = dtype == torch.float32 and d <= 128
-            bwd_peak, bwd_products = (TF32_PEAK, TF32_PRODUCTS) if tf32 else (peak, 1)
+            # the fp32 backward runs on 3xTF32 tensor-core products at every d
+            fp32 = dtype == torch.float32
+            bwd_peak, bwd_products = (TF32_PEAK, TF32_PRODUCTS) if fp32 else (BF16_PEAK, 1)
             val = B * H * N * d * q.element_size()
             stats_bytes = B * H * N * 4
             rec = {"shape": [B, H, N, d], "dtype": name,
@@ -942,8 +963,8 @@ def check_attention_bwd(card):
                        "dq": bound(bwd_products * 6.0 * B * H * N * N * d, bwd_peak,
                                    5 * val + 3 * stats_bytes + B * N)}}
             print("attn_bwd " + json.dumps(rec) + f"  [{card}]", flush=True)
-            tag = {(RECORD_SHAPE, "bfloat16"): "", (RECORD_SHAPE, "float32"): "_fp32",
-                   (WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE): "_wide"}.get(((B, H, N, d), name))
+            tag = {(RECORD_SHAPE, "bfloat16"): "", (RECORD_SHAPE, "float32"): "_fp32"}.get(
+                ((B, H, N, d), name))
             if tag is not None:
                 common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
                 records["flash_attn_fwd" + tag] = {"ms": times["fwd_stats"],
@@ -1342,6 +1363,151 @@ def check_packed_fwd(card):
                                          .abs().max()),
                     "ms": times["kernel"], "plain_ms": times["plain"],
                     "library_ms": times["library"], **bnd}
+    return records
+
+
+def check_wide_tf32(card):
+    """Phase 3: the fp32 wide kernels (d > 128, 3xTF32: FLASH_ATTN_FWD,
+    FLASH_ATTN_BWD_DKDV and FLASH_ATTN_BWD_DQ with fp32 inputs at d > 128,
+    the route of every fp32 list past F32_LONG_MAX_N docs) at WIDE_F32_NS x
+    WIDE_F32_DS, four lists a case (full, one real document, ragged, all
+    padded): the forward with statistics twice and without, the same bits,
+    against attention_forward_plain (FWD_PLAIN_TOL relative, STATS_TOL) and
+    blockwise_attention (ATTN_TOL on real rows); the dk/dv and dq kernels
+    twice, the same bits, against attention_backward_plain (every list) and
+    autograd through blockwise_attention (the lists with a real document:
+    an all-padded one differs by contract), BWD_TOL relative to
+    max(max |plain|, PACK_FLOOR x max |plain dv|) (a one-doc list's dq and
+    dk are rounding noise); one launch a call. At WIDE_F32_TIMED the time of
+    each kernel beside SDPA's fp32 forward and its backward alone (TF32 off), the
+    plain versions and the 3xTF32 bounds. Returns the records at
+    WIDE_F32_RECORD ("flash_attn_fwd_wide_fp32", "flash_attn_bwd_dkdv_wide_fp32",
+    "flash_attn_bwd_dq_wide_fp32")."""
+    import torch
+    import torch.nn.functional as Fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from ptranking_tpu_torch.ops.attention import (FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ,
+                                                   FLASH_ATTN_FWD, attention_backward_plain,
+                                                   attention_forward_plain, blockwise_attention)
+
+    def plain_fn(q, k, v, m):
+        return blockwise_attention(q, k, v, m, block_size=min(128, q.shape[2]))
+
+    def run(B, H, N, d, edge_lists):
+        q, k, v, mask = attention_inputs(B, H, N, d, edge_lists, torch.float32)
+        if edge_lists:
+            mask[1, 1:] = False  # one real document; the last list all padded
+        g = torch.Generator(device="cpu").manual_seed(1)
+        dout = torch.randn(B, H, N, d, generator=g).to("cuda")
+        kernels = (FLASH_ATTN_FWD, FLASH_ATTN_BWD_DKDV, FLASH_ATTN_BWD_DQ)
+        start = [kern.launches for kern in kernels]
+        got, again = (FLASH_ATTN_FWD(q, k, v, mask, stats=True) for _ in range(2))
+        bare = FLASH_ATTN_FWD(q, k, v, mask)
+        out, row_max, row_sum = got
+        dsum = torch.sum(dout * out, dim=-1)
+        args = (q, k, v, dout, row_max, row_sum, dsum, mask)
+        grads = [(FLASH_ATTN_BWD_DQ(*args), *FLASH_ATTN_BWD_DKDV(*args)) for _ in range(2)]
+        launched = [kern.launches - s for kern, s in zip(kernels, start)]
+        ref, ref_max, ref_sum = attention_forward_plain(q, k, v, mask)
+        dense = plain_fn(q, k, v, mask)
+        plains = {"plain": attention_backward_plain(q, k, v, dout, out, row_max, row_sum, mask),
+                  "autograd": attention_grads(plain_fn, q, k, v, mask, dout)}
+        torch.cuda.synchronize()
+        shape = (B, H, N, d)
+        same = ([torch.equal(a, b) for a, b in zip(got, again)] + [torch.equal(out, bare)]
+                + [torch.equal(a, b) for a, b in zip(*grads)])
+        if launched != [3, 2, 2] or not all(same):
+            raise AssertionError(f"fp32 wide kernels {shape}: launches {launched} for 3 forward "
+                                 f"and 2 backward calls, the same bits twice: {same}")
+        if not all(bool(torch.isfinite(t).all()) for t in (*got, *grads[0])):
+            raise AssertionError(f"fp32 wide kernels {shape}: a non-finite output")
+        real = mask[:, None, :, None].expand_as(out)
+        errs = {"out": rel_err(out, ref),
+                "row_max": float(((row_max - ref_max).abs() / (1.0 + ref_max.abs())).max()),
+                "row_sum": float(((row_sum - ref_sum).abs() / ref_sum).max()),
+                "out_vs_blockwise": float((out - dense).abs()[real].max())}
+        if (not errs["out"] <= FWD_PLAIN_TOL["float32"]
+                or not max(errs["row_max"], errs["row_sum"]) <= STATS_TOL
+                or not errs["out_vs_blockwise"] <= ATTN_TOL["float32"]):
+            raise AssertionError(f"flash_attn_fwd fp32 wide {shape}: {errs} (tol "
+                                 f"{FWD_PLAIN_TOL['float32']}, statistics {STATS_TOL}, against "
+                                 f"blockwise {ATTN_TOL['float32']})")
+        has_doc = mask.any(dim=1)  # autograd through blockwise: an all-padded list by contract
+        for which, want in plains.items():
+            keep = slice(None) if which == "plain" else has_doc
+            floor = PACK_FLOOR * float(want[2][keep].abs().max())
+            for name, a, b in zip(("dq", "dk", "dv"), grads[0], want):
+                a, b = a[keep], b[keep]
+                diff = float((a - b).abs().max())
+                errs[f"{which}_{name}"] = diff / max(float(b.abs().max()), floor)
+                errs[f"{which}_{name}_abs"] = diff
+                if not errs[f"{which}_{name}"] <= BWD_TOL["float32"]:
+                    raise AssertionError(f"flash_attn_bwd fp32 wide {shape} against {which}: "
+                                         f"{name} relative error {errs[f'{which}_{name}']} "
+                                         f"(tol {BWD_TOL['float32']})")
+        return args, out, errs
+
+    worst = {}
+    for d in WIDE_F32_DS:
+        for N in WIDE_F32_NS:
+            _, _, errs = run(4, 1, N, d, True)
+            for key, e in errs.items():
+                worst[key] = max(worst.get(key, 0.0), e)
+    print(f"attn fp32 wide: {len(WIDE_F32_DS) * len(WIDE_F32_NS)} shapes (N {WIDE_F32_NS} x d "
+          f"{WIDE_F32_DS}, a one-doc and an all-padded list each) agree with both plain versions, "
+          f"the same bits twice; worst {json.dumps(worst)}  [{card}]", flush=True)
+
+    records = {}
+    for (B, H, N, d) in WIDE_F32_TIMED:
+        args, out, errs = run(B, H, N, d, False)
+        q, k, v, dout, row_max, row_sum, dsum, mask = args
+        bias = torch.where(mask, 0.0, -1e9)[:, None, None, :].expand(B, H, N, N)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
+
+        def library_bwd():  # SDPA's backward alone, from a kept graph
+            for t in leaves:
+                t.grad = None
+            lib_out.backward(dout, retain_graph=True)
+
+        iters = 10 if N * B * H >= 16384 else 50
+        times = {"fwd": cuda_time_ms(lambda: FLASH_ATTN_FWD(q, k, v, mask, stats=True), iters),
+                 "dkdv": cuda_time_ms(lambda: FLASH_ATTN_BWD_DKDV(*args), iters),
+                 "dq": cuda_time_ms(lambda: FLASH_ATTN_BWD_DQ(*args), iters),
+                 "library_fwd": cuda_time_ms(
+                     lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=bias), iters),
+                 "library_bwd": cuda_time_ms(library_bwd, iters),
+                 "plain_fwd": cuda_time_ms(lambda: attention_forward_plain(q, k, v, mask), 3),
+                 "plain_bwd": cuda_time_ms(lambda: attention_backward_plain(
+                     q, k, v, dout, out, row_max, row_sum, mask), 3)}
+        times["dkdv_plus_dq"] = times["dkdv"] + times["dq"]
+        val, stats_bytes = B * H * N * d * 4, B * H * N * 4
+        flops = B * H * N * N * d
+        bounds = {"fwd": bound(TF32_PRODUCTS * 4.0 * flops, TF32_PEAK,
+                               4 * val + B * N + 2 * stats_bytes),
+                  "dkdv": bound(TF32_PRODUCTS * 8.0 * flops, TF32_PEAK,
+                                6 * val + 3 * stats_bytes + B * N),
+                  "dq": bound(TF32_PRODUCTS * 6.0 * flops, TF32_PEAK,
+                              5 * val + 3 * stats_bytes + B * N)}
+        rec = {"shape": [B, H, N, d], "dtype": "float32", "ms": times,
+               "library_fwd_over_fwd": times["library_fwd"] / times["fwd"],
+               "library_bwd_over_pair": times["library_bwd"] / times["dkdv_plus_dq"],
+               "bound_ms": bounds, "errors": errs}
+        print("attn_f32_wide " + json.dumps(rec) + f"  [{card}]", flush=True)
+        if (B, H, N, d) == WIDE_F32_RECORD:
+            records["flash_attn_fwd_wide_fp32"] = {
+                "max_abs_err": float((out - attention_forward_plain(q, k, v, mask)[0]).abs().max()),
+                "ms": times["fwd"], "plain_ms": times["plain_fwd"],
+                "library_ms": times["library_fwd"], **bounds["fwd"]}
+            common = {"plain_ms": times["plain_bwd"], "library_ms": times["library_bwd"]}
+            records["flash_attn_bwd_dkdv_wide_fp32"] = {
+                "max_abs_err": max(errs["plain_dk_abs"], errs["plain_dv_abs"]),
+                "ms": times["dkdv"], **common, **bounds["dkdv"]}
+            records["flash_attn_bwd_dq_wide_fp32"] = {"max_abs_err": errs["plain_dq_abs"],
+                                                 "ms": times["dq"], **common, **bounds["dq"]}
     return records
 
 
@@ -2211,17 +2377,16 @@ def wide_phase(card: str, work_dir: str) -> dict:
     counts (wide_launches: in bf16 no Yahoo! bucket reaches a wide kernel);
     (d) save, restore, one more step on both; (e) for the first model, timed
     fp32 steps in YAHOO_F32_BUCKETS (yahoo_f32_steps). The one-head model
-    also takes its fp32 gradient check (b) at WIDE_PAIR_CHECK docs. Returns
-    the launch counts of (c) for the first model, summed over its buckets,
-    those of the fp32 gradient checks of the first model in the
-    YAHOO_GRAD_CHECK bucket and of the one-head model at WIDE_PAIR_CHECK
-    docs (the fp32 wide forward's and wide pair's path), summed, and those
-    of (e), by bucket."""
+    also takes its fp32 gradient check (b) at WIDE_PAIR_CHECK docs and (f)
+    timed fp32 steps at WIDE_F32_STEP with exact launch counts (the fp32
+    wide forward and dk/dv and dq kernels, 3xTF32). Returns the launch counts
+    of (c) for the first model, summed over its buckets, those of (e), by
+    bucket, and those of (f)."""
     import torch
 
     from ptranking_tpu_torch.models import ScorerConfig
 
-    counts, fp32_counts, f32_step_counts, first = {}, {}, {}, True
+    counts, f32_step_counts, one_head_f32, first = {}, {}, {}, True
     for name, F, n_heads, lane_align, data_id in WIDE_MODELS:
         cfg = ScorerConfig.default_listsf(F, compute_dtype="bfloat16", flash_attn=True,
                                           lane_align=lane_align, n_heads=n_heads)
@@ -2240,11 +2405,9 @@ def wide_phase(card: str, work_dir: str) -> dict:
                                           x, labels, mask, f"{tag} gradient check",
                                           wide_launches(N, d, dtype))
                     for dtype in ("float32", "bfloat16")}
-        if first:  # grads_vs_dense held the counts to wide_launches
-            fp32_counts = wide_launches(N, d, "float32")
         print(f"{tag}_grad " + json.dumps(grad_rec) + f"  [{card}]", flush=True)
 
-        if name == "mslr_1head":  # fp32 past F32_LONG_MAX_N docs: the wide pair
+        if name == "mslr_1head":  # fp32 past F32_LONG_MAX_N docs: the fp32 wide kernels
             N = WIDE_PAIR_CHECK
             batch = train_batch(YAHOO_DOCS // N, N, ragged=True, seed=1, num_features=F)
             x, labels, mask = (torch.from_numpy(a).cuda()
@@ -2253,10 +2416,16 @@ def wide_phase(card: str, work_dir: str) -> dict:
                                                  **ranker_kw),
                                  x, labels, mask, f"{tag} fp32 gradient check at {N} docs",
                                  wide_launches(N, d, "float32"))
-            fp32_counts = {key: fp32_counts.get(key, 0) + n
-                           for key, n in wide_launches(N, d, "float32").items()}
             print(f"{tag}_grad_{N}docs " + json.dumps({"float32": rec}) + f"  [{card}]",
                   flush=True)
+            B, N = WIDE_F32_STEP
+            rec = timed_steps(flagship_ranker(compute_dtype="float32", **ranker_kw),
+                              train_batch(B, N, ragged=False, seed=2, num_features=F),
+                              YAHOO_STEPS, f"{tag} fp32 timed steps at {B} x {N} docs",
+                              wide_launches(N, d, "float32"))
+            print(f"{tag}_fp32_steps " + json.dumps({"head_dim": d, "dtype": "float32", **rec})
+                  + f"  [{card}]", flush=True)
+            one_head_f32 = rec["launches"]
 
         if name == "yahoo":  # the same in a bucket of the packed kernels: the mean list's
             N = YAHOO_PACKED_CHECK
@@ -2287,7 +2456,7 @@ def wide_phase(card: str, work_dir: str) -> dict:
         if first:
             f32_step_counts = yahoo_f32_steps(card)
         first = False
-    return counts, fp32_counts, f32_step_counts
+    return counts, f32_step_counts, one_head_f32
 
 
 def yahoo_f32_steps(card: str) -> dict:
@@ -4996,14 +5165,14 @@ def main() -> int:
     flash = check_attention(card)
     records = check_attention_bwd(card)
     for key, name in (((RECORD_SHAPE, "bfloat16"), "flash_attn_fwd"),
-                      ((RECORD_SHAPE, "float32"), "flash_attn_fwd_fp32"),
-                      ((WIDE_RECORD_SHAPE, WIDE_RECORD_DTYPE), "flash_attn_fwd_wide")):
+                      ((RECORD_SHAPE, "float32"), "flash_attn_fwd_fp32")):
         records[name].update({k: flash[key][k] for k in ("max_abs_err", "plain_ms",
                                                          "library_ms")})
     records.update(check_pairwise(card))
     check_grid_limits(card)
     records.update(check_packed(card))
     records.update(check_packed_fwd(card))
+    records.update(check_wide_tf32(card))
     check_big(card)
     records.update(check_sinkstep(card))
 
@@ -5021,7 +5190,7 @@ def main() -> int:
     launches["sinkstep"] = wassrank_phase(card, work_dir)["sinkstep"]
 
     phase("wide")
-    wide, wide_fp32, f32_steps = wide_phase(card, work_dir)
+    wide, f32_steps, one_head_f32 = wide_phase(card, work_dir)
 
     phase("resident")
     resident_phase(card, work_dir)
@@ -5056,7 +5225,7 @@ def main() -> int:
                                  f"{idle_par}")
     print("parallel launches by path " + json.dumps(par_counts) + f"  [{card}]", flush=True)
     for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
-        launches[name + "_wide"] = wide_fp32[name]
+        launches[name + "_wide_fp32"] = one_head_f32[name]
     for name in ("flash_attn_fwd_packed", "flash_attn_fwd_long", "flash_attn_bwd_packed",
                  "flash_attn_bwd_list", "flash_attn_bwd_long"):
         launches[name] = wide[name]
@@ -5096,16 +5265,15 @@ def main() -> int:
                                 "ptranking_tpu/ops/pallas/pairwise.py:93"),
         "sinkstep": ("ptranking_tpu_torch/ops/csrc/sinkstep.cu",
                      "ptranking_tpu/ops/pallas/sinkhorn.py:26"),
-        # the same wrappers at d > 128 (the Yahoo! LTR listsf's d = 350): the
-        # wide kernels, record in the 256-doc bucket (WIDE_RECORD_SHAPE) in
-        # fp32 (WIDE_RECORD_DTYPE), launches from phase 7's fp32 gradient
-        # check of the one-head model at WIDE_PAIR_CHECK docs (the forward
-        # and the pair): no Yahoo! bucket reaches them
-        "flash_attn_fwd_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+        # the same wrappers in fp32 at d > 128 past F32_LONG_MAX_N docs: the
+        # fp32 wide kernels (3xTF32), record at WIDE_F32_RECORD, launches
+        # from phase 7's fp32 timed steps of the one-head model at
+        # WIDE_F32_STEP: no Yahoo! bucket reaches them
+        "flash_attn_fwd_wide_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                                 "ptranking_tpu/ops/attention.py:129"),
-        "flash_attn_bwd_dkdv_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+        "flash_attn_bwd_dkdv_wide_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                      "ptranking_tpu/ops/attention.py:172"),
-        "flash_attn_bwd_dq_wide": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+        "flash_attn_bwd_dq_wide_fp32": ("ptranking_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                                    "ptranking_tpu/ops/attention.py:172"),
         # the bf16 backward of lists of at most PACK_MAX_N docs at d > 128
         # (Yahoo!'s buckets up to 64 docs): record at PACK_RECORD, launches

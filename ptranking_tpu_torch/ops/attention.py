@@ -13,10 +13,8 @@ as in the JAX package, whose flash path applies none either:
     gradient is needed, `csrc/flash_attn_bwd.cu` backward (dq, and dk with dv)
     from the forward's row statistics, as a `torch.autograd.Function`: bf16
     inputs on the tensor cores; fp32 inputs on the tensor cores too, each
-    product as three TF32 products (3xTF32, about fp32's accuracy), in the
-    forward and backward at head dims up to 128 and in the kernels that take
-    whole lists into a block, and on the fp32 CUDA cores in the wide kernels
-    above. CPU
+    product as three TF32 products (3xTF32, about fp32's accuracy), at every
+    head dim and list length. CPU
     tensors go through `blockwise_attention(block_size=min(128, N))`, which is
     exactly what the JAX package lowers off-TPU (models/scorers/listsf.py).
   * `sdpa_block` and `online_combine` — one (query block, key block)
@@ -48,12 +46,14 @@ for lists of at most F32_FWD_LIST_MAX_N docs, the packed forward's wrapper
 (its fp32 packed kernel on 3xTF32 tensor-core products up to 64 docs, the
 fp32 list kernel, one list a 128-row tile, above) and for lists of at most
 F32_FWD_LONG_MAX_N docs the long forward's (the fp32 list kernel on a
-256-row tile; S once in slices of 64 keys, 3xTF32), and the wide forward
-above; the backward takes, for lists of at most F32_PACK_MAX_N docs, the
-packed backward on 3xTF32, for lists of at most F32_LIST_MAX_N docs the
-list kernel's fp32 instantiation and for lists of at most F32_LONG_MAX_N
-docs the long kernel's (one list a block of 8 warps, its keys in slices of
-64, 3xTF32), and the wide dk/dv and dq kernels above.
+256-row tile; S once in slices of 64 keys, 3xTF32), and the fp32 wide
+forward above (3xTF32: a block for each 64 query rows and all of their
+output columns, S once a 64-key tile); the backward takes, for lists of at
+most F32_PACK_MAX_N docs, the packed backward on 3xTF32, for lists of at
+most F32_LIST_MAX_N docs the list kernel's fp32 instantiation and for lists
+of at most F32_LONG_MAX_N docs the long kernel's (one list a block of 8
+warps, its keys in slices of 64, 3xTF32), and the fp32 wide dk/dv and dq
+kernels above (3xTF32, a block's rows and all of their output columns).
 
 Layouts are the JAX package's: q, k, v `[B, H, N, d]`, mask `[B, N]` (True =
 real document). Masked keys get logit -1e9; rows whose keys are all masked
@@ -356,8 +356,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernels' row tile (query rows or keys a block owns), the widest head dim
 # of the kernels that keep a whole row per block, and the narrowest output
-# chunk of the wide kernels above it (csrc/flash_attn_{fwd,bwd}.cu: 64
-# columns for the fp32 kernels and bf16 dk/dv, 128 for the bf16 forward and dq)
+# chunk of the bf16 wide kernels above it (csrc/flash_attn_{fwd,bwd}.cu: 64
+# columns for dk/dv, 128 for the forward and dq; the fp32 wide kernels' block
+# owns every output column)
 _ROWS, _NARROW_D, _WIDE_COLUMNS = 64, 128, 64
 # the tile of one list of up to 128 docs: the packed forward's keys
 # (LIST_KEYS) and the list backward's rows (LIST_ROWS); of one list of up to
@@ -395,9 +396,13 @@ LONG_MAX_N = 256
 # through the packed and the long forward's wrappers) up to
 # F32_FWD_LIST_MAX_N and F32_FWD_LONG_MAX_N docs, in place of the wide
 # forward: at 128 and 256 docs and d = 350 / 384, 0.32 / 0.32 and 0.69 /
-# 0.64 ms against the wide forward's 2.02 / 2.04 and 3.89 / 3.90 on an
-# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's check_packed_fwd,
-# PERF.md).
+# 0.64 ms against the CUDA-core wide forward's 2.02 / 2.04 and 3.89 / 3.90
+# on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's check_packed_fwd,
+# PERF.md). Above these limits the fp32 wide kernels (3xTF32, a block's 64
+# rows and all of their columns) take every list: 0.944 ms forward and
+# 1.96 + 1.48 ms backward at (32, 1, 1408, 136), the one-head MSLR-WEB30K
+# listsf, against the CUDA-core wide kernels' 4.46 and 14.36 + 7.24 and
+# SDPA's fp32 1.31 and 3.91 on the same card (tools/kernel_variants.py).
 F32_PACK_MAX_N = 64
 F32_LIST_MAX_N = 128
 F32_LONG_MAX_N = 256
@@ -468,9 +473,9 @@ def fwd_packed_blocks(B: int, H: int, N: int, dtype: torch.dtype = torch.bfloat1
 def kernel_launches(B: int, H: int, N: int, d: int, packed: bool = False) -> int:
     """Kernel launches of one wrapper call. The kernels of d <= 128 take b*h
     from grid.y (at most 65535 blocks), so a batch of more than 65535 // H
-    lists runs in launches of whole lists; the wide kernels (d > 128) fold
-    every axis into grid.x, and the kernels that pack whole lists into a
-    block (`packed`) put their tiles there: one launch."""
+    lists runs in launches of whole lists; the wide kernels (d > 128, either
+    dtype) fold every axis into grid.x, and the kernels that pack whole
+    lists into a block (`packed`) put their tiles there: one launch."""
     return 1 if packed or d > _NARROW_D else -(-B // (_MAX_Y // H))
 
 
@@ -486,8 +491,9 @@ def check_grid(B: int, H: int, N: int, d: int, packed: str = "",
                dtype: torch.dtype = torch.bfloat16) -> None:
     """The shapes the kernels take: any positive B, H, N and d whose launches
     fit the grid. For d <= 128, H up to 65535 (grid.y); for d > 128, the
-    64-row tiles x B*H x the output chunks (64 columns at the finest) up to
-    2^31 - 1 blocks (grid.x). A kernel that takes whole lists into a block
+    64-row tiles x B*H up to 2^31 - 1 blocks (grid.x), times the output
+    chunks in bf16 (64 columns at the finest; the fp32 wide kernels' block
+    owns every output column). A kernel that takes whole lists into a block
     (`packed`, its wrapper's name: "flash_attn_fwd_packed",
     "flash_attn_bwd_packed", "flash_attn_bwd_list", "flash_attn_fwd_long",
     "flash_attn_bwd_long"): N up to 64 (the packed backward), 128 or 256
@@ -509,7 +515,8 @@ def check_grid(B: int, H: int, N: int, d: int, packed: str = "",
     if d <= _NARROW_D and H > _MAX_Y:
         raise ValueError(f"shape {(B, H, N, d)} needs {H} blocks on grid.y, past the "
                          f"card's {_MAX_Y}")
-    blocks = -(-N // _ROWS) * B * H * -(-d // _WIDE_COLUMNS)
+    chunks = -(-d // _WIDE_COLUMNS) if dtype == torch.bfloat16 else 1
+    blocks = -(-N // _ROWS) * B * H * chunks
     if d > _NARROW_D and blocks > _MAX_X:
         raise ValueError(f"shape {(B, H, N, d)} needs {blocks} blocks on grid.x, past the "
                          f"card's {_MAX_X}")
@@ -608,9 +615,9 @@ class FlashAttnFwdLong(FlashAttnFwd):
 
 class FlashAttnBwdDkdv:
     """ctypes wrapper of the dk, dv kernels of `csrc/flash_attn_bwd.cu` (bf16:
-    tensor cores; fp32: 3xTF32 on the tensor cores at head dims up to 128,
-    the CUDA cores above), with its launch count. `dsum` is
-    D = rowsum(dO * O), [B, H, N] fp32."""
+    tensor cores; fp32: 3xTF32 on the tensor cores at every head dim, above
+    128 the wide kernel, a block's keys and all of their columns), with its
+    launch count. `dsum` is D = rowsum(dO * O), [B, H, N] fp32."""
 
     name = "flash_attn_bwd_dkdv"
 
@@ -632,8 +639,8 @@ class FlashAttnBwdDkdv:
 
 class FlashAttnBwdDq:
     """ctypes wrapper of the dq kernels of `csrc/flash_attn_bwd.cu` (bf16:
-    tensor cores; fp32: 3xTF32 on the tensor cores at head dims up to 128,
-    the CUDA cores above), with its launch count."""
+    tensor cores; fp32: 3xTF32 on the tensor cores at every head dim, above
+    128 the wide kernel), with its launch count."""
 
     name = "flash_attn_bwd_dq"
 

@@ -79,12 +79,14 @@
 //     autograd through the plain blockwise attention rounds them; all sums
 //     are fp32 and the outputs are rounded once at the store.
 //
-// Head dims above 128: flash_bwd_{dkdv,dq}_wide_mma_kernel (bf16) and
-// flash_bwd_{dkdv,dq}_wide_kernel (fp32), which split the outputs' head dim
-// over the grid and stream the contractions over d (the section "d > 128"
-// below). Any d and any batch is taken: the kernels here take b*h from
-// grid.y, so a batch past 65535 (b, h) pairs runs in several launches of
-// whole lists; the wide kernels fold every axis into grid.x.
+// Head dims above 128: flash_bwd_{dkdv,dq}_wide_mma_kernel (bf16), which
+// split the outputs' head dim over the grid and stream the contractions over
+// d (the section "d > 128: the bf16 wide kernels" below), and
+// flash_bwd_{dkdv,dq}_wide_tf32_kernel (fp32, 3xTF32), a block for each 64
+// rows and all of their output columns, S and dP once a loop tile (the
+// section "fp32, d > 128"). Any d and any batch is taken: the kernels here
+// take b*h from grid.y, so a batch past 65535 (b, h) pairs runs in several
+// launches of whole lists; the wide kernels fold every axis into grid.x.
 //
 // Short lists: flash_bwd_packed_mma_kernel (bf16, any d), templated on its
 // tile's rows. With 64 (entry flash_attn_bwd_packed, N <= 64) it puts 64 / N
@@ -106,8 +108,9 @@
 // in fp32: about fp32's accuracy, which the gradient checks and the
 // checkpoint-resume checks rest on), the head dim padded to a multiple of 8
 // (the section "fp32, head dims up to 128" below). At d > 128 the fp32 wide
-// kernels keep the fp32 CUDA cores, save fp32 lists of at most 64 docs,
-// which take flash_bwd_packed_tf32_kernel (entry flash_attn_bwd_packed, dtype 0;
+// kernels (3xTF32, the section "fp32, d > 128") take lists of more than 256
+// docs; fp32 lists of at most 64 docs
+// take flash_bwd_packed_tf32_kernel (entry flash_attn_bwd_packed, dtype 0;
 // the route at N <= F32_PACK_MAX_N), the packed kernel's three steps with
 // every product in 3xTF32 on the tensor cores, which keeps about fp32's
 // accuracy (the section "fp32, lists of at most 64 docs" below); fp32 lists
@@ -124,10 +127,6 @@
 #include "mma_common.cuh"
 
 namespace {
-
-constexpr int BM = 64;       // fp32 wide kernels: query rows per tile
-constexpr int BN = 64;       // fp32 wide kernels: keys per tile
-constexpr int NT = 128;      // fp32 wide kernels: threads
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -442,44 +441,21 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 on the CUDA cores: the wide kernels' register blocks
-// ---------------------------------------------------------------------------
-
-constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
-
-// the 4 x 8 block a[c][ty*4 + i] * b[c][col_j] summed over c < d, added to acc
-__device__ __forceinline__ void product_4x8(float (&acc)[4][8], const float* a, const float* b,
-                                            int d, int ty, int tx) {
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-        const float4 x = *reinterpret_cast<const float4*>(&a[c * LDT + ty * 4]);
-        const float4 y0 = *reinterpret_cast<const float4*>(&b[c * LDT + tx * 4]);
-        const float4 y1 = *reinterpret_cast<const float4*>(&b[c * LDT + 32 + tx * 4]);
-        const float av[4] = {x.x, x.y, x.z, x.w};
-        const float bv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-}
-
-__device__ __forceinline__ int column(int tx, int j) { return j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4); }
-
-// ---------------------------------------------------------------------------
-// d > 128: the wide kernels
+// d > 128: the bf16 wide kernels
 // ---------------------------------------------------------------------------
 //
 // As in flash_attn_fwd.cu: the kernels above keep d-wide tiles (and, in
 // bf16, d-wide accumulators) per block, which at d = 384 exceeds the SM's
-// registers and shared memory. The wide kernels split the OUTPUT's head dim
-// over the grid: a block owns 64 rows (keys for dk/dv, query rows for dq) and
-// one chunk of output columns, and streams the contractions of S and dP over
-// d in 64-column chunks staged in shared memory. Every chunk-block of a row
-// tile computes S, P, dP and dS with the same instructions in the same order,
-// so the blocks agree bit for bit on them; each writes only its own columns.
-// No atomics. Q, K, V and dO are read once per output chunk. grid.x folds
-// (b*h, output chunk, 64-row tile) (mma_common.cuh's fold_wide).
+// registers and shared memory. The bf16 wide kernels split the OUTPUT's head
+// dim over the grid: a block owns 64 rows (keys for dk/dv, query rows for dq)
+// and one chunk of output columns, and streams the contractions of S and dP
+// over d in 64-column chunks staged in shared memory. Every chunk-block of a
+// row tile computes S, P, dP and dS with the same instructions in the same
+// order, so the blocks agree bit for bit on them; each writes only its own
+// columns. No atomics. Q, K, V and dO are read once per output chunk. grid.x
+// folds (b*h, output chunk, 64-row tile) (mma_common.cuh's fold_wide). fp32
+// at d > 128 takes the 3xTF32 wide kernels of the section "fp32, d > 128",
+// whose blocks own every output column.
 //
 // What holds them (ptranking_tpu_torch/tools/kernel_variants.py on an NVIDIA
 // H100 80GB HBM3 at 700 W; PERF.md): the chunk copies and the re-reads they
@@ -493,15 +469,13 @@ __device__ __forceinline__ int column(int tx, int j) { return j < 4 ? tx * 4 + j
 // output-chunk blocks of d = 350 re-reads the inputs: 5.53 ms for the pair
 // at 16 docs against SDPA's 0.89..1.06. The bf16 backward there runs the
 // packed kernel below instead, at 65 .. 128 docs the list kernel and at
-// 129 .. 256 the long kernel, and fp32 their 3xTF32 counterparts; the pair
-// stays the route above LONG_MAX_N docs (bf16) and F32_LONG_MAX_N (fp32).
+// 129 .. 256 the long kernel; the pair stays the route above LONG_MAX_N docs.
 
 constexpr int DCH = 64;     // columns of a d-chunk of the S and dP products
 // 16-column steps of the bf16 kernels' output chunks: 128 columns for dq; 64
 // for dk and dv, whose two accumulators and two products (S, dP) would
 // otherwise spill
 constexpr int WIDE_CW_DQ = 8, WIDE_CW_DKDV = 4;
-constexpr int WIDE_NC = 8;  // output columns a thread of the fp32 kernels: a 64-column chunk
 
 // bf16: two stages of four d-chunk tiles ([64][72]: the block's rows twice,
 // the loop's tile twice), two stages of the two output-chunk tiles of the
@@ -746,274 +720,6 @@ flash_bwd_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
         for (int j = 0; j < 2 * CW; ++j)
             store_pair(dqrow, c0 + 8 * j + 2 * t4, acc[j][2 * h] * scale,
                        acc[j][2 * h + 1] * scale, d, pairs);
-    }
-}
-
-// fp32 dk, dv of a block's 64 keys and 64-column output chunk, on the CUDA
-// cores: 128 threads as 16 row groups of 4 keys x 8 lanes, products from
-// transposed tiles in shared memory with 4x8 register blocks (product_4x8),
-// S^T and dP^T accumulated over d-chunks, P^T and dS^T through shared
-// memory, and the chunk's Q and dO columns staged (in the same buffers) for
-// the second products.
-__host__ __device__ constexpr size_t dkdv_wide_smem_floats() {
-    // Kt, Vt, Qt, dOt d-chunks [DCH][LDT]; Pq, dSq [BM][LDT]; m, 1/l, D [BM]; key flags [BN]
-    return size_t(4) * DCH * LDT + size_t(2) * BM * LDT + 3 * BM + BN;
-}
-
-template <int NC>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
-                           const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                           const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
-                           float* __restrict__ dk, float* __restrict__ dv, int H, int N, int d,
-                           float scale) {
-    static_assert(8 * NC == DCH, "the output chunk is staged in the d-chunk buffers");
-    extern __shared__ float4 smem4[];
-    float* Kt = reinterpret_cast<float*>(smem4);
-    float* Vt = Kt + DCH * LDT;
-    float* Qt = Vt + DCH * LDT;
-    float* dOt = Qt + DCH * LDT;
-    float* Pq = dOt + DCH * LDT;
-    float* dSq = Pq + BM * LDT;
-    float* qm = dSq + BM * LDT;
-    float* qinv = qm + BM;
-    float* qD = qinv + BM;
-    int* kflag = reinterpret_cast<int*>(qD + BM);
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 3;
-    const int tx = tid & 7;
-    int oc, bh;
-    const int k0 = fold_wide(N, d, DCH, oc, bh);
-    const int c0 = oc * DCH;
-    const int b = bh / H;
-    const size_t base = size_t(bh) * N * d;
-    const size_t stat = size_t(bh) * N;
-    const int krows = min(BN, N - k0);
-    const float* kb = k + base + size_t(k0) * d;
-    const float* vb = v + base + size_t(k0) * d;
-
-    if (tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
-    float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-    for (int q0 = 0; q0 < N; q0 += BM) {
-        const int qrows = min(BM, N - q0);
-        const float* qb = q + base + size_t(q0) * d;
-        const float* dob = dout + base + size_t(q0) * d;
-        float s[4][8], dp[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-        for (int dc = 0; dc < d; dc += DCH) {
-            __syncthreads();  // the previous chunk or tile is no longer read
-            for (int i = tid; i < 64 * DCH; i += NT) {
-                const int r = i / DCH, c = i - r * DCH;
-                const bool col = dc + c < d;
-                const size_t off = size_t(r) * d + dc + c;
-                Kt[c * LDT + r] = r < krows && col ? kb[off] : 0.f;
-                Vt[c * LDT + r] = r < krows && col ? vb[off] : 0.f;
-                Qt[c * LDT + r] = r < qrows && col ? qb[off] : 0.f;
-                dOt[c * LDT + r] = r < qrows && col ? dob[off] : 0.f;
-            }
-            if (dc == 0 && tid < BM) {
-                const bool in = tid < qrows;
-                qm[tid] = in ? row_max[stat + q0 + tid] : 0.f;
-                qinv[tid] = in ? 1.f / row_sum[stat + q0 + tid] : 0.f;
-                qD[tid] = in ? dsum[stat + q0 + tid] : 0.f;
-            }
-            __syncthreads();
-            product_4x8(s, Kt, Qt, DCH, ty, tx);
-            product_4x8(dp, Vt, dOt, DCH, ty, tx);
-        }
-
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = column(tx, j);
-            const bool qin = col < qrows;
-            float p4[4], ds4[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int flag = kflag[ty * 4 + i];
-                const float x = flag == KEY_REAL ? s[i][j] * scale : MASKED_LOGIT;
-                const float p = (qin && flag != KEY_OUT) ? expf(x - qm[col]) * qinv[col] : 0.f;
-                p4[i] = p;
-                ds4[i] = (qin && flag == KEY_REAL) ? p * (dp[i][j] - qD[col]) : 0.f;
-            }
-            *reinterpret_cast<float4*>(&Pq[col * LDT + ty * 4]) = make_float4(p4[0], p4[1], p4[2], p4[3]);
-            *reinterpret_cast<float4*>(&dSq[col * LDT + ty * 4]) = make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
-        }
-        __syncthreads();  // Qt, dOt free; Pq, dSq written
-        for (int i = tid; i < BM * DCH; i += NT) {  // the output chunk's columns of q, dO
-            const int r = i / DCH, c = i - r * DCH;
-            const bool in = r < qrows && c0 + c < d;
-            const size_t off = size_t(r) * d + c0 + c;
-            Qt[c * LDT + r] = in ? qb[off] : 0.f;
-            dOt[c * LDT + r] = in ? dob[off] : 0.f;
-        }
-        __syncthreads();
-
-        for (int r = 0; r < qrows; ++r) {
-            const float4 p = *reinterpret_cast<const float4*>(&Pq[r * LDT + ty * 4]);
-            const float4 ds = *reinterpret_cast<const float4*>(&dSq[r * LDT + ty * 4]);
-            const float pv[4] = {p.x, p.y, p.z, p.w};
-            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) {
-                const float qv = Qt[(tx + 8 * cc) * LDT + r];
-                const float dov = dOt[(tx + 8 * cc) * LDT + r];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    acc_v[i][cc] = fmaf(pv[i], dov, acc_v[i][cc]);
-                    acc_k[i][cc] = fmaf(dsv[i], qv, acc_k[i][cc]);
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= krows) continue;
-        float* dkrow = dk + base + size_t(k0 + r) * d;
-        float* dvrow = dv + base + size_t(k0 + r) * d;
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-            const int col = c0 + tx + 8 * cc;
-            if (col < d) {
-                dkrow[col] = acc_k[i][cc] * scale;
-                dvrow[col] = acc_v[i][cc];
-            }
-        }
-    }
-}
-
-// fp32 dq of a block's 64 query rows and 64-column output chunk, on the CUDA
-// cores as the dk/dv kernel above: S and dP accumulated over d-chunks, dS
-// through shared memory, the chunk's K columns staged (in Kt's buffer) for
-// dq += dS K.
-__host__ __device__ constexpr size_t dq_wide_smem_floats() {
-    // Qt, dOt, Kt, Vt d-chunks [DCH][LDT]; dSk [BN][LDT]; key flags [BN]
-    return size_t(4) * DCH * LDT + size_t(BN) * LDT + BN;
-}
-
-template <int NC>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                         const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
-                         float* __restrict__ dq, int H, int N, int d, float scale) {
-    static_assert(8 * NC == DCH, "the output chunk is staged in a d-chunk buffer");
-    extern __shared__ float4 smem4[];
-    float* Qt = reinterpret_cast<float*>(smem4);
-    float* dOt = Qt + DCH * LDT;
-    float* Kt = dOt + DCH * LDT;
-    float* Vt = Kt + DCH * LDT;
-    float* dSk = Vt + DCH * LDT;
-    int* kflag = reinterpret_cast<int*>(dSk + BN * LDT);
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 3;
-    const int tx = tid & 7;
-    int oc, bh;
-    const int q0 = fold_wide(N, d, DCH, oc, bh);
-    const int c0 = oc * DCH;
-    const int b = bh / H;
-    const size_t base = size_t(bh) * N * d;
-    const size_t stat = size_t(bh) * N;
-    const int qrows = min(BM, N - q0);
-    const float* qb = q + base + size_t(q0) * d;
-    const float* dob = dout + base + size_t(q0) * d;
-
-    float m_i[4], inv_i[4], D_i[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const bool in = r < qrows;
-        m_i[i] = in ? row_max[stat + q0 + r] : 0.f;
-        inv_i[i] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;
-        D_i[i] = in ? dsum[stat + q0 + r] : 0.f;
-    }
-    float acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-    for (int k0 = 0; k0 < N; k0 += BN) {
-        const int krows = min(BN, N - k0);
-        const float* kb = k + base + size_t(k0) * d;
-        const float* vb = v + base + size_t(k0) * d;
-        float s[4][8], dp[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-        for (int dc = 0; dc < d; dc += DCH) {
-            __syncthreads();  // the previous chunk or tile is no longer read
-            for (int i = tid; i < 64 * DCH; i += NT) {
-                const int r = i / DCH, c = i - r * DCH;
-                const bool col = dc + c < d;
-                const size_t off = size_t(r) * d + dc + c;
-                Qt[c * LDT + r] = r < qrows && col ? qb[off] : 0.f;
-                dOt[c * LDT + r] = r < qrows && col ? dob[off] : 0.f;
-                Kt[c * LDT + r] = r < krows && col ? kb[off] : 0.f;
-                Vt[c * LDT + r] = r < krows && col ? vb[off] : 0.f;
-            }
-            if (dc == 0 && tid < BN) kflag[tid] = key_flag(mask + size_t(b) * N, k0 + tid, N);
-            __syncthreads();
-            product_4x8(s, Qt, Kt, DCH, ty, tx);
-            product_4x8(dp, dOt, Vt, DCH, ty, tx);
-        }
-
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = column(tx, j);
-            const bool real = kflag[col] == KEY_REAL;
-            float ds4[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const bool in = ty * 4 + i < qrows;
-                const float p = expf(s[i][j] * scale - m_i[i]) * inv_i[i];
-                ds4[i] = (in && real) ? p * (dp[i][j] - D_i[i]) : 0.f;
-            }
-            *reinterpret_cast<float4*>(&dSk[col * LDT + ty * 4]) = make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
-        }
-        __syncthreads();  // Kt free; dSk written
-        for (int i = tid; i < BN * DCH; i += NT) {  // the output chunk's columns of k
-            const int r = i / DCH, c = i - r * DCH;
-            Kt[c * LDT + r] = r < krows && c0 + c < d ? kb[size_t(r) * d + c0 + c] : 0.f;
-        }
-        __syncthreads();
-
-        for (int c = 0; c < krows; ++c) {
-            const float4 ds = *reinterpret_cast<const float4*>(&dSk[c * LDT + ty * 4]);
-            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) {
-                const float kv = Kt[(tx + 8 * cc) * LDT + c];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(dsv[i], kv, acc[i][cc]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= qrows) continue;
-        float* dqrow = dq + base + size_t(q0 + r) * d;
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-            const int col = c0 + tx + 8 * cc;
-            if (col < d) dqrow[col] = acc[i][cc] * scale;
-        }
     }
 }
 
@@ -1750,7 +1456,7 @@ flash_bwd_long_dq_sum_kernel(const float* __restrict__ part, bf16* __restrict__ 
 // fp32, lists of at most 64 docs: the packed kernel on 3xTF32
 // ---------------------------------------------------------------------------
 //
-// The fp32 wide pair computes S and dP on the CUDA cores once for each
+// The CUDA-core fp32 wide pair it replaced computed S and dP once for each
 // 64-column output chunk of dk/dv and again for each of dq (12 times at
 // d = 350), on 64-row tiles that hold one list of N docs: 10.56 + 6.10 ms at
 // (2048, 2, 16, 350) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Here
@@ -2004,8 +1710,8 @@ flash_bwd_packed_tf32_kernel(const float* __restrict__ q, const float* __restric
 // fp32, lists of 65 .. 256 docs: the list and long kernels on 3xTF32
 // ---------------------------------------------------------------------------
 //
-// At 65 .. 256 docs the fp32 wide pair computes S and dP on the CUDA cores
-// once for each 64-column output chunk of dk/dv (6 at d = 350) and again for
+// At 65 .. 256 docs the CUDA-core fp32 wide pair it replaced computed S and
+// dP once for each 64-column output chunk of dk/dv (6 at d = 350) and again for
 // each of dq, in two launches: 8.51 + 3.88 ms at (256, 2, 128, 350) and
 // 16.21 + 7.70 at (128, 2, 256, 350) on an NVIDIA H100 80GB HBM3 at 700 W
 // (PERF.md), where SDPA's fp32 backward takes 1.06 and 1.58. The fp32
@@ -2363,17 +2069,17 @@ __host__ __device__ constexpr size_t narrow_tf32_smem_bytes(int nc) {
 // two keys, with their flags; 8-column tiles j: query rows): P^T in place of
 // S^T and dS^T in place of dP^T. A masked key's logit is -1e9 and its
 // dS = 0; a key past N has P = dS = 0. st points at the statistics
-// [m, 1/l, D][F32N_TILE] of the thread's first column (2 * (lane % 4) past
-// the tile's first query row).
-template <int NJ>
+// [m, 1/l, D][TS] of the thread's first column (2 * (lane % 4) past the
+// tile's first query row), TS the rows of the query tile.
+template <int NJ, int TS = F32N_TILE>
 __device__ __forceinline__ void p_ds_keys_tf32(float (&s)[NJ][4], float (&dp)[NJ][4],
                                                const float* st, const int (&flag)[2],
                                                float scale) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
         const float2 m2 = *reinterpret_cast<const float2*>(st + 8 * j);
-        const float2 inv2 = *reinterpret_cast<const float2*>(st + F32N_TILE + 8 * j);
-        const float2 D2 = *reinterpret_cast<const float2*>(st + 2 * F32N_TILE + 8 * j);
+        const float2 inv2 = *reinterpret_cast<const float2*>(st + TS + 8 * j);
+        const float2 D2 = *reinterpret_cast<const float2*>(st + 2 * TS + 8 * j);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const bool real = flag[h] == KEY_REAL, in = flag[h] != KEY_OUT;
@@ -2711,6 +2417,358 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// fp32, d > 128: the dk/dv and dq wide kernels on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// flash_bwd_dkdv_wide_tf32_kernel and flash_bwd_dq_wide_tf32_kernel take
+// every fp32 backward at d > 128 that the packed, list and long kernels do
+// not (lists of more than 256 docs; any N through these entries). They
+// replace a CUDA-core pair that split the outputs into 64-column chunks over
+// the grid and computed S, P, dP and dS once per chunk: 14.36 + 7.24 ms at
+// (32, 1, 1408, 136) on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
+// fp32 backward at 3.91 (PERF.md). They are the pair of d <= 128
+// (flash_bwd_{dkdv,dq}_tf32_kernel) with the fp32 wide forward's layout
+// (flash_attn_fwd.cu's flash_fwd_wide_tf32_kernel): a block of F32W_WARPS
+// warps owns F32W_OWN rows of one (b, h), 16 a warp, and ALL of their output
+// columns, and loops over tiles of F32W_TILE rows:
+//   * dk/dv: the block's keys, and the query rows in tiles (their m, 1/l
+//     and D staged in shared memory with the tile's first copies). A warp
+//     computes S^T = K Q^T and dP^T = V dO^T of its 16 keys by the tile's
+//     64 query rows over d in W-column chunks (cp.async, double-buffered),
+//     P^T and dS^T on those fragments (p_ds_keys_tf32), split once into
+//     TF32 parts, and for each W-column output chunk of the tile's dO and Q,
+//     dv += P^T dO and dk += dS^T Q;
+//   * dq: the same untransposed: the block's query rows (m, 1/l, D in
+//     registers), the keys in tiles (their flags staged), S = Q K^T and
+//     dP = dO V^T, dS (ds_rows_tf32), and dq += dS K for each output chunk
+//     of the tile's K.
+// Every product is 3xTF32 with the d <= 128 kernels' split (F32N_SPLIT), a
+// chunk's four k-steps summed in a fresh fragment, then added in fp32. S,
+// P, dP and dS are computed once per (row tile, loop tile) for every output
+// column; the outputs' C fragments stay in shared memory, each thread's own
+// float4 slots. Past d = 376 (dk/dv: two accumulators) and d = 752 (dq) the
+// block runs its output groups in turn (wide_tf32_group), S and dP computed
+// again for each. grid.x folds (b*h, 64-row tile), so any batch is one
+// launch. All sums are fp32 and there are no atomics: the same inputs give
+// the same bits.
+// What bounds them: the products, 8 * B*H*N^2*d operations (dk/dv) and
+// 6 * B*H*N^2*d (dq), three TF32 products each: 0.418 and 0.314 ms at
+// (32, 1, 1408, 136) at 495 TFLOP/s; the bytes (the loop tile's rows re-read
+// for each row tile, mostly from L2) far below; before either, the
+// instructions that feed the tensor cores, as in the forward. On an NVIDIA
+// H100 80GB HBM3 at 700 W (tools/kernel_variants.py, PERF.md): 1.96 + 1.48
+// ms at (32, 1, 1408, 136), 4.7x their bounds, against SDPA's fp32 backward
+// at 3.91; at d = 350 and 384 (512 docs) they lose to it, 0.93 + 0.67 and
+// 1.36 + 0.67 against 0.78 and 1.11: dk/dv's two accumulators of 64 x 352
+// floats leave one block of 4 warps an SM (at 384, two output groups).
+
+// columns of the fp32 wide kernels' d-chunks and output chunks (PERF.md);
+// blocks an SM the registers are cut for
+constexpr int F32W_CW = 32;
+constexpr int F32W_BLOCKS = 2;
+
+// The accumulator's output tile nt (its C fragment in the thread's slot of
+// acc) += A B in 3xTF32: A the 16 x 8*NJ matrix split in registers (hi, lo:
+// C fragments as A fragments, k = the loop tile's rows), B columns 8n ..
+// 8n + 7 of the [*][LD] tile held as [k][n]; F32N_GROUP k-steps a fresh
+// fragment, then added
+template <int LD, int NJ>
+__device__ __forceinline__ void acc_product_tf32(float4* acc, const uint32_t (&hi)[NJ][4],
+                                                 const uint32_t (&lo)[NJ][4], const float* tile,
+                                                 int n, int lane) {
+    float4 a = *acc;
+#pragma unroll
+    for (int j0 = 0; j0 < NJ; j0 += F32N_GROUP) {
+        float tc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = j0; j < j0 + F32N_GROUP; ++j) {
+            uint32_t bhi[2], blo[2];
+            frag_b_kn_tf32<LD, F32N_SPLIT>(bhi, blo, tile, 8 * j, 8 * n, lane);
+            mma_3xtf32_into(tc, hi[j], lo[j], bhi, blo);
+        }
+        a.x += tc[0];
+        a.y += tc[1];
+        a.z += tc[2];
+        a.w += tc[3];
+    }
+    *acc = a;
+}
+
+template <int W>
+__global__ void __launch_bounds__(F32W_NT, F32W_BLOCKS)
+flash_bwd_dkdv_wide_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ row_max,
+                                const float* __restrict__ row_sum, const float* __restrict__ dsum,
+                                const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                                float* __restrict__ dv, int H, int N, int d, float scale, int copy,
+                                int how, int cg) {
+    constexpr int NT = F32W_NT, LD = W + 4, TS = F32W_TILE;
+    constexpr int STAGE = (F32W_OWN + TS) * LD;  // two chunk tiles
+    constexpr int NJ = TS / 8;                   // 8-column tiles of S^T and dP^T: query rows
+    constexpr int CT = W / 8;                    // 8-column tiles of an output chunk
+    extern __shared__ uint4 smem_mma[];
+    float4* acc_k = reinterpret_cast<float4*>(smem_mma);  // [cg / 8][NT] each
+    float4* acc_v = acc_k + (cg / 8) * NT;
+    float* Cs = reinterpret_cast<float*>(acc_v + (cg / 8) * NT);  // [2][STAGE]
+    float* stats = Cs + 2 * STAGE;                               // [2][m, 1/l, D][TS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    int oc_unused, bh;
+    const int k0 = fold_wide(N, d, d, oc_unused, bh);
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int krows = min(F32W_OWN, N - k0);
+    const float* kb = k + base + size_t(k0) * d;
+    const float* vb = v + base + size_t(k0) * d;
+    const WideStages sg{2, (d + W - 1) / W, (N + TS - 1) / TS, d, cg, W};
+    const int stages = sg.total();
+    int flag[2];  // of the thread's two keys: rows g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        flag[h] = key_flag(mask + size_t(b) * N, k0 + warp * 16 + g + 8 * h, N);
+
+    // S stages: the block's K chunk and the query tile's Q chunk (the first
+    // also brings the tile's statistics); dP stages: V and dO; output
+    // stages: the tile's dO and Q chunks of the output columns
+    auto prefetch = [&](int st) {
+        int gi, t, c;
+        sg.decode(st, gi, t, c);
+        const int q1 = t * TS, nq = min(TS, N - q1);
+        const size_t qoff = base + size_t(q1) * d;
+        float* cs = Cs + (st & 1) * STAGE;
+        if (c < sg.products * sg.chunks) {
+            const bool s_stage = c < sg.chunks;
+            const int c0 = (s_stage ? c : c - sg.chunks) * W;
+            load_rows_f32<NT, W, F32W_OWN>(cs, s_stage ? kb : vb, krows, d, c0, copy);
+            load_rows_f32<NT, W, TS>(cs + F32W_OWN * LD, (s_stage ? q : dout) + qoff, nq, d, c0,
+                                     copy);
+            if (c == 0 && tid < TS) {  // the buffer of the tile's parity over all groups
+                float* sb = stats + ((gi * sg.tiles + t) & 1) * 3 * TS;
+                const bool in = tid < nq;  // a row past N: 1/l = 0, so P = dS = 0
+                sb[tid] = in ? row_max[stat + q1 + tid] : 0.f;
+                sb[TS + tid] = in ? 1.f / row_sum[stat + q1 + tid] : 0.f;  // l >= 1
+                sb[2 * TS + tid] = in ? dsum[stat + q1 + tid] : 0.f;
+            }
+        } else {
+            const int c0 = gi * cg + (c - sg.products * sg.chunks) * W;
+            load_rows_f32<NT, W, TS>(cs, dout + qoff, nq, d, c0, copy);
+            load_rows_f32<NT, W, TS>(cs + TS * LD, q + qoff, nq, d, c0, copy);
+        }
+        cp_async_commit();
+    };
+    int st = 0;
+    auto next = [&]() -> const float* {  // stage st, landed; stage st + 1 in flight
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+        return Cs + (st & 1) * STAGE;
+    };
+
+    prefetch(0);
+    const bool pairs = how & STORE_PAIRS;
+    int tt = 0;  // query tiles so far over all groups: their statistics' buffer by parity
+    for (int gi = 0; gi * cg < d; ++gi) {
+        const int c0 = gi * cg, ntiles = (min(cg, d - c0) + 7) / 8;
+        const int och = sg.out_chunks(gi);
+        for (int n = 0; n < ntiles; ++n) {
+            acc_k[n * NT + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+            acc_v[n * NT + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        for (int t = 0; t < sg.tiles; ++t, ++tt) {
+            // S^T and dP^T: the warp's 16 keys by the tile's query rows
+            float s[NJ][4], dp[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            for (int c = 0; c < sg.chunks; ++c, ++st) {
+                const float* cs = next();
+                chunk_product_tf32<W, NJ, F32N_SPLIT>(s, cs, cs + F32W_OWN * LD, warp * 16,
+                                                      c * W, d, lane);
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+            for (int c = 0; c < sg.chunks; ++c, ++st) {
+                const float* cs = next();
+                chunk_product_tf32<W, NJ, F32N_SPLIT>(dp, cs, cs + F32W_OWN * LD, warp * 16,
+                                                      c * W, d, lane);
+                __syncthreads();
+            }
+            p_ds_keys_tf32<NJ, TS>(s, dp, stats + (tt & 1) * 3 * TS + 2 * t4, flag, scale);
+            uint32_t phi[NJ][4], plo[NJ][4], dhi[NJ][4], dlo[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                c_as_a_tf32<F32N_SPLIT>(phi[j], plo[j], s[j]);
+                c_as_a_tf32<F32N_SPLIT>(dhi[j], dlo[j], dp[j]);
+            }
+            for (int oc = 0; oc < och; ++oc, ++st) {
+                const float* cs = next();
+#pragma unroll
+                for (int n = 0; n < CT; ++n) {
+                    const int nt = oc * CT + n;
+                    if (nt < ntiles) {
+                        acc_product_tf32<LD, NJ>(acc_v + nt * NT + tid, phi, plo, cs, n, lane);
+                        acc_product_tf32<LD, NJ>(acc_k + nt * NT + tid, dhi, dlo, cs + TS * LD, n,
+                                                 lane);
+                    }
+                }
+                __syncthreads();
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= krows) continue;
+            float* dkrow = dk + base + size_t(k0 + r) * d;
+            float* dvrow = dv + base + size_t(k0 + r) * d;
+            for (int n = 0; n < ntiles; ++n) {
+                const float4 ak = acc_k[n * NT + tid], av = acc_v[n * NT + tid];
+                const int col = c0 + 8 * n + 2 * t4;
+                store_pair_f32(dkrow, col, (h ? ak.z : ak.x) * scale, (h ? ak.w : ak.y) * scale,
+                               d, pairs);
+                store_pair_f32(dvrow, col, h ? av.z : av.x, h ? av.w : av.y, d, pairs);
+            }
+        }
+    }
+}
+
+template <int W>
+__global__ void __launch_bounds__(F32W_NT, F32W_BLOCKS)
+flash_bwd_dq_wide_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                              const float* __restrict__ dsum, const uint8_t* __restrict__ mask,
+                              float* __restrict__ dq, int H, int N, int d, float scale, int copy,
+                              int how, int cg) {
+    constexpr int NT = F32W_NT, LD = W + 4, TS = F32W_TILE;
+    constexpr int STAGE = (F32W_OWN + TS) * LD;
+    constexpr int NJ = TS / 8;  // 8-column tiles of S and dP: keys
+    constexpr int CT = W / 8;
+    extern __shared__ uint4 smem_mma[];
+    float4* acc = reinterpret_cast<float4*>(smem_mma);          // [cg / 8][NT]
+    float* Cs = reinterpret_cast<float*>(acc + (cg / 8) * NT);  // [2][STAGE]
+    int* kflag = reinterpret_cast<int*>(Cs + 2 * STAGE);        // [2][TS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    int oc_unused, bh;
+    const int q0 = fold_wide(N, d, d, oc_unused, bh);
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const size_t stat = size_t(bh) * N;
+    const int qrows = min(F32W_OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const float* qb = q + base + size_t(q0) * d;
+    const float* dob = dout + base + size_t(q0) * d;
+    const WideStages sg{2, (d + W - 1) / W, (N + TS - 1) / TS, d, cg, W};
+    const int stages = sg.total();
+    float m[2], inv[2], D[2];  // of the thread's two query rows: g and g + 8 of the warp's 16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const bool in = r < qrows;  // a row past N: zero q and dO rows, 1/l = 0, so dS = 0
+        m[h] = in ? row_max[stat + q0 + r] : 0.f;
+        inv[h] = in ? 1.f / row_sum[stat + q0 + r] : 0.f;  // l >= 1
+        D[h] = in ? dsum[stat + q0 + r] : 0.f;
+    }
+
+    // S stages: the block's Q chunk and the key tile's K chunk (the first
+    // also brings the tile's key flags); dP stages: dO and V; output stages:
+    // the tile's K chunk of the output columns
+    auto prefetch = [&](int st) {
+        int gi, t, c;
+        sg.decode(st, gi, t, c);
+        const int k1 = t * TS, nk = min(TS, N - k1);
+        const size_t koff = base + size_t(k1) * d;
+        float* cs = Cs + (st & 1) * STAGE;
+        if (c < sg.products * sg.chunks) {
+            const bool s_stage = c < sg.chunks;
+            const int c0 = (s_stage ? c : c - sg.chunks) * W;
+            load_rows_f32<NT, W, F32W_OWN>(cs, s_stage ? qb : dob, qrows, d, c0, copy);
+            load_rows_f32<NT, W, TS>(cs + F32W_OWN * LD, (s_stage ? k : v) + koff, nk, d, c0,
+                                     copy);
+            if (c == 0 && tid < TS)  // the buffer of the tile's parity over all groups
+                kflag[((gi * sg.tiles + t) & 1) * TS + tid] = key_flag(mask_row, k1 + tid, N);
+        } else {
+            load_rows_f32<NT, W, TS>(cs, k + koff, nk, d, gi * cg + (c - sg.products * sg.chunks) * W,
+                                     copy);
+        }
+        cp_async_commit();
+    };
+    int st = 0;
+    auto next = [&]() -> const float* {  // stage st, landed; stage st + 1 in flight
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+        return Cs + (st & 1) * STAGE;
+    };
+
+    prefetch(0);
+    const bool pairs = how & STORE_PAIRS;
+    int tt = 0;  // key tiles so far over all groups: their flags' buffer by parity
+    for (int gi = 0; gi * cg < d; ++gi) {
+        const int c0 = gi * cg, ntiles = (min(cg, d - c0) + 7) / 8;
+        const int och = sg.out_chunks(gi);
+        for (int n = 0; n < ntiles; ++n) acc[n * NT + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int t = 0; t < sg.tiles; ++t, ++tt) {
+            // S and dP: the warp's 16 query rows by the tile's keys
+            float s[NJ][4], dp[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            for (int c = 0; c < sg.chunks; ++c, ++st) {
+                const float* cs = next();
+                chunk_product_tf32<W, NJ, F32N_SPLIT>(s, cs, cs + F32W_OWN * LD, warp * 16,
+                                                      c * W, d, lane);
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+            for (int c = 0; c < sg.chunks; ++c, ++st) {
+                const float* cs = next();
+                chunk_product_tf32<W, NJ, F32N_SPLIT>(dp, cs, cs + F32W_OWN * LD, warp * 16,
+                                                      c * W, d, lane);
+                __syncthreads();
+            }
+            ds_rows_tf32<NJ>(s, dp, kflag + (tt & 1) * TS + 2 * t4, m, inv, D, scale);
+            uint32_t dhi[NJ][4], dlo[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) c_as_a_tf32<F32N_SPLIT>(dhi[j], dlo[j], dp[j]);
+            for (int oc = 0; oc < och; ++oc, ++st) {
+                const float* cs = next();
+#pragma unroll
+                for (int n = 0; n < CT; ++n) {
+                    const int nt = oc * CT + n;
+                    if (nt < ntiles)  // dq += dS K
+                        acc_product_tf32<LD, NJ>(acc + nt * NT + tid, dhi, dlo, cs, n, lane);
+                }
+                __syncthreads();
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= qrows) continue;
+            float* dqrow = dq + base + size_t(q0 + r) * d;
+            for (int n = 0; n < ntiles; ++n) {
+                const float4 a = acc[n * NT + tid];
+                store_pair_f32(dqrow, c0 + 8 * n + 2 * t4, (h ? a.z : a.x) * scale,
+                               (h ? a.w : a.y) * scale, d, pairs);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -2817,68 +2875,73 @@ int wide_copy(const Args& a) {
                                     std::min(alignment(a.v), alignment(a.dout))));
 }
 
-cudaError_t launch_dkdv_wide(const Args& a, int dtype, void* dk, void* dv) {
-    const float scale = 1.0f / sqrtf(float(a.d));
-    if (dtype == 1) {
-        const size_t bytes = wide_mma_smem_bytes(WIDE_CW_DKDV);
-        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_mma_kernel<WIDE_CW_DKDV>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               int(bytes));
-        if (err != cudaSuccess) return err;
-        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, 16 * WIDE_CW_DKDV));
-        flash_bwd_dkdv_wide_mma_kernel<WIDE_CW_DKDV><<<blocks, MMA_NT, bytes, a.stream>>>(
-                static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-                static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-                static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
-                static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.N, a.d, scale,
-                wide_copy(a), store_mode(a, dk) & store_mode(a, dv));
-    } else {
-        const size_t bytes = dkdv_wide_smem_floats() * sizeof(float);
-        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_kernel<WIDE_NC>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               int(bytes));
-        if (err != cudaSuccess) return err;
-        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, DCH));
-        flash_bwd_dkdv_wide_kernel<WIDE_NC><<<blocks, NT, bytes, a.stream>>>(
-            static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-            static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-            static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
-            static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
-            static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.N, a.d, scale);
-    }
+cudaError_t launch_dkdv_wide(const Args& a, void* dk, void* dv) {
+    const size_t bytes = wide_mma_smem_bytes(WIDE_CW_DKDV);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_mma_kernel<WIDE_CW_DKDV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, 16 * WIDE_CW_DKDV));
+    flash_bwd_dkdv_wide_mma_kernel<WIDE_CW_DKDV><<<blocks, MMA_NT, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)),
+        wide_copy(a), store_mode(a, dk) & store_mode(a, dv));
     return cudaGetLastError();
 }
 
-cudaError_t launch_dq_wide(const Args& a, int dtype, void* dq) {
-    const float scale = 1.0f / sqrtf(float(a.d));
-    if (dtype == 1) {
-        const size_t bytes = wide_mma_smem_bytes(WIDE_CW_DQ);
-        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_mma_kernel<WIDE_CW_DQ>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               int(bytes));
-        if (err != cudaSuccess) return err;
-        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, 16 * WIDE_CW_DQ));
-        flash_bwd_dq_wide_mma_kernel<WIDE_CW_DQ><<<blocks, MMA_NT, bytes, a.stream>>>(
-                static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-                static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-                static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
-                static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
-                static_cast<bf16*>(dq), a.H, a.N, a.d, scale, wide_copy(a), store_mode(a, dq));
-    } else {
-        const size_t bytes = dq_wide_smem_floats() * sizeof(float);
-        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<WIDE_NC>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               int(bytes));
-        if (err != cudaSuccess) return err;
-        const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, DCH));
-        flash_bwd_dq_wide_kernel<WIDE_NC><<<blocks, NT, bytes, a.stream>>>(
-            static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-            static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-            static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
-            static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
-            static_cast<float*>(dq), a.H, a.N, a.d, scale);
-    }
+cudaError_t launch_dq_wide(const Args& a, void* dq) {
+    const size_t bytes = wide_mma_smem_bytes(WIDE_CW_DQ);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_mma_kernel<WIDE_CW_DQ>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = unsigned(wide_blocks(a.B, a.H, a.N, a.d, 16 * WIDE_CW_DQ));
+    flash_bwd_dq_wide_mma_kernel<WIDE_CW_DQ><<<blocks, MMA_NT, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<bf16*>(dq), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)), wide_copy(a),
+        store_mode(a, dq));
+    return cudaGetLastError();
+}
+
+// The fp32 wide kernels (3xTF32): one block per (b, h) and 64 rows on
+// grid.x, the accumulators of an output group (wide_tf32_group) in shared
+// memory, F32W_CW-column chunks
+cudaError_t launch_dkdv_wide_tf32(const Args& a, void* dk, void* dv) {
+    const auto kernel = flash_bwd_dkdv_wide_tf32_kernel<F32W_CW>;
+    const int cg = wide_tf32_group(a.d, 2, F32W_CW);  // two accumulators: dk, dv
+    const size_t bytes = wide_tf32_smem_bytes(cg, 2, F32W_CW);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<unsigned(wide_blocks(a.B, a.H, a.N, a.d, a.d)), F32W_NT, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.N, a.d,
+        1.0f / sqrtf(float(a.d)), f32_copy(a), store_mode_f32(a, dk) & store_mode_f32(a, dv),
+        cg);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wide_tf32(const Args& a, void* dq) {
+    const auto kernel = flash_bwd_dq_wide_tf32_kernel<F32W_CW>;
+    const int cg = wide_tf32_group(a.d, 1, F32W_CW);  // one accumulator: dq
+    const size_t bytes = wide_tf32_smem_bytes(cg, 1, F32W_CW);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<unsigned(wide_blocks(a.B, a.H, a.N, a.d, a.d)), F32W_NT, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_sum),
+        static_cast<const float*>(a.dsum), static_cast<const uint8_t*>(a.mask),
+        static_cast<float*>(dq), a.H, a.N, a.d, 1.0f / sqrtf(float(a.d)), f32_copy(a),
+        store_mode_f32(a, dq), cg);
     return cudaGetLastError();
 }
 
@@ -2999,11 +3062,11 @@ cudaError_t launch_bwd_long(const Args& a, void* dq, void* dk, void* dv, float* 
 }
 
 // Any d: d <= 128 runs the kernels above (in launches of at most
-// narrow_lists(H) lists), d > 128 the wide ones; the grids must fit
-// (mma_common.cuh's grid_fits).
+// narrow_lists(H) lists), d > 128 the wide ones (fp32: a block owns every
+// output column); the grids must fit (mma_common.cuh's grid_fits).
 bool valid(const Args& a, int dtype) {
     if (a.B < 1 || a.H < 1 || a.N < 1 || a.d < 1 || (dtype != 0 && dtype != 1)) return false;
-    return grid_fits(a.B, a.H, a.N, a.d, dtype == 1 ? 16 * WIDE_CW_DKDV : DCH);
+    return grid_fits(a.B, a.H, a.N, a.d, dtype == 1 ? 16 * WIDE_CW_DKDV : a.d);
 }
 
 }  // namespace
@@ -3099,7 +3162,8 @@ int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void*
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
     if (!valid(a, dtype)) return int(cudaErrorInvalidValue);
-    if (d > 128) return int(launch_dkdv_wide(a, dtype, dk, dv));
+    if (d > 128)
+        return int(dtype == 1 ? launch_dkdv_wide(a, dk, dv) : launch_dkdv_wide_tf32(a, dk, dv));
     return by_lists(a, dtype, [&](const Args& part, size_t at) {
         return narrow_dkdv(part, dtype, advance(dk, at), advance(dv, at));
     });
@@ -3112,7 +3176,7 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
     const Args a{q, k, v, dout, row_max, row_sum, dsum, mask, B, H, N, d,
                  static_cast<cudaStream_t>(stream)};
     if (!valid(a, dtype)) return int(cudaErrorInvalidValue);
-    if (d > 128) return int(launch_dq_wide(a, dtype, dq));
+    if (d > 128) return int(dtype == 1 ? launch_dq_wide(a, dq) : launch_dq_wide_tf32(a, dq));
     return by_lists(a, dtype, [&](const Args& part, size_t at) {
         return narrow_dq(part, dtype, advance(dq, at));
     });

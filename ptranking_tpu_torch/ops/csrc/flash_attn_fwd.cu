@@ -82,12 +82,14 @@
 // Two blocks an SM change nothing; 32 keys of S at a time (0.224..0.229) or
 // 8 warps owning 128 query rows (0.236..0.245) are slower.
 //
-// Head dims above 128: flash_fwd_wide_mma_kernel (bf16) and
-// flash_fwd_wide_kernel (fp32), which split the output's head dim over the
-// grid and stream the contraction over d (the section "d > 128" below says
-// why and how). Any d and any batch is taken: the kernels here take b*h
-// from grid.y, so a batch past 65535 (b, h) pairs runs in several launches
-// of whole lists; the wide kernels fold every axis into grid.x.
+// Head dims above 128: flash_fwd_wide_mma_kernel (bf16), which splits the
+// output's head dim over the grid and streams the contraction over d (the
+// section "d > 128: the bf16 wide kernel" below says why and how), and
+// flash_fwd_wide_tf32_kernel (fp32, 3xTF32), a block for each 64 query rows
+// and all of their output columns, S once a key tile (the section "fp32,
+// d > 128"). Any d and any batch is taken: the kernels here take b*h from
+// grid.y, so a batch past 65535 (b, h) pairs runs in several launches of
+// whole lists; the wide kernels fold every axis into grid.x.
 //
 // Short lists: flash_fwd_packed_mma_kernel (bf16, N <= 128, any d; entry
 // flash_attn_fwd_packed) puts 64 / N lists of at most 64 docs, or one list of
@@ -116,7 +118,7 @@
 // and flash_attn_fwd_long, dtype 0; the routes at N <= F32_FWD_LIST_MAX_N
 // and N <= F32_FWD_LONG_MAX_N), one list a 128- or 256-row tile, S once in
 // 64-key slices, 3xTF32 (the section "fp32, lists of 65 .. 256 docs"); the
-// fp32 wide kernel, on the CUDA cores, the rest of d > 128.
+// fp32 wide kernel (3xTF32) the rest of d > 128: lists of more than 256 docs.
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -679,210 +681,35 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void*
 }
 
 // ---------------------------------------------------------------------------
-// d > 128: the wide kernels
+// d > 128: the bf16 wide kernel
 // ---------------------------------------------------------------------------
 //
 // The kernels above keep every column of a row at hand (the bf16 one holds
 // the warp's Q in registers, KC fragments, and both keep d-wide tiles in
 // shared memory), so their resources grow with d: at d = 384 the bf16 one
-// would need 251,392 bytes of shared memory (the H100 allows 232,448) and the
-// fp32 one 497,152. The wide kernels split the OUTPUT's head dim over the
-// grid instead: a block owns 64 query rows and one chunk of output columns,
-// and streams the contraction of S = Q K^T over d in 64-column chunks staged
-// in shared memory, so nothing of theirs grows with d. Every chunk-block of a
-// row tile computes S, the running max and the running sum in the same order
-// with the same instructions, so their normalisations agree bit for bit; the
-// block of chunk 0 alone writes the row statistics. No atomics. The price is
-// that Q and K are read once per output chunk (ceil(d / chunk) times) and S
+// would need 251,392 bytes of shared memory (the H100 allows 232,448). The
+// bf16 wide kernel splits the OUTPUT's head dim over the grid instead: a
+// block owns 64 query rows and one chunk of output columns, and streams the
+// contraction of S = Q K^T over d in 64-column chunks staged in shared
+// memory, so nothing of it grows with d. Every chunk-block of a row tile
+// computes S, the running max and the running sum in the same order with the
+// same instructions, so their normalisations agree bit for bit; the block of
+// chunk 0 alone writes the row statistics. No atomics. The price is that Q
+// and K are read once per output chunk (ceil(d / chunk) times) and S
 // computed as often. grid.x folds (b*h, output chunk, 64-row tile)
 // (mma_common.cuh's fold_wide).
 //
-// What bounds them: at the Yahoo! LTR listsf's shapes (N = 128) attention
+// What bounds it: at the Yahoo! LTR listsf's shapes (N = 128) attention
 // does N/2 = 64 operations a byte, below the H100's ~295 bf16 ridge, so the
-// bytes do: 0.055 ms at (256, 2, 128, 350) bf16. What holds the bf16 kernel
+// bytes do: 0.055 ms at (256, 2, 128, 350) bf16. What holds it
 // (ptranking_tpu_torch/tools/kernel_variants.py on an NVIDIA H100 80GB HBM3
 // at 700 W; PERF.md keeps the runs): its chunk copies, 0.53..0.54 ms at
 // d = 350, whose 700-byte rows allow only 4-byte copies, against
 // 0.23 ms at d = 384 (16-byte copies); 64-column output chunks (twice the
 // re-reads) take 0.94 / 0.39 ms.
 
-constexpr int BM = 64;       // fp32 wide kernel: query rows per block
-constexpr int BN = 64;       // fp32 wide kernel: keys per tile
-constexpr int NT = 128;      // fp32 wide kernel: 16 row groups (4 rows each) x 8 column lanes
-constexpr int LDT = BM + 4;  // row stride of the transposed tiles; keeps float4 alignment
 constexpr int DCH = 64;  // columns of a d-chunk of the S product
 constexpr int WIDE_CW = 8;  // 16-column steps of the bf16 kernel's output chunk: 128 columns
-constexpr int WIDE_NC = 8;  // output columns a thread of the fp32 kernel: a 64-column chunk
-
-// fp32: Qt and Kt d-chunks [DCH][LDT] (transposed), Vs [BN][8*NC] (the
-// output chunk's columns), Pt [BN][LDT], then BN int key flags.
-__host__ __device__ constexpr size_t wide_smem_floats(int nc) {
-    return size_t(2) * DCH * LDT + size_t(BN) * 8 * nc + size_t(BN) * LDT + BN;
-}
-
-__device__ __forceinline__ float warp_max8(float x) {  // over the 8 column lanes of a row group
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-    return x;
-}
-
-__device__ __forceinline__ float warp_sum8(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
-    x += __shfl_xor_sync(0xffffffffu, x, 4);
-    return x;
-}
-
-template <int NC>
-__global__ void __launch_bounds__(NT)
-flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                      float* __restrict__ o, float* __restrict__ row_max,
-                      float* __restrict__ row_sum, int H, int N, int d, float scale) {
-    constexpr int W = 8 * NC;  // the output chunk's columns
-    extern __shared__ float4 smem4[];
-    float* Qt = reinterpret_cast<float*>(smem4);
-    float* Kt = Qt + DCH * LDT;
-    float* Vs = Kt + DCH * LDT;
-    float* Pt = Vs + BN * W;
-    int* kflag = reinterpret_cast<int*>(Pt + BN * LDT);
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 3;  // rows ty*4 .. ty*4+3 of the query tile
-    const int tx = tid & 7;   // logit columns tx*4+j and 32+tx*4+j; output columns tx+8*c
-    int oc, bh;
-    const int q0 = fold_wide(N, d, W, oc, bh);
-    const int c0 = oc * W;
-    const int b = bh / H;
-    const size_t base = size_t(bh) * N * d;
-    const float* qb = q + base;
-    const float* kb = k + base;
-    const float* vb = v + base;
-    const uint8_t* mb = mask + size_t(b) * N;
-    const int qrows = min(BM, N - q0);
-
-    float acc[4][NC];
-    float m_run[4], l_run[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m_run[i] = M_INIT;
-        l_run[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < N; k0 += BN) {
-        const int krows = min(BN, N - k0);
-        float s[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-        for (int dc = 0; dc < d; dc += DCH) {
-            __syncthreads();  // the previous chunk (and tile: Vs, Pt) is no longer read
-            for (int i = tid; i < BM * DCH; i += NT) {
-                const int r = i / DCH, c = i - r * DCH;
-                const bool col = dc + c < d;
-                Qt[c * LDT + r] = r < qrows && col ? qb[size_t(q0 + r) * d + dc + c] : 0.f;
-                Kt[c * LDT + r] = r < krows && col ? kb[size_t(k0 + r) * d + dc + c] : 0.f;
-            }
-            if (dc == 0) {
-                for (int i = tid; i < BN * W; i += NT) {
-                    const int r = i / W, c = i - r * W;
-                    Vs[i] = r < krows && c0 + c < d ? vb[size_t(k0 + r) * d + c0 + c] : 0.f;
-                }
-                if (tid < BN)
-                    kflag[tid] = tid >= krows ? KEY_OUT : (mb[k0 + tid] ? KEY_REAL : KEY_MASKED);
-            }
-            __syncthreads();
-#pragma unroll 4
-            for (int c = 0; c < DCH; ++c) {
-                const float4 a = *reinterpret_cast<const float4*>(&Qt[c * LDT + ty * 4]);
-                const float4 b0 = *reinterpret_cast<const float4*>(&Kt[c * LDT + tx * 4]);
-                const float4 b1 = *reinterpret_cast<const float4*>(&Kt[c * LDT + 32 + tx * 4]);
-                const float av[4] = {a.x, a.y, a.z, a.w};
-                const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-            }
-        }
-
-        // Scale and mask, then the online softmax update for each of the 4 rows.
-        float tmax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = (j < 4) ? tx * 4 + j : 32 + tx * 4 + (j - 4);
-            const int flag = kflag[col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float x = flag == KEY_REAL ? s[i][j] * scale
-                                : (flag == KEY_MASKED ? MASKED_LOGIT : -INFINITY);
-                s[i][j] = x;
-                tmax[i] = fmaxf(tmax[i], x);
-            }
-        }
-        float m_new[4], rsum[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            m_new[i] = fmaxf(m_run[i], warp_max8(tmax[i]));
-            rsum[i] = 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float p = expf(s[i][j] - m_new[i]);
-                s[i][j] = p;
-                rsum[i] += p;
-            }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float alpha = expf(m_run[i] - m_new[i]);
-            l_run[i] = l_run[i] * alpha + warp_sum8(rsum[i]);
-            m_run[i] = m_new[i];
-#pragma unroll
-            for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = (j < 4) ? tx * 4 + j : 32 + tx * 4 + (j - 4);
-            *reinterpret_cast<float4*>(&Pt[col * LDT + ty * 4]) =
-                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-        }
-        __syncthreads();
-
-        for (int c = 0; c < krows; ++c) {
-            const float4 p = *reinterpret_cast<const float4*>(&Pt[c * LDT + ty * 4]);
-            const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) {
-                const float vv = Vs[c * W + tx + 8 * cc];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= qrows) continue;
-        const float inv = 1.f / l_run[i];
-        if (row_max != nullptr && tx == 0 && oc == 0) {
-            row_max[size_t(bh) * N + q0 + r] = m_run[i];
-            row_sum[size_t(bh) * N + q0 + r] = l_run[i];
-        }
-        float* orow = o + base + size_t(q0 + r) * d;
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-            const int col = c0 + tx + 8 * cc;
-            if (col < d) orow[col] = acc[i][cc] * inv;
-        }
-    }
-}
 
 // bf16: two stages of (Q d-chunk [OWN][72], K d-chunk [TILE][72]), two V
 // tiles of the output chunk [TILE][16*CW + 8], two tiles' key flags
@@ -1000,21 +827,6 @@ flash_fwd_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
 }
 
-cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
-                        float* row_max, float* row_sum, int B, int H, int N, int d,
-                        cudaStream_t stream) {
-    const size_t bytes = wide_smem_floats(WIDE_NC) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<WIDE_NC>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-    if (err != cudaSuccess) return err;
-    const dim3 grid(unsigned(wide_blocks(B, H, N, d, 8 * WIDE_NC)));
-    flash_fwd_wide_kernel<WIDE_NC><<<grid, NT, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(o), row_max, row_sum, H, N, d,
-        1.0f / sqrtf(float(d)));
-    return cudaGetLastError();
-}
-
 cudaError_t launch_wide_mma(const void* q, const void* k, const void* v, const void* mask,
                             void* o, float* row_max, float* row_sum, int B, int H, int N, int d,
                             cudaStream_t stream) {
@@ -1029,6 +841,271 @@ cudaError_t launch_wide_mma(const void* q, const void* k, const void* v, const v
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), row_max, row_sum, H, N, d,
         LOG2E / sqrtf(float(d)), copy, how);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32, d > 128: the wide kernel on 3xTF32
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_wide_tf32_kernel takes every fp32 call at d > 128 that the
+// packed and list kernels below do not (lists of more than 256 docs; any N
+// through this entry). It replaces a CUDA-core kernel that split the output
+// into 64-column chunks over the grid and computed S once per chunk (6 times
+// at d = 350, 3 at d = 136): 4.46 ms at (32, 1, 1408, 136) on an NVIDIA H100
+// 80GB HBM3 at 700 W, against SDPA's fp32 forward at 1.31 (PERF.md). Here a
+// block of F32W_WARPS warps owns F32W_OWN query rows of one (b, h), 16 a
+// warp, and ALL of their output columns, and loops over the keys in tiles of
+// F32W_TILE, as flash_fwd_tf32_kernel does at d <= 128, with the steps of
+// the fp32 list kernel (flash_fwd_list_tf32_kernel) inside a tile:
+//   1. S = Q K^T of the warp's 16 rows by the tile's 64 keys (32 fp32
+//      registers a thread) over d in W-column chunks of Q and of the tile's
+//      K, double-buffered by cp.async (load_rows_f32), every product in
+//      3xTF32 with the d <= 128 kernel's split (F32N_SPLIT), a chunk's four
+//      k-steps summed in a fresh fragment and then added to S;
+//   2. the online softmax on S's C fragment, as flash_fwd_tf32_kernel's
+//      (a masked key's logit -1e9, a key past N left out, the running max
+//      from -1e30, O and the thread's share of l rescaled by
+//      exp(m_old - m_new)), P split once into TF32 parts in registers;
+//   3. for each W-column output chunk of the tile's V, O = O exp(m_old -
+//      m_new) + P V with V in three parts, four TF32 products a product
+//      (frag_b_kn_tf32x3: a list of one real document gets its v exactly,
+//      which the fp32 backward's gate needs), four k-steps a fresh fragment.
+// The output's C fragments stay in shared memory, each thread's own float4
+// slots ([column tile][thread]: no barrier guards them), where at d = 350 the
+// 4 * 44 registers a thread of O would not fit beside S and P. S and P are
+// computed once per (query tile, key tile) for every output column: where
+// d's columns do not fit one block's shared memory beside the stages (past
+// d = 752, wide_tf32_group), the block runs its output groups in turn and
+// computes S again for each, with the same instructions, so every group's
+// normalisation is the same bits. The group of column 0 writes row_max and
+// row_sum as the other fp32 kernels write them; an all-padded list gets
+// m = -1e9, l = N. grid.x folds (b*h, 64-row tile) (fold_wide with one
+// output chunk), so any batch is one launch. No atomics: the same inputs
+// give the same bits.
+// What bounds it: the products, 4 * B*H*N^2*d operations, three TF32
+// products each (P V four), 0.209 ms at (32, 1, 1408, 136) at 495 TFLOP/s;
+// the bytes (Q and K re-read once a key tile, mostly from L2) far below;
+// before either, the instructions that feed the tensor cores: each
+// operand's loads and split, the fp32 additions of the fresh fragments, the
+// exponentials, and the accumulator's shared-memory round trip a chunk. On
+// an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_variants.py, PERF.md):
+// 0.944 ms at (32, 1, 1408, 136) with statistics, 4.5x its bound (SDPA's
+// fp32 forward 1.31), three blocks an SM (two: 1.056); it loses to SDPA at
+// d = 350 and 384, 512 docs (one block an SM), and on one list of 1536 docs
+// (0.32 against 0.21: 24 blocks on 132 SMs).
+
+// columns of the fp32 wide kernel's d-chunks and output chunks (16 took
+// 7..24% longer at d = 136; at d = 350 they fit a second block an SM and
+// saved 22%, a width no model sends past 256 docs; PERF.md); blocks an SM
+// the registers are cut for (three: 11% less time than two at
+// (32, 1, 1408, 136), where three fit the shared memory)
+constexpr int F32W_CW = 32;
+constexpr int F32W_BLOCKS = 3;
+
+template <int W>
+__global__ void __launch_bounds__(F32W_NT, F32W_BLOCKS)
+flash_fwd_wide_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                           float* __restrict__ o, float* __restrict__ row_max,
+                           float* __restrict__ row_sum, int H, int N, int d, float scale, int copy,
+                           int how, int cg) {
+    constexpr int NT = F32W_NT, LD = W + 4;
+    constexpr int STAGE = (F32W_OWN + F32W_TILE) * LD;  // a Q chunk and a K chunk, or a V chunk
+    constexpr int NJ = F32W_TILE / 8;                     // 8-key tiles of S
+    constexpr int CT = W / 8;                             // 8-column tiles of an output chunk
+    static_assert(W % 8 == 0, "chunks of 8-deep steps");
+    extern __shared__ uint4 smem_mma[];
+    float4* acc = reinterpret_cast<float4*>(smem_mma);       // [cg / 8][NT]: O's C fragments
+    float* Cs = reinterpret_cast<float*>(acc + (cg / 8) * NT);  // [2][STAGE]
+    int* kflag = reinterpret_cast<int*>(Cs + 2 * STAGE);      // [2][F32W_TILE]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    int oc_unused, bh;
+    const int q0 = fold_wide(N, d, d, oc_unused, bh);
+    const int b = bh / H;
+    const size_t base = size_t(bh) * N * d;
+    const int qrows = min(F32W_OWN, N - q0);
+    const uint8_t* mask_row = mask + size_t(b) * N;
+    const float* qb = q + base + size_t(q0) * d;
+    const float* kb = k + base;
+    const float* vb = v + base;
+    const WideStages sg{1, (d + W - 1) / W, (N + F32W_TILE - 1) / F32W_TILE, d, cg, W};
+    const int stages = sg.total();
+
+    // stage st: S's d-chunk c of Q and of the key tile t's K (the first also
+    // brings the tile's key flags), or an output chunk of the tile's V
+    auto prefetch = [&](int st) {
+        int gi, t, c;
+        sg.decode(st, gi, t, c);
+        const int k0 = t * F32W_TILE, krows = min(F32W_TILE, N - k0);
+        float* cs = Cs + (st & 1) * STAGE;
+        if (c < sg.chunks) {
+            load_rows_f32<NT, W, F32W_OWN>(cs, qb, qrows, d, c * W, copy);
+            load_rows_f32<NT, W, F32W_TILE>(cs + F32W_OWN * LD, kb + size_t(k0) * d, krows, d,
+                                            c * W, copy);
+            if (c == 0 && tid < F32W_TILE)  // the buffer of the tile's parity over all groups
+                kflag[((gi * sg.tiles + t) & 1) * F32W_TILE + tid] =
+                    key_flag(mask_row, k0 + tid, N);
+        } else {
+            load_rows_f32<NT, W, F32W_TILE>(cs, vb + size_t(k0) * d, krows, d,
+                                            gi * cg + (c - sg.chunks) * W, copy);
+        }
+        cp_async_commit();
+    };
+    int st = 0;
+    // stage st's buffers, landed, with stage st + 1's copies in flight
+    auto next = [&]() -> const float* {
+        if (st + 1 < stages) {
+            prefetch(st + 1);
+            cp_async_wait_prior();
+        } else {
+            cp_async_wait_all();
+        }
+        __syncthreads();
+        return Cs + (st & 1) * STAGE;
+    };
+
+    prefetch(0);
+    const bool pairs = how & STORE_PAIRS;
+    int tt = 0;  // key tiles so far over all groups: their flags' buffer by parity
+    for (int gi = 0; gi * cg < d; ++gi) {
+        const int c0 = gi * cg, ntiles = (min(cg, d - c0) + 7) / 8;  // its 8-column output tiles
+        const int och = sg.out_chunks(gi);
+        for (int n = 0; n < ntiles; ++n) acc[n * NT + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+        // of the thread's two query rows: the running max and the thread's
+        // share of the running sum
+        float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};
+
+        for (int t = 0; t < sg.tiles; ++t, ++tt) {
+            // step 1: S = Q K^T, the warp's 16 query rows by the tile's keys
+            float s[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            for (int c = 0; c < sg.chunks; ++c, ++st) {
+                const float* cs = next();
+                chunk_product_tf32<W, NJ, F32N_SPLIT>(s, cs, cs + F32W_OWN * LD, warp * 16,
+                                                      c * W, d, lane);
+                __syncthreads();  // no warp reads stage st's buffers any more
+            }
+
+            // step 2: the online softmax; P split into its TF32 parts
+            const int* kf = kflag + (tt & 1) * F32W_TILE + 2 * t4;
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int2 f2 = *reinterpret_cast<const int2*>(kf + 8 * j);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int f = (e & 1) ? f2.y : f2.x;
+                    const float x = f == KEY_REAL ? s[j][e] * scale
+                                    : (f == KEY_MASKED ? MASKED_LOGIT : -INFINITY);
+                    s[j][e] = x;
+                    mx[e >> 1] = fmaxf(mx[e >> 1], x);
+                }
+            }
+            float alpha[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+                const float m_new = fmaxf(m[h], mx[h]);  // the tile's first key is < N: finite
+                alpha[h] = expf(m[h] - m_new);
+                m[h] = m_new;
+                l[h] *= alpha[h];
+            }
+            uint32_t phi[NJ][4], plo[NJ][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float p = expf(s[j][e] - m[e >> 1]);  // 0 past N
+                    s[j][e] = p;
+                    l[e >> 1] += p;
+                }
+                c_as_a_tf32<F32N_SPLIT>(phi[j], plo[j], s[j]);
+            }
+
+            // step 3: O = O alpha + P V, an output chunk a stage
+            for (int oc = 0; oc < och; ++oc, ++st) {
+                const float* vs = next();
+#pragma unroll
+                for (int n = 0; n < CT; ++n) {
+                    const int nt = oc * CT + n;  // the group's output tile
+                    if (nt < ntiles) {
+                        float4 a = acc[nt * NT + tid];
+                        a.x *= alpha[0];
+                        a.y *= alpha[0];
+                        a.z *= alpha[1];
+                        a.w *= alpha[1];
+#pragma unroll
+                        for (int j0 = 0; j0 < NJ; j0 += F32N_GROUP) {
+                            float tc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                            for (int j = j0; j < j0 + F32N_GROUP; ++j) {
+                                uint32_t bhi[2], blo[2], blo2[2];
+                                frag_b_kn_tf32x3<LD>(bhi, blo, blo2, vs, 8 * j, 8 * n, lane);
+                                mma_1688_tf32(tc, plo[j], bhi[0], bhi[1]);
+                                mma_1688_tf32(tc, phi[j], blo2[0], blo2[1]);
+                                mma_1688_tf32(tc, phi[j], blo[0], blo[1]);
+                                mma_1688_tf32(tc, phi[j], bhi[0], bhi[1]);
+                            }
+                            a.x += tc[0];
+                            a.y += tc[1];
+                            a.z += tc[2];
+                            a.w += tc[3];
+                        }
+                        acc[nt * NT + tid] = a;
+                    }
+                }
+                __syncthreads();  // no warp reads stage st's buffer any more
+            }
+        }
+
+        // O / l of the group's columns; the row statistics once
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float sum = l[h];  // the quad's four shares
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            const int r = warp * 16 + g + 8 * h;
+            if (r >= qrows) continue;
+            const float inv = 1.f / sum;  // sum >= 1: the row max contributes exp(0)
+            float* orow = o + base + size_t(q0 + r) * d;
+            for (int n = 0; n < ntiles; ++n) {
+                const float4 a = acc[n * NT + tid];
+                store_pair_f32(orow, c0 + 8 * n + 2 * t4, (h ? a.z : a.x) * inv,
+                               (h ? a.w : a.y) * inv, d, pairs);
+            }
+            if (gi == 0 && row_max != nullptr && t4 == 0) {  // the quad holds the same m and sum
+                const size_t at = size_t(bh) * N + q0 + r;
+                row_max[at] = m[h];
+                row_sum[at] = sum;
+            }
+        }
+    }
+}
+
+// one block per (b, h) and 64 query rows, on grid.x
+cudaError_t launch_wide_tf32(const void* q, const void* k, const void* v, const void* mask,
+                             void* o, float* row_max, float* row_sum, int B, int H, int N, int d,
+                             cudaStream_t stream) {
+    const auto kernel = flash_fwd_wide_tf32_kernel<F32W_CW>;
+    const int cg = wide_tf32_group(d, 1, F32W_CW);  // one accumulator: O
+    const size_t bytes = wide_tf32_smem_bytes(cg, 1, F32W_CW);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(bytes));
+    if (err != cudaSuccess) return err;
+    const int copy = chunk_copy_f32(d, std::min({alignment(q), alignment(k), alignment(v)}));
+    const int how = d % 2 == 0 && aligned(o, 8) ? STORE_PAIRS : 0;
+    const dim3 grid(unsigned(wide_blocks(B, H, N, d, d)));
+    kernel<<<grid, F32W_NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(o), row_max, row_sum, H, N, d,
+        1.0f / sqrtf(float(d)), copy, how, cg);
     return cudaGetLastError();
 }
 
@@ -1559,8 +1636,8 @@ cudaError_t launch_long(const void* q, const void* k, const void* v, const void*
 // fp32, lists of at most 64 docs: the packed kernel on 3xTF32
 // ---------------------------------------------------------------------------
 //
-// The fp32 wide kernel recomputes S on the CUDA cores for each of its
-// 64-column output chunks (6 at d = 350), on 64-row tiles that hold one list
+// The fp32 wide kernel it replaced recomputed S on the CUDA cores for each
+// of its 64-column output chunks (6 at d = 350), on 64-row tiles of one list
 // of N docs (at 16 docs, 15/16 of each S tile is padding): 3.28 ms at
 // (2048, 2, 16, 350) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Here
 // the bf16 packed kernel's design in fp32: 64 / N consecutive (b, h) lists in
@@ -1790,8 +1867,8 @@ cudaError_t launch_packed_tf32(const void* q, const void* k, const void* v, cons
 // fp32, lists of 65 .. 256 docs: the list and long kernels on 3xTF32
 // ---------------------------------------------------------------------------
 //
-// At 65 .. 256 docs the fp32 wide kernel recomputes S on the CUDA cores for
-// each of its 64-column output chunks (6 at d = 350): 2.06 ms at (256, 2,
+// At 65 .. 256 docs the CUDA-core fp32 wide kernel these replaced recomputed
+// S for each of its 64-column output chunks (6 at d = 350): 2.06 ms at (256, 2,
 // 128, 350) and 3.98 at (128, 2, 256, 350) on an NVIDIA H100 80GB HBM3 at
 // 700 W, where SDPA's fp32 forward takes 0.58 and 0.91 (PERF.md). The fp32
 // packed kernel's tile does not stretch to these lists: S of a warp's 16 rows
@@ -2138,25 +2215,25 @@ int launch_narrow(const void* q, const void* k, const void* v, const void* mask,
 extern "C" {
 
 // Returns a cudaError_t (0 on success). dtype: 0 = fp32 (3xTF32 on the tensor
-// cores at d <= 128, the CUDA cores in the wide kernel), 1 = bf16 (tensor
-// cores). row_max and row_sum are both null (no statistics) or both
-// [B, H, N] fp32. d <= 128 runs the kernels above, in launches of at most
-// narrow_lists(H) lists (mma_common.cuh), d > 128 the wide ones; every shape
-// is taken whose grids fit (grid_fits).
+// cores), 1 = bf16 (tensor cores). row_max and row_sum are both null (no
+// statistics) or both [B, H, N] fp32. d <= 128 runs the kernels above, in
+// launches of at most narrow_lists(H) lists (mma_common.cuh), d > 128 the
+// wide ones (fp32: flash_fwd_wide_tf32_kernel, every column of a row a
+// block); every shape is taken whose grids fit (grid_fits).
 int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                    void* row_max, void* row_sum, int B, int H, int N, int d, int dtype,
                    void* stream) {
     if (B < 1 || H < 1 || N < 1 || d < 1 || (dtype != 0 && dtype != 1)
         || ((row_max == nullptr) != (row_sum == nullptr)))
         return int(cudaErrorInvalidValue);
-    if (!grid_fits(B, H, N, d, dtype == 1 ? 16 * WIDE_CW : 8 * WIDE_NC))
+    if (!grid_fits(B, H, N, d, dtype == 1 ? 16 * WIDE_CW : d))
         return int(cudaErrorInvalidConfiguration);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* rm = static_cast<float*>(row_max);
     float* rs = static_cast<float*>(row_sum);
     if (d > 128)
         return int(dtype == 1 ? launch_wide_mma(q, k, v, mask, o, rm, rs, B, H, N, d, st)
-                              : launch_wide(q, k, v, mask, o, rm, rs, B, H, N, d, st));
+                              : launch_wide_tf32(q, k, v, mask, o, rm, rs, B, H, N, d, st));
     // bytes of one list: of q, k, v and o, and of a row statistic
     const size_t list = size_t(H) * N * d * (dtype == 1 ? 2 : 4), stat = size_t(H) * N * 4;
     for (int b0 = 0; b0 < B; b0 += narrow_lists(H)) {

@@ -139,8 +139,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
     }
 }
 
-// The wide kernels (head dims above 128) of flash_attn_{fwd,bwd}.cu: a block
-// owns 64 rows and one chunk of `width` output columns. grid.x folds (b*h,
+// The bf16 wide kernels (head dims above 128) of flash_attn_{fwd,bwd}.cu: a
+// block owns 64 rows and one chunk of `width` output columns. grid.x folds (b*h,
 // output chunk, 64-row tile), the row tile fastest, so the blocks that read
 // one (b, h)'s rows run close together: the block's first row, its chunk oc
 // and its b*h.
@@ -164,7 +164,8 @@ inline long long wide_blocks(int B, int H, int N, int d, int width) {
 inline int narrow_lists(int H) { return 65535 / H; }
 
 // Whether a shape's launches fit the card's grid limits (`width`: the
-// narrowest output chunk of the wide kernels).
+// narrowest output chunk of the bf16 wide kernels; d for the fp32 ones, whose
+// block owns every output column).
 inline bool grid_fits(int B, int H, int N, int d, int width) {
     return d > 128 ? wide_blocks(B, H, N, d, width) < (1LL << 31) : H <= 65535;
 }
@@ -629,5 +630,91 @@ __device__ __forceinline__ void store_pair_f32(float* row, int col, float x, flo
         if (col + 1 < d) row[col + 1] = y;
     }
 }
+
+// The fp32 wide kernels (d > 128, any N: flash_fwd_wide_tf32_kernel,
+// flash_bwd_{dkdv,dq}_wide_tf32_kernel): a block of F32W_WARPS warps owns
+// F32W_OWN rows (query rows, or keys for dk/dv) and loops over tiles of
+// F32W_TILE rows, S (and dP) of a (row tile, loop tile) once over d in
+// w-column chunks (F32W_CW in each source); its outputs' C fragments stay in
+// shared memory, `accs`
+// accumulators of cg columns (an output group) a block, [cg / 8][F32W_NT]
+// float4 each: a thread's own slots, so no barrier guards them.
+constexpr int F32W_WARPS = 4;
+constexpr int F32W_NT = 32 * F32W_WARPS;
+constexpr int F32W_OWN = 16 * F32W_WARPS;
+constexpr int F32W_TILE = 64;
+constexpr size_t F32W_SMEM_MAX = 232448;  // shared memory a block may have on an H100
+
+// the accumulators, two stages of two W-column chunk tiles (the block's rows
+// and the loop tile's), and two tiles' 3 * F32W_TILE 4-byte values (key
+// flags, or the query rows' m, 1/l and D)
+__host__ __device__ constexpr size_t wide_tf32_smem_bytes(int cg, int accs, int w) {
+    return (size_t(accs) * F32W_OWN * cg + size_t(2) * (F32W_OWN + F32W_TILE) * (w + 4)
+            + size_t(6) * F32W_TILE) * 4;
+}
+
+// The output group: d's columns (rounded up to 8) split evenly into as few
+// groups as fit a block's shared memory beside the stages. A block runs its
+// groups in turn, S (and dP) computed again for each: one group up to
+// d = 752 (forward, dq) and d = 376 (dk and dv: two accumulators).
+inline int wide_tf32_group(int d, int accs, int w) {
+    const int most = int((F32W_SMEM_MAX - wide_tf32_smem_bytes(0, accs, w))
+                         / (size_t(accs) * F32W_OWN * 4)) / 8 * 8;
+    const int d8 = (d + 7) / 8 * 8, groups = (d8 + most - 1) / most;
+    return ((d8 + groups - 1) / groups + 7) / 8 * 8;
+}
+
+// c += a b in 3xTF32 over one W-column chunk of the [*][W + 4] tiles At (the
+// warp's 16 rows from row0) and Bt (rows 0 .. 8*NJ - 1, as [n][k]): its
+// k-steps summed in a fresh fragment, then added; a k-step past d skipped;
+// operands split as SPLIT says
+template <int W, int NJ, int SPLIT>
+__device__ __forceinline__ void chunk_product_tf32(float (&c)[NJ][4], const float* At,
+                                                   const float* Bt, int row0, int c0, int d,
+                                                   int lane) {
+    constexpr int LD = W + 4;
+    float t[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < W; kk += 8) {
+        if (c0 + kk < d) {  // the ragged last chunk's empty k-steps
+            uint32_t ahi[4], alo[4];
+            frag_a_tf32<LD, SPLIT>(ahi, alo, At, row0, kk, lane);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                uint32_t bhi[2], blo[2];
+                frag_b_nk_tf32<LD, SPLIT>(bhi, blo, Bt, 8 * j, kk, lane);
+                mma_3xtf32_into(t[j], ahi, alo, bhi, blo);
+            }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] += t[j][e];
+}
+
+// The stages of a wide fp32 kernel's block, in order: for each output group
+// gi (columns gi * cg ..), for each loop tile t, `products` * chunks stages
+// of the d-chunks of its products (S; or S, then dP), then the group's output
+// chunks of w columns. decode splits stage st into (gi, t, c).
+struct WideStages {
+    int products, chunks, tiles, d, cg, w;
+    __device__ int out_chunks(int gi) const { return (min(cg, d - gi * cg) + w - 1) / w; }
+    __device__ int per_tile(int gi) const { return products * chunks + out_chunks(gi); }
+    __device__ int total() const {
+        int n = 0;
+        for (int gi = 0; gi * cg < d; ++gi) n += tiles * per_tile(gi);
+        return n;
+    }
+    __device__ void decode(int st, int& gi, int& t, int& c) const {
+        for (gi = 0; st >= tiles * per_tile(gi); ++gi) st -= tiles * per_tile(gi);
+        t = st / per_tile(gi);
+        c = st - t * per_tile(gi);
+    }
+};
 
 }  // namespace

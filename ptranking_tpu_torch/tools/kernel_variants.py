@@ -1,6 +1,7 @@
 """Time design variants of the hand-written kernels on one CUDA card.
 
-    python3 -m ptranking_tpu_torch.tools.kernel_variants [--parent DIR] [library[:variant,...] ...]
+    python3 -m ptranking_tpu_torch.tools.kernel_variants [--parent DIR] [--cases REGEX]
+        [library[:variant,...] ...]
 
 For each library named (by default all of those in VARIANTS: the bf16
 flash-attention backward and forward, the Sinkhorn half-step and the pairwise
@@ -31,6 +32,9 @@ fp32 list and long backward (3xTF32) at those of 128 and 256 docs in fp32
 the fp32 list forward (3xTF32, through the packed and the long entries) at
 those of 128 and 256 docs and at LIST_COPY_SHAPES and LONG_COPY_SHAPES in
 fp32 (for "parent", the parent's route there: its fp32 wide forward); the
+fp32 wide forward and dk/dv and dq kernels (3xTF32, every fp32 list past 256
+docs at d > 128) at F32_WIDE_SHAPES, through the same entries as the
+parent's CUDA-core wide kernels, which "parent" times there; the
 half-step over rows and over columns at 32 x 1408 x
 1408 fp32; the pairwise loss forward (with the partials' sum) and backward
 at 32 x 1408. It prints one JSON line per
@@ -39,6 +43,13 @@ of each case in ms (CUDA events, the median of three blocks of calls), and
 whether the outputs equal the shipped kernels' bit for bit, with the largest
 difference (a design variant may round otherwise; a variant with a phase cut
 out cannot agree, it shows what the phase costs).
+
+`--cases REGEX` keeps the cases whose names match (for example
+`--cases "wide fp32"`: the fp32 wide kernels alone, which a run under a
+time limit may need). Where "parent" is timed, a line "torch_sdpa" times
+SDPA in fp32 (TF32 off, the masked keys' bias -1e9) at F32_WIDE_SHAPES: its
+forward and its backward alone from a kept graph, the yardstick of one
+PyTorch call.
 
 `--parent DIR` adds, for the two attention libraries, the variant "parent"
 (named among the variants where `library:v1,...` names them):
@@ -89,6 +100,12 @@ BWD_SHAPES = [ATTN_SHAPE, *WIDE_SHAPES]
 F32_PAIR_SHAPES = [ATTN_SHAPE, (1, 2, 1536, 68)]
 # the fp32 forward at d <= 128: those and short lists (1024 of 32 docs)
 F32_FWD_SHAPES = [*F32_PAIR_SHAPES, (1024, 2, 32, 68)]
+# the fp32 wide kernels (d > 128, lists past 256 docs): the one-head
+# MSLR-WEB30K listsf (d = 136) in its buckets of 512 and 1024 docs, at the
+# long-list point (32 x 1408) and one served list of the top bucket; the
+# Yahoo! widths (350, 384 under lane_align) at 512 docs
+F32_WIDE_SHAPES = [(64, 1, 512, 136), (32, 1, 1024, 136), (32, 1, 1408, 136), (1, 1, 1536, 136),
+                   (16, 2, 512, 350), (16, 2, 512, 384)]
 SINK_SHAPE = (32, 1408)
 PAIR_SHAPE = (32, 1408)
 EXPERIMENT = cuda_build.CSRC / "experiments" / "flash_attn_bwd_wgmma.cu"
@@ -150,6 +167,9 @@ _F32N_GROUP = "constexpr int F32N_GROUP = 4;"
 _F32N_BLOCKS = "constexpr int F32N_BLOCKS = 8 / F32N_WARPS;"
 _F32N_QREG = "constexpr int F32N_QREG_NC = 9;"
 _F32N_FWD_TILE = "constexpr int F32N_TILE = 32;              // keys a tile"
+_F32W_CW = "constexpr int F32W_CW = 32;"
+_F32W_DQ_BOUNDS = "__launch_bounds__(F32W_NT, F32W_BLOCKS)\nflash_bwd_dq_wide_tf32_kernel"
+_F32W_BLOCKS_FWD = "constexpr int F32W_BLOCKS = 3;"
 _F32N_FWD_BLOCKS = "constexpr int F32N_BLOCKS = 2;\n// how the operands are split"
 _BWD_NO_SOFTMAX = [
     ("const float x0 = real ? s[j][2 * h] * scale : MASKED_LOGIT;", "const float x0 = s[j][2 * h];"),
@@ -238,6 +258,11 @@ BWD_VARIANTS = {
     "f32n_group1": [(_F32N_GROUP, _F32N_GROUP.replace("= 4", "= 1"))],
     "f32n_group8": [(_F32N_GROUP, _F32N_GROUP.replace("= 4", "= 8"))],
     "f32n_blocks1": [(_F32N_BLOCKS, _F32N_BLOCKS.replace("8 / F32N_WARPS", "1"))],
+    # the fp32 wide dk/dv and dq kernels (d > 128, lists past 256 docs):
+    # 16-column d-chunks and output chunks instead of 32; the dq kernel's
+    # registers cut for three blocks an SM instead of two
+    "f32w_w16": [(_F32W_CW, _F32W_CW.replace("= 32", "= 16"))],
+    "f32w_dq_blocks3": [(_F32W_DQ_BOUNDS, _F32W_DQ_BOUNDS.replace("F32W_BLOCKS)", "3)"))],
 }
 
 # The forward: keys of S a warp holds at a time, blocks an SM the registers
@@ -308,6 +333,11 @@ FWD_VARIANTS = {
                       "const float p = s[j][e] - m[e >> 1];")],
     "f32n_cut_pv": [("product_pv_tf32<LD, NJ, NC>(acc, s, Vt, lane);  // O += P V",
                      "acc[0][0] += s[0][0] * s[NJ - 1][3];")],
+    # the fp32 wide forward (d > 128, lists past 256 docs): 16-column
+    # d-chunks and output chunks instead of 32; the registers cut for two
+    # blocks an SM instead of three
+    "f32w_w16": [(_F32W_CW, _F32W_CW.replace("= 32", "= 16"))],
+    "f32w_blocks2": [(_F32W_BLOCKS_FWD, _F32W_BLOCKS_FWD.replace("= 3", "= 2"))],
 }
 
 # The half-step: lanes across a row of the column kernel, float4 loads in
@@ -352,11 +382,14 @@ _REPORTED = {"flash_attn_bwd": [r"flash_bwd_dkdv_mma_kernelILi5E", r"flash_bwd_d
                                 r"flash_bwd_packed_mma_kernel", r"flash_bwd_long_mma_kernel",
                                 r"flash_bwd_long_rows_mma_kernel",
                                 r"flash_bwd_packed_tf32_kernel", r"flash_bwd_list_tf32_kernel",
-                                r"flash_bwd_dkdv_tf32_kernelILi9E", r"flash_bwd_dq_tf32_kernelILi9E"],
+                                r"flash_bwd_dkdv_tf32_kernelILi9E", r"flash_bwd_dq_tf32_kernelILi9E",
+                                r"flash_bwd_dkdv_wide_tf32_kernel",
+                                r"flash_bwd_dq_wide_tf32_kernel"],
              "flash_attn_fwd": [r"flash_fwd_mma_kernelILi5E", r"flash_fwd_tf32_kernelILi9E",
                                 r"flash_fwd_wide_mma_kernel",
                                 r"flash_fwd_packed_mma_kernel", r"flash_fwd_long_mma_kernel",
-                                r"flash_fwd_packed_tf32_kernel", r"flash_fwd_list_tf32_kernel"],
+                                r"flash_fwd_packed_tf32_kernel", r"flash_fwd_list_tf32_kernel",
+                                r"flash_fwd_wide_tf32_kernel"],
              "sinkstep": [r"sinkstep_cols_vec_kernel", r"sinkstep_rows_vec_kernel"],
              "pairwise_lambda": [r"pair_fwd_kernelILb1E", r"pair_bwd_kernelILb1E"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -494,8 +527,10 @@ def bwd_cases(dll, variant):
     the list kernel at those of 128 docs and LIST_COPY_SHAPES, and of the
     long kernel at those of 256 docs and LONG_COPY_SHAPES (the ownership
     experiment: those alone), on the shipped forward's output and row
-    statistics; then the fp32 list and long kernels (for "parent": its wide
-    pair) at the BWD_SHAPES of 128 and 256 docs in fp32."""
+    statistics, and in fp32 at F32_WIDE_SHAPES (the fp32 wide kernels; for
+    "parent", its CUDA-core wide pair); then the fp32 list and long kernels
+    (for "parent": its wide pair) at the BWD_SHAPES of 128 and 256 docs in
+    fp32."""
     if variant == "long_rows_experiment":
         return long_cases(dll, "flash_attn_bwd_long_rows")
     stream = torch.cuda.current_stream().cuda_stream
@@ -505,7 +540,7 @@ def bwd_cases(dll, variant):
     dq_fn = _entry(dll, "flash_attn_bwd_dq" + ("_wgmma" if wgmma else ""),
                    [_P] * 9 + [_I] * (4 if wgmma else 5) + [_P])
     cases = []
-    f32 = [] if wgmma else [(s, torch.float32) for s in F32_PAIR_SHAPES]
+    f32 = [] if wgmma else [(s, torch.float32) for s in F32_PAIR_SHAPES + F32_WIDE_SHAPES]
     for (B, H, N, d), dtype in [(s, torch.bfloat16) for s in
                                 ([ATTN_SHAPE] if wgmma else BWD_SHAPES)] + f32:
         keep = _bwd_inputs(B, H, N, d, dtype)
@@ -514,7 +549,7 @@ def bwd_cases(dll, variant):
         code = 0 if dtype == torch.float32 else 1
         tail = [B, H, N, d, stream] if wgmma else [B, H, N, d, code, stream]
         dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
-        tag = " fp32" if code == 0 else ""
+        tag = (" wide fp32" if d > 128 else " fp32") if code == 0 else ""
         cases += [
             (f"dkdv{tag} {[B, H, N, d]}",
              lambda c=common, t=tail, o=(dk, dv): dkdv(*c, o[0].data_ptr(), o[1].data_ptr(), *t),
@@ -569,8 +604,8 @@ def bwd_cases(dll, variant):
 
 def fwd_cases(dll, variant):
     """[(case, launch, outputs, inputs)] of the forward with row statistics at
-    FWD_SHAPES and in fp32 at F32_FWD_SHAPES (for "parent": the parent's fp32
-    forward there), of the packed forward at the WIDE_SHAPES (of at most 128
+    FWD_SHAPES and in fp32 at F32_FWD_SHAPES and F32_WIDE_SHAPES (for
+    "parent": the parent's fp32 forward there), of the packed forward at the WIDE_SHAPES (of at most 128
     docs) and PACK_COPY_SHAPES, of the long forward at the WIDE_SHAPES of
     256 docs and LONG_COPY_SHAPES, (but for "parent") of the fp32 packed
     forward at the WIDE_SHAPES of at most 64 docs, and of the fp32 list
@@ -590,6 +625,7 @@ def fwd_cases(dll, variant):
     for tag, entry, dtype, shapes in (
             ("", "flash_attn_fwd", torch.bfloat16, FWD_SHAPES),
             ("fp32 ", "flash_attn_fwd", f32, F32_FWD_SHAPES),
+            ("wide fp32 ", "flash_attn_fwd", f32, F32_WIDE_SHAPES),
             ("packed ", "flash_attn_fwd_packed", torch.bfloat16,
              [s for s in WIDE_SHAPES if s[2] <= 128] + PACK_COPY_SHAPES),
             ("long ", "flash_attn_fwd_long", torch.bfloat16,
@@ -660,6 +696,32 @@ def pair_cases(dll, variant):
                                 1.0, 1, stream), (grad,), keep)]
 
 
+def sdpa_line(card: str) -> dict:
+    """SDPA in fp32 (TF32 off, a masked key's bias -1e9) at F32_WIDE_SHAPES:
+    ms of its forward and of its backward alone (from a kept graph), on the
+    inputs of the kernels' cases."""
+    import torch.nn.functional as Fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ms = {}
+    for B, H, N, d in F32_WIDE_SHAPES:
+        q, k, v, dout, mask = _bwd_inputs(B, H, N, d, torch.float32)[:5]
+        bias = torch.where(mask, 0.0, -1e9)[:, None, None, :].expand(B, H, N, N)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
+
+        def backward():
+            for t in leaves:
+                t.grad = None
+            out.backward(dout, retain_graph=True)
+
+        ms[str([B, H, N, d])] = {
+            "fwd": time_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
+            "bwd": time_ms(backward)}
+    return {"library": "torch_sdpa", "variant": "fp32", "ms": ms, "card": card}
+
+
 # library -> its cases: [(case, launch, outputs, inputs)] from (CDLL, variant);
 # a case keeps its inputs, which own the launch's pointers
 CASES = {"flash_attn_bwd": bwd_cases, "flash_attn_fwd": fwd_cases, "sinkstep": sink_cases,
@@ -676,6 +738,12 @@ def main(argv=None) -> int:
         for lib in ("flash_attn_fwd", "flash_attn_bwd"):
             VARIANTS[lib]["parent"] = parent / f"{lib}.cu"
         args = args[2:]
+    keep = None
+    if args[:1] == ["--cases"]:
+        if len(args) < 2:
+            print("kernel_variants: --cases needs a pattern", file=sys.stderr)
+            return 2
+        keep, args = re.compile(args[1]), args[2:]
     args = args or list(VARIANTS)
     libs = [a.split(":", 1)[0] for a in args]
     only = {a.split(":", 1)[0]: a.split(":", 1)[1].split(",") for a in args if ":" in a}
@@ -692,7 +760,8 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     built = build_all(libs, only)
-    cases = {key: CASES[key[0]](built[key][0], key[1]) for key in built}
+    cases = {key: [c for c in CASES[key[0]](built[key][0], key[1])
+                   if keep is None or keep.search(c[0])] for key in built}
     results = {key: {"ms": {}} for key in built}
     shipped = {}
     for order in (list(built), list(built)[::-1]):
@@ -715,6 +784,8 @@ def main(argv=None) -> int:
         print(json.dumps({"library": lib, "variant": name,
                           "registers_spill_bytes": registers(lib, built[(lib, name)][1]), **rec,
                           "card": card}), flush=True)
+    if any(name == "parent" for _, name in built):
+        print(json.dumps(sdpa_line(card)), flush=True)
     return 0
 
 

@@ -1,6 +1,7 @@
 """Time two checkouts' training steps on one CUDA card.
 
-    python3 -m ptranking_tpu_torch.tools.yahoo_steps [--flagship | --bf16] PARENT_DIR [CHANGE_DIR]
+    python3 -m ptranking_tpu_torch.tools.yahoo_steps [--flagship | --bf16 | --one-head] PARENT_DIR
+        [CHANGE_DIR]
 
 Runs `chip_smoke.yahoo_f32_steps` (LambdaRank steps of the Yahoo! LTR listsf
 at d = 350 in fp32, in each bucket of 16 to 256 docs, with exact launch
@@ -11,7 +12,12 @@ LambdaRank through the fused loss, Adagrad: `chip_smoke.timed_steps` of
 since the training slice) or, with --bf16, the bf16 flagship step (the same
 model at its default bf16, `flagship_ranker()`) and the bf16 Yahoo! step at
 d = 350 in each bucket of 16 to 256 docs (`WIDE_MODELS[0]`, `timed_steps`
-with `wide_launches`) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
+with `wide_launches`) or, with --one-head, the one-head MSLR-WEB30K listsf
+in fp32 (the flagship's F = 136, 6 layers, ff_dims (128, 256, 512), one head
+of 136: `flagship_ranker(compute_dtype="float32", n_heads=1)`) at 32 lists
+of 1408 docs, LambdaRank through the fused loss, with `wide_launches`'
+counts (its attention past 256 docs at d > 128: the fp32 wide forward and
+dk/dv and dq kernels) of PARENT_DIR, CHANGE_DIR, CHANGE_DIR and
 PARENT_DIR in turn (CHANGE_DIR defaults to this checkout; PARENT_DIR is for
 example a parent commit unpacked by `git archive`), each in a fresh Python
 process that puts its checkout first on `sys.path` and builds that
@@ -51,6 +57,23 @@ rec = cs.timed_steps(cs.flagship_ranker(compute_dtype="float32"),
 print("flagship_fp32_steps " + json.dumps(rec) + f"  [{card}]", flush=True)
 """
 
+# with --one-head
+_ONE_HEAD_CHILD = """
+import json
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from ptranking_tpu_torch.ops import cuda_build
+cuda_build.build(cuda_build.all_kernels())
+card = cs.card_line()
+B, N, F = 32, 1408, 136
+ranker = cs.flagship_ranker(compute_dtype="float32", num_features=F, n_heads=1)
+d = ranker.scorer_cfg.width
+rec = cs.timed_steps(ranker, cs.train_batch(B, N, ragged=False, seed=2, num_features=F),
+                     cs.TRAIN_STEPS, "one-head fp32 timed steps", cs.wide_launches(N, d, "float32"))
+print("one_head_fp32_steps " + json.dumps({"head_dim": d, **rec}) + f"  [{card}]", flush=True)
+"""
+
 # with --bf16
 _BF16_CHILD = """
 import json
@@ -83,8 +106,10 @@ def main(argv=None) -> int:
         child, args = _FLAGSHIP_CHILD, args[1:]
     elif args[:1] == ["--bf16"]:
         child, args = _BF16_CHILD, args[1:]
+    elif args[:1] == ["--one-head"]:
+        child, args = _ONE_HEAD_CHILD, args[1:]
     if not 1 <= len(args) <= 2:
-        print(__doc__.strip().splitlines()[2], file=sys.stderr)
+        print("\n".join(__doc__.strip().splitlines()[2:4]), file=sys.stderr)
         return 2
     parent = Path(args[0]).resolve()
     change = Path(args[1]).resolve() if len(args) == 2 else Path(__file__).resolve().parents[2]

@@ -120,6 +120,30 @@ def test_attention_shape_check_takes_any_head_dim_and_a_large_batch():
         tattn.check_grid(1, 1, 8, 0)
 
 
+def test_attention_shape_check_fp32_wide_grid_at_d700_past_65535_lists():
+    """fp32 at d > 128 runs the 3xTF32 wide kernels, whose block owns all of
+    its 64 rows' output columns: check_grid counts 64-row tiles x B*H blocks
+    on grid.x (no output chunks), so B*H past 65535 at d = 700 is one launch,
+    and only the tiles past 2^31 - 1 raise; bf16 keeps its wide kernels'
+    output chunks. The C entries' grid_fits follows the same grid: the fp32
+    width is d (one chunk), bf16's the narrowest chunk."""
+    tattn.check_grid(32769, 2, 1536, 700, dtype=torch.float32)
+    assert tattn.kernel_launches(32769, 2, 1536, 700) == 1
+    tattn.check_grid(2 ** 20, 2 ** 4, 2 ** 12, 700, dtype=torch.float32)  # 2^30 blocks
+    with pytest.raises(ValueError, match="blocks"):
+        tattn.check_grid(2 ** 20, 2 ** 4, 2 ** 12, 700, dtype=torch.bfloat16)  # x 11 chunks
+    with pytest.raises(ValueError, match="blocks"):
+        tattn.check_grid(2 ** 20, 2 ** 5, 2 ** 12, 700, dtype=torch.float32)  # 2^31
+    csrc = tattn.cuda_build.CSRC
+    fwd, bwd, hdr = ((csrc / n).read_text() for n in ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                                                       "mma_common.cuh"))
+    assert "    if (!grid_fits(B, H, N, d, dtype == 1 ? 16 * WIDE_CW : d))" in fwd
+    assert "    return grid_fits(a.B, a.H, a.N, a.d, dtype == 1 ? 16 * WIDE_CW_DKDV : a.d);" in bwd
+    assert ("    return (long long)((N + 63) / 64) * ((d + width - 1) / width) * B * H;" in hdr
+            and "return d > 128 ? wide_blocks(B, H, N, d, width) < (1LL << 31) : H <= 65535;"
+            in hdr)
+
+
 def test_attention_wrappers_pass_wide_and_large_shapes_to_the_device_check():
     """The wrappers' own checks accept d > 128 and B*H > 65535: CPU tensors
     of such shapes get as far as the device check, with nothing launched."""
